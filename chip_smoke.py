@@ -12,10 +12,12 @@ Phases, each fatal on failure:
               kernel gate open) on the card against the same forward on
               the CPU, which takes the plain paths (the paths the CPU
               parity tests hold against the JAX package);
-  5. train  - 5 flagship pretrain steps (batch 256 from a raw
-              (256, 8192, 6) tensor, trans_dim 384, depth 12 + 4, bf16,
-              fold_impl xla) with every launch counter zeroed before and
-              read after.
+  5. train  - 5 flagship pretrain steps of the default configuration
+              (batch 256 from a raw (256, 8192, 6) tensor, trans_dim 384,
+              depth 12 + 4, bf16, fold_impl auto: all six kernels) with
+              every launch counter zeroed before and read after, one
+              profiled step, then as many steps of a second model with
+              fold_impl xla (the plain folding head) beside it.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Run from the repository root:
 
@@ -37,7 +39,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12        # dense bf16 tensor cores
 F32_FLOPS = 67e12          # f32 outside the tensor cores
 
-FLAGSHIP_CONFIG = {        # __graft_entry__.FLAGSHIP_CONFIG, fold_impl xla, bs 256
+XLA_STEPS = 5              # steps of the fold_impl xla model run beside the default
+FLAGSHIP_CONFIG = {        # __graft_entry__.FLAGSHIP_CONFIG at bs 256
     "optimizer": {"type": "AdamW", "part": "all",
                   "kwargs": {"lr": 0.001, "weight_decay": 0.05}},
     "scheduler": {"type": "CosLR", "kwargs": {"epochs": 300, "initial_epochs": 10}},
@@ -53,7 +56,7 @@ FLAGSHIP_CONFIG = {        # __graft_entry__.FLAGSHIP_CONFIG, fold_impl xla, bs 
             "trans_dim": 384, "encoder_dims": 384, "depth": 12,
             "drop_path_rate": 0.1, "cls_dim": 55, "num_heads": 6,
             "decoder_depth": 4, "decoder_num_heads": 6,
-            "dtype": "bf16", "fold_impl": "xla"}},
+            "dtype": "bf16"}},
     "normal_weight": 0.005, "npoints": 1024, "total_bs": BATCH,
     "step_per_update": 1, "max_epoch": 300, "loss_type": "xyznormal",
 }
@@ -93,6 +96,18 @@ def bound_ms(nbytes: float, flops: float, peak: float):
 def rel_err(got, want) -> float:
     got, want = got.detach().float(), want.detach().float()
     return float((got - want).abs().max()) / (float(want.abs().max()) + 1e-12)
+
+
+def relu_flips_ok(got, want, tol=2e-2, flip_tol=1e-1, flip_frac=1e-4) -> bool:
+    """The folding head's bound: error over the plain version's largest
+    magnitude within ``tol`` (bf16 operands: 2^-8 a rounding, summed), except
+    that at most ``flip_frac`` of a tensor's elements may reach ``flip_tol``:
+    where an f32 sum lands on the other side of zero in its last bit, a ReLU
+    mask switches one cotangent element on or off, which moves that token's
+    dx by about a hundredth of the largest dx (36 x 384 terms a token)."""
+    got, want = got.detach().float(), want.detach().float()
+    err = (got - want).abs() / (float(want.abs().max()) + 1e-12)
+    return float(err.max()) <= flip_tol and float((err > tol).float().mean()) <= flip_frac
 
 
 def phase_kernels(torch, pts, device):
@@ -229,6 +244,165 @@ def phase_kernels(torch, pts, device):
     log(f"  fused_mlp_ln at R {xe.shape[0]}: fwd "
         f"{cuda_ms(lambda: mlp.mlp_ln_fwd_kernel(xe, gm, bt, k1b, b1, k2b, b2, sce), 20):.4f} ms, bwd "
         f"{cuda_ms(lambda: mlp.mlp_ln_bwd_kernel(xe, gm, bt, k1b, b1, k2b, sce, cot[: xe.shape[0]].contiguous()), 10):.4f} ms")
+
+    records.update(phase_folding(torch, device, g))
+    records.update(phase_attention(torch, device, g))
+    return records
+
+
+def phase_folding(torch, device, g):
+    """The fused folding head at the step's shape (256 * 51 tokens, C = F =
+    384, 36 grid points) against its plain version on the card: the output
+    and all thirteen gradients."""
+    from point_dae_torch.models.common import folding_grid
+    from point_dae_torch.ops import folding
+
+    Bt, M, C, n = BATCH, 51, 384, 36
+    T, R = Bt * M, Bt * M * n
+    grid = torch.from_numpy(folding_grid((6, 6))).to(device)
+
+    def stage(extra):
+        def w(i, o):
+            return torch.randn((i, o), generator=g, device=device) / math.sqrt(i)
+        return [w(C + extra, C), 0.02 * torch.randn((C,), generator=g, device=device),
+                w(C, C), 0.02 * torch.randn((C,), generator=g, device=device),
+                w(C, 3), 0.02 * torch.randn((3,), generator=g, device=device)]
+
+    flat = [torch.randn((Bt, M, C), generator=g, device=device)] + stage(2) + stage(3)
+    cot = torch.randn((Bt, M, n, 3), generator=g, device=device)
+    names = ["dx"] + [f"d{k}{i}{s}" for s in (1, 2) for i in range(3) for k in "kb"]
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in flat]
+        p1 = tuple((leaves[1 + 2 * i], leaves[2 + 2 * i]) for i in range(3))
+        p2 = tuple((leaves[7 + 2 * i], leaves[8 + 2 * i]) for i in range(3))
+        out = fn(leaves[0], grid, p1, p2)
+        return (out, torch.autograd.grad(out, leaves, cot, retain_graph=True),
+                (leaves[0], p1, p2))
+
+    out_k, gk, _ = run(folding.fused_folding)
+    out_p, gp, (xl, p1, p2) = run(folding.fused_folding_plain)
+    torch.cuda.synchronize()
+    worst = {"out": rel_err(out_k, out_p)}
+    abs_err = {"out": float((out_k - out_p).detach().abs().max())}
+    ok = relu_flips_ok(out_k, out_p)
+    for name, a, b in zip(names, gk, gp):
+        worst[name] = rel_err(a, b)
+        abs_err[name] = float((a.float() - b.float()).abs().max())
+        ok = ok and relu_flips_ok(a, b)
+    log("  fused_folding max error / max |plain|: "
+        + " ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    if not ok:
+        fail(f"fused_folding disagrees with its plain version: {worst}")
+    del gk, gp, out_k
+
+    with torch.no_grad():
+        core = folding.core_operands(xl, grid, p1, p2)
+        ops = folding.kernel_operands(*core)
+        gpad = cot.reshape(R, 3).contiguous()
+        fwd_ms = cuda_ms(lambda: folding.folding_fwd_kernel(*ops), 10)
+        bwd_ms = cuda_ms(lambda: folding.folding_bwd_kernel(*ops, gpad), 5)
+        plain_fwd = cuda_ms(lambda: folding._FoldCorePlain.apply(*core), 3)
+    leaves = [xl] + [t for st in (p1, p2) for pair in st for t in pair]
+    plain_bwd = cuda_ms(lambda: torch.autograd.grad(out_p, leaves, cot, retain_graph=True), 3)
+    F = C
+    wide = 2 * 2 * R * F * F                     # a0 @ k11 and a2 @ k12
+    shared = 2 * T * C * 2 * F                   # x @ [ks1 | ks2]
+    narrow = 3 * 2 * R * F * 3                   # @ k21, @ ke2, @ k22
+    flops = wide + shared + narrow
+    wbytes = (2 * C * F + 2 * F * F + n * F + 13 * F) * 2
+    records = {}
+    for name, ms, pms, nbytes, fl, err in (
+            ("folding_fwd", fwd_ms, plain_fwd, T * C * 2 + wbytes + R * 3 * 4, flops,
+             abs_err["out"]),
+            ("folding_bwd", bwd_ms, plain_bwd,
+             2 * T * C * 2 + 2 * wbytes + R * 3 * 4, 3 * flops,
+             max(v for k, v in abs_err.items() if k != "out"))):
+        records[name] = dict(
+            replaces="point_dae_tpu/ops/pallas_folding.py:"
+                     + ("188" if name.endswith("fwd") else "225"),
+            source="point_dae_torch/csrc/folding.cu", max_abs_err=err, ms=ms,
+            plain_ms=pms, library_ms=None, bound=bound_ms(nbytes, fl, BF16_FLOPS),
+            note=f"{T} tokens x {n} points, C = F = {C}")
+    return records
+
+
+def phase_attention(torch, device, g):
+    """The fused attention at the step's two shapes (B 256, H 6, d 64; T 32
+    with 13 to 32 valid keys a cloud, T 64 without a mask) against its plain
+    version on the card: output, dq, dk, dv, and exact zeros on the
+    gradients of invalid keys. library_ms is one call of
+    F.scaled_dot_product_attention on the same bf16 inputs (timing only)."""
+    import torch.nn.functional as F
+    from point_dae_torch.ops import attention
+
+    Bt, H, d = BATCH, 6, 64
+    bf = torch.bfloat16
+    errs, shapes = {"fwd": 0.0, "bwd": 0.0}, {}
+    for T, masked in ((32, True), (64, False)):
+        qkv = torch.randn((Bt, T, 3, H, d), generator=g, device=device)
+        cot = torch.randn((Bt, T, H, d), generator=g, device=device)
+        mask = None
+        if masked:
+            valid = torch.randint(13, T + 1, (Bt,), generator=g, device=device)
+            mask = torch.arange(T, device=device)[None, :] < valid[:, None]
+
+        def run(fn):
+            leaf = qkv.clone().requires_grad_()
+            q, k, v = leaf.to(bf).unbind(2)
+            out = fn(q, k, v, mask)
+            return (out, torch.autograd.grad(out, leaf, cot, retain_graph=True)[0],
+                    leaf, (q, k, v))
+
+        out_k, gk, _, _ = run(attention.fused_attention)
+        out_p, gp, leaf_p, (q, k, v) = run(attention.fused_attention_plain)
+        torch.cuda.synchronize()
+        worst = {"out": rel_err(out_k, out_p)}
+        for i, name in enumerate(("dq", "dk", "dv")):
+            worst[name] = rel_err(gk[:, :, i], gp[:, :, i])
+        log(f"  fused_attention T {T} max error / max |plain|: "
+            + " ".join(f"{k_} {v_:.2e}" for k_, v_ in worst.items()))
+        if max(worst.values()) > 2e-2:  # bf16 operands: 2^-8 per rounding, summed
+            fail(f"fused_attention (T {T}) disagrees with its plain version: {worst}")
+        if masked and float(gk[:, :, 1:][~mask].abs().max()) != 0.0:
+            fail("fused_attention: an invalid key got a gradient")
+        errs["fwd"] = max(errs["fwd"], float((out_k - out_p).detach().abs().max()))
+        errs["bwd"] = max(errs["bwd"], float((gk - gp).abs().max()))
+
+        q, k, v = (t.detach() for t in (q, k, v))
+        lq, lk, lv = (t.transpose(1, 2).clone().requires_grad_() for t in (q, k, v))
+        amask = None if mask is None else mask[:, None, None, :]
+        lib_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=amask)
+        lib_cot = cot.transpose(1, 2).to(bf)
+        nel = Bt * T * H * d
+        shapes[T] = dict(
+            fwd=cuda_ms(lambda: attention.attention_fwd_kernel(q, k, v, mask), 50),
+            bwd=cuda_ms(lambda: attention.attention_bwd_kernel(q, k, v, mask, cot), 50),
+            plain_fwd=cuda_ms(lambda: attention.fused_attention_plain(q, k, v, mask), 10),
+            plain_bwd=cuda_ms(lambda: torch.autograd.grad(
+                out_p, leaf_p, cot, retain_graph=True), 10),
+            lib_fwd=cuda_ms(lambda: F.scaled_dot_product_attention(
+                lq.detach(), lk.detach(), lv.detach(), attn_mask=amask), 50),
+            lib_bwd=cuda_ms(lambda: torch.autograd.grad(
+                lib_out, (lq, lk, lv), lib_cot, retain_graph=True), 50),
+            bound_fwd=bound_ms(3 * nel * 2 + Bt * T + nel * 4,
+                               2 * 2 * Bt * H * T * T * d, BF16_FLOPS),
+            bound_bwd=bound_ms(3 * nel * 2 + Bt * T + nel * 4 + 3 * nel * 2,
+                               5 * 2 * Bt * H * T * T * d, BF16_FLOPS))
+    s64 = shapes[64]
+    log(f"  fused_attention at T 64: fwd {s64['fwd']:.4f} ms (plain {s64['plain_fwd']:.4f}, "
+        f"library {s64['lib_fwd']:.4f}, bound {s64['bound_fwd'][0]:.4f}), bwd "
+        f"{s64['bwd']:.4f} ms (plain {s64['plain_bwd']:.4f}, library {s64['lib_bwd']:.4f}, "
+        f"bound {s64['bound_bwd'][0]:.4f})")
+    s32 = shapes[32]
+    records = {}
+    for way, line in (("fwd", "144"), ("bwd", "168")):
+        records[f"attention_{way}"] = dict(
+            replaces=f"point_dae_tpu/ops/pallas_attn.py:{line}",
+            source="point_dae_torch/csrc/attention.cu", max_abs_err=errs[way],
+            ms=s32[way], plain_ms=s32[f"plain_{way}"], library_ms=s32[f"lib_{way}"],
+            bound=s32[f"bound_{way}"],
+            note="B 256, H 6, d 64, T 32 with a key mask (12 of a step's 16 launches)")
     return records
 
 
@@ -265,24 +439,28 @@ def phase_check(torch, config, raw, device):
     for a_, b_ in zip(lg, lc):
         if abs(a_ - b_) > 2e-2 * abs(b_):   # bf16 products: 2% of the loss
             fail(f"check: card losses {lg} disagree with the CPU's {lc}")
-    if min(v for k, v in used.items() if k != "mlp_ln_bwd") == 0:
+    if min(v for k, v in used.items() if not k.endswith("_bwd")) == 0:
         fail(f"check: a kernel gate stayed closed at batch {CHECK_BATCH}: {used}")
 
 
-def phase_train(torch, config, raw, device, card):
+def run_steps(torch, config, raw, device, steps, seed):
+    """``steps`` train steps of a freshly initialised model: per-step host
+    times (each ending in a synchronise), losses, the launch counters of
+    those steps, the peak of max_memory_allocated, and a closure that takes
+    one more step."""
     from point_dae_torch.engine.pretrain import init_model, make_train_step
     from point_dae_torch.engine.train_state import TrainState
     from point_dae_torch.utils import kernels
 
-    model = init_model(config, seed=SEED, device=device)
+    model = init_model(config, seed=seed, device=device)
     state = TrainState.create(model, config, steps_per_epoch=100)
     step = make_train_step(model, config, device=device)
-    g = torch.Generator(device=device).manual_seed(SEED + 4)
+    g = torch.Generator(device=device).manual_seed(seed + 4)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     times, losses = [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         m = step(state, raw, generator=g)
         torch.cuda.synchronize()
@@ -294,18 +472,40 @@ def phase_train(torch, config, raw, device, card):
         log(f"  step {i}: loss_xyz {lx:.6f} loss_global {ln:.6f} ({times[i] * 1e3:.1f} ms)")
     if not all(math.isfinite(v) for pair in losses for v in pair):
         fail("train: non-finite loss")
+    steady = sorted(times[1:])
+    steady = (steady[(len(steady) - 1) // 2] + steady[len(steady) // 2]) / 2
+    return steady, times[0], launches, peak, lambda: step(state, raw, generator=g)
+
+
+def phase_train(torch, config, raw, device, card):
+    steady, first, launches, peak, one_more = run_steps(torch, config, raw, device,
+                                                        TRAIN_STEPS, SEED)
     if min(launches.values()) == 0:
         fail(f"train: a kernel was never launched on the main path: {launches}")
-    steady = sorted(times[1:])[len(times[1:]) // 2]
     log(f"  launches on the main path ({TRAIN_STEPS} steps): {launches}")
     log(f"  [{card}] step {steady * 1e3:.2f} ms (median of steps 2-{TRAIN_STEPS}), "
-        f"{BATCH / steady:.1f} clouds/s, first step {times[0] * 1e3:.1f} ms, "
+        f"{BATCH / steady:.1f} clouds/s, first step {first * 1e3:.1f} ms, "
         f"max_memory_allocated {peak / 2 ** 30:.2f} GiB")
-    profile_step(torch, lambda: step(state, raw, generator=g), card)
+    profile_step(torch, one_more, card)
+    del one_more
+    torch.cuda.empty_cache()
+
+    # the plain folding head (fold_impl xla) beside the kernel
+    xla = copy.deepcopy(config)
+    xla["model"]["transformer_config"]["fold_impl"] = "xla"
+    log(f"  fold_impl xla, {XLA_STEPS} steps:")
+    steady_x, _, launches_x, peak_x, one_more = run_steps(torch, xla, raw, device,
+                                                          XLA_STEPS, SEED)
+    if launches_x["folding_fwd"] or launches_x["folding_bwd"]:
+        fail(f"train: fold_impl xla launched the folding kernel: {launches_x}")
+    profile_step(torch, one_more, card, top=8)
+    log(f"  [{card}] fold_impl auto (kernel) {steady * 1e3:.2f} ms a step, peak "
+        f"{peak / 2 ** 30:.2f} GiB; fold_impl xla (plain head) {steady_x * 1e3:.2f} ms a step "
+        f"(median of steps 2-{XLA_STEPS}), peak {peak_x / 2 ** 30:.2f} GiB")
     return launches
 
 
-def profile_step(torch, run, card) -> None:
+def profile_step(torch, run, card, top: int = 25) -> None:
     """Device time by kernel over one more step, under torch.profiler (which
     slows the host side, so the busy share is a lower bound)."""
     from torch.profiler import ProfilerActivity, profile
@@ -326,7 +526,10 @@ def profile_step(torch, run, card) -> None:
               and not getattr(e, "is_user_annotation", False)]
     busy = sum(dev_us(e) for e in events)
     ours = {"mlp_ln": 0.0, "sum_partials": 0.0, "patchify_kernel": 0.0,
-            "gather_rows_kernel": 0.0, "nn_half_small_kernel": 0.0}
+            "gather_rows_kernel": 0.0, "nn_half_small_kernel": 0.0,
+            "fold_fwd_kernel": 0.0, "fold_bwd_rows_kernel": 0.0,
+            "fold_bwd_weights_kernel": 0.0, "::gemm_kernel<": 0.0,
+            "attention_fwd_kernel": 0.0, "attention_bwd_kernel": 0.0}
     for e in events:
         for k in ours:
             if k in e.key:
@@ -334,7 +537,7 @@ def profile_step(torch, run, card) -> None:
     log(f"  [{card}] profiled step: wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), ported kernels "
         + ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in ours.items()))
-    for e in sorted(events, key=dev_us, reverse=True)[:25]:
+    for e in sorted(events, key=dev_us, reverse=True)[:top]:
         log(f"    {dev_us(e) / 1e3:8.3f} ms {100 * dev_us(e) / busy:5.1f}% "
             f"x{e.count:<4d} {e.key[:110]}")
 

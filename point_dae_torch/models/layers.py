@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.attention import fused_attention, supported as attn_supported
 from ..ops.mlp import fused_mlp_ln, supported as mlp_supported
 
 _LECUN_TRUNC = 0.87962566103423978   # std of a unit normal truncated to [-2, 2]
@@ -176,9 +177,14 @@ def stack_dp_masks(dpr: Sequence[float], batch: int,
 
 
 class Attention(nn.Module):
-    """ViT multi-head self-attention with an optional key-validity mask:
-    f32 scores, an additive -1e9 on invalid keys, f32 softmax and values
-    product, output cast to the compute dtype before ``proj``."""
+    """ViT multi-head self-attention with an optional key-validity mask.
+    At bf16 compute on a CUDA tensor whose shapes pass
+    ``ops.attention.supported`` (the gate of
+    ``point_dae_tpu/models/layers.py:231-235`` without its environment
+    switch) it runs as the ``fused_attention`` kernel;
+    otherwise unfused: f32 scores, an additive -1e9 on invalid keys, f32
+    softmax and values product. Either way the output is cast to the
+    compute dtype before ``proj``."""
 
     def __init__(self, dim: int, num_heads: int, dtype=None,
                  generator: Optional[torch.Generator] = None):
@@ -188,10 +194,22 @@ class Attention(nn.Module):
         self.qkv = Dense(dim, 3 * dim, bias=False, dtype=dtype, generator=generator)
         self.proj = Dense(dim, dim, dtype=dtype, generator=generator)
 
+    def forward_fused(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+        """The fused branch: q, k, v stay views of the ``qkv`` output."""
+        B, N, C = x.shape
+        H = self.num_heads
+        q, k, v = self.qkv(x).reshape(B, N, 3, H, C // H).unbind(2)
+        out = fused_attention(q, k, v, key_mask).reshape(B, N, C)
+        return self.proj(out.to(x.dtype if self.dtype is None else self.dtype))
+
     def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         B, N, C = x.shape
         H = self.num_heads
+        if (self.dtype == torch.bfloat16 and x.device.type == "cuda"
+                and attn_supported(B, N, H, C // H)):
+            return self.forward_fused(x, key_mask)
         qkv = self.qkv(x).reshape(B, N, 3, H, C // H).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0].float(), qkv[1].float(), qkv[2].float()
         attn = torch.matmul(q, k.transpose(-1, -2)) * (C // H) ** -0.5

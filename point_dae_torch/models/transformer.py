@@ -22,6 +22,7 @@ import torch.nn as nn
 
 from ..data.corruptions_patch import AffineR3Draws, corrupt_patches, sample_affine_r3
 from ..losses.chamfer import build_loss_func, masked_chamfer_l2
+from ..ops.folding import fused_folding, stage_params, supported as fold_supported
 from ..ops.geometry import group_neighborhood
 from ..utils.registry import MODELS
 from .common import folding_grid
@@ -113,9 +114,9 @@ class PointCAE_transformer_fc_global_folding_local(nn.Module):
     decoded masked tokens (masked chamfer against the centred patches).
 
     Ported for the masked configuration (``Drop-Patch`` in corrupt_type,
-    ``mask_type: rand``). The folding head runs as plain products
-    (``fold_impl: xla``); its fused kernel comes with the next slice, and a
-    CUDA bf16 config that asks for it raises.
+    ``mask_type: rand``). At bf16 compute on a CUDA tensor the folding head
+    runs as the ``fused_folding`` kernel unless ``fold_impl: xla`` asks for
+    the plain ``SplitMLP`` products; the parameters are the same either way.
     """
 
     def __init__(self, config, generator: Optional[torch.Generator] = None):
@@ -169,18 +170,20 @@ class PointCAE_transformer_fc_global_folding_local(nn.Module):
         dp_dec = stack_dp_masks(self.MAE_decoder.dpr, batch, generator, device)
         return ModelDraws(mask, affine, dp_enc, dp_dec)
 
+    def _fold_fused(self, x_rec: torch.Tensor) -> torch.Tensor:
+        """The fused branch of ``_fold``."""
+        return fused_folding(x_rec, self.grid, stage_params(self.folding1),
+                             stage_params(self.folding2))
+
     def _fold(self, x_rec: torch.Tensor) -> torch.Tensor:
         """Two-stage folding over the 6x6 grid: (B, M, C) -> (B, M, 36, 3)."""
-        C = x_rec.shape[-1]
-        if (self.fold_impl != "xla" and self.compute_dtype == torch.bfloat16
-                and C % 128 == 0 and x_rec.device.type == "cuda"):
-            # the gate of transformer.py:531-535 (pallas_folding.supported,
-            # with F = C and a 36-point grid) with "on TPU" read as "on CUDA"
-            raise NotImplementedError(
-                "the fused folding kernel (ops/pallas_folding.py:fused_folding) "
-                "is not ported yet; set transformer_config.fold_impl: xla")
-        B, M, _ = x_rec.shape
+        B, M, C = x_rec.shape
         n = self.grid.shape[0]
+        # the gate of transformer.py:531-535, "on TPU" read as "on CUDA"
+        if (self.fold_impl != "xla" and self.compute_dtype == torch.bfloat16
+                and fold_supported(C, self.folding1[2].weight.shape[0], n)
+                and x_rec.device.type == "cuda"):
+            return self._fold_fused(x_rec)
         gridb = self.grid.expand(B, M, n, 2).to(self.compute_dtype or x_rec.dtype)
         f1 = self.folding1(x_rec, gridb)
         return self.folding2(x_rec, f1).float()

@@ -24,13 +24,15 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-SOURCES = ("patchify", "gather", "chamfer", "mlp")
+SOURCES = ("patchify", "gather", "chamfer", "mlp", "folding", "attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launches: Dict[str, int] = {"patchify": 0, "gather_rows_small_c": 0,
                             "nn_half_small": 0, "mlp_ln_fwd": 0,
-                            "mlp_ln_bwd": 0}
+                            "mlp_ln_bwd": 0, "folding_fwd": 0,
+                            "folding_bwd": 0, "attention_fwd": 0,
+                            "attention_bwd": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[tuple, object] = {}
@@ -129,13 +131,14 @@ def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require_cuda(*tensors: torch.Tensor) -> None:
-    """Kernel inputs must be contiguous tensors on one CUDA device."""
+def require_cuda(*tensors: torch.Tensor, contiguous: bool = True) -> None:
+    """Kernel inputs must be tensors on one CUDA device, contiguous unless
+    the kernel reads them by their strides."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"kernel input on {t.device}, expected one CUDA device")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError("kernel input must be contiguous")
 
 

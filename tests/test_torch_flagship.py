@@ -1,7 +1,9 @@
 """One whole flagship pretrain step of the PyTorch port against the JAX
-package, at ``_tiny_config`` shapes with ``fold_impl: xla``: the same raw
-batch, the same initial weights (carried through ``from_flax``) and the
-same random draws (resample indices recomputed from the JAX step's keys;
+package, at ``_tiny_config`` shapes with ``fold_impl`` in {``xla``, ``auto``}
+(on the CPU both packages take their unfused paths for ``auto``, which pins
+that the port's kernel gates do not open off the card): the same raw batch,
+the same initial weights (carried through ``from_flax``) and the same
+random draws (resample indices recomputed from the JAX step's keys;
 patch mask, affine_r3 parameters and stochastic-depth masks fed to the JAX
 model through monkeypatch). Compared: both losses, every updated
 parameter and the BatchNorm running statistics."""
@@ -10,6 +12,7 @@ import copy
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from __graft_entry__ import _tiny_config
@@ -35,10 +38,11 @@ from point_dae_torch.utils.convert import _flatten, from_flax, to_flax
 B, NRAW, STEPS_PER_EPOCH = 4, 256, 10
 
 
-def _config(bf16: bool):
+def _config(bf16: bool, fold_impl: str):
     cfg = _tiny_config()
     tc = cfg["model"]["transformer_config"]
-    tc["fold_impl"] = "xla"
+    if fold_impl != "auto":            # 'auto' is the default: no key at all
+        tc["fold_impl"] = fold_impl
     if not bf16:
         del tc["dtype"]
     return cfg
@@ -123,8 +127,8 @@ def _run_torch(cfg, raw, init, pipe, mask, affine, dp_enc):
     return params, stats, {k: float(v) for k, v in metrics.items()}
 
 
-def _compare(bf16, monkeypatch):
-    cfg = _config(bf16)
+def _compare(bf16, fold_impl, monkeypatch):
+    cfg = _config(bf16, fold_impl)
     rng = np.random.default_rng(7)
     raw = rng.normal(size=(B, NRAW, 6)).astype(np.float32)
     mask, affine, dp_enc = _draws(cfg, rng)
@@ -164,8 +168,9 @@ def _check_stats(js, ts):
                                    err_msg=f"batch_stats {k}")
 
 
-def test_train_step_f32_matches_jax(monkeypatch):
-    jm, tm, jp, tp, js, ts, init = _compare(False, monkeypatch)
+@pytest.mark.parametrize("fold_impl", ["xla", "auto"])
+def test_train_step_f32_matches_jax(monkeypatch, fold_impl):
+    jm, tm, jp, tp, js, ts, init = _compare(False, fold_impl, monkeypatch)
     for k in ("loss_xyz", "loss_normal"):
         np.testing.assert_allclose(tm[k], float(jm[k]), rtol=1e-4, err_msg=k)
     for k in sorted(set(jp) - set(_NULL_GRAD)):
@@ -175,7 +180,8 @@ def test_train_step_f32_matches_jax(monkeypatch):
     _check_stats(js, ts)
 
 
-def test_train_step_bf16_matches_jax(monkeypatch):
+@pytest.mark.parametrize("fold_impl", ["xla", "auto"])
+def test_train_step_bf16_matches_jax(monkeypatch, fold_impl):
     """bf16 compute rounds at other places in the two frameworks (flax's
     Dense rounds its product and bias add separately, torch's CPU bf16
     kernels keep f32 inside each op). Losses agree to 1e-3. A parameter
@@ -183,7 +189,7 @@ def test_train_step_bf16_matches_jax(monkeypatch):
     (about +-lr) in opposite directions, so each tensor must have at least
     95% of its elements within the f32 tolerance and every element within
     two Adam steps (2 lr) of the JAX value."""
-    jm, tm, jp, tp, js, ts, init = _compare(True, monkeypatch)
+    jm, tm, jp, tp, js, ts, init = _compare(True, fold_impl, monkeypatch)
     for k in ("loss_xyz", "loss_normal"):
         np.testing.assert_allclose(tm[k], float(jm[k]), rtol=1e-3, err_msg=k)
     for k in sorted(set(jp) - set(_NULL_GRAD)):
