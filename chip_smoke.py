@@ -3,21 +3,29 @@
 
 Phases, each fatal on failure:
   1. card   - name and power limit from nvidia-smi;
-  2. build  - compile every kernel of the flagship pretrain step from
-              point_dae_torch/csrc with nvcc (sm_90a), all at once;
-  3. kernels- at the step's shapes, hold each kernel against its plain
-              PyTorch version on the card and time kernel, plain version
-              and (where one exists) a single PyTorch library call;
-  4. check  - one forward of the full-width model at batch 128 (every
-              kernel gate open) on the card against the same forward on
-              the CPU, which takes the plain paths (the paths the CPU
-              parity tests hold against the JAX package);
+  2. build  - compile every kernel source of point_dae_torch/csrc with
+              nvcc (sm_90a), all at once;
+  3. kernels- at the two pretrain steps' shapes, hold each kernel against
+              its plain PyTorch version on the card and time kernel, plain
+              version and (where one exists) a single PyTorch library call;
+  4. check  - one forward of the full-width flagship model at batch 128
+              (every kernel gate open) on the card against the same forward
+              on the CPU, which takes the plain paths (the paths the CPU
+              parity tests hold against the JAX package); the full-width
+              DGCNN encoder (the fused kernel) at batch 8 on the card
+              against the CPU: in f32 against the reference EdgeConv, in
+              bf16 layer by layer against the reference EdgeConv and as a
+              whole against the fused layer's plain path, with the loss;
   5. train  - 5 flagship pretrain steps of the default configuration
               (batch 256 from a raw (256, 8192, 6) tensor, trans_dim 384,
-              depth 12 + 4, bf16, fold_impl auto: all six kernels) with
-              every launch counter zeroed before and read after, one
-              profiled step, then as many steps of a second model with
-              fold_impl xla (the plain folding head) beside it.
+              depth 12 + 4, bf16, fold_impl auto) with every launch counter
+              zeroed before and read after, one profiled step, then steps
+              of a second model with fold_impl xla (the plain folding head)
+              beside it; then 5 DGCNN pretrain steps (Point_CAE_DGCNN_FCOnly,
+              batch 128 from a raw (128, 8192, 6) tensor, 1024 points, k 20,
+              widths 64/64/128/256, bf16, affine_r3 + dropout_local), counters
+              zeroed and read the same way, one profiled step, and 2 steps
+              with edgeconv_exact_grads (the 'split' backward kernel).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Run from the repository root:
 
@@ -40,6 +48,13 @@ BF16_FLOPS = 989e12        # dense bf16 tensor cores
 F32_FLOPS = 67e12          # f32 outside the tensor cores
 
 XLA_STEPS = 5              # steps of the fold_impl xla model run beside the default
+DGCNN_BATCH = 128
+DGCNN_CHECK_BATCH = 8
+EXACT_STEPS = 2            # DGCNN steps with edgeconv_exact_grads
+FLAGSHIP_COUNTERS = ("patchify", "gather_rows_small_c", "nn_half_small", "mlp_ln_fwd",
+                     "mlp_ln_bwd", "folding_fwd", "folding_bwd", "attention_fwd",
+                     "attention_bwd")
+DGCNN_COUNTERS = ("nn_half_tiled", "knn_aggregate_fwd", "knn_aggregate_bwd_first")
 FLAGSHIP_CONFIG = {        # __graft_entry__.FLAGSHIP_CONFIG at bs 256
     "optimizer": {"type": "AdamW", "part": "all",
                   "kwargs": {"lr": 0.001, "weight_decay": 0.05}},
@@ -59,6 +74,19 @@ FLAGSHIP_CONFIG = {        # __graft_entry__.FLAGSHIP_CONFIG at bs 256
             "dtype": "bf16"}},
     "normal_weight": 0.005, "npoints": 1024, "total_bs": BATCH,
     "step_per_update": 1, "max_epoch": 300, "loss_type": "xyznormal",
+}
+DGCNN_CONFIG = {           # bench.py's DGCNN line: the released recipe's shapes
+    "optimizer": {"type": "AdamW", "part": "all",
+                  "kwargs": {"lr": 0.001, "weight_decay": 0.05}},
+    "scheduler": {"type": "CosLR", "kwargs": {"epochs": 1200, "initial_epochs": 10}},
+    "dataset": {"train": {"others": {
+        "npoints": 1024, "aug_type": ["norm"],
+        "corrupt_type": ["affine_r3", "dropout_local"]}}},
+    "model": {"NAME": "Point_CAE_DGCNN_FCOnly",
+              "corrupt_type": ["affine_r3", "dropout_local"],
+              "loss": "cdl2", "dtype": "bf16"},
+    "npoints": 1024, "total_bs": DGCNN_BATCH, "step_per_update": 1,
+    "max_epoch": 1200, "loss_type": "xyznormal_gradual",
 }
 
 
@@ -406,6 +434,255 @@ def phase_attention(torch, device, g):
     return records
 
 
+def phase_dgcnn_kernels(torch, corrupted, clean, device):
+    """The DGCNN step's kernels at its shapes (batch 128, 1024 points, k 20)
+    against their plain versions on the card."""
+    from point_dae_torch.losses import chamfer
+    from point_dae_torch.ops import edgeconv
+
+    records = {}
+    g = torch.Generator(device=device).manual_seed(SEED + 5)
+    B, N, k = DGCNN_BATCH, 1024, 20
+
+    # -- tiled chamfer: a reconstruction against the clean cloud, both ways
+    x = (clean + 0.05 * torch.randn(clean.shape, generator=g, device=device)).contiguous()
+    x[:, 7] = clean[:, 9]                      # exact hits: distance 0
+    y = clean.contiguous()
+    for a, b in ((x, y), (y, x)):
+        dk, ik = chamfer.nn_half_tiled(a, b)
+        dp, ip = chamfer.nn_half_tiled_plain(a, b)
+        if not (torch.equal(ik, ip) and torch.equal(dk, dp)):
+            fail(f"tiled chamfer: differs from the plain version (idx match "
+                 f"{float((ik == ip).float().mean())}, max |d| "
+                 f"{float((dk - dp).abs().max())})")
+
+    def lib_chamfer():
+        d = torch.cdist(x, y) ** 2
+        return d.min(2).values, d.min(1).values
+
+    records["nn_half_tiled"] = dict(
+        replaces="point_dae_tpu/losses/chamfer.py:41",
+        source="point_dae_torch/csrc/chamfer.cu", max_abs_err=0.0,
+        ms=cuda_ms(lambda: (chamfer.nn_half_tiled(x, y), chamfer.nn_half_tiled(y, x)), 20),
+        plain_ms=cuda_ms(lambda: (chamfer.nn_half_tiled_plain(x, y),
+                                  chamfer.nn_half_tiled_plain(y, x)), 3),
+        library_ms=cuda_ms(lib_chamfer, 10),
+        bound=bound_ms(2 * (2 * B * N * 3 * 4 + B * N * 8), 2 * B * N * N * 9, F32_FLOPS),
+        note="both directions, 1024 vs 1024, bit for bit")
+    del x, y
+
+    # -- fused kNN aggregate at the four EdgeConv shapes. Layer 1 sees the
+    # corrupted cloud itself (resampled with replacement: duplicated points);
+    # deeper layers see features, duplicated where the points are. U holds
+    # bf16 values, as the bf16 edge projection leaves them.
+    names = ("knn_aggregate_fwd", "knn_aggregate_bwd_first", "knn_aggregate_bwd_split")
+    tot = {n: dict(ms=0.0, plain_ms=0.0, nbytes=0.0, flops=0.0, err=0.0) for n in names}
+    dup = corrupted[:, :, None, :].eq(corrupted[:, None, :64, :]).all(-1)   # (B, N, 64)
+    first_twin = torch.where(dup.any(-1), dup.float().argmax(-1),
+                             torch.arange(N, device=device)[None, :].expand(B, -1))
+    del dup
+    for Cf, C in ((3, 64), (64, 64), (64, 128), (128, 256)):
+        if Cf == 3:
+            xf = corrupted.contiguous()
+        else:
+            xf = torch.randn((B, N, Cf), generator=g, device=device)
+            xf = torch.gather(xf, 1, first_twin[..., None].expand(-1, -1, Cf)).contiguous()
+        U = torch.randn((B, N, C), generator=g, device=device).bfloat16().float()
+        U = torch.gather(U, 1, first_twin[..., None].expand(-1, -1, C)).contiguous()
+        cots = [torch.randn((B, N, C), generator=g, device=device) for _ in range(4)]
+        outk = edgeconv.knn_aggregate_fwd_kernel(U, xf, k, True)
+        idx = edgeconv.knn_select_plain(xf, k)
+        outp = edgeconv.aggregate_plain(U, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(outk[4], idx):
+            fail(f"knn_aggregate Cf {Cf}: neighbours differ from the plain version "
+                 f"(match {float((outk[4] == idx).float().mean())})")
+        for nm, a, b in zip(("M", "m", "S1", "S2", "rM", "rm"), outk[:4] + outk[5:], outp):
+            if not torch.equal(a.to(b.dtype), b):
+                fail(f"knn_aggregate Cf {Cf}: {nm} differs from the plain version")
+        M, m, _, _, _, rM, rm = outk
+        ties = float((torch.gather(U, 1, idx[:, :, 1, None].long().expand(-1, -1, C))
+                      == torch.gather(U, 1, idx[:, :, 0, None].long().expand(-1, -1, C))
+                      ).all(-1).float().mean())
+        shape_ms = {}
+        for mode, a, c, plain in (("first", rM, rm, edgeconv.bwd_first_plain),
+                                  ("split", M, m, edgeconv.bwd_split_plain)):
+            run = lambda: edgeconv.knn_aggregate_bwd_kernel(mode, U, idx, a, c, *cots)
+            du, du2 = run(), run()
+            want = plain(U, idx, a, c, *cots)
+            torch.cuda.synchronize()
+            err = rel_err(du, want)
+            if err > 1e-5:      # f32 sums of a row's contributions, in another order
+                fail(f"knn_aggregate bwd {mode} Cf {Cf}: du off by {err:.2e} of max |du|")
+            if not torch.equal(du, du2):
+                fail(f"knn_aggregate bwd {mode}: two runs differ in their bits")
+            t = tot[f"knn_aggregate_bwd_{mode}"]
+            t["err"] = max(t["err"], float((du - want).abs().max()))
+            shape_ms[mode] = cuda_ms(run, 5)
+            t["ms"] += shape_ms[mode]
+            t["plain_ms"] += cuda_ms(lambda: plain(U, idx, a, c, *cots), 1)
+            t["nbytes"] += 8 * B * N * C * 4 + B * N * k * 4
+            t["flops"] += B * N * k * C * 6
+            del du, du2, want
+        t = tot["knn_aggregate_fwd"]
+        shape_ms["fwd"] = cuda_ms(lambda: edgeconv.knn_aggregate_fwd_kernel(U, xf, k, True), 5)
+        t["ms"] += shape_ms["fwd"]
+        t["plain_ms"] += cuda_ms(lambda: edgeconv.aggregate_plain(
+            U, edgeconv.knn_select_plain(xf, k)), 1)
+        t["nbytes"] += B * N * (Cf + 7 * C + k) * 4
+        t["flops"] += B * N * (N * (2 * Cf + 3) + k * N + k * C * 7)
+        log(f"  knn_aggregate Cf {Cf:3d} C {C:3d}: fwd {shape_ms['fwd']:.4f} ms, bwd first "
+            f"{shape_ms['first']:.4f} ms, bwd split {shape_ms['split']:.4f} ms; forward bit "
+            f"for bit, rows whose 2 nearest tie in U {ties:.4f}")
+        del outk, outp, cots
+        torch.cuda.empty_cache()
+    for n, line in zip(names, ("98", "457", "340")):
+        t = tot[n]
+        records[n] = dict(
+            replaces=f"point_dae_tpu/ops/pallas_edgeconv.py:{line}",
+            source="point_dae_torch/csrc/edgeconv.cu", max_abs_err=t["err"], ms=t["ms"],
+            plain_ms=t["plain_ms"], library_ms=None,
+            bound=bound_ms(t["nbytes"], t["flops"], F32_FLOPS),
+            note="sum over the four EdgeConv shapes of a step (B 128, N 1024, k 20)")
+    return records
+
+
+def phase_dgcnn_check(torch, config, corrupted, clean, device):
+    """The full-width DGCNN encoder on the card (impl auto: the fused kernel)
+    at DGCNN_CHECK_BATCH against the same weights on the CPU, three ways:
+
+    - in f32, the whole encoder against the reference EdgeConv (edge tensor +
+      Dense), the independent layout (on the card that impl sits inside the
+      gate of the unported kNN kernel at these shapes and raises), within
+      1e-3 (relative and absolute; sound runs read 3e-5);
+    - in bf16, the step's type, each of the four fused layers on the card
+      against the reference EdgeConv on the CPU on the same input (the CPU
+      reference chain's activations), within the 0.05 (relative and
+      absolute) that the JAX package's test of one fused layer against one
+      reference layer under bf16 allows, for all but one element in 10,000
+      (the two kNNs sum a distance in another order, so on the pipeline's
+      clouds, which repeat points, a twentieth neighbour at a near tie can
+      differ: sound runs read at most 2 elements of a layer's 0.5-2 million
+      outside and a largest gap of 0.06-0.08 on the card, up to 0.36 with
+      the plain version on the CPU), with a mean gap of at most 0.01
+      (sound: 0.002-0.003). A planted fault (the farthest neighbour dropped, the sum
+      of squares a twentieth off) puts 2-8% of a layer's elements outside
+      and reads a mean gap of 0.025-0.036;
+    - in bf16, the whole encoder against the CPU's ``fused`` impl (the same
+      split projection with gathered aggregates), and the loss against the
+      CPU's plain chamfer within 2%. The card's and the CPU's products round
+      apart, a neighbour near a distance tie can flip, and four chained kNN
+      graphs amplify it, so this is held by two readings: sound runs read a
+      largest gap of 0.46 where the largest feature is 17.26 (2.7%) and a
+      mean gap of 0.005, while a planted fault in the aggregate (the farthest
+      neighbour dropped or replaced, the point itself left out, the sum of
+      squares off by a twentieth) reads a largest gap of 19-64% of the
+      largest feature and a mean gap of 0.22-1.07. The limits are 5% of the
+      largest feature and a mean of 0.05. Chained through four layers the
+      bf16 reference layout itself sits 1.5-3 away from the fused one (mean
+      0.10-0.13), in this package and in the JAX one alike
+      (tests/test_torch_edgeconv.py), so it is printed, not held to."""
+    from point_dae_torch.engine.pretrain import init_model
+    from point_dae_torch.models.dgcnn import edge_conv, fused_edge_conv
+    from point_dae_torch.utils import kernels
+
+    cor, cln = corrupted[:DGCNN_CHECK_BATCH], clean[:DGCNN_CHECK_BATCH]
+    cor_cpu, cln_cpu = cor.cpu(), cln.cpu()
+    f32 = copy.deepcopy(config)
+    del f32["model"]["dtype"]
+    before = dict(kernels.launches)
+    t0 = time.perf_counter()
+    gap = lambda a, b: float((a - b).abs().max())
+    with torch.no_grad():
+        cpu_model = init_model(f32, seed=SEED + 6, device="cpu").train()
+        gpu_model = copy.deepcopy(cpu_model).to(device).train()
+        err32 = (gpu_model.dgcnn_encoder(cor)[0].cpu(), cpu_model.dgcnn_encoder(cor_cpu)[0])
+
+        cpu_model = init_model(config, seed=SEED + 6, device="cpu").train()
+        gpu_model = copy.deepcopy(cpu_model).to(device).train()
+        enc_c, enc_g = cpu_model.dgcnn_encoder, gpu_model.dgcnn_encoder
+        layers, h = [], cor_cpu[..., :3]
+        for i in range(1, len(enc_c.WIDTHS) + 1):
+            want = edge_conv(h, getattr(enc_c, f"conv{i}")[0], getattr(enc_c, f"bn{i}"),
+                             enc_c.k, enc_c.dtype)
+            got = fused_edge_conv(h.to(device), getattr(enc_g, f"conv{i}")[0],
+                                  getattr(enc_g, f"bn{i}"), enc_g.k, enc_g.dtype).cpu()
+            outside = ~torch.isclose(got, want, rtol=0.05, atol=0.05)
+            layers.append((gap(got, want), float((got - want).abs().mean()),
+                           int(outside.sum()), outside.numel()))
+            h = want
+        ref16 = enc_c(cor_cpu)[0]
+        enc_c.impl = "fused"
+        fg = enc_g(cor)[0].cpu()
+        lg = float(gpu_model(cor, cln)[0])
+        fc = enc_c(cor_cpu)[0]
+        lc = float(cpu_model(cor_cpu, cln_cpu)[0])
+    used = {k: kernels.launches[k] - before[k] for k in DGCNN_COUNTERS[:2]}
+    top, mean_gap = float(fc.abs().max()), float((fg - fc).abs().mean())
+    log(f"  DGCNN batch {DGCNN_CHECK_BATCH} (cpu {time.perf_counter() - t0:.1f} s): global "
+        f"feature max |card - cpu|: f32 kernel vs reference EdgeConv {gap(*err32):.2e}; bf16 "
+        f"kernel layer vs reference EdgeConv layer on one input "
+        f"(max, mean, elements outside 0.05) "
+        f"{[(round(g_, 4), round(m_, 5), o_) for g_, m_, o_, _ in layers]}; "
+        f"bf16 kernel vs cpu fused {gap(fg, fc):.4f}, "
+        f"mean {mean_gap:.4f} (max |feature| {top:.2f}); bf16 cpu fused vs cpu reference "
+        f"{gap(fc, ref16):.4f}, mean {float((fc - ref16).abs().mean()):.4f}")
+    log(f"  DGCNN batch {DGCNN_CHECK_BATCH}: loss on the card (kernels) {lg:.6f}, on the cpu "
+        f"(fused, plain chamfer) {lc:.6f}; launches {used}")
+    if not (math.isfinite(lg) and math.isfinite(lc)):
+        fail("check: non-finite DGCNN loss")
+    if not torch.allclose(*err32, rtol=1e-3, atol=1e-3):
+        fail(f"check: f32 DGCNN features on the card off the reference EdgeConv's by "
+             f"{gap(*err32)}")
+    if not all(o_ <= 1e-4 * n_ and m_ <= 0.01 for _, m_, o_, n_ in layers):
+        fail(f"check: a bf16 fused EdgeConv layer on the card is off the reference layer "
+             f"beyond 0.05: {layers}")
+    if gap(fg, fc) > 0.05 * top or mean_gap > 0.05:
+        fail(f"check: bf16 DGCNN features on the card off the CPU's by {gap(fg, fc)} "
+             f"(mean {mean_gap})")
+    if abs(lg - lc) > 2e-2 * abs(lc):       # bf16 products: 2% of the loss
+        fail(f"check: DGCNN loss on the card {lg} disagrees with the CPU's {lc}")
+    if min(used.values()) == 0:
+        fail(f"check: a DGCNN kernel gate stayed closed: {used}")
+
+
+def phase_dgcnn_train(torch, config, raw, device, card):
+    steady, first, launches, peak, one_more = run_steps(torch, config, raw, device,
+                                                        TRAIN_STEPS, SEED + 7)
+    if min(launches[k] for k in DGCNN_COUNTERS) == 0:
+        fail(f"train: a DGCNN kernel was never launched on the main path: {launches}")
+    log(f"  launches on the DGCNN path ({TRAIN_STEPS} steps): "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    log(f"  [{card}] DGCNN step {steady * 1e3:.2f} ms (median of steps 2-{TRAIN_STEPS}), "
+        f"{DGCNN_BATCH / steady:.1f} clouds/s, first step {first * 1e3:.1f} ms, "
+        f"max_memory_allocated {peak / 2 ** 30:.2f} GiB")
+    profile_step(torch, one_more, card)
+    del one_more
+    torch.cuda.empty_cache()
+
+    # the data pipeline's share of the step: norm, affine_r3, dropout_local
+    # (seven rounds of seed pick, distances and a stable sort) and two resamples
+    from point_dae_torch.engine.pretrain import device_pipeline
+    d = config["dataset"]["train"]["others"]
+    g = torch.Generator(device=device).manual_seed(SEED + 8)
+    pipe_ms = cuda_ms(lambda: device_pipeline(raw, d["aug_type"], d["corrupt_type"],
+                                              d["npoints"], generator=g, device=device), 5)
+    log(f"  [{card}] DGCNN device_pipeline alone: {pipe_ms:.2f} ms a call (CUDA events "
+        f"over 5 back-to-back calls, host gaps included)")
+
+    exact = copy.deepcopy(config)
+    exact["model"]["edgeconv_exact_grads"] = True
+    log(f"  edgeconv_exact_grads, {EXACT_STEPS} steps:")
+    steady_e, _, launches_e, _, _ = run_steps(torch, exact, raw, device, EXACT_STEPS,
+                                              SEED + 7)
+    if launches_e["knn_aggregate_bwd_split"] == 0 or launches_e["knn_aggregate_bwd_first"]:
+        fail(f"train: edgeconv_exact_grads did not take the split backward: {launches_e}")
+    log(f"  [{card}] DGCNN step with edgeconv_exact_grads {steady_e * 1e3:.2f} ms "
+        f"(step 2 of {EXACT_STEPS})")
+    launches["knn_aggregate_bwd_split"] = launches_e["knn_aggregate_bwd_split"]
+    return launches
+
+
 def phase_check(torch, config, raw, device):
     """Full-width forward at CHECK_BATCH on the card (kernels) and on the
     CPU (plain paths) with the same weights, points and draws."""
@@ -431,7 +708,7 @@ def phase_check(torch, config, raw, device):
         clean_cpu = clean.cpu()
         t0 = time.perf_counter()
         lc = [float(v) for v in cpu_model(clean_cpu, clean_cpu, draws=cpu_draws)]
-    used = {k: kernels.launches[k] - before[k] for k in before}
+    used = {k: kernels.launches[k] - before[k] for k in FLAGSHIP_COUNTERS}
     log(f"  batch {CHECK_BATCH}: card (kernels) loss_xyz {lg[0]:.6f} loss_global {lg[1]:.6f}; "
         f"cpu (plain, {time.perf_counter() - t0:.1f} s) {lc[0]:.6f} {lc[1]:.6f}; launches {used}")
     if not all(math.isfinite(v) for v in lg + lc):
@@ -480,9 +757,10 @@ def run_steps(torch, config, raw, device, steps, seed):
 def phase_train(torch, config, raw, device, card):
     steady, first, launches, peak, one_more = run_steps(torch, config, raw, device,
                                                         TRAIN_STEPS, SEED)
-    if min(launches.values()) == 0:
+    if min(launches[k] for k in FLAGSHIP_COUNTERS) == 0:
         fail(f"train: a kernel was never launched on the main path: {launches}")
-    log(f"  launches on the main path ({TRAIN_STEPS} steps): {launches}")
+    log(f"  launches on the main path ({TRAIN_STEPS} steps): "
+        f"{ {k: launches[k] for k in FLAGSHIP_COUNTERS} }")
     log(f"  [{card}] step {steady * 1e3:.2f} ms (median of steps 2-{TRAIN_STEPS}), "
         f"{BATCH / steady:.1f} clouds/s, first step {first * 1e3:.1f} ms, "
         f"max_memory_allocated {peak / 2 ** 30:.2f} GiB")
@@ -529,14 +807,18 @@ def profile_step(torch, run, card, top: int = 25) -> None:
             "gather_rows_kernel": 0.0, "nn_half_small_kernel": 0.0,
             "fold_fwd_kernel": 0.0, "fold_bwd_rows_kernel": 0.0,
             "fold_bwd_weights_kernel": 0.0, "::gemm_kernel<": 0.0,
-            "attention_fwd_kernel": 0.0, "attention_bwd_kernel": 0.0}
+            "attention_fwd_kernel": 0.0, "attention_bwd_kernel": 0.0,
+            "edgeconv_select_kernel": 0.0, "edgeconv_aggregate_kernel": 0.0,
+            "edgeconv_bwd_kernel": 0.0, "edgeconv_tie_weights_kernel": 0.0,
+            "row_sqnorm_kernel": 0.0,
+            "nn_half_tiled_kernel": 0.0}
     for e in events:
         for k in ours:
             if k in e.key:
                 ours[k] += dev_us(e)
     log(f"  [{card}] profiled step: wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), ported kernels "
-        + ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in ours.items()))
+        + ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in ours.items() if v))
     for e in sorted(events, key=dev_us, reverse=True)[:top]:
         log(f"    {dev_us(e) / 1e3:8.3f} ms {100 * dev_us(e) / busy:5.1f}% "
             f"x{e.count:<4d} {e.key[:110]}")
@@ -584,9 +866,22 @@ def main() -> None:
                                generator=g, device=device)
     pts = clean[..., :3].contiguous()
 
+    import numpy as np
+
+    dconfig = ConfigDict(copy.deepcopy(DGCNN_CONFIG))
+    dd = dconfig["dataset"]["train"]["others"]
+    raw_d = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(DGCNN_BATCH, NRAW, 6)).astype(np.float32)).to(device)
+    corrupted_d, clean_d = device_pipeline(raw_d, dd["aug_type"], dd["corrupt_type"],
+                                           dd["npoints"], generator=g, device=device)
+    clean_d = clean_d[..., :3].contiguous()
+
     # 3. kernels
     log("kernels:")
     records = phase_kernels(torch, pts, device)
+    torch.cuda.empty_cache()
+    records.update(phase_dgcnn_kernels(torch, corrupted_d, clean_d, device))
+    torch.cuda.empty_cache()
     for name, r in records.items():
         log(f"  [{card}] {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
             f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}, "
@@ -595,10 +890,19 @@ def main() -> None:
     # 4. check against the plain paths on the CPU
     log("check:")
     phase_check(torch, config, raw, device)
+    phase_dgcnn_check(torch, dconfig, corrupted_d, clean_d, device)
 
     # 5. train
     log("train:")
     launches = phase_train(torch, config, raw, device, card)
+    del raw, pts, clean
+    torch.cuda.empty_cache()
+    log("train (DGCNN):")
+    launches_d = phase_dgcnn_train(torch, dconfig, raw_d, device, card)
+    for k in DGCNN_COUNTERS + ("knn_aggregate_bwd_split",):
+        launches[k] = launches_d[k]
+    if min(launches.values()) == 0:
+        fail(f"a kernel was never launched on its main path: {launches}")
 
     out = []
     for name, r in records.items():

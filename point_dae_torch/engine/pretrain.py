@@ -11,25 +11,30 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from ..data.corruptions import augment_batch, corrupt_batch
+from ..data.corruptions import CloudCorruptDraws, augment_batch, corrupt_batch
 from ..models import build_model_from_cfg
 from ..models.transformer import ModelDraws
-from ..ops.gather import gather_rows
+from ..ops.geometry import resample_batch
 from ..utils.device import resolve_device
 from .train_state import TrainState
 
 
 @dataclass
 class PipelineDraws:
-    """Resample indices into the raw clouds, (B, npoints) each."""
+    """The pipeline's draws: ``clean`` (B, npoints) indexes the raw clouds;
+    ``corrupted`` (B, npoints) indexes the corrupted clouds, or, when the
+    corruption returns a validity mask, ranks into each cloud's valid
+    subset; ``corrupt`` holds the cloud corruptions' own draws."""
     corrupted: torch.Tensor
     clean: torch.Tensor
+    corrupt: Optional[CloudCorruptDraws] = None
 
 
 @dataclass
 class StepDraws:
+    """``model`` is None for a model that draws nothing (the DGCNN DAE)."""
     pipeline: PipelineDraws
-    model: ModelDraws
+    model: Optional[ModelDraws] = None
 
 
 def device_pipeline(raw: torch.Tensor, aug_type: Sequence[str],
@@ -39,19 +44,19 @@ def device_pipeline(raw: torch.Tensor, aug_type: Sequence[str],
                     device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, Nraw, C) raw clouds -> (corrupted (B, npoints, 3), clean
     (B, npoints, C)): augment xyz, corrupt the full cloud, then resample
-    both streams independently, with replacement. Normals (columns 3:)
-    ride along with the clean sample."""
+    both streams independently, with replacement (the corrupted one from
+    its valid subset when the corruption masks points out). Normals
+    (columns 3:) ride along with the clean sample."""
     dev = resolve_device(device)
     raw = raw.to(dev)
-    B, nraw = raw.shape[:2]
     xyz = augment_batch(raw[..., :3], aug_type)
     full = torch.cat([xyz, raw[..., 3:]], dim=-1)
-    outs, _ = corrupt_batch(xyz, corrupt_type)
-    if draws is None:
-        draws = PipelineDraws(
-            torch.randint(0, nraw, (B, npoints), generator=generator, device=dev),
-            torch.randint(0, nraw, (B, npoints), generator=generator, device=dev))
-    return gather_rows(outs, draws.corrupted), gather_rows(full, draws.clean)
+    corrupt = corrupted = clean = None      # drawn from the generator
+    if draws is not None:
+        corrupt, corrupted, clean = draws.corrupt, draws.corrupted, draws.clean
+    outs, mask = corrupt_batch(xyz, corrupt_type, draws=corrupt, generator=generator)
+    return (resample_batch(outs, mask, npoints, draws=corrupted, generator=generator),
+            resample_batch(full, None, npoints, draws=clean, generator=generator))
 
 
 def compute_loss(loss_type: str, loss_xyz, loss_normal, normal_weight: float,

@@ -1,9 +1,10 @@
 """Chamfer distances (port of ``point_dae_tpu/losses/chamfer.py``).
 
 ``nn_distance(x, y) -> (dist1, dist2, idx1, idx2)`` is the load-bearing
-contract. Its forward runs the patch-chamfer kernel (``csrc/chamfer.cu``)
-on CUDA tensors of many tiny sets, and the matrix-expansion distances
-otherwise; its backward is the gather-based recompute of
+contract. On CUDA tensors its forward runs the patch-chamfer kernel for
+many tiny sets and the tiled kernel for large ones (both in
+``csrc/chamfer.cu``), and the matrix-expansion distances otherwise; its
+backward is the gather-based recompute of
 ``chamfer.py:219-252``, with the scatter as a one-hot product for small
 sets.
 """
@@ -32,8 +33,8 @@ def use_small_kernel(x: torch.Tensor, m: int) -> bool:
     return x.device.type == "cuda" and d == 3 and n <= 64 and m <= 64 and b >= 4096
 
 
-def _use_tiled_kernel(x: torch.Tensor, m: int) -> bool:
-    """``chamfer._use_pallas``: the tiled one-way kernel, not ported yet."""
+def use_tiled_kernel(x: torch.Tensor, m: int) -> bool:
+    """``chamfer._use_pallas`` with "on TPU" read as "on CUDA"."""
     return x.device.type == "cuda" and x.shape[1] * m >= 512 * 512
 
 
@@ -75,14 +76,57 @@ def nn_half_small(x: torch.Tensor, y: torch.Tensor):
     return dist, idx, near
 
 
+def _seq_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum_c a[..., c] * b[..., c], each product rounded and the sum taken
+    left to right (the order the tiled kernel keeps)."""
+    out = a[..., 0] * b[..., 0]
+    for c in range(1, a.shape[-1]):
+        out = out + a[..., c] * b[..., c]
+    return out
+
+
+def nn_half_tiled_plain(x: torch.Tensor, y: torch.Tensor):
+    """Plain PyTorch version of the tiled kernel. x (B, N, D), y (B, M, D)
+    -> (dist (B, N) clamped at 0, idx (B, N) int32): the expansion distance
+    (xx - 2 x.y) + yy in f32 and its first argmin."""
+    x = x.float()
+    y = y.float()
+    xx = _seq_dot(x, x)
+    yy = _seq_dot(y, y)
+    xy = _seq_dot(x[:, :, None, :], y[:, None, :, :])
+    d = (xx[:, :, None] - 2.0 * xy) + yy[:, None, :]
+    idx = torch.argmin(d, dim=-1)
+    return d.gather(-1, idx[..., None])[..., 0].clamp_min(0.0), idx.int()
+
+
+def nn_half_tiled(x: torch.Tensor, y: torch.Tensor):
+    """The tiled chamfer kernel on CUDA tensors, its plain version on CPU
+    ones. x (B, N, 3), y (B, M, 3) f32, sets of any size."""
+    if x.device.type == "cpu":
+        return nn_half_tiled_plain(x, y)
+    if x.shape[2] != 3:
+        raise ValueError(f"tiled chamfer kernel is built for 3-D points, got "
+                         f"{tuple(x.shape)} vs {tuple(y.shape)}")
+    x = x.detach().float().contiguous()
+    y = y.detach().float().contiguous()
+    kernels.require_cuda(x, y)
+    B, N, _ = x.shape
+    dist = torch.empty((B, N), dtype=torch.float32, device=x.device)
+    idx = torch.empty((B, N), dtype=torch.int32, device=x.device)
+    P_, I = kernels.P, kernels.I
+    kernels.launch("nn_half_tiled", "chamfer", "nn_half_tiled",
+                   (P_, P_, I, I, I, P_, P_, P_), x.data_ptr(), y.data_ptr(),
+                   B, N, y.shape[1], dist.data_ptr(), idx.data_ptr(),
+                   kernels.stream(x))
+    return dist, idx
+
+
 def _nn_half(x: torch.Tensor, y: torch.Tensor):
     """(dist, idx, near-or-None) of one direction."""
     if use_small_kernel(x, y.shape[1]):
         return nn_half_small(x, y)
-    if _use_tiled_kernel(x, y.shape[1]):
-        raise NotImplementedError(
-            "nn_distance on CUDA for N*M >= 512^2 needs the tiled kernel "
-            "(chamfer._nn_half_pallas), which is not ported yet")
+    if use_tiled_kernel(x, y.shape[1]):
+        return nn_half_tiled(x, y) + (None,)
     d, i = _nn_half_xla(x, y)
     return d, i, None
 

@@ -2,9 +2,10 @@
 from __future__ import annotations
 
 import itertools
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 def folding_grid(grid_dims: Tuple[int, int],
@@ -14,3 +15,15 @@ def folding_grid(grid_dims: Tuple[int, int],
     x = np.linspace(scale[0], scale[1], grid_dims[0])
     y = np.linspace(scale[0], scale[1], grid_dims[1])
     return np.array(list(itertools.product(x, y)), dtype=np.float32)
+
+
+def apply_input_dropout(pts: torch.Tensor, corrupt_type: Sequence[str]) -> torch.Tensor:
+    """The in-forward corruption switch of the DGCNN models
+    (``models/common.py:66-86``). The three in-model dropouts are not
+    ported yet; every other corruption name already ran in the data
+    pipeline and is a no-op here."""
+    for item in corrupt_type:
+        if (item in ("dropout_patch_pointmae", "random_dropout")
+                or item.startswith("dropout_global")):
+            raise NotImplementedError(f"in-model corruption {item!r} is not ported yet")
+    return pts

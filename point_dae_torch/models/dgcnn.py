@@ -1,0 +1,174 @@
+"""DGCNN encoder (port of ``point_dae_tpu/models/dgcnn.py:25-302``).
+
+Channel-last throughout. Torch names follow the reference
+(``dgcnn_encoder.conv{1-5}.0.weight``, ``dgcnn_encoder.bn{1-5}.*``): every
+``impl`` shares one set of parameters, the (out, 2C) edge-projection weight
+over ``concat(neighbour - self, self)``.
+
+``impl`` selects the EdgeConv: ``reference`` (edge tensor + Dense),
+``fused`` (split projection + gathered aggregates), ``fused_pallas`` (split
+projection + the fused kNN / aggregate kernel of ``ops/edgeconv.py``) or
+``auto`` (``fused_pallas`` on a CUDA tensor, ``reference`` on a CPU one).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from ..ops.edgeconv import knn_aggregate, knn_aggregate_plain, knn_aggregate_xla, supported
+from ..ops.gather import gather_rows
+from ..ops.geometry import knn
+from .layers import BatchNorm, Dense, leaky_relu02
+
+
+def get_graph_feature(x: torch.Tensor, k: int = 20,
+                      idx: Optional[torch.Tensor] = None, dtype=None) -> torch.Tensor:
+    """Edge features: x (B, N, C) -> (B, N, k, 2C) =
+    concat(neighbour - self, self). The kNN runs on the f32 input; ``dtype``
+    applies to the gathered edge tensor only."""
+    if idx is None:
+        _, idx = knn(x, x, k)
+    B, N, C = x.shape
+    if dtype is not None:
+        x = x.to(dtype)
+    feature = gather_rows(x, idx.reshape(B, N * k)).reshape(B, N, k, C)
+    center = x[:, :, None, :].expand(B, N, k, C)
+    return torch.cat([feature - center, center], dim=-1)
+
+
+def edge_conv(x: torch.Tensor, conv: Dense, bn: BatchNorm, k: int, dtype,
+              idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The ``reference`` EdgeConv: graph feature -> pointwise Dense + BN (f32
+    statistics) + LeakyReLU -> max over the neighbours."""
+    h = get_graph_feature(x, k, idx=idx, dtype=dtype)
+    return leaky_relu02(bn(conv(h))).amax(dim=2)
+
+
+def fused_edge_conv(x: torch.Tensor, conv: Dense, bn: BatchNorm, k: int, dtype,
+                    use_pallas: bool = True, interpret: bool = False,
+                    exact_grads: bool = False, grad_mode: str = "first"
+                    ) -> torch.Tensor:
+    """EdgeConv without the (B, N, k, 2C) edge tensor or the (B, N, N)
+    distance matrix in device memory: W [x_j - x_i ; x_i] = U_j + V_i with
+    U = x W_top, V = x (W_bot - W_top); the fused kernel returns max, min,
+    sum and sum of squares of U over each point's neighbours; the BatchNorm
+    batch statistics are rebuilt from those (and move ``bn``'s running
+    statistics as ``BatchNorm`` does); since BN + LeakyReLU is monotone per
+    channel, the max (scale >= 0) or the min (scale < 0) survives.
+
+    ``use_pallas=False`` aggregates by gather instead of the kernel,
+    ``interpret`` takes the kernel's path with its plain version on any
+    device, ``exact_grads`` switches the backward to ``split``."""
+    B, N, C = x.shape
+    dt = dtype or x.dtype
+    wt = conv.weight[:, :C].to(dt)
+    wc = conv.weight[:, C:].to(dt)
+    xd = x.to(dt)
+    Uf = torch.matmul(xd, wt.t()).float()
+    Vf = torch.matmul(xd, (wc - wt).t()).float()
+    xf = x.detach().float()
+    if interpret or (use_pallas and supported(N, k) and x.device.type == "cuda"):
+        fn = knn_aggregate_plain if interpret else knn_aggregate
+        M, m, S1, S2, _ = fn(Uf, xf, k, "split" if exact_grads else grad_mode)
+    else:
+        M, m, S1, S2 = knn_aggregate_xla(Uf, knn(xf, xf, k)[1])
+
+    if bn.training:
+        cnt = B * N * k
+        mean = (S1.sum((0, 1)) + k * Vf.sum((0, 1))) / cnt
+        sum_h2 = (S2.sum((0, 1)) + 2.0 * (Vf * S1).sum((0, 1))
+                  + k * (Vf * Vf).sum((0, 1)))
+        var = sum_h2 / cnt - mean * mean
+        bn.update_running(mean, var)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    sel = Vf + torch.where(bn.weight >= 0, M, m)
+    inv = bn.weight * torch.rsqrt(var + bn.eps)
+    return leaky_relu02((sel - mean) * inv + bn.bias)
+
+
+class EdgeConv(nn.Module):
+    """One ``reference`` EdgeConv with its own parameters: ``conv`` (out, 2C)
+    without bias and ``bn``."""
+
+    def __init__(self, in_dim: int, out_dim: int, k: int = 20, dtype=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.k, self.dtype = k, dtype
+        self.conv = Dense(2 * in_dim, out_dim, bias=False, dtype=dtype,
+                          generator=generator)
+        self.bn = BatchNorm(out_dim)
+
+    def forward(self, x: torch.Tensor, idx: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        return edge_conv(x, self.conv, self.bn, self.k, self.dtype, idx=idx)
+
+
+class FusedEdgeConv(EdgeConv):
+    """``fused_edge_conv`` over the same parameters as ``EdgeConv``."""
+
+    def __init__(self, in_dim: int, out_dim: int, k: int = 20, dtype=None,
+                 generator: Optional[torch.Generator] = None, **flags):
+        super().__init__(in_dim, out_dim, k, dtype, generator)
+        self.flags = flags
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return fused_edge_conv(x, self.conv, self.bn, self.k, self.dtype,
+                               **self.flags)
+
+
+class _Conv(nn.ModuleList):
+    """The reference's ``convN`` Sequential, of which the port keeps entry
+    ``0``, the bias-free projection."""
+
+    def __init__(self, din: int, dout: int, dtype, generator):
+        super().__init__([Dense(din, dout, bias=False, dtype=dtype, generator=generator)])
+
+
+class DGCNNEncoder(nn.Module):
+    """Four EdgeConvs (64, 64, 128, 256), a 512 -> 1024 fuse with BatchNorm
+    and LeakyReLU, and a max over the points. x (B, N, 3) ->
+    (global feature (B, 1024), pointwise (B, N, 1024))."""
+
+    WIDTHS = (64, 64, 128, 256)
+
+    def __init__(self, k: int = 20, remat: bool = False, dtype=None,
+                 impl: str = "reference", exact_grads: bool = False,
+                 grad_mode: str = "first",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if remat:
+            raise NotImplementedError("remat is not ported yet")
+        if impl not in ("reference", "fused", "fused_pallas", "auto"):
+            raise ValueError(f"edgeconv_impl {impl!r}")
+        self.k, self.dtype, self.impl = k, dtype, impl
+        self.fused_flags = dict(exact_grads=exact_grads, grad_mode=grad_mode)
+        din = 3
+        for i, width in enumerate(self.WIDTHS, start=1):
+            setattr(self, f"conv{i}", _Conv(2 * din, width, dtype, generator))
+            setattr(self, f"bn{i}", BatchNorm(width))
+            din = width
+        self.conv5 = _Conv(sum(self.WIDTHS), 1024, dtype, generator)
+        self.bn5 = BatchNorm(1024)
+
+    def resolved_impl(self, x: torch.Tensor) -> str:
+        if self.impl != "auto":
+            return self.impl
+        return "fused_pallas" if x.device.type == "cuda" else "reference"
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        impl = self.resolved_impl(x)
+        feats = []
+        for i in range(1, len(self.WIDTHS) + 1):
+            conv, bn = getattr(self, f"conv{i}")[0], getattr(self, f"bn{i}")
+            if impl == "reference":
+                x = edge_conv(x, conv, bn, self.k, self.dtype)
+            else:
+                x = fused_edge_conv(x, conv, bn, self.k, self.dtype,
+                                    use_pallas=impl == "fused_pallas",
+                                    **self.fused_flags)
+            feats.append(x)
+        h = leaky_relu02(self.bn5(self.conv5[0](torch.cat(feats, dim=-1))))
+        return h.amax(dim=1), h

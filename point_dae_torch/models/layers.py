@@ -1,4 +1,4 @@
-"""Building blocks of the transformer models (port of
+"""Building blocks shared by the models (port of
 ``point_dae_tpu/models/layers.py:20-538``).
 
 Everything is channel-last, as in the JAX package. Weights are stored in
@@ -28,6 +28,10 @@ def lecun_normal_(w: torch.Tensor, fan_in: int,
     """flax ``lecun_normal``: truncated normal, variance 1 / fan_in."""
     std = math.sqrt(1.0 / fan_in) / _LECUN_TRUNC
     return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
+def leaky_relu02(x: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(x, negative_slope=0.2)
 
 
 def _compute(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.dtype:
@@ -103,16 +107,20 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
 
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """Move the running statistics towards a batch's (biased) ones."""
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         if self.training:
             axes = tuple(range(x.dim() - 1))
             mu = xf.mean(axes)
             var = ((xf * xf).mean(axes) - mu * mu).clamp_min(0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean + (1 - m) * mu)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            self.update_running(mu, var)
         else:
             mu, var = self.running_mean, self.running_var
         y = (xf - mu) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias

@@ -2,9 +2,9 @@
 
 Port of ``point_dae_tpu/ops/pallas_scatter.py:gather_rows`` and
 ``gather_rows_small_c_pallas``; the CUDA kernel is ``csrc/gather.cu``.
-The backward is a plain scatter-add: the JAX package's one-hot scatter
-kernel (``scatter_rows_add_pallas``) only dispatches for C >= 32, which no
-gather on the flagship step has, and is still to be ported.
+The backward is a plain scatter-add outside the gate of the JAX package's
+one-hot scatter kernel (``scatter_rows_add_pallas``: C >= 32, N <= 2048);
+that kernel is still to be ported, so inside its gate a CUDA tensor raises.
 """
 from __future__ import annotations
 
@@ -20,6 +20,11 @@ def use_small_c_kernel(x: torch.Tensor, q: int) -> bool:
     return (x.device.type == "cuda" and C <= 8 and N <= 2048
             and N % min(N, 2048) == 0 and x.dtype == torch.float32
             and B * q >= 2 ** 18)
+
+
+def use_scatter_kernel(device_type: str, B: int, Q: int, N: int, C: int) -> bool:
+    """``pallas_scatter._use_mxu_scatter`` with "on TPU" read as "on CUDA"."""
+    return device_type == "cuda" and N <= 2048 and C >= 32 and B * Q * C >= 2 ** 24
 
 
 def gather_rows_small_c_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -61,7 +66,12 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        B, _, C = g.shape
+        B, Q, C = g.shape
+        if use_scatter_kernel(g.device.type, B, Q, ctx.n, C):
+            raise NotImplementedError(
+                f"backward of gather_rows on CUDA at ({B}, {ctx.n}, {C}) from "
+                f"{Q} rows needs the one-hot scatter kernel "
+                "(pallas_scatter.scatter_rows_add_pallas), which is not ported yet")
         gx = torch.zeros((B, ctx.n, C), dtype=g.dtype, device=g.device)
         gx.scatter_add_(1, idx.long()[..., None].expand(-1, -1, C), g)
         return gx, None

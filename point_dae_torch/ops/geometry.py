@@ -1,6 +1,6 @@
 """Fixed-shape point-cloud geometry (port of
-``point_dae_tpu/ops/geometry.py:29-271``): FPS, kNN, gathers and the
-patchify front end of the patch models.
+``point_dae_tpu/ops/geometry.py:29-334``): FPS, kNN, gathers, the
+patchify front end of the patch models and the batched resample.
 
 On a CUDA tensor at training shapes ``fps_knn`` runs the fused patchify
 kernel (``ops/patchify.py``); otherwise it composes FPS with a kNN over the
@@ -8,7 +8,7 @@ matrix-expansion distances, as the JAX package does off the TPU.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,11 +27,23 @@ def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return d.clamp_min(0.0)
 
 
+def use_knn_kernel(device_type: str, n_query: int, n_db: int, k: int) -> bool:
+    """The ``knn_pallas`` gate of ``geometry.py:59-61`` with "on TPU" read
+    as "on CUDA"."""
+    return (device_type == "cuda" and 512 <= n_db <= 1024 and n_db % 128 == 0
+            and n_query % 8 == 0 and 8 <= k <= 64)
+
+
 def knn(query: torch.Tensor, database: torch.Tensor, k: int
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """k nearest database points of each query point, ascending by distance,
     lower index first on ties (a stable sort, as ``jax.lax.top_k`` orders
     them). query (B, M, D), database (B, N, D) -> (dists, idx int32)."""
+    if use_knn_kernel(query.device.type, query.shape[1], database.shape[1], k):
+        raise NotImplementedError(
+            f"knn on CUDA at query {tuple(query.shape)}, database "
+            f"{tuple(database.shape)}, k {k} needs the tiled kNN kernel "
+            "(pallas_knn.knn_pallas), which is not ported yet")
     d = pairwise_sqdist(query, database)
     srt = torch.sort(d, dim=-1, stable=True)
     return srt.values[..., :k], srt.indices[..., :k].int()
@@ -86,3 +98,41 @@ def group_neighborhood(xyz: torch.Tensor, num_group: int, group_size: int
     _, center, idx = fps_knn(xyz, num_group, group_size)
     neighborhood = group_points(xyz, idx) - center[:, :, None, :]
     return neighborhood, center
+
+
+def use_key_gather_kernel(points: torch.Tensor, num: int) -> bool:
+    """The rank-keyed gather gate of ``geometry.py:325-327`` with "on TPU"
+    read as "on CUDA"."""
+    B, N, C = points.shape
+    return (points.device.type == "cuda" and C <= 8 and N <= 2048
+            and N % min(N, 2048) == 0 and points.dtype == torch.float32
+            and B * num >= 2 ** 16)
+
+
+def resample_batch(points: torch.Tensor, mask: Optional[torch.Tensor], num: int,
+                   draws: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Uniform draws with replacement from each row's valid subset.
+    points (B, N, C), mask (B, N) bool or None -> (B, num, C). ``draws``
+    (B, num) are integer ranks into the valid subset (below the row's valid
+    count, which is at least 1), sampled from ``generator`` when not given.
+    Valid points are packed to the front by a stable sort, so rank q is the
+    q-th valid point in its original order."""
+    B, N, C = points.shape
+    if mask is None:
+        if draws is None:
+            draws = torch.randint(0, N, (B, num), generator=generator,
+                                  device=points.device)
+        return gather_rows(points, draws)
+    if draws is None:
+        cnt = mask.sum(1).clamp_min(1)
+        u = torch.rand((B, num), generator=generator, device=points.device)
+        draws = (u * cnt[:, None]).long().clamp_max(cnt[:, None] - 1)
+    if use_key_gather_kernel(points, num):
+        raise NotImplementedError(
+            f"masked resample on CUDA from {tuple(points.shape)} to {num} needs "
+            "the rank-keyed gather kernel "
+            "(pallas_scatter.gather_by_key_small_c_pallas), which is not ported yet")
+    order = torch.sort((~mask).to(torch.uint8), dim=1, stable=True).indices
+    pos = torch.gather(order, 1, draws.long())
+    return torch.gather(points, 1, pos[..., None].expand(-1, -1, C))

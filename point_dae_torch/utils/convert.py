@@ -49,6 +49,15 @@ for _torch, _flax in (("MAE_encoder.blocks.blocks.{i}", "MAE_encoder/blocks/bloc
                    ("mlp.fc1", "mlp_fc1"), ("mlp.fc2", "mlp_fc2")):
         _RULES.append((f"{_torch}.{_t}", f"{_flax}/{_f}"))
 
+# the DGCNN family (convert_torch._DGCNN_RULES)
+for _i in range(1, 5):
+    _RULES.append((f"dgcnn_encoder.conv{_i}.0", f"dgcnn_encoder/ec{_i}/conv"))
+    _RULES.append((f"dgcnn_encoder.bn{_i}", f"dgcnn_encoder/ec{_i}/bn"))
+_RULES += [("dgcnn_encoder.conv5.0", "dgcnn_encoder/conv5"),
+           ("dgcnn_encoder.bn5", "dgcnn_encoder/bn5"),
+           ("recfc.0", "recfc/dense0"), ("recfc.2", "recfc/dense1"),
+           ("recfc.4", "recfc/dense2")]
+
 _STATS = {"running_mean": "mean", "running_var": "var"}
 
 
@@ -90,7 +99,7 @@ def _flatten(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
 
 def to_flax(state_dict: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
     """Port ``state_dict`` -> nested ``(params, batch_stats)`` of numpy
-    arrays, laid out as the JAX package's flagship model initialises them."""
+    arrays, laid out as the JAX package's models initialise them."""
     params, stats = {}, {}
     for name, t in state_dict.items():
         v = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)

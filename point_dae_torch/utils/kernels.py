@@ -24,7 +24,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-SOURCES = ("patchify", "gather", "chamfer", "mlp", "folding", "attention")
+SOURCES = ("patchify", "gather", "chamfer", "mlp", "folding", "attention",
+           "edgeconv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -32,7 +33,10 @@ launches: Dict[str, int] = {"patchify": 0, "gather_rows_small_c": 0,
                             "nn_half_small": 0, "mlp_ln_fwd": 0,
                             "mlp_ln_bwd": 0, "folding_fwd": 0,
                             "folding_bwd": 0, "attention_fwd": 0,
-                            "attention_bwd": 0}
+                            "attention_bwd": 0, "nn_half_tiled": 0,
+                            "knn_aggregate_fwd": 0,
+                            "knn_aggregate_bwd_first": 0,
+                            "knn_aggregate_bwd_split": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[tuple, object] = {}

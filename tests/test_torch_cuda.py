@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from point_dae_torch.losses import chamfer
-from point_dae_torch.ops import attention, folding, gather, mlp, patchify
+from point_dae_torch.ops import attention, edgeconv, folding, gather, geometry, mlp, patchify
 
 pytestmark = pytest.mark.cuda
 
@@ -182,3 +182,79 @@ def test_fused_attention_kernels_match_plain(dev, T, masked):
             assert float(gk[:, :, 1:][~mask].abs().max()) == 0.0
     with pytest.raises(ValueError, match="built for"):
         attention.fused_attention(*torch.zeros((3, 2, 8, 2, 32), device=dev))
+
+
+def test_tiled_chamfer_kernel_matches_plain(dev):
+    """Bit for bit, both directions, at sizes that are multiples of neither
+    the row block nor the y tile; a duplicated target resolves to the first."""
+    g = _gen(dev, 6)
+    a = torch.randn((3, 700, 3), generator=g, device=dev)
+    b = torch.randn((3, 1500, 3), generator=g, device=dev)
+    b[1, 1200] = b[1, 37]
+    a[2, 5] = b[2, 9]                                  # a zero distance
+    for x, y in ((a, b), (b, a)):
+        dk, ik = chamfer.nn_half_tiled(x, y)
+        dp, ip = chamfer.nn_half_tiled_plain(x, y)
+        assert torch.equal(ik, ip) and torch.equal(dk, dp)
+        assert float(dk.min()) >= 0.0
+    assert chamfer.use_tiled_kernel(a, 1500) and not chamfer.use_small_kernel(a, 1500)
+    d1, d2, i1, i2 = chamfer.nn_distance(a, b)
+    assert torch.equal(i1, chamfer.nn_half_tiled_plain(a, b)[1])
+    with pytest.raises(ValueError, match="built for"):
+        chamfer.nn_half_tiled(torch.zeros((1, 600, 2), device=dev),
+                              torch.zeros((1, 600, 2), device=dev))
+
+
+@pytest.mark.parametrize("N,Cf,C,k", [(1024, 3, 64, 20), (512, 64, 256, 20),
+                                      (200, 24, 64, 20), (40, 5, 48, 7),
+                                      (256, 128, 256, 40), (96, 30, 30, 20),
+                                      (1000, 70, 130, 33)])
+def test_knn_aggregate_kernels_match_plain(dev, N, Cf, C, k):
+    """Forward bit for bit (neighbours, max, min, sums in round order, first
+    rounds); du of both backward kernels within 1e-5 of the plain version's
+    largest magnitude (the plain version sums a row's contributions in
+    another order) and identical bits on a second run. U holds bf16 values
+    and some points are duplicated, so distances and values tie."""
+    g = _gen(dev, 7)
+    B = 3
+    assert edgeconv.supported(N, k)
+    xf = torch.randn((B, N, Cf), generator=g, device=dev)
+    U = torch.randn((B, N, C), generator=g, device=dev).bfloat16().float()
+    xf[:, N // 2:N // 2 + 10] = xf[:, :10]
+    U[:, N // 2:N // 2 + 10] = U[:, :10]
+    cots = [torch.randn((B, N, C), generator=g, device=dev) for _ in range(4)]
+    outk = edgeconv.knn_aggregate_fwd_kernel(U, xf, k, True)
+    idx = edgeconv.knn_select_plain(xf, k)
+    outp = edgeconv.aggregate_plain(U, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(outk[4], idx)
+    for a, b in zip(outk[:4] + outk[5:], outp):
+        assert torch.equal(a.to(b.dtype), b)
+    assert torch.equal(idx[:, :10, 0], torch.arange(10, device=dev).expand(B, -1))
+    for mode in ("first", "split"):
+        lk = U.clone().requires_grad_()
+        lp = U.clone().requires_grad_()
+        ok = edgeconv.knn_aggregate(lk, xf, k, mode)
+        op = edgeconv.knn_aggregate_plain(lp, xf, k, mode)
+        gk = torch.autograd.grad(ok[:4], lk, cots, retain_graph=True)[0]
+        gk2 = torch.autograd.grad(ok[:4], lk, cots)[0]
+        gp = torch.autograd.grad(op[:4], lp, cots)[0]
+        assert _rel(gk, gp) < 1e-5, mode
+        assert torch.equal(gk, gk2), mode
+
+
+def test_shapes_inside_a_gate_without_a_kernel_raise(dev):
+    """A CUDA shape inside a JAX gate whose kernel is missing raises."""
+    z = lambda *shape: torch.zeros(shape, device=dev)
+    assert edgeconv.supported(2048, 20)
+    with pytest.raises(NotImplementedError, match="built for"):
+        edgeconv.knn_aggregate(z(1, 2048, 8), z(1, 2048, 3), 20)
+    with pytest.raises(NotImplementedError, match="knn_pallas"):
+        geometry.knn(z(1, 1024, 3), z(1, 1024, 3), 20)
+    x = z(128, 1024, 64).requires_grad_()
+    out = gather.gather_rows(x, torch.zeros((128, 20480), dtype=torch.int32, device=dev))
+    with pytest.raises(NotImplementedError, match="scatter_rows_add_pallas"):
+        out.sum().backward()
+    with pytest.raises(NotImplementedError, match="gather_by_key_small_c_pallas"):
+        geometry.resample_batch(z(64, 2048, 3), torch.ones((64, 2048), dtype=torch.bool,
+                                                           device=dev), 1024)

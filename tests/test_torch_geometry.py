@@ -4,6 +4,7 @@ including the Pallas kernels run in interpret mode."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
@@ -13,7 +14,8 @@ from point_dae_tpu.ops.pallas_scatter import (gather_rows as j_gather_rows,
                                               gather_rows_small_c_pallas)
 
 from point_dae_torch.ops import geometry as G
-from point_dae_torch.ops.gather import gather_rows, gather_rows_small_c
+from point_dae_torch.ops.gather import (gather_rows, gather_rows_small_c,
+                                        use_scatter_kernel)
 from point_dae_torch.ops.patchify import fused_patchify, fused_patchify_plain
 
 
@@ -69,3 +71,32 @@ def test_gather_rows_gradient_matches_jax():
     xt = torch.from_numpy(x).requires_grad_()
     (gather_rows(xt, torch.from_numpy(idx)) * torch.from_numpy(cot)).sum().backward()
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gj), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dev,nq,ndb,k,want", [
+    ("cuda", 1024, 1024, 20, True),      # the reference EdgeConv at DGCNN shapes
+    ("cuda", 64, 1024, 32, True),
+    ("cuda", 64, 1024, 6, False),        # k < 8
+    ("cuda", 1024, 2048, 20, False),     # database above one tile
+    ("cuda", 1024, 500, 20, False),      # below 512, not a multiple of 128
+    ("cuda", 63, 1024, 20, False),       # queries not a multiple of 8
+    ("cpu", 1024, 1024, 20, False)])
+def test_knn_gate_follows_jax(dev, nq, ndb, k, want):
+    """The ``knn_pallas`` gate as a function of shapes and device type: open
+    on CUDA exactly where the JAX package's is on a TPU; a CPU tensor keeps
+    the plain path whatever its shape."""
+    assert G.use_knn_kernel(dev, nq, ndb, k) is want
+    if dev == "cpu":
+        q = torch.zeros((1, 16, 3))
+        assert G.knn(q, torch.zeros((1, 512, 3)), 8)[1].shape == (1, 16, 8)
+
+
+@pytest.mark.parametrize("dev,B,Q,N,C,want", [
+    ("cuda", 128, 20480, 1024, 64, True),     # the reference EdgeConv's backward
+    ("cuda", 256, 2048, 1024, 3, False),      # the flagship's patch gather: C < 32
+    ("cuda", 128, 20480, 4096, 64, False),    # N > 2048
+    ("cuda", 2, 1024, 1024, 64, False),       # below 2^24 elements
+    ("cpu", 128, 20480, 1024, 64, False)])
+def test_scatter_gate_follows_jax(dev, B, Q, N, C, want):
+    """``_use_mxu_scatter`` as a function of shapes and device type."""
+    assert use_scatter_kernel(dev, B, Q, N, C) is want
