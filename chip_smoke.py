@@ -25,7 +25,20 @@ Phases, each fatal on failure:
               batch 128 from a raw (128, 8192, 6) tensor, 1024 points, k 20,
               widths 64/64/128/256, bf16, affine_r3 + dropout_local), counters
               zeroed and read the same way, one profiled step, and 2 steps
-              with edgeconv_exact_grads (the 'split' backward kernel).
+              with edgeconv_exact_grads (the 'split' backward kernel);
+  6. finetune - the classification fine-tune entry of the two shipped
+              recipes at full width from random clouds: A, PointTransformer
+              (cfgs/finetune_scan_hardest_transferring_features.yaml: batch
+              32 of 2048 points, FPS 2048 -> 2048, trans_dim 384, depth 12,
+              G 128 x S 32, f32, smooth CE) and B, DGCNN
+              (cfgs/finetune_modelnet_transferring_features_1k.yaml: batch
+              32 of 8192 points, FPS 1200 then a random 1024, f32, CE); the
+              fps kernel against its plain version at the recipes' shapes;
+              both models' eval logits and train-mode loss at batch 8 on the
+              card against the CPU; 5 train steps of each (counters zeroed
+              before, read after), a profiled step, an eval step, a 10-draw
+              vote step and the accuracy loop; then 2 steps of A in bf16
+              (T 129 keeps the plain attention and MLP, as in JAX).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Run from the repository root:
 
@@ -88,6 +101,23 @@ DGCNN_CONFIG = {           # bench.py's DGCNN line: the released recipe's shapes
     "npoints": 1024, "total_bs": DGCNN_BATCH, "step_per_update": 1,
     "max_epoch": 1200, "loss_type": "xyznormal_gradual",
 }
+FT_BATCH, FT_CHECK_BATCH, FT_STEPS, FT_BF16_STEPS, VOTE_TIMES = 32, 8, 5, 2, 10
+FT_OPTIM = {"optimizer": {"type": "AdamW", "part": "all",
+                          "kwargs": {"lr": 0.0005, "weight_decay": 0.05}},
+            "scheduler": {"type": "CosLR", "kwargs": {"epochs": 300, "initial_epochs": 10}},
+            "total_bs": FT_BATCH, "step_per_update": 1, "max_epoch": 300,
+            "grad_norm_clip": 10}
+FINETUNE_A = dict(FT_OPTIM, npoints=2048, model={   # finetune_scan_hardest_transferring_features
+    "NAME": "PointTransformer", "trans_dim": 384, "depth": 12, "drop_path_rate": 0.1,
+    "cls_dim": 15, "num_heads": 6, "group_size": 32, "num_group": 128,
+    "encoder_dims": 384})
+FINETUNE_B = dict(FT_OPTIM, npoints=1024,           # finetune_modelnet_transferring_features_1k
+                  model={"NAME": "DGCNN", "cls_dim": 40})
+# (config, raw points a cloud (ScanObjectNN_hardest: 2048; ModelNet40Official:
+# 8192), smooth loss as tools/bench_downstream.py runs each)
+FINETUNES = {"A": (FINETUNE_A, 2048, True), "B": (FINETUNE_B, 8192, False)}
+FT_COUNTERS = {"A": ("fps", "patchify"),
+               "B": ("fps", "knn_aggregate_fwd", "knn_aggregate_bwd_first")}
 
 
 def fail(msg: str) -> None:
@@ -783,9 +813,10 @@ def phase_train(torch, config, raw, device, card):
     return launches
 
 
-def profile_step(torch, run, card, top: int = 25) -> None:
+def profile_step(torch, run, card, top: int = 25):
     """Device time by kernel over one more step, under torch.profiler (which
-    slows the host side, so the busy share is a lower bound)."""
+    slows the host side, so the busy share is a lower bound). Returns (busy
+    microseconds, microseconds by ported kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -811,7 +842,7 @@ def profile_step(torch, run, card, top: int = 25) -> None:
             "edgeconv_select_kernel": 0.0, "edgeconv_aggregate_kernel": 0.0,
             "edgeconv_bwd_kernel": 0.0, "edgeconv_tie_weights_kernel": 0.0,
             "row_sqnorm_kernel": 0.0,
-            "nn_half_tiled_kernel": 0.0}
+            "nn_half_tiled_kernel": 0.0, "fps_kernel": 0.0}
     for e in events:
         for k in ours:
             if k in e.key:
@@ -822,6 +853,264 @@ def profile_step(torch, run, card, top: int = 25) -> None:
     for e in sorted(events, key=dev_us, reverse=True)[:top]:
         log(f"    {dev_us(e) / 1e3:8.3f} ms {100 * dev_us(e) / busy:5.1f}% "
             f"x{e.count:<4d} {e.key[:110]}")
+    return busy, ours
+
+
+def ft_clouds(torch, name, batch, device, seed):
+    """Random clouds of recipe ``name`` (numpy draws from ``seed``) and labels."""
+    import numpy as np
+
+    config, n_raw, _ = FINETUNES[name]
+    rng = np.random.default_rng(seed)
+    pts = torch.from_numpy(rng.normal(size=(batch, n_raw, 3)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, config["model"]["cls_dim"], size=(batch,)))
+    return pts.to(device), labels.to(device)
+
+
+def phase_fps_kernels(torch, device):
+    """The fps kernel against its plain version, indices equal, at the
+    recipes' shapes (B train 8192 -> 1200, B eval 8192 -> 1024, A 2048 ->
+    2048) and one in the per-row gate (1200 -> 1024), on clouds with
+    duplicated and zeroed points; and patchify at the PointTransformer's
+    shape (G 128 of 2048) against its plain version."""
+    from point_dae_torch.ops import fps, patchify
+
+    g = torch.Generator(device=device).manual_seed(SEED + 20)
+    rows = []
+    for N, n in ((8192, 1200), (8192, 1024), (2048, 2048), (1200, 1024)):
+        pts = torch.randn((FT_BATCH, N, 3), generator=g, device=device)
+        pts[:, N // 2:N // 2 + N // 16] = pts[:, :N // 16]        # duplicated points
+        pts[:, 5:9] = 0.0                                        # never selectable
+        got, want = fps.fps_kernel(pts, n), fps.furthest_point_sample_plain(pts, n)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"fps ({N} -> {n}): picks differ from the plain version (match "
+                 f"{float((got == want).float().mean())})")
+        if bool((got[:, 1:, None] == torch.arange(5, 9, device=device)).any()):
+            fail(f"fps ({N} -> {n}): a zeroed point was picked")
+        ms = cuda_ms(lambda: fps.fps_kernel(pts, n), 10)
+        plain = cuda_ms(lambda: fps.furthest_point_sample_plain(pts, n), 1)
+        bound = bound_ms(pts.numel() * 4 + FT_BATCH * n * 4, FT_BATCH * N * n * 8, F32_FLOPS)
+        rows.append((N, n, ms, plain, bound))
+        log(f"  fps ({FT_BATCH}, {N}) -> {n}: {ms:.4f} ms (plain {plain:.4f}, bound "
+            f"{bound[0]:.4f} by {bound[1]}), picks equal")
+    pts = torch.randn((FT_BATCH, 2048, 3), generator=g, device=device)
+    fk, kk = patchify.fused_patchify(pts, 128, 32)
+    fp, kp = patchify.fused_patchify_plain(pts, 128, 32)
+    torch.cuda.synchronize()
+    center = pts.gather(1, fk.long()[..., None].expand(-1, -1, 3))
+    d = ((pts[:, None] - center[:, :, None]) ** 2).sum(-1)
+    match = float((kk == kp).float().mean())
+    if not (torch.equal(fk, fp) and match > 0.9999 and torch.allclose(
+            d.gather(-1, kk.long()), d.gather(-1, kp.long()), rtol=1e-4, atol=1e-4)):
+        fail(f"patchify at (32, 2048), G 128: differs from the plain version ({match})")
+    log(f"  patchify ({FT_BATCH}, 2048), G 128, S 32: "
+        f"{cuda_ms(lambda: patchify.fused_patchify(pts, 128, 32), 10):.4f} ms (plain "
+        f"{cuda_ms(lambda: patchify.fused_patchify_plain(pts, 128, 32), 1):.4f}), fps equal, "
+        f"knn idx match {match:.6f}")
+    N, n, ms, plain, bound = rows[0]
+    return {"fps": dict(
+        replaces="point_dae_tpu/ops/pallas_fps.py:15", source="point_dae_torch/csrc/fps.cu",
+        max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=None, bound=bound,
+        note=f"B {FT_BATCH}, {N} -> {n} (the DGCNN fine-tune train step); picks equal")}
+
+
+def dgcnn_feature_plain(torch, enc, x):
+    """The DGCNN encoder's global feature through the fused EdgeConv kernel's
+    plain version (the kernel's arithmetic: exact distances summed in
+    channel order, BatchNorm statistics rebuilt from the aggregates), on
+    whatever device ``x`` lies."""
+    from point_dae_torch.models.dgcnn import fused_edge_conv
+    from point_dae_torch.models.layers import leaky_relu02
+
+    feats = []
+    for i in range(1, len(enc.WIDTHS) + 1):
+        x = fused_edge_conv(x, getattr(enc, f"conv{i}")[0], getattr(enc, f"bn{i}"), enc.k,
+                            enc.dtype, interpret=True, **enc.fused_flags)
+        feats.append(x)
+    return leaky_relu02(enc.bn5(enc.conv5[0](torch.cat(feats, -1)))).amax(1)
+
+
+def phase_finetune_check(torch, device):
+    """Both fine-tune models at FT_CHECK_BATCH on the card (kernels) against
+    the same weights on the CPU, f32: the resampled clouds equal (FPS picks
+    bit for bit); eval logits against the CPU's plain path (the reference
+    EdgeConv for B) within 1e-3 of the largest logit; the train-mode loss
+    with the same draws within 1e-3 of the loss, for B against the EdgeConv
+    kernel's plain version: in train mode the BatchNorm statistics pool
+    every point's k neighbours, so the neighbours that the reference's
+    matmul distances and the kernel's exact ones order differently at a
+    near-tie move the whole batch (on raw normal clouds the reference reads
+    0.06% off the kernel's plain version on the CPU, the card 0.26% off the
+    reference), while eval mode confines such a flip to its point."""
+    from point_dae_torch.engine import finetune
+    from point_dae_torch.models import build_model_from_cfg
+    from point_dae_torch.models.common import ClsDraws
+    from point_dae_torch.utils import kernels
+
+    for name, (config, n_raw, smooth) in FINETUNES.items():
+        t0 = time.perf_counter()
+        pts, labels = ft_clouds(torch, name, FT_CHECK_BATCH, device, SEED + 21)
+        pts_c, labels_c = pts.cpu(), labels.cpu()
+        cpu_model = build_model_from_cfg(config["model"], device="cpu", seed=SEED + 22)
+        gpu_model = copy.deepcopy(cpu_model).to(device)
+        npoints = config["npoints"]
+        before = kernels.launches["fps"]
+        eg = finetune.make_eval_step(gpu_model, config, device=device)(pts).cpu()
+        ec = finetune.make_eval_step(cpu_model, config, device="cpu")(pts_c)
+        gc = torch.Generator().manual_seed(SEED + 23)
+        keep = finetune.point_all(npoints, n_raw)
+        subset = finetune.sample_subset(FT_CHECK_BATCH, keep, npoints, gc, "cpu") \
+            if keep > npoints else None
+        dc = cpu_model.sample_draws(FT_CHECK_BATCH, gc, "cpu")
+        dg = ClsDraws([m.to(device) for m in dc.dropout],
+                      None if dc.drop_path is None else dc.drop_path.to(device))
+        loss_fn = finetune.smooth_cross_entropy if smooth else finetune.cross_entropy
+        with torch.no_grad():
+            pc = finetune.fps_resample(pts_c, npoints, subset)
+            pg = finetune.fps_resample(pts, npoints, None if subset is None else subset.to(device))
+            cpu_model.train()
+            gpu_model.train()
+            if name == "B":
+                feat = dgcnn_feature_plain(torch, cpu_model.dgcnn_encoder, pc)
+                lc = float(loss_fn(cpu_model.cls_head_finetune(feat, dc.dropout), labels_c))
+            else:
+                lc = float(loss_fn(cpu_model(pc, draws=dc), labels_c))
+            lg = float(loss_fn(gpu_model(pg, draws=dg), labels))
+        used = kernels.launches["fps"] - before
+        err = float((eg - ec).abs().max()) / float(ec.abs().max())
+        log(f"  {name} batch {FT_CHECK_BATCH} ({time.perf_counter() - t0:.1f} s): eval logits "
+            f"max |card - cpu| / max |cpu| {err:.2e}; train-mode loss card {lg:.6f} cpu "
+            f"{lc:.6f}; fps launches {used}")
+        if not torch.equal(pg.cpu(), pc):
+            fail(f"check {name}: the resampled clouds differ between card and CPU")
+        if not (math.isfinite(lg) and math.isfinite(lc) and torch.isfinite(eg).all()):
+            fail(f"check {name}: non-finite logits or loss")
+        if err > 1e-3 or abs(lg - lc) > 1e-3 * abs(lc):
+            fail(f"check {name}: card and CPU disagree (logits {err:.2e}, loss {lg} vs {lc})")
+        if used != 2:
+            fail(f"check {name}: the fps kernel ran {used} times, expected 2")
+
+
+def run_ft_steps(torch, config, pts, labels, device, steps, seed, smooth):
+    """``steps`` fine-tune train steps of a freshly initialised model:
+    (median of steps 2-, first step, launch counters of those steps, peak
+    memory, model, a closure that takes one more step)."""
+    from point_dae_torch.engine import finetune
+    from point_dae_torch.engine.train_state import TrainState
+    from point_dae_torch.models import build_model_from_cfg
+    from point_dae_torch.utils import kernels
+
+    model = build_model_from_cfg(config["model"], device=device, seed=seed)
+    state = TrainState.create(model, config, steps_per_epoch=100,
+                              grad_norm_clip=config["grad_norm_clip"])
+    step = finetune.make_finetune_step(model, config, smooth=smooth, device=device)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    times, metrics = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        m = step(state, pts, labels, generator=g)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append((float(m["loss"]), float(m["acc"])))
+    launches = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    for i, (loss, acc) in enumerate(metrics):
+        log(f"  step {i}: loss {loss:.6f} acc {acc:.2f} ({times[i] * 1e3:.1f} ms)")
+    if not all(math.isfinite(v) for pair in metrics for v in pair):
+        fail("finetune: non-finite loss")
+    steady = sorted(times[1:])
+    steady = (steady[(len(steady) - 1) // 2] + steady[len(steady) // 2]) / 2
+    return steady, times[0], launches, peak, model, lambda: step(state, pts, labels, generator=g)
+
+
+def timed(torch, fn):
+    """(result, host milliseconds of fn ending in a synchronise)."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_finetune(torch, device, card):
+    """5 train steps of A and of B at batch 32, each with its counters zeroed
+    before and read after; a profiled step; an eval step, a 10-draw vote
+    step and the accuracy loop over two batches (the second a padded tail);
+    then 2 steps of A in bf16. Returns the fps launches of the train runs."""
+    import numpy as np
+    from point_dae_torch.engine import finetune
+    from point_dae_torch.utils import kernels
+
+    fps_launches = 0
+    for name, (config, n_raw, smooth) in FINETUNES.items():
+        pts, labels = ft_clouds(torch, name, FT_BATCH, device, SEED + 30)
+        log(f"  {name}: {config['model']['NAME']}, ({FT_BATCH}, {n_raw}, 3) -> "
+            f"{config['npoints']} points, {FT_STEPS} steps:")
+        steady, first, launches, peak, model, one_more = run_ft_steps(
+            torch, config, pts, labels, device, FT_STEPS, SEED + 31, smooth)
+        missing = [k for k in FT_COUNTERS[name] if launches[k] == 0]
+        if missing or launches["fps"] != FT_STEPS:
+            fail(f"finetune {name}: kernels not launched as expected on the main path: "
+                 f"{launches}")
+        fps_launches += launches["fps"]
+        log(f"  launches on the {name} path ({FT_STEPS} steps): "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        log(f"  [{card}] {name} train step {steady * 1e3:.2f} ms (median of steps "
+            f"2-{FT_STEPS}), {FT_BATCH / steady:.1f} clouds/s, first step {first * 1e3:.1f} ms, "
+            f"max_memory_allocated {peak / 2 ** 30:.2f} GiB")
+        busy, ours = profile_step(torch, one_more, card, top=12)
+        log(f"  [{card}] {name} fps share of the profiled step's device time: "
+            f"{100 * ours['fps_kernel'] / busy:.1f}% ({ours['fps_kernel'] / 1e3:.3f} ms)")
+        del one_more
+
+        eval_step = finetune.make_eval_step(model, config, device=device)
+        vote_step = finetune.make_vote_step(model, config, times=VOTE_TIMES, device=device)
+        g = torch.Generator(device=device).manual_seed(SEED + 32)
+        ms = {}
+        for what, fn in (("eval", lambda: eval_step(pts)),
+                         ("vote", lambda: vote_step(pts, generator=g))):
+            timed(torch, fn)                               # warm-up
+            kernels.reset_launches()
+            out, ms[what] = timed(torch, fn)
+            if (tuple(out.shape) != (FT_BATCH, config["model"]["cls_dim"])
+                    or not bool(torch.isfinite(out).all())):
+                fail(f"finetune {name}: bad {what} logits")
+            want = 1 if what == "eval" else VOTE_TIMES
+            if kernels.launches["fps"] != want:
+                fail(f"finetune {name}: {what} step launched fps {kernels.launches['fps']} "
+                     f"times, expected {want}")
+        rng = np.random.default_rng(SEED + 33)
+        batches = [{"points": rng.normal(size=(b, n_raw, 3)).astype(np.float32),
+                    "label": rng.integers(0, config["model"]["cls_dim"], size=(b,))}
+                   for b in (FT_BATCH, 20)]
+        acc, acc_ms = timed(torch, lambda: finetune.evaluate(eval_step, batches, FT_BATCH))
+        vacc, vacc_ms = timed(torch, lambda: finetune.vote_eval(vote_step, batches, FT_BATCH, g))
+        log(f"  [{card}] {name} eval step {ms['eval']:.2f} ms, {VOTE_TIMES}-draw vote step "
+            f"{ms['vote']:.2f} ms (host clock, second call); accuracy loop over "
+            f"{FT_BATCH + 20} random clouds {acc:.2f}% ({acc_ms:.1f} ms), vote {vacc:.2f}% "
+            f"({vacc_ms:.1f} ms)")
+        del model, eval_step, vote_step, pts
+        torch.cuda.empty_cache()
+
+    # A in bf16 (tools/bench_downstream.py:78): T = 129 keeps the plain
+    # attention (R = 2 x 129 is no multiple of 8) and R = 32 x 129 the plain MLP
+    config, n_raw, smooth = FINETUNES["A"]
+    bf = copy.deepcopy(config)
+    bf["model"]["dtype"] = "bf16"
+    pts, labels = ft_clouds(torch, "A", FT_BATCH, device, SEED + 34)
+    log(f"  A in bf16, {FT_BF16_STEPS} steps:")
+    steady, _, launches, peak, _, _ = run_ft_steps(torch, bf, pts, labels, device,
+                                                   FT_BF16_STEPS, SEED + 31, smooth)
+    opened = [k for k in ("attention_fwd", "attention_bwd", "mlp_ln_fwd", "mlp_ln_bwd")
+              if launches[k]]
+    if opened or launches["fps"] != FT_BF16_STEPS:
+        fail(f"finetune A bf16: unexpected launches {launches}")
+    log(f"  [{card}] A bf16 train step {steady * 1e3:.2f} ms (step 2), peak "
+        f"{peak / 2 ** 30:.2f} GiB; launches { {k: v for k, v in launches.items() if v} }")
+    return fps_launches
 
 
 def main() -> None:
@@ -882,6 +1171,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     records.update(phase_dgcnn_kernels(torch, corrupted_d, clean_d, device))
     torch.cuda.empty_cache()
+    records.update(phase_fps_kernels(torch, device))
+    torch.cuda.empty_cache()
     for name, r in records.items():
         log(f"  [{card}] {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
             f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}, "
@@ -891,6 +1182,7 @@ def main() -> None:
     log("check:")
     phase_check(torch, config, raw, device)
     phase_dgcnn_check(torch, dconfig, corrupted_d, clean_d, device)
+    phase_finetune_check(torch, device)
 
     # 5. train
     log("train:")
@@ -901,6 +1193,12 @@ def main() -> None:
     launches_d = phase_dgcnn_train(torch, dconfig, raw_d, device, card)
     for k in DGCNN_COUNTERS + ("knn_aggregate_bwd_split",):
         launches[k] = launches_d[k]
+    del raw_d, corrupted_d, clean_d
+    torch.cuda.empty_cache()
+
+    # 6. the classification fine-tune entry
+    log("finetune:")
+    launches["fps"] = phase_finetune(torch, device, card)
     if min(launches.values()) == 0:
         fail(f"a kernel was never launched on its main path: {launches}")
 

@@ -1,6 +1,10 @@
 """Optimizer, schedule and train state (port of
 ``point_dae_tpu/engine/train_state.py:26-160`` for ``optimizer.part: all``).
 
+With ``grad_norm_clip`` the gradients are clipped by their global norm
+first, in optax's form (``clip_by_global_norm``): left as they are when
+``norm < max``, else replaced by ``(g / norm) * max``, with no epsilon.
+
 AdamW (b1 0.9, b2 0.999, eps 1e-8) with decoupled weight decay, skipped for
 parameters with ndim <= 1, names ending in ``bias`` or containing
 ``token`` (the reference's ``add_weight_decay``). The learning rate follows
@@ -12,7 +16,7 @@ configs' ``initial_epochs`` key.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -66,23 +70,44 @@ def build_optimizer(config: Dict, model: torch.nn.Module, steps_per_epoch: float
     return opt, sched
 
 
+@torch.no_grad()
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """optax ``clip_by_global_norm`` in place on ``grads``; returns the
+    global norm (a device scalar: nothing waits for the card)."""
+    norm = torch.sqrt(torch.stack([(g.float() * g.float()).sum() for g in grads]).sum())
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm))
+    return norm
+
+
 class TrainState:
-    """The model, its optimizer and schedule, and the step count."""
+    """The model, its optimizer and schedule, the global-norm clip (None:
+    no clipping) and the step count."""
 
     def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                 schedule: Callable[[int], float]):
+                 schedule: Callable[[int], float],
+                 grad_norm_clip: Optional[float] = None):
         self.model = model
         self.optimizer = optimizer
         self.schedule = schedule
+        self.grad_norm_clip = float(grad_norm_clip) if grad_norm_clip else None
         self.step = 0
 
     @classmethod
-    def create(cls, model, config, steps_per_epoch: float) -> "TrainState":
-        return cls(model, *build_optimizer(config, model, steps_per_epoch))
+    def create(cls, model, config, steps_per_epoch: float,
+               grad_norm_clip: Optional[float] = None) -> "TrainState":
+        return cls(model, *build_optimizer(config, model, steps_per_epoch),
+                   grad_norm_clip=grad_norm_clip)
 
     def apply_gradients(self) -> None:
-        """One AdamW update from the gradients in ``.grad``, at the learning
-        rate of the current step; then the step count advances."""
+        """One AdamW update from the gradients in ``.grad`` (clipped first
+        when ``grad_norm_clip`` is set), at the learning rate of the
+        current step; then the step count advances."""
+        if self.grad_norm_clip is not None:
+            grads = [p.grad for g in self.optimizer.param_groups for p in g["params"]
+                     if p.grad is not None]
+            clip_by_global_norm_(grads, self.grad_norm_clip)
         lr = self.schedule(self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr

@@ -2,7 +2,8 @@
 from __future__ import annotations
 
 import itertools
-from typing import Sequence, Tuple
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,3 +28,26 @@ def apply_input_dropout(pts: torch.Tensor, corrupt_type: Sequence[str]) -> torch
                 or item.startswith("dropout_global")):
             raise NotImplementedError(f"in-model corruption {item!r} is not ported yet")
     return pts
+
+
+@dataclass
+class ClsDraws:
+    """Every random draw of one training forward of a classification
+    model: the head's dropout keep masks (one (B, width) bool a Dropout, in
+    order) and the stochastic-depth keep masks ((depth, 2, B) bool, or None
+    for a model without them)."""
+    dropout: Sequence[torch.Tensor]
+    drop_path: Optional[torch.Tensor] = None
+
+
+def dropout_from_mask(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """flax ``nn.Dropout`` with a given keep mask: kept elements scaled by
+    1 / (1 - rate), the others zero."""
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def sample_dropout_masks(batch: int, widths: Sequence[int], rate: float,
+                         generator: Optional[torch.Generator], device) -> list:
+    """Keep masks (B, width) bool, kept with probability 1 - rate."""
+    return [torch.rand((batch, w), generator=generator, device=device) >= rate
+            for w in widths]

@@ -1,5 +1,6 @@
 """DGCNN-backbone DAE pretraining models (port of
-``point_dae_tpu/models/dae_dgcnn.py:31-92``): ``Point_CAE_DGCNN_FCOnly``.
+``point_dae_tpu/models/dae_dgcnn.py:31-92``): ``Point_CAE_DGCNN_FCOnly``;
+and the classification fine-tune model ``DGCNN`` (``:202-236``).
 
 Calling convention: ``model(corrupted, clean) -> (loss_xyz, loss_normal)``;
 ``encode`` returns the global feature. The model draws nothing at random:
@@ -7,16 +8,16 @@ its configured corruptions run in the data pipeline.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 
 from ..losses.chamfer import build_loss_func
 from ..utils.registry import MODELS
-from .common import apply_input_dropout
+from .common import ClsDraws, apply_input_dropout, dropout_from_mask, sample_dropout_masks
 from .dgcnn import DGCNNEncoder
-from .layers import MLP
+from .layers import MLP, BatchNorm, Dense, leaky_relu02
 
 
 class _DGCNNDAEBase(nn.Module):
@@ -69,3 +70,63 @@ class Point_CAE_DGCNN_FCOnly(_DGCNNDAEBase):
         coarse = self.reconstruct(corrupted)
         loss = self.loss_func(coarse, clean[..., :3].contiguous())
         return loss, torch.zeros((), device=loss.device)
+
+
+class _ClsHead(nn.Sequential):
+    """DGCNN classification head (``dae_dgcnn.py:202-222``): Dense 512 +
+    BatchNorm + LeakyReLU(0.2) + Dropout(0.5), Dense 256 + BatchNorm +
+    LeakyReLU + Dropout, then the classifier. The torch names follow the
+    reference's ``cls_head_finetune`` Sequential (Linear, BN, LeakyReLU,
+    Linear, BN, LeakyReLU, Dropout, Linear: parameters at ``0, 1, 3, 4,
+    7``); as in the JAX package a dropout follows both stages, with the keep
+    masks given as inputs."""
+
+    RATE = 0.5
+    DIMS = (512, 256)
+
+    def __init__(self, cls_dim: int, generator: Optional[torch.Generator] = None):
+        super().__init__(Dense(1024, 512, generator=generator), BatchNorm(512),
+                         nn.LeakyReLU(0.2), Dense(512, 256, generator=generator),
+                         BatchNorm(256), nn.LeakyReLU(0.2), nn.Dropout(self.RATE),
+                         Dense(256, cls_dim, generator=generator))
+
+    def forward(self, x: torch.Tensor, keep: Optional[Sequence[torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """``keep``: the two (B, width) keep masks, or None (eval)."""
+        for i, (fc, bn) in enumerate(((0, 1), (3, 4))):
+            x = leaky_relu02(self[bn](self[fc](x)))
+            if keep is not None:
+                x = dropout_from_mask(x, keep[i], self.RATE)
+        return self[7](x)
+
+
+@MODELS.register_module()
+class DGCNN(nn.Module):
+    """Classification fine-tune model (``dae_dgcnn.py:225-236``): the f32
+    DGCNN encoder (``edgeconv_impl`` default ``auto``: the fused kernel on
+    CUDA) and ``_ClsHead`` on its global feature. Calling convention:
+    ``model(pts (B, N, 3)) -> logits (B, cls_dim)``; in training the head's
+    dropout masks come from ``draws`` or from ``generator``."""
+
+    def __init__(self, config, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dgcnn_encoder = DGCNNEncoder(
+            impl=config.get("edgeconv_impl", "auto"),
+            exact_grads=bool(config.get("edgeconv_exact_grads", False)),
+            generator=generator)
+        self.cls_head_finetune = _ClsHead(int(config.get("cls_dim", 40)), generator)
+
+    def sample_draws(self, batch: int, generator: Optional[torch.Generator],
+                     device) -> ClsDraws:
+        """Draw a training forward's randomness from ``generator``."""
+        return ClsDraws(sample_dropout_masks(batch, _ClsHead.DIMS, _ClsHead.RATE,
+                                             generator, device))
+
+    def forward(self, pts: torch.Tensor, draws: Optional[ClsDraws] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        feat = self.dgcnn_encoder(pts[..., :3])[0]
+        if not self.training:
+            return self.cls_head_finetune(feat)
+        if draws is None:
+            draws = self.sample_draws(pts.shape[0], generator, pts.device)
+        return self.cls_head_finetune(feat, draws.dropout)

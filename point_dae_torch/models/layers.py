@@ -189,7 +189,8 @@ class Attention(nn.Module):
     At bf16 compute on a CUDA tensor whose shapes pass
     ``ops.attention.supported`` (the gate of
     ``point_dae_tpu/models/layers.py:231-235`` without its environment
-    switch) it runs as the ``fused_attention`` kernel;
+    switch, ``pick_bc`` and the tile terms included) it runs as the
+    ``fused_attention`` kernel;
     otherwise unfused: f32 scores, an additive -1e9 on invalid keys, f32
     softmax and values product. Either way the output is cast to the
     compute dtype before ``proj``."""

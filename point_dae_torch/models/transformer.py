@@ -1,5 +1,6 @@
 """The flagship transformer Point-DAE (port of
-``point_dae_tpu/models/transformer.py:47-82,103-200,234-427,457-573,601-634``).
+``point_dae_tpu/models/transformer.py:47-82,103-200,234-427,457-573,601-634``)
+and the classification fine-tune model ``PointTransformer`` (``:742-801``).
 
 Static-shape MAE design, as in the JAX package: the mask ratio is bounded
 (U(0.5, 0.8) with ``rand_ratio``), so the visible tokens are packed into a
@@ -14,7 +15,7 @@ the given ``torch.Generator``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -25,9 +26,9 @@ from ..losses.chamfer import build_loss_func, masked_chamfer_l2
 from ..ops.folding import fused_folding, stage_params, supported as fold_supported
 from ..ops.geometry import group_neighborhood
 from ..utils.registry import MODELS
-from .common import folding_grid
-from .layers import (MLP, PatchEncoder, PosEmbedMLP, SplitMLP, TransformerDecoder,
-                     TransformerEncoder, LayerNorm, stack_dp_masks)
+from .common import ClsDraws, dropout_from_mask, folding_grid, sample_dropout_masks
+from .layers import (MLP, BatchNorm, Dense, PatchEncoder, PosEmbedMLP, SplitMLP,
+                     TransformerDecoder, TransformerEncoder, LayerNorm, stack_dp_masks)
 
 
 def static_num_masked(ratio: float, num_group: int) -> int:
@@ -237,3 +238,92 @@ class PointCAE_transformer_fc_global_folding_local(nn.Module):
         rebuild = self._fold(x_loc).reshape(gt.shape[0], -1, 3)
         loss1 = masked_chamfer_l2(rebuild, gt, w)
         return loss1, loss2
+
+
+# ----------------------------------------------------------- finetune heads
+
+class _FinetuneHead(nn.Sequential):
+    """Dense + BatchNorm + ReLU + Dropout(0.5) twice, then the classifier
+    (``transformer.py:744-757``). The torch names follow the reference's
+    ``cls_head_finetune`` Sequential, whose Dense and BatchNorm layers sit at
+    ``0, 1, 4, 5, 8``; the ReLU and Dropout entries hold no parameters, and
+    the dropout keep masks come in as inputs."""
+
+    RATE = 0.5
+
+    def __init__(self, din: int, dims: Sequence[int], cls_dim: int,
+                 generator: Optional[torch.Generator] = None):
+        mods = []
+        for d in dims:
+            mods += [Dense(din, d, generator=generator), BatchNorm(d), nn.ReLU(),
+                     nn.Dropout(self.RATE)]
+            din = d
+        mods.append(Dense(din, cls_dim, generator=generator))
+        super().__init__(*mods)
+        self.dims = tuple(dims)
+
+    def forward(self, x: torch.Tensor, keep: Optional[Sequence[torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """``keep``: one (B, width) keep mask a Dropout, or None (eval)."""
+        for i in range(len(self.dims)):
+            x = torch.relu(self[4 * i + 1](self[4 * i](x)))
+            if keep is not None:
+                x = dropout_from_mask(x, keep[i], self.RATE)
+        return self[-1](x)
+
+
+@MODELS.register_module()
+class PointTransformer(nn.Module):
+    """Classification fine-tune with a cls token and cls position
+    (``transformer.py:760-801``): patch embedding, the ViT encoder over
+    [cls, patch tokens], a final LayerNorm, and the head on the concat of
+    the cls output and the max over the patch tokens. ``dtype: bf16`` (a
+    model key) runs the patch embedding and the blocks at bf16 compute.
+    Calling convention: ``model(pts (B, N, 3)) -> logits (B, cls_dim)``;
+    in training the draws (head dropout, stochastic depth) come from
+    ``draws`` or from ``generator``."""
+
+    def __init__(self, config, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        c = config
+        dt = c.get("dtype")
+        self.compute_dtype = torch.bfloat16 if str(dt) in ("bf16", "bfloat16") else None
+        self.num_group, self.group_size = int(c["num_group"]), int(c["group_size"])
+        C = int(c["trans_dim"])
+        g = generator
+        self.encoder = PatchEncoder(int(c["encoder_dims"]), dtype=self.compute_dtype,
+                                    generator=g)
+        self.pos_embed = PosEmbedMLP(C, generator=g)
+        self.cls_token = nn.Parameter(nn.init.trunc_normal_(
+            torch.empty(1, 1, C), 0.0, 0.02, -0.04, 0.04, generator=g))
+        self.cls_pos = nn.Parameter(nn.init.trunc_normal_(
+            torch.empty(1, 1, C), 0.0, 0.02, -0.04, 0.04, generator=g))
+        self.blocks = TransformerEncoder(C, int(c["depth"]), int(c["num_heads"]),
+                                         drop_path_rate=float(c.get("drop_path_rate", 0.1)),
+                                         dtype=self.compute_dtype, generator=g)
+        self.norm = LayerNorm(C)
+        self.cls_head_finetune = _FinetuneHead(2 * C, (512, 256), int(c["cls_dim"]),
+                                               generator=g)
+
+    def sample_draws(self, batch: int, generator: Optional[torch.Generator],
+                     device) -> ClsDraws:
+        """Draw a training forward's randomness from ``generator``."""
+        return ClsDraws(
+            sample_dropout_masks(batch, self.cls_head_finetune.dims,
+                                 _FinetuneHead.RATE, generator, device),
+            stack_dp_masks(self.blocks.dpr, batch, generator, device))
+
+    def forward(self, pts: torch.Tensor, draws: Optional[ClsDraws] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        neigh, center = group_neighborhood(pts[..., :3], self.num_group, self.group_size)
+        tokens = self.encoder(neigh)
+        B, _, C = tokens.shape
+        if not self.training:
+            draws = None
+        elif draws is None:
+            draws = self.sample_draws(B, generator, pts.device)
+        pos = torch.cat([self.cls_pos.expand(B, 1, C), self.pos_embed(center)], 1)
+        x = torch.cat([self.cls_token.expand(B, 1, C), tokens], 1)
+        x = self.norm(self.blocks(x, pos, None, None if draws is None else draws.drop_path))
+        feat = torch.cat([x[:, 0], x[:, 1:].amax(1)], -1)
+        return self.cls_head_finetune(feat, None if draws is None else draws.dropout)

@@ -4,10 +4,12 @@ functions and plain version.
 Port of ``point_dae_tpu/ops/pallas_attn.py:fused_attention``; the CUDA
 kernels are ``csrc/attention.cu``: one block per (cloud, head) holds q, k,
 v and the (T, T) scores on chip in both passes, so the result depends on no
-tile size. The TPU kernel's ``bc`` (clouds per block-diagonal tile) and its
-``pick_bc`` exist to fill that chip's matrix unit and have no counterpart
-here; nor have the wrapper's transposes to ``(H, B*T, d)``: the kernels read
-``(B, T, H, d)`` views by their strides.
+tile size. The TPU kernel's ``bc`` (clouds per block-diagonal tile) exists
+to fill that chip's matrix unit; it survives here only in the gate, which
+is the JAX gate in full (``pick_bc`` and the tile terms included), so the
+port takes the kernel at exactly the shapes the JAX package does. The
+wrapper's transposes to ``(H, B*T, d)`` have no counterpart: the kernels
+read ``(B, T, H, d)`` views by their strides.
 
 Numerics of both versions: scores from bf16 q and k with f32 accumulation,
 times ``d ** -0.5``; an invalid key *replaces* its score by -1e9; f32
@@ -30,10 +32,23 @@ from ..utils import kernels
 _BF = torch.bfloat16
 
 
-def supported(B: int, T: int, H: int, d: int) -> bool:
-    """``pallas_attn.supported`` without its tile-size terms: the shapes
-    the fused attention is taken for."""
-    return T >= 2 and d % 8 == 0 and d <= 256
+def pick_bc(B: int, T: int, target_rows: int = 512) -> int:
+    """``pallas_attn.pick_bc``: the largest clouds-per-tile bc with
+    R = bc*T <= target_rows and B % bc == 0."""
+    for bc in (16, 8, 4, 2, 1):
+        if bc * T <= target_rows and B % bc == 0:
+            return bc
+    return 1
+
+
+def supported(B: int, T: int, H: int, d: int, bc: Optional[int] = None) -> bool:
+    """``pallas_attn.supported`` (with ``bc = pick_bc(B, T)`` unless given):
+    the shapes the fused attention is taken for. Inside this gate a shape
+    the kernel is not built for raises (``fused_attention``)."""
+    bc = pick_bc(B, T) if bc is None else bc
+    R = bc * T
+    return (B % bc == 0 and R % 8 == 0 and R <= 1024
+            and d % 8 == 0 and d <= 256 and T >= 2)
 
 
 def _probs(qb, kb, key_mask, scale):

@@ -12,8 +12,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import fps
 from .gather import gather_rows
-from .patchify import fps_rows, fused_patchify
+from .patchify import fused_patchify
 
 
 def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -51,8 +52,9 @@ def knn(query: torch.Tensor, database: torch.Tensor, k: int
 
 def furthest_point_sample(points: torch.Tensor, n_samples: int) -> torch.Tensor:
     """(B, N, 3) -> (B, n_samples) int32. First pick is index 0; points with
-    |p|^2 <= 1e-3 are never picked."""
-    return fps_rows(points, n_samples)[0]
+    |p|^2 <= 1e-3 are never picked. On a CUDA tensor inside the JAX FPS gates
+    the ``fps`` kernel runs (``ops/fps.py``); elsewhere its plain version."""
+    return fps.furthest_point_sample(points, n_samples)
 
 
 def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -58,6 +58,26 @@ _RULES += [("dgcnn_encoder.conv5.0", "dgcnn_encoder/conv5"),
            ("recfc.0", "recfc/dense0"), ("recfc.2", "recfc/dense1"),
            ("recfc.4", "recfc/dense2")]
 
+# the PointTransformer fine-tune model: the encoder at the top level
+# (convert_torch._TRANSFORMER_RULES, unprefixed)
+_RULES += [
+    ("encoder.first_conv.0", "encoder/conv1"), ("encoder.first_conv.1", "encoder/bn1"),
+    ("encoder.first_conv.3", "encoder/conv2"), ("encoder.second_conv.0", "encoder/conv3"),
+    ("encoder.second_conv.1", "encoder/bn2"), ("encoder.second_conv.3", "encoder/conv4"),
+    ("pos_embed.0", "pos_embed/fc1"), ("pos_embed.2", "pos_embed/fc2"),
+    ("norm", "norm"), ("cls_token", "cls_token"), ("cls_pos", "cls_pos")]
+for _t, _f in (("norm1", "norm1"), ("attn.qkv", "attn/qkv"), ("attn.proj", "attn/proj"),
+               ("norm2", "norm2"), ("mlp.fc1", "mlp_fc1"), ("mlp.fc2", "mlp_fc2")):
+    _RULES.append((f"blocks.blocks.{{i}}.{_t}", f"blocks/block{{i}}/{_f}"))
+
+# the two fine-tune heads share their torch names at other indices, so a
+# state_dict takes the DGCNN head's rules when it holds a DGCNN encoder
+_TRANSFORMER_HEAD = [(f"cls_head_finetune.{i}", f"cls_head_finetune/{f}")
+                     for i, f in ((0, "fc0"), (1, "bn0"), (4, "fc1"), (5, "bn1"),
+                                  (8, "cls"))]
+_DGCNN_HEAD = [(f"cls_head_finetune.{i}", f"cls_head/{f}")
+               for i, f in ((0, "fc1"), (1, "bn1"), (3, "fc2"), (4, "bn2"), (7, "cls"))]
+
 _STATS = {"running_mean": "mean", "running_var": "var"}
 
 
@@ -66,8 +86,11 @@ def _pattern(fmt: str, sep: str) -> re.Pattern:
     return re.compile(f"^{esc}(?:{re.escape(sep)}(?P<leaf>[A-Za-z_]+))?$")
 
 
-_TORCH_TO_FLAX = [(_pattern(t, "."), f) for t, f in _RULES]
-_FLAX_TO_TORCH = [(_pattern(f, "/"), t) for t, f in _RULES]
+_TORCH_TO_FLAX = {head: [(_pattern(t, "."), f) for t, f in _RULES + rules]
+                  for head, rules in (("transformer", _TRANSFORMER_HEAD),
+                                      ("dgcnn", _DGCNN_HEAD))}
+_FLAX_TO_TORCH = [(_pattern(f, "/"), t)
+                  for t, f in _RULES + _TRANSFORMER_HEAD + _DGCNN_HEAD]
 
 
 def _match(table, name: str):
@@ -101,10 +124,12 @@ def to_flax(state_dict: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
     """Port ``state_dict`` -> nested ``(params, batch_stats)`` of numpy
     arrays, laid out as the JAX package's models initialise them."""
     params, stats = {}, {}
+    dgcnn = any(k.startswith("dgcnn_encoder.") for k in state_dict)
+    table = _TORCH_TO_FLAX["dgcnn" if dgcnn else "transformer"]
     for name, t in state_dict.items():
         v = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
-        path, leaf = _match(_TORCH_TO_FLAX, name)
-        if leaf is None:                        # bare parameter (mask_token)
+        path, leaf = _match(table, name)
+        if leaf is None:                        # bare parameter (mask_token, cls_token)
             _set(params, path, v)
         elif leaf in _STATS:
             _set(stats, f"{path}/{_STATS[leaf]}", v)

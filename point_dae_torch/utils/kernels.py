@@ -25,7 +25,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 SOURCES = ("patchify", "gather", "chamfer", "mlp", "folding", "attention",
-           "edgeconv")
+           "edgeconv", "fps")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,7 +36,7 @@ launches: Dict[str, int] = {"patchify": 0, "gather_rows_small_c": 0,
                             "attention_bwd": 0, "nn_half_tiled": 0,
                             "knn_aggregate_fwd": 0,
                             "knn_aggregate_bwd_first": 0,
-                            "knn_aggregate_bwd_split": 0}
+                            "knn_aggregate_bwd_split": 0, "fps": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[tuple, object] = {}

@@ -140,3 +140,31 @@ def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
     assert attention.supported(4, 8, 2, 32)
     with pytest.raises(ValueError, match="built for"):
         attention.fused_attention(narrow, narrow, narrow)
+
+
+_GATE_GRID = [(B, T, H, d) for B in (1, 7, 8, 32, 128, 256) for T in (2, 16, 32, 48, 64, 65,
+                                                                     128, 129, 257)
+              for H, d in ((6, 64), (2, 32), (6, 60), (1, 264))]
+
+
+def test_gate_is_the_jax_gate_in_full():
+    """The port's gate is ``pallas_attn.supported(B, T, H, d, pick_bc(B, T))``
+    with its tile terms: closed at the PointTransformer's T = G + 1 tokens
+    for B 32 (R = 2 x 129 and 4 x 65 are no multiples of 8), open at the
+    flagship's (256, 32) and (256, 64)."""
+    for B, T, H, d in _GATE_GRID:
+        assert attention.pick_bc(B, T) == pallas_attn.pick_bc(B, T), (B, T)
+        assert attention.supported(B, T, H, d) == pallas_attn.supported(
+            B, T, H, d, pallas_attn.pick_bc(B, T)), (B, T, H, d)
+    assert not attention.supported(32, 129, 6, 64)
+    assert not attention.supported(32, 65, 6, 64)
+    assert attention.supported(256, 32, 6, 64) and attention.supported(256, 64, 6, 64)
+
+
+def test_shape_inside_the_gate_outside_the_kernel_raises():
+    """B 8, T 128 is inside the JAX gate (bc 4, R 512) but the kernel takes
+    T in (16, 32, 48, 64) only: off the CPU it raises."""
+    assert attention.supported(8, 128, 6, 64)
+    q = torch.empty((8, 128, 6, 64), device="meta")
+    with pytest.raises(ValueError, match="built for"):
+        attention.fused_attention(q, q, q)

@@ -10,6 +10,7 @@ import torch
 
 from point_dae_torch.losses import chamfer
 from point_dae_torch.ops import attention, edgeconv, folding, gather, geometry, mlp, patchify
+from point_dae_torch.ops import fps as fps_ops
 
 pytestmark = pytest.mark.cuda
 
@@ -258,3 +259,69 @@ def test_shapes_inside_a_gate_without_a_kernel_raise(dev):
     with pytest.raises(NotImplementedError, match="gather_by_key_small_c_pallas"):
         geometry.resample_batch(z(64, 2048, 3), torch.ones((64, 2048), dtype=torch.bool,
                                                            device=dev), 1024)
+
+
+@pytest.mark.parametrize("B,N,n", [(3, 1024, 200), (2, 512, 512), (2, 1200, 1024),
+                                   (1, 8192, 300), (2, 700, 64), (2, 2048, 2048)])
+def test_fps_kernel_matches_plain(dev, B, N, n):
+    """Bit for bit: n < N, n == N (the picks repeat once the selectable
+    points run out), N not a multiple of 1024 and of 128, duplicated points
+    and points inside the unselectable radius."""
+    g = _gen(dev, 8)
+    pts = torch.randn((B, N, 3), generator=g, device=dev)
+    pts[:, N // 2:N // 2 + N // 8] = pts[:, :N // 8]
+    pts[0, 3:9] = 0.0
+    pts[-1, 11] = 0.018
+    got = fps_ops.fps_kernel(pts, n)
+    want = fps_ops.furthest_point_sample_plain(pts, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert not any(i in got[0, 1:].tolist() for i in range(3, 9))
+
+
+def test_fps_dispatch_follows_the_gate(dev):
+    """Inside the gate the kernel runs; outside it the plain version; a
+    cloud above the kernel's size inside the gate raises."""
+    from point_dae_torch.utils import kernels
+
+    pts = torch.randn((2, 1000, 3), generator=_gen(dev, 9), device=dev)
+    before = kernels.launches["fps"]
+    geometry.furthest_point_sample(pts, 16)
+    assert kernels.launches["fps"] == before + 1
+    geometry.furthest_point_sample(pts[:, :500], 16)           # below 512
+    geometry.furthest_point_sample(pts[:, :999], 16)           # N % 8 != 0
+    assert kernels.launches["fps"] == before + 1
+    with pytest.raises(NotImplementedError, match="at most 8192"):
+        geometry.furthest_point_sample(torch.zeros((1, 8200, 3), device=dev), 16)
+
+
+@pytest.mark.parametrize("name", ["PointTransformer", "DGCNN"])
+def test_tiny_finetune_step_on_the_card(dev, name):
+    """One train step, an eval step and a 2-draw vote step of a small
+    fine-tune model on the card: finite loss, the FPS kernel launched."""
+    from point_dae_torch.engine import finetune
+    from point_dae_torch.engine.train_state import TrainState
+    from point_dae_torch.models import build_model_from_cfg
+    from point_dae_torch.utils import kernels
+
+    model_cfg = {"NAME": name, "cls_dim": 15}
+    if name == "PointTransformer":
+        model_cfg.update(trans_dim=64, depth=2, drop_path_rate=0.1, num_heads=2,
+                         group_size=16, num_group=32, encoder_dims=64)
+    cfg = {"optimizer": {"type": "AdamW", "part": "all",
+                         "kwargs": {"lr": 5e-4, "weight_decay": 0.05}},
+           "scheduler": {"type": "CosLR", "kwargs": {"epochs": 300}},
+           "model": model_cfg, "npoints": 1024, "grad_norm_clip": 10}
+    model = build_model_from_cfg(model_cfg, device=dev)
+    state = TrainState.create(model, cfg, 10, grad_norm_clip=10)
+    g = _gen(dev, 10)
+    pts = torch.randn((4, 2048, 3), generator=g, device=dev)
+    labels = torch.randint(0, 15, (4,), generator=g, device=dev)
+    kernels.reset_launches()
+    m = finetune.make_finetune_step(model, cfg, smooth=True)(state, pts, labels, generator=g)
+    assert math.isfinite(float(m["loss"])) and kernels.launches["fps"] == 1
+    logits = finetune.make_eval_step(model, cfg)(pts)
+    vote = finetune.make_vote_step(model, cfg, times=2)(pts, generator=g)
+    assert logits.shape == vote.shape == (4, 15)
+    assert torch.isfinite(logits).all() and torch.isfinite(vote).all()
+    assert kernels.launches["fps"] == 4
