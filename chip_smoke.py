@@ -38,7 +38,20 @@ Phases, each fatal on failure:
               card against the CPU; 5 train steps of each (counters zeroed
               before, read after), a profiled step, an eval step, a 10-draw
               vote step and the accuracy loop; then 2 steps of A in bf16
-              (T 129 keeps the plain attention and MLP, as in JAX).
+              (T 129 keeps the plain attention and MLP, as in JAX);
+  7. partseg - the part-segmentation entry at full width from random clouds
+              with random categories and per-point labels: PT,
+              PointTransformerPartSeg (cfgs/partseg_shapenetpart.yaml: batch
+              16 of 2048 points, trans_dim 384, depth 12, G 128 x S 32, 50
+              parts, f32) and DGCNN, DGCNNPartSeg (the same recipe); the
+              scatter_rows_add kernel (the backward of the row gather)
+              against its plain version on the CPU, bit for bit, at both
+              models' shapes, with gather_rows_small_c and patchify at
+              theirs (kernels phase); both models' eval log-probs and
+              train-mode loss at batch 8 (every gate open) on the card
+              against the CPU; 5
+              train steps of each (counters zeroed before, read after), a
+              profiled step, an eval step and the mIoU loop.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Run from the repository root:
 
@@ -118,6 +131,26 @@ FINETUNE_B = dict(FT_OPTIM, npoints=1024,           # finetune_modelnet_transfer
 FINETUNES = {"A": (FINETUNE_A, 2048, True), "B": (FINETUNE_B, 8192, False)}
 FT_COUNTERS = {"A": ("fps", "patchify"),
                "B": ("fps", "knn_aggregate_fwd", "knn_aggregate_bwd_first")}
+PS_BATCH, PS_CHECK_BATCH, PS_STEPS, PS_POINTS = 16, 8, 5, 2048
+PARTSEG_PT = {             # cfgs/partseg_shapenetpart.yaml, unchanged
+    "optimizer": {"type": "AdamW", "part": "all",
+                  "kwargs": {"lr": 0.0002, "weight_decay": 0.05}},
+    "scheduler": {"type": "CosLR", "kwargs": {"epochs": 300, "initial_epochs": 10}},
+    "dataset": {
+        "train": {"_base_": "cfgs/dataset_configs/ShapeNetPart.yaml",
+                  "others": {"subset": "trainval", "npoints": 2048}},
+        "test": {"_base_": "cfgs/dataset_configs/ShapeNetPart.yaml",
+                 "others": {"subset": "test", "npoints": 2048}}},
+    "model": {"NAME": "PointTransformerPartSeg", "trans_dim": 384, "depth": 12,
+              "drop_path_rate": 0.1, "cls_dim": 50, "num_heads": 6, "group_size": 32,
+              "num_group": 128, "encoder_dims": 384},
+    "npoints": 2048, "total_bs": PS_BATCH, "max_epoch": 300, "grad_norm_clip": 10,
+}
+PARTSEG_DGCNN = dict(PARTSEG_PT, model={"NAME": "DGCNNPartSeg", "cls_dim": 50})
+# (config, scatter_rows_add launches a step, kernels its forward launches;
+# at PS_CHECK_BATCH 8 the gates of both are open: 8 x 40960 rows >= 2^18)
+PARTSEGS = {"PT": (PARTSEG_PT, 1, ("patchify",)),
+            "DGCNN": (PARTSEG_DGCNN, 2, ("gather_rows_small_c",))}
 
 
 def fail(msg: str) -> None:
@@ -842,7 +875,8 @@ def profile_step(torch, run, card, top: int = 25):
             "edgeconv_select_kernel": 0.0, "edgeconv_aggregate_kernel": 0.0,
             "edgeconv_bwd_kernel": 0.0, "edgeconv_tie_weights_kernel": 0.0,
             "row_sqnorm_kernel": 0.0,
-            "nn_half_tiled_kernel": 0.0, "fps_kernel": 0.0}
+            "nn_half_tiled_kernel": 0.0, "fps_kernel": 0.0, "sort_rows_kernel": 0.0,
+            "sum_rows_kernel": 0.0}
     for e in events:
         for k in ours:
             if k in e.key:
@@ -873,7 +907,7 @@ def phase_fps_kernels(torch, device):
     2048) and one in the per-row gate (1200 -> 1024), on clouds with
     duplicated and zeroed points; and patchify at the PointTransformer's
     shape (G 128 of 2048) against its plain version."""
-    from point_dae_torch.ops import fps, patchify
+    from point_dae_torch.ops import fps
 
     g = torch.Generator(device=device).manual_seed(SEED + 20)
     rows = []
@@ -894,7 +928,20 @@ def phase_fps_kernels(torch, device):
         rows.append((N, n, ms, plain, bound))
         log(f"  fps ({FT_BATCH}, {N}) -> {n}: {ms:.4f} ms (plain {plain:.4f}, bound "
             f"{bound[0]:.4f} by {bound[1]}), picks equal")
-    pts = torch.randn((FT_BATCH, 2048, 3), generator=g, device=device)
+    check_patchify_g128(torch, torch.randn((FT_BATCH, 2048, 3), generator=g, device=device))
+    N, n, ms, plain, bound = rows[0]
+    return {"fps": dict(
+        replaces="point_dae_tpu/ops/pallas_fps.py:15", source="point_dae_torch/csrc/fps.cu",
+        max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=None, bound=bound,
+        note=f"B {FT_BATCH}, {N} -> {n} (the DGCNN fine-tune train step); picks equal")}
+
+
+def check_patchify_g128(torch, pts):
+    """patchify at G 128, S 32 of (B, 2048, 3) against its plain version:
+    fps equal, kNN equal but at near-ties (selected distances to 1e-4)."""
+    from point_dae_torch.ops import patchify
+
+    B = pts.shape[0]
     fk, kk = patchify.fused_patchify(pts, 128, 32)
     fp, kp = patchify.fused_patchify_plain(pts, 128, 32)
     torch.cuda.synchronize()
@@ -903,16 +950,11 @@ def phase_fps_kernels(torch, device):
     match = float((kk == kp).float().mean())
     if not (torch.equal(fk, fp) and match > 0.9999 and torch.allclose(
             d.gather(-1, kk.long()), d.gather(-1, kp.long()), rtol=1e-4, atol=1e-4)):
-        fail(f"patchify at (32, 2048), G 128: differs from the plain version ({match})")
-    log(f"  patchify ({FT_BATCH}, 2048), G 128, S 32: "
+        fail(f"patchify at ({B}, 2048), G 128: differs from the plain version ({match})")
+    log(f"  patchify ({B}, 2048), G 128, S 32: "
         f"{cuda_ms(lambda: patchify.fused_patchify(pts, 128, 32), 10):.4f} ms (plain "
         f"{cuda_ms(lambda: patchify.fused_patchify_plain(pts, 128, 32), 1):.4f}), fps equal, "
         f"knn idx match {match:.6f}")
-    N, n, ms, plain, bound = rows[0]
-    return {"fps": dict(
-        replaces="point_dae_tpu/ops/pallas_fps.py:15", source="point_dae_torch/csrc/fps.cu",
-        max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=None, bound=bound,
-        note=f"B {FT_BATCH}, {N} -> {n} (the DGCNN fine-tune train step); picks equal")}
 
 
 def dgcnn_feature_plain(torch, enc, x):
@@ -1113,6 +1155,239 @@ def phase_finetune(torch, device, card):
     return fps_launches
 
 
+def phase_scatter_kernels(torch, device, card):
+    """scatter_rows_add at the two part-segmentation shapes, on real
+    indices: PointTransformerPartSeg's interpolation (three_nn of 2048
+    points to their 128 FPS centres: B 16, Q 6144, N 128, C 1152) and
+    DGCNNPartSeg's edge gather (kNN, k 20, of a random (16, 2048, 3) cloud:
+    Q 40960, N 2048, C 64), g random f32, and bf16 at the DGCNN shape.
+    Held bit for bit against the plain version on the CPU (each element
+    summed in ascending q) and the same bits on a second launch; the gap of
+    the card's index_add_ (atomics, no fixed order) is printed. Times: the
+    kernel, the plain version (scatter_add_ on the card) and index_add_
+    (one call over the flattened rows). Then the forward kernels of the two
+    paths at their shapes: gather_rows_small_c of the (16, 2048, 3) cloud
+    by its kNN rows (DGCNNPartSeg's first edge gather), equal to its plain
+    version, and patchify at (16, 2048), G 128, S 32."""
+    from point_dae_torch.ops import gather
+    from point_dae_torch.ops.geometry import fps_knn, knn, three_nn
+
+    g_ = torch.Generator(device=device).manual_seed(SEED + 40)
+    pts = torch.randn((PS_BATCH, PS_POINTS, 3), generator=g_, device=device)
+    _, center, _ = fps_knn(pts, 128, 32)
+    idx_pt = three_nn(pts, center)[1].reshape(PS_BATCH, -1)
+    idx_dg = knn(pts, pts, 20)[1].reshape(PS_BATCH, -1)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0.0, flops=0.0, err=0.0)
+    for name, idx, N, C, dtype in (("PT", idx_pt, 128, 1152, torch.float32),
+                                   ("DGCNN", idx_dg, 2048, 64, torch.float32),
+                                   ("DGCNN bf16", idx_dg, 2048, 64, torch.bfloat16)):
+        B, Q = idx.shape
+        g = torch.randn((B, Q, C), generator=g_, device=device).to(dtype)
+        got = gather.scatter_rows_add(idx, g, N)
+        again = gather.scatter_rows_add(idx, g, N)
+        want = gather.scatter_rows_add_plain(idx.cpu(), g.cpu(), N)
+        flat = (idx.long() + N * torch.arange(B, device=device)[:, None]).reshape(-1)
+        gf = g.reshape(B * Q, C)
+
+        def library():
+            return torch.zeros((B * N, C), dtype=dtype, device=device).index_add_(0, flat, gf)
+
+        lib = library().float().reshape(B, N, C)
+        torch.cuda.synchronize()
+        top = float(want.abs().max())
+        lib_err = float((lib.cpu() - want).abs().max())
+        if not torch.equal(got.cpu(), want):
+            fail(f"scatter_rows_add {name}: differs from the plain version on the CPU (max "
+                 f"{float((got.cpu() - want).abs().max())})")
+        if not torch.equal(got, again):
+            fail(f"scatter_rows_add {name}: two launches differ in their bits")
+        hub = int(torch.bincount(idx[0].long(), minlength=N).max())
+        ms = cuda_ms(lambda: gather.scatter_rows_add(idx, g, N), 20)
+        plain = cuda_ms(lambda: gather.scatter_rows_add_plain(idx, g, N), 5)
+        lib_ms = cuda_ms(library, 20)
+        nbytes = g.numel() * g.element_size() + idx.numel() * 4 + B * N * C * 4
+        bound = bound_ms(nbytes, B * Q * C, F32_FLOPS)
+        log(f"  [{card}] scatter_rows_add {name} (B {B}, Q {Q}, N {N}, C {C}, {str(dtype)[6:]}): "
+            f"{ms:.4f} ms (plain {plain:.4f}, index_add_ {lib_ms:.4f}, bound {bound[0]:.4f} by "
+            f"{bound[1]}); bit for bit with the CPU, index_add_ off by {lib_err:.2e} of "
+            f"{top:.2f}; most contributors of a row {hub}")
+        if dtype == torch.float32:
+            tot["err"] = max(tot["err"], float((got.cpu() - want).abs().max()))
+            for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib_ms),
+                         ("nbytes", nbytes), ("flops", B * Q * C)):
+                tot[k] += v
+        del g, got, again, want, lib
+        torch.cuda.empty_cache()
+
+    B, Q = idx_dg.shape
+    if not torch.equal(gather.gather_rows_small_c(pts, idx_dg),
+                       gather.gather_rows_small_c_plain(pts, idx_dg)):
+        fail("gather_rows_small_c at the DGCNN partseg shape: differs from the plain version")
+    log(f"  [{card}] gather_rows_small_c (B {B}, N {PS_POINTS}, C 3) by {Q} rows: "
+        f"{cuda_ms(lambda: gather.gather_rows_small_c(pts, idx_dg), 20):.4f} ms (plain "
+        f"{cuda_ms(lambda: gather.gather_rows_small_c_plain(pts, idx_dg), 20):.4f}), equal")
+    check_patchify_g128(torch, pts)
+    return {"scatter_rows_add": dict(
+        replaces="point_dae_tpu/ops/pallas_scatter.py:24",
+        source="point_dae_torch/csrc/scatter.cu", max_abs_err=tot["err"], ms=tot["ms"],
+        plain_ms=tot["plain_ms"], library_ms=tot["library_ms"],
+        bound=bound_ms(tot["nbytes"], tot["flops"], F32_FLOPS),
+        note="f32, sum of one launch at each partseg shape (PT 16 x 6144 -> 128 x 1152, "
+             "DGCNN 16 x 40960 -> 2048 x 64); bit for bit")}
+
+
+def ps_batch(torch, batch, device, seed):
+    """Random clouds (B, 2048, 3), category one-hots and per-point labels
+    drawn from each category's parts (numpy draws from ``seed``)."""
+    import numpy as np
+    from point_dae_torch.engine.partseg import SEG_CLASSES
+
+    rng = np.random.default_rng(seed)
+    names = sorted(SEG_CLASSES)
+    labels = rng.integers(0, 16, size=(batch,))
+    seg = np.stack([rng.choice(SEG_CLASSES[names[l]], size=PS_POINTS) for l in labels])
+    pts = rng.normal(size=(batch, PS_POINTS, 3)).astype(np.float32)
+    return {"points": pts, "label": labels, "seg": seg.astype(np.int64),
+            "pts": torch.from_numpy(pts).to(device),
+            "onehot": torch.from_numpy(np.eye(16, dtype=np.float32)[labels]).to(device),
+            "seg_t": torch.from_numpy(seg).to(device)}
+
+
+def phase_partseg_check(torch, device):
+    """Both part-segmentation models at PS_CHECK_BATCH on the card against
+    the same weights on the CPU, f32: eval log-probs within 1e-3 of the
+    largest |log-prob|, the train-mode NLL with the same SegDraws within
+    1e-3 relative; each path's forward kernels must have launched on the
+    card. For DGCNN, how many of the first EdgeConv's kNN neighbours differ
+    between the card's and the CPU's distance products (a near-tie may
+    flip)."""
+    from point_dae_torch.engine import partseg
+    from point_dae_torch.models import build_model_from_cfg
+    from point_dae_torch.models.partseg import SegDraws, seg_nll_loss
+    from point_dae_torch.ops.geometry import knn
+    from point_dae_torch.utils import kernels
+
+    for name, (config, _, forward) in PARTSEGS.items():
+        t0 = time.perf_counter()
+        b = ps_batch(torch, PS_CHECK_BATCH, device, SEED + 41)
+        cpu_model = build_model_from_cfg(config["model"], device="cpu", seed=SEED + 42)
+        gpu_model = copy.deepcopy(cpu_model).to(device)
+        before = dict(kernels.launches)
+        eg = partseg.make_seg_eval_step(gpu_model, device=device)(b["pts"], b["onehot"]).cpu()
+        ec = partseg.make_seg_eval_step(cpu_model, device="cpu")(b["pts"].cpu(),
+                                                                b["onehot"].cpu())
+        dc = SegDraws.sample(cpu_model, PS_CHECK_BATCH, PS_POINTS,
+                             torch.Generator().manual_seed(SEED + 43), "cpu")
+        dg = SegDraws(dc.scale.to(device), dc.shift.to(device),
+                      None if dc.drop_path is None else dc.drop_path.to(device),
+                      [m.to(device) for m in dc.dropout])
+        with torch.no_grad():
+            cpu_model.train()
+            gpu_model.train()
+            pc = partseg.scale_shift(b["pts"].cpu(), dc.scale, dc.shift)
+            pg = partseg.scale_shift(b["pts"], dg.scale, dg.shift)
+            lc = float(seg_nll_loss(cpu_model(pc, b["onehot"].cpu(), draws=dc), b["seg_t"].cpu()))
+            lg = float(seg_nll_loss(gpu_model(pg, b["onehot"], draws=dg), b["seg_t"]))
+        used = {k: kernels.launches[k] - before[k] for k in kernels.launches
+                if kernels.launches[k] != before[k]}
+        err = float((eg - ec).abs().max()) / float(ec.abs().max())
+        flips = ""
+        if name == "DGCNN":
+            ik = knn(pg, pg, 20)[1].cpu()
+            ic = knn(pc, pc, 20)[1]
+            flips = (f"; first EdgeConv kNN neighbours that differ card vs cpu "
+                     f"{int((ik != ic).sum())} of {ik.numel()} (as sets "
+                     f"{int((ik.sort(-1).values != ic.sort(-1).values).sum())})")
+        log(f"  {name} batch {PS_CHECK_BATCH} ({time.perf_counter() - t0:.1f} s): eval log-probs "
+            f"max |card - cpu| / max |cpu| {err:.2e}; train-mode NLL card {lg:.6f} cpu "
+            f"{lc:.6f}; launches {used}{flips}")
+        if not (math.isfinite(lg) and math.isfinite(lc) and torch.isfinite(eg).all()):
+            fail(f"check {name}: non-finite log-probs or loss")
+        if min(used.get(k, 0) for k in forward) == 0:
+            fail(f"check {name}: a kernel of the path did not launch: {used}")
+        if err > 1e-3 or abs(lg - lc) > 1e-3 * abs(lc):
+            fail(f"check {name}: card and CPU disagree (log-probs {err:.2e}, NLL {lg} vs {lc})")
+        del cpu_model, gpu_model
+        torch.cuda.empty_cache()
+
+
+def phase_partseg(torch, device, card):
+    """5 train steps of each part-segmentation model at batch 16 of 2048
+    points, counters zeroed before and read after; a profiled step; an eval
+    step and the mIoU loop over two batches (the second a padded tail).
+    Returns the scatter_rows_add launches of the train runs."""
+    from point_dae_torch.engine import partseg
+    from point_dae_torch.engine.train_state import TrainState
+    from point_dae_torch.models import build_model_from_cfg
+    from point_dae_torch.utils import kernels
+
+    scatter = 0
+    for name, (config, per_step, forward) in PARTSEGS.items():
+        b = ps_batch(torch, PS_BATCH, device, SEED + 44)
+        log(f"  {name}: {config['model']['NAME']}, ({PS_BATCH}, {PS_POINTS}, 3), "
+            f"{PS_STEPS} steps:")
+        model = build_model_from_cfg(config["model"], device=device, seed=SEED + 45)
+        state = TrainState.create(model, config, steps_per_epoch=100,
+                                  grad_norm_clip=config["grad_norm_clip"])
+        step = partseg.make_seg_train_step(model, device=device)
+        g = torch.Generator(device=device).manual_seed(SEED + 46)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        times, metrics = [], []
+        for _ in range(PS_STEPS):
+            t0 = time.perf_counter()
+            m = step(state, b["pts"], b["onehot"], b["seg_t"], generator=g)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            metrics.append((float(m["loss"]), float(m["acc"])))
+        launches = dict(kernels.launches)
+        peak = torch.cuda.max_memory_allocated()
+        for i, (loss, acc) in enumerate(metrics):
+            log(f"  step {i}: loss {loss:.6f} acc {acc:.4f} ({times[i] * 1e3:.1f} ms)")
+        if not all(math.isfinite(v) for pair in metrics for v in pair):
+            fail(f"partseg {name}: non-finite loss")
+        if (launches["scatter_rows_add"] != per_step * PS_STEPS
+                or min(launches[k] for k in forward) == 0):
+            fail(f"partseg {name}: kernels not launched as expected on the main path: "
+                 f"{launches}")
+        scatter += launches["scatter_rows_add"]
+        steady = sorted(times[1:])
+        steady = (steady[(len(steady) - 1) // 2] + steady[len(steady) // 2]) / 2
+        log(f"  launches on the {name} path ({PS_STEPS} steps): "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        log(f"  [{card}] {name} train step {steady * 1e3:.2f} ms (median of steps "
+            f"2-{PS_STEPS}), {PS_BATCH / steady:.1f} shapes/s, first step {times[0] * 1e3:.1f} "
+            f"ms, max_memory_allocated {peak / 2 ** 30:.2f} GiB")
+        busy, ours = profile_step(torch, lambda: step(state, b["pts"], b["onehot"], b["seg_t"],
+                                                      generator=g), card, top=15)
+        sc = ours["sort_rows_kernel"] + ours["sum_rows_kernel"]
+        log(f"  [{card}] {name} scatter_rows_add share of the profiled step's device time: "
+            f"{100 * sc / busy:.1f}% ({sc / 1e3:.3f} ms)")
+
+        eval_step = partseg.make_seg_eval_step(model, device=device)
+        timed(torch, lambda: eval_step(b["pts"], b["onehot"]))            # warm-up
+        out, eval_ms = timed(torch, lambda: eval_step(b["pts"], b["onehot"]))
+        if (tuple(out.shape) != (PS_BATCH, PS_POINTS, config["model"]["cls_dim"])
+                or not bool(torch.isfinite(out).all())):
+            fail(f"partseg {name}: bad eval log-probs")
+        n_tail = PS_BATCH * 5 // 8
+        tail = ps_batch(torch, n_tail, device, SEED + 47)
+        batches = [{k: v for k, v in bb.items() if k in ("points", "label", "seg")}
+                   for bb in (b, tail)]
+        cat_names = sorted(partseg.SEG_CLASSES)
+        miou, miou_ms = timed(torch, lambda: partseg.evaluate_partseg(
+            eval_step, batches, PS_BATCH, cat_names))
+        if not (0.0 <= miou["instance_miou"] <= 1.0 and 0.0 <= miou["class_miou"] <= 1.0):
+            fail(f"partseg {name}: mIoU out of range: {miou}")
+        log(f"  [{card}] {name} eval step {eval_ms:.2f} ms (host clock, second call); mIoU "
+            f"loop over {PS_BATCH + n_tail} random shapes: instance {miou['instance_miou']:.5f}, "
+            f"class {miou['class_miou']:.5f} ({miou_ms:.1f} ms)")
+        del model, state, step, eval_step, b, tail
+        torch.cuda.empty_cache()
+    return scatter
+
+
 def main() -> None:
     import torch
 
@@ -1173,6 +1448,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     records.update(phase_fps_kernels(torch, device))
     torch.cuda.empty_cache()
+    records.update(phase_scatter_kernels(torch, device, card))
+    torch.cuda.empty_cache()
     for name, r in records.items():
         log(f"  [{card}] {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
             f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}, "
@@ -1183,6 +1460,7 @@ def main() -> None:
     phase_check(torch, config, raw, device)
     phase_dgcnn_check(torch, dconfig, corrupted_d, clean_d, device)
     phase_finetune_check(torch, device)
+    phase_partseg_check(torch, device)
 
     # 5. train
     log("train:")
@@ -1199,6 +1477,10 @@ def main() -> None:
     # 6. the classification fine-tune entry
     log("finetune:")
     launches["fps"] = phase_finetune(torch, device, card)
+
+    # 7. the part-segmentation entry
+    log("partseg:")
+    launches["scatter_rows_add"] = phase_partseg(torch, device, card)
     if min(launches.values()) == 0:
         fail(f"a kernel was never launched on its main path: {launches}")
 

@@ -1,4 +1,5 @@
-"""DGCNN encoder (port of ``point_dae_tpu/models/dgcnn.py:25-302``).
+"""DGCNN encoders (port of ``point_dae_tpu/models/dgcnn.py:25-340``): the
+pretrain and classification encoder and the part-segmentation one.
 
 Channel-last throughout. Torch names follow the reference
 (``dgcnn_encoder.conv{1-5}.0.weight``, ``dgcnn_encoder.bn{1-5}.*``): every
@@ -171,4 +172,47 @@ class DGCNNEncoder(nn.Module):
                                     **self.fused_flags)
             feats.append(x)
         h = leaky_relu02(self.bn5(self.conv5[0](torch.cat(feats, dim=-1))))
+        return h.amax(dim=1), h
+
+
+class DGCNNPartSegEncoder(nn.Module):
+    """The segmentation DGCNN (JAX ``dgcnn.py:305-340``): three EdgeConv stages
+    through ``get_graph_feature`` (the edge tensor, the row gather whose
+    backward is the scatter kernel), of widths (64, 64), (64, 64) and (64,),
+    each Dense + BatchNorm + LeakyReLU then a max over the neighbours; a
+    192 -> 1024 fuse with BatchNorm and LeakyReLU and a max over the points.
+    f32 throughout. Torch names follow the reference: ``conv{1-5}.0`` and
+    ``bn{1-5}`` for the five stage convolutions in order (flax
+    ``s1_conv0, s1_conv1, s2_conv0, s2_conv1, s3_conv0``), ``conv6.0`` and
+    ``bn6``. x (B, N, 3) -> (global (B, 1024), pointwise (B, N, 1024)) and,
+    with ``return_stages``, the stage features (x1, x2, x3), (B, N, 64) each."""
+
+    STAGES = ((64, 64), (64, 64), (64,))
+
+    def __init__(self, k: int = 20, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.k = k
+        din, i = 3, 1
+        for dims in self.STAGES:
+            d = 2 * din
+            for width in dims:
+                setattr(self, f"conv{i}", _Conv(d, width, None, generator))
+                setattr(self, f"bn{i}", BatchNorm(width))
+                d, i = width, i + 1
+            din = dims[-1]
+        self.conv6 = _Conv(sum(dims[-1] for dims in self.STAGES), 1024, None, generator)
+        self.bn6 = BatchNorm(1024)
+
+    def forward(self, x: torch.Tensor, return_stages: bool = False):
+        i, stages = 1, []
+        for dims in self.STAGES:
+            h = get_graph_feature(x, self.k)
+            for _ in dims:
+                h = leaky_relu02(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")[0](h)))
+                i += 1
+            x = h.amax(dim=2)
+            stages.append(x)
+        h = leaky_relu02(self.bn6(self.conv6[0](torch.cat(stages, dim=-1))))
+        if return_stages:
+            return h.amax(dim=1), h, tuple(stages)
         return h.amax(dim=1), h

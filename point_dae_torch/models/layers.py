@@ -57,17 +57,24 @@ class Dense(nn.Module):
 
 
 class SplitDense(Dense):
-    """``Dense`` over ``concat([shared, per_point], -1)`` factorised by
-    linearity: the shared operand has one axis fewer and its projection is
-    broadcast over ``per_point``'s extra axis. Same weight as the Dense on
-    the concat (``(out, C + E)``)."""
+    """``Dense`` over ``concat([shared, per_point], -1)`` (or
+    ``[per_point, shared]`` with ``shared_last``) factorised by linearity:
+    the shared operand has one axis fewer and its projection is broadcast
+    over ``per_point``'s extra axis. Same weight as the Dense on the concat
+    (``(out, C + E)``)."""
+
+    def __init__(self, din: int, dout: int, bias: bool = True, dtype=None,
+                 generator: Optional[torch.Generator] = None, shared_last: bool = False):
+        super().__init__(din, dout, bias=bias, dtype=dtype, generator=generator)
+        self.shared_last = shared_last
 
     def forward(self, shared: torch.Tensor, per_point: torch.Tensor) -> torch.Tensor:
-        C = shared.shape[-1]
+        C, E = shared.shape[-1], per_point.shape[-1]
         dt = _compute(shared, self.weight, self.dtype)
         w = self.weight.to(dt)
-        sp = torch.matmul(shared.to(dt), w[:, :C].t())
-        pp = torch.matmul(per_point.to(dt), w[:, C:].t())
+        ws, we = (w[:, E:], w[:, :E]) if self.shared_last else (w[:, :C], w[:, C:])
+        sp = torch.matmul(shared.to(dt), ws.t())
+        pp = torch.matmul(per_point.to(dt), we.t())
         out = pp + sp[..., None, :]
         return out if self.bias is None else out + self.bias.to(dt)
 

@@ -1,16 +1,20 @@
-"""Row gather ``out[b, q] = x[b, idx[b, q]]`` with the small-C kernel.
+"""Row gather ``out[b, q] = x[b, idx[b, q]]`` and its backward, the row
+scatter-add, each with its kernel.
 
-Port of ``point_dae_tpu/ops/pallas_scatter.py:gather_rows`` and
-``gather_rows_small_c_pallas``; the CUDA kernel is ``csrc/gather.cu``.
-The backward is a plain scatter-add outside the gate of the JAX package's
-one-hot scatter kernel (``scatter_rows_add_pallas``: C >= 32, N <= 2048);
-that kernel is still to be ported, so inside its gate a CUDA tensor raises.
+Port of ``point_dae_tpu/ops/pallas_scatter.py:gather_rows``,
+``gather_rows_small_c_pallas`` (CUDA kernel ``csrc/gather.cu``) and
+``scatter_rows_add_pallas`` (CUDA kernel ``csrc/scatter.cu``). Inside the
+JAX gate of the scatter (C >= 32, N <= 2048, B*Q*C >= 2^24) the backward of
+``gather_rows`` on a CUDA tensor launches the scatter kernel; elsewhere it
+is a plain ``scatter_add_`` in g's type.
 """
 from __future__ import annotations
 
 import torch
 
 from ..utils import kernels
+
+MAX_ROWS = 2048     # csrc/scatter.cu: 16 warps' row histograms in shared memory
 
 
 def use_small_c_kernel(x: torch.Tensor, q: int) -> bool:
@@ -25,6 +29,54 @@ def use_small_c_kernel(x: torch.Tensor, q: int) -> bool:
 def use_scatter_kernel(device_type: str, B: int, Q: int, N: int, C: int) -> bool:
     """``pallas_scatter._use_mxu_scatter`` with "on TPU" read as "on CUDA"."""
     return device_type == "cuda" and N <= 2048 and C >= 32 and B * Q * C >= 2 ** 24
+
+
+def scatter_rows_add_plain(idx: torch.Tensor, g: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """Plain PyTorch version of the scatter kernel: idx (B, Q), g (B, Q, C)
+    -> (B, n_rows, C) f32, ``out[b, m] = sum of g[b, q] over idx[b, q] == m``.
+    On the CPU, ``scatter_add_`` adds each element's contributors in
+    ascending q, which is the kernel's order, so the two agree bit for bit."""
+    B, Q, C = g.shape
+    out = torch.zeros((B, n_rows, C), dtype=torch.float32, device=g.device)
+    return out.scatter_add_(1, idx.long()[..., None].expand(-1, -1, C), g.float())
+
+
+def _vec_width(g: torch.Tensor) -> int:
+    """Elements a lane loads at once: the largest of 4, 2, 1 that divides C,
+    fits C in one warp's slice and keeps every row's loads aligned."""
+    C = g.shape[-1]
+    for v in (4, 2):
+        if C % v == 0 and 32 * v <= C and g.data_ptr() % (v * g.element_size()) == 0:
+            return v
+    return 1
+
+
+def scatter_rows_add(idx: torch.Tensor, g: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """The scatter kernel on a CUDA tensor, its plain version on a CPU one.
+    idx (B, Q) int in [0, n_rows), g (B, Q, C) f32 or bf16 -> (B, n_rows, C)
+    f32, each element the sum of its contributors in ascending q. Built for
+    n_rows <= ``MAX_ROWS``."""
+    if g.device.type == "cpu":
+        return scatter_rows_add_plain(idx, g, n_rows)
+    B, Q, C = g.shape
+    if not 1 <= n_rows <= MAX_ROWS or g.dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"scatter kernel is built for 1 <= N <= {MAX_ROWS} rows of "
+                                  f"f32 or bf16, got {n_rows} of {g.dtype}")
+    g = g.contiguous()
+    idx32 = idx.to(torch.int32).contiguous()
+    kernels.require_cuda(g, idx32)
+    if tuple(idx32.shape) != (B, Q):
+        raise ValueError(f"idx {tuple(idx32.shape)} does not match g {tuple(g.shape)}")
+    row_ptr = torch.empty((B, n_rows + 1), dtype=torch.int32, device=g.device)
+    order = torch.empty((B, Q), dtype=torch.int32, device=g.device)
+    out = torch.empty((B, n_rows, C), dtype=torch.float32, device=g.device)
+    P, I = kernels.P, kernels.I
+    kernels.launch("scatter_rows_add", "scatter", "scatter_rows_add",
+                   (P, I, P, I, I, I, I, I, P, P, P, P), g.data_ptr(),
+                   int(g.dtype == torch.bfloat16), idx32.data_ptr(), B, Q, n_rows, C,
+                   _vec_width(g), row_ptr.data_ptr(), order.data_ptr(), out.data_ptr(),
+                   kernels.stream(g))
+    return out
 
 
 def gather_rows_small_c_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -68,10 +120,7 @@ class _GatherRows(torch.autograd.Function):
         (idx,) = ctx.saved_tensors
         B, Q, C = g.shape
         if use_scatter_kernel(g.device.type, B, Q, ctx.n, C):
-            raise NotImplementedError(
-                f"backward of gather_rows on CUDA at ({B}, {ctx.n}, {C}) from "
-                f"{Q} rows needs the one-hot scatter kernel "
-                "(pallas_scatter.scatter_rows_add_pallas), which is not ported yet")
+            return scatter_rows_add(idx, g, ctx.n).to(g.dtype), None
         gx = torch.zeros((B, ctx.n, C), dtype=g.dtype, device=g.device)
         gx.scatter_add_(1, idx.long()[..., None].expand(-1, -1, C), g)
         return gx, None

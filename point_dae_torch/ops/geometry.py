@@ -1,6 +1,7 @@
 """Fixed-shape point-cloud geometry (port of
 ``point_dae_tpu/ops/geometry.py:29-334``): FPS, kNN, gathers, the
-patchify front end of the patch models and the batched resample.
+patchify front end of the patch models, the batched resample and the 3-NN
+feature interpolation of the part-segmentation head.
 
 On a CUDA tensor at training shapes ``fps_knn`` runs the fused patchify
 kernel (``ops/patchify.py``); otherwise it composes FPS with a kNN over the
@@ -69,6 +70,25 @@ def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     B, N, C = points.shape
     M, K = idx.shape[1], idx.shape[2]
     return gather_rows(points, idx.reshape(B, M * K)).reshape(B, M, K, C)
+
+
+def three_nn(unknown: torch.Tensor, known: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """3 nearest known points of each unknown point: unknown (B, N, 3),
+    known (B, M, 3) -> (squared dist (B, N, 3), idx (B, N, 3) int32)."""
+    return knn(unknown, known, 3)
+
+
+def three_interpolate(features: torch.Tensor, idx: torch.Tensor, dist: torch.Tensor,
+                      eps: float = 1e-8) -> torch.Tensor:
+    """Inverse-distance-weighted interpolation: features (B, M, C), idx and
+    squared dist (B, N, 3) -> (B, N, C). The gather goes through
+    ``group_points``, so its backward is the row scatter-add (the kernel
+    inside its gate on CUDA)."""
+    w = 1.0 / (dist + eps)
+    w = w / w.sum(-1, keepdim=True)
+    neigh = group_points(features, idx)                     # (B, N, 3, C)
+    return (neigh * w[..., None]).sum(2)
 
 
 def use_fused_patchify(xyz: torch.Tensor, num_group: int, group_size: int) -> bool:

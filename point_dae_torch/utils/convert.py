@@ -50,13 +50,31 @@ for _torch, _flax in (("MAE_encoder.blocks.blocks.{i}", "MAE_encoder/blocks/bloc
         _RULES.append((f"{_torch}.{_t}", f"{_flax}/{_f}"))
 
 # the DGCNN family (convert_torch._DGCNN_RULES)
+_DGCNN_ENCODER = []
 for _i in range(1, 5):
-    _RULES.append((f"dgcnn_encoder.conv{_i}.0", f"dgcnn_encoder/ec{_i}/conv"))
-    _RULES.append((f"dgcnn_encoder.bn{_i}", f"dgcnn_encoder/ec{_i}/bn"))
-_RULES += [("dgcnn_encoder.conv5.0", "dgcnn_encoder/conv5"),
-           ("dgcnn_encoder.bn5", "dgcnn_encoder/bn5"),
-           ("recfc.0", "recfc/dense0"), ("recfc.2", "recfc/dense1"),
+    _DGCNN_ENCODER.append((f"dgcnn_encoder.conv{_i}.0", f"dgcnn_encoder/ec{_i}/conv"))
+    _DGCNN_ENCODER.append((f"dgcnn_encoder.bn{_i}", f"dgcnn_encoder/ec{_i}/bn"))
+_DGCNN_ENCODER += [("dgcnn_encoder.conv5.0", "dgcnn_encoder/conv5"),
+                   ("dgcnn_encoder.bn5", "dgcnn_encoder/bn5")]
+_RULES += [("recfc.0", "recfc/dense0"), ("recfc.2", "recfc/dense1"),
            ("recfc.4", "recfc/dense2")]
+
+# the part-segmentation models (convert_torch has no rules for them): the
+# reference's torch names against the JAX models' flax names
+_RULES += [("label_conv.0", "label_conv"), ("label_conv.1", "label_bn"),
+           ("propagation_0.mlp_convs.{i}", "prop_fc{i}"),
+           ("propagation_0.mlp_bns.{i}", "prop_bn{i}")]
+_RULES += [(f"{n}{_i}", f"{n}{_i}") for n, hi in (("convs", 4), ("bns", 3))
+           for _i in range(1, hi + 1)]                     # PointTransformer, PointNet
+_RULES += [(f"{n}{_i}", f"{n}{_i}") for n in ("conv", "bn") for _i in range(1, 6)]  # PointNet
+_RULES += [(f"conv{_i}.0", f"conv{_i}") for _i in range(7, 11)]      # DGCNNPartSeg head
+_RULES += [(f"bn{_i}", f"bn{_i}") for _i in range(7, 11)] + [("conv11", "conv11")]
+# DGCNNPartSegEncoder: the five stage convolutions in order, then the fuse
+_DGCNN_PARTSEG_ENCODER = [("dgcnn_encoder.conv6.0", "dgcnn_encoder/conv6"),
+                          ("dgcnn_encoder.bn6", "dgcnn_encoder/bn6")]
+for _i, (_s, _j) in enumerate(((1, 0), (1, 1), (2, 0), (2, 1), (3, 0)), start=1):
+    _DGCNN_PARTSEG_ENCODER += [(f"dgcnn_encoder.conv{_i}.0", f"dgcnn_encoder/s{_s}_conv{_j}"),
+                               (f"dgcnn_encoder.bn{_i}", f"dgcnn_encoder/s{_s}_bn{_j}")]
 
 # the PointTransformer fine-tune model: the encoder at the top level
 # (convert_torch._TRANSFORMER_RULES, unprefixed)
@@ -86,11 +104,22 @@ def _pattern(fmt: str, sep: str) -> re.Pattern:
     return re.compile(f"^{esc}(?:{re.escape(sep)}(?P<leaf>[A-Za-z_]+))?$")
 
 
-_TORCH_TO_FLAX = {head: [(_pattern(t, "."), f) for t, f in _RULES + rules]
-                  for head, rules in (("transformer", _TRANSFORMER_HEAD),
-                                      ("dgcnn", _DGCNN_HEAD))}
-_FLAX_TO_TORCH = [(_pattern(f, "/"), t)
-                  for t, f in _RULES + _TRANSFORMER_HEAD + _DGCNN_HEAD]
+_TORCH_TO_FLAX = {family: [(_pattern(t, "."), f) for t, f in _RULES + rules]
+                  for family, rules in (("transformer", _TRANSFORMER_HEAD),
+                                        ("dgcnn", _DGCNN_ENCODER + _DGCNN_HEAD),
+                                        ("dgcnn_partseg", _DGCNN_PARTSEG_ENCODER))}
+_FLAX_TO_TORCH = [(_pattern(f, "/"), t) for t, f in _RULES + _TRANSFORMER_HEAD
+                  + _DGCNN_ENCODER + _DGCNN_HEAD + _DGCNN_PARTSEG_ENCODER]
+
+
+def _family(state_dict) -> str:
+    """Which torch-name table a state dict takes: the two DGCNN encoders
+    and the two fine-tune heads reuse torch names at other flax paths."""
+    if "dgcnn_encoder.conv6.0.weight" in state_dict:
+        return "dgcnn_partseg"
+    if any(k.startswith("dgcnn_encoder.") for k in state_dict):
+        return "dgcnn"
+    return "transformer"
 
 
 def _match(table, name: str):
@@ -124,8 +153,7 @@ def to_flax(state_dict: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
     """Port ``state_dict`` -> nested ``(params, batch_stats)`` of numpy
     arrays, laid out as the JAX package's models initialise them."""
     params, stats = {}, {}
-    dgcnn = any(k.startswith("dgcnn_encoder.") for k in state_dict)
-    table = _TORCH_TO_FLAX["dgcnn" if dgcnn else "transformer"]
+    table = _TORCH_TO_FLAX[_family(state_dict)]
     for name, t in state_dict.items():
         v = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
         path, leaf = _match(table, name)

@@ -252,13 +252,37 @@ def test_shapes_inside_a_gate_without_a_kernel_raise(dev):
         edgeconv.knn_aggregate(z(1, 2048, 8), z(1, 2048, 3), 20)
     with pytest.raises(NotImplementedError, match="knn_pallas"):
         geometry.knn(z(1, 1024, 3), z(1, 1024, 3), 20)
-    x = z(128, 1024, 64).requires_grad_()
-    out = gather.gather_rows(x, torch.zeros((128, 20480), dtype=torch.int32, device=dev))
-    with pytest.raises(NotImplementedError, match="scatter_rows_add_pallas"):
-        out.sum().backward()
     with pytest.raises(NotImplementedError, match="gather_by_key_small_c_pallas"):
         geometry.resample_batch(z(64, 2048, 3), torch.ones((64, 2048), dtype=torch.bool,
                                                            device=dev), 1024)
+
+
+@pytest.mark.parametrize("B,Q,N,C", [(16, 6144, 128, 1152), (16, 40960, 2048, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_kernel_matches_plain(dev, B, Q, N, C, dtype):
+    """The part-segmentation shapes (PointTransformerPartSeg's interpolation,
+    DGCNNPartSeg's edge gather): bit for bit with the plain version on the
+    CPU (each element summed in ascending q; a bf16 g widened to f32 first),
+    the same bits on a second launch, rows no q names at zero; the backward
+    of ``gather_rows`` inside the gate launches the kernel and casts to g's
+    type."""
+    from point_dae_torch.utils import kernels
+
+    g_ = _gen(dev, 9)
+    idx = torch.randint(0, N - N // 8, (B, Q), generator=g_, device=dev, dtype=torch.int32)
+    idx[:, ::7] = 3                                     # a hub row
+    g = torch.randn((B, Q, C), generator=g_, device=dev).to(dtype)
+    got = gather.scatter_rows_add(idx, g, N)
+    again = gather.scatter_rows_add(idx, g, N)
+    want = gather.scatter_rows_add_plain(idx.cpu(), g.cpu(), N)
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    assert torch.equal(got.cpu(), want)
+    assert not got[:, N - N // 8:].any()
+    x = torch.zeros((B, N, C), device=dev, dtype=dtype, requires_grad=True)
+    before = kernels.launches["scatter_rows_add"]
+    gather.gather_rows(x, idx).backward(g)
+    assert kernels.launches["scatter_rows_add"] == before + 1
+    assert x.grad.dtype == dtype and torch.equal(x.grad, got.to(dtype))
 
 
 @pytest.mark.parametrize("B,N,n", [(3, 1024, 200), (2, 512, 512), (2, 1200, 1024),
