@@ -51,7 +51,20 @@ Phases, each fatal on failure:
               train-mode loss at batch 8 (every gate open) on the card
               against the CPU; 5
               train steps of each (counters zeroed before, read after), a
-              profiled step, an eval step and the mIoU loop.
+              profiled step, an eval step and the mIoU loop;
+  8. dropouts - the in-model dropouts, MaskFeat_dgcnn and the hybrid
+              EdgeConv kNN: the key_gather, knn and aggregate_from_idx
+              kernels and knn_aggregate at (32, 2048) and (4, 4096) against
+              their plain versions (kernels phase); the dropout DGCNN model
+              and MaskFeat_dgcnn at batch 8 on the card against the CPU, and
+              the dropouts at batch 128 (check phase); the shipped
+              ScanObjectNN DGCNN fine-tune at 2048 points as recipe C of the
+              finetune phase (check, 5 steps, eval, vote); 2 DGCNN steps with
+              edgeconv_knn xla after the hybrid encoder is held bit for bit
+              to the fused one; 5 steps of pretrain_PointCAE_dropout_patch_
+              pointmae, 2 each of _dropout_global_p3 and _affine_r3_dropout_
+              patch_pointmae, 5 of pretrain_MaskSurf_dgcnn_crosspoint
+              (MaskFeat_dgcnn), all shipped configs unchanged at bs 128.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Run from the repository root:
 
@@ -129,7 +142,9 @@ FINETUNE_B = dict(FT_OPTIM, npoints=1024,           # finetune_modelnet_transfer
 # (config, raw points a cloud (ScanObjectNN_hardest: 2048; ModelNet40Official:
 # 8192), smooth loss as tools/bench_downstream.py runs each)
 FINETUNES = {"A": (FINETUNE_A, 2048, True), "B": (FINETUNE_B, 8192, False)}
-FT_COUNTERS = {"A": ("fps", "patchify"),
+# C, the ScanObjectNN DGCNN fine-tune at 2048 points, joins in main() from
+# FINETUNE_C_CFG (cfgs/generated/, unchanged)
+FT_COUNTERS = {"A": ("fps", "patchify"), "C": ("fps", "knn_aggregate_fwd", "knn_aggregate_bwd_first"),
                "B": ("fps", "knn_aggregate_fwd", "knn_aggregate_bwd_first")}
 PS_BATCH, PS_CHECK_BATCH, PS_STEPS, PS_POINTS = 16, 8, 5, 2048
 PARTSEG_PT = {             # cfgs/partseg_shapenetpart.yaml, unchanged
@@ -497,6 +512,18 @@ def phase_attention(torch, device, g):
     return records
 
 
+def edgeconv_work(B, N, Cf, C, k):
+    """(bytes, f32 operations) of knn_aggregate's forward and of one of its
+    backwards at one shape: the forward reads x (Cf) and U (C) and writes
+    M, m, S1, S2, rM, rm and idx, over N (2 Cf + 3) operations of distance,
+    k N of selection and 7 k C of aggregation a row; a backward reads U,
+    the two saved tensors, four cotangents and idx and writes dU, over 6 k C
+    operations a row."""
+    fwd = (B * N * (Cf + 7 * C + k) * 4, B * N * (N * (2 * Cf + 3) + k * N + k * C * 7))
+    bwd = (8 * B * N * C * 4 + B * N * k * 4, B * N * k * C * 6)
+    return fwd, bwd
+
+
 def phase_dgcnn_kernels(torch, corrupted, clean, device):
     """The DGCNN step's kernels at its shapes (batch 128, 1024 points, k 20)
     against their plain versions on the card."""
@@ -584,16 +611,16 @@ def phase_dgcnn_kernels(torch, corrupted, clean, device):
             shape_ms[mode] = cuda_ms(run, 5)
             t["ms"] += shape_ms[mode]
             t["plain_ms"] += cuda_ms(lambda: plain(U, idx, a, c, *cots), 1)
-            t["nbytes"] += 8 * B * N * C * 4 + B * N * k * 4
-            t["flops"] += B * N * k * C * 6
+            t["nbytes"] += edgeconv_work(B, N, Cf, C, k)[1][0]
+            t["flops"] += edgeconv_work(B, N, Cf, C, k)[1][1]
             del du, du2, want
         t = tot["knn_aggregate_fwd"]
         shape_ms["fwd"] = cuda_ms(lambda: edgeconv.knn_aggregate_fwd_kernel(U, xf, k, True), 5)
         t["ms"] += shape_ms["fwd"]
         t["plain_ms"] += cuda_ms(lambda: edgeconv.aggregate_plain(
             U, edgeconv.knn_select_plain(xf, k)), 1)
-        t["nbytes"] += B * N * (Cf + 7 * C + k) * 4
-        t["flops"] += B * N * (N * (2 * Cf + 3) + k * N + k * C * 7)
+        t["nbytes"] += edgeconv_work(B, N, Cf, C, k)[0][0]
+        t["flops"] += edgeconv_work(B, N, Cf, C, k)[0][1]
         log(f"  knn_aggregate Cf {Cf:3d} C {C:3d}: fwd {shape_ms['fwd']:.4f} ms, bwd first "
             f"{shape_ms['first']:.4f} ms, bwd split {shape_ms['split']:.4f} ms; forward bit "
             f"for bit, rows whose 2 nearest tie in U {ties:.4f}")
@@ -872,7 +899,8 @@ def profile_step(torch, run, card, top: int = 25):
             "fold_fwd_kernel": 0.0, "fold_bwd_rows_kernel": 0.0,
             "fold_bwd_weights_kernel": 0.0, "::gemm_kernel<": 0.0,
             "attention_fwd_kernel": 0.0, "attention_bwd_kernel": 0.0,
-            "edgeconv_select_kernel": 0.0, "edgeconv_aggregate_kernel": 0.0,
+            "knn_select_kernel": 0.0, "edgeconv_aggregate_kernel": 0.0,
+            "gather_by_key_kernel": 0.0,
             "edgeconv_bwd_kernel": 0.0, "edgeconv_tie_weights_kernel": 0.0,
             "row_sqnorm_kernel": 0.0,
             "nn_half_tiled_kernel": 0.0, "fps_kernel": 0.0, "sort_rows_kernel": 0.0,
@@ -951,35 +979,73 @@ def check_patchify_g128(torch, pts):
     if not (torch.equal(fk, fp) and match > 0.9999 and torch.allclose(
             d.gather(-1, kk.long()), d.gather(-1, kp.long()), rtol=1e-4, atol=1e-4)):
         fail(f"patchify at ({B}, 2048), G 128: differs from the plain version ({match})")
+    bound = bound_ms(pts.numel() * 4 + fk.numel() * 4 + kk.numel() * 4, B * 128 * 2048 * 8,
+                     F32_FLOPS)
     log(f"  patchify ({B}, 2048), G 128, S 32: "
         f"{cuda_ms(lambda: patchify.fused_patchify(pts, 128, 32), 10):.4f} ms (plain "
-        f"{cuda_ms(lambda: patchify.fused_patchify_plain(pts, 128, 32), 1):.4f}), fps equal, "
-        f"knn idx match {match:.6f}")
+        f"{cuda_ms(lambda: patchify.fused_patchify_plain(pts, 128, 32), 1):.4f}, bound "
+        f"{bound[0]:.4f} by {bound[1]}), fps equal, knn idx match {match:.6f}")
 
 
-def dgcnn_feature_plain(torch, enc, x):
+def dgcnn_feature_plain(torch, enc, x, inputs=None):
     """The DGCNN encoder's global feature through the fused EdgeConv kernel's
     plain version (the kernel's arithmetic: exact distances summed in
     channel order, BatchNorm statistics rebuilt from the aggregates), on
-    whatever device ``x`` lies."""
+    whatever device ``x`` lies. Each EdgeConv layer's input is appended to
+    ``inputs`` when a list is given."""
     from point_dae_torch.models.dgcnn import fused_edge_conv
     from point_dae_torch.models.layers import leaky_relu02
 
     feats = []
     for i in range(1, len(enc.WIDTHS) + 1):
+        if inputs is not None:
+            inputs.append(x)
         x = fused_edge_conv(x, getattr(enc, f"conv{i}")[0], getattr(enc, f"bn{i}"), enc.k,
                             enc.dtype, interpret=True, **enc.fused_flags)
         feats.append(x)
     return leaky_relu02(enc.bn5(enc.conv5[0](torch.cat(feats, -1)))).amax(1)
 
 
+def knn_flips(torch, x, k):
+    """Where the reference EdgeConv's kNN (clamped matrix-expansion distances,
+    a stable sort) and the kernel's plain selection (exact distances summed
+    in channel order) pick other neighbours on the same input x (B, N, C):
+    (idx that differ by position, picks that differ as sets, the largest
+    spread of the exact (f64) distances of the picks in the symmetric
+    difference of a row, in units of 2^-24 (|x_i|^2 + |x_j|^2), the scale
+    of one rounding of the expansion's terms)."""
+    from point_dae_torch.ops.edgeconv import knn_select_plain
+    from point_dae_torch.ops.geometry import knn
+
+    ir = knn(x, x, k)[1].long()
+    ip = knn_select_plain(x, k).long()
+    by_pos = int((ir != ip).sum())
+    r_out = ~(ir[..., :, None] == ip[..., None, :]).any(-1)    # ref picks the plain lacks
+    p_out = ~(ip[..., :, None] == ir[..., None, :]).any(-1)
+    b, i = r_out.any(-1).nonzero(as_tuple=True)
+    if not len(b):
+        return by_pos, 0, 0.0
+    x64 = x.double()
+    sq = (x64 * x64).sum(-1)
+    cand = torch.cat([ir[b, i], ip[b, i]], -1)                  # (rows, 2k)
+    odd = torch.cat([r_out[b, i], p_out[b, i]], -1)
+    d = ((x64[b[:, None], cand] - x64[b, i][:, None]) ** 2).sum(-1)
+    scale = torch.where(odd, sq[b, i][:, None] + sq[b[:, None], cand], 0.0).amax(-1)
+    spread = (torch.where(odd, d, -math.inf).amax(-1) - torch.where(odd, d, math.inf).amin(-1))
+    return by_pos, int(r_out.sum()), float((spread / (scale * 2.0 ** -24)).max())
+
+
 def phase_finetune_check(torch, device):
     """Both fine-tune models at FT_CHECK_BATCH on the card (kernels) against
     the same weights on the CPU, f32: the resampled clouds equal (FPS picks
     bit for bit); eval logits against the CPU's plain path (the reference
-    EdgeConv for B) within 1e-3 of the largest logit; the train-mode loss
-    with the same draws within 1e-3 of the loss, for B against the EdgeConv
-    kernel's plain version: in train mode the BatchNorm statistics pool
+    EdgeConv for B; for C, at 2048 points, the EdgeConv kernel's plain
+    version, the reference's gap printed, with the neighbours on which the
+    reference's kNN and the kernel's selection part on each EdgeConv layer's
+    input, which must lie within rounding of each other) within 1e-3 of the
+    largest logit;
+    the train-mode loss with the same draws within 1e-3 of the loss, for B
+    and C against the EdgeConv kernel's plain version: in train mode the BatchNorm statistics pool
     every point's k neighbours, so the neighbours that the reference's
     matmul distances and the kernel's exact ones order differently at a
     near-tie move the whole batch (on raw normal clouds the reference reads
@@ -1000,6 +1066,38 @@ def phase_finetune_check(torch, device):
         before = kernels.launches["fps"]
         eg = finetune.make_eval_step(gpu_model, config, device=device)(pts).cpu()
         ec = finetune.make_eval_step(cpu_model, config, device="cpu")(pts_c)
+        if name == "C":
+            # at 2048 points the reference's matmul distances and the
+            # kernel's exact ones order a near-tie differently often enough
+            # to move a logit by 1e-3 of the largest (a run on an H100 host
+            # read 1.05e-3, where on the same layer inputs the two
+            # selections part on one pick as a set, in EdgeConv 2, whose
+            # exact distances lie 0.9 units apart), so C's eval logits are
+            # held to the kernel's plain version, the reference's gap and
+            # the picks on which the two kNNs part printed
+            inputs = []
+            with torch.no_grad():
+                pe = finetune.gather_points(pts_c, finetune.furthest_point_sample(
+                    pts_c, npoints))
+                ep = cpu_model.cls_head_finetune(
+                    dgcnn_feature_plain(torch, cpu_model.dgcnn_encoder, pe, inputs))
+            # the near-tie shown: on each EdgeConv layer's input of that eval
+            # forward, the picks on which the reference's kNN and the
+            # kernel's selection disagree lie within rounding of each other:
+            # the spread of their exact distances is at most 2 (C + 2) units
+            # (each side's error bound, C products and two sums)
+            kk = cpu_model.dgcnn_encoder.k
+            for layer, xin in enumerate(inputs, 1):
+                by_pos, by_set, spread = knn_flips(torch, xin, kk)
+                C = xin.shape[-1]
+                log(f"  C eval, EdgeConv {layer} (C {C}): kNN idx reference vs the kernel's "
+                    f"plain selection differ at {by_pos} of {xin.shape[0] * xin.shape[1] * kk} "
+                    f"positions, {by_set} picks as sets; exact distance spread of those "
+                    f"picks at most {spread:.1f} units of 2^-24 (|x_i|^2 + |x_j|^2) "
+                    f"(limit {2 * (C + 2)})")
+                if spread > 2 * (C + 2):
+                    fail(f"check C: EdgeConv {layer}'s reference and plain kNN differ off a "
+                         f"near-tie ({spread:.1f} units)")
         gc = torch.Generator().manual_seed(SEED + 23)
         keep = finetune.point_all(npoints, n_raw)
         subset = finetune.sample_subset(FT_CHECK_BATCH, keep, npoints, gc, "cpu") \
@@ -1013,7 +1111,7 @@ def phase_finetune_check(torch, device):
             pg = finetune.fps_resample(pts, npoints, None if subset is None else subset.to(device))
             cpu_model.train()
             gpu_model.train()
-            if name == "B":
+            if config["model"]["NAME"] == "DGCNN":
                 feat = dgcnn_feature_plain(torch, cpu_model.dgcnn_encoder, pc)
                 lc = float(loss_fn(cpu_model.cls_head_finetune(feat, dc.dropout), labels_c))
             else:
@@ -1021,8 +1119,12 @@ def phase_finetune_check(torch, device):
             lg = float(loss_fn(gpu_model(pg, draws=dg), labels))
         used = kernels.launches["fps"] - before
         err = float((eg - ec).abs().max()) / float(ec.abs().max())
+        ref = ""
+        if name == "C":
+            ref = f" (against the reference EdgeConv {err:.2e})"
+            err = float((eg - ep).abs().max()) / float(ep.abs().max())
         log(f"  {name} batch {FT_CHECK_BATCH} ({time.perf_counter() - t0:.1f} s): eval logits "
-            f"max |card - cpu| / max |cpu| {err:.2e}; train-mode loss card {lg:.6f} cpu "
+            f"max |card - cpu| / max |cpu| {err:.2e}{ref}; train-mode loss card {lg:.6f} cpu "
             f"{lc:.6f}; fps launches {used}")
         if not torch.equal(pg.cpu(), pc):
             fail(f"check {name}: the resampled clouds differ between card and CPU")
@@ -1223,9 +1325,13 @@ def phase_scatter_kernels(torch, device, card):
     if not torch.equal(gather.gather_rows_small_c(pts, idx_dg),
                        gather.gather_rows_small_c_plain(pts, idx_dg)):
         fail("gather_rows_small_c at the DGCNN partseg shape: differs from the plain version")
+    idx64 = idx_dg.long()[..., None].expand(-1, -1, 3)
+    bound = bound_ms(pts.numel() * 4 + idx_dg.numel() * 4 + idx_dg.numel() * 12, 0, F32_FLOPS)
     log(f"  [{card}] gather_rows_small_c (B {B}, N {PS_POINTS}, C 3) by {Q} rows: "
         f"{cuda_ms(lambda: gather.gather_rows_small_c(pts, idx_dg), 20):.4f} ms (plain "
-        f"{cuda_ms(lambda: gather.gather_rows_small_c_plain(pts, idx_dg), 20):.4f}), equal")
+        f"{cuda_ms(lambda: gather.gather_rows_small_c_plain(pts, idx_dg), 20):.4f}, "
+        f"torch.gather {cuda_ms(lambda: torch.gather(pts, 1, idx64), 20):.4f}, bound "
+        f"{bound[0]:.4f} by {bound[1]}), equal")
     check_patchify_g128(torch, pts)
     return {"scatter_rows_add": dict(
         replaces="point_dae_tpu/ops/pallas_scatter.py:24",
@@ -1388,6 +1494,399 @@ def phase_partseg(torch, device, card):
     return scatter
 
 
+# -- the in-model dropouts, MaskFeat_dgcnn, the hybrid EdgeConv kNN
+DROPOUT_CFGS = (   # (shipped config, steps), trained from (128, 8192, 6) raw clouds
+    ("cfgs/generated/pretrain_PointCAE_dropout_patch_pointmae.yaml", 5),
+    ("cfgs/generated/pretrain_PointCAE_dropout_global_p3.yaml", 2),
+    ("cfgs/generated/pretrain_PointCAE_affine_r3_dropout_patch_pointmae.yaml", 2))
+DROPOUT_COUNTERS = ("patchify", "gather_rows_small_c", "key_gather", "knn_aggregate_fwd",
+                    "knn_aggregate_bwd_first", "nn_half_tiled")
+MASKFEAT_CFG = "cfgs/generated/pretrain_MaskSurf_dgcnn_crosspoint.yaml"
+MASKFEAT_STEPS = 5
+MASKFEAT_COUNTERS = ("fps", "knn", "gather_rows_small_c")
+HYBRID_STEPS = 2           # DGCNN steps with edgeconv_knn: xla
+FINETUNE_C_CFG = "cfgs/generated/finetune_scan_hardest_transferring_features_DGCNN.yaml"
+DM_CHECK_BATCH = 8
+
+
+def load_cfg(path):
+    from point_dae_torch.utils.config import cfg_from_yaml_file
+
+    return cfg_from_yaml_file(os.path.join(os.path.dirname(os.path.abspath(__file__)), path))
+
+
+def phase_key_knn_kernels(torch, device, card):
+    """key_gather, knn and aggregate_from_idx against their plain versions on the card
+    at the paths' shapes, and knn_aggregate above 1024 points:
+
+    - key_gather at the dropout_patch_pointmae shape ((128, 2048, 3) -> 1024,
+      the patches of a 64-patch mask with about half kept) and the
+      dropout_global_p3 shape ((128, 1024, 3) -> 1024, 716 kept), bit for
+      bit, a cloud with no valid point giving zeros; beside it the
+      argsort-pack path it replaces (no single PyTorch call computes it);
+    - knn at MaskFeat_dgcnn's five shapes: 64 FPS centres in 1024 points, C
+      3, k 32, and the teacher's four EdgeConv kNNs, (128, 1024, 1024) at C
+      3 / 64 / 64 / 128, k 20: idx equal but at counted distance ties, dists
+      within 1e-5 relative; torch.topk over torch.cdist timed beside it;
+    - aggregate_from_idx at the DGCNN step's four shapes (128, 1024, C 64 /
+      64 / 128 / 256, k 20, over the plain kNN's idx): bit for bit with its
+      plain version and with knn_aggregate's aggregates;
+    - knn_aggregate at (32, 2048, C 64, k 20), the shipped ScanObjectNN
+      DGCNN fine-tune's clouds, and at (4, 4096, C 64, k 20): forward bit for
+      bit with the plain version on the card, both backwards bit for bit
+      with the plain version on the CPU (each sum in (source, round) order),
+      the same bits on a second launch."""
+    from point_dae_torch.ops import edgeconv, gather, tiled_knn as knn_ops
+    from point_dae_torch.ops.geometry import fps_knn, group_points
+
+    records = {}
+    g = torch.Generator(device=device).manual_seed(SEED + 60)
+    B = DGCNN_BATCH
+
+    # -- key gather
+    pts = torch.randn((B, 1024, 3), generator=g, device=device)
+    _, _, pidx = fps_knn(pts, 64, 32)
+    flat = group_points(pts, pidx).reshape(B, 2048, 3).contiguous()
+    keep = torch.rand((64,), generator=g, device=device) > 0.5
+    keep[0] = True
+    mask_p = keep[None, :, None].expand(B, 64, 32).reshape(B, 2048).clone()
+    mask_p[5] = False                                      # no valid point: zeros
+    rank_u = torch.rand((B, 1024), generator=g, device=device)
+    order = torch.argsort(rank_u, dim=-1, stable=True)
+    mask_g = torch.empty_like(order).scatter_(
+        1, order, torch.arange(1024, device=device).expand(B, -1)) < int(1024 * (1.0 - 0.3))
+    rows = []
+    for name, x, mask in (("patch", flat, mask_p), ("global_p3", pts, mask_g)):
+        cnt = mask.sum(1).clamp_min(1)[:, None]
+        draw = (torch.rand((B, 1024), generator=g, device=device) * cnt).long().clamp_max(cnt - 1)
+        keys = torch.where(mask, torch.cumsum(mask.int(), 1) - 1, -1)
+        got = gather.gather_by_key(x, keys, draw)
+        want = gather.gather_by_key_plain(x, keys, draw)
+        packed = torch.gather(x, 1, torch.gather(
+            torch.sort((~mask).to(torch.uint8), dim=1, stable=True).indices, 1,
+            draw)[..., None].expand(-1, -1, 3))
+
+        def argsort_pack():
+            o = torch.sort((~mask).to(torch.uint8), dim=1, stable=True).indices
+            return torch.gather(x, 1, torch.gather(o, 1, draw)[..., None].expand(-1, -1, 3))
+
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"key_gather {name}: differs from the plain version")
+        ok = torch.ones(B, dtype=torch.bool, device=device)
+        if name == "patch":
+            ok[5] = False
+            if got[5].any():
+                fail("key_gather: a cloud with no valid point did not give zeros")
+        if not torch.equal(got[ok], packed[ok]):
+            fail(f"key_gather {name}: differs from the argsort-pack path")
+        ms = cuda_ms(lambda: gather.gather_by_key(x, keys, draw), 50)
+        plain = cuda_ms(lambda: gather.gather_by_key_plain(x, keys, draw), 20)
+        pack_ms = cuda_ms(argsort_pack, 20)
+        nbytes = x.numel() * 4 + keys.numel() * 4 + draw.numel() * 4 + got.numel() * 4
+        bound = bound_ms(nbytes, 0, F32_FLOPS)
+        log(f"  [{card}] key_gather {name} ({B}, {x.shape[1]}, 3) -> 1024: {ms:.4f} ms "
+            f"(plain {plain:.4f}, argsort-pack path {pack_ms:.4f}, bound {bound[0]:.4f} by "
+            f"{bound[1]}); bit for bit, equal to the argsort-pack path")
+        rows.append((ms, plain, bound))
+    ms, plain, bound = rows[0]
+    records["key_gather"] = dict(
+        replaces="point_dae_tpu/ops/pallas_scatter.py:176",
+        source="point_dae_torch/csrc/gather.cu", max_abs_err=0.0, ms=ms, plain_ms=plain,
+        library_ms=None, bound=bound,
+        note="dropout_patch_pointmae shape (128, 2048, 3) -> 1024; no single PyTorch call")
+    del flat, pidx
+
+    # -- knn at MaskFeat's five shapes
+    center = pts[:, :64].contiguous()
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0.0, flops=0.0, err=0.0)
+    ties = 0
+    for Cq, q, y, k in ((3, center, pts, 32), (3, pts, pts, 20),
+                        (64, None, None, 20), (64, None, None, 20), (128, None, None, 20)):
+        if q is None:
+            y = torch.randn((B, 1024, Cq), generator=g, device=device)
+            y[:, 512:520] = y[:, :8]                           # duplicated rows: ties
+            q = y
+        dk, ik = knn_ops.knn_kernel(q, y, k)
+        dp, ip = knn_ops.knn_plain(q, y, k)
+        torch.cuda.synchronize()
+        differ = ik != ip
+        n_diff = int(differ.sum())
+        rel = float(((dk - dp).abs() / dp.abs().clamp_min(1e-30)).max())
+        if rel > 1e-5 or (n_diff and not torch.equal(dk[differ], dp[differ])):
+            fail(f"knn (C {Cq}, k {k}): dists off by {rel:.2e} or idx differ off a tie")
+        ties += n_diff
+        tot["err"] = max(tot["err"], float((dk - dp).abs().max()))
+        tot["ms"] += cuda_ms(lambda: knn_ops.knn_kernel(q, y, k), 10)
+        tot["plain_ms"] += cuda_ms(lambda: knn_ops.knn_plain(q, y, k), 1)
+        tot["library_ms"] += cuda_ms(
+            lambda: torch.topk(torch.cdist(q, y), k, dim=-1, largest=False), 5)
+        tot["nbytes"] += (q.numel() + y.numel()) * 4 + B * q.shape[1] * k * 8
+        tot["flops"] += B * q.shape[1] * y.shape[1] * (2 * Cq + 3)
+        del dk, ik, dp, ip
+    records["knn"] = dict(
+        replaces="point_dae_tpu/ops/pallas_knn.py:18", source="point_dae_torch/csrc/edgeconv.cu",
+        max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain_ms"],
+        library_ms=tot["library_ms"], bound=bound_ms(tot["nbytes"], tot["flops"], F32_FLOPS),
+        note=f"sum of a MaskFeat_dgcnn step's five shapes; idx differ at {ties} ties")
+    log(f"  knn: idx that differ from the plain version (at distance ties) {ties}")
+    torch.cuda.empty_cache()
+
+    # -- aggregate_from_idx at the DGCNN step's four shapes
+    tot = dict(ms=0.0, plain_ms=0.0, nbytes=0.0)
+    for Cf, C in ((3, 64), (64, 64), (64, 128), (128, 256)):
+        xf = pts if Cf == 3 else torch.randn((B, 1024, Cf), generator=g, device=device)
+        U = torch.randn((B, 1024, C), generator=g, device=device).bfloat16().float()
+        idx = edgeconv.knn_select_plain(xf, 20)
+        out = edgeconv.aggregate_fwd_kernel(U, idx, True)
+        want = edgeconv.aggregate_plain(U, idx)
+        fused = edgeconv.knn_aggregate_fwd_kernel(U, xf, 20, True)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a.to(b.dtype), b) for a, b in zip(out, want)):
+            fail(f"aggregate_from_idx C {C}: differs from the plain version")
+        if not all(torch.equal(a, b) for a, b in zip(out[:4], fused[:4])):
+            fail(f"aggregate_from_idx C {C}: differs from knn_aggregate's aggregates")
+        tot["ms"] += cuda_ms(lambda: edgeconv.aggregate_fwd_kernel(U, idx, True), 10)
+        tot["plain_ms"] += cuda_ms(lambda: edgeconv.aggregate_plain(U, idx), 2)
+        tot["nbytes"] += B * 1024 * (C * 4 + 20 * 4 + 4 * C * 4 + 2 * C)
+        del out, want, fused
+    records["aggregate_from_idx"] = dict(
+        replaces="point_dae_tpu/ops/pallas_edgeconv.py:295",
+        source="point_dae_torch/csrc/edgeconv.cu", max_abs_err=0.0, ms=tot["ms"],
+        plain_ms=tot["plain_ms"], library_ms=None,
+        bound=bound_ms(tot["nbytes"], B * 1024 * 20 * 256 * 4, F32_FLOPS),
+        note="sum of the DGCNN step's four shapes; bit for bit; no single PyTorch call")
+    del pts, center
+    torch.cuda.empty_cache()
+
+    # -- knn_aggregate above 1024 points
+    for Bn, N in ((FT_BATCH, 2048), (4, 4096)):
+        C, k = 64, 20
+        xf = torch.randn((Bn, N, C), generator=g, device=device)
+        xf[:, N - 64:] = xf[:, :64]                          # duplicated rows: ties
+        U = torch.randn((Bn, N, C), generator=g, device=device)
+        U[:, N - 64:] = U[:, :64]
+        cots = [torch.randn((Bn, N, C), generator=g, device=device) for _ in range(4)]
+        outk = edgeconv.knn_aggregate_fwd_kernel(U, xf, k, True)
+        idx = edgeconv.knn_select_plain(xf, k)
+        outp = edgeconv.aggregate_plain(U, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(outk[4], idx):
+            fail(f"knn_aggregate N {N}: neighbours differ from the plain version")
+        for nm, a, b in zip(("M", "m", "S1", "S2", "rM", "rm"), outk[:4] + outk[5:], outp):
+            if not torch.equal(a.to(b.dtype), b):
+                fail(f"knn_aggregate N {N}: {nm} differs from the plain version")
+        M, m, _, _, _, rM, rm = outk
+        cpu = [t.cpu() for t in cots]
+        fwd_work, bwd_work = edgeconv_work(Bn, N, C, C, k)
+        ms = {"fwd": cuda_ms(lambda: edgeconv.knn_aggregate_fwd_kernel(U, xf, k, True), 3)}
+        plain_ms = {"fwd": cuda_ms(lambda: edgeconv.aggregate_plain(
+            U, edgeconv.knn_select_plain(xf, k)), 1)}
+        bounds = {"fwd": bound_ms(*fwd_work, F32_FLOPS)}
+        for mode, a, c, plain in (("first", rM, rm, edgeconv.bwd_first_plain),
+                                  ("split", M, m, edgeconv.bwd_split_plain)):
+            run = lambda: edgeconv.knn_aggregate_bwd_kernel(mode, U, idx, a, c, *cots)
+            du, du2 = run(), run()
+            want = plain(U.cpu(), idx.cpu(), a.cpu(), c.cpu(), *cpu)
+            if not torch.equal(du.cpu(), want):
+                fail(f"knn_aggregate N {N} bwd {mode}: differs from the plain version on "
+                     f"the CPU (max {float((du.cpu() - want).abs().max())})")
+            if not torch.equal(du, du2):
+                fail(f"knn_aggregate N {N} bwd {mode}: two launches differ in their bits")
+            ms[mode] = cuda_ms(run, 3)
+            plain_ms[mode] = cuda_ms(lambda: plain(U, idx, a, c, *cots), 1)
+            bounds[mode] = bound_ms(*bwd_work, F32_FLOPS)
+        log(f"  [{card}] knn_aggregate ({Bn}, {N}, Cf {C}, C {C}, k {k}): "
+            + "; ".join(f"{w} {ms[w]:.4f} ms (plain {plain_ms[w]:.4f}, bound "
+                        f"{bounds[w][0]:.4f} by {bounds[w][1]})"
+                        for w in ("fwd", "first", "split"))
+            + "; forward bit for bit with the plain version, both backwards (first, "
+            "split) bit for bit with it on the CPU")
+        del outk, outp, cots, cpu
+        torch.cuda.empty_cache()
+    return records
+
+
+def check_fused_plain_loss(torch, model, cor, cln, draws):
+    """A DGCNN DAE's training loss through the EdgeConv kernel's plain
+    version: the in-model dropouts from ``draws``, the encoder as
+    ``dgcnn_feature_plain``, the decoder and the chamfer."""
+    from point_dae_torch.models.common import apply_input_dropout
+
+    x = apply_input_dropout(cor[..., :3], model.corrupt_type, draws)
+    feat = dgcnn_feature_plain(torch, model.dgcnn_encoder, x)
+    coarse = model.recfc(feat).reshape(-1, model.num_coarse, 3)
+    return model.loss_func(coarse, cln[..., :3].contiguous())
+
+
+def phase_dropout_maskfeat_check(torch, raw, device):
+    """Card against CPU, f32, same weights and draws:
+
+    - the dropout_patch_pointmae DGCNN model at batch 8: the training loss on
+      the card (patchify, EdgeConv and chamfer kernels) against the CPU
+      through the EdgeConv kernel's plain version, within 1e-3 relative;
+      then apply_input_dropout at batch 128 (every gate open: patchify,
+      small-C gather, key gather), dropout_global_p3 bit for bit and
+      dropout_patch_pointmae with at least 99.9% of the points equal (the
+      patchify kernel and the CPU's kNN may order a near-tie differently);
+    - MaskFeat_dgcnn at batch 8: the training loss within 1e-3 relative
+      (fps, knn kernels on the card)."""
+    from point_dae_torch.engine.pretrain import device_pipeline, init_model
+    from point_dae_torch.models.common import apply_input_dropout, sample_dropout_draws
+    from point_dae_torch.models.transformer import ModelDraws
+    from point_dae_torch.utils import kernels
+
+    config = load_cfg(DROPOUT_CFGS[0][0])
+    d = config["dataset"]["train"]["others"]
+    g = torch.Generator(device=device).manual_seed(SEED + 61)
+    cor, cln = device_pipeline(raw, d["aug_type"], d["corrupt_type"], d["npoints"],
+                               generator=g, device=device)
+    t0 = time.perf_counter()
+    cpu_model = init_model(config, seed=SEED + 62, device="cpu").train()
+    gpu_model = copy.deepcopy(cpu_model).to(device).train()
+    draws = gpu_model.sample_draws(DM_CHECK_BATCH, g, device)
+    cpu_draws = [copy.deepcopy(dr) for dr in draws]
+    for dr in cpu_draws:
+        for f in ("resample", "level", "patch_u", "rank_u", "coin"):
+            v = getattr(dr, f)
+            setattr(dr, f, None if v is None else v.cpu())
+    before = dict(kernels.launches)
+    with torch.no_grad():
+        lg = float(gpu_model(cor[:DM_CHECK_BATCH], cln[:DM_CHECK_BATCH], draws=draws)[0])
+        lc = float(check_fused_plain_loss(torch, cpu_model, cor[:DM_CHECK_BATCH].cpu(),
+                                          cln[:DM_CHECK_BATCH].cpu(), cpu_draws))
+    used = {k: kernels.launches[k] - before[k] for k in kernels.launches
+            if kernels.launches[k] != before[k]}
+    log(f"  dropout_patch_pointmae batch {DM_CHECK_BATCH} ({time.perf_counter() - t0:.1f} s): "
+        f"loss card {lg:.6f} cpu (the EdgeConv kernel's plain version) {lc:.6f}; "
+        f"launches {used}")
+    if not (math.isfinite(lg) and math.isfinite(lc)) or abs(lg - lc) > 1e-3 * abs(lc):
+        fail(f"check: dropout DGCNN loss on the card {lg} vs the CPU's {lc}")
+
+    x = cor[..., :3].contiguous()
+    before = dict(kernels.launches)
+    for item, exact in (("dropout_global_p3", True), ("dropout_patch_pointmae", False)):
+        dr = sample_dropout_draws(item, DGCNN_BATCH, 1024, g, device)
+        dc = copy.deepcopy(dr)
+        for f in ("resample", "level", "patch_u", "rank_u"):
+            v = getattr(dc, f)
+            setattr(dc, f, None if v is None else v.cpu())
+        got = apply_input_dropout(x, [item], [dr]).cpu()
+        want = apply_input_dropout(x.cpu(), [item], [dc])
+        same = float((got == want).all(-1).float().mean())
+        log(f"  {item} at batch {DGCNN_BATCH}: points equal card vs cpu {same:.6f}")
+        if (exact and not torch.equal(got, want)) or same < 0.999:
+            fail(f"check: {item} on the card differs from the CPU ({same})")
+    used = {k: kernels.launches[k] - before[k] for k in ("patchify", "gather_rows_small_c",
+                                                          "key_gather")}
+    if min(used.values()) == 0:
+        fail(f"check: a dropout kernel did not launch at batch {DGCNN_BATCH}: {used}")
+    del cpu_model, gpu_model
+
+    config = load_cfg(MASKFEAT_CFG)
+    t0 = time.perf_counter()
+    cpu_model = init_model(config, seed=SEED + 63, device="cpu").train()
+    gpu_model = copy.deepcopy(cpu_model).to(device).train()
+    draws = gpu_model.sample_draws(DM_CHECK_BATCH, g, device)
+    cpu_draws = ModelDraws(draws.mask.cpu(), None, draws.dp_encoder.cpu(),
+                           None if draws.dp_decoder is None else draws.dp_decoder.cpu())
+    pts = cln[:DM_CHECK_BATCH, :, :3].contiguous()
+    before = dict(kernels.launches)
+    with torch.no_grad():
+        lg = float(gpu_model(pts, pts, draws=draws)[0])
+        lc = float(cpu_model(pts.cpu(), pts.cpu(), draws=cpu_draws)[0])
+    used = {k: kernels.launches[k] - before[k] for k in kernels.launches
+            if kernels.launches[k] != before[k]}
+    log(f"  MaskFeat_dgcnn batch {DM_CHECK_BATCH} ({time.perf_counter() - t0:.1f} s): loss card "
+        f"{lg:.6f} cpu {lc:.6f}; launches {used}")
+    if not (math.isfinite(lg) and math.isfinite(lc)) or abs(lg - lc) > 1e-3 * abs(lc):
+        fail(f"check: MaskFeat_dgcnn loss on the card {lg} vs the CPU's {lc}")
+    if used.get("knn", 0) != 5 or used.get("fps", 0) != 1:
+        fail(f"check: MaskFeat_dgcnn did not launch knn 5 times and fps once: {used}")
+
+
+def phase_dropout_maskfeat_train(torch, raw, device, card):
+    """The dropout configs' steps (counters zeroed before, read after; a
+    profiled step of the first), then MaskFeat_dgcnn's. Returns the
+    counters of the dropout_patch_pointmae run and of the MaskFeat run."""
+    out = {}
+    for i, (path, steps) in enumerate(DROPOUT_CFGS):
+        config = load_cfg(path)
+        log(f"  {os.path.basename(path)}, {steps} steps:")
+        steady, first, launches, peak, one_more = run_steps(torch, config, raw, device,
+                                                            steps, SEED + 64)
+        want = DROPOUT_COUNTERS if "patch" in path else ("key_gather", "knn_aggregate_fwd")
+        if min(launches[k] for k in want) == 0:
+            fail(f"train: {path} did not launch every kernel of its path: {launches}")
+        log(f"  launches ({steps} steps): { {k: v for k, v in launches.items() if v} }")
+        log(f"  [{card}] {os.path.basename(path)} step {steady * 1e3:.2f} ms (median of "
+            f"steps 2-{steps}), {DGCNN_BATCH / steady:.1f} clouds/s, first step "
+            f"{first * 1e3:.1f} ms, max_memory_allocated {peak / 2 ** 30:.2f} GiB")
+        if i == 0:
+            out["dropout"] = launches
+            profile_step(torch, one_more, card, top=12)
+        del one_more
+        torch.cuda.empty_cache()
+
+    config = load_cfg(MASKFEAT_CFG)
+    log(f"  {os.path.basename(MASKFEAT_CFG)} (MaskFeat_dgcnn), {MASKFEAT_STEPS} steps:")
+    steady, first, launches, peak, one_more = run_steps(torch, config, raw, device,
+                                                        MASKFEAT_STEPS, SEED + 65)
+    if min(launches[k] for k in MASKFEAT_COUNTERS) == 0 or launches["knn"] != 5 * MASKFEAT_STEPS:
+        fail(f"train: MaskFeat_dgcnn did not launch its kernels as expected: {launches}")
+    log(f"  launches ({MASKFEAT_STEPS} steps): { {k: v for k, v in launches.items() if v} }")
+    log(f"  [{card}] MaskFeat_dgcnn step {steady * 1e3:.2f} ms (median of steps "
+        f"2-{MASKFEAT_STEPS}), {DGCNN_BATCH / steady:.1f} clouds/s, first step "
+        f"{first * 1e3:.1f} ms, max_memory_allocated {peak / 2 ** 30:.2f} GiB")
+    profile_step(torch, one_more, card, top=15)
+    out["maskfeat"] = launches
+    del one_more
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_hybrid(torch, config, raw, corrupted, device, card):
+    """edgeconv_knn: xla on the DGCNN step: the bf16 encoder's global feature
+    with the hybrid kNN against the fused kernel's on the same weights and
+    points (bit for bit: the kNN kernel and the fused selection share their
+    arithmetic), then HYBRID_STEPS train steps. Returns their counters."""
+    from point_dae_torch.engine.pretrain import init_model
+    from point_dae_torch.utils import kernels
+
+    hyb = copy.deepcopy(config)
+    hyb["model"]["edgeconv_knn"] = "xla"
+    fused = init_model(config, seed=SEED + 66, device=device).eval()
+    hybrid = init_model(hyb, seed=SEED + 66, device=device).eval()
+    before = dict(kernels.launches)
+    with torch.no_grad():
+        a = fused.dgcnn_encoder(corrupted)[0]
+        b = hybrid.dgcnn_encoder(corrupted)[0]
+    used = {k: kernels.launches[k] - before[k] for k in ("knn_aggregate_fwd", "knn",
+                                                          "aggregate_from_idx")}
+    same = torch.equal(a, b)
+    log(f"  hybrid kNN vs fused kernel, bf16 encoder at batch {corrupted.shape[0]}: global "
+        f"features bit for bit {same} (max gap {float((a - b).abs().max())}); launches {used}")
+    if not same or used["knn"] != 4 or used["aggregate_from_idx"] != 4:
+        fail(f"hybrid: the hybrid encoder differs from the fused one or missed its kernels")
+    del fused, hybrid, a, b
+    log(f"  edgeconv_knn xla, {HYBRID_STEPS} steps:")
+    steady, _, launches, _, _ = run_steps(torch, hyb, raw, device, HYBRID_STEPS, SEED + 7)
+    if launches["knn_aggregate_fwd"] or not launches["knn"] or not launches["aggregate_from_idx"]:
+        fail(f"train: edgeconv_knn xla did not take the hybrid path: {launches}")
+    log(f"  [{card}] DGCNN step with edgeconv_knn xla {steady * 1e3:.2f} ms "
+        f"(step 2 of {HYBRID_STEPS}); launches { {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
+
+
+T0 = time.perf_counter()
+
+
+def stamp(what: str) -> None:
+    log(f"[{time.perf_counter() - T0:.1f} s] {what} done")
+
+
 def main() -> None:
     import torch
 
@@ -1411,17 +1910,19 @@ def main() -> None:
                           timeout=60, check=True).stdout.strip().splitlines()[0]
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)}")
+        f"{torch.cuda.get_device_name(0)}, {torch.get_num_threads()} CPU threads")
 
     # 2. build
     t0 = time.perf_counter()
     logs = kernels.build()
     log(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
+    stamp("import and build")
     for name, text in sorted(logs.items()):
         for line in text.splitlines():
             if "registers" in line or "spill" in line.lower() and "0 bytes" not in line:
                 log(f"  {name}: {line.strip()}")
 
+    FINETUNES["C"] = (load_cfg(FINETUNE_C_CFG), 2048, True)
     config = ConfigDict(copy.deepcopy(FLAGSHIP_CONFIG))
     d = config["dataset"]["train"]["others"]
     g = torch.Generator(device=device).manual_seed(SEED)
@@ -1443,12 +1944,19 @@ def main() -> None:
     # 3. kernels
     log("kernels:")
     records = phase_kernels(torch, pts, device)
+    stamp("kernels")
     torch.cuda.empty_cache()
     records.update(phase_dgcnn_kernels(torch, corrupted_d, clean_d, device))
+    stamp("dgcnn_kernels")
     torch.cuda.empty_cache()
     records.update(phase_fps_kernels(torch, device))
+    stamp("fps_kernels")
     torch.cuda.empty_cache()
     records.update(phase_scatter_kernels(torch, device, card))
+    stamp("scatter_kernels")
+    torch.cuda.empty_cache()
+    records.update(phase_key_knn_kernels(torch, device, card))
+    stamp("key_knn_kernels")
     torch.cuda.empty_cache()
     for name, r in records.items():
         log(f"  [{card}] {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
@@ -1458,29 +1966,50 @@ def main() -> None:
     # 4. check against the plain paths on the CPU
     log("check:")
     phase_check(torch, config, raw, device)
+    stamp("check")
     phase_dgcnn_check(torch, dconfig, corrupted_d, clean_d, device)
+    stamp("dgcnn_check")
     phase_finetune_check(torch, device)
+    stamp("finetune_check")
     phase_partseg_check(torch, device)
+    stamp("partseg_check")
+    phase_dropout_maskfeat_check(torch, raw_d, device)
+    stamp("dropout_maskfeat_check")
+    torch.cuda.empty_cache()
 
     # 5. train
     log("train:")
     launches = phase_train(torch, config, raw, device, card)
+    stamp("train")
     del raw, pts, clean
     torch.cuda.empty_cache()
     log("train (DGCNN):")
     launches_d = phase_dgcnn_train(torch, dconfig, raw_d, device, card)
+    stamp("dgcnn_train")
     for k in DGCNN_COUNTERS + ("knn_aggregate_bwd_split",):
         launches[k] = launches_d[k]
+    torch.cuda.empty_cache()
+    launches["aggregate_from_idx"] = phase_hybrid(torch, dconfig, raw_d, corrupted_d[:32],
+                                                  device, card)["aggregate_from_idx"]
+    stamp("hybrid")
+    torch.cuda.empty_cache()
+    log("train (in-model dropouts, MaskFeat_dgcnn):")
+    dm = phase_dropout_maskfeat_train(torch, raw_d, device, card)
+    stamp("dropout_maskfeat_train")
+    launches["key_gather"] = dm["dropout"]["key_gather"]
+    launches["knn"] = dm["maskfeat"]["knn"]
     del raw_d, corrupted_d, clean_d
     torch.cuda.empty_cache()
 
     # 6. the classification fine-tune entry
     log("finetune:")
     launches["fps"] = phase_finetune(torch, device, card)
+    stamp("finetune")
 
     # 7. the part-segmentation entry
     log("partseg:")
     launches["scatter_rows_add"] = phase_partseg(torch, device, card)
+    stamp("partseg")
     if min(launches.values()) == 0:
         fail(f"a kernel was never launched on its main path: {launches}")
 

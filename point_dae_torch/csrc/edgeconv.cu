@@ -4,7 +4,11 @@
 //
 // Replaces point_dae_tpu/ops/pallas_edgeconv.py:knn_aggregate: _fwd_kernel
 // (forward), _bwd_kernel_first (grad_mode 'first') and _bwd_kernel
-// (grad_mode 'split').
+// (grad_mode 'split'); pallas_edgeconv.py:aggregate_from_idx (its forward,
+// _fwd_idx_kernel, is the aggregate launch alone: entry edgeconv_aggregate;
+// its backwards are the two above); and point_dae_tpu/ops/pallas_knn.py:
+// knn_pallas (the selection with a query set apart from the database, the
+// distances written too: entry knn_select).
 //
 // Forward. For cloud b and point i, over xf (B, N, Cf) f32:
 //   d[i, j] = (sq[i] - 2 dot(xf[i], xf[j])) + sq[j],  not clamped at zero,
@@ -19,11 +23,15 @@
 //    through shared memory in (kTileCols columns x kTileCh channels) tiles
 //    shared by the block's rows, the next tile's global loads in flight
 //    while the current one is used. A lane keeps the distances of columns
-//    lane + 32 t of its kR rows in registers (N <= 32 * kNT = 1024) and
-//    reads four channels of a column at a time. A round is a minimum over
-//    the lane's four cached group minima, a warp argmin by shuffles over
-//    (distance, column), and a masking of the winner with a rescan of its
-//    group of eight registers; the warp's rows go through it side by side.
+//    lane + 32 t of its kR rows in registers (32 * kNT = 1024 columns at
+//    once) and reads four channels of a column at a time. A round is a
+//    minimum over the lane's four cached group minima, a warp argmin by
+//    shuffles over (distance, column), and a masking of the winner with a
+//    rescan of its group of eight registers; the warp's rows go through it
+//    side by side. Above 1024 columns (N <= 4096) the columns stream in
+//    chunks of 1024 and each chunk's rounds merge with the row's running
+//    top-k, kept per warp in shared memory, by (distance, column), the
+//    TPU kernel's multi-tile merge (pallas_knn.py:80-95) done in place.
 //  - aggregate: a warp a row reads the selected rows of U straight from L2
 //    (an exact f32 row read stands where the TPU used a one-hot matrix
 //    product), four channels a lane.
@@ -40,10 +48,13 @@
 // The TPU summed du over a sequential grid axis with transposed one-hot
 // products. Here the warp that owns target row j finds its contributors
 // itself: the cloud's idx streams through shared memory, the warp scans it
-// for j and keeps the matches in (i, r) order (ballot + popcount), then
-// sums their cotangent rows in that order, four channels a lane. No
-// atomics: the result repeats bit for bit. 'split' first runs a pass over
-// source rows that turns (gM, gm) into (gM / cM, gm / cm).
+// for j and keeps the matches in (i, r) order (ballot + popcount) in a
+// list of max(N, 1024) entries (a kNN names a row at most once a source,
+// so nothing is dropped; above N 3376 a block has fewer warps), then sums
+// their cotangent rows in that order, four channels a lane: the (gM, gm)
+// terms, gs1 and gs2 each in their own sum, du = (acc + s1) + (2 U) s2.
+// No atomics: the result repeats bit for bit. 'split' first runs a pass
+// over source rows that turns (gM, gm) into (gM / cM, gm / cm).
 //
 // Bounds on the H100 (f32 outside the tensor cores): the forward's distance
 // phase does B*N*N*Cf multiply-adds as two rounded operations each (69
@@ -176,11 +187,20 @@ __device__ __forceinline__ void take(float (&d)[kNT], bool mine, int tl, float& 
   group_min<G>(d, best, bt);
 }
 
-// kNN selection: idx (B, N, k), ascending by distance, lower index on ties.
-template <bool kVec>
+// kNN selection of query rows against a database's columns: idx (B, Nq, k)
+// and, with kDists, the distances, ascending, lower column on ties. The
+// EdgeConv forward passes one cloud as both. Up to kMaxN columns a row's
+// distances sit in the lanes' registers at once. kStream handles more: the
+// columns go by in chunks of kMaxN, each chunk's k rounds drawing from the
+// chunk's registers and from the head of the row's running top-k (kept per
+// warp in shared memory), so the merge orders by (distance, column) as one
+// pass over all columns would.
+template <bool kVec, bool kStream, bool kDists>
 __global__ void __launch_bounds__(kSelThreads)
-edgeconv_select_kernel(const float* __restrict__ xf, const float* __restrict__ sq,
-                       int N, int Cf, int k, int row_blocks, int* __restrict__ idx) {
+knn_select_kernel(const float* __restrict__ qx, const float* __restrict__ sqq,
+                  const float* __restrict__ yx, const float* __restrict__ sqy, int Nq,
+                  int Ndb, int Cf, int k, int row_blocks, int* __restrict__ idx,
+                  float* __restrict__ dists) {
   extern __shared__ __align__(16) float smem[];
   const int Cfp = (Cf + 3) & ~3;               // q rows padded with zeros
   float* qs = smem;                            // [kSelRows][Cfp]
@@ -189,141 +209,199 @@ edgeconv_select_kernel(const float* __restrict__ xf, const float* __restrict__ s
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x / row_blocks;
   const int row0 = (blockIdx.x % row_blocks) * kSelRows;
-  const float* xb = xf + static_cast<size_t>(b) * N * Cf;
-  const float* sqb = sq + static_cast<size_t>(b) * N;
+  const float* qb = qx + static_cast<size_t>(b) * Nq * Cf;
+  const float* yb = yx + static_cast<size_t>(b) * Ndb * Cf;
+  const float* sqqb = sqq + static_cast<size_t>(b) * Nq;
+  const float* sqyb = sqy + static_cast<size_t>(b) * Ndb;
+  // kStream: a warp's running lists, [buffer][row][kMaxK] values then columns
+  float* lv = ys + kTileCols * kTileStride + warp * (4 * kR * kMaxK);
+  int* li = reinterpret_cast<int*>(lv + 2 * kR * kMaxK);
 
   for (int e = threadIdx.x; e < kSelRows * Cfp; e += kSelThreads) {
     const int r = e / Cfp, c = e - r * Cfp;
-    qs[e] = c < Cf ? xb[static_cast<size_t>(min(row0 + r, N - 1)) * Cf + c] : 0.f;
+    qs[e] = c < Cf ? qb[static_cast<size_t>(min(row0 + r, Nq - 1)) * Cf + c] : 0.f;
   }
 
-  // ---- distances: d[a][t] is row kR * warp + a against column 32 t + lane
-  float d[kR][kNT];
-#pragma unroll
-  for (int a = 0; a < kR; ++a)
-#pragma unroll
-    for (int t = 0; t < kNT; ++t) d[a][t] = 0.f;
-
+  int i0[kR], i1[kR];        // !kStream: round r's column (and distance) in
+  float v0[kR], v1[kR];      // lane r & 31, r < 32 in i0 / v0, else i1 / v1
+  int cur = 0;               // kStream: the buffer holding the running lists
   TileRegs regs;
-  tile_load<kVec>(regs, xb, N, Cf, 0, 0, min(kTileCh, Cf), (min(kTileCh, Cf) + 3) & ~3);
-  for (int cc = 0; cc < Cf; cc += kTileCh) {
-    const int nch = min(kTileCh, Cf - cc);
-    const int nchp = (nch + 3) & ~3;
+  tile_load<kVec>(regs, yb, Ndb, Cf, 0, 0, min(kTileCh, Cf), (min(kTileCh, Cf) + 3) & ~3);
+  for (int base = 0; base < Ndb; base += kMaxN) {   // one chunk unless kStream
+    const int ncols = min(kMaxN, Ndb - base);
+    // ---- distances: d[a][t] is row kR * warp + a against column base + 32 t + lane
+    float d[kR][kNT];
 #pragma unroll
-    for (int tc = 0; tc < kNT / 4; ++tc) {
-      const int col0 = tc * kTileCols;
-      if (col0 < N) {   // the same for the whole block
-        __syncthreads();   // the tile before is used up (and qs is written)
-        tile_store<kVec>(regs, ys, nchp);
-        __syncthreads();
-        {   // the next tile's loads fly while this one is used
-          int ncol = col0 + kTileCols, ncc = cc;
-          if (ncol >= N) { ncol = 0; ncc = cc + kTileCh; }
-          if (ncc < Cf) {
-            const int nn = min(kTileCh, Cf - ncc);
-            tile_load<kVec>(regs, xb, N, Cf, ncol, ncc, nn, (nn + 3) & ~3);
+    for (int a = 0; a < kR; ++a)
+#pragma unroll
+      for (int t = 0; t < kNT; ++t) d[a][t] = 0.f;
+
+    for (int cc = 0; cc < Cf; cc += kTileCh) {
+      const int nch = min(kTileCh, Cf - cc);
+      const int nchp = (nch + 3) & ~3;
+#pragma unroll
+      for (int tc = 0; tc < kNT / 4; ++tc) {
+        const int col0 = tc * kTileCols;
+        if (col0 < ncols) {   // the same for the whole block
+          __syncthreads();   // the tile before is used up (and qs is written)
+          tile_store<kVec>(regs, ys, nchp);
+          __syncthreads();
+          {   // the next tile's loads fly while this one is used
+            int ncol = col0 + kTileCols, ncc = cc, nbase = base;
+            if (ncol >= ncols) { ncol = 0; ncc = cc + kTileCh; }
+            if (ncc >= Cf) { ncc = 0; nbase = base + kMaxN; }
+            if (nbase < Ndb) {
+              const int nn = min(kTileCh, Cf - ncc);
+              tile_load<kVec>(regs, yb, Ndb, Cf, nbase + ncol, ncc, nn, (nn + 3) & ~3);
+            }
           }
-        }
-        const float* q = qs + (kR * warp) * Cfp + cc;
-        for (int c = 0; c < nchp; c += 4) {
-          float4 qv[kR];
+          const float* q = qs + (kR * warp) * Cfp + cc;
+          for (int c = 0; c < nchp; c += 4) {
+            float4 qv[kR];
 #pragma unroll
-          for (int a = 0; a < kR; ++a)
-            qv[a] = *reinterpret_cast<const float4*>(q + a * Cfp + c);
+            for (int a = 0; a < kR; ++a)
+              qv[a] = *reinterpret_cast<const float4*>(q + a * Cfp + c);
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const float4 y =
-                *reinterpret_cast<const float4*>(ys + (lane + 32 * u) * kTileStride + c);
+            for (int u = 0; u < 4; ++u) {
+              const float4 y =
+                  *reinterpret_cast<const float4*>(ys + (lane + 32 * u) * kTileStride + c);
 #pragma unroll
-            for (int a = 0; a < kR; ++a) {
-              float acc = d[a][tc * 4 + u];
-              acc = mac_rn(acc, qv[a].x, y.x);
-              acc = mac_rn(acc, qv[a].y, y.y);
-              acc = mac_rn(acc, qv[a].z, y.z);
-              acc = mac_rn(acc, qv[a].w, y.w);
-              d[a][tc * 4 + u] = acc;
+              for (int a = 0; a < kR; ++a) {
+                float acc = d[a][tc * 4 + u];
+                acc = mac_rn(acc, qv[a].x, y.x);
+                acc = mac_rn(acc, qv[a].y, y.y);
+                acc = mac_rn(acc, qv[a].z, y.z);
+                acc = mac_rn(acc, qv[a].w, y.w);
+                d[a][tc * 4 + u] = acc;
+              }
             }
           }
         }
       }
     }
-  }
-  // no block barrier below
-  int i0[kR], i1[kR];
-#pragma unroll
-  for (int a = 0; a < kR; ++a) {
-    const int i = min(row0 + kR * warp + a, N - 1);
-    const float qq = sqb[i];
-#pragma unroll
-    for (int t = 0; t < kNT; ++t) {
-      const int j = 32 * t + lane;
-      d[a][t] = j < N ? __fadd_rn(__fsub_rn(qq, __fmul_rn(2.0f, d[a][t])), sqb[j]) : kInf;
-    }
-    i0[a] = 0;
-    i1[a] = 0;
-  }
-
-  // ---- k rounds of first-argmin extraction, the warp's rows side by side.
-  // A lane keeps the minimum of each group of kGroup registers, so a round
-  // rescans only the group the winner sat in (the same group for the whole
-  // warp) instead of all kNT registers.
-  float gb[kR][kNT / kGroup];
-  int gt[kR][kNT / kGroup];
-#pragma unroll
-  for (int a = 0; a < kR; ++a) {
-    group_min<0>(d[a], gb[a][0], gt[a][0]);
-    group_min<1>(d[a], gb[a][1], gt[a][1]);
-    group_min<2>(d[a], gb[a][2], gt[a][2]);
-    group_min<3>(d[a], gb[a][3], gt[a][3]);
-  }
-  for (int r = 0; r < k; ++r) {
-    float best[kR];
-    int bj[kR];
+    // no block barrier below, up to the next chunk's tiles
 #pragma unroll
     for (int a = 0; a < kR; ++a) {
-      best[a] = gb[a][0];
-      int bt = gt[a][0];
+      const int i = min(row0 + kR * warp + a, Nq - 1);
+      const float qq = sqqb[i];
 #pragma unroll
-      for (int g = 1; g < kNT / kGroup; ++g)
-        if (gb[a][g] < best[a]) {   // strict: the lower column stays on a tie
-          best[a] = gb[a][g];
-          bt = gt[a][g];
-        }
-      bj[a] = 32 * bt + lane;
+      for (int t = 0; t < kNT; ++t) {
+        const int j = 32 * t + lane;
+        d[a][t] = j < ncols
+                      ? __fadd_rn(__fsub_rn(qq, __fmul_rn(2.0f, d[a][t])), sqyb[base + j])
+                      : kInf;
+      }
+      if (!kStream) {
+        i0[a] = 0;
+        i1[a] = 0;
+        v0[a] = 0.f;
+        v1[a] = 0.f;
+      }
     }
+
+    // ---- k rounds of first-argmin extraction, the warp's rows side by side.
+    // A lane keeps the minimum of each group of kGroup registers, so a round
+    // rescans only the group the winner sat in (the same group for the whole
+    // warp) instead of all kNT registers.
+    float gb[kR][kNT / kGroup];
+    int gt[kR][kNT / kGroup];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
+    for (int a = 0; a < kR; ++a) {
+      group_min<0>(d[a], gb[a][0], gt[a][0]);
+      group_min<1>(d[a], gb[a][1], gt[a][1]);
+      group_min<2>(d[a], gb[a][2], gt[a][2]);
+      group_min<3>(d[a], gb[a][3], gt[a][3]);
+    }
+    int head[kR];   // kStream: the next entry of each row's running list
+#pragma unroll
+    for (int a = 0; a < kR; ++a) head[a] = 0;
+    for (int r = 0; r < k; ++r) {
+      float best[kR];
+      int bj[kR];
 #pragma unroll
       for (int a = 0; a < kR; ++a) {
-        const float ov = __shfl_xor_sync(kFull, best[a], off);
-        const int oj = __shfl_xor_sync(kFull, bj[a], off);
-        if (ov < best[a] || (ov == best[a] && oj < bj[a])) {
-          best[a] = ov;
-          bj[a] = oj;
+        best[a] = gb[a][0];
+        int bt = gt[a][0];
+#pragma unroll
+        for (int g = 1; g < kNT / kGroup; ++g)
+          if (gb[a][g] < best[a]) {   // strict: the lower column stays on a tie
+            best[a] = gb[a][g];
+            bt = gt[a][g];
+          }
+        bj[a] = base + 32 * bt + lane;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+        for (int a = 0; a < kR; ++a) {
+          const float ov = __shfl_xor_sync(kFull, best[a], off);
+          const int oj = __shfl_xor_sync(kFull, bj[a], off);
+          if (ov < best[a] || (ov == best[a] && oj < bj[a])) {
+            best[a] = ov;
+            bj[a] = oj;
+          }
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < kR; ++a) {
+        bool from_list = false;   // the same for the whole warp
+        if constexpr (kStream) {
+          float v = best[a];
+          int j = bj[a];
+          if (base > 0) {   // the list's columns all precede this chunk's
+            const float hv = lv[(cur * kR + a) * kMaxK + head[a]];
+            const int hj = li[(cur * kR + a) * kMaxK + head[a]];
+            from_list = hv < v || (hv == v && hj < j);
+            if (from_list) {
+              v = hv;
+              j = hj;
+              ++head[a];
+            }
+          }
+          if (lane == 0) {
+            lv[((cur ^ 1) * kR + a) * kMaxK + r] = v;
+            li[((cur ^ 1) * kR + a) * kMaxK + r] = j;
+          }
+        } else if (lane == (r & 31)) {
+          if (r < 32) {
+            i0[a] = bj[a];
+            v0[a] = best[a];
+          } else {
+            i1[a] = bj[a];
+            v1[a] = best[a];
+          }
+        }
+        if (!from_list) {
+          const int tl = (bj[a] - base) >> 5;
+          const bool mine = lane == (bj[a] & 31);
+          switch (tl / kGroup) {   // the same for the whole warp
+            case 0: take<0>(d[a], mine, tl, gb[a][0], gt[a][0]); break;
+            case 1: take<1>(d[a], mine, tl, gb[a][1], gt[a][1]); break;
+            case 2: take<2>(d[a], mine, tl, gb[a][2], gt[a][2]); break;
+            default: take<3>(d[a], mine, tl, gb[a][3], gt[a][3]); break;
+          }
         }
       }
     }
-#pragma unroll
-    for (int a = 0; a < kR; ++a) {
-      if (lane == (r & 31)) {
-        if (r < 32) i0[a] = bj[a]; else i1[a] = bj[a];
-      }
-      const int tl = bj[a] >> 5;
-      const bool mine = lane == (bj[a] & 31);
-      switch (tl / kGroup) {   // the same for the whole warp
-        case 0: take<0>(d[a], mine, tl, gb[a][0], gt[a][0]); break;
-        case 1: take<1>(d[a], mine, tl, gb[a][1], gt[a][1]); break;
-        case 2: take<2>(d[a], mine, tl, gb[a][2], gt[a][2]); break;
-        default: take<3>(d[a], mine, tl, gb[a][3], gt[a][3]); break;
-      }
+    if constexpr (kStream) {
+      cur ^= 1;
+      __syncwarp();
     }
   }
 #pragma unroll
   for (int a = 0; a < kR; ++a) {
     const int i = row0 + kR * warp + a;
-    if (i < N) {
-      int* out = idx + (static_cast<size_t>(b) * N + i) * k;
-      for (int r = lane; r < k; r += 32) out[r] = r < 32 ? i0[a] : i1[a];
+    if (i < Nq) {
+      const size_t o = (static_cast<size_t>(b) * Nq + i) * k;
+      for (int r = lane; r < k; r += 32) {
+        if constexpr (kStream) {
+          idx[o + r] = li[(cur * kR + a) * kMaxK + r];
+          if constexpr (kDists) dists[o + r] = lv[(cur * kR + a) * kMaxK + r];
+        } else {
+          idx[o + r] = r < 32 ? i0[a] : i1[a];
+          if constexpr (kDists) dists[o + r] = r < 32 ? v0[a] : v1[a];
+        }
+      }
     }
   }
 }
@@ -477,9 +555,12 @@ edgeconv_tie_weights_kernel(const float* __restrict__ U, const int* __restrict__
   }
 }
 
-constexpr int kBwdWarps = 16;   // target rows a backward block
+constexpr int kBwdWarps = 16;   // target rows a backward block, at most
 constexpr int kChunk = 4096;    // idx entries staged a pass
-constexpr int kMaxList = kMaxN; // a row is chosen at most once by each source
+// A kNN row names a column at most once, so a target row has at most N
+// contributors: a warp's list holds max(N, kMaxN) entries, and above
+// N = 3376 fewer warps a block keep the lists inside kMaxSmem.
+constexpr int kMaxSmem = 232448;
 
 template <int kV>
 __device__ __forceinline__ void ld_rounds(const uint8_t* p, int (&out)[kV]) {
@@ -499,14 +580,16 @@ edgeconv_bwd_kernel(const float* __restrict__ U, const int* __restrict__ idx,
                     const void* __restrict__ a_, const void* __restrict__ c_,
                     const float* __restrict__ gA, const float* __restrict__ gB,
                     const float* __restrict__ gs1, const float* __restrict__ gs2,
-                    int N, int C, int k, int row_blocks, float* __restrict__ du) {
+                    int N, int C, int k, int row_blocks, int list_cap,
+                    float* __restrict__ du) {
   extern __shared__ __align__(16) int ism[];
   int* chunk = ism;                                   // [kChunk]
+  const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  int* list = ism + kChunk + warp * kMaxList;         // matches e = i * k + r
+  int* list = ism + kChunk + warp * list_cap;         // matches e = i * k + r
   const int b = blockIdx.x / row_blocks;
-  const int j = (blockIdx.x % row_blocks) * kBwdWarps + warp;
+  const int j = (blockIdx.x % row_blocks) * warps + warp;
   const int E = N * k;
   const int* ib = idx + static_cast<size_t>(b) * E;
 
@@ -515,7 +598,7 @@ edgeconv_bwd_kernel(const float* __restrict__ U, const int* __restrict__ idx,
   for (int e0 = 0; e0 < E; e0 += kChunk) {
     const int lim = min(kChunk, E - e0);
     __syncthreads();
-    for (int e = threadIdx.x; e < lim; e += kBwdWarps * 32) chunk[e] = ib[e0 + e];
+    for (int e = threadIdx.x; e < lim; e += blockDim.x) chunk[e] = ib[e0 + e];
     __syncthreads();
     if (j < N) {
       for (int base = 0; base < lim; base += 128) {
@@ -541,16 +624,16 @@ edgeconv_bwd_kernel(const float* __restrict__ U, const int* __restrict__ idx,
           if (lane >= off) incl += t;
         }
         int pos = n + incl - mine;
-        if (h0) { if (pos < kMaxList) list[pos] = e0 + e; ++pos; }
-        if (h1) { if (pos < kMaxList) list[pos] = e0 + e + 1; ++pos; }
-        if (h2) { if (pos < kMaxList) list[pos] = e0 + e + 2; ++pos; }
-        if (h3) { if (pos < kMaxList) list[pos] = e0 + e + 3; ++pos; }
+        if (h0) { if (pos < list_cap) list[pos] = e0 + e; ++pos; }
+        if (h1) { if (pos < list_cap) list[pos] = e0 + e + 1; ++pos; }
+        if (h2) { if (pos < list_cap) list[pos] = e0 + e + 2; ++pos; }
+        if (h3) { if (pos < list_cap) list[pos] = e0 + e + 3; ++pos; }
         n += __shfl_sync(kFull, incl, 31);
       }
     }
   }
   if (j >= N) return;
-  n = min(n, kMaxList);
+  n = min(n, list_cap);   // n <= N <= list_cap when idx rows are a kNN's
   __syncwarp();
 
   // ---- their cotangent rows, summed in that order
@@ -591,36 +674,67 @@ edgeconv_bwd_kernel(const float* __restrict__ U, const int* __restrict__ idx,
     }
     Vec<kV> out;
 #pragma unroll
-    for (int x = 0; x < kV; ++x) out.v[x] = acc[x] + s1[x] + 2.0f * u.v[x] * s2[x];
+    for (int x = 0; x < kV; ++x)   // (acc + s1) + (2 u) s2, no fused multiply-add
+      out.v[x] = __fadd_rn(__fadd_rn(acc[x], s1[x]),
+                           __fmul_rn(__fmul_rn(2.0f, u.v[x]), s2[x]));
     st<kV>(du + (cloud + j) * C + c, out);
   }
 }
-
-constexpr size_t kBwdSmem = (kChunk + kBwdWarps * kMaxList) * sizeof(int);
 
 template <bool kSplit, int kV>
 int launch_bwd(const float* U, const int* idx, const void* a, const void* c,
                const float* gA, const float* gB, const float* gs1, const float* gs2,
                int B, int N, int C, int k, float* du, cudaStream_t stream) {
-  cudaError_t err = set_smem(edgeconv_bwd_kernel<kSplit, kV>, kBwdSmem);
+  const int list_cap = N > kMaxN ? N : kMaxN;
+  const int fit = static_cast<int>((kMaxSmem - kChunk * sizeof(int)) / (list_cap * sizeof(int)));
+  const int warps = fit < kBwdWarps ? fit : kBwdWarps;
+  const size_t smem = (kChunk + static_cast<size_t>(warps) * list_cap) * sizeof(int);
+  cudaError_t err = set_smem(edgeconv_bwd_kernel<kSplit, kV>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int row_blocks = (N + kBwdWarps - 1) / kBwdWarps;
-  edgeconv_bwd_kernel<kSplit, kV><<<B * row_blocks, kBwdWarps * 32, kBwdSmem, stream>>>(
-      U, idx, a, c, gA, gB, gs1, gs2, N, C, k, row_blocks, du);
+  const int row_blocks = (N + warps - 1) / warps;
+  edgeconv_bwd_kernel<kSplit, kV><<<B * row_blocks, warps * 32, smem, stream>>>(
+      U, idx, a, c, gA, gB, gs1, gs2, N, C, k, row_blocks, list_cap, du);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kVec>
-int launch_select(const float* xf, const float* sq, int B, int N, int Cf, int k,
-                  int* idx, cudaStream_t stream) {
+template <bool kVec, bool kStream, bool kDists>
+int launch_select3(const float* q, const float* sqq, const float* y, const float* sqy,
+                   int B, int Nq, int Ndb, int Cf, int k, int* idx, float* dists,
+                   cudaStream_t stream) {
   const int Cfp = (Cf + 3) & ~3;
   const size_t smem =
-      (static_cast<size_t>(kSelRows) * Cfp + kTileCols * kTileStride) * sizeof(float);
-  cudaError_t err = set_smem(edgeconv_select_kernel<kVec>, smem);
+      (static_cast<size_t>(kSelRows) * Cfp + kTileCols * kTileStride +
+       (kStream ? kSelWarps * 4 * kR * kMaxK : 0)) * sizeof(float);
+  cudaError_t err = set_smem(knn_select_kernel<kVec, kStream, kDists>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int row_blocks = (N + kSelRows - 1) / kSelRows;
-  edgeconv_select_kernel<kVec><<<B * row_blocks, kSelThreads, smem, stream>>>(
-      xf, sq, N, Cf, k, row_blocks, idx);
+  const int row_blocks = (Nq + kSelRows - 1) / kSelRows;
+  knn_select_kernel<kVec, kStream, kDists><<<B * row_blocks, kSelThreads, smem, stream>>>(
+      q, sqq, y, sqy, Nq, Ndb, Cf, k, row_blocks, idx, dists);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Picks the instance: float4 reads when Cf % 4 == 0, streamed columns above kMaxN.
+template <bool kDists>
+int launch_select(const float* q, const float* sqq, const float* y, const float* sqy,
+                  int B, int Nq, int Ndb, int Cf, int k, int* idx, float* dists,
+                  cudaStream_t stream) {
+  const bool vec = Cf % 4 == 0, streamed = Ndb > kMaxN;
+  if (vec)
+    return streamed
+               ? launch_select3<true, true, kDists>(q, sqq, y, sqy, B, Nq, Ndb, Cf, k, idx,
+                                                    dists, stream)
+               : launch_select3<true, false, kDists>(q, sqq, y, sqy, B, Nq, Ndb, Cf, k, idx,
+                                                     dists, stream);
+  return streamed
+             ? launch_select3<false, true, kDists>(q, sqq, y, sqy, B, Nq, Ndb, Cf, k, idx,
+                                                   dists, stream)
+             : launch_select3<false, false, kDists>(q, sqq, y, sqy, B, Nq, Ndb, Cf, k, idx,
+                                                    dists, stream);
+}
+
+int launch_sqnorm(const float* x, int rows, int C, float* sq, cudaStream_t stream) {
+  if (rows == 0) return static_cast<int>(cudaSuccess);
+  row_sqnorm_kernel<<<(rows + 255) / 256, 256, 0, stream>>>(x, rows, C, sq);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -639,7 +753,21 @@ int launch_aggregate(const float* U, const int* idx, int B, int N, int C, int k,
   return static_cast<int>(cudaGetLastError());
 }
 
-bool bad_shape(int N, int k) { return N < 1 || N > kMaxN || k < 1 || k > kMaxK || k > N; }
+// N up to kMaxStreamN: the selection streams its columns, the backward's
+// lists fit shared memory.
+constexpr int kMaxStreamN = 4096;
+
+bool bad_shape(int N, int k) {
+  return N < 1 || N > kMaxStreamN || k < 1 || k > kMaxK || k > N;
+}
+
+int launch_aggregate_any(const float* U, const int* idx, int B, int N, int C, int k,
+                         int track, float* M, float* m, float* S1, float* S2, uint8_t* rM,
+                         uint8_t* rm, cudaStream_t stream) {
+  return C % 4 == 0
+             ? launch_aggregate<4>(U, idx, B, N, C, k, track, M, m, S1, S2, rM, rm, stream)
+             : launch_aggregate<1>(U, idx, B, N, C, k, track, M, m, S1, S2, rM, rm, stream);
+}
 
 }  // namespace
 
@@ -651,16 +779,38 @@ PDAE_EXPORT int edgeconv_fwd(const float* xf, const float* U, float* sq, int B, 
   if (bad_shape(N, k) || Cf < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const int rows = B * N;
-  row_sqnorm_kernel<<<(rows + 255) / 256, 256, 0, stream>>>(xf, rows, Cf, sq);
-  int err = static_cast<int>(cudaGetLastError());
+  int err = launch_sqnorm(xf, B * N, Cf, sq, stream);
   if (err != 0) return err;
-  err = Cf % 4 == 0 ? launch_select<true>(xf, sq, B, N, Cf, k, idx, stream)
-                    : launch_select<false>(xf, sq, B, N, Cf, k, idx, stream);
+  err = launch_select<false>(xf, sq, xf, sq, B, N, N, Cf, k, idx, nullptr, stream);
   if (err != 0) return err;
-  return C % 4 == 0
-             ? launch_aggregate<4>(U, idx, B, N, C, k, track, M, m, S1, S2, rM, rm, stream)
-             : launch_aggregate<1>(U, idx, B, N, C, k, track, M, m, S1, S2, rM, rm, stream);
+  return launch_aggregate_any(U, idx, B, N, C, k, track, M, m, S1, S2, rM, rm, stream);
+}
+
+// aggregate_from_idx: the forward's aggregate launch over a given
+// distance-ordered idx (B, N, k). rM / rm may be null when track == 0.
+PDAE_EXPORT int edgeconv_aggregate(const float* U, const int* idx, int B, int N, int C,
+                                   int k, int track, float* M, float* m, float* S1,
+                                   float* S2, uint8_t* rM, uint8_t* rm, void* stream_) {
+  if (N < 1 || k < 1 || k > kMaxK || C < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return static_cast<int>(cudaSuccess);
+  return launch_aggregate_any(U, idx, B, N, C, k, track, M, m, S1, S2, rM, rm,
+                              static_cast<cudaStream_t>(stream_));
+}
+
+// knn_pallas: the k nearest of Ndb database rows y (B, Ndb, C) for each of Nq
+// query rows q (B, Nq, C): dists and idx (B, Nq, k), ascending, lower index
+// on ties. sqq (B, Nq) and sqy (B, Ndb) are scratch.
+PDAE_EXPORT int knn_select(const float* q, const float* y, float* sqq, float* sqy, int B,
+                           int Nq, int Ndb, int C, int k, float* dists, int* idx,
+                           void* stream_) {
+  if (bad_shape(Ndb, k) || Nq < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  int err = launch_sqnorm(q, B * Nq, C, sqq, stream);
+  if (err != 0) return err;
+  err = launch_sqnorm(y, B * Ndb, C, sqy, stream);
+  if (err != 0) return err;
+  return launch_select<true>(q, sqq, y, sqy, B, Nq, Ndb, C, k, idx, dists, stream);
 }
 
 PDAE_EXPORT int edgeconv_bwd_first(const float* U, const int* idx, const uint8_t* rM,

@@ -7,14 +7,16 @@ move during the forward, as flax's mutable ``batch_stats`` do.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
 from ..data.corruptions import CloudCorruptDraws, augment_batch, corrupt_batch
 from ..models import build_model_from_cfg
+from ..models.common import DropoutDraws
 from ..models.transformer import ModelDraws
 from ..ops.geometry import resample_batch
+from ..utils.config import propagate_corrupt_type
 from ..utils.device import resolve_device
 from .train_state import TrainState
 
@@ -32,9 +34,11 @@ class PipelineDraws:
 
 @dataclass
 class StepDraws:
-    """``model`` is None for a model that draws nothing (the DGCNN DAE)."""
+    """``model``: the model's own draws, a ``ModelDraws`` for the
+    transformer models, the list of ``DropoutDraws`` of its in-model
+    dropouts for a DGCNN DAE; None draws them from the generator."""
     pipeline: PipelineDraws
-    model: Optional[ModelDraws] = None
+    model: Optional[Union[ModelDraws, Sequence[DropoutDraws]]] = None
 
 
 def device_pipeline(raw: torch.Tensor, aug_type: Sequence[str],
@@ -74,8 +78,11 @@ def compute_loss(loss_type: str, loss_xyz, loss_normal, normal_weight: float,
 
 
 def init_model(config, seed: int = 0, device=None) -> torch.nn.Module:
-    """The configured model with weights drawn from ``seed``."""
-    return build_model_from_cfg(config["model"], device=device, seed=seed)
+    """The configured model with weights drawn from ``seed``; an unset
+    ``model.corrupt_type`` takes the train dataset's first, as a pretrain
+    run's config load does (``utils/config.py:propagate_corrupt_type``)."""
+    return build_model_from_cfg(propagate_corrupt_type(config)["model"], device=device,
+                                seed=seed)
 
 
 def make_train_step(model: torch.nn.Module, config, device=None) -> Callable:

@@ -7,7 +7,10 @@ first, in optax's form (``clip_by_global_norm``): left as they are when
 
 AdamW (b1 0.9, b2 0.999, eps 1e-8) with decoupled weight decay, skipped for
 parameters with ndim <= 1, names ending in ``bias`` or containing
-``token`` (the reference's ``add_weight_decay``). The learning rate follows
+``token`` (the reference's ``add_weight_decay``). Parameters whose name
+contains ``teacher`` (the frozen teacher of ``MaskFeat_dgcnn``) are left
+out of the optimizer: no update and no weight decay, as the JAX package's
+``set_to_zero`` label gives them. The learning rate follows
 the per-epoch CosLR schedule evaluated at the optimizer's step count
 before the update, as optax's ``scale_by_schedule`` does. As in the JAX
 package, the schedule reads ``warmup_epochs`` and ignores the shipped
@@ -62,6 +65,8 @@ def build_optimizer(config: Dict, model: torch.nn.Module, steps_per_epoch: float
     wd = float(opti["kwargs"].get("weight_decay", 0.05))
     decay, no_decay = [], []
     for name, p in model.named_parameters():
+        if "teacher" in name.lower():
+            continue
         (no_decay if _no_decay(name, p) else decay).append(p)
     sched = make_lr_schedule(config, steps_per_epoch)
     opt = torch.optim.AdamW([{"params": decay, "weight_decay": wd},

@@ -3,19 +3,23 @@
 and the classification fine-tune model ``DGCNN`` (``:202-236``).
 
 Calling convention: ``model(corrupted, clean) -> (loss_xyz, loss_normal)``;
-``encode`` returns the global feature. The model draws nothing at random:
-its configured corruptions run in the data pipeline.
+``encode`` returns the global feature. Of the configured corruptions the
+in-model dropouts (``dropout_patch_pointmae``, ``dropout_global*``,
+``random_dropout``) run at the top of a training forward, from given
+``DropoutDraws`` or from the generator; the others run in the data
+pipeline.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn as nn
 
 from ..losses.chamfer import build_loss_func
 from ..utils.registry import MODELS
-from .common import ClsDraws, apply_input_dropout, dropout_from_mask, sample_dropout_masks
+from .common import (ClsDraws, DropoutDraws, apply_input_dropout, dropout_from_mask,
+                     is_input_dropout, sample_dropout_draws, sample_dropout_masks)
 from .dgcnn import DGCNNEncoder
 from .layers import MLP, BatchNorm, Dense, leaky_relu02
 
@@ -24,7 +28,9 @@ class _DGCNNDAEBase(nn.Module):
     """Shared skeleton: input dropout -> DGCNN encoder -> decode -> chamfer.
     Model keys: ``dtype: bf16`` (encoder products in bf16; kNN geometry,
     BatchNorm statistics, decoder and loss stay f32), ``edgeconv_impl``
-    (default ``auto``), ``edgeconv_exact_grads``, ``edgeconv_grad_mode``."""
+    (default ``auto``), ``edgeconv_exact_grads``, ``edgeconv_grad_mode``,
+    ``edgeconv_knn`` (``kernel``, the default, or ``xla``: the hybrid kNN,
+    which the JAX package reads from ``PDAE_EDGECONV_KNN``)."""
 
     def __init__(self, config, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -37,12 +43,21 @@ class _DGCNNDAEBase(nn.Module):
             impl=config.get("edgeconv_impl", "auto"),
             exact_grads=bool(config.get("edgeconv_exact_grads", False)),
             grad_mode=str(config.get("edgeconv_grad_mode", "first")),
+            knn_impl=str(config.get("edgeconv_knn", "kernel")),
             generator=generator)
 
-    def _encode_corrupted(self, corrupted: torch.Tensor) -> torch.Tensor:
+    def sample_draws(self, batch: int, generator: Optional[torch.Generator], device,
+                     n: int = 1024) -> List[DropoutDraws]:
+        """Draw the in-model dropouts' randomness (clouds of ``n`` points)."""
+        return [sample_dropout_draws(t, batch, n, generator, device)
+                for t in self.corrupt_type if is_input_dropout(t)]
+
+    def _encode_corrupted(self, corrupted: torch.Tensor,
+                          draws: Optional[Sequence[DropoutDraws]] = None,
+                          generator: Optional[torch.Generator] = None) -> torch.Tensor:
         corrupted = corrupted[..., :3]
         if self.training and self.corrupt_type:
-            corrupted = apply_input_dropout(corrupted, self.corrupt_type)
+            corrupted = apply_input_dropout(corrupted, self.corrupt_type, draws, generator)
         return self.dgcnn_encoder(corrupted)[0]
 
     def encode(self, pts: torch.Tensor) -> torch.Tensor:
@@ -59,15 +74,18 @@ class Point_CAE_DGCNN_FCOnly(_DGCNNDAEBase):
         super().__init__(config, generator)
         self.recfc = MLP(1024, (1024, 1024, self.num_coarse * 3), generator=generator)
 
-    def reconstruct(self, corrupted: torch.Tensor) -> torch.Tensor:
-        feat = self._encode_corrupted(corrupted)
+    def reconstruct(self, corrupted: torch.Tensor,
+                    draws: Optional[Sequence[DropoutDraws]] = None,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        feat = self._encode_corrupted(corrupted, draws, generator)
         return self.recfc(feat).reshape(-1, self.num_coarse, 3)
 
-    def forward(self, corrupted: torch.Tensor, clean: torch.Tensor, draws=None,
+    def forward(self, corrupted: torch.Tensor, clean: torch.Tensor,
+                draws: Optional[Sequence[DropoutDraws]] = None,
                 generator: Optional[torch.Generator] = None):
-        """``draws`` and ``generator`` are accepted for the train step's
-        uniform call and unused."""
-        coarse = self.reconstruct(corrupted)
+        """``draws``: one ``DropoutDraws`` for each in-model dropout of the
+        model's ``corrupt_type``, or None to draw them from ``generator``."""
+        coarse = self.reconstruct(corrupted, draws, generator)
         loss = self.loss_func(coarse, clean[..., :3].contiguous())
         return loss, torch.zeros((), device=loss.device)
 
@@ -104,7 +122,7 @@ class _ClsHead(nn.Sequential):
 class DGCNN(nn.Module):
     """Classification fine-tune model (``dae_dgcnn.py:225-236``): the f32
     DGCNN encoder (``edgeconv_impl`` default ``auto``: the fused kernel on
-    CUDA) and ``_ClsHead`` on its global feature. Calling convention:
+    CUDA; ``edgeconv_knn`` as in the pretrain models) and ``_ClsHead`` on its global feature. Calling convention:
     ``model(pts (B, N, 3)) -> logits (B, cls_dim)``; in training the head's
     dropout masks come from ``draws`` or from ``generator``."""
 
@@ -113,6 +131,7 @@ class DGCNN(nn.Module):
         self.dgcnn_encoder = DGCNNEncoder(
             impl=config.get("edgeconv_impl", "auto"),
             exact_grads=bool(config.get("edgeconv_exact_grads", False)),
+            knn_impl=str(config.get("edgeconv_knn", "kernel")),
             generator=generator)
         self.cls_head_finetune = _ClsHead(int(config.get("cls_dim", 40)), generator)
 

@@ -10,6 +10,10 @@ over ``concat(neighbour - self, self)``.
 ``fused`` (split projection + gathered aggregates), ``fused_pallas`` (split
 projection + the fused kNN / aggregate kernel of ``ops/edgeconv.py``) or
 ``auto`` (``fused_pallas`` on a CUDA tensor, ``reference`` on a CPU one).
+``knn_impl`` picks the kNN of the kernel path: ``kernel`` (in the fused
+kernel) or ``xla``, the hybrid of ``PDAE_EDGECONV_KNN=xla`` in the JAX
+package: ``ops/geometry.knn`` (the kNN kernel inside its gate, a sort
+outside it) and then ``aggregate_from_idx``.
 """
 from __future__ import annotations
 
@@ -18,7 +22,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
-from ..ops.edgeconv import knn_aggregate, knn_aggregate_plain, knn_aggregate_xla, supported
+from ..ops.edgeconv import (aggregate_from_idx, aggregate_from_idx_plain, knn_aggregate,
+                            knn_aggregate_plain, knn_aggregate_xla, supported)
 from ..ops.gather import gather_rows
 from ..ops.geometry import knn
 from .layers import BatchNorm, Dense, leaky_relu02
@@ -49,8 +54,8 @@ def edge_conv(x: torch.Tensor, conv: Dense, bn: BatchNorm, k: int, dtype,
 
 def fused_edge_conv(x: torch.Tensor, conv: Dense, bn: BatchNorm, k: int, dtype,
                     use_pallas: bool = True, interpret: bool = False,
-                    exact_grads: bool = False, grad_mode: str = "first"
-                    ) -> torch.Tensor:
+                    exact_grads: bool = False, grad_mode: str = "first",
+                    knn_impl: str = "kernel") -> torch.Tensor:
     """EdgeConv without the (B, N, k, 2C) edge tensor or the (B, N, N)
     distance matrix in device memory: W [x_j - x_i ; x_i] = U_j + V_i with
     U = x W_top, V = x (W_bot - W_top); the fused kernel returns max, min,
@@ -61,7 +66,9 @@ def fused_edge_conv(x: torch.Tensor, conv: Dense, bn: BatchNorm, k: int, dtype,
 
     ``use_pallas=False`` aggregates by gather instead of the kernel,
     ``interpret`` takes the kernel's path with its plain version on any
-    device, ``exact_grads`` switches the backward to ``split``."""
+    device, ``exact_grads`` switches the backward to ``split``, ``knn_impl
+    == "xla"`` takes the hybrid kNN + ``aggregate_from_idx`` on the kernel
+    path."""
     B, N, C = x.shape
     dt = dtype or x.dtype
     wt = conv.weight[:, :C].to(dt)
@@ -71,8 +78,13 @@ def fused_edge_conv(x: torch.Tensor, conv: Dense, bn: BatchNorm, k: int, dtype,
     Vf = torch.matmul(xd, (wc - wt).t()).float()
     xf = x.detach().float()
     if interpret or (use_pallas and supported(N, k) and x.device.type == "cuda"):
-        fn = knn_aggregate_plain if interpret else knn_aggregate
-        M, m, S1, S2, _ = fn(Uf, xf, k, "split" if exact_grads else grad_mode)
+        mode = "split" if exact_grads else grad_mode
+        if knn_impl == "xla":
+            fn = aggregate_from_idx_plain if interpret else aggregate_from_idx
+            M, m, S1, S2 = fn(Uf, knn(xf, xf, k)[1], mode)
+        else:
+            fn = knn_aggregate_plain if interpret else knn_aggregate
+            M, m, S1, S2, _ = fn(Uf, xf, k, mode)
     else:
         M, m, S1, S2 = knn_aggregate_xla(Uf, knn(xf, xf, k)[1])
 
@@ -137,15 +149,18 @@ class DGCNNEncoder(nn.Module):
 
     def __init__(self, k: int = 20, remat: bool = False, dtype=None,
                  impl: str = "reference", exact_grads: bool = False,
-                 grad_mode: str = "first",
+                 grad_mode: str = "first", knn_impl: str = "kernel",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if remat:
             raise NotImplementedError("remat is not ported yet")
         if impl not in ("reference", "fused", "fused_pallas", "auto"):
             raise ValueError(f"edgeconv_impl {impl!r}")
+        if knn_impl not in ("kernel", "xla"):
+            raise ValueError(f"edgeconv_knn {knn_impl!r}")
         self.k, self.dtype, self.impl = k, dtype, impl
-        self.fused_flags = dict(exact_grads=exact_grads, grad_mode=grad_mode)
+        self.fused_flags = dict(exact_grads=exact_grads, grad_mode=grad_mode,
+                                knn_impl=knn_impl)
         din = 3
         for i, width in enumerate(self.WIDTHS, start=1):
             setattr(self, f"conv{i}", _Conv(2 * din, width, dtype, generator))

@@ -108,8 +108,95 @@ class MaskTransformerEncoder(nn.Module):
         return full.scatter(1, vis_idx.long()[..., None].expand_as(x), x)
 
 
+class _CAETransformerBase(nn.Module):
+    """Shared parts of the masked transformer DAEs (JAX
+    ``transformer.py:234-428``): the config keys they read, the encoder,
+    decoder and mask token (built by the subclass, in its order of
+    parameter creation), the draws, the decoder pass over all G tokens and
+    the packing of the masked tokens. Builds no loss function: each model
+    has its own. Only the masked mode (``mask_type: rand``) is ported."""
+
+    def __init__(self, config, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        t = config["transformer_config"]
+        self.tcfg = t
+        dt = t.get("dtype", config.get("dtype"))
+        self.compute_dtype = torch.bfloat16 if str(dt) in ("bf16", "bfloat16") else None
+        self.corrupt_type = tuple(config.get("corrupt_type", ()))
+        self.num_group = int(config["num_group"])
+        self.group_size = int(config["group_size"])
+        self.all_patch = str(config.get("all_patch", "False")) == "True"
+        self.rand_ratio = str(t.get("rand_ratio", "False")) == "True"
+        self.mask_ratio = float(t.get("mask_ratio", 0.6))
+        if t.get("mask_type", "rand") != "rand":
+            raise NotImplementedError("only mask_type 'rand' is ported")
+        for key in ("residual_dtype", "embed_all_patches", "remat", "remat_fold"):
+            if str(t.get(key, "False")) not in ("False", "None", "0"):
+                raise NotImplementedError(f"transformer_config.{key} is not ported yet")
+
+    def _make_encoder(self, generator) -> MaskTransformerEncoder:
+        t = self.tcfg
+        return MaskTransformerEncoder(
+            int(t["trans_dim"]), t["depth"], t["num_heads"], t["encoder_dims"],
+            t.get("drop_path_rate", 0.1), self.mask_ratio, self.rand_ratio,
+            self.compute_dtype, generator)
+
+    def _make_decoder(self, generator) -> TransformerDecoder:
+        t = self.tcfg
+        return TransformerDecoder(int(t["trans_dim"]), t["decoder_depth"],
+                                  t["decoder_num_heads"], t.get("drop_path_rate", 0.1),
+                                  self.compute_dtype, generator)
+
+    def _make_mask_token(self, generator) -> nn.Parameter:
+        return nn.Parameter(nn.init.trunc_normal_(
+            torch.empty(1, 1, int(self.tcfg["trans_dim"])), 0.0, 0.02, -0.04, 0.04,
+            generator=generator))
+
+    def _sample_affine(self, batch: int, generator, device) -> Optional[AffineR3Draws]:
+        return None
+
+    def sample_draws(self, batch: int, generator: Optional[torch.Generator],
+                     device) -> ModelDraws:
+        """Draw a forward's randomness from ``generator``."""
+        mask = sample_patch_mask(batch, self.num_group, self.mask_ratio,
+                                 self.rand_ratio, generator, device)
+        affine = self._sample_affine(batch, generator, device)
+        dp_enc = stack_dp_masks(self.MAE_encoder.blocks.dpr, batch, generator, device)
+        dp_dec = stack_dp_masks(self.MAE_decoder.dpr, batch, generator, device)
+        return ModelDraws(mask, affine, dp_enc, dp_dec)
+
+    def _decode(self, x_vis: torch.Tensor, mask: torch.Tensor, center: torch.Tensor,
+                dp_dec: Optional[torch.Tensor]) -> torch.Tensor:
+        """Swap masked slots for the mask token, add the decoder's position
+        embedding of the true centres, run the decoder over all G tokens."""
+        x_full = torch.where(mask[..., None], self.mask_token, x_vis)
+        return self.MAE_decoder(x_full, self.decoder_pos_embed(center), None, dp_dec)
+
+    def _masked_pack_idx(self, mask: torch.Tensor):
+        """(midx (B, M), w (B * M,) f32) packing the masked token slots first
+        to the fixed capacity M = floor(max_ratio * G), padding slots with
+        weight 0; or None when every token enters the loss (``all_patch``)
+        or packing would not shrink anything."""
+        G = mask.shape[1]
+        M = static_num_masked(0.8 if self.rand_ratio else self.mask_ratio, G)
+        if self.all_patch or M >= G:
+            return None
+        order = torch.sort((~mask).to(torch.uint8), dim=-1, stable=True).indices
+        w = torch.arange(M, device=mask.device)[None, :] < mask.sum(-1)[:, None]
+        return order[:, :M], w.float().reshape(-1)
+
+    def _pack_local(self, mask: torch.Tensor, *tensors: torch.Tensor):
+        """(w, packed...): per-token tensors packed to the masked-token
+        capacity, or left in place with the mask as weights."""
+        pack = self._masked_pack_idx(mask)
+        if pack is None:
+            return (mask.float().reshape(-1),) + tensors
+        midx, w = pack
+        return (w,) + tuple(_take(a, midx) for a in tensors)
+
+
 @MODELS.register_module()
-class PointCAE_transformer_fc_global_folding_local(nn.Module):
+class PointCAE_transformer_fc_global_folding_local(_CAETransformerBase):
     """Flagship model: FC global-shape head on the pooled visible feature
     (chamfer against the patch centres) and a two-stage folding head on the
     decoded masked tokens (masked chamfer against the centred patches).
@@ -121,38 +208,19 @@ class PointCAE_transformer_fc_global_folding_local(nn.Module):
     """
 
     def __init__(self, config, generator: Optional[torch.Generator] = None):
-        super().__init__()
-        t = config["transformer_config"]
-        dt = t.get("dtype", config.get("dtype"))
-        self.compute_dtype = torch.bfloat16 if str(dt) in ("bf16", "bfloat16") else None
-        self.corrupt_type = tuple(config.get("corrupt_type", ()))
-        self.num_group = int(config["num_group"])
-        self.group_size = int(config["group_size"])
-        self.all_patch = str(config.get("all_patch", "False")) == "True"
-        self.rand_ratio = str(t.get("rand_ratio", "False")) == "True"
-        self.mask_ratio = float(t.get("mask_ratio", 0.6))
-        self.fold_impl = str(t.get("fold_impl", "auto"))
+        super().__init__(config, generator)
+        self.fold_impl = str(self.tcfg.get("fold_impl", "auto"))
         if "Drop-Patch" not in self.corrupt_type:
             raise NotImplementedError("the unmasked encoder is not ported yet")
-        if t.get("mask_type", "rand") != "rand":
-            raise NotImplementedError("only mask_type 'rand' is ported")
-        for key in ("residual_dtype", "embed_all_patches", "remat", "remat_fold"):
-            if str(t.get(key, "False")) not in ("False", "None", "0"):
-                raise NotImplementedError(f"transformer_config.{key} is not ported yet")
         if config.get("loss", "cdl2") != "cdl2":
             raise NotImplementedError(f"loss {config.get('loss')!r} is not ported yet")
-        C = int(t["trans_dim"])
+        C = int(self.tcfg["trans_dim"])
         dtype = self.compute_dtype
         g = generator
-        self.MAE_encoder = MaskTransformerEncoder(
-            C, t["depth"], t["num_heads"], t["encoder_dims"],
-            t.get("drop_path_rate", 0.1), self.mask_ratio, self.rand_ratio, dtype, g)
+        self.MAE_encoder = self._make_encoder(g)
         self.decoder_pos_embed = PosEmbedMLP(C, generator=g)
-        self.MAE_decoder = TransformerDecoder(C, t["decoder_depth"],
-                                              t["decoder_num_heads"],
-                                              t.get("drop_path_rate", 0.1), dtype, g)
-        self.mask_token = nn.Parameter(nn.init.trunc_normal_(
-            torch.empty(1, 1, C), 0.0, 0.02, -0.04, 0.04, generator=g))
+        self.MAE_decoder = self._make_decoder(g)
+        self.mask_token = self._make_mask_token(g)
         self.coarse_pred = MLP(C, (1024, 1024, 3 * 64), dtype=dtype, generator=g)
         self.folding1 = SplitMLP(C, 2, (C, C, 3), dtype=dtype, generator=g)
         self.folding2 = SplitMLP(C, 3, (C, C, 3), dtype=dtype, generator=g)
@@ -160,16 +228,9 @@ class PointCAE_transformer_fc_global_folding_local(nn.Module):
                              persistent=False)
         self.global_loss_fn = build_loss_func("cdl2")
 
-    def sample_draws(self, batch: int, generator: Optional[torch.Generator],
-                     device) -> ModelDraws:
-        """Draw a forward's randomness from ``generator``."""
-        mask = sample_patch_mask(batch, self.num_group, self.mask_ratio,
-                                 self.rand_ratio, generator, device)
-        affine = sample_affine_r3(batch, generator, device) \
+    def _sample_affine(self, batch: int, generator, device) -> Optional[AffineR3Draws]:
+        return sample_affine_r3(batch, generator, device) \
             if "affine_r3" in self.corrupt_type else None
-        dp_enc = stack_dp_masks(self.MAE_encoder.blocks.dpr, batch, generator, device)
-        dp_dec = stack_dp_masks(self.MAE_decoder.dpr, batch, generator, device)
-        return ModelDraws(mask, affine, dp_enc, dp_dec)
 
     def _fold_fused(self, x_rec: torch.Tensor) -> torch.Tensor:
         """The fused branch of ``_fold``."""
@@ -193,16 +254,13 @@ class PointCAE_transformer_fc_global_folding_local(nn.Module):
         """(tokens, GT patches, loss weights), packed to the masked-token
         capacity M = floor(max_ratio * G) when only masked patches count."""
         B, G, S = neigh.shape[:3]
-        M = static_num_masked(0.8 if self.rand_ratio else self.mask_ratio, G)
-        if self.all_patch or M >= G:
+        pack = self._masked_pack_idx(mask)
+        if pack is None:
             weight = torch.ones(B * G, device=mask.device) if self.all_patch \
                 else mask.float().reshape(-1)
             return x_rec, neigh.reshape(B * G, S, 3), weight
-        order = torch.sort((~mask).to(torch.uint8), dim=-1, stable=True).indices
-        midx = order[:, :M]                                   # masked first
-        w = torch.arange(M, device=mask.device)[None, :] < mask.sum(-1)[:, None]
-        return _take(x_rec, midx), _take(neigh, midx).reshape(-1, S, 3), \
-            w.float().reshape(-1)
+        midx, w = pack
+        return _take(x_rec, midx), _take(neigh, midx).reshape(-1, S, 3), w
 
     def forward(self, corrupted: torch.Tensor, clean: torch.Tensor,
                 draws: Optional[ModelDraws] = None,
@@ -232,8 +290,7 @@ class PointCAE_transformer_fc_global_folding_local(nn.Module):
         coarse = self.coarse_pred(gfeat).float().reshape(B, -1, 3)
         loss2 = self.global_loss_fn(coarse, center)
 
-        x_full = torch.where(mask[..., None], self.mask_token, x_vis)
-        x_rec = self.MAE_decoder(x_full, self.decoder_pos_embed(center), None, dp_dec)
+        x_rec = self._decode(x_vis, mask, center, dp_dec)
         x_loc, gt, w = self._local_recon_inputs(x_rec, neigh, mask)
         rebuild = self._fold(x_loc).reshape(gt.shape[0], -1, 3)
         loss1 = masked_chamfer_l2(rebuild, gt, w)

@@ -10,10 +10,15 @@ max / min cotangents: ``first`` to the first neighbour in distance order
 that attains the extremum, ``split`` equally among the neighbours whose
 value equals it.
 
-On a CUDA tensor the forward and both backwards are the kernels of
-``csrc/edgeconv.cu``; on a CPU tensor their plain PyTorch versions below,
-which repeat the kernels' arithmetic (distances summed in channel order,
-aggregates in round order).
+``aggregate_from_idx(U, idx)`` is the same aggregate over a given
+distance-ordered idx (``pallas_edgeconv.aggregate_from_idx``: the hybrid
+EdgeConv, whose kNN runs outside), with the same two backwards.
+
+On a CUDA tensor the forwards and both backwards are the kernels of
+``csrc/edgeconv.cu`` (N <= 4096, the whole JAX gate); on a CPU tensor their
+plain PyTorch versions below, which repeat the kernels' arithmetic
+(distances summed in channel order, aggregates in round order, each
+backward's three sums in (source, round) order).
 """
 from __future__ import annotations
 
@@ -22,16 +27,15 @@ from typing import Tuple
 import torch
 
 from ..utils import kernels
+from .tiled_knn import knn_plain
 
-MAX_N = 1024    # the kernel keeps a row's distances in 32 registers a lane
 _INF = 1e30
 
 
 def supported(N: int, k: int) -> bool:
     """Shapes ``FusedEdgeConv`` sends to the fused kernel: the gate of
     ``pallas_edgeconv.supported`` without its row-tile test, since the CUDA
-    kernel has no row tile. Inside the gate and above ``MAX_N`` the kernel
-    wrapper raises."""
+    kernel has no row tile. The kernels take every shape inside it."""
     return 2 <= k <= 64 and N <= 4096
 
 
@@ -51,26 +55,11 @@ def _gather_neighbours(U: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(U, 1, flat).reshape(B, N, k, C)
 
 
-def _seq_sqnorm(x: torch.Tensor) -> torch.Tensor:
-    s = x[..., 0] * x[..., 0]
-    for c in range(1, x.shape[-1]):
-        s = s + x[..., c] * x[..., c]
-    return s
-
-
 def knn_select_plain(xf: torch.Tensor, k: int) -> torch.Tensor:
     """(B, N, Cf) -> idx (B, N, k) int32: the k smallest of
     (sq_i - 2 x_i.x_j) + sq_j per row, ascending, lower index first on ties.
     The inner product is summed in channel order, each product rounded."""
-    xf = xf.float()
-    sq = _seq_sqnorm(xf)
-    xt = xf.transpose(1, 2)                                  # (B, Cf, N)
-    dot = xf[:, :, 0, None] * xt[:, 0, None, :]
-    for c in range(1, xf.shape[-1]):
-        dot = dot + xf[:, :, c, None] * xt[:, c, None, :]
-    d = (sq[:, :, None] - 2.0 * dot) + sq[:, None, :]
-    del dot
-    return torch.sort(d, dim=-1, stable=True).indices[..., :k].int()
+    return knn_plain(xf, xf, k)[1]
 
 
 def aggregate_plain(U: torch.Tensor, idx: torch.Tensor):
@@ -103,14 +92,23 @@ def _scatter_neighbours(w: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.scatter_add_(1, flat, w.reshape(B, N * k, C))
 
 
+def _bwd_sums(U, idx, t, gs1, gs2) -> torch.Tensor:
+    """du[j] = (acc + s1) + (2 U[j]) s2, where acc, s1 and s2 sum t, gs1 and
+    gs2 over the pairs (i, r) with idx[i, r] = j (on the CPU in ascending
+    (i, r), the kernel's order)."""
+    k = idx.shape[-1]
+    acc = _scatter_neighbours(t, idx)
+    s1 = _scatter_neighbours(gs1[:, :, None].expand(-1, -1, k, -1), idx)
+    s2 = _scatter_neighbours(gs2[:, :, None].expand(-1, -1, k, -1), idx)
+    return (acc + s1) + (2.0 * U) * s2
+
+
 def bwd_first_plain(U, idx, rM, rm, gM, gm, gs1, gs2) -> torch.Tensor:
-    g = _gather_neighbours(U, idx)
     rounds = torch.arange(idx.shape[-1], device=U.device)[None, None, :, None]
     zero = torch.zeros((), dtype=gM.dtype, device=U.device)
-    w = (torch.where(rM[:, :, None] == rounds, gM[:, :, None], zero)
-         + torch.where(rm[:, :, None] == rounds, gm[:, :, None], zero)
-         + gs1[:, :, None] + 2.0 * g * gs2[:, :, None])
-    return _scatter_neighbours(w, idx)
+    t = (torch.where(rM[:, :, None] == rounds, gM[:, :, None], zero)
+         + torch.where(rm[:, :, None] == rounds, gm[:, :, None], zero))
+    return _bwd_sums(U, idx, t, gs1, gs2)
 
 
 def bwd_split_plain(U, idx, M, m, gM, gm, gs1, gs2) -> torch.Tensor:
@@ -119,9 +117,9 @@ def bwd_split_plain(U, idx, M, m, gM, gm, gs1, gs2) -> torch.Tensor:
     ism = g == m[:, :, None]
     wM = gM / isM.sum(2).clamp_min(1).to(gM.dtype)
     wm = gm / ism.sum(2).clamp_min(1).to(gm.dtype)
-    w = (gs1[:, :, None] + 2.0 * g * gs2[:, :, None]
-         + isM * wM[:, :, None] + ism * wm[:, :, None])
-    return _scatter_neighbours(w, idx)
+    zero = torch.zeros((), dtype=gM.dtype, device=U.device)
+    t = (torch.where(isM, wM[:, :, None], zero) + torch.where(ism, wm[:, :, None], zero))
+    return _bwd_sums(U, idx, t, gs1, gs2)
 
 
 def _check(U: torch.Tensor, xf: torch.Tensor, k: int) -> None:
@@ -138,10 +136,10 @@ def knn_aggregate_fwd_kernel(U: torch.Tensor, xf: torch.Tensor, k: int,
     xf = xf.detach().contiguous()
     kernels.require_cuda(U, xf)
     B, N, C = U.shape
-    if U.dtype != torch.float32 or xf.dtype != torch.float32 or N > MAX_N:
+    if U.dtype != torch.float32 or xf.dtype != torch.float32 or not supported(N, k):
         raise NotImplementedError(
-            f"the knn_aggregate kernel is built for f32 clouds of N <= {MAX_N} "
-            f"points, got U {tuple(U.shape)} {U.dtype}, xf {xf.dtype}")
+            f"the knn_aggregate kernel is built for f32 clouds of N <= 4096 "
+            f"points, got U {tuple(U.shape)} {U.dtype}, xf {xf.dtype}, k {k}")
     f = lambda dt: torch.empty((B, N, C), dtype=dt, device=U.device)
     M, m, S1, S2 = (f(torch.float32) for _ in range(4))
     rM, rm = (f(torch.uint8), f(torch.uint8)) if track else (None, None)
@@ -167,11 +165,11 @@ def knn_aggregate_bwd_kernel(grad_mode: str, U, idx, a, c, gM, gm, gs1, gs2
     B, N, C = U.shape
     k = idx.shape[-1]
     want = torch.uint8 if grad_mode == "first" else torch.float32
-    if (N > MAX_N or any(t.dtype != torch.float32 for t in [ts[0]] + ts[4:])
+    if (not supported(N, k) or any(t.dtype != torch.float32 for t in [ts[0]] + ts[4:])
             or ts[1].dtype != torch.int32 or ts[2].dtype != want or ts[3].dtype != want):
         raise NotImplementedError(
             f"the knn_aggregate backward kernels are built for f32 clouds of "
-            f"N <= {MAX_N} points, got U {tuple(U.shape)} {U.dtype}")
+            f"N <= 4096 points, got U {tuple(U.shape)} {U.dtype}, k {k}")
     du = torch.empty((B, N, C), dtype=torch.float32, device=U.device)
     P, I = kernels.P, kernels.I
     ptrs = [t.data_ptr() for t in ts]
@@ -185,6 +183,38 @@ def knn_aggregate_bwd_kernel(grad_mode: str, U, idx, a, c, gM, gm, gs1, gs2
                        (P,) * 10 + (I,) * 4 + (P, P), *ptrs, wM.data_ptr(),
                        wm.data_ptr(), B, N, C, k, du.data_ptr(), kernels.stream(U))
     return du
+
+
+def aggregate_fwd_kernel(U: torch.Tensor, idx: torch.Tensor, track: bool):
+    """Launch the aggregate alone over a given idx (B, N, k): (M, m, S1, S2,
+    rM, rm), rM / rm uint8 and None without ``track``."""
+    U = U.detach().contiguous()
+    idx = idx.detach().to(torch.int32).contiguous()
+    kernels.require_cuda(U, idx)
+    B, N, C = U.shape
+    k = idx.shape[-1]
+    if U.dtype != torch.float32 or idx.shape[:2] != (B, N) or not 1 <= k <= 64:
+        raise NotImplementedError(f"aggregate_from_idx takes f32 U and k <= 64, got U "
+                                  f"{tuple(U.shape)} {U.dtype}, idx {tuple(idx.shape)}")
+    f = lambda dt: torch.empty((B, N, C), dtype=dt, device=U.device)
+    M, m, S1, S2 = (f(torch.float32) for _ in range(4))
+    rM, rm = (f(torch.uint8), f(torch.uint8)) if track else (None, None)
+    P, I = kernels.P, kernels.I
+    kernels.launch("aggregate_from_idx", "edgeconv", "edgeconv_aggregate",
+                   (P, P, I, I, I, I, I, P, P, P, P, P, P, P), U.data_ptr(), idx.data_ptr(),
+                   B, N, C, k, int(track), M.data_ptr(), m.data_ptr(), S1.data_ptr(),
+                   S2.data_ptr(), kernels.ptr(rM), kernels.ptr(rm), kernels.stream(U))
+    return M, m, S1, S2, rM, rm
+
+
+def _backward(ctx, gM, gm, gs1, gs2):
+    """du of either Function, from the saved (U, idx, a, c)."""
+    U, idx, a, c = ctx.saved_tensors
+    if ctx.plain:
+        fn = bwd_first_plain if ctx.grad_mode == "first" else bwd_split_plain
+        return fn(U.float(), idx, a, c, gM, gm, gs1, gs2).to(U.dtype)
+    return knn_aggregate_bwd_kernel(ctx.grad_mode, U, idx, a, c, gM, gm, gs1,
+                                    gs2).to(U.dtype)
 
 
 class _KnnAggregate(torch.autograd.Function):
@@ -206,14 +236,28 @@ class _KnnAggregate(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gM, gm, gs1, gs2, _gidx):
-        U, idx, a, c = ctx.saved_tensors
-        if ctx.plain:
-            fn = bwd_first_plain if ctx.grad_mode == "first" else bwd_split_plain
-            du = fn(U.float(), idx, a, c, gM, gm, gs1, gs2)
+        return _backward(ctx, gM, gm, gs1, gs2), None, None, None, None
+
+
+class _AggregateFromIdx(torch.autograd.Function):
+    """``aggregate_from_idx`` with the custom backward of ``knn_aggregate``
+    (``pallas_edgeconv.py:322-337``)."""
+
+    @staticmethod
+    def forward(ctx, U, idx, grad_mode, plain):
+        track = grad_mode == "first"
+        idx = idx.to(torch.int32)
+        if plain:
+            M, m, S1, S2, rM, rm = aggregate_plain(U.float(), idx)
         else:
-            du = knn_aggregate_bwd_kernel(ctx.grad_mode, U, idx, a, c, gM, gm,
-                                          gs1, gs2)
-        return du.to(U.dtype), None, None, None, None
+            M, m, S1, S2, rM, rm = aggregate_fwd_kernel(U, idx, track)
+        ctx.save_for_backward(U, idx, *((rM, rm) if track else (M, m)))
+        ctx.grad_mode, ctx.plain = grad_mode, plain
+        return M, m, S1, S2
+
+    @staticmethod
+    def backward(ctx, gM, gm, gs1, gs2):
+        return _backward(ctx, gM, gm, gs1, gs2), None, None, None
 
 
 def _grad_mode(grad_mode: str) -> str:
@@ -237,3 +281,25 @@ def knn_aggregate(U: torch.Tensor, xf: torch.Tensor, k: int,
     _check(U, xf, k)
     return _KnnAggregate.apply(U, xf.detach(), k, _grad_mode(grad_mode),
                                U.device.type == "cpu")
+
+
+def _check_idx(U: torch.Tensor, idx: torch.Tensor) -> None:
+    if idx.shape[:2] != U.shape[:2] or not 1 <= idx.shape[-1] <= 64:
+        raise ValueError(f"aggregate_from_idx: U {tuple(U.shape)}, idx {tuple(idx.shape)}")
+
+
+def aggregate_from_idx_plain(U: torch.Tensor, idx: torch.Tensor,
+                             grad_mode: str = "first"):
+    """The plain PyTorch version of ``aggregate_from_idx``, on any device."""
+    _check_idx(U, idx)
+    return _AggregateFromIdx.apply(U, idx.detach(), _grad_mode(grad_mode), True)
+
+
+def aggregate_from_idx(U: torch.Tensor, idx: torch.Tensor, grad_mode: str = "first"):
+    """U (B, N, C) f32, idx (B, N, k) distance-ordered neighbours (each row
+    distinct, as a kNN gives them) -> (M, m, S1, S2), each (B, N, C) f32;
+    only U gets a gradient. The kernels on CUDA tensors, the plain versions
+    on CPU ones."""
+    _check_idx(U, idx)
+    return _AggregateFromIdx.apply(U, idx.detach(), _grad_mode(grad_mode),
+                                   U.device.type == "cpu")

@@ -2,8 +2,10 @@
 scatter-add, each with its kernel.
 
 Port of ``point_dae_tpu/ops/pallas_scatter.py:gather_rows``,
-``gather_rows_small_c_pallas`` (CUDA kernel ``csrc/gather.cu``) and
-``scatter_rows_add_pallas`` (CUDA kernel ``csrc/scatter.cu``). Inside the
+``gather_rows_small_c_pallas`` (CUDA kernel ``csrc/gather.cu``),
+``scatter_rows_add_pallas`` (CUDA kernel ``csrc/scatter.cu``) and the
+rank-keyed select ``gather_by_key_small_c_pallas`` (the second entry of
+``csrc/gather.cu``), which the masked resample uses. Inside the
 JAX gate of the scatter (C >= 32, N <= 2048, B*Q*C >= 2^24) the backward of
 ``gather_rows`` on a CUDA tensor launches the scatter kernel; elsewhere it
 is a plain ``scatter_add_`` in g's type.
@@ -129,3 +131,46 @@ class _GatherRows(torch.autograd.Function):
 def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x: (B, N, C), idx: (B, Q) int -> (B, Q, C) = x[b, idx[b, q]]."""
     return _GatherRows.apply(x, idx)
+
+
+def gather_by_key_plain(x: torch.Tensor, keys: torch.Tensor, draw: torch.Tensor
+                        ) -> torch.Tensor:
+    """Plain PyTorch version of the key gather: x (B, N, C), keys (B, N)
+    (distinct ranks, -1 for rows no draw picks), draw (B, Q) >= 0 ->
+    (B, Q, C) f32, ``out[b, q] = x[b, n]`` where ``keys[b, n] == draw[b, q]``,
+    zeros where no key matches."""
+    B, N, C = x.shape
+    keys = keys.long()
+    inv = torch.full((B, N + 1), -1, dtype=torch.long, device=x.device)
+    slot = torch.where(keys >= 0, keys, N)                  # -1 keys land in slot N
+    inv.scatter_(1, slot, torch.arange(N, device=x.device).expand(B, -1))
+    inv[:, N] = -1
+    d = draw.long()
+    n = torch.where((d >= 0) & (d < N), inv.gather(1, d.clamp(0, N)), -1)
+    got = torch.gather(x.float(), 1, n.clamp_min(0)[..., None].expand(-1, -1, C))
+    return torch.where(n[..., None] >= 0, got, torch.zeros((), device=x.device))
+
+
+def gather_by_key(x: torch.Tensor, keys: torch.Tensor, draw: torch.Tensor) -> torch.Tensor:
+    """The key gather kernel on a CUDA tensor, its plain version on a CPU
+    one. x (B, N, C <= 8) f32, keys (B, N), draw (B, Q) -> (B, Q, C) f32.
+    No gradient flows through it."""
+    if x.device.type == "cpu":
+        return gather_by_key_plain(x, keys, draw)
+    B, N, C = x.shape
+    if C > 8 or x.dtype != torch.float32 or N > 12288:
+        raise ValueError(f"key gather takes (B, N <= 12288, C <= 8) f32, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if x.requires_grad and torch.is_grad_enabled():
+        raise ValueError("the key gather has no backward")
+    x = x.contiguous()
+    keys32 = keys.to(torch.int32).contiguous()
+    draw32 = draw.to(torch.int32).contiguous()
+    kernels.require_cuda(x, keys32, draw32)
+    Q = draw32.shape[1]
+    out = torch.empty((B, Q, C), dtype=torch.float32, device=x.device)
+    P, I = kernels.P, kernels.I
+    kernels.launch("key_gather", "gather", "gather_by_key_small_c",
+                   (P, P, P, P, I, I, I, I, P), x.data_ptr(), keys32.data_ptr(),
+                   draw32.data_ptr(), out.data_ptr(), B, N, Q, C, kernels.stream(x))
+    return out

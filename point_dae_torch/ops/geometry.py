@@ -14,7 +14,8 @@ from typing import Optional, Tuple
 import torch
 
 from . import fps
-from .gather import gather_rows
+from .gather import gather_by_key, gather_rows
+from .tiled_knn import knn_kernel
 from .patchify import fused_patchify
 
 
@@ -40,12 +41,13 @@ def knn(query: torch.Tensor, database: torch.Tensor, k: int
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """k nearest database points of each query point, ascending by distance,
     lower index first on ties (a stable sort, as ``jax.lax.top_k`` orders
-    them). query (B, M, D), database (B, N, D) -> (dists, idx int32)."""
+    them). query (B, M, D), database (B, N, D) -> (dists, idx int32).
+    Inside the ``knn_pallas`` gate on CUDA the kNN kernel runs (unclamped
+    distances, no gradient, ``ops/tiled_knn.py``); elsewhere the clamped
+    matrix-expansion distances are sorted, as the JAX package does off the
+    TPU."""
     if use_knn_kernel(query.device.type, query.shape[1], database.shape[1], k):
-        raise NotImplementedError(
-            f"knn on CUDA at query {tuple(query.shape)}, database "
-            f"{tuple(database.shape)}, k {k} needs the tiled kNN kernel "
-            "(pallas_knn.knn_pallas), which is not ported yet")
+        return knn_kernel(query, database, k)
     d = pairwise_sqdist(query, database)
     srt = torch.sort(d, dim=-1, stable=True)
     return srt.values[..., :k], srt.indices[..., :k].int()
@@ -137,9 +139,12 @@ def resample_batch(points: torch.Tensor, mask: Optional[torch.Tensor], num: int,
     """Uniform draws with replacement from each row's valid subset.
     points (B, N, C), mask (B, N) bool or None -> (B, num, C). ``draws``
     (B, num) are integer ranks into the valid subset (below the row's valid
-    count, which is at least 1), sampled from ``generator`` when not given.
-    Valid points are packed to the front by a stable sort, so rank q is the
-    q-th valid point in its original order."""
+    count, which is at least 1), or uniforms in [0, 1) that become the ranks
+    floor(u * count); sampled from ``generator`` when not given. Rank q is
+    the q-th valid point in its original order: inside the JAX gate on CUDA
+    the rank-keyed gather kernel selects it (a row with no valid point
+    gives zeros there), elsewhere a stable sort packs the valid points to
+    the front (such a row gives ``points[0]``), as in the JAX package."""
     B, N, C = points.shape
     if mask is None:
         if draws is None:
@@ -147,14 +152,14 @@ def resample_batch(points: torch.Tensor, mask: Optional[torch.Tensor], num: int,
                                   device=points.device)
         return gather_rows(points, draws)
     if draws is None:
-        cnt = mask.sum(1).clamp_min(1)
-        u = torch.rand((B, num), generator=generator, device=points.device)
-        draws = (u * cnt[:, None]).long().clamp_max(cnt[:, None] - 1)
+        draws = torch.rand((B, num), generator=generator, device=points.device)
+    if draws.is_floating_point():
+        cnt = mask.sum(1).clamp_min(1)[:, None]
+        draws = (draws * cnt).long().clamp_max(cnt - 1)
     if use_key_gather_kernel(points, num):
-        raise NotImplementedError(
-            f"masked resample on CUDA from {tuple(points.shape)} to {num} needs "
-            "the rank-keyed gather kernel "
-            "(pallas_scatter.gather_by_key_small_c_pallas), which is not ported yet")
+        rank = torch.cumsum(mask.to(torch.int32), dim=1) - 1
+        keys = torch.where(mask, rank, -1)
+        return gather_by_key(points, keys, draws)
     order = torch.sort((~mask).to(torch.uint8), dim=1, stable=True).indices
     pos = torch.gather(order, 1, draws.long())
     return torch.gather(points, 1, pos[..., None].expand(-1, -1, C))

@@ -105,3 +105,20 @@ def save_config(cfg: Dict, path: str) -> None:
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
         yaml.safe_dump(to_plain(cfg), f, sort_keys=False)
+
+
+def propagate_corrupt_type(cfg: Dict) -> ConfigDict:
+    """A copy of ``cfg`` in which an unset (or empty) ``model.corrupt_type``
+    takes the train dataset's ``dataset.train.others.corrupt_type``, as a
+    pretrain run's config load does (``point_dae_tpu/cli.py:116-125``, the
+    reference's ``main.py:50-55``). The in-model dropouts of the DGCNN
+    pretrain configs are named only in the dataset's list. Fine-tune,
+    scratch and test runs leave the model's list untouched, so their
+    entries never call this."""
+    cfg = _wrap(copy.deepcopy(to_plain(cfg)))
+    model_ct = cfg.get("model", {}).get("corrupt_type", None)
+    train = cfg.get("dataset", {}).get("train", {})
+    ds_ct = train.get("others", {}).get("corrupt_type", None)
+    if (not model_ct) and ds_ct:
+        cfg["model"]["corrupt_type"] = ds_ct
+    return cfg

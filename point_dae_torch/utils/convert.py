@@ -49,6 +49,13 @@ for _torch, _flax in (("MAE_encoder.blocks.blocks.{i}", "MAE_encoder/blocks/bloc
                    ("mlp.fc1", "mlp_fc1"), ("mlp.fc2", "mlp_fc2")):
         _RULES.append((f"{_torch}.{_t}", f"{_flax}/{_f}"))
 
+# MaskFeat_dgcnn: its DGCNN teacher and the 1024-wide head
+for _i in range(1, 5):
+    _RULES += [(f"teacher.conv{_i}.0", f"teacher/ec{_i}/conv"),
+               (f"teacher.bn{_i}", f"teacher/ec{_i}/bn")]
+_RULES += [("teacher.conv5.0", "teacher/conv5"), ("teacher.bn5", "teacher/bn5"),
+           ("increase_dim", "increase_dim")]
+
 # the DGCNN family (convert_torch._DGCNN_RULES)
 _DGCNN_ENCODER = []
 for _i in range(1, 5):

@@ -37,7 +37,8 @@ launches: Dict[str, int] = {"patchify": 0, "gather_rows_small_c": 0,
                             "knn_aggregate_fwd": 0,
                             "knn_aggregate_bwd_first": 0,
                             "knn_aggregate_bwd_split": 0, "fps": 0,
-                            "scatter_rows_add": 0}
+                            "scatter_rows_add": 0, "key_gather": 0, "knn": 0,
+                            "aggregate_from_idx": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[tuple, object] = {}

@@ -11,6 +11,7 @@ import torch
 from point_dae_torch.losses import chamfer
 from point_dae_torch.ops import attention, edgeconv, folding, gather, geometry, mlp, patchify
 from point_dae_torch.ops import fps as fps_ops
+from point_dae_torch.ops import tiled_knn as knn_ops
 
 pytestmark = pytest.mark.cuda
 
@@ -245,16 +246,82 @@ def test_knn_aggregate_kernels_match_plain(dev, N, Cf, C, k):
 
 
 def test_shapes_inside_a_gate_without_a_kernel_raise(dev):
-    """A CUDA shape inside a JAX gate whose kernel is missing raises."""
+    """Every shape inside the three gates that used to raise for want of a
+    kernel now launches one: the EdgeConv kernel at N 2048, the kNN kernel
+    at (1024, 1024), the key gather for a masked resample (2048 -> 1024)."""
+    from point_dae_torch.utils import kernels
+
     z = lambda *shape: torch.zeros(shape, device=dev)
+    before = dict(kernels.launches)
     assert edgeconv.supported(2048, 20)
-    with pytest.raises(NotImplementedError, match="built for"):
-        edgeconv.knn_aggregate(z(1, 2048, 8), z(1, 2048, 3), 20)
-    with pytest.raises(NotImplementedError, match="knn_pallas"):
-        geometry.knn(z(1, 1024, 3), z(1, 1024, 3), 20)
-    with pytest.raises(NotImplementedError, match="gather_by_key_small_c_pallas"):
-        geometry.resample_batch(z(64, 2048, 3), torch.ones((64, 2048), dtype=torch.bool,
-                                                           device=dev), 1024)
+    edgeconv.knn_aggregate(z(1, 2048, 8), torch.randn((1, 2048, 3), device=dev), 20)
+    geometry.knn(torch.randn((1, 1024, 3), device=dev), torch.randn((1, 1024, 3), device=dev), 20)
+    geometry.resample_batch(torch.randn((64, 2048, 3), device=dev),
+                            torch.ones((64, 2048), dtype=torch.bool, device=dev), 1024)
+    for name in ("knn_aggregate_fwd", "knn", "key_gather"):
+        assert kernels.launches[name] == before[name] + 1, name
+
+
+@pytest.mark.parametrize("B,N,C,k", [(4, 2048, 64, 20), (2, 4096, 64, 20), (2, 1100, 5, 7)])
+def test_knn_aggregate_above_1024_points_is_exact(dev, B, N, C, k):
+    """The streamed selection and the backwards sized by N: neighbours and
+    the four aggregates bit for bit with the plain version, both backwards
+    bit for bit with the plain version on the CPU (each sum in (i, r)
+    order), duplicated points included."""
+    g = _gen(dev, 11)
+    xf = torch.randn((B, N, 3 if C == 5 else 64), generator=g, device=dev)
+    xf[:, N - 40:N - 8] = xf[:, :32]
+    U = torch.randn((B, N, C), generator=g, device=dev)
+    U[:, N - 40:N - 8] = U[:, :32]
+    cots = [torch.randn((B, N, C), generator=g, device=dev) for _ in range(4)]
+    M, m, S1, S2, idx, rM, rm = edgeconv.knn_aggregate_fwd_kernel(U, xf, k, True)
+    want_idx = edgeconv.knn_select_plain(xf, k)
+    assert torch.equal(idx, want_idx)
+    for a, b in zip((M, m, S1, S2, rM, rm), edgeconv.aggregate_plain(U, want_idx)):
+        assert torch.equal(a.to(b.dtype), b)
+    cpu = [t.cpu() for t in cots]
+    for mode, a, c, plain in (("first", rM, rm, edgeconv.bwd_first_plain),
+                              ("split", M, m, edgeconv.bwd_split_plain)):
+        du = edgeconv.knn_aggregate_bwd_kernel(mode, U, idx, a, c, *cots)
+        want = plain(U.cpu(), idx.cpu(), a.cpu(), c.cpu(), *cpu)
+        assert torch.equal(du.cpu(), want), mode
+
+
+def test_knn_kernel_matches_plain(dev):
+    """The MaskFeat shapes, small: 64 queries in 1024 points (k 32) and a
+    cloud in itself at C 64 (k 20). idx equal, dists bit for bit."""
+    g = _gen(dev, 12)
+    pts = torch.randn((4, 1024, 3), generator=g, device=dev)
+    pts[:, 600:610] = pts[:, :10]
+    feat = torch.randn((2, 1024, 64), generator=g, device=dev)
+    for q, y, k in ((pts[:, :64], pts, 32), (feat, feat, 20)):
+        dk, ik = knn_ops.knn_kernel(q, y, k)
+        dp, ip = knn_ops.knn_plain(q, y, k)
+        assert torch.equal(ik, ip) and torch.equal(dk, dp)
+
+
+def test_key_gather_and_aggregate_from_idx_kernels_are_exact(dev):
+    """The key gather at the dropout shape (B 64, 2048 -> 1024) with a row of
+    no valid point (zeros); aggregate_from_idx bit for bit with its plain
+    version and equal to knn_aggregate's aggregates over the same idx."""
+    g = _gen(dev, 13)
+    x = torch.randn((64, 2048, 3), generator=g, device=dev)
+    mask = torch.rand((64, 2048), generator=g, device=dev) > 0.5
+    mask[3] = False
+    keys = torch.where(mask, torch.cumsum(mask.int(), 1) - 1, -1)
+    cnt = mask.sum(1).clamp_min(1)
+    draw = (torch.rand((64, 1024), generator=g, device=dev) * cnt[:, None]).long()
+    got = gather.gather_by_key(x, keys, draw)
+    assert torch.equal(got, gather.gather_by_key_plain(x, keys, draw))
+    assert not got[3].any()
+    U = torch.randn((4, 1024, 64), generator=g, device=dev)
+    xf = torch.randn((4, 1024, 3), generator=g, device=dev)
+    idx = edgeconv.knn_select_plain(xf, 20)
+    out = edgeconv.aggregate_fwd_kernel(U, idx, True)
+    for a, b in zip(out, edgeconv.aggregate_plain(U, idx)):
+        assert torch.equal(a.to(b.dtype), b)
+    fused = edgeconv.knn_aggregate_fwd_kernel(U, xf, 20, True)
+    assert all(torch.equal(a, b) for a, b in zip(out[:4], fused[:4]))
 
 
 @pytest.mark.parametrize("B,Q,N,C", [(16, 6144, 128, 1152), (16, 40960, 2048, 64)])
