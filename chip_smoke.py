@@ -64,7 +64,18 @@ Phases, each fatal on failure:
               to the fused one; 5 steps of pretrain_PointCAE_dropout_patch_
               pointmae, 2 each of _dropout_global_p3 and _affine_r3_dropout_
               patch_pointmae, 5 of pretrain_MaskSurf_dgcnn_crosspoint
-              (MaskFeat_dgcnn), all shipped configs unchanged at bs 128.
+              (MaskFeat_dgcnn), all shipped configs unchanged at bs 128;
+  9. memory keys - fused_mlp (forward, backward) at R 16384 and 8192 and
+              gather_rows_wide at (16, 2048, 64) by 40960 rows against their
+              plain versions (kernels phase); the flagship under
+              residual_dtype bf16 at batch 8 on the card against the CPU,
+              and remat + remat_fold (f32 and bf16 residual stream) and the
+              DGCNN encoder's remat against the runs without them, bit for
+              bit (check phase); 5 flagship steps under residual_dtype bf16
+              (16 mlp_fwd and mlp_bwd launches a step, no mlp_ln), 2 steps
+              each of remat + residual_dtype bf16, remat_fold and
+              embed_all_patches, and 2 DGCNN steps with remat, each with its
+              step time and peak memory beside the default run's.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Run from the repository root:
 
@@ -94,6 +105,13 @@ FLAGSHIP_COUNTERS = ("patchify", "gather_rows_small_c", "nn_half_small", "mlp_ln
                      "mlp_ln_bwd", "folding_fwd", "folding_bwd", "attention_fwd",
                      "attention_bwd")
 DGCNN_COUNTERS = ("nn_half_tiled", "knn_aggregate_fwd", "knn_aggregate_bwd_first")
+MEM_CHECK_BATCH = 8        # smallest batch at which the mlp gate opens in both stacks
+MEM_STEPS = 2              # steps of each further memory-key configuration
+RESIDUAL_BF16 = {"residual_dtype": "bf16"}
+MEM_VARIANTS = (           # transformer_config keys, each run beside the default
+    ("remat + residual_dtype bf16", {"remat": True, "residual_dtype": "bf16"}),
+    ("remat_fold", {"remat_fold": "True"}),
+    ("embed_all_patches", {"embed_all_patches": True}))
 FLAGSHIP_CONFIG = {        # __graft_entry__.FLAGSHIP_CONFIG at bs 256
     "optimizer": {"type": "AdamW", "part": "all",
                   "kwargs": {"lr": 0.001, "weight_decay": 0.05}},
@@ -770,7 +788,24 @@ def phase_dgcnn_train(torch, config, raw, device, card):
     log(f"  [{card}] DGCNN step with edgeconv_exact_grads {steady_e * 1e3:.2f} ms "
         f"(step 2 of {EXACT_STEPS})")
     launches["knn_aggregate_bwd_split"] = launches_e["knn_aggregate_bwd_split"]
-    return launches
+    return launches, (steady, peak)
+
+
+def draws_on_cpu(draws):
+    """A copy of a flagship model's draws with every tensor on the CPU."""
+    out = copy.deepcopy(draws)
+    for f in ("mask", "dp_encoder", "dp_decoder"):
+        v = getattr(out, f)
+        setattr(out, f, None if v is None else v.cpu())
+    a = out.affine
+    a.A, a.b, a.m = a.A.cpu(), a.b.cpu(), a.m.cpu()
+    return out
+
+
+def with_keys(config, keys):
+    out = copy.deepcopy(config)
+    out["model"]["transformer_config"].update(keys)
+    return out
 
 
 def phase_check(torch, config, raw, device):
@@ -789,15 +824,9 @@ def phase_check(torch, config, raw, device):
     before = dict(kernels.launches)
     with torch.no_grad():
         lg = [float(v) for v in gpu_model(clean, clean, draws=draws)]
-        cpu_draws = copy.deepcopy(draws)
-        for f in ("mask", "dp_encoder", "dp_decoder"):
-            v = getattr(cpu_draws, f)
-            setattr(cpu_draws, f, None if v is None else v.cpu())
-        a = cpu_draws.affine
-        a.A, a.b, a.m = a.A.cpu(), a.b.cpu(), a.m.cpu()
         clean_cpu = clean.cpu()
         t0 = time.perf_counter()
-        lc = [float(v) for v in cpu_model(clean_cpu, clean_cpu, draws=cpu_draws)]
+        lc = [float(v) for v in cpu_model(clean_cpu, clean_cpu, draws=draws_on_cpu(draws))]
     used = {k: kernels.launches[k] - before[k] for k in FLAGSHIP_COUNTERS}
     log(f"  batch {CHECK_BATCH}: card (kernels) loss_xyz {lg[0]:.6f} loss_global {lg[1]:.6f}; "
         f"cpu (plain, {time.perf_counter() - t0:.1f} s) {lc[0]:.6f} {lc[1]:.6f}; launches {used}")
@@ -870,7 +899,7 @@ def phase_train(torch, config, raw, device, card):
     log(f"  [{card}] fold_impl auto (kernel) {steady * 1e3:.2f} ms a step, peak "
         f"{peak / 2 ** 30:.2f} GiB; fold_impl xla (plain head) {steady_x * 1e3:.2f} ms a step "
         f"(median of steps 2-{XLA_STEPS}), peak {peak_x / 2 ** 30:.2f} GiB")
-    return launches
+    return launches, (steady, peak)
 
 
 def profile_step(torch, run, card, top: int = 25):
@@ -894,7 +923,7 @@ def profile_step(torch, run, card, top: int = 25):
               if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
               and not getattr(e, "is_user_annotation", False)]
     busy = sum(dev_us(e) for e in events)
-    ours = {"mlp_ln": 0.0, "sum_partials": 0.0, "patchify_kernel": 0.0,
+    ours = {"mlp_": 0.0, "sum_partials": 0.0, "patchify_kernel": 0.0,
             "gather_rows_kernel": 0.0, "nn_half_small_kernel": 0.0,
             "fold_fwd_kernel": 0.0, "fold_bwd_rows_kernel": 0.0,
             "fold_bwd_weights_kernel": 0.0, "::gemm_kernel<": 0.0,
@@ -1878,6 +1907,264 @@ def phase_hybrid(torch, config, raw, corrupted, device, card):
     return launches
 
 
+def phase_mlp_wide_kernels(torch, device):
+    """The memory keys' kernels: fused_mlp (the MLP of a block on a bf16 residual
+    stream) at the flagship decoder's and encoder's row counts, R 16384 and
+    8192 (C 384, H 1536), forward and backward against fused_mlp_plain; and
+    gather_rows_wide at (16, 2048, 64) by 40960 rows (the partseg DGCNN edge
+    gather's shape), bit for bit against its plain version and torch.gather.
+    Returns (records, gather_rows_wide launches of this phase)."""
+    from point_dae_torch.ops import gather, mlp
+    from point_dae_torch.utils import kernels
+
+    records = {}
+    g = torch.Generator(device=device).manual_seed(SEED + 90)
+    C, H = 384, 1536
+    bf = torch.bfloat16
+    k1 = torch.randn((C, H), generator=g, device=device) / math.sqrt(C)
+    b1 = 0.02 * torch.randn((H,), generator=g, device=device)
+    k2 = torch.randn((H, C), generator=g, device=device) / math.sqrt(H)
+    b2 = 0.02 * torch.randn((C,), generator=g, device=device)
+    k1b, k2b = k1.to(bf).contiguous(), k2.to(bf).contiguous()
+    for R in (BATCH * 64, BATCH * 32):
+        x = torch.randn((R, C), generator=g, device=device).to(bf)   # LN2's bf16 output
+        cot = torch.randn((R, C), generator=g, device=device)
+        leaves = [t.clone().requires_grad_() for t in (x, k1, b1, k2, b2)]
+        y_k = mlp.fused_mlp(*leaves)
+        gk = torch.autograd.grad(y_k, leaves, cot)
+        plain = [t.clone().requires_grad_() for t in (x, k1, b1, k2, b2)]
+        y_p = mlp.fused_mlp_plain(*plain)
+        gp = torch.autograd.grad(y_p, plain, cot, retain_graph=True)
+        worst = {"y": rel_err(y_k, y_p)}
+        abs_err = {"y": float((y_k - y_p).detach().abs().max())}
+        for name, a, b in zip(("dx", "dk1", "db1", "dk2", "db2"), gk, gp):
+            worst[name] = rel_err(a, b)
+            abs_err[name] = float((a.float() - b.float()).abs().max())
+        log(f"  fused_mlp at R {R} max error / max |plain|: "
+            + " ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+        if max(worst.values()) > 2e-2:      # bf16 operands: 2^-8 per rounding, summed
+            fail(f"fused_mlp disagrees with its plain version at R {R}: {worst}")
+        fwd_ms = cuda_ms(lambda: mlp.mlp_fwd_kernel(x, k1b, b1, k2b, b2), 20)
+        bwd_ms = cuda_ms(lambda: mlp.mlp_bwd_kernel(x, k1b, b1, k2b, cot), 10)
+        plain_fwd = cuda_ms(lambda: mlp.fused_mlp_plain(x, k1, b1, k2, b2), 10)
+        plain_bwd = cuda_ms(lambda: torch.autograd.grad(y_p, plain, cot, retain_graph=True), 10)
+        mm = 2 * R * C * H
+        fwd_bytes = R * C * (2 + 4) + 2 * C * H * 2 + (H + C) * 4
+        bwd_bytes = R * C * (2 + 4 + 2) + 4 * C * H * 2 + 2 * (H + C) * 4
+        if R != BATCH * 64:
+            log(f"  fused_mlp at R {R}: fwd {fwd_ms:.4f} ms (plain {plain_fwd:.4f}, bound "
+                f"{bound_ms(fwd_bytes, 2 * mm, BF16_FLOPS)[0]:.4f}), bwd {bwd_ms:.4f} ms "
+                f"(plain {plain_bwd:.4f}, bound {bound_ms(bwd_bytes, 5 * mm, BF16_FLOPS)[0]:.4f})")
+            continue
+        for name, ms, pms, nbytes, flops, err, line in (
+                ("mlp_fwd", fwd_ms, plain_fwd, fwd_bytes, 2 * mm, abs_err["y"], "138"),
+                ("mlp_bwd", bwd_ms, plain_bwd, bwd_bytes, 5 * mm,
+                 max(v for k, v in abs_err.items() if k != "y"), "158")):
+            records[name] = dict(
+                replaces=f"point_dae_tpu/ops/pallas_mlp.py:{line}",
+                source="point_dae_torch/csrc/mlp.cu", max_abs_err=err, ms=ms,
+                plain_ms=pms, library_ms=None, bound=bound_ms(nbytes, flops, BF16_FLOPS),
+                note=f"R {R}, C {C}, H {H}")
+        del x, cot, leaves, plain, y_k, y_p, gk, gp
+
+    before = kernels.launches["gather_rows_wide"]
+    B, N, Cw, Q = 16, 2048, 64, 40960
+    xw = torch.randn((B, N, Cw), generator=g, device=device)
+    idx = torch.randint(0, N, (B, Q), generator=g, device=device, dtype=torch.int32)
+    idx64 = idx.long()[..., None].expand(-1, -1, Cw)
+    got = gather.gather_rows_wide(xw, idx)
+    if not (torch.equal(got, gather.gather_rows_wide_plain(xw, idx))
+            and torch.equal(got, torch.gather(xw, 1, idx64))):
+        fail("gather_rows_wide differs from its plain version or torch.gather")
+    xb = xw.to(bf)
+    if not torch.equal(gather.gather_rows_wide(xb, idx), gather.gather_rows_wide_plain(xb, idx)):
+        fail("gather_rows_wide on bf16 rows differs from its plain version")
+    records["gather_rows_wide"] = dict(
+        replaces="point_dae_tpu/ops/pallas_scatter.py:101",
+        source="point_dae_torch/csrc/gather.cu", max_abs_err=0.0,
+        ms=cuda_ms(lambda: gather.gather_rows_wide(xw, idx), 50),
+        plain_ms=cuda_ms(lambda: gather.gather_rows_wide_plain(xw, idx), 50),
+        library_ms=cuda_ms(lambda: torch.gather(xw, 1, idx64), 50),
+        bound=bound_ms(xw.numel() * 4 + idx.numel() * 4 + got.numel() * 4, 0, F32_FLOPS),
+        note=f"({B}, {N}, {Cw}) by {Q} rows, bit for bit; bf16 rows {cuda_ms(lambda: gather.gather_rows_wide(xb, idx), 50):.4f} ms")
+    return records, kernels.launches["gather_rows_wide"] - before
+
+
+def grads_of(torch, model, run):
+    """Loss, every parameter's gradient and every running statistic of one
+    train-mode forward (``run(model)`` returns the losses) and backward."""
+    losses = run(model)
+    sum(losses).backward()
+    return ([v.detach() for v in losses],
+            {n: p.grad for n, p in model.named_parameters() if p.grad is not None},
+            {n: b for n, b in model.named_buffers() if "running" in n})
+
+
+def same_bits(torch, a, b) -> list:
+    """Names where two grads_of results differ (losses included)."""
+    (la, ga, sa), (lb, gb, sb) = a, b
+    bad = [f"loss{i}" for i, (x, y) in enumerate(zip(la, lb)) if not torch.equal(x, y)]
+    bad += [k for k in ga if k not in gb or not torch.equal(ga[k], gb[k])]
+    return bad + [k for k in sa if not torch.equal(sa[k], sb[k])]
+
+
+def phase_memory_check(torch, config, dconfig, raw, corrupted_d, clean_d, device):
+    """The memory keys on the card, against the CPU and against themselves:
+
+    - the flagship under residual_dtype bf16 at MEM_CHECK_BATCH (the
+      smallest batch at which the fused_mlp gate opens in both stacks:
+      8 x 32 and 8 x 64 rows are multiples of 256) on the card (kernels)
+      against the CPU (plain paths: the bf16 chain, bias and GELU rounded to
+      bf16, where the kernel keeps the hidden in f32), with the same weights
+      and draws, both losses within 2% (the bound of the default check);
+      the card run again with the block's plain chain instead of the mlp
+      kernels shows how much of the gap the kernels' rounding makes. It
+      fails unless mlp_fwd launched 16 times and mlp_ln_fwd not at all;
+    - remat + remat_fold against neither, on an f32 and on a bf16 residual
+      stream, and the DGCNN encoder's remat against none, each a train-mode
+      forward and backward at batch 8 with the same weights and draws: the
+      losses, every gradient and every running statistic bit for bit. The
+      kernels sum in a fixed order; PyTorch's scatter-adds (the backward of
+      torch.gather) run in their deterministic mode for this comparison.
+    """
+    from point_dae_torch.engine.pretrain import device_pipeline, init_model
+    from point_dae_torch.models import layers
+    from point_dae_torch.utils import kernels
+
+    res = with_keys(config, RESIDUAL_BF16)
+    cpu_model = init_model(res, seed=SEED + 40, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(device)
+    d = config["dataset"]["train"]["others"]
+    g = torch.Generator(device=device).manual_seed(SEED + 41)
+    _, clean = device_pipeline(raw[:MEM_CHECK_BATCH], d["aug_type"], d["corrupt_type"],
+                               d["npoints"], generator=g, device=device)
+    draws = gpu_model.sample_draws(MEM_CHECK_BATCH, g, device)
+    before = dict(kernels.launches)
+    route = layers.mlp_route
+    with torch.no_grad():
+        lg = [float(v) for v in gpu_model(clean, clean, draws=copy.deepcopy(draws))]
+        used = {k: kernels.launches[k] - before[k] for k in ("mlp_fwd", "mlp_ln_fwd")}
+        layers.mlp_route = lambda *a: "plain" if route(*a) == "fused" else route(*a)
+        try:
+            lp = [float(v) for v in gpu_model(clean, clean, draws=copy.deepcopy(draws))]
+        finally:
+            layers.mlp_route = route
+        clean_cpu = clean.cpu()
+        lc = [float(v) for v in cpu_model(clean_cpu, clean_cpu, draws=draws_on_cpu(draws))]
+    gap = lambda a, b: max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    log(f"  residual_dtype bf16, batch {MEM_CHECK_BATCH}: card (mlp kernels) {lg}, card with "
+        f"the plain chain {lp}, cpu (plain) {lc}; gap card-cpu {gap(lg, lc):.2e}, of which "
+        f"the mlp kernels' rounding (card vs card plain chain) {gap(lg, lp):.2e} and the rest "
+        f"(card plain chain vs cpu) {gap(lp, lc):.2e}; launches {used}")
+    if not all(math.isfinite(v) for v in lg + lc):
+        fail("check: non-finite loss under residual_dtype bf16")
+    if gap(lg, lc) > 2e-2:                  # bf16 products: 2% of the loss
+        fail(f"check: residual_dtype bf16 card losses {lg} disagree with the CPU's {lc}")
+    if used["mlp_fwd"] != 16 or used["mlp_ln_fwd"]:
+        fail(f"check: residual_dtype bf16 did not take the mlp kernels: {used}")
+    del cpu_model, gpu_model
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, base in (("f32 residual", {}), ("bf16 residual", RESIDUAL_BF16)):
+            keys = dict(base, remat=True, remat_fold="True")
+            runs, launch = [], []
+            for cfg in (with_keys(config, keys), with_keys(config, base)):
+                model = init_model(cfg, seed=SEED + 42, device=device)
+                before = dict(kernels.launches)
+                runs.append(grads_of(torch, model, lambda m: m(
+                    clean, clean, draws=copy.deepcopy(draws))))
+                launch.append({k: kernels.launches[k] - before[k] for k in (
+                    "mlp_fwd", "mlp_ln_fwd", "attention_fwd", "folding_fwd") if
+                    kernels.launches[k] - before[k]})
+                del model
+            bad = same_bits(torch, *runs)
+            log(f"  remat + remat_fold, {name}, batch {MEM_CHECK_BATCH}: losses "
+                f"{[float(v) for v in runs[0][0]]} and {[float(v) for v in runs[1][0]]}, "
+                f"{len(runs[0][1])} gradients and {len(runs[0][2])} running statistics, "
+                f"{'all bit for bit' if not bad else f'differing: {bad[:8]}'}; "
+                f"forward launches with {launch[0]}, without {launch[1]}")
+            if bad:
+                fail(f"check: remat + remat_fold changed {bad[:8]} ({name})")
+        runs = []
+        for remat in (True, False):
+            cfg = copy.deepcopy(dconfig)
+            cfg["model"]["remat"] = remat
+            model = init_model(cfg, seed=SEED + 43, device=device)
+            before = kernels.launches["knn_aggregate_fwd"]
+            runs.append(grads_of(torch, model, lambda m: m(
+                corrupted_d[:MEM_CHECK_BATCH], clean_d[:MEM_CHECK_BATCH])))
+            log(f"  DGCNN remat {remat}: knn_aggregate_fwd launches "
+                f"{kernels.launches['knn_aggregate_fwd'] - before}")
+            del model
+        bad = same_bits(torch, *runs)
+        log(f"  DGCNN remat, batch {MEM_CHECK_BATCH}: loss {float(runs[0][0][0])} and "
+            f"{float(runs[1][0][0])}, {len(runs[0][1])} gradients and {len(runs[0][2])} running "
+            f"statistics, {'all bit for bit' if not bad else f'differing: {bad[:8]}'}")
+        if bad:
+            fail(f"check: the DGCNN encoder's remat changed {bad[:8]}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def phase_memory_train(torch, config, raw, device, card, default):
+    """TRAIN_STEPS flagship steps under residual_dtype bf16 at bs 256 (16
+    mlp_fwd and mlp_bwd launches a step, no mlp_ln), then MEM_STEPS of each
+    of MEM_VARIANTS, each beside the default run's step time and peak
+    memory (``default``: steady seconds, peak bytes), and one profiled step
+    of each (device busy against wall). Returns the residual run's
+    launches."""
+    steady_d, peak_d = default
+
+    def line(name, steady, peak, steps):
+        log(f"  [{card}] {name}: {steady * 1e3:.2f} ms a step (median of steps 2-{steps}), "
+            f"{BATCH / steady:.1f} clouds/s, max_memory_allocated {peak / 2 ** 30:.2f} GiB; "
+            f"default {steady_d * 1e3:.2f} ms, {BATCH / steady_d:.1f} clouds/s, "
+            f"{peak_d / 2 ** 30:.2f} GiB")
+
+    log(f"  residual_dtype bf16, {TRAIN_STEPS} steps:")
+    steady, _, launches, peak, one_more = run_steps(torch, with_keys(config, RESIDUAL_BF16),
+                                                    raw, device, TRAIN_STEPS, SEED)
+    want = 16 * TRAIN_STEPS
+    if (launches["mlp_fwd"], launches["mlp_bwd"]) != (want, want) or \
+            launches["mlp_ln_fwd"] or launches["mlp_ln_bwd"]:
+        fail(f"train: residual_dtype bf16 did not launch mlp 16 times a step: {launches}")
+    log(f"  launches ({TRAIN_STEPS} steps): "
+        f"{ {k: v for k, v in launches.items() if v and k in FLAGSHIP_COUNTERS + ('mlp_fwd', 'mlp_bwd')} }")
+    line("residual_dtype bf16", steady, peak, TRAIN_STEPS)
+    profile_step(torch, one_more, card, top=0)
+    del one_more
+    torch.cuda.empty_cache()
+    for name, keys in MEM_VARIANTS:
+        log(f"  {name}, {MEM_STEPS} steps:")
+        steady_v, _, lv, peak_v, one_more = run_steps(torch, with_keys(config, keys), raw,
+                                                      device, MEM_STEPS, SEED)
+        log(f"  launches ({MEM_STEPS} steps): "
+            f"{ {k: v for k, v in lv.items() if v and k in FLAGSHIP_COUNTERS + ('mlp_fwd', 'mlp_bwd')} }")
+        line(name, steady_v, peak_v, MEM_STEPS)
+        profile_step(torch, one_more, card, top=0)
+        del one_more
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_dgcnn_remat(torch, config, raw, device, card, default):
+    """MEM_STEPS DGCNN steps with the encoder's remat, beside the default
+    run's step time and peak memory."""
+    steady_d, peak_d = default
+    cfg = copy.deepcopy(config)
+    cfg["model"]["remat"] = True
+    log(f"  DGCNN remat, {MEM_STEPS} steps:")
+    steady, _, launches, peak, one_more = run_steps(torch, cfg, raw, device, MEM_STEPS,
+                                                    SEED + 7)
+    if not launches["knn_aggregate_fwd"]:
+        fail(f"train: DGCNN remat launched no EdgeConv kernel: {launches}")
+    log(f"  launches ({MEM_STEPS} steps): { {k: v for k, v in launches.items() if v} }")
+    log(f"  [{card}] DGCNN remat: {steady * 1e3:.2f} ms a step (step 2 of {MEM_STEPS}), "
+        f"{DGCNN_BATCH / steady:.1f} clouds/s, max_memory_allocated {peak / 2 ** 30:.2f} GiB; "
+        f"default {steady_d * 1e3:.2f} ms, {DGCNN_BATCH / steady_d:.1f} clouds/s, "
+        f"{peak_d / 2 ** 30:.2f} GiB")
+    profile_step(torch, one_more, card, top=0)
 
 
 T0 = time.perf_counter()
@@ -1958,6 +2245,10 @@ def main() -> None:
     records.update(phase_key_knn_kernels(torch, device, card))
     stamp("key_knn_kernels")
     torch.cuda.empty_cache()
+    recs, wide_launches = phase_mlp_wide_kernels(torch, device)
+    records.update(recs)
+    stamp("mlp_wide_kernels")
+    torch.cuda.empty_cache()
     for name, r in records.items():
         log(f"  [{card}] {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
             f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}, "
@@ -1976,16 +2267,28 @@ def main() -> None:
     phase_dropout_maskfeat_check(torch, raw_d, device)
     stamp("dropout_maskfeat_check")
     torch.cuda.empty_cache()
+    phase_memory_check(torch, config, dconfig, raw, corrupted_d, clean_d, device)
+    stamp("memory_check")
+    torch.cuda.empty_cache()
 
     # 5. train
     log("train:")
-    launches = phase_train(torch, config, raw, device, card)
+    launches, default = phase_train(torch, config, raw, device, card)
     stamp("train")
+    torch.cuda.empty_cache()
+    log("train (memory keys):")
+    launches_m = phase_memory_train(torch, config, raw, device, card, default)
+    for k in ("mlp_fwd", "mlp_bwd"):
+        launches[k] = launches_m[k]
+    stamp("memory_train")
     del raw, pts, clean
     torch.cuda.empty_cache()
     log("train (DGCNN):")
-    launches_d = phase_dgcnn_train(torch, dconfig, raw_d, device, card)
+    launches_d, default_d = phase_dgcnn_train(torch, dconfig, raw_d, device, card)
     stamp("dgcnn_train")
+    torch.cuda.empty_cache()
+    phase_dgcnn_remat(torch, dconfig, raw_d, device, card, default_d)
+    stamp("dgcnn_remat")
     for k in DGCNN_COUNTERS + ("knn_aggregate_bwd_split",):
         launches[k] = launches_d[k]
     torch.cuda.empty_cache()
@@ -2010,8 +2313,14 @@ def main() -> None:
     log("partseg:")
     launches["scatter_rows_add"] = phase_partseg(torch, device, card)
     stamp("partseg")
-    if min(launches.values()) == 0:
-        fail(f"a kernel was never launched on its main path: {launches}")
+    # gather_rows_wide is the one kernel without a path: the JAX package keeps
+    # XLA's gather forward on purpose (point_dae_tpu/ops/pallas_scatter.py:
+    # 267-276) and the port its plain one, so the rule leaves it out and its
+    # launches are the kernels phase's
+    on_path = {k: v for k, v in launches.items() if k != "gather_rows_wide"}
+    if min(on_path.values()) == 0:
+        fail(f"a kernel was never launched on its main path: {on_path}")
+    launches["gather_rows_wide"] = wide_launches
 
     out = []
     for name, r in records.items():

@@ -1,35 +1,42 @@
-// Fused pre-norm MLP sub-block of a ViT block, forward and backward:
-//   y = x + s * (GELU_erf(LN(x) @ k1 + b1) @ k2 + b2)
-// x, y f32 (R, C); k1 (C, H) and k2 (H, C) bf16; LN eps as given (flax:
-// 1e-6) with var = E[x^2] - E[x]^2; products in bf16 with f32 accumulation;
-// GELU in f32; s an optional per-row (stochastic depth) scale.
+// The ViT block's MLP, forward and backward, in two forms:
+//   mlp_ln: y = x + s * (GELU_erf(LN(x) @ k1 + b1) @ k2 + b2), the pre-norm
+//     sub-block with LayerNorm, stochastic-depth row scale and residual;
+//     x, y f32 (R, C); LN eps as given (flax: 1e-6), var = E[x^2] - E[x]^2;
+//     s an optional per-row scale.
+//   mlp: out = GELU_erf(x @ k1 + b1) @ k2 + b2 alone, x bf16 (R, C), out
+//     f32 (R, C); the block takes it when its residual stream is not f32.
+// k1 (C, H) and k2 (H, C) bf16; products in bf16 with f32 accumulation;
+// GELU in f32 with erff (the TPU kernels use the Abramowitz-Stegun erf,
+// 1.5e-7 from it).
 //
 // Replaces point_dae_tpu/ops/pallas_mlp.py:fused_mlp_ln (_fwd_ln_kernel and
-// _bwd_ln_kernel).
+// _bwd_ln_kernel) and fused_mlp (_fwd_kernel and _bwd_kernel).
 //
-// Design. A block owns 64 rows. The forward normalises them into shared
-// memory as bf16, then walks the hidden dimension in chunks: h = hin @ k1c,
-// GELU, out += a @ k2c. The (64, H) hidden never leaves the chip, as in the
-// TPU kernel. Products are WMMA 16x16x16 bf16 fragments with f32
-// accumulators; the (64, C) output accumulator stays in registers across
-// the chunks.
-// The TPU backward accumulated the weight gradients over a sequential grid,
-// which Hopper does not have. Here it is three launches, none with atomics,
-// so the sums are the same from run to run:
-//   A (one block per 64 rows): recompute LN and the hidden chunk by chunk,
-//     dx through the LN backward; write LN(x) and the scaled cotangent as
-//     bf16 (R, C) scratch and per-block partial sums of dgamma, dbeta, db2.
+// Design. A block owns 64 rows. The forward puts them into shared memory
+// as bf16 (mlp_ln: normalised), then walks the hidden dimension in chunks:
+// h = x @ k1c, GELU, out += a @ k2c. The (64, H) hidden never leaves the
+// chip, as in the TPU kernels. Products are WMMA 16x16x16 bf16 fragments
+// with f32 accumulators; the (64, C) output accumulator stays in registers
+// across the chunks.
+// The TPU backwards accumulated the weight gradients over a sequential
+// grid, which Hopper does not have. Here each is three launches, none with
+// atomics, so the sums are the same from run to run:
+//   A (one block per 64 rows): recompute the hidden chunk by chunk and
+//     dx = dh @ k1^T (mlp_ln: through the LN backward); write the branch
+//     cotangent as bf16 (R, C) scratch (mlp_ln: and LN(x)) and per-block
+//     partial column sums (mlp_ln: dgamma, dbeta, db2; mlp: db2).
 //   B (one block per hidden chunk and row partition): recompute h and dh
-//     from the scratch, accumulate dk1 (C, chunk), dk2 (chunk, C) and db1
-//     over the partition's rows in registers, write per-partition partials.
-//   C: sum the partials (dk1 and dk2 rounded to bf16, as the TPU kernel's
-//     caller rounds them).
+//     from the bf16 rows and cotangent, accumulate dk1 (C, chunk), dk2
+//     (chunk, C) and db1 over the partition's rows in registers, write
+//     per-partition partials. Both forms share it.
+//   C: sum the partials (dk1 and dk2 rounded to bf16, as the TPU kernels'
+//     callers round them).
 //
 // Bound on the H100: operations. At the flagship decoder shape (R 16384,
 // C 384, H 1536) the forward is 39 GFLOP of bf16 products against 50 MB
 // moved; the backward 97 GFLOP. These plain WMMA loops without TMA, wgmma
-// or pipelining reach a fraction of the tensor-core peak; that is the
-// next PR's work.
+// or pipelining reach a fraction of the tensor-core peak; that is later
+// work.
 #include <cuda_bf16.h>
 #include <mma.h>
 
@@ -117,41 +124,23 @@ struct FwdLayout {
   static_assert(size_t(TR) * LDO * 4 <= HF, "output tile must fit over hin, k1, k2");
 };
 
+// The forward's hidden loop over the block's 64 bf16 rows in shared memory
+// (hin): GELU(hin @ k1 + b1) @ k2 chunk by chunk, then the (64, C) result
+// in f32 at s_out (over hin, k1 and k2) with a barrier after it.
 template <int C>
-__global__ void __launch_bounds__(NT, 1)
-mlp_ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gm,
-                  const float* __restrict__ bt, const bf16* __restrict__ k1,
-                  const float* __restrict__ b1, const bf16* __restrict__ k2,
-                  const float* __restrict__ b2, const float* __restrict__ sc,
-                  float* __restrict__ y, int H, float eps) {
+__device__ __forceinline__ void fwd_hidden(unsigned char* smem, const bf16* __restrict__ k1,
+                                           const float* __restrict__ b1,
+                                           const bf16* __restrict__ k2, int H) {
   using L = FwdLayout<C>;
-  constexpr int V = C / 32;
   constexpr int NF = C / 32;  // output column fragments a warp owns
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* s_hin = reinterpret_cast<bf16*>(smem + L::HIN);
+  const bf16* s_hin = reinterpret_cast<const bf16*>(smem + L::HIN);
   bf16* s_k1 = reinterpret_cast<bf16*>(smem + L::K1);
   bf16* s_k2 = reinterpret_cast<bf16*>(smem + L::K2);
   float* s_h = reinterpret_cast<float*>(smem + L::HF);
   bf16* s_a = reinterpret_cast<bf16*>(smem + L::A);
   float* s_out = reinterpret_cast<float*>(smem);
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t r0 = size_t(blockIdx.x) * TR;
-
-  for (int rr = warp; rr < TR; rr += NW) {
-    const float* xr = x + (r0 + rr) * C;
-    float v[V];
-#pragma unroll
-    for (int k = 0; k < V; ++k) v[k] = xr[lane + 32 * k];
-    float mu, rs;
-    row_stats<C>(v, eps, mu, rs);
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      const int c = lane + 32 * k;
-      s_hin[rr * L::LDH + c] = __float2bfloat16((v[k] - mu) * rs * gm[c] + bt[c]);
-    }
-  }
-
+  const int warp = threadIdx.x >> 5;
   const int rw = warp & 3, half = warp >> 2;
   FragC acc[NF];
 #pragma unroll
@@ -202,11 +191,62 @@ mlp_ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gm,
     wmma::store_matrix_sync(s_out + rw * 16 * L::LDO + (half * NF + j) * 16, acc[j],
                             L::LDO, wmma::mem_row_major);
   __syncthreads();
+}
+
+template <int C>
+__global__ void __launch_bounds__(NT, 1)
+mlp_ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gm,
+                  const float* __restrict__ bt, const bf16* __restrict__ k1,
+                  const float* __restrict__ b1, const bf16* __restrict__ k2,
+                  const float* __restrict__ b2, const float* __restrict__ sc,
+                  float* __restrict__ y, int H, float eps) {
+  using L = FwdLayout<C>;
+  constexpr int V = C / 32;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* s_hin = reinterpret_cast<bf16*>(smem + L::HIN);
+  const float* s_out = reinterpret_cast<const float*>(smem);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t r0 = size_t(blockIdx.x) * TR;
+
+  for (int rr = warp; rr < TR; rr += NW) {
+    const float* xr = x + (r0 + rr) * C;
+    float v[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) v[k] = xr[lane + 32 * k];
+    float mu, rs;
+    row_stats<C>(v, eps, mu, rs);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int c = lane + 32 * k;
+      s_hin[rr * L::LDH + c] = __float2bfloat16((v[k] - mu) * rs * gm[c] + bt[c]);
+    }
+  }
+  fwd_hidden<C>(smem, k1, b1, k2, H);
   for (int e = threadIdx.x; e < TR * C; e += NT) {
     const int r = e / C, c = e % C;
     float v = s_out[r * L::LDO + c] + b2[c];
     if (sc != nullptr) v *= sc[r0 + r];
     y[(r0 + r) * C + c] = x[(r0 + r) * C + c] + v;
+  }
+}
+
+// out = GELU(x @ k1 + b1) @ k2 + b2 for x already bf16.
+template <int C>
+__global__ void __launch_bounds__(NT, 1)
+mlp_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ k1,
+               const float* __restrict__ b1, const bf16* __restrict__ k2,
+               const float* __restrict__ b2, float* __restrict__ y, int H) {
+  using L = FwdLayout<C>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const float* s_out = reinterpret_cast<const float*>(smem);
+  const size_t r0 = size_t(blockIdx.x) * TR;
+
+  load_tile(reinterpret_cast<bf16*>(smem + L::HIN), L::LDH, x + r0 * C, C, TR, C);
+  fwd_hidden<C>(smem, k1, b1, k2, H);
+  for (int e = threadIdx.x; e < TR * C; e += NT) {
+    const int r = e / C, c = e % C;
+    y[(r0 + r) * C + c] = s_out[r * L::LDO + c] + b2[c];
   }
 }
 
@@ -234,53 +274,27 @@ struct BwdALayout {
   static_assert(WPART + size_t(NW) * 3 * C * 4 <= BYTES, "warp partials must fit");
 };
 
+// The rows pass's hidden loop over the block's 64 bf16 rows (hin) and
+// bf16 branch cotangent (g) in shared memory: recompute h chunk by chunk,
+// dh = (g @ k2^T) * GELU'(h + b1) rounded to bf16, and dxin = dh @ k1^T,
+// left in f32 at s_dx (over hin and g) with a barrier after it.
 template <int C>
-__global__ void __launch_bounds__(NT, 1)
-mlp_ln_bwd_rows_kernel(const float* __restrict__ x, const float* __restrict__ gm,
-                       const float* __restrict__ bt, const bf16* __restrict__ k1,
-                       const float* __restrict__ b1, const bf16* __restrict__ k2,
-                       const float* __restrict__ sc, const float* __restrict__ g,
-                       float* __restrict__ dx, bf16* __restrict__ hin_out,
-                       bf16* __restrict__ gbr_out, float* __restrict__ part,
-                       int H, float eps) {
+__device__ __forceinline__ void bwd_rows_hidden(unsigned char* smem,
+                                                const bf16* __restrict__ k1,
+                                                const float* __restrict__ b1,
+                                                const bf16* __restrict__ k2, int H) {
   using L = BwdALayout<C>;
-  constexpr int V = C / 32;
   constexpr int NF = C / 32;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* s_hin = reinterpret_cast<bf16*>(smem + L::HIN);
-  bf16* s_g = reinterpret_cast<bf16*>(smem + L::G);
+  const bf16* s_hin = reinterpret_cast<const bf16*>(smem + L::HIN);
+  const bf16* s_g = reinterpret_cast<const bf16*>(smem + L::G);
   bf16* s_k1 = reinterpret_cast<bf16*>(smem + L::K1);
   bf16* s_k2 = reinterpret_cast<bf16*>(smem + L::K2);
   float* s_h = reinterpret_cast<float*>(smem + L::HF);
   float* s_da = reinterpret_cast<float*>(smem + L::DA);
   bf16* s_dh = reinterpret_cast<bf16*>(smem + L::DH);
   float* s_dx = reinterpret_cast<float*>(smem);
-  float* s_wpart = reinterpret_cast<float*>(smem + L::WPART);
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t r0 = size_t(blockIdx.x) * TR;
-
-  // LN(x) and the branch cotangent s * g, to shared memory and to scratch
-  for (int rr = warp; rr < TR; rr += NW) {
-    const size_t row = (r0 + rr) * C;
-    float v[V];
-#pragma unroll
-    for (int k = 0; k < V; ++k) v[k] = x[row + lane + 32 * k];
-    float mu, rs;
-    row_stats<C>(v, eps, mu, rs);
-    const float srow = sc != nullptr ? sc[r0 + rr] : 1.f;
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      const int c = lane + 32 * k;
-      const bf16 hb = __float2bfloat16((v[k] - mu) * rs * gm[c] + bt[c]);
-      const bf16 gb = __float2bfloat16(g[row + c] * srow);
-      s_hin[rr * L::LDH + c] = hb;
-      s_g[rr * L::LDG + c] = gb;
-      hin_out[row + c] = hb;
-      gbr_out[row + c] = gb;
-    }
-  }
-
+  const int warp = threadIdx.x >> 5;
   const int rw = warp & 3, half = warp >> 2, cf = warp >> 2;
   FragC acc[NF];
 #pragma unroll
@@ -338,6 +352,51 @@ mlp_ln_bwd_rows_kernel(const float* __restrict__ x, const float* __restrict__ gm
                             L::LDO, wmma::mem_row_major);
   __syncthreads();
 
+}
+
+template <int C>
+__global__ void __launch_bounds__(NT, 1)
+mlp_ln_bwd_rows_kernel(const float* __restrict__ x, const float* __restrict__ gm,
+                       const float* __restrict__ bt, const bf16* __restrict__ k1,
+                       const float* __restrict__ b1, const bf16* __restrict__ k2,
+                       const float* __restrict__ sc, const float* __restrict__ g,
+                       float* __restrict__ dx, bf16* __restrict__ hin_out,
+                       bf16* __restrict__ gbr_out, float* __restrict__ part,
+                       int H, float eps) {
+  using L = BwdALayout<C>;
+  constexpr int V = C / 32;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* s_hin = reinterpret_cast<bf16*>(smem + L::HIN);
+  bf16* s_g = reinterpret_cast<bf16*>(smem + L::G);
+  const float* s_dx = reinterpret_cast<const float*>(smem);
+  float* s_wpart = reinterpret_cast<float*>(smem + L::WPART);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t r0 = size_t(blockIdx.x) * TR;
+
+  // LN(x) and the branch cotangent s * g, to shared memory and to scratch
+  for (int rr = warp; rr < TR; rr += NW) {
+    const size_t row = (r0 + rr) * C;
+    float v[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) v[k] = x[row + lane + 32 * k];
+    float mu, rs;
+    row_stats<C>(v, eps, mu, rs);
+    const float srow = sc != nullptr ? sc[r0 + rr] : 1.f;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int c = lane + 32 * k;
+      const bf16 hb = __float2bfloat16((v[k] - mu) * rs * gm[c] + bt[c]);
+      const bf16 gb = __float2bfloat16(g[row + c] * srow);
+      s_hin[rr * L::LDH + c] = hb;
+      s_g[rr * L::LDG + c] = gb;
+      hin_out[row + c] = hb;
+      gbr_out[row + c] = gb;
+    }
+  }
+
+  bwd_rows_hidden<C>(smem, k1, b1, k2, H);
+
   // row-local LayerNorm backward; column partials of dgamma, dbeta, db2
   float pg[V], pb[V], p2[V];
 #pragma unroll
@@ -388,6 +447,40 @@ mlp_ln_bwd_rows_kernel(const float* __restrict__ x, const float* __restrict__ gm
   }
 }
 
+// The rows pass of mlp: x already bf16, the cotangent unscaled; dx out in
+// bf16 (as the TPU kernel's caller rounds it) and per-block column sums of
+// g (db2 partials).
+template <int C>
+__global__ void __launch_bounds__(NT, 1)
+mlp_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ k1,
+                    const float* __restrict__ b1, const bf16* __restrict__ k2,
+                    const float* __restrict__ g, bf16* __restrict__ dx,
+                    bf16* __restrict__ gbr_out, float* __restrict__ part, int H) {
+  using L = BwdALayout<C>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* s_g = reinterpret_cast<bf16*>(smem + L::G);
+  const float* s_dx = reinterpret_cast<const float*>(smem);
+  const size_t r0 = size_t(blockIdx.x) * TR;
+
+  load_tile(reinterpret_cast<bf16*>(smem + L::HIN), L::LDH, x + r0 * C, C, TR, C);
+  for (int e = threadIdx.x; e < TR * C; e += NT) {
+    const int r = e / C, c = e % C;
+    const bf16 gb = __float2bfloat16(g[(r0 + r) * C + c]);
+    s_g[r * L::LDG + c] = gb;
+    gbr_out[(r0 + r) * C + c] = gb;
+  }
+  bwd_rows_hidden<C>(smem, k1, b1, k2, H);
+  for (int e = threadIdx.x; e < TR * C; e += NT) {
+    const int r = e / C, c = e % C;
+    dx[(r0 + r) * C + c] = __float2bfloat16(s_dx[r * L::LDO + c]);
+  }
+  for (int c = threadIdx.x; c < C; c += NT) {
+    float sum = 0.f;
+    for (int r = 0; r < TR; ++r) sum += g[(r0 + r) * C + c];
+    part[size_t(blockIdx.x) * C + c] = sum;
+  }
+}
+
 // ------------------------------------------------------- backward, pass B
 
 template <int C>
@@ -411,7 +504,7 @@ struct BwdBLayout {
 
 template <int C>
 __global__ void __launch_bounds__(NT, 1)
-mlp_ln_bwd_weights_kernel(const bf16* __restrict__ hin, const bf16* __restrict__ gbr,
+mlp_bwd_weights_kernel(const bf16* __restrict__ hin, const bf16* __restrict__ gbr,
                           const bf16* __restrict__ k1, const float* __restrict__ b1,
                           const bf16* __restrict__ k2, float* __restrict__ dk1p,
                           float* __restrict__ dk2p, float* __restrict__ db1p,
@@ -558,6 +651,21 @@ cudaError_t launch_fwd(const float* x, const float* gm, const float* bt, const b
   return cudaGetLastError();
 }
 
+// Pass B over the bf16 rows and cotangent; per-partition partials.
+template <int C>
+cudaError_t launch_bwd_weights(const bf16* hin_s, const bf16* gbr_s, const bf16* k1,
+                               const float* b1, const bf16* k2, float* dk1p, float* dk2p,
+                               float* db1p, int R, int H, int P, cudaStream_t stream) {
+  const size_t smem_b = BwdBLayout<C>::BYTES;
+  cudaError_t err = set_smem(mlp_bwd_weights_kernel<C>, smem_b);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = R / TR;
+  const int tpp = (n_tiles + P - 1) / P;
+  mlp_bwd_weights_kernel<C><<<dim3(H / HCB, P), NT, smem_b, stream>>>(
+      hin_s, gbr_s, k1, b1, k2, dk1p, dk2p, db1p, R, H, tpp);
+  return cudaGetLastError();
+}
+
 template <int C>
 cudaError_t launch_bwd(const float* x, const float* gm, const float* bt, const bf16* k1,
                        const float* b1, const bf16* k2, const float* sc, const float* g,
@@ -571,14 +679,44 @@ cudaError_t launch_bwd(const float* x, const float* gm, const float* bt, const b
       x, gm, bt, k1, b1, k2, sc, g, dx, hin_s, gbr_s, part_a, H, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t smem_b = BwdBLayout<C>::BYTES;
-  err = set_smem(mlp_ln_bwd_weights_kernel<C>, smem_b);
+  return launch_bwd_weights<C>(hin_s, gbr_s, k1, b1, k2, dk1p, dk2p, db1p, R, H, P, stream);
+}
+
+template <int C>
+cudaError_t launch_mlp_fwd(const bf16* x, const bf16* k1, const float* b1, const bf16* k2,
+                           const float* b2, float* y, int R, int H, cudaStream_t stream) {
+  const size_t smem = FwdLayout<C>::BYTES;
+  cudaError_t err = set_smem(mlp_fwd_kernel<C>, smem);
   if (err != cudaSuccess) return err;
-  const int n_tiles = R / TR;
-  const int tpp = (n_tiles + P - 1) / P;
-  mlp_ln_bwd_weights_kernel<C><<<dim3(H / HCB, P), NT, smem_b, stream>>>(
-      hin_s, gbr_s, k1, b1, k2, dk1p, dk2p, db1p, R, H, tpp);
+  mlp_fwd_kernel<C><<<R / TR, NT, smem, stream>>>(x, k1, b1, k2, b2, y, H);
   return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t launch_mlp_bwd(const bf16* x, const bf16* k1, const float* b1, const bf16* k2,
+                           const float* g, bf16* dx, bf16* gbr_s, float* part_a,
+                           float* dk1p, float* dk2p, float* db1p, int R, int H, int P,
+                           cudaStream_t stream) {
+  const size_t smem_a = BwdALayout<C>::BYTES;
+  cudaError_t err = set_smem(mlp_bwd_rows_kernel<C>, smem_a);
+  if (err != cudaSuccess) return err;
+  mlp_bwd_rows_kernel<C><<<R / TR, NT, smem_a, stream>>>(x, k1, b1, k2, g, dx, gbr_s,
+                                                         part_a, H);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_bwd_weights<C>(x, gbr_s, k1, b1, k2, dk1p, dk2p, db1p, R, H, P, stream);
+}
+
+// Pass C for the weights: dk1, dk2 (bf16) and db1 from P partitions.
+cudaError_t sum_weight_partials(const float* dk1p, const float* dk2p, const float* db1p,
+                                int P, int C, int H, void* dk1, void* dk2, float* db1,
+                                cudaStream_t s) {
+  const long long ch = static_cast<long long>(C) * H;
+  cudaError_t err = sum_partials(dk1p, P, ch, nullptr, static_cast<bf16*>(dk1), s);
+  if (err != cudaSuccess) return err;
+  if ((err = sum_partials(dk2p, P, ch, nullptr, static_cast<bf16*>(dk2), s)) != cudaSuccess)
+    return err;
+  return sum_partials(db1p, P, H, db1, nullptr, s);
 }
 
 bool shape_ok(int R, int C, int H) {
@@ -636,13 +774,61 @@ PDAE_EXPORT int mlp_ln_bwd(const float* x, const float* gm, const float* bt,
       break;
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long ch = static_cast<long long>(C) * H;
-  if ((err = sum_partials(dk1p, P, ch, nullptr, static_cast<bf16*>(dk1), s)) != cudaSuccess)
-    return static_cast<int>(err);
-  if ((err = sum_partials(dk2p, P, ch, nullptr, static_cast<bf16*>(dk2), s)) != cudaSuccess)
-    return static_cast<int>(err);
-  if ((err = sum_partials(db1p, P, H, db1, nullptr, s)) != cudaSuccess)
+  if ((err = sum_weight_partials(dk1p, dk2p, db1p, P, C, H, dk1, dk2, db1, s)) != cudaSuccess)
     return static_cast<int>(err);
   err = sum_partials(part_a, R / TR, 3LL * C, dln, nullptr, s);
+  return static_cast<int>(err);
+}
+
+// out (R, C) f32 = GELU(x @ k1 + b1) @ k2 + b2; x (R, C), k1, k2 bf16.
+PDAE_EXPORT int mlp_fwd(const void* x, const void* k1, const float* b1, const void* k2,
+                        const float* b2, float* y, int R, int C, int H, void* stream) {
+  if (!shape_ok(R, C, H)) return static_cast<int>(cudaErrorInvalidValue);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* k1b = static_cast<const bf16*>(k1);
+  const bf16* k2b = static_cast<const bf16*>(k2);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (C) {
+    case 128: err = launch_mlp_fwd<128>(xb, k1b, b1, k2b, b2, y, R, H, s); break;
+    case 256: err = launch_mlp_fwd<256>(xb, k1b, b1, k2b, b2, y, R, H, s); break;
+    default: err = launch_mlp_fwd<384>(xb, k1b, b1, k2b, b2, y, R, H, s); break;
+  }
+  return static_cast<int>(err);
+}
+
+// Scratch and outputs, all allocated by the caller:
+//   gbr_s (R, C) bf16; part_a (R/64, C) f32; dk1p (P, C, H), dk2p (P, H, C),
+//   db1p (P, H) f32; dx (R, C), dk1 (C, H), dk2 (H, C) bf16; db1 (H), db2 (C) f32.
+PDAE_EXPORT int mlp_bwd(const void* x, const void* k1, const float* b1, const void* k2,
+                        const float* g, void* dx, void* gbr_s, float* part_a, float* dk1p,
+                        float* dk2p, float* db1p, void* dk1, void* dk2, float* db1,
+                        float* db2, int R, int C, int H, int P, void* stream) {
+  if (!shape_ok(R, C, H) || P < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* k1b = static_cast<const bf16*>(k1);
+  const bf16* k2b = static_cast<const bf16*>(k2);
+  bf16* dxb = static_cast<bf16*>(dx);
+  bf16* gs = static_cast<bf16*>(gbr_s);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (C) {
+    case 128:
+      err = launch_mlp_bwd<128>(xb, k1b, b1, k2b, g, dxb, gs, part_a, dk1p, dk2p, db1p, R,
+                                H, P, s);
+      break;
+    case 256:
+      err = launch_mlp_bwd<256>(xb, k1b, b1, k2b, g, dxb, gs, part_a, dk1p, dk2p, db1p, R,
+                                H, P, s);
+      break;
+    default:
+      err = launch_mlp_bwd<384>(xb, k1b, b1, k2b, g, dxb, gs, part_a, dk1p, dk2p, db1p, R,
+                                H, P, s);
+      break;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if ((err = sum_weight_partials(dk1p, dk2p, db1p, P, C, H, dk1, dk2, db1, s)) != cudaSuccess)
+    return static_cast<int>(err);
+  err = sum_partials(part_a, R / TR, C, db2, nullptr, s);
   return static_cast<int>(err);
 }

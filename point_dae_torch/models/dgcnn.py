@@ -17,6 +17,7 @@ outside it) and then ``aggregate_from_idx``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -26,7 +27,7 @@ from ..ops.edgeconv import (aggregate_from_idx, aggregate_from_idx_plain, knn_ag
                             knn_aggregate_plain, knn_aggregate_xla, supported)
 from ..ops.gather import gather_rows
 from ..ops.geometry import knn
-from .layers import BatchNorm, Dense, leaky_relu02
+from .layers import BatchNorm, Dense, checkpointed, leaky_relu02
 
 
 def get_graph_feature(x: torch.Tensor, k: int = 20,
@@ -143,7 +144,12 @@ class _Conv(nn.ModuleList):
 class DGCNNEncoder(nn.Module):
     """Four EdgeConvs (64, 64, 128, 256), a 512 -> 1024 fuse with BatchNorm
     and LeakyReLU, and a max over the points. x (B, N, 3) ->
-    (global feature (B, 1024), pointwise (B, N, 1024))."""
+    (global feature (B, 1024), pointwise (B, N, 1024)).
+
+    ``remat`` recomputes each EdgeConv in the backward (JAX
+    ``dgcnn.py:266-290``): the fused layouts the whole layer, the reference
+    layout only gather, product and max, its kNN hoisted out as indices
+    without a gradient. The BatchNorm running statistics move once."""
 
     WIDTHS = (64, 64, 128, 256)
 
@@ -152,13 +158,11 @@ class DGCNNEncoder(nn.Module):
                  grad_mode: str = "first", knn_impl: str = "kernel",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if remat:
-            raise NotImplementedError("remat is not ported yet")
         if impl not in ("reference", "fused", "fused_pallas", "auto"):
             raise ValueError(f"edgeconv_impl {impl!r}")
         if knn_impl not in ("kernel", "xla"):
             raise ValueError(f"edgeconv_knn {knn_impl!r}")
-        self.k, self.dtype, self.impl = k, dtype, impl
+        self.k, self.dtype, self.impl, self.remat = k, dtype, impl, remat
         self.fused_flags = dict(exact_grads=exact_grads, grad_mode=grad_mode,
                                 knn_impl=knn_impl)
         din = 3
@@ -174,17 +178,26 @@ class DGCNNEncoder(nn.Module):
             return self.impl
         return "fused_pallas" if x.device.type == "cuda" else "reference"
 
+    def _edge_conv(self, i: int, impl: str, x: torch.Tensor,
+                   idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+        conv, bn = getattr(self, f"conv{i}")[0], getattr(self, f"bn{i}")
+        if impl == "reference":
+            return edge_conv(x, conv, bn, self.k, self.dtype, idx=idx)
+        return fused_edge_conv(x, conv, bn, self.k, self.dtype,
+                               use_pallas=impl == "fused_pallas", **self.fused_flags)
+
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         impl = self.resolved_impl(x)
         feats = []
         for i in range(1, len(self.WIDTHS) + 1):
-            conv, bn = getattr(self, f"conv{i}")[0], getattr(self, f"bn{i}")
-            if impl == "reference":
-                x = edge_conv(x, conv, bn, self.k, self.dtype)
+            layer = functools.partial(self._edge_conv, i, impl)
+            if self.remat and impl == "reference":
+                xd = x.detach()
+                x = checkpointed(layer, x, knn(xd, xd, self.k)[1])
+            elif self.remat:
+                x = checkpointed(layer, x)
             else:
-                x = fused_edge_conv(x, conv, bn, self.k, self.dtype,
-                                    use_pallas=impl == "fused_pallas",
-                                    **self.fused_flags)
+                x = layer(x)
             feats.append(x)
         h = leaky_relu02(self.bn5(self.conv5[0](torch.cat(feats, dim=-1))))
         return h.amax(dim=1), h

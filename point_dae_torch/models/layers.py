@@ -6,19 +6,23 @@ torch's ``(out, in)`` layout under the reference's torch names; numerics
 follow flax: LayerNorm eps 1e-6, statistics as E[x^2] - E[x]^2 in f32,
 BatchNorm running statistics updated with the *biased* batch variance at
 flax momentum 0.9, a compute ``dtype`` (bf16) for products while
-parameters, the residual stream and the norms' statistics stay f32.
+parameters and the norms' statistics stay f32; the residual stream is f32
+unless a stack's ``residual_dtype`` says otherwise.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import fused_attention, supported as attn_supported
-from ..ops.mlp import fused_mlp_ln, supported as mlp_supported
+from ..ops.mlp import fused_mlp, fused_mlp_ln, supported as mlp_supported
 
 _LECUN_TRUNC = 0.87962566103423978   # std of a unit normal truncated to [-2, 2]
 
@@ -32,6 +36,31 @@ def lecun_normal_(w: torch.Tensor, fan_in: int,
 
 def leaky_relu02(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope=0.2)
+
+
+_recompute = threading.local()   # .active: this thread runs a checkpoint's recompute
+
+
+@contextlib.contextmanager
+def _recompute_context():
+    prev = getattr(_recompute, "active", False)
+    _recompute.active = True
+    try:
+        yield
+    finally:
+        _recompute.active = prev
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (``nn.remat`` of the
+    JAX package): its activations are recomputed in the backward instead of
+    kept. During that recompute ``BatchNorm.update_running`` does nothing,
+    so the running statistics move once, as in the JAX package. Without
+    grad mode ``fn`` just runs."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), _recompute_context()))
 
 
 def _compute(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.dtype:
@@ -116,7 +145,10 @@ class BatchNorm(nn.Module):
 
     @torch.no_grad()
     def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
-        """Move the running statistics towards a batch's (biased) ones."""
+        """Move the running statistics towards a batch's (biased) ones,
+        except in a ``checkpointed`` region's recompute."""
+        if getattr(_recompute, "active", False):
+            return
         m = self.momentum
         self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
         self.running_var.copy_(m * self.running_var + (1 - m) * var)
@@ -244,11 +276,24 @@ class _MlpParams(nn.Module):
         self.fc2 = Dense(hidden, dim, dtype=dtype, generator=generator)
 
 
+def mlp_route(compute_dtype, device_type: str, x_dtype, R: int, C: int, H: int) -> str:
+    """The block's MLP path, the gate of ``point_dae_tpu/models/layers.py:
+    331-359`` with "on TPU" read as "on CUDA": ``fused_ln`` (LN2, MLP,
+    stochastic depth and residual in the ``mlp_ln`` kernels) for an f32
+    residual stream, ``fused`` (the ``mlp`` kernels after LN2) for another,
+    both at bf16 compute inside ``ops.mlp.supported``; else ``plain``. The
+    JAX gate also asks that stochastic depth be inert or come from the
+    stack's masks, which the port's always do."""
+    if not (compute_dtype == torch.bfloat16 and device_type == "cuda"
+            and mlp_supported(R, C, H)):
+        return "plain"
+    return "fused_ln" if x_dtype == torch.float32 else "fused"
+
+
 class TransformerBlock(nn.Module):
-    """Pre-norm ViT block with an f32 residual stream. At bf16 compute on a
-    CUDA tensor whose shapes pass ``ops.mlp.supported`` (the gate of
-    ``layers.py:331-345``), the LN2 + MLP + stochastic depth + residual half
-    runs as the ``fused_mlp_ln`` kernel."""
+    """Pre-norm ViT block. The residual stream keeps the dtype it comes in
+    with (f32, or a stack's ``residual_dtype``); the MLP half takes the
+    kernels that ``mlp_route`` names."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  drop_path_rate: float = 0.0, dtype=None,
@@ -269,14 +314,14 @@ class TransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None,
                 dp_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x (B, T, C) f32; dp_mask (2, B) bool keep masks or None."""
+        """x (B, T, C); dp_mask (2, B) bool keep masks or None."""
         h = self.attn(self.norm1(x), key_mask).to(x.dtype)
         x = x + self._dp(h, dp_mask, 0)
         fc1, fc2 = self.mlp.fc1, self.mlp.fc2
         B, T, C = x.shape
-        if (self.dtype == torch.bfloat16 and x.dtype == torch.float32
-                and x.device.type == "cuda"
-                and mlp_supported(B * T, C, fc1.weight.shape[0])):
+        route = mlp_route(self.dtype, x.device.type, x.dtype, B * T, C,
+                          fc1.weight.shape[0])
+        if route == "fused_ln":
             row_scale = None
             if dp_mask is not None and self.drop_path_rate != 0.0:
                 keep = 1.0 - self.drop_path_rate
@@ -285,9 +330,12 @@ class TransformerBlock(nn.Module):
             return fused_mlp_ln(x, self.norm2.weight, self.norm2.bias,
                                 fc1.weight.t(), fc1.bias, fc2.weight.t(),
                                 fc2.bias, row_scale=row_scale)
-        h = F.gelu(fc1(self.norm2(x)))
-        h = fc2(h).to(x.dtype)
-        return x + self._dp(h, dp_mask, 1)
+        h = self.norm2(x)
+        if route == "fused":
+            h = fused_mlp(h, fc1.weight.t(), fc1.bias, fc2.weight.t(), fc2.bias)
+        else:
+            h = fc2(F.gelu(fc1(h)))
+        return x + self._dp(h.to(x.dtype), dp_mask, 1)
 
 
 def _dpr(rate: float, depth: int):
@@ -296,31 +344,43 @@ def _dpr(rate: float, depth: int):
 
 class TransformerEncoder(nn.Module):
     """Block stack with the positional embedding re-added before every
-    block. Torch names: ``blocks.{i}``."""
+    block. Torch names: ``blocks.{i}``. ``residual_dtype`` casts the stream
+    and the embedding at entry (JAX ``layers.py:414-417``); ``remat``
+    recomputes each block in the backward (``checkpointed``)."""
 
     def __init__(self, dim: int, depth: int, num_heads: int,
                  drop_path_rate: float = 0.0, dtype=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 residual_dtype=None, remat: bool = False):
         super().__init__()
         self.dpr = _dpr(drop_path_rate, depth)
+        self.residual_dtype = residual_dtype
+        self.remat = remat
         self.blocks = nn.ModuleList(
             TransformerBlock(dim, num_heads, drop_path_rate=r, dtype=dtype,
                              generator=generator) for r in self.dpr)
 
     def forward(self, x, pos, key_mask=None, dp_masks=None):
         """dp_masks: (depth, 2, B) bool or None (no stochastic depth)."""
+        if self.residual_dtype is not None:
+            x, pos = x.to(self.residual_dtype), pos.to(self.residual_dtype)
         for i, blk in enumerate(self.blocks):
-            x = blk(x + pos, key_mask, None if dp_masks is None else dp_masks[i])
+            m = None if dp_masks is None else dp_masks[i]
+            x = checkpointed(blk, x + pos, key_mask, m) if self.remat \
+                else blk(x + pos, key_mask, m)
         return x
 
 
 class TransformerDecoder(TransformerEncoder):
-    """``TransformerEncoder`` plus a final f32 LayerNorm (``norm``)."""
+    """``TransformerEncoder`` plus a final f32 LayerNorm (``norm``), which
+    brings a ``residual_dtype`` stream back to f32. Without ``remat``: the
+    JAX decoder has none."""
 
     def __init__(self, dim: int, depth: int, num_heads: int,
                  drop_path_rate: float = 0.0, dtype=None,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__(dim, depth, num_heads, drop_path_rate, dtype, generator)
+                 generator: Optional[torch.Generator] = None, residual_dtype=None):
+        super().__init__(dim, depth, num_heads, drop_path_rate, dtype, generator,
+                         residual_dtype)
         self.norm = LayerNorm(dim)
 
     def forward(self, x, pos, key_mask=None, dp_masks=None):

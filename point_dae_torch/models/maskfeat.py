@@ -24,7 +24,7 @@ from ..ops.geometry import furthest_point_sample, gather_points, group_points, k
 from ..utils.registry import MODELS
 from .dgcnn import DGCNNEncoder
 from .layers import Dense, PosEmbedMLP
-from .transformer import ModelDraws, _CAETransformerBase
+from .transformer import MaskTransformerEncoder, ModelDraws, _CAETransformerBase
 
 
 def _nrm(v: torch.Tensor) -> torch.Tensor:
@@ -42,7 +42,10 @@ def masked_feat_mse(pred: torch.Tensor, target: torch.Tensor, w: torch.Tensor
 @MODELS.register_module()
 class MaskFeat_dgcnn(_CAETransformerBase):
     """Student: ``MaskTransformerEncoder`` + decoder over all G tokens +
-    ``increase_dim`` (trans_dim -> 1024). Teacher: the ``reference``
+    ``increase_dim`` (trans_dim -> 1024). The encoder is built as the JAX
+    one is (``maskfeat.py:100-107``): f32, without the compute dtype or the
+    memory keys, which reach only the decoder (``residual_dtype``). Teacher:
+    the ``reference``
     ``DGCNNEncoder``, f32. The config's ``loss`` key is not read: the loss
     is always the masked feature MSE. Calling convention:
     ``model(corrupted, clean, draws=None, generator=None) -> (loss,
@@ -52,7 +55,10 @@ class MaskFeat_dgcnn(_CAETransformerBase):
         super().__init__(config, generator)
         C = int(self.tcfg["trans_dim"])
         g = generator
-        self.MAE_encoder = self._make_encoder(g)
+        t = self.tcfg
+        self.MAE_encoder = MaskTransformerEncoder(
+            C, t["depth"], t["num_heads"], t["encoder_dims"], t.get("drop_path_rate", 0.1),
+            self.mask_ratio, self.rand_ratio, None, g)
         self.teacher = DGCNNEncoder(impl="reference", generator=g)
         self.decoder_pos_embed = PosEmbedMLP(C, generator=g)
         self.MAE_decoder = self._make_decoder(g)

@@ -28,7 +28,8 @@ from ..ops.geometry import group_neighborhood
 from ..utils.registry import MODELS
 from .common import ClsDraws, dropout_from_mask, folding_grid, sample_dropout_masks
 from .layers import (MLP, BatchNorm, Dense, PatchEncoder, PosEmbedMLP, SplitMLP,
-                     TransformerDecoder, TransformerEncoder, LayerNorm, stack_dp_masks)
+                     TransformerDecoder, TransformerEncoder, LayerNorm, checkpointed,
+                     stack_dp_masks)
 
 
 def static_num_masked(ratio: float, num_group: int) -> int:
@@ -74,18 +75,25 @@ def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 class MaskTransformerEncoder(nn.Module):
     """Patch embed + random masking + ViT encoder on the packed visible
-    tokens. Returns the (B, G, C) all-G layout, zeros at masked slots."""
+    tokens. Returns the (B, G, C) all-G layout, zeros at masked slots.
+    ``embed_all`` embeds all G patches and then takes the visible rows, so
+    that the PatchEncoder's BatchNorm statistics run over all G (the
+    reference's dataflow); by default only the visible patches are
+    embedded. ``residual_dtype`` and ``remat`` go to the block stack."""
 
     def __init__(self, trans_dim, depth, num_heads, encoder_dims, drop_path_rate,
-                 mask_ratio, rand_ratio, dtype, generator):
+                 mask_ratio, rand_ratio, dtype, generator, embed_all: bool = False,
+                 residual_dtype=None, remat: bool = False):
         super().__init__()
         self.mask_ratio = mask_ratio
         self.rand_ratio = rand_ratio
+        self.embed_all = embed_all
         self.encoder = PatchEncoder(encoder_dims, dtype=dtype, generator=generator)
         self.pos_embed = PosEmbedMLP(trans_dim, generator=generator)
         self.blocks = TransformerEncoder(trans_dim, depth, num_heads,
                                          drop_path_rate=drop_path_rate,
-                                         dtype=dtype, generator=generator)
+                                         dtype=dtype, generator=generator,
+                                         residual_dtype=residual_dtype, remat=remat)
         self.norm = LayerNorm(trans_dim)
 
     def forward(self, neighborhood, center, mask, dp_masks=None):
@@ -97,7 +105,10 @@ class MaskTransformerEncoder(nn.Module):
             return self.norm(x)
         order = torch.sort(mask.to(torch.uint8), dim=-1, stable=True).indices
         vis_idx = order[:, :V]                               # visible first
-        tokens = self.encoder(_take(neighborhood, vis_idx))
+        if self.embed_all:
+            tokens = _take(self.encoder(neighborhood), vis_idx)
+        else:
+            tokens = self.encoder(_take(neighborhood, vis_idx))
         pos = self.pos_embed(_take(center, vis_idx))
         num_vis = (~mask).sum(-1)
         slot_valid = torch.arange(V, device=mask.device)[None, :] < num_vis[:, None]
@@ -114,7 +125,13 @@ class _CAETransformerBase(nn.Module):
     decoder and mask token (built by the subclass, in its order of
     parameter creation), the draws, the decoder pass over all G tokens and
     the packing of the masked tokens. Builds no loss function: each model
-    has its own. Only the masked mode (``mask_type: rand``) is ported."""
+    has its own. Only the masked mode (``mask_type: rand``) is ported.
+
+    The memory keys of ``transformer_config``, read as the JAX package reads
+    them: ``residual_dtype: bf16`` (the stacks' residual stream in bf16),
+    ``remat`` (the encoder's blocks recomputed in the backward),
+    ``embed_all_patches`` and ``remat_fold`` (the flagship's folding head
+    recomputed in the backward). None of them adds a parameter."""
 
     def __init__(self, config, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -130,22 +147,25 @@ class _CAETransformerBase(nn.Module):
         self.mask_ratio = float(t.get("mask_ratio", 0.6))
         if t.get("mask_type", "rand") != "rand":
             raise NotImplementedError("only mask_type 'rand' is ported")
-        for key in ("residual_dtype", "embed_all_patches", "remat", "remat_fold"):
-            if str(t.get(key, "False")) not in ("False", "None", "0"):
-                raise NotImplementedError(f"transformer_config.{key} is not ported yet")
+        rd = t.get("residual_dtype")
+        self.residual_dtype = torch.bfloat16 if str(rd) in ("bf16", "bfloat16") else None
+        self.remat = bool(t.get("remat", False))
+        self.embed_all = bool(t.get("embed_all_patches", False))
 
     def _make_encoder(self, generator) -> MaskTransformerEncoder:
         t = self.tcfg
         return MaskTransformerEncoder(
             int(t["trans_dim"]), t["depth"], t["num_heads"], t["encoder_dims"],
             t.get("drop_path_rate", 0.1), self.mask_ratio, self.rand_ratio,
-            self.compute_dtype, generator)
+            self.compute_dtype, generator, embed_all=self.embed_all,
+            residual_dtype=self.residual_dtype, remat=self.remat)
 
     def _make_decoder(self, generator) -> TransformerDecoder:
         t = self.tcfg
         return TransformerDecoder(int(t["trans_dim"]), t["decoder_depth"],
                                   t["decoder_num_heads"], t.get("drop_path_rate", 0.1),
-                                  self.compute_dtype, generator)
+                                  self.compute_dtype, generator,
+                                  residual_dtype=self.residual_dtype)
 
     def _make_mask_token(self, generator) -> nn.Parameter:
         return nn.Parameter(nn.init.trunc_normal_(
@@ -205,11 +225,14 @@ class PointCAE_transformer_fc_global_folding_local(_CAETransformerBase):
     ``mask_type: rand``). At bf16 compute on a CUDA tensor the folding head
     runs as the ``fused_folding`` kernel unless ``fold_impl: xla`` asks for
     the plain ``SplitMLP`` products; the parameters are the same either way.
+    ``remat_fold: True`` recomputes the folding head in the backward, with
+    either ``fold_impl``.
     """
 
     def __init__(self, config, generator: Optional[torch.Generator] = None):
         super().__init__(config, generator)
         self.fold_impl = str(self.tcfg.get("fold_impl", "auto"))
+        self.remat_fold = str(self.tcfg.get("remat_fold", "False")) == "True"
         if "Drop-Patch" not in self.corrupt_type:
             raise NotImplementedError("the unmasked encoder is not ported yet")
         if config.get("loss", "cdl2") != "cdl2":
@@ -292,7 +315,8 @@ class PointCAE_transformer_fc_global_folding_local(_CAETransformerBase):
 
         x_rec = self._decode(x_vis, mask, center, dp_dec)
         x_loc, gt, w = self._local_recon_inputs(x_rec, neigh, mask)
-        rebuild = self._fold(x_loc).reshape(gt.shape[0], -1, 3)
+        fold = checkpointed(self._fold, x_loc) if self.remat_fold else self._fold(x_loc)
+        rebuild = fold.reshape(gt.shape[0], -1, 3)
         loss1 = masked_chamfer_l2(rebuild, gt, w)
         return loss1, loss2
 

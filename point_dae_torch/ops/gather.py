@@ -3,6 +3,9 @@ scatter-add, each with its kernel.
 
 Port of ``point_dae_tpu/ops/pallas_scatter.py:gather_rows``,
 ``gather_rows_small_c_pallas`` (CUDA kernel ``csrc/gather.cu``),
+``gather_rows_pallas`` (``gather_rows_wide``, the third entry of
+``csrc/gather.cu``; nothing dispatches it, as nothing dispatches the JAX
+one: both packages keep the library gather forward),
 ``scatter_rows_add_pallas`` (CUDA kernel ``csrc/scatter.cu``) and the
 rank-keyed select ``gather_by_key_small_c_pallas`` (the second entry of
 ``csrc/gather.cu``), which the masked resample uses. Inside the
@@ -105,6 +108,44 @@ def gather_rows_small_c(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     kernels.launch("gather_rows_small_c", "gather", "gather_rows_small_c",
                    (P, P, P, I, I, I, I, P), x.data_ptr(), idx32.data_ptr(),
                    out.data_ptr(), B, N, Q, C, kernels.stream(x))
+    return out
+
+
+def gather_rows_wide_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the wide kernel: x (B, N, C) any float type,
+    idx (B, Q) -> (B, Q, C) f32, zeros where an index falls outside [0, N)
+    (the one-hot product of ``gather_rows_pallas`` gives them)."""
+    N, C = x.shape[1:]
+    idx = idx.long()
+    got = torch.gather(x.float(), 1, idx.clamp(0, N - 1)[..., None].expand(-1, -1, C))
+    valid = ((idx >= 0) & (idx < N))[..., None]
+    return torch.where(valid, got, torch.zeros((), device=x.device))
+
+
+_WIDE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def gather_rows_wide(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The wide gather kernel on a CUDA tensor, its plain version on a CPU
+    one: x (B, N, C) f32, bf16 or f16, idx (B, Q) -> (B, Q, C) f32, exact.
+    No gradient flows through it."""
+    if x.device.type == "cpu":
+        return gather_rows_wide_plain(x, idx)
+    B, N, C = x.shape
+    if x.dtype not in _WIDE_DTYPES:
+        raise ValueError(f"wide gather takes f32, bf16 or f16 rows, got {x.dtype}")
+    if x.requires_grad and torch.is_grad_enabled():
+        raise ValueError("the wide gather has no backward")
+    x = x.contiguous()
+    idx32 = idx.to(torch.int32).contiguous()
+    kernels.require_cuda(x, idx32)
+    Q = idx32.shape[1]
+    out = torch.empty((B, Q, C), dtype=torch.float32, device=x.device)
+    vec = 4 if C % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0 else 1
+    P, I = kernels.P, kernels.I
+    kernels.launch("gather_rows_wide", "gather", "gather_rows_wide",
+                   (P, I, P, P, I, I, I, I, I, P), x.data_ptr(), _WIDE_DTYPES[x.dtype],
+                   idx32.data_ptr(), out.data_ptr(), B, N, Q, C, vec, kernels.stream(x))
     return out
 
 

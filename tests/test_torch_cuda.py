@@ -96,6 +96,75 @@ def test_fused_mlp_ln_kernels_match_plain(dev, C, scaled):
                                                             torch.float32]
 
 
+@pytest.mark.parametrize("C", [384, 128])
+def test_fused_mlp_kernels_match_plain(dev, C):
+    """The ``mlp`` kernels against ``fused_mlp_plain`` (the same roundings,
+    sums in another order): the output within 1e-2 and every gradient
+    within 2e-2 of its largest value, as for ``mlp_ln``; the raw backward
+    gives dx, dk1, dk2 in bf16 and db1, db2 in f32."""
+    g = _gen(dev, 30)
+    R, H = 512, 4 * C
+    args = [torch.randn((R, C), generator=g, device=dev).to(torch.bfloat16),
+            torch.randn((C, H), generator=g, device=dev) / math.sqrt(C),
+            0.02 * torch.randn((H,), generator=g, device=dev),
+            torch.randn((H, C), generator=g, device=dev) / math.sqrt(H),
+            0.02 * torch.randn((C,), generator=g, device=dev)]
+    cot = torch.randn((R, C), generator=g, device=dev)
+    lk = [t.clone().requires_grad_() for t in args]
+    lp = [t.clone().requires_grad_() for t in args]
+    yk, yp = mlp.fused_mlp(*lk), mlp.fused_mlp_plain(*lp)
+    assert yk.dtype == torch.float32 and _rel(yk, yp) < 1e-2
+    for a, b in zip(torch.autograd.grad(yk, lk, cot), torch.autograd.grad(yp, lp, cot)):
+        assert a.dtype == b.dtype and _rel(a, b) < 2e-2
+    bf = torch.bfloat16
+    raw = mlp.mlp_bwd_kernel(args[0], args[1].to(bf).contiguous(), args[2],
+                             args[3].to(bf).contiguous(), cot)
+    assert [t.dtype for t in raw] == [bf, bf, torch.float32, bf, torch.float32]
+
+
+def test_bf16_residual_block_takes_the_mlp_kernels(dev):
+    """A bf16-compute block on a bf16 residual stream at R = 8 x 32 = 256,
+    C 128 launches ``mlp_fwd`` and ``mlp_bwd`` once each and no ``mlp_ln``;
+    on an f32 stream it takes ``mlp_ln`` instead."""
+    from point_dae_torch.models.layers import TransformerBlock
+    from point_dae_torch.utils import kernels
+
+    blk = TransformerBlock(128, 2, drop_path_rate=0.1, dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(0)).to(dev)
+    x = torch.randn((8, 32, 128), generator=_gen(dev, 31), device=dev)
+    masks = torch.ones((2, 8), dtype=torch.bool, device=dev)
+    kernels.reset_launches()
+    y = blk(x.to(torch.bfloat16).requires_grad_(), None, masks)
+    y.float().sum().backward()
+    assert y.dtype == torch.bfloat16
+    assert (kernels.launches["mlp_fwd"], kernels.launches["mlp_bwd"],
+            kernels.launches["mlp_ln_fwd"]) == (1, 1, 0)
+    kernels.reset_launches()
+    blk(x, None, masks).sum().backward()
+    assert (kernels.launches["mlp_fwd"], kernels.launches["mlp_ln_fwd"],
+            kernels.launches["mlp_ln_bwd"]) == (0, 1, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("C", [64, 5])
+def test_wide_gather_kernel_is_exact(dev, dtype, C):
+    """``gather_rows_wide`` against its plain version and ``torch.gather``,
+    bit for bit (C 64 takes the 4-wide loads, C 5 the scalar ones); indices
+    outside [0, N) give zero rows."""
+    g = _gen(dev, 32)
+    x = torch.randn((4, 2048, C), generator=g, device=dev).to(dtype)
+    idx = torch.randint(0, 2048, (4, 3000), generator=g, device=dev, dtype=torch.int32)
+    got = gather.gather_rows_wide(x, idx)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, gather.gather_rows_wide_plain(x, idx))
+    assert torch.equal(got, torch.gather(x.float(), 1,
+                                         idx.long()[..., None].expand(-1, -1, C)))
+    idx[1, 5], idx[2, 0] = -3, 2048
+    got = gather.gather_rows_wide(x, idx)
+    assert not got[1, 5].any() and not got[2, 0].any()
+    assert torch.equal(got, gather.gather_rows_wide_plain(x, idx))
+
+
 def _rel(a, b):
     a, b = a.detach().float(), b.detach().float()
     return float((a - b).abs().max()) / (float(b.abs().max()) + 1e-12)

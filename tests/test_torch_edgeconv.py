@@ -163,7 +163,7 @@ def test_encoder_impls_agree_on_one_state_dict(bf16):
     """``fused`` against ``reference`` with the same weights: f32 to 1e-4;
     under bf16 within the 0.05 the JAX package's own test allows (the split
     projections round apart from the edge tensor's). ``auto`` is
-    ``reference`` on a CPU tensor."""
+    ``reference`` on a CPU tensor, and ``remat`` changes no output."""
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.normal(size=(2, 64, 3)).astype(np.float32))
     dt = torch.bfloat16 if bf16 else None
@@ -182,8 +182,11 @@ def test_encoder_impls_agree_on_one_state_dict(bf16):
     np.testing.assert_allclose(outs["fused"], outs["reference"], rtol=tol, atol=tol)
     np.testing.assert_array_equal(outs["auto"], outs["reference"])
     np.testing.assert_array_equal(outs["fused_pallas"], outs["fused"])
-    with pytest.raises(NotImplementedError, match="remat"):
-        DGCNNEncoder(remat=True)
+    remat = DGCNNEncoder(k=5, dtype=dt, impl="reference", remat=True)
+    remat.load_state_dict(sd, strict=True)
+    remat.eval()
+    x_grad = x.clone().requires_grad_()              # grad mode: the checkpoint runs
+    np.testing.assert_array_equal(remat(x_grad)[0].detach().numpy(), outs["reference"])
 
 
 def _gaps(a, b):
