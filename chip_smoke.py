@@ -75,7 +75,16 @@ Phases, each fatal on failure:
               (16 mlp_fwd and mlp_bwd launches a step, no mlp_ln), 2 steps
               each of remat + residual_dtype bf16, remat_fold and
               embed_all_patches, and 2 DGCNN steps with remat, each with its
-              step time and peak memory beside the default run's.
+              step time and peak memory beside the default run's;
+ 10. redesign - the small-C gather also from int64 indices, bit for bit,
+              its device time (torch.profiler) beside torch.gather's from
+              the path's int32 index (cast included) and from a ready int64
+              one; the attention kernels' registers and shared memory, and
+              fused_attention at three gate shapes off the models' path
+              (T 40 d 32 masked, T 128 d 64, T 256 d 128) against its plain
+              version (kernels phase); the mlp_ln and mlp wide form at C
+              512, 768 and 1024 (H 4 C) against their plain versions at R
+              256 and timed at R 16384.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Run from the repository root:
 
@@ -211,6 +220,68 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def dev_us(e) -> float:
+    """Device microseconds of a torch.profiler event (the attribute's name
+    moved between torch versions)."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def device_ms(fn, calls: int = 50):
+    """Device milliseconds a call of fn: the time of every CUDA kernel
+    torch.profiler records over `calls` calls (after one warm-up), summed,
+    over the count; and the kernels' names."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
+              and not getattr(e, "is_user_annotation", False)]
+    return sum(dev_us(e) for e in events) / calls / 1e3, sorted(e.key[:40] for e in events)
+
+
+def gather_times(torch, x, idx):
+    """The small-C gather's times beside torch.gather's at one shape, idx
+    int32 as the paths give it: per call on the host clock's view (CUDA
+    events over back-to-back eager calls) and on the device (kernel time
+    under the profiler). torch.gather is timed from the same int32 index,
+    its cast to int64 included (like for like), and from an int64 index
+    made ready beforehand."""
+    from point_dae_torch.ops import gather
+
+    C = x.shape[-1]
+    ready = idx.long()[..., None].expand(-1, -1, C)
+
+    def lib_cast():
+        return torch.gather(x, 1, idx.long()[..., None].expand(-1, -1, C))
+
+    def lib_ready():
+        return torch.gather(x, 1, ready)
+
+    def kernel():
+        return gather.gather_rows_small_c(x, idx)
+
+    out = dict(ms=cuda_ms(kernel, 50), lib_cast_ms=cuda_ms(lib_cast, 50),
+               lib_ready_ms=cuda_ms(lib_ready, 50),
+               plain_ms=cuda_ms(lambda: gather.gather_rows_small_c_plain(x, idx), 50))
+    for k, fn in (("dev", kernel), ("lib_cast_dev", lib_cast), ("lib_ready_dev", lib_ready)):
+        out[k], out[k + "_kernels"] = device_ms(fn)
+    return out
+
+
+def gather_line(t) -> str:
+    return (f"{t['ms']:.4f} ms a call, device {t['dev']:.4f} ms; torch.gather from the int32 "
+            f"index (cast included) {t['lib_cast_ms']:.4f} ms a call, device "
+            f"{t['lib_cast_dev']:.4f} ms ({len(t['lib_cast_dev_kernels'])} kernels); from a "
+            f"ready int64 index {t['lib_ready_ms']:.4f} ms, device {t['lib_ready_dev']:.4f} ms; "
+            f"plain {t['plain_ms']:.4f} ms")
+
+
 def bound_ms(nbytes: float, flops: float, peak: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
@@ -268,22 +339,23 @@ def phase_kernels(torch, pts, device):
         library_ms=None, bound=bound_ms(nbytes, B * G * N * 8, F32_FLOPS),
         note=f"knn idx match {match:.6f}")
 
-    # -- small-C gather: exact
+    # -- small-C gather: exact, int32 (the path's) and int64 indices
     idx = knn_k.reshape(B, G * S)
     got = gather.gather_rows_small_c(pts, idx)
     want = gather.gather_rows_small_c_plain(pts, idx)
-    if not torch.equal(got, want):
+    if not (torch.equal(got, want) and torch.equal(gather.gather_rows_small_c(pts, idx.long()), want)):
         fail("gather: kernel differs from the plain version")
-    idx64 = idx.long()[..., None].expand(-1, -1, 3)
     nbytes = pts.numel() * 4 + idx.numel() * 4 + got.numel() * 4
+    t = gather_times(torch, pts, idx)
+    log(f"  gather_rows_small_c ({B}, {N}, 3) by {G * S} rows: {gather_line(t)}")
     records["gather_rows_small_c"] = dict(
         replaces="point_dae_tpu/ops/pallas_scatter.py:116",
         source="point_dae_torch/csrc/gather.cu",
-        max_abs_err=float((got - want).abs().max()),
-        ms=cuda_ms(lambda: gather.gather_rows_small_c(pts, idx), 50),
-        plain_ms=cuda_ms(lambda: gather.gather_rows_small_c_plain(pts, idx), 50),
-        library_ms=cuda_ms(lambda: torch.gather(pts, 1, idx64), 50),
-        bound=bound_ms(nbytes, 0, F32_FLOPS))
+        max_abs_err=float((got - want).abs().max()), ms=t["ms"], plain_ms=t["plain_ms"],
+        library_ms=t["lib_cast_ms"], bound=bound_ms(nbytes, 0, F32_FLOPS),
+        note=f"device {t['dev']:.4f} ms; library: torch.gather from the int32 index, cast "
+             f"included (device {t['lib_cast_dev']:.4f}); from a ready int64 index "
+             f"{t['lib_ready_ms']:.4f} (device {t['lib_ready_dev']:.4f})")
 
     # -- patch chamfer: 256*51 patches, 36 rebuilt points vs 32 true ones
     neigh, _ = group_neighborhood(pts, G, S)
@@ -509,6 +581,12 @@ def phase_attention(torch, device, g):
                 lq.detach(), lk.detach(), lv.detach(), attn_mask=amask), 50),
             lib_bwd=cuda_ms(lambda: torch.autograd.grad(
                 lib_out, (lq, lk, lv), lib_cot, retain_graph=True), 50),
+            dev_fwd=device_ms(lambda: attention.attention_fwd_kernel(q, k, v, mask))[0],
+            dev_bwd=device_ms(lambda: attention.attention_bwd_kernel(q, k, v, mask, cot))[0],
+            lib_dev_fwd=device_ms(lambda: F.scaled_dot_product_attention(
+                lq.detach(), lk.detach(), lv.detach(), attn_mask=amask))[0],
+            lib_dev_bwd=device_ms(lambda: torch.autograd.grad(
+                lib_out, (lq, lk, lv), lib_cot, retain_graph=True))[0],
             bound_fwd=bound_ms(3 * nel * 2 + Bt * T + nel * 4,
                                2 * 2 * Bt * H * T * T * d, BF16_FLOPS),
             bound_bwd=bound_ms(3 * nel * 2 + Bt * T + nel * 4 + 3 * nel * 2,
@@ -518,6 +596,11 @@ def phase_attention(torch, device, g):
         f"library {s64['lib_fwd']:.4f}, bound {s64['bound_fwd'][0]:.4f}), bwd "
         f"{s64['bwd']:.4f} ms (plain {s64['plain_bwd']:.4f}, library {s64['lib_bwd']:.4f}, "
         f"bound {s64['bound_bwd'][0]:.4f})")
+    for T, sh in shapes.items():
+        log(f"  fused_attention T {T} device time (torch.profiler): fwd {sh['dev_fwd']:.4f} ms "
+            f"(SDPA {sh['lib_dev_fwd']:.4f}), bwd {sh['dev_bwd']:.4f} ms (SDPA's autograd "
+            f"backward {sh['lib_dev_bwd']:.4f})")
+    attention_gate_shapes(torch, device, g)
     s32 = shapes[32]
     records = {}
     for way, line in (("fwd", "144"), ("bwd", "168")):
@@ -526,8 +609,80 @@ def phase_attention(torch, device, g):
             source="point_dae_torch/csrc/attention.cu", max_abs_err=errs[way],
             ms=s32[way], plain_ms=s32[f"plain_{way}"], library_ms=s32[f"lib_{way}"],
             bound=s32[f"bound_{way}"],
-            note="B 256, H 6, d 64, T 32 with a key mask (12 of a step's 16 launches)")
+            note=f"B 256, H 6, d 64, T 32 with a key mask (12 of a step's 16 launches); "
+                 f"device {s32[f'dev_{way}']:.4f} ms, SDPA's {s32[f'lib_dev_{way}']:.4f}")
     return records
+
+
+# Shapes inside the gate the models do not reach: (B, T, H, d, masked) with
+# the JAX tile bc = pick_bc(B, T) of each: 8, 4 and 2
+ATTN_GATE_SHAPES = ((16, 40, 6, 32, True), (8, 128, 6, 64, False), (2, 256, 6, 128, False))
+
+
+def attention_gate_shapes(torch, device, g):
+    """The fused attention at the off-path gate shapes against its plain
+    version on the card, forward and backward within the path shapes'
+    2e-2, exact zeros on invalid keys; each launch's time and dynamic
+    shared memory."""
+    from point_dae_torch.ops import attention
+
+    bf = torch.bfloat16
+    for Bt, T, H, d, masked in ATTN_GATE_SHAPES:
+        if not attention.supported(Bt, T, H, d):
+            fail(f"fused_attention: ({Bt}, {T}, {H}, {d}) is not inside the gate")
+        qkv = torch.randn((Bt, T, 3, H, d), generator=g, device=device)
+        cot = torch.randn((Bt, T, H, d), generator=g, device=device)
+        mask = None
+        if masked:
+            mask = torch.rand((Bt, T), generator=g, device=device) < 0.6
+            mask[:, 0] = True
+
+        def run(fn):
+            leaf = qkv.clone().requires_grad_()
+            q, k, v = leaf.to(bf).unbind(2)
+            out = fn(q, k, v, mask)
+            return out, torch.autograd.grad(out, leaf, cot)[0], (q, k, v)
+
+        out_k, gk, _ = run(attention.fused_attention)
+        out_p, gp, (q, k, v) = run(attention.fused_attention_plain)
+        torch.cuda.synchronize()
+        worst = {"out": rel_err(out_k, out_p)}
+        for i, name in enumerate(("dq", "dk", "dv")):
+            worst[name] = rel_err(gk[:, :, i], gp[:, :, i])
+        if max(worst.values()) > 2e-2:  # bf16 operands: 2^-8 per rounding, summed
+            fail(f"fused_attention ({Bt}, {T}, {H}, {d}) disagrees with its plain version: "
+                 f"{worst}")
+        if masked and float(gk[:, :, 1:][~mask].abs().max()) != 0.0:
+            fail(f"fused_attention ({Bt}, {T}, {H}, {d}): an invalid key got a gradient")
+        q, k, v = (t.detach() for t in (q, k, v))
+        fwd = cuda_ms(lambda: attention.attention_fwd_kernel(q, k, v, mask), 20)
+        bwd = cuda_ms(lambda: attention.attention_bwd_kernel(q, k, v, mask, cot), 20)
+        smem = attention.smem_bytes(T, d)
+        log(f"  fused_attention B {Bt}, T {T}, H {H}, d {d}{' masked' if masked else ''} (bc "
+            f"{attention.pick_bc(Bt, T)}): max error / max |plain| "
+            + " ".join(f"{k_} {v_:.2e}" for k_, v_ in worst.items())
+            + f"; fwd {fwd:.4f} ms, bwd {bwd:.4f} ms; shared memory fwd {smem[0]} B, bwd "
+              f"{smem[1]} B")
+
+
+def log_attention_build(text: str) -> None:
+    """The attention kernels' registers, spills and barriers (nvcc -Xptxas -v),
+    one line a kernel and head width, and each path shape's shared memory."""
+    import re
+
+    from point_dae_torch.ops import attention
+
+    name = None
+    for line in text.splitlines():
+        m = re.search(r"\d(attention_[a-z_]+?_kernel)I((?:Li\d+E)+)", line)
+        if "Compiling entry function" in line and m:
+            args = ", ".join(re.findall(r"Li(\d+)E", m.group(2)))
+            name = f"{m.group(1)}<{args}>"
+        elif name and ("Used" in line or "spill" in line):
+            log(f"  attention: {name}: {line.split(':', 1)[-1].strip()}")
+    for T in (32, 64):
+        fwd, bwd = attention.smem_bytes(T, 64)
+        log(f"  attention: T {T}, d 64: dynamic shared memory fwd {fwd} B, bwd {bwd} B a block")
 
 
 def edgeconv_work(B, N, Cf, C, k):
@@ -914,9 +1069,6 @@ def profile_step(torch, run, card, top: int = 25):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
     # kernel records only: operator records and annotations repeat their
     # kernels' time
     events = [e for e in prof.key_averages()
@@ -927,7 +1079,7 @@ def profile_step(torch, run, card, top: int = 25):
             "gather_rows_kernel": 0.0, "nn_half_small_kernel": 0.0,
             "fold_fwd_kernel": 0.0, "fold_bwd_rows_kernel": 0.0,
             "fold_bwd_weights_kernel": 0.0, "::gemm_kernel<": 0.0,
-            "attention_fwd_kernel": 0.0, "attention_bwd_kernel": 0.0,
+            "attention_fwd": 0.0, "attention_bwd": 0.0,
             "knn_select_kernel": 0.0, "edgeconv_aggregate_kernel": 0.0,
             "gather_by_key_kernel": 0.0,
             "edgeconv_bwd_kernel": 0.0, "edgeconv_tie_weights_kernel": 0.0,
@@ -1351,16 +1503,14 @@ def phase_scatter_kernels(torch, device, card):
         torch.cuda.empty_cache()
 
     B, Q = idx_dg.shape
-    if not torch.equal(gather.gather_rows_small_c(pts, idx_dg),
-                       gather.gather_rows_small_c_plain(pts, idx_dg)):
+    want = gather.gather_rows_small_c_plain(pts, idx_dg)
+    if not (torch.equal(gather.gather_rows_small_c(pts, idx_dg), want)
+            and torch.equal(gather.gather_rows_small_c(pts, idx_dg.long()), want)):
         fail("gather_rows_small_c at the DGCNN partseg shape: differs from the plain version")
-    idx64 = idx_dg.long()[..., None].expand(-1, -1, 3)
     bound = bound_ms(pts.numel() * 4 + idx_dg.numel() * 4 + idx_dg.numel() * 12, 0, F32_FLOPS)
     log(f"  [{card}] gather_rows_small_c (B {B}, N {PS_POINTS}, C 3) by {Q} rows: "
-        f"{cuda_ms(lambda: gather.gather_rows_small_c(pts, idx_dg), 20):.4f} ms (plain "
-        f"{cuda_ms(lambda: gather.gather_rows_small_c_plain(pts, idx_dg), 20):.4f}, "
-        f"torch.gather {cuda_ms(lambda: torch.gather(pts, 1, idx64), 20):.4f}, bound "
-        f"{bound[0]:.4f} by {bound[1]}), equal")
+        f"{gather_line(gather_times(torch, pts, idx_dg))}; bound {bound[0]:.4f} by {bound[1]}; "
+        f"bit for bit, int32 and int64 indices")
     check_patchify_g128(torch, pts)
     return {"scatter_rows_add": dict(
         replaces="point_dae_tpu/ops/pallas_scatter.py:24",
@@ -1990,6 +2140,84 @@ def phase_mlp_wide_kernels(torch, device):
     return records, kernels.launches["gather_rows_wide"] - before
 
 
+WIDE_MLP_C = (512, 768, 1024)   # the wide form's widths checked, H = 4 C
+WIDE_MLP_CHECK_ROWS = 256
+WIDE_MLP_TIME_ROWS = BATCH * 64  # the flagship decoder's row count
+
+
+def phase_mlp_wide_c(torch, device, card):
+    """The mlp_ln and mlp kernels' wide form (rows wider than 384), forward
+    and backward, at C 512, 768 and 1024 (H 4 C) against their plain
+    versions at R 256 with the card tests' tolerances (the output within
+    1e-2, every gradient within 2e-2 of its largest value); then each
+    direction's time at R 16384 beside its plain version and bound."""
+    from point_dae_torch.ops import mlp
+
+    g = torch.Generator(device=device).manual_seed(SEED + 95)
+    bf = torch.bfloat16
+    for C in WIDE_MLP_C:
+        H = 4 * C
+
+        def weights():
+            return [torch.randn((C, H), generator=g, device=device) / math.sqrt(C),
+                    0.02 * torch.randn((H,), generator=g, device=device),
+                    torch.randn((H, C), generator=g, device=device) / math.sqrt(H),
+                    0.02 * torch.randn((C,), generator=g, device=device)]
+
+        def ln_args(R):
+            return [torch.randn((R, C), generator=g, device=device),
+                    1 + 0.1 * torch.randn((C,), generator=g, device=device),
+                    0.05 * torch.randn((C,), generator=g, device=device)] + weights()
+
+        R = WIDE_MLP_CHECK_ROWS
+        sc = ((torch.rand((R,), generator=g, device=device) >= 0.1) / 0.9).float()
+        cot = torch.randn((R, C), generator=g, device=device)
+        for name, args, kfn, pfn, kw in (
+                ("mlp_ln", ln_args(R), mlp.fused_mlp_ln, mlp.fused_mlp_ln_plain,
+                 {"row_scale": sc}),
+                ("mlp", [torch.randn((R, C), generator=g, device=device).to(bf)] + weights(),
+                 mlp.fused_mlp, mlp.fused_mlp_plain, {})):
+            lk = [t.clone().requires_grad_() for t in args]
+            lp = [t.clone().requires_grad_() for t in args]
+            yk, yp = kfn(*lk, **kw), pfn(*lp, **kw)
+            gk = torch.autograd.grad(yk, lk, cot)
+            gp = torch.autograd.grad(yp, lp, cot)
+            base = args[0] if name == "mlp_ln" else 0
+            worst = {"y": rel_err(yk - base, yp - base)}
+            worst.update({f"g{i}": rel_err(a, b) for i, (a, b) in enumerate(zip(gk, gp))})
+            log(f"  {name} wide form, R {R}, C {C}, H {H}: max error / max |plain| "
+                + " ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+            if worst["y"] > 1e-2 or max(worst.values()) > 2e-2:
+                fail(f"{name} wide form at C {C} disagrees with its plain version: {worst}")
+            del lk, lp, yk, yp, gk, gp
+
+        R = WIDE_MLP_TIME_ROWS
+        xa = ln_args(R)
+        scr = torch.ones((R,), device=device)
+        cotr = torch.randn((R, C), generator=g, device=device)
+        k1b, k2b = xa[3].to(bf).contiguous(), xa[5].to(bf).contiguous()
+        xb = xa[0].to(bf)
+        mm = 2 * R * C * H
+        wbytes = 2 * C * H * 2
+        lines = []
+        for name, fwd, bwd, pfwd, io in (
+                ("mlp_ln",
+                 lambda: mlp.mlp_ln_fwd_kernel(xa[0], xa[1], xa[2], k1b, xa[4], k2b, xa[6], scr),
+                 lambda: mlp.mlp_ln_bwd_kernel(xa[0], xa[1], xa[2], k1b, xa[4], k2b, scr, cotr),
+                 lambda: mlp.fused_mlp_ln_plain(*xa, row_scale=scr), R * C * 4),
+                ("mlp", lambda: mlp.mlp_fwd_kernel(xb, k1b, xa[4], k2b, xa[6]),
+                 lambda: mlp.mlp_bwd_kernel(xb, k1b, xa[4], k2b, cotr),
+                 lambda: mlp.fused_mlp_plain(xb, *xa[3:]), R * C * 2)):
+            f_ms, b_ms, p_ms = cuda_ms(fwd, 5), cuda_ms(bwd, 3), cuda_ms(pfwd, 3)
+            bf_ = bound_ms(io + R * C * 4 + wbytes, 2 * mm, BF16_FLOPS)
+            bb_ = bound_ms(2 * io + R * C * 4 + 2 * wbytes, 5 * mm, BF16_FLOPS)
+            lines.append(f"{name} fwd {f_ms:.4f} ms (plain {p_ms:.4f}, bound {bf_[0]:.4f} by "
+                         f"{bf_[1]}), bwd {b_ms:.4f} ms (bound {bb_[0]:.4f} by {bb_[1]})")
+        log(f"  [{card}] wide form at R {R}, C {C}, H {H}: " + "; ".join(lines))
+        del xa, xb, k1b, k2b, cotr
+        torch.cuda.empty_cache()
+
+
 def grads_of(torch, model, run):
     """Loss, every parameter's gradient and every running statistic of one
     train-mode forward (``run(model)`` returns the losses) and backward."""
@@ -2205,6 +2433,9 @@ def main() -> None:
     log(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     stamp("import and build")
     for name, text in sorted(logs.items()):
+        if name == "attention":
+            log_attention_build(text)
+            continue
         for line in text.splitlines():
             if "registers" in line or "spill" in line.lower() and "0 bytes" not in line:
                 log(f"  {name}: {line.strip()}")
@@ -2248,6 +2479,9 @@ def main() -> None:
     recs, wide_launches = phase_mlp_wide_kernels(torch, device)
     records.update(recs)
     stamp("mlp_wide_kernels")
+    torch.cuda.empty_cache()
+    phase_mlp_wide_c(torch, device, card)
+    stamp("mlp_wide_c")
     torch.cuda.empty_cache()
     for name, r in records.items():
         log(f"  [{card}] {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "

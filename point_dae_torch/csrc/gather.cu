@@ -1,15 +1,19 @@
 // Small-C row gather: out[b, q, :] = x[b, idx[b, q], :] for C <= 8, f32,
-// bit-exact. Rows whose index falls outside [0, N) come out as zeros, as
-// the TPU kernel's one-hot product gives them.
+// bit-exact, idx int32 or int64. Rows whose index falls outside [0, N) come
+// out as zeros, as the TPU kernel's one-hot product gives them.
 //
 // Replaces point_dae_tpu/ops/pallas_scatter.py:gather_rows_small_c_pallas.
 // The TPU kernel computed the gather as a one-hot matrix product only
 // because its lane layout wastes 125 of 128 lanes on a 3-wide row; on
-// Hopper it is a plain indexed copy.
+// Hopper it is an indexed copy.
 //
-// Bound on the H100: bytes. One thread writes one output element, so the
-// writes are coalesced; the reads hit a (B, N, C) source of a few MB that
-// stays in L2.
+// Bound on the H100: bytes (the index and the output once, each selected
+// row once). Design: C is a template parameter, so a row's offsets need no
+// runtime divide; a block owns 256 consecutive rows of one cloud
+// (blockIdx.y), a thread one whole row, and reads its index once, int32 or
+// int64 as given (no cast launch). The block stages its rows in shared
+// memory and writes them out as 16-byte stores: a 3-wide row is 12 bytes,
+// so one store a row would leave sectors partly filled.
 //
 // Second entry, gather_by_key_small_c: the rank-keyed select
 // out[b, q, :] = x[b, n*, :] where keys[b, n*] == draw[b, q], zeros where no
@@ -37,19 +41,62 @@
 
 namespace {
 
-// 32-bit index arithmetic: the launcher checks that every offset fits.
-__global__ void gather_rows_kernel(const float* __restrict__ x,
-                                   const int* __restrict__ idx,
-                                   float* __restrict__ out, int N, int Q, int C,
-                                   unsigned total) {
-  for (unsigned e = blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += gridDim.x * blockDim.x) {
-    const unsigned bq = e / C;                  // b * Q + q
-    const unsigned c = e - bq * C;
-    const unsigned b = bq / Q;
-    const int r = idx[bq];
-    out[e] = (r >= 0 && r < N) ? x[(b * N + r) * C + c] : 0.0f;
+constexpr int kGatherRows = 256;   // rows (and threads) a small-C gather block
+
+template <int C, typename I>
+__global__ void __launch_bounds__(kGatherRows)
+gather_rows_kernel(const float* __restrict__ x, const I* __restrict__ idx,
+                   float* __restrict__ out, int N, int Q) {
+  // element e of the block's output sits at buf[e + (o0 & 3)], so the
+  // block's first 16-byte boundary in out is a float4 of buf
+  __shared__ float4 buf4[kGatherRows * C / 4 + 1];
+  float* buf = reinterpret_cast<float*>(buf4);
+  const int q0 = blockIdx.x * kGatherRows;
+  const int n = min(kGatherRows, Q - q0);
+  const size_t o0 = (size_t(blockIdx.y) * Q + q0) * C;
+  const int shift = static_cast<int>(o0 & 3);
+  const int r = threadIdx.x;
+  if (r < n) {
+    const long long i = static_cast<long long>(idx[size_t(blockIdx.y) * Q + q0 + r]);
+    const float* src = x + (size_t(blockIdx.y) * N + (i >= 0 && i < N ? i : 0)) * C;
+    const bool ok = i >= 0 && i < N;
+#pragma unroll
+    for (int c = 0; c < C; ++c) buf[shift + r * C + c] = ok ? src[c] : 0.0f;
   }
+  __syncthreads();
+  const int total = n * C;
+  const int head = min((4 - shift) & 3, total);   // elements before the boundary
+  float* ob = out + o0;
+  if (r < head) ob[r] = buf[shift + r];
+  const int nv = (total - head) / 4;
+  const float4* bv = buf4 + (shift + head) / 4;
+  for (int v = r; v < nv; v += kGatherRows)
+    reinterpret_cast<float4*>(ob + head)[v] = bv[v];
+  const int e = head + 4 * nv + r;
+  if (e < total) ob[e] = buf[shift + e];
+}
+
+template <typename I>
+cudaError_t launch_gather_rows(const float* x, const I* idx, float* out, int B, int N, int Q,
+                               int C, cudaStream_t stream) {
+  const dim3 grid((Q + kGatherRows - 1) / kGatherRows, B);
+  switch (C) {
+#define PDAE_GATHER_CASE(c)                                                              \
+    case c:                                                                              \
+      gather_rows_kernel<c, I><<<grid, kGatherRows, 0, stream>>>(x, idx, out, N, Q); \
+      break;
+    PDAE_GATHER_CASE(1)
+    PDAE_GATHER_CASE(2)
+    PDAE_GATHER_CASE(3)
+    PDAE_GATHER_CASE(4)
+    PDAE_GATHER_CASE(5)
+    PDAE_GATHER_CASE(6)
+    PDAE_GATHER_CASE(7)
+    PDAE_GATHER_CASE(8)
+#undef PDAE_GATHER_CASE
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
 constexpr int kKeyRows = 256;   // draws a key-gather block
@@ -143,18 +190,17 @@ cudaError_t launch_wide(const void* x, const int* idx, float* out, int N, int Q,
 
 }  // namespace
 
-PDAE_EXPORT int gather_rows_small_c(const float* x, const int* idx, float* out,
+// idx (B, Q): int64 when idx64, else int32; out (B, Q, C) f32, 16-byte aligned.
+PDAE_EXPORT int gather_rows_small_c(const float* x, const void* idx, int idx64, float* out,
                                     int B, int N, int Q, int C, void* stream) {
-  const long long total = static_cast<long long>(B) * Q * C;
-  if (total == 0) return static_cast<int>(cudaSuccess);
-  if (total >= (1LL << 31) || static_cast<long long>(B) * N * C >= (1LL << 31))
+  if (B < 0 || N < 1 || Q < 0 || C < 1 || C > 8 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 256;
-  const long long want = (total + threads - 1) / threads;
-  const int blocks = static_cast<int>(want < 132 * 32 ? want : 132 * 32);
-  gather_rows_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, idx, out, N, Q, C, static_cast<unsigned>(total));
-  return static_cast<int>(cudaGetLastError());
+  if (B == 0 || Q == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      idx64 ? launch_gather_rows(x, static_cast<const long long*>(idx), out, B, N, Q, C, s)
+            : launch_gather_rows(x, static_cast<const int*>(idx), out, B, N, Q, C, s);
+  return static_cast<int>(err);
 }
 
 // keys (B, N) int32: distinct ranks, -1 for rows no draw may pick; draw

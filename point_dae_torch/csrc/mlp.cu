@@ -12,7 +12,8 @@
 // Replaces point_dae_tpu/ops/pallas_mlp.py:fused_mlp_ln (_fwd_ln_kernel and
 // _bwd_ln_kernel) and fused_mlp (_fwd_kernel and _bwd_kernel).
 //
-// Design. A block owns 64 rows. The forward puts them into shared memory
+// Design (C in 128, 256, 384; wider rows take the wide form further down,
+// a few plain tiled products a direction). A block owns 64 rows. The forward puts them into shared memory
 // as bf16 (mlp_ln: normalised), then walks the hidden dimension in chunks:
 // h = x @ k1c, GELU, out += a @ k2c. The (64, H) hidden never leaves the
 // chip, as in the TPU kernels. Products are WMMA 16x16x16 bf16 fragments
@@ -39,6 +40,8 @@
 // work.
 #include <cuda_bf16.h>
 #include <mma.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -723,6 +726,340 @@ bool shape_ok(int R, int C, int H) {
   return R > 0 && R % TR == 0 && H % HCF == 0 && (C == 128 || C == 256 || C == 384);
 }
 
+// ------------------------------------------------ the wide form, any C % 64
+//
+// Rows wider than 384 do not fit the one-block form (its (64, C) output
+// accumulator in registers and three tiles in shared memory: about 233 KB at
+// C 512). Here each direction is a few launches of one plain tiled product,
+// 64 x 64 output tiles, 32-deep k chunks, WMMA bf16 fragments with f32
+// accumulators, and an epilogue that rounds where the one-block form rounds:
+//   forward: [LN rows to bf16], a = bf16(GELU(x @ k1 + b1)) written once
+//     (R, H), then out = a @ k2 + b2 (mlp_ln: times s, plus x);
+//   backward: [LN rows and bf16(s * g)], one dual product giving h and
+//     da = g @ k2^T per tile, so dh = da * GELU'(h) is rounded to bf16 and
+//     written with bf16(GELU(h)) and per-tile column sums of the f32 dh
+//     (db1); dx from dh @ k1^T (mlp_ln: through the LN backward, one block
+//     per 64 rows); dk1 = x^T @ dh and dk2 = a^T @ g, each output element
+//     summed over all R rows by one block in a fixed order, then rounded to
+//     bf16. No atomics.
+
+constexpr int GT = 64;                 // output tile
+constexpr int GK = 32;                 // k chunk
+constexpr int GNT = 128;               // threads
+constexpr int LDC = GT + PADF;         // f32 staging of an output tile
+
+enum Epi { EPI_GELU, EPI_OUT_LN, EPI_OUT, EPI_DH, EPI_F32, EPI_BF16 };
+
+struct EpiArgs {
+  const float* bias;   // per output column (b1 or b2)
+  const float* x;      // residual (EPI_OUT_LN)
+  const float* sc;     // per-row scale or null (EPI_OUT_LN)
+  void* out;           // f32 or bf16, row stride ldo
+  bf16* out2;          // bf16(GELU(h)) (EPI_DH)
+  float* part;         // per-row-tile column sums of dh (EPI_DH), row stride ldo
+  int ldo;
+};
+
+// A is (M, K) row-major, or stored (K, M) when AT; B is (K, N) row-major,
+// or stored (N, K) when BT. With DUAL a second product A2 @ B2 (A2 (M, K)
+// row-major, B2 stored (N, K)) accumulates beside the first.
+template <bool AT, bool BT, bool DUAL>
+struct GemmLayout {
+  static constexpr int LDA = AT ? GT + PADH : GK + PADH;
+  static constexpr int LDB = BT ? GK + PADH : GT + PADH;
+  static constexpr int LDA2 = GK + PADH, LDB2 = GK + PADH;
+  static constexpr size_t A = 0;
+  static constexpr size_t B = align128(A + size_t(AT ? GK : GT) * LDA * 2);
+  static constexpr size_t A2 = align128(B + size_t(BT ? GT : GK) * LDB * 2);
+  static constexpr size_t B2 = align128(A2 + (DUAL ? size_t(GT) * LDA2 * 2 : 0));
+  static constexpr size_t OPS = align128(B2 + (DUAL ? size_t(GT) * LDB2 * 2 : 0));
+  static constexpr size_t STAGE = align128(size_t(GT) * LDC * 4);
+  static constexpr size_t STAGES = (DUAL ? 2 : 1) * STAGE;   // over the operands
+  static constexpr size_t BYTES = OPS > STAGES ? OPS : STAGES;
+};
+
+// rows x cols bf16 chunk of a row-major matrix (row stride ld) -> shared
+// memory (row stride sld); cols a multiple of 8.
+__device__ __forceinline__ void load_chunk(bf16* dst, int sld, const bf16* src, size_t ld,
+                                           int rows, int cols) {
+  const int vpr = cols / 8;
+  for (int v = threadIdx.x; v < rows * vpr; v += GNT) {
+    const int r = v / vpr, c = (v % vpr) * 8;
+    *reinterpret_cast<uint4*>(dst + r * sld + c) =
+        *reinterpret_cast<const uint4*>(src + r * ld + c);
+  }
+}
+
+template <bool AT, bool BT, bool DUAL, int EPI>
+__global__ void __launch_bounds__(GNT)
+mlp_wide_gemm_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict__ B, int ldb,
+                     const bf16* __restrict__ A2, int lda2, const bf16* __restrict__ B2,
+                     int ldb2, int K, EpiArgs ep) {
+  using L = GemmLayout<AT, BT, DUAL>;
+  __shared__ __align__(128) unsigned char smem[L::BYTES];
+  bf16* s_a = reinterpret_cast<bf16*>(smem + L::A);
+  bf16* s_b = reinterpret_cast<bf16*>(smem + L::B);
+  bf16* s_a2 = reinterpret_cast<bf16*>(smem + L::A2);
+  bf16* s_b2 = reinterpret_cast<bf16*>(smem + L::B2);
+  float* s_c = reinterpret_cast<float*>(smem);
+  float* s_c2 = reinterpret_cast<float*>(smem + L::STAGE);
+
+  const int m0 = blockIdx.x * GT, n0 = blockIdx.y * GT;
+  const int warp = threadIdx.x >> 5;
+  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 32;
+  FragC acc[2][2], acc2[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wmma::fill_fragment(acc[i][j], 0.f);
+      wmma::fill_fragment(acc2[i][j], 0.f);
+    }
+
+  for (int k0 = 0; k0 < K; k0 += GK) {
+    __syncthreads();
+    if constexpr (AT)
+      load_chunk(s_a, L::LDA, A + size_t(k0) * lda + m0, lda, GK, GT);
+    else
+      load_chunk(s_a, L::LDA, A + size_t(m0) * lda + k0, lda, GT, GK);
+    if constexpr (BT)
+      load_chunk(s_b, L::LDB, B + size_t(n0) * ldb + k0, ldb, GT, GK);
+    else
+      load_chunk(s_b, L::LDB, B + size_t(k0) * ldb + n0, ldb, GK, GT);
+    if constexpr (DUAL) {
+      load_chunk(s_a2, L::LDA2, A2 + size_t(m0) * lda2 + k0, lda2, GT, GK);
+      load_chunk(s_b2, L::LDB2, B2 + size_t(n0) * ldb2 + k0, ldb2, GT, GK);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < GK; kk += 16) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        std::conditional_t<AT, FragAT, FragA> a;
+        if constexpr (AT)
+          wmma::load_matrix_sync(a, s_a + kk * L::LDA + wm + 16 * i, L::LDA);
+        else
+          wmma::load_matrix_sync(a, s_a + (wm + 16 * i) * L::LDA + kk, L::LDA);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          std::conditional_t<BT, FragBT, FragB> b;
+          if constexpr (BT)
+            wmma::load_matrix_sync(b, s_b + (wn + 16 * j) * L::LDB + kk, L::LDB);
+          else
+            wmma::load_matrix_sync(b, s_b + kk * L::LDB + wn + 16 * j, L::LDB);
+          wmma::mma_sync(acc[i][j], a, b, acc[i][j]);
+        }
+        if constexpr (DUAL) {
+          FragA a2;
+          wmma::load_matrix_sync(a2, s_a2 + (wm + 16 * i) * L::LDA2 + kk, L::LDA2);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            FragBT b2;
+            wmma::load_matrix_sync(b2, s_b2 + (wn + 16 * j) * L::LDB2 + kk, L::LDB2);
+            wmma::mma_sync(acc2[i][j], a2, b2, acc2[i][j]);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wmma::store_matrix_sync(s_c + (wm + 16 * i) * LDC + wn + 16 * j, acc[i][j], LDC,
+                              wmma::mem_row_major);
+      if constexpr (DUAL)
+        wmma::store_matrix_sync(s_c2 + (wm + 16 * i) * LDC + wn + 16 * j, acc2[i][j], LDC,
+                                wmma::mem_row_major);
+    }
+  __syncthreads();
+
+  for (int e = threadIdx.x; e < GT * GT; e += GNT) {
+    const int r = e / GT, c = e % GT;
+    const size_t o = size_t(m0 + r) * ep.ldo + n0 + c;
+    const float v = s_c[r * LDC + c];
+    if constexpr (EPI == EPI_GELU) {
+      static_cast<bf16*>(ep.out)[o] = __float2bfloat16(gelu(v + ep.bias[n0 + c]));
+    } else if constexpr (EPI == EPI_OUT_LN) {
+      float u = v + ep.bias[n0 + c];
+      if (ep.sc != nullptr) u *= ep.sc[m0 + r];
+      static_cast<float*>(ep.out)[o] = ep.x[o] + u;
+    } else if constexpr (EPI == EPI_OUT) {
+      static_cast<float*>(ep.out)[o] = v + ep.bias[n0 + c];
+    } else if constexpr (EPI == EPI_DH) {
+      const float h = v + ep.bias[n0 + c];
+      const float dh = s_c2[r * LDC + c] * gelu_grad(h);
+      s_c2[r * LDC + c] = dh;
+      static_cast<bf16*>(ep.out)[o] = __float2bfloat16(dh);
+      ep.out2[o] = __float2bfloat16(gelu(h));
+    } else if constexpr (EPI == EPI_F32) {
+      static_cast<float*>(ep.out)[o] = v;
+    } else {
+      static_cast<bf16*>(ep.out)[o] = __float2bfloat16(v);
+    }
+  }
+  if constexpr (EPI == EPI_DH) {
+    __syncthreads();
+    if (threadIdx.x < GT) {
+      float sum = 0.f;
+      for (int r = 0; r < GT; ++r) sum += s_c2[r * LDC + threadIdx.x];
+      ep.part[size_t(blockIdx.x) * ep.ldo + n0 + threadIdx.x] = sum;
+    }
+  }
+}
+
+template <bool AT, bool BT, bool DUAL, int EPI>
+cudaError_t wide_gemm(const bf16* A, int lda, const bf16* B, int ldb, int M, int N, int K,
+                      const EpiArgs& ep, cudaStream_t stream, const bf16* A2 = nullptr,
+                      int lda2 = 0, const bf16* B2 = nullptr, int ldb2 = 0) {
+  mlp_wide_gemm_kernel<AT, BT, DUAL, EPI><<<dim3(M / GT, N / GT), GNT, 0, stream>>>(
+      A, lda, B, ldb, A2, lda2, B2, ldb2, K, ep);
+  return cudaGetLastError();
+}
+
+// One warp a row: hin = bf16(LN(x)) and, where g is given, gbr = bf16(s * g).
+__global__ void mlp_wide_ln_rows_kernel(const float* __restrict__ x, const float* __restrict__ gm,
+                                        const float* __restrict__ bt,
+                                        const float* __restrict__ g,
+                                        const float* __restrict__ sc, bf16* __restrict__ hin,
+                                        bf16* __restrict__ gbr, int R, int C, float eps) {
+  const int lane = threadIdx.x & 31;
+  const size_t r = size_t(blockIdx.x) * (blockDim.x / 32) + (threadIdx.x >> 5);
+  if (r >= size_t(R)) return;
+  const float* xr = x + r * C;
+  float s = 0.f, s2 = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    s += xr[c];
+    s2 += xr[c] * xr[c];
+  }
+  s = warp_sum(s);
+  s2 = warp_sum(s2);
+  const float mu = s / C, rs = rsqrtf(s2 / C - mu * mu + eps);
+  const float srow = sc != nullptr ? sc[r] : 1.f;
+  for (int c = lane; c < C; c += 32) {
+    hin[r * C + c] = __float2bfloat16((xr[c] - mu) * rs * gm[c] + bt[c]);
+    if (g != nullptr) gbr[r * C + c] = __float2bfloat16(g[r * C + c] * srow);
+  }
+}
+
+// The LayerNorm backward of 64 rows a block from dxin = dh @ k1^T (f32):
+// dx, and the block's column sums of dgamma, dbeta and db2 (s * g) into
+// part (R / 64, 3, C).
+__global__ void __launch_bounds__(NT)
+mlp_wide_ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gm,
+                       const float* __restrict__ sc, const float* __restrict__ g,
+                       const float* __restrict__ dxin, float* __restrict__ dx,
+                       float* __restrict__ part, int C, float eps) {
+  __shared__ float s_mu[TR], s_rs[TR], s_m1[TR], s_m2[TR];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t r0 = size_t(blockIdx.x) * TR;
+  for (int rr = warp; rr < TR; rr += NW) {
+    const float* xr = x + (r0 + rr) * C;
+    const float* dr = dxin + (r0 + rr) * C;
+    float s = 0.f, s2 = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      s += xr[c];
+      s2 += xr[c] * xr[c];
+    }
+    s = warp_sum(s);
+    s2 = warp_sum(s2);
+    const float mu = s / C, rs = rsqrtf(s2 / C - mu * mu + eps);
+    float m1 = 0.f, m2 = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float dxh = dr[c] * gm[c];
+      m1 += dxh;
+      m2 += dxh * ((xr[c] - mu) * rs);
+    }
+    if (lane == 0) {
+      s_mu[rr] = mu;
+      s_rs[rr] = rs;
+    }
+    m1 = warp_sum(m1);
+    m2 = warp_sum(m2);
+    if (lane == 0) {
+      s_m1[rr] = m1 / C;
+      s_m2[rr] = m2 / C;
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += NT) {
+    float pg = 0.f, pb = 0.f, p2 = 0.f;
+    for (int rr = 0; rr < TR; ++rr) {
+      const size_t o = (r0 + rr) * C + c;
+      const float xh = (x[o] - s_mu[rr]) * s_rs[rr];
+      const float d = dxin[o];
+      const float dxh = d * gm[c];
+      pg += d * xh;
+      pb += d;
+      p2 += g[o] * (sc != nullptr ? sc[r0 + rr] : 1.f);
+      dx[o] = g[o] + s_rs[rr] * (dxh - s_m1[rr] - xh * s_m2[rr]);
+    }
+    part[size_t(blockIdx.x) * 3 * C + c] = pg;
+    part[size_t(blockIdx.x) * 3 * C + C + c] = pb;
+    part[size_t(blockIdx.x) * 3 * C + 2 * C + c] = p2;
+  }
+}
+
+// gbr = bf16(g) and each 64-row block's column sums of g (db2 partials).
+__global__ void __launch_bounds__(NT)
+mlp_wide_cot_kernel(const float* __restrict__ g, bf16* __restrict__ gbr,
+                    float* __restrict__ part, int C) {
+  const size_t r0 = size_t(blockIdx.x) * TR;
+  for (int c = threadIdx.x; c < C; c += NT) {
+    float sum = 0.f;
+    for (int rr = 0; rr < TR; ++rr) {
+      const float v = g[(r0 + rr) * C + c];
+      gbr[(r0 + rr) * C + c] = __float2bfloat16(v);
+      sum += v;
+    }
+    part[size_t(blockIdx.x) * C + c] = sum;
+  }
+}
+
+bool wide_shape_ok(int R, int C, int H) {
+  return R > 0 && C > 0 && H > 0 && R % GT == 0 && C % GT == 0 && H % GT == 0;
+}
+
+cudaError_t ln_rows(const float* x, const float* gm, const float* bt, const float* g,
+                    const float* sc, bf16* hin, bf16* gbr, int R, int C, float eps,
+                    cudaStream_t stream) {
+  mlp_wide_ln_rows_kernel<<<(R + NW - 1) / NW, NT, 0, stream>>>(x, gm, bt, g, sc, hin, gbr, R,
+                                                                C, eps);
+  return cudaGetLastError();
+}
+
+// The hidden of the forward, a = bf16(GELU(xin @ k1 + b1)) (R, H), then the
+// output product with its epilogue.
+template <int EPI>
+cudaError_t wide_fwd(const bf16* xin, const bf16* k1, const float* b1, const bf16* k2,
+                     const float* b2, const float* x, const float* sc, float* y, bf16* a_s,
+                     int R, int C, int H, cudaStream_t stream) {
+  EpiArgs e1{b1, nullptr, nullptr, a_s, nullptr, nullptr, H};
+  cudaError_t err = wide_gemm<false, false, false, EPI_GELU>(xin, C, k1, H, R, H, C, e1, stream);
+  if (err != cudaSuccess) return err;
+  EpiArgs e2{b2, x, sc, y, nullptr, nullptr, C};
+  return wide_gemm<false, false, false, EPI>(a_s, H, k2, C, R, C, H, e2, stream);
+}
+
+// The backward's products shared by both forms, from the bf16 rows xin and
+// cotangent gbr: dh and a (R, H) bf16 with db1 partials (R / 64, H); dk1,
+// dk2 (bf16).
+cudaError_t wide_bwd_hidden(const bf16* xin, const bf16* gbr, const bf16* k1, const float* b1,
+                            const bf16* k2, bf16* dh_s, bf16* a_s, float* db1p, bf16* dk1,
+                            bf16* dk2, int R, int C, int H, cudaStream_t stream) {
+  EpiArgs e{b1, nullptr, nullptr, dh_s, a_s, db1p, H};
+  cudaError_t err =
+      wide_gemm<false, false, true, EPI_DH>(xin, C, k1, H, R, H, C, e, stream, gbr, C, k2, C);
+  if (err != cudaSuccess) return err;
+  EpiArgs w1{nullptr, nullptr, nullptr, dk1, nullptr, nullptr, H};
+  if ((err = wide_gemm<true, false, false, EPI_BF16>(xin, C, dh_s, H, C, H, R, w1, stream)) !=
+      cudaSuccess)
+    return err;
+  EpiArgs w2{nullptr, nullptr, nullptr, dk2, nullptr, nullptr, C};
+  return wide_gemm<true, false, false, EPI_BF16>(a_s, H, gbr, C, H, C, R, w2, stream);
+}
+
 }  // namespace
 
 PDAE_EXPORT int mlp_ln_fwd(const float* x, const float* gm, const float* bt,
@@ -831,4 +1168,94 @@ PDAE_EXPORT int mlp_bwd(const void* x, const void* k1, const float* b1, const vo
     return static_cast<int>(err);
   err = sum_partials(part_a, R / TR, C, db2, nullptr, s);
   return static_cast<int>(err);
+}
+
+// ------------------------------------------------------------ wide entries
+// The wide form (any R, C, H multiple of 64); scratch and outputs allocated
+// by the caller.
+
+// hin_s (R, C), a_s (R, H) bf16 scratch.
+PDAE_EXPORT int mlp_ln_fwd_wide(const float* x, const float* gm, const float* bt,
+                                const void* k1, const float* b1, const void* k2,
+                                const float* b2, const float* sc, float* y, void* hin_s,
+                                void* a_s, int R, int C, int H, float eps, void* stream) {
+  if (!wide_shape_ok(R, C, H)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bf16* hs = static_cast<bf16*>(hin_s);
+  cudaError_t err = ln_rows(x, gm, bt, nullptr, nullptr, hs, nullptr, R, C, eps, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = wide_fwd<EPI_OUT_LN>(hs, static_cast<const bf16*>(k1), b1, static_cast<const bf16*>(k2),
+                             b2, x, sc, y, static_cast<bf16*>(a_s), R, C, H, s);
+  return static_cast<int>(err);
+}
+
+// hin_s, gbr_s (R, C) bf16; dh_s, a_s (R, H) bf16; db1p (R/64, H), dxin (R, C),
+// part_a (R/64, 3, C) f32; dk1 (C, H), dk2 (H, C) bf16; db1 (H); dln (3, C) =
+// dgamma, dbeta, db2.
+PDAE_EXPORT int mlp_ln_bwd_wide(const float* x, const float* gm, const float* bt,
+                                const void* k1, const float* b1, const void* k2,
+                                const float* sc, const float* g, float* dx, void* hin_s,
+                                void* gbr_s, void* dh_s, void* a_s, float* db1p, float* dxin,
+                                float* part_a, void* dk1, void* dk2, float* db1, float* dln,
+                                int R, int C, int H, float eps, void* stream) {
+  if (!wide_shape_ok(R, C, H)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* k1b = static_cast<const bf16*>(k1);
+  bf16* hs = static_cast<bf16*>(hin_s);
+  bf16* gs = static_cast<bf16*>(gbr_s);
+  bf16* dhs = static_cast<bf16*>(dh_s);
+  cudaError_t err = ln_rows(x, gm, bt, g, sc, hs, gs, R, C, eps, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if ((err = wide_bwd_hidden(hs, gs, k1b, b1, static_cast<const bf16*>(k2), dhs,
+                             static_cast<bf16*>(a_s), db1p, static_cast<bf16*>(dk1),
+                             static_cast<bf16*>(dk2), R, C, H, s)) != cudaSuccess)
+    return static_cast<int>(err);
+  EpiArgs ed{nullptr, nullptr, nullptr, dxin, nullptr, nullptr, C};
+  if ((err = wide_gemm<false, true, false, EPI_F32>(dhs, H, k1b, H, R, C, H, ed, s)) !=
+      cudaSuccess)
+    return static_cast<int>(err);
+  mlp_wide_ln_bwd_kernel<<<R / TR, NT, 0, s>>>(x, gm, sc, g, dxin, dx, part_a, C, eps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if ((err = sum_partials(db1p, R / TR, H, db1, nullptr, s)) != cudaSuccess)
+    return static_cast<int>(err);
+  return static_cast<int>(sum_partials(part_a, R / TR, 3LL * C, dln, nullptr, s));
+}
+
+// a_s (R, H) bf16 scratch.
+PDAE_EXPORT int mlp_fwd_wide(const void* x, const void* k1, const float* b1, const void* k2,
+                             const float* b2, float* y, void* a_s, int R, int C, int H,
+                             void* stream) {
+  if (!wide_shape_ok(R, C, H)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(wide_fwd<EPI_OUT>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(k1), b1,
+      static_cast<const bf16*>(k2), b2, nullptr, nullptr, y, static_cast<bf16*>(a_s), R, C, H,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// gbr_s (R, C), dh_s, a_s (R, H) bf16; db1p (R/64, H), part_a (R/64, C) f32;
+// dx (R, C), dk1 (C, H), dk2 (H, C) bf16; db1 (H), db2 (C) f32.
+PDAE_EXPORT int mlp_bwd_wide(const void* x, const void* k1, const float* b1, const void* k2,
+                             const float* g, void* dx, void* gbr_s, void* dh_s, void* a_s,
+                             float* db1p, float* part_a, void* dk1, void* dk2, float* db1,
+                             float* db2, int R, int C, int H, void* stream) {
+  if (!wide_shape_ok(R, C, H)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* k1b = static_cast<const bf16*>(k1);
+  bf16* gs = static_cast<bf16*>(gbr_s);
+  bf16* dhs = static_cast<bf16*>(dh_s);
+  mlp_wide_cot_kernel<<<R / TR, NT, 0, s>>>(g, gs, part_a, C);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if ((err = wide_bwd_hidden(xb, gs, k1b, b1, static_cast<const bf16*>(k2), dhs,
+                             static_cast<bf16*>(a_s), db1p, static_cast<bf16*>(dk1),
+                             static_cast<bf16*>(dk2), R, C, H, s)) != cudaSuccess)
+    return static_cast<int>(err);
+  EpiArgs ed{nullptr, nullptr, nullptr, dx, nullptr, nullptr, C};
+  if ((err = wide_gemm<false, true, false, EPI_BF16>(dhs, H, k1b, H, R, C, H, ed, s)) !=
+      cudaSuccess)
+    return static_cast<int>(err);
+  if ((err = sum_partials(db1p, R / TR, H, db1, nullptr, s)) != cudaSuccess)
+    return static_cast<int>(err);
+  return static_cast<int>(sum_partials(part_a, R / TR, C, db2, nullptr, s));
 }

@@ -2,14 +2,15 @@
 functions and plain version.
 
 Port of ``point_dae_tpu/ops/pallas_attn.py:fused_attention``; the CUDA
-kernels are ``csrc/attention.cu``: one block per (cloud, head) holds q, k,
-v and the (T, T) scores on chip in both passes, so the result depends on no
-tile size. The TPU kernel's ``bc`` (clouds per block-diagonal tile) exists
-to fill that chip's matrix unit; it survives here only in the gate, which
-is the JAX gate in full (``pick_bc`` and the tile terms included), so the
-port takes the kernel at exactly the shapes the JAX package does. The
-wrapper's transposes to ``(H, B*T, d)`` have no counterpart: the kernels
-read ``(B, T, H, d)`` views by their strides.
+kernels are ``csrc/attention.cu``: a warp owns 16 query rows of one
+(cloud, head) and keeps their scores in registers (``mma.sync``), so the
+result depends on no tile size. The TPU kernel's ``bc`` (clouds per
+block-diagonal tile) exists to fill that chip's matrix unit; it survives
+here only in the gate, which is the JAX gate in full (``pick_bc`` and the
+tile terms included), so the port takes the kernel at exactly the shapes
+the JAX package does, and the kernels take every shape inside it
+(``kernel_takes``). The wrapper's transposes to ``(H, B*T, d)`` have no
+counterpart: the kernels read ``(B, T, H, d)`` views by their strides.
 
 Numerics of both versions: scores from bf16 q and k with f32 accumulation,
 times ``d ** -0.5``; an invalid key *replaces* its score by -1e9; f32
@@ -23,6 +24,7 @@ produce one).
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -43,12 +45,19 @@ def pick_bc(B: int, T: int, target_rows: int = 512) -> int:
 
 def supported(B: int, T: int, H: int, d: int, bc: Optional[int] = None) -> bool:
     """``pallas_attn.supported`` (with ``bc = pick_bc(B, T)`` unless given):
-    the shapes the fused attention is taken for. Inside this gate a shape
-    the kernel is not built for raises (``fused_attention``)."""
+    the shapes the fused attention is taken for. ``kernel_takes`` holds on
+    every shape inside it."""
     bc = pick_bc(B, T) if bc is None else bc
     R = bc * T
     return (B % bc == 0 and R % 8 == 0 and R <= 1024
             and d % 8 == 0 and d <= 256 and T >= 2)
+
+
+def kernel_takes(B: int, T: int, H: int, d: int) -> bool:
+    """The shapes the kernels are built for: any T >= 1 (T <= 64 in one key
+    tile, longer rows in 64-key tiles) and d % 8 == 0 up to 256 (padded with
+    zeros to 32, 64, 128 or 256)."""
+    return B >= 0 and H >= 0 and T >= 1 and d % 8 == 0 and 0 <= d <= 256
 
 
 def _probs(qb, kb, key_mask, scale):
@@ -90,7 +99,8 @@ class _AttnCorePlain(torch.autograd.Function):
 
 _P, _I, _F = kernels.P, kernels.I, kernels.F
 _FWD_ARGS = (_P,) * 5 + (_I,) * 7 + (_F, _P)
-_BWD_ARGS = (_P,) * 8 + (_I,) * 7 + (_F, _P)
+_BWD_ARGS = (_P,) * 9 + (_I,) * 7 + (_F, _P)
+_SHORT_T = 64   # csrc/attention.cu: longer rows take the two-launch backward
 
 
 def _strided(qb, kb, vb):
@@ -118,17 +128,21 @@ def attention_fwd_kernel(qb, kb, vb, mask):
 
 
 def attention_bwd_kernel(qb, kb, vb, mask, g):
-    """Launch the backward kernel for cotangent g (B, T, H, d) f32,
+    """Launch the backward kernels for cotangent g (B, T, H, d) f32,
     contiguous. Returns (dq, dk, dv): bf16 views of one (B, T, 3, H, d)
-    buffer."""
+    buffer. Past T 64 each row's max, denominator and sum(dp * p) pass from
+    the dq launch to the dk, dv one through an f32 (3, B * H * T) scratch."""
     B, T, H, d = qb.shape
     dqkv = torch.empty((B, T, 3, H, d), dtype=_BF, device=qb.device)
     dq, dk, dv = dqkv.unbind(2)
+    stats = (torch.empty((3, B * H * T), dtype=torch.float32, device=qb.device)
+             if T > _SHORT_T else None)
     sb, st, sh, _ = qb.stride()
     kernels.launch("attention_bwd", "attention", "attention_bwd", _BWD_ARGS,
                    qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), kernels.ptr(mask),
                    g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                   B, T, H, d, sb, st, sh, d ** -0.5, kernels.stream(qb))
+                   kernels.ptr(stats), B, T, H, d, sb, st, sh, d ** -0.5,
+                   kernels.stream(qb))
     return dq, dk, dv
 
 
@@ -170,7 +184,17 @@ def fused_attention(q, k, v, key_mask: Optional[torch.Tensor] = None) -> torch.T
     if q.device.type == "cpu":
         return fused_attention_plain(q, k, v, key_mask)
     B, T, H, d = q.shape
-    if d != 64 or T % 16 or not 16 <= T <= 64:
-        raise ValueError(f"fused_attention kernel is built for d == 64 and T in "
-                         f"(16, 32, 48, 64), got T={T}, d={d}")
+    if not kernel_takes(B, T, H, d):
+        raise ValueError(f"fused_attention kernel is built for T >= 1 and d % 8 == 0 "
+                         f"up to 256, got T={T}, d={d}")
     return _AttnCore.apply(q.to(_BF), k.to(_BF), v.to(_BF), key_mask)
+
+
+def smem_bytes(T: int, d: int) -> tuple:
+    """Dynamic shared memory (bytes) of the forward and the backward launch
+    at sequence length T and head width d, as ``csrc/attention.cu`` sizes
+    them. Needs the built library (a CUDA host)."""
+    fn = kernels.library("attention").attention_smem_bytes
+    fn.argtypes = [_I, _I, _I]
+    fn.restype = ctypes.c_longlong
+    return fn(T, d, 0), fn(T, d, 1)

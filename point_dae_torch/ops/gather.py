@@ -90,24 +90,36 @@ def gather_rows_small_c_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tenso
     return torch.gather(x, 1, idx.long()[..., None].expand(-1, -1, C))
 
 
+_INDEX_TYPES = (torch.int32, torch.int64)
+_SMALL_C_ARGS = (kernels.P, kernels.P, kernels.I, kernels.P, kernels.I, kernels.I,
+                 kernels.I, kernels.I, kernels.P)
+
+
 def gather_rows_small_c(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """The small-C gather kernel on a CUDA tensor, its plain version on a
-    CPU one. x: (B, N, C <= 8) f32, idx: (B, Q) -> (B, Q, C) f32."""
+    CPU one. x: (B, N, C <= 8) f32, idx: (B, Q) int32 or int64 (other
+    integer types are widened) -> (B, Q, C) f32, zeros where an index falls
+    outside [0, N). The usual call (both contiguous on one card) costs one
+    test, one allocation and the ctypes call."""
     if x.device.type == "cpu":
         return gather_rows_small_c_plain(x, idx)
+    if not (x.is_cuda and x.dtype == torch.float32 and x.shape[-1] <= 8
+            and idx.dtype in _INDEX_TYPES and x.is_contiguous() and idx.is_contiguous()
+            and idx.device == x.device and idx.dim() == 2 and idx.shape[0] == x.shape[0]):
+        if x.shape[-1] > 8 or x.dtype != torch.float32:
+            raise ValueError(f"small-C gather takes (B, N, C<=8) f32, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+        if idx.dim() != 2 or idx.shape[0] != x.shape[0]:
+            raise ValueError(f"idx {tuple(idx.shape)} is not (B, Q) for x {tuple(x.shape)}")
+        x = x.contiguous()
+        idx = (idx if idx.dtype in _INDEX_TYPES else idx.long()).contiguous()
+        kernels.require_cuda(x, idx)
     B, N, C = x.shape
-    if C > 8 or x.dtype != torch.float32:
-        raise ValueError(f"small-C gather takes (B, N, C<=8) f32, got "
-                         f"{tuple(x.shape)} {x.dtype}")
-    x = x.contiguous()
-    idx32 = idx.to(torch.int32).contiguous()
-    kernels.require_cuda(x, idx32)
-    Q = idx32.shape[1]
+    Q = idx.shape[1]
     out = torch.empty((B, Q, C), dtype=torch.float32, device=x.device)
-    P, I = kernels.P, kernels.I
-    kernels.launch("gather_rows_small_c", "gather", "gather_rows_small_c",
-                   (P, P, P, I, I, I, I, P), x.data_ptr(), idx32.data_ptr(),
-                   out.data_ptr(), B, N, Q, C, kernels.stream(x))
+    kernels.launch("gather_rows_small_c", "gather", "gather_rows_small_c", _SMALL_C_ARGS,
+                   x.data_ptr(), idx.data_ptr(), idx.dtype == torch.int64, out.data_ptr(),
+                   B, N, Q, C, kernels.stream(x))
     return out
 
 
@@ -149,14 +161,18 @@ def gather_rows_wide(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _gather_rows_fwd(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    if use_small_c_kernel(x, idx.shape[1]):
+        return gather_rows_small_c(x, idx)
+    return gather_rows_small_c_plain(x, idx)
+
+
 class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, idx):
         ctx.save_for_backward(idx)
         ctx.n = x.shape[1]
-        if use_small_c_kernel(x, idx.shape[1]):
-            return gather_rows_small_c(x, idx)
-        return gather_rows_small_c_plain(x, idx)
+        return _gather_rows_fwd(x, idx)
 
     @staticmethod
     def backward(ctx, g):
@@ -170,8 +186,12 @@ class _GatherRows(torch.autograd.Function):
 
 
 def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x: (B, N, C), idx: (B, Q) int -> (B, Q, C) = x[b, idx[b, q]]."""
-    return _GatherRows.apply(x, idx)
+    """x: (B, N, C), idx: (B, Q) int -> (B, Q, C) = x[b, idx[b, q]]. Where x
+    carries no gradient (the point clouds that ``group_points`` and the
+    resample gather) the autograd function is skipped."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _GatherRows.apply(x, idx)
+    return _gather_rows_fwd(x, idx)
 
 
 def gather_by_key_plain(x: torch.Tensor, keys: torch.Tensor, draw: torch.Tensor

@@ -21,11 +21,20 @@ import torch
 from ..utils import kernels
 
 _ROW_PARTS = 8   # row partitions of the weight-gradient pass (csrc/mlp.cu, B)
+_ONE_BLOCK_C = (128, 256, 384)   # csrc/mlp.cu's one-block form; wider rows the wide form
 
 
 def supported(R: int, C: int, H: int, tt: int = 256) -> bool:
-    """``pallas_mlp.supported``: the gate of ``layers.py:331-345``."""
+    """``pallas_mlp.supported``: the gate of ``layers.py:331-345``.
+    ``kernel_takes`` holds on every shape inside it."""
     return R % tt == 0 and C % 128 == 0 and H % 128 == 0 and H >= C
+
+
+def kernel_takes(R: int, C: int, H: int) -> bool:
+    """The shapes the kernels are built for: rows, width and hidden width
+    multiples of 64 (the one-block form at C 128, 256 and 384, the wide
+    form at any other)."""
+    return R > 0 and C > 0 and H > 0 and R % 64 == 0 and C % 64 == 0 and H % 64 == 0
 
 
 def _gelu(h: torch.Tensor) -> torch.Tensor:
@@ -62,10 +71,16 @@ def mlp_ln_fwd_kernel(x, gamma, beta, k1b, b1, k2b, b2, sc, eps: float = 1e-6):
     R, C = x.shape
     H = k1b.shape[1]
     y = torch.empty_like(x)
-    kernels.launch("mlp_ln_fwd", "mlp", "mlp_ln_fwd", _FWD_ARGS,
-                   x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), k1b.data_ptr(),
-                   b1.data_ptr(), k2b.data_ptr(), b2.data_ptr(), kernels.ptr(sc),
-                   y.data_ptr(), R, C, H, eps, kernels.stream(x))
+    ptrs = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), k1b.data_ptr(), b1.data_ptr(),
+            k2b.data_ptr(), b2.data_ptr(), kernels.ptr(sc), y.data_ptr())
+    if C in _ONE_BLOCK_C:
+        kernels.launch("mlp_ln_fwd", "mlp", "mlp_ln_fwd", _FWD_ARGS, *ptrs, R, C, H, eps,
+                       kernels.stream(x))
+        return y
+    hin_s = torch.empty((R, C), dtype=torch.bfloat16, device=x.device)
+    a_s = torch.empty((R, H), dtype=torch.bfloat16, device=x.device)
+    kernels.launch("mlp_ln_fwd", "mlp", "mlp_ln_fwd_wide", (_P,) * 11 + (_I, _I, _I, _F, _P),
+                   *ptrs, hin_s.data_ptr(), a_s.data_ptr(), R, C, H, eps, kernels.stream(x))
     return y
 
 
@@ -80,20 +95,31 @@ def mlp_ln_bwd_kernel(x, gamma, beta, k1b, b1, k2b, sc, g, eps: float = 1e-6):
     hin_s = torch.empty((R, C), dtype=bf, device=dev)
     gbr_s = torch.empty((R, C), dtype=bf, device=dev)
     part_a = torch.empty((R // 64, 3, C), dtype=f32, device=dev)
-    dk1p = torch.empty((_ROW_PARTS, C, H), dtype=f32, device=dev)
-    dk2p = torch.empty((_ROW_PARTS, H, C), dtype=f32, device=dev)
-    db1p = torch.empty((_ROW_PARTS, H), dtype=f32, device=dev)
     dk1 = torch.empty((C, H), dtype=bf, device=dev)
     dk2 = torch.empty((H, C), dtype=bf, device=dev)
     db1 = torch.empty((H,), dtype=f32, device=dev)
     dln = torch.empty((3, C), dtype=f32, device=dev)
-    kernels.launch("mlp_ln_bwd", "mlp", "mlp_ln_bwd", _BWD_ARGS,
-                   x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), k1b.data_ptr(),
-                   b1.data_ptr(), k2b.data_ptr(), kernels.ptr(sc), g.data_ptr(),
-                   dx.data_ptr(), hin_s.data_ptr(), gbr_s.data_ptr(),
-                   part_a.data_ptr(), dk1p.data_ptr(), dk2p.data_ptr(),
-                   db1p.data_ptr(), dk1.data_ptr(), dk2.data_ptr(), db1.data_ptr(),
-                   dln.data_ptr(), R, C, H, _ROW_PARTS, eps, kernels.stream(x))
+    head = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), k1b.data_ptr(), b1.data_ptr(),
+            k2b.data_ptr(), kernels.ptr(sc), g.data_ptr(), dx.data_ptr(), hin_s.data_ptr(),
+            gbr_s.data_ptr())
+    if C in _ONE_BLOCK_C:
+        dk1p = torch.empty((_ROW_PARTS, C, H), dtype=f32, device=dev)
+        dk2p = torch.empty((_ROW_PARTS, H, C), dtype=f32, device=dev)
+        db1p = torch.empty((_ROW_PARTS, H), dtype=f32, device=dev)
+        kernels.launch("mlp_ln_bwd", "mlp", "mlp_ln_bwd", _BWD_ARGS, *head,
+                       part_a.data_ptr(), dk1p.data_ptr(), dk2p.data_ptr(), db1p.data_ptr(),
+                       dk1.data_ptr(), dk2.data_ptr(), db1.data_ptr(), dln.data_ptr(),
+                       R, C, H, _ROW_PARTS, eps, kernels.stream(x))
+    else:
+        dh_s = torch.empty((R, H), dtype=bf, device=dev)
+        a_s = torch.empty((R, H), dtype=bf, device=dev)
+        db1p = torch.empty((R // 64, H), dtype=f32, device=dev)
+        dxin = torch.empty((R, C), dtype=f32, device=dev)
+        kernels.launch("mlp_ln_bwd", "mlp", "mlp_ln_bwd_wide",
+                       (_P,) * 20 + (_I, _I, _I, _F, _P), *head, dh_s.data_ptr(),
+                       a_s.data_ptr(), db1p.data_ptr(), dxin.data_ptr(), part_a.data_ptr(),
+                       dk1.data_ptr(), dk2.data_ptr(), db1.data_ptr(), dln.data_ptr(),
+                       R, C, H, eps, kernels.stream(x))
     return dx, dln[0], dln[1], dk1, db1, dk2, dln[2]
 
 
@@ -125,12 +151,10 @@ def fused_mlp_ln(x, gamma, beta, k1, b1, k2, b2,
         return fused_mlp_ln_plain(x, gamma, beta, k1, b1, k2, b2, row_scale, eps)
     C = x.shape[-1]
     H = k1.shape[1]
-    if C not in (128, 256, 384) or H % 64:
-        raise ValueError(f"fused_mlp_ln kernel is built for C in (128, 256, 384) "
-                         f"and H % 64 == 0, got C={C}, H={H}")
     x2 = x.reshape(-1, C).float().contiguous()
-    if x2.shape[0] % 64:
-        raise ValueError(f"fused_mlp_ln kernel needs rows % 64 == 0, got {x2.shape[0]}")
+    if not kernel_takes(x2.shape[0], C, H):
+        raise ValueError(f"fused_mlp_ln kernel is built for rows, C and H multiples of 64, "
+                         f"got R={x2.shape[0]}, C={C}, H={H}")
     bf = torch.bfloat16
     args = [x2, gamma.float().contiguous(), beta.float().contiguous(),
             k1.to(bf).contiguous(), b1.float().contiguous(),
@@ -180,9 +204,15 @@ def mlp_fwd_kernel(xb, k1b, b1, k2b, b2):
     R, C = xb.shape
     H = k1b.shape[1]
     y = torch.empty((R, C), dtype=torch.float32, device=xb.device)
-    kernels.launch("mlp_fwd", "mlp", "mlp_fwd", (_P,) * 6 + (_I, _I, _I, _P),
-                   xb.data_ptr(), k1b.data_ptr(), b1.data_ptr(), k2b.data_ptr(),
-                   b2.data_ptr(), y.data_ptr(), R, C, H, kernels.stream(xb))
+    ptrs = (xb.data_ptr(), k1b.data_ptr(), b1.data_ptr(), k2b.data_ptr(), b2.data_ptr(),
+            y.data_ptr())
+    if C in _ONE_BLOCK_C:
+        kernels.launch("mlp_fwd", "mlp", "mlp_fwd", (_P,) * 6 + (_I, _I, _I, _P), *ptrs,
+                       R, C, H, kernels.stream(xb))
+        return y
+    a_s = torch.empty((R, H), dtype=torch.bfloat16, device=xb.device)
+    kernels.launch("mlp_fwd", "mlp", "mlp_fwd_wide", (_P,) * 7 + (_I, _I, _I, _P), *ptrs,
+                   a_s.data_ptr(), R, C, H, kernels.stream(xb))
     return y
 
 
@@ -196,19 +226,27 @@ def mlp_bwd_kernel(xb, k1b, b1, k2b, g):
     dx = torch.empty((R, C), dtype=bf, device=dev)
     gbr_s = torch.empty((R, C), dtype=bf, device=dev)
     part_a = torch.empty((R // 64, C), dtype=f32, device=dev)
-    dk1p = torch.empty((_ROW_PARTS, C, H), dtype=f32, device=dev)
-    dk2p = torch.empty((_ROW_PARTS, H, C), dtype=f32, device=dev)
-    db1p = torch.empty((_ROW_PARTS, H), dtype=f32, device=dev)
     dk1 = torch.empty((C, H), dtype=bf, device=dev)
     dk2 = torch.empty((H, C), dtype=bf, device=dev)
     db1 = torch.empty((H,), dtype=f32, device=dev)
     db2 = torch.empty((C,), dtype=f32, device=dev)
-    kernels.launch("mlp_bwd", "mlp", "mlp_bwd", (_P,) * 15 + (_I,) * 4 + (_P,),
-                   xb.data_ptr(), k1b.data_ptr(), b1.data_ptr(), k2b.data_ptr(),
-                   g.data_ptr(), dx.data_ptr(), gbr_s.data_ptr(), part_a.data_ptr(),
-                   dk1p.data_ptr(), dk2p.data_ptr(), db1p.data_ptr(), dk1.data_ptr(),
-                   dk2.data_ptr(), db1.data_ptr(), db2.data_ptr(), R, C, H, _ROW_PARTS,
-                   kernels.stream(xb))
+    head = (xb.data_ptr(), k1b.data_ptr(), b1.data_ptr(), k2b.data_ptr(), g.data_ptr(),
+            dx.data_ptr(), gbr_s.data_ptr())
+    tail = (dk1.data_ptr(), dk2.data_ptr(), db1.data_ptr(), db2.data_ptr())
+    if C in _ONE_BLOCK_C:
+        dk1p = torch.empty((_ROW_PARTS, C, H), dtype=f32, device=dev)
+        dk2p = torch.empty((_ROW_PARTS, H, C), dtype=f32, device=dev)
+        db1p = torch.empty((_ROW_PARTS, H), dtype=f32, device=dev)
+        kernels.launch("mlp_bwd", "mlp", "mlp_bwd", (_P,) * 15 + (_I,) * 4 + (_P,), *head,
+                       part_a.data_ptr(), dk1p.data_ptr(), dk2p.data_ptr(), db1p.data_ptr(),
+                       *tail, R, C, H, _ROW_PARTS, kernels.stream(xb))
+    else:
+        dh_s = torch.empty((R, H), dtype=bf, device=dev)
+        a_s = torch.empty((R, H), dtype=bf, device=dev)
+        db1p = torch.empty((R // 64, H), dtype=f32, device=dev)
+        kernels.launch("mlp_bwd", "mlp", "mlp_bwd_wide", (_P,) * 15 + (_I,) * 3 + (_P,),
+                       *head, dh_s.data_ptr(), a_s.data_ptr(), db1p.data_ptr(),
+                       part_a.data_ptr(), *tail, R, C, H, kernels.stream(xb))
     return dx, dk1, db1, dk2, db2
 
 
@@ -249,9 +287,9 @@ def fused_mlp(x, k1, b1, k2, b2) -> torch.Tensor:
         return fused_mlp_plain(x, k1, b1, k2, b2)
     C, H = x.shape[-1], k1.shape[1]
     R = x.numel() // C
-    if C not in (128, 256, 384) or H % 64 or R % 64:
-        raise ValueError(f"fused_mlp kernel is built for C in (128, 256, 384), "
-                         f"H % 64 == 0 and rows % 64 == 0, got R={R}, C={C}, H={H}")
+    if not kernel_takes(R, C, H):
+        raise ValueError(f"fused_mlp kernel is built for rows, C and H multiples of 64, "
+                         f"got R={R}, C={C}, H={H}")
     args = _mlp_primals(x, k1, b1, k2, b2)
     kernels.require_cuda(*args)
     if any(args[i].data_ptr() % 16 for i in (0, 1, 3)):

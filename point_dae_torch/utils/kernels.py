@@ -135,7 +135,7 @@ def launch(counter: str, lib_name: str, fn_name: str, argtypes, *args) -> None:
 
 def stream(t: torch.Tensor) -> int:
     """Handle of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def require_cuda(*tensors: torch.Tensor, contiguous: bool = True) -> None:

@@ -138,7 +138,7 @@ def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
         attention.fused_attention(q, q, q)
     narrow = torch.empty((4, 8, 2, 32), device="meta")    # inside the gate
     assert attention.supported(4, 8, 2, 32)
-    with pytest.raises(ValueError, match="built for"):
+    with pytest.raises(ValueError, match="expected one CUDA device"):
         attention.fused_attention(narrow, narrow, narrow)
 
 
@@ -161,10 +161,64 @@ def test_gate_is_the_jax_gate_in_full():
     assert attention.supported(256, 32, 6, 64) and attention.supported(256, 64, 6, 64)
 
 
-def test_shape_inside_the_gate_outside_the_kernel_raises():
-    """B 8, T 128 is inside the JAX gate (bc 4, R 512) but the kernel takes
-    T in (16, 32, 48, 64) only: off the CPU it raises."""
-    assert attention.supported(8, 128, 6, 64)
-    q = torch.empty((8, 128, 6, 64), device="meta")
-    with pytest.raises(ValueError, match="built for"):
-        attention.fused_attention(q, q, q)
+def test_every_shape_inside_the_gate_reaches_the_kernel():
+    """Over the gate grid, every shape ``supported`` admits is one the
+    kernels are built for, and off the CPU the wrapper raises nothing of its
+    own before the launch: a tensor on another device gets as far as the
+    device check."""
+    inside = [s for s in _GATE_GRID if attention.supported(*s)]
+    assert len(inside) > 50
+    for B_, T, H_, d in inside:
+        assert attention.kernel_takes(B_, T, H_, d), (B_, T, H_, d)
+        q = torch.empty((B_, T, H_, d), device="meta")
+        with pytest.raises(ValueError, match="expected one CUDA device"):
+            attention.fused_attention(q, q, q)
+    for B_, T, H_, d in ((8, 128, 6, 64), (16, 40, 8, 32), (2, 256, 4, 128)):
+        assert attention.supported(B_, T, H_, d) and attention.kernel_takes(B_, T, H_, d)
+
+
+def test_shape_outside_the_gate_and_the_kernel_raises():
+    """The kernels' one limit, d % 8 == 0 up to 256, lies outside the gate:
+    d 264 and d 60 are refused by both, and off the CPU the wrapper raises
+    before it reaches a device check."""
+    for d in (264, 60):
+        assert not attention.supported(8, 32, 2, d)
+        assert not attention.kernel_takes(8, 32, 2, d)
+        q = torch.empty((8, 32, 2, d), device="meta")
+        with pytest.raises(ValueError, match="built for"):
+            attention.fused_attention(q, q, q)
+
+
+GATE_CASES = [(24, 32, True), (40, 32, True), (128, 64, False)]
+
+
+@pytest.mark.parametrize("T,d,masked", GATE_CASES)
+def test_plain_version_matches_jax_kernel_at_gate_shapes(T, d, masked):
+    """The shapes the kernels now take beyond the models' (T not a multiple
+    of 16, d 32; T past 64): ``fused_attention_plain`` against the Pallas
+    kernel in interpret mode at B 4, H 2, with the file's tolerances."""
+    Bg, Hg = 4, 2
+    rng = np.random.default_rng(T + d)
+    q, k, v, cot = (rng.normal(size=(Bg, T, Hg, d)).astype(np.float32) for _ in range(4))
+    mask = None
+    if masked:
+        mask = rng.uniform(size=(Bg, T)) < 0.7
+        mask[np.arange(Bg), rng.integers(0, T, Bg)] = True
+    mj = None if mask is None else jnp.asarray(mask)
+    assert attention.supported(Bg, T, Hg, d)
+
+    def fn(q_, k_, v_):
+        return pallas_attn.fused_attention(q_, k_, v_, key_mask=mj, interpret=True)
+
+    want, vjp = jax.vjp(fn, *map(jnp.asarray, (q, k, v)))
+    want_g = vjp(jnp.asarray(cot))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    got = attention.fused_attention_plain(*ts, None if mask is None else torch.from_numpy(mask))
+    assert got.shape == (Bg, T, Hg, d) and got.dtype == torch.float32
+    _assert_close(got.detach().numpy(), want, rtol=1e-4, atol=1e-5, name="out")
+    got.backward(torch.from_numpy(cot))
+    for name, t, w in zip(("dq", "dk", "dv"), ts, want_g):
+        _assert_close(t.grad.numpy(), w, rtol=2 ** -6, atol=1e-4, name=name)
+    if masked:
+        for t in ts[1:]:
+            assert float(t.grad[torch.from_numpy(~mask)].abs().max()) == 0.0

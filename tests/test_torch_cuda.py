@@ -51,6 +51,25 @@ def test_gather_kernel_is_exact(dev):
     assert float(gather.gather_rows_small_c(x, idx)[0, 0].abs().sum()) == 0.0
 
 
+@pytest.mark.parametrize("C", [3, 1, 8, 5])
+def test_gather_kernel_takes_int64_indices_and_zeros_out_of_range_rows(dev, C):
+    """int64 indices read as given, bit for bit the int32 launch and the
+    plain version; rows whose index is -1, N or past it come out as zeros,
+    at a Q that leaves a ragged last block and unaligned row starts."""
+    g = _gen(dev, 12)
+    x = torch.randn((3, 1000, C), generator=g, device=dev)
+    idx = torch.randint(0, 1000, (3, 1237), generator=g, device=dev)
+    got = gather.gather_rows_small_c(x, idx)
+    assert torch.equal(got, gather.gather_rows_small_c_plain(x, idx))
+    assert torch.equal(got, gather.gather_rows_small_c(x, idx.to(torch.int32)))
+    bad = idx.clone()
+    bad[0, :3] = torch.tensor([-1, 1000, 5000], device=dev)
+    bad[2, -1] = -7
+    got = gather.gather_rows_small_c(x, bad)
+    assert torch.equal(got, gather.gather_rows_wide_plain(x, bad))
+    assert float(got[0, :3].abs().sum()) == 0.0 and float(got[2, -1].abs().sum()) == 0.0
+
+
 def test_patch_chamfer_kernel_matches_plain(dev):
     g = _gen(dev, 2)
     a = torch.randn((100, 36, 3), generator=g, device=dev)
@@ -62,7 +81,8 @@ def test_patch_chamfer_kernel_matches_plain(dev):
         assert torch.equal(ik, ip) and torch.equal(dk, dp) and torch.equal(nk, np_)
 
 
-@pytest.mark.parametrize("C,scaled", [(384, True), (256, True), (128, False)])
+@pytest.mark.parametrize("C,scaled", [(384, True), (256, True), (128, False), (512, True),
+                                      (768, False)])
 def test_fused_mlp_ln_kernels_match_plain(dev, C, scaled):
     g = _gen(dev, 3)
     R, H = 512, 4 * C
@@ -96,7 +116,7 @@ def test_fused_mlp_ln_kernels_match_plain(dev, C, scaled):
                                                             torch.float32]
 
 
-@pytest.mark.parametrize("C", [384, 128])
+@pytest.mark.parametrize("C", [384, 128, 512, 768])
 def test_fused_mlp_kernels_match_plain(dev, C):
     """The ``mlp`` kernels against ``fused_mlp_plain`` (the same roundings,
     sums in another order): the output within 1e-2 and every gradient
@@ -251,8 +271,45 @@ def test_fused_attention_kernels_match_plain(dev, T, masked):
             assert _rel(gk[:, :, s], gp[:, :, s]) < 2e-2, s
         if masked:
             assert float(gk[:, :, 1:][~mask].abs().max()) == 0.0
-    with pytest.raises(ValueError, match="built for"):
-        attention.fused_attention(*torch.zeros((3, 2, 8, 2, 32), device=dev))
+    small = torch.randn((3, 2, 8, 2, 32), generator=g, device=dev)   # T 8, d 32
+    assert attention.supported(2, 8, 2, 32)
+    assert _rel(attention.fused_attention(*small), attention.fused_attention_plain(*small)) < 1e-2
+
+
+@pytest.mark.parametrize("B,T,H,d,masked", [(16, 40, 4, 32, True), (8, 128, 4, 64, False),
+                                            (2, 256, 4, 128, False), (4, 24, 2, 32, True),
+                                            (4, 100, 2, 64, True), (2, 64, 1, 256, False),
+                                            (1, 1024, 2, 64, True), (8, 2, 2, 64, True),
+                                            (4, 16, 3, 8, True), (2, 72, 2, 200, True)])
+def test_fused_attention_at_gate_shapes_matches_plain(dev, B, T, H, d, masked):
+    """Shapes inside the gate beyond the models': T not a multiple of 16,
+    T past 64 (the streamed forward and the two-launch backward), d 32, 128
+    and 256 (padded to the kernels' widths); the output within 1e-2 and
+    dq, dk, dv within 2e-2 of the plain version, exact zeros on invalid
+    keys."""
+    assert attention.supported(B, T, H, d)
+    g = _gen(dev, 13)
+    qkv = torch.randn((B, T, 3, H, d), generator=g, device=dev)
+    cot = torch.randn((B, T, H, d), generator=g, device=dev)
+    mask = None
+    if masked:
+        mask = torch.rand((B, T), generator=g, device=dev) < 0.6
+        mask[:, 1] = True
+
+    def run(fn):
+        leaf = qkv.clone().requires_grad_()
+        q, k, v = leaf.to(torch.bfloat16).unbind(2)
+        out = fn(q, k, v, mask)
+        return out, torch.autograd.grad(out, leaf, cot)[0]
+
+    op, gp = run(attention.fused_attention_plain)
+    ok, gk = run(attention.fused_attention)
+    torch.cuda.synchronize()
+    assert ok.shape == (B, T, H, d) and _rel(ok, op) < 1e-2
+    for s in range(3):
+        assert _rel(gk[:, :, s], gp[:, :, s]) < 2e-2, s
+    if masked:
+        assert float(gk[:, :, 1:][~mask].abs().max()) == 0.0
 
 
 def test_tiled_chamfer_kernel_matches_plain(dev):

@@ -47,3 +47,40 @@ def test_wide_gather_raises_off_the_cpu_without_a_card():
         gather.gather_rows_wide(x, idx)
     with pytest.raises(ValueError, match="f32, bf16 or f16"):
         gather.gather_rows_wide(x.to(torch.float64), idx)
+
+
+@pytest.mark.parametrize("B,N,C,Q", [(2, 1024, 3, 2048), (3, 100, 8, 37), (1, 64, 1, 5)])
+def test_small_c_gather_takes_int32_and_int64_indices(B, N, C, Q):
+    """The small-C wrapper and ``gather_rows`` take int32 and int64 indices
+    as given (the kernel reads either, no cast): on the CPU both dtypes give
+    the same plain result, bit for bit ``jnp.take_along_axis``."""
+    rng = np.random.default_rng(B * N + C)
+    x = rng.normal(size=(B, N, C)).astype(np.float32)
+    idx = rng.integers(0, N, size=(B, Q))
+    want = np.asarray(jnp.take_along_axis(jnp.asarray(x), jnp.asarray(idx)[..., None], axis=1))
+    xt = torch.from_numpy(x)
+    for dtype in (torch.int32, torch.int64):
+        it = torch.from_numpy(idx).to(dtype)
+        for fn in (gather.gather_rows_small_c, gather.gather_rows):
+            got = fn(xt, it)
+            assert got.dtype == torch.float32 and got.shape == (B, Q, C)
+            assert np.array_equal(got.numpy(), want), (fn.__name__, dtype)
+
+
+def test_small_c_gather_raises_off_the_cpu_without_a_card():
+    """Off the CPU the small-C wrapper launches its kernel or raises, for
+    either index dtype and for a non-contiguous x; an index whose batch
+    differs from x's is refused before any pointer is passed."""
+    x = torch.empty((2, 16, 3), device="meta")
+    for dtype in (torch.int32, torch.int64, torch.int16):
+        idx = torch.zeros((2, 8), dtype=dtype, device="meta")
+        with pytest.raises(ValueError, match="expected one CUDA device"):
+            gather.gather_rows_small_c(x, idx)
+        with pytest.raises(ValueError, match="expected one CUDA device"):
+            gather.gather_rows_small_c(torch.empty((2, 3, 16), device="meta").transpose(1, 2),
+                                       idx)
+    with pytest.raises(ValueError, match="is not \\(B, Q\\)"):
+        gather.gather_rows_small_c(x, torch.zeros((3, 8), dtype=torch.int64, device="meta"))
+    with pytest.raises(ValueError, match="C<=8"):
+        gather.gather_rows_small_c(torch.empty((2, 16, 9), device="meta"),
+                                   torch.zeros((2, 8), dtype=torch.int64, device="meta"))

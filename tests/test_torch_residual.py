@@ -191,20 +191,43 @@ def test_block_mlp_dispatch_is_the_jax_gate(monkeypatch, compute, residual, drop
     assert real_route(tdt, "cpu", xt.dtype, B * T, C, H) == "plain"
 
 
-def test_fused_mlp_refuses_shapes_outside_the_kernel():
-    """C 512 is inside ``supported`` (C % 128, H % 128, H >= C) but the
-    kernels take C in (128, 256, 384): off the CPU the wrapper raises,
-    before anything reaches a plain version."""
-    assert mlp.supported(256, 512, 2048)
-    x = torch.empty((256, 512), device="meta")
-    k1, k2 = torch.empty((512, 2048), device="meta"), torch.empty((2048, 512), device="meta")
-    b1, b2 = torch.empty((2048,), device="meta"), torch.empty((512,), device="meta")
-    with pytest.raises(ValueError, match="built for"):
-        mlp.fused_mlp(x, k1, b1, k2, b2)
-    ok = torch.empty((256, 128), device="meta")
-    with pytest.raises(ValueError, match="expected one CUDA device"):
-        mlp.fused_mlp(ok, torch.empty((128, 512), device="meta"), b1[:512],
-                      torch.empty((512, 128), device="meta"), b2[:128])
+MLP_GATE_GRID = [(R, C, H) for R in (256, 512, 16384) for C in (128, 256, 384, 512, 640, 768,
+                                                                 1024)
+                 for H in (C, 2 * C, 4 * C, 1536)]
+
+
+def test_every_mlp_shape_inside_the_gate_reaches_the_kernel():
+    """Over a grid of (R, C, H), every shape ``supported`` admits (C 512 and
+    wider included) is one the kernels are built for, and off the CPU both
+    wrappers raise nothing of their own before the launch: tensors on
+    another device get as far as the device check."""
+    inside = [s for s in MLP_GATE_GRID if mlp.supported(*s)]
+    assert len(inside) > 60 and any(C > 384 for _, C, _ in inside)
+    meta = lambda *shape: torch.empty(shape, device="meta")
+    for R, C, H in inside:
+        assert mlp.kernel_takes(R, C, H), (R, C, H)
+        if R != 256:
+            continue
+        args = (meta(R, C), meta(C, H), meta(H), meta(H, C), meta(C))
+        with pytest.raises(ValueError, match="expected one CUDA device"):
+            mlp.fused_mlp(*args)
+        with pytest.raises(ValueError, match="expected one CUDA device"):
+            mlp.fused_mlp_ln(args[0], meta(C), meta(C), *args[1:])
+
+
+def test_fused_mlp_refuses_rows_outside_the_gate_and_the_kernel():
+    """The kernels' one limit, rows, widths and hidden widths multiples of
+    64, lies outside the gate: 96 rows or C 96 are refused by both, and off
+    the CPU the wrappers raise before anything reaches a plain version or a
+    device check."""
+    meta = lambda *shape: torch.empty(shape, device="meta")
+    for R, C, H in ((96, 128, 512), (256, 96, 512)):
+        assert not mlp.supported(R, C, H) and not mlp.kernel_takes(R, C, H)
+        args = (meta(R, C), meta(C, H), meta(H), meta(H, C), meta(C))
+        with pytest.raises(ValueError, match="built for"):
+            mlp.fused_mlp(*args)
+        with pytest.raises(ValueError, match="built for"):
+            mlp.fused_mlp_ln(args[0], meta(C), meta(C), *args[1:])
 
 
 # ------------------------------------------------- the flagship, both keys
