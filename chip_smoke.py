@@ -84,7 +84,17 @@ Phases, each fatal on failure:
               (T 40 d 32 masked, T 128 d 64, T 256 d 128) against its plain
               version (kernels phase); the mlp_ln and mlp wide form at C
               512, 768 and 1024 (H 4 C) against their plain versions at R
-              256 and timed at R 16384.
+              256 and timed at R 16384;
+ 11. folding redesign - the fused folding backward's device time split
+              by launch (rows pass, weights pass, small products, sums) and
+              the forward's, two backward calls held bit for bit, the plain
+              fold_impl xla head's forward + backward device time beside the
+              fused head's (the head's yardstick), and F 512 (one-block
+              form) and F 640 (wide form) at 256 tokens against the plain
+              version (kernels phase); gather_rows_wide from an int32 and an
+              int64 index, rows out of range included, bit for bit, its
+              device time beside torch.gather's (kernels phase); the
+              profiled flagship step prints the folding kernels' total.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Run from the repository root:
 
@@ -449,7 +459,9 @@ def phase_kernels(torch, pts, device):
 def phase_folding(torch, device, g):
     """The fused folding head at the step's shape (256 * 51 tokens, C = F =
     384, 36 grid points) against its plain version on the card: the output
-    and all thirteen gradients."""
+    and all thirteen gradients; the backward repeated bit for bit, both
+    directions' device time by launch, the plain head beside the fused one,
+    and the widths F 512 and 640."""
     from point_dae_torch.models.common import folding_grid
     from point_dae_torch.ops import folding
 
@@ -499,8 +511,23 @@ def phase_folding(torch, device, g):
         fwd_ms = cuda_ms(lambda: folding.folding_fwd_kernel(*ops), 10)
         bwd_ms = cuda_ms(lambda: folding.folding_bwd_kernel(*ops, gpad), 5)
         plain_fwd = cuda_ms(lambda: folding._FoldCorePlain.apply(*core), 3)
+        # two backward calls agree bit for bit (no atomics, fixed-order sums)
+        first = folding.folding_bwd_kernel(*ops, gpad)
+        second = folding.folding_bwd_kernel(*ops, gpad)
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            fail("folding_bwd: two calls on the same inputs differ")
+        del first, second
+        log("  folding_bwd: two calls agree bit for bit")
+        split = device_split(lambda: folding.folding_bwd_kernel(*ops, gpad), FOLD_BWD_LAUNCHES)
+        fsplit = device_split(lambda: folding.folding_fwd_kernel(*ops), FOLD_BWD_LAUNCHES)
+    log("  folding_bwd device time by launch: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items() if v))
+    log("  folding_fwd device time by launch: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in fsplit.items() if v))
     leaves = [xl] + [t for st in (p1, p2) for pair in st for t in pair]
     plain_bwd = cuda_ms(lambda: torch.autograd.grad(out_p, leaves, cot, retain_graph=True), 3)
+    del out_p
+    fold_head_yardstick(torch, device, xl, grid, p1, p2, cot, split, fsplit)
     F = C
     wide = 2 * 2 * R * F * F                     # a0 @ k11 and a2 @ k12
     shared = 2 * T * C * 2 * F                   # x @ [ks1 | ks2]
@@ -520,7 +547,118 @@ def phase_folding(torch, device, g):
             source="point_dae_torch/csrc/folding.cu", max_abs_err=err, ms=ms,
             plain_ms=pms, library_ms=None, bound=bound_ms(nbytes, fl, BF16_FLOPS),
             note=f"{T} tokens x {n} points, C = F = {C}")
+    fold_widths(torch, device, g, grid)
     return records
+
+
+# the folding kernels' launches by name (csrc/folding.cu), for the split of
+# a call's device time
+FOLD_BWD_LAUNCHES = (("rows pass", "fold_bwd_rows_kernel"),
+                     ("weights pass", "fold_bwd_weights_kernel"),
+                     ("forward tile", "fold_fwd_kernel"),
+                     ("small products", "::gemm_kernel<"),
+                     ("sums", "fold_sum_partials_kernel"))
+
+
+def device_split(fn, names, calls: int = 5):
+    """Device milliseconds a call of fn by kernel name group (torch.profiler
+    over `calls` calls after one warm-up); kernels matching no group (the
+    wrapper's allocations) go to "other"."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {label: 0.0 for label, _ in names}
+    out["other"] = 0.0
+    for e in prof.key_averages():
+        if (e.device_type != torch.autograd.DeviceType.CUDA or dev_us(e) <= 0
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        label = next((lb for lb, key in names if key in e.key), "other")
+        out[label] += dev_us(e) / calls / 1e3
+    out["total"] = sum(out.values())
+    return out
+
+
+def fold_head_yardstick(torch, device, xl, grid, p1, p2, cot, split, fsplit):
+    """The plain folding head (fold_impl xla: the two SplitMLP stages in bf16
+    on cuBLAS) at the same shape and weights, forward + backward device time,
+    beside the fused head's (its wrapper included) in the same run."""
+    from point_dae_torch.models.layers import SplitMLP
+    from point_dae_torch.ops import folding
+
+    bf = torch.bfloat16
+    Bt, M, C = xl.shape
+    n = grid.shape[0]
+    s1 = SplitMLP(C, 2, (C, C, 3), dtype=bf).to(device)
+    s2 = SplitMLP(C, 3, (C, C, 3), dtype=bf).to(device)
+    with torch.no_grad():
+        for mod, params in ((s1, p1), (s2, p2)):
+            for i, (k, b) in zip((0, 2, 4), params):
+                mod[i].weight.copy_(k.t())
+                mod[i].bias.copy_(b)
+    xb = xl.detach().to(bf).requires_grad_()
+    gridb = grid.expand(Bt, M, n, 2).to(bf)
+    plain_leaves = [xb, *s1.parameters(), *s2.parameters()]
+    fused_leaves = [xl] + [t for st in (p1, p2) for pair in st for t in pair]
+
+    def plain():
+        out = s2(xb, s1(xb, gridb)).float()
+        torch.autograd.grad(out, plain_leaves, cot)
+
+    def fused():
+        out = folding.fused_folding(xl, grid, p1, p2)
+        torch.autograd.grad(out, fused_leaves, cot)
+
+    plain_ms, _ = device_ms(plain, 5)
+    fused_ms, _ = device_ms(fused, 5)
+    log(f"  folding head yardstick, forward + backward device time a call at {Bt * M} tokens: "
+        f"plain head (fold_impl xla, cuBLAS) {plain_ms:.4f} ms; fused head {fused_ms:.4f} ms "
+        f"(kernels: fwd {fsplit['total'] - fsplit['other']:.4f}, bwd "
+        f"{split['total'] - split['other']:.4f}; the rest casts, pads and allocations)")
+
+
+FOLD_WIDE_F = ((512, 512), (256, 640))   # (C, F): the widest one-block F, a wide-form F
+
+
+def fold_widths(torch, device, g, grid):
+    """F 512 (one-block form) and F 640 (wide form) at 4 x 64 tokens against
+    the plain version: output and all thirteen gradients."""
+    from point_dae_torch.ops import folding
+
+    n = grid.shape[0]
+    for C, F in FOLD_WIDE_F:
+        def w(i, o):
+            return torch.randn((i, o), generator=g, device=device) / math.sqrt(i)
+
+        def stage(extra):
+            return [w(C + extra, F), 0.02 * torch.randn((F,), generator=g, device=device),
+                    w(F, F), 0.02 * torch.randn((F,), generator=g, device=device),
+                    w(F, 3), 0.02 * torch.randn((3,), generator=g, device=device)]
+
+        flat = [torch.randn((4, 64, C), generator=g, device=device)] + stage(2) + stage(3)
+        cot = torch.randn((4, 64, n, 3), generator=g, device=device)
+        res = []
+        for fn in (folding.fused_folding, folding.fused_folding_plain):
+            leaves = [t.clone().requires_grad_() for t in flat]
+            p1 = tuple((leaves[1 + 2 * i], leaves[2 + 2 * i]) for i in range(3))
+            p2 = tuple((leaves[7 + 2 * i], leaves[8 + 2 * i]) for i in range(3))
+            out = fn(leaves[0], grid, p1, p2)
+            res.append((out, torch.autograd.grad(out, leaves, cot)))
+        torch.cuda.synchronize()
+        (ok, gk), (op, gp) = res
+        worst = [rel_err(ok, op)] + [rel_err(a, b) for a, b in zip(gk, gp)]
+        good = relu_flips_ok(ok, op) and all(relu_flips_ok(a, b) for a, b in zip(gk, gp))
+        form = "one-block" if F <= 512 else "wide"
+        log(f"  fused_folding at C {C}, F {F} ({form} form), 256 tokens: max error / max |plain| "
+            f"{max(worst):.2e} over the output and 13 gradients")
+        if not good:
+            fail(f"fused_folding at C {C}, F {F} disagrees with its plain version: {worst}")
 
 
 def phase_attention(torch, device, g):
@@ -683,6 +821,20 @@ def log_attention_build(text: str) -> None:
     for T in (32, 64):
         fwd, bwd = attention.smem_bytes(T, 64)
         log(f"  attention: T {T}, d 64: dynamic shared memory fwd {fwd} B, bwd {bwd} B a block")
+
+
+def log_named_build(src: str, text: str, pattern: str) -> None:
+    """Registers, spills and barriers (nvcc -Xptxas -v) of the kernels of one
+    source whose mangled names match pattern, one line a kernel."""
+    import re
+
+    name = None
+    for line in text.splitlines():
+        m = re.search(pattern, line)
+        if "Compiling entry function" in line:
+            name = m.group(1) if m else None
+        elif name and ("Used" in line or "spill" in line):
+            log(f"  {src}: {name}: {line.split(':', 1)[-1].strip()}")
 
 
 def edgeconv_work(B, N, Cf, C, k):
@@ -1079,6 +1231,7 @@ def profile_step(torch, run, card, top: int = 25):
             "gather_rows_kernel": 0.0, "nn_half_small_kernel": 0.0,
             "fold_fwd_kernel": 0.0, "fold_bwd_rows_kernel": 0.0,
             "fold_bwd_weights_kernel": 0.0, "::gemm_kernel<": 0.0,
+            "fold_sum_partials_kernel": 0.0,
             "attention_fwd": 0.0, "attention_bwd": 0.0,
             "knn_select_kernel": 0.0, "edgeconv_aggregate_kernel": 0.0,
             "gather_by_key_kernel": 0.0,
@@ -1090,8 +1243,11 @@ def profile_step(torch, run, card, top: int = 25):
         for k in ours:
             if k in e.key:
                 ours[k] += dev_us(e)
+    # the folding head's kernels: csrc/folding.cu's fold_* and its small GEMMs
+    fold = sum(dev_us(e) for e in events if "fold_" in e.key or "::gemm_kernel<" in e.key)
     log(f"  [{card}] profiled step: wall {wall_us / 1e3:.2f} ms, device busy "
-        f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), ported kernels "
+        f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), folding kernels in total "
+        f"{fold / 1e3:.2f} ms, ported kernels "
         + ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in ours.items() if v))
     for e in sorted(events, key=dev_us, reverse=True)[:top]:
         log(f"    {dev_us(e) / 1e3:8.3f} ms {100 * dev_us(e) / busy:5.1f}% "
@@ -2062,8 +2218,9 @@ def phase_mlp_wide_kernels(torch, device):
     stream) at the flagship decoder's and encoder's row counts, R 16384 and
     8192 (C 384, H 1536), forward and backward against fused_mlp_plain; and
     gather_rows_wide at (16, 2048, 64) by 40960 rows (the partseg DGCNN edge
-    gather's shape), bit for bit against its plain version and torch.gather.
-    Returns (records, gather_rows_wide launches of this phase)."""
+    gather's shape), bit for bit against its plain version and torch.gather,
+    from int32 and int64 indices. Returns (records, gather_rows_wide launches
+    of this phase)."""
     from point_dae_torch.ops import gather, mlp
     from point_dae_torch.utils import kernels
 
@@ -2121,22 +2278,45 @@ def phase_mlp_wide_kernels(torch, device):
     B, N, Cw, Q = 16, 2048, 64, 40960
     xw = torch.randn((B, N, Cw), generator=g, device=device)
     idx = torch.randint(0, N, (B, Q), generator=g, device=device, dtype=torch.int32)
-    idx64 = idx.long()[..., None].expand(-1, -1, Cw)
+    idx_l = idx.long()
+    idx64 = idx_l[..., None].expand(-1, -1, Cw)
     got = gather.gather_rows_wide(xw, idx)
     if not (torch.equal(got, gather.gather_rows_wide_plain(xw, idx))
-            and torch.equal(got, torch.gather(xw, 1, idx64))):
+            and torch.equal(got, torch.gather(xw, 1, idx64))
+            and torch.equal(gather.gather_rows_wide(xw, idx_l), got)):
         fail("gather_rows_wide differs from its plain version or torch.gather")
+    bad = idx_l.clone()
+    bad[0, :3] = torch.tensor([-1, N, 2 ** 40], device=device)
+    got_bad = gather.gather_rows_wide(xw, bad)
+    if not (torch.equal(got_bad, gather.gather_rows_wide_plain(xw, bad))
+            and not got_bad[0, :3].any()):
+        fail("gather_rows_wide from an int64 index with rows out of range is wrong")
     xb = xw.to(bf)
-    if not torch.equal(gather.gather_rows_wide(xb, idx), gather.gather_rows_wide_plain(xb, idx)):
+    if not (torch.equal(gather.gather_rows_wide(xb, idx), gather.gather_rows_wide_plain(xb, idx))
+            and torch.equal(gather.gather_rows_wide(xb, idx_l), gather.gather_rows_wide_plain(xb, idx))):
         fail("gather_rows_wide on bf16 rows differs from its plain version")
+    log("  gather_rows_wide: bit for bit from int32 and int64 indices, f32 and bf16 rows, "
+        "zero rows out of range")
+    ms = cuda_ms(lambda: gather.gather_rows_wide(xw, idx), 50)
+    ms64 = cuda_ms(lambda: gather.gather_rows_wide(xw, idx_l), 50)
+    lib_ms = cuda_ms(lambda: torch.gather(xw, 1, idx64), 50)
+    lib_cast_ms = cuda_ms(lambda: torch.gather(xw, 1, idx.long()[..., None].expand(-1, -1, Cw)), 50)
+    bf_ms = cuda_ms(lambda: gather.gather_rows_wide(xb, idx), 50)
+    dev, _ = device_ms(lambda: gather.gather_rows_wide(xw, idx))
+    dev64, _ = device_ms(lambda: gather.gather_rows_wide(xw, idx_l))
+    lib_dev, _ = device_ms(lambda: torch.gather(xw, 1, idx64))
+    log(f"  gather_rows_wide ({B}, {N}, {Cw}) by {Q} rows: {ms:.4f} ms a call from the int32 "
+        f"index (device {dev:.4f}), {ms64:.4f} from int64 (device {dev64:.4f}); torch.gather "
+        f"from a ready int64 index {lib_ms:.4f} (device {lib_dev:.4f}), from the int32 index "
+        f"(cast included) {lib_cast_ms:.4f}; bf16 rows {bf_ms:.4f}")
     records["gather_rows_wide"] = dict(
         replaces="point_dae_tpu/ops/pallas_scatter.py:101",
-        source="point_dae_torch/csrc/gather.cu", max_abs_err=0.0,
-        ms=cuda_ms(lambda: gather.gather_rows_wide(xw, idx), 50),
+        source="point_dae_torch/csrc/gather.cu", max_abs_err=0.0, ms=ms,
         plain_ms=cuda_ms(lambda: gather.gather_rows_wide_plain(xw, idx), 50),
-        library_ms=cuda_ms(lambda: torch.gather(xw, 1, idx64), 50),
+        library_ms=lib_ms,
         bound=bound_ms(xw.numel() * 4 + idx.numel() * 4 + got.numel() * 4, 0, F32_FLOPS),
-        note=f"({B}, {N}, {Cw}) by {Q} rows, bit for bit; bf16 rows {cuda_ms(lambda: gather.gather_rows_wide(xb, idx), 50):.4f} ms")
+        note=f"({B}, {N}, {Cw}) by {Q} rows, bit for bit; int64 index {ms64:.4f} ms; device "
+             f"{dev:.4f} (torch.gather {lib_dev:.4f}); bf16 rows {bf_ms:.4f} ms")
     return records, kernels.launches["gather_rows_wide"] - before
 
 
@@ -2435,6 +2615,10 @@ def main() -> None:
     for name, text in sorted(logs.items()):
         if name == "attention":
             log_attention_build(text)
+            continue
+        if name == "folding":
+            log_named_build("folding", text,
+                            r"\d((?:fold|gemm|wide)_[a-z0-9_]*?kernel(?:ILb[01]ELb[01]E|ILi\dE)?)")
             continue
         for line in text.splitlines():
             if "registers" in line or "spill" in line.lower() and "0 bytes" not in line:

@@ -30,10 +30,15 @@
 // any C and x in f32, bf16 or f16, zeros where the index falls outside
 // [0, N). Replaces point_dae_tpu/ops/pallas_scatter.py:gather_rows_pallas,
 // a one-hot (tq, N) x (N, C) product at HIGHEST precision (exact, N C work
-// a row); here a warp copies one row with vector loads (4 elements a lane
-// where C and the pointers allow). Bound: bytes, the output and the index
-// once and each selected row once. Nothing on the model's path calls it:
-// the JAX package keeps XLA's gather forward (pallas_scatter.py:267-276).
+// a row). Bound: bytes, the output and the index once and each selected row
+// once; the output is most of them. Design: a row gets C / V lanes (V
+// elements a 16-byte vector: 4 f32, 8 bf16 or f16), rounded up to a power
+// of two up to 32, so a warp copies 32 V / C rows at once (2 at C 64 f32);
+// each row's index, int32 or int64 as given, is read once by its first lane
+// and shared; a lane loads two rows' vectors before it stores either, and
+// the f32 output goes out by streaming 16-byte stores. Nothing on the
+// model's path calls it: the JAX package keeps XLA's gather forward
+// (pallas_scatter.py:267-276).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 
@@ -132,60 +137,122 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 
-// V elements of one row starting at c: V is 4 (one 16- or 8-byte load) or 1.
-template <typename T, int V>
-struct RowVec {
-  static __device__ __forceinline__ float4 load(const T* p) {
-    if constexpr (V == 4 && sizeof(T) == 4) {
-      return *reinterpret_cast<const float4*>(p);
-    } else if constexpr (V == 4) {
-      const uint2 u = *reinterpret_cast<const uint2*>(p);
-      const T* h = reinterpret_cast<const T*>(&u);
-      return make_float4(to_f32(h[0]), to_f32(h[1]), to_f32(h[2]), to_f32(h[3]));
+// One vector of a row: VEC (16 / sizeof(T), a 16-byte load) elements, or one
+// element when VEC is 1; out gets them as f32 by streaming stores.
+template <typename T, int VEC>
+struct Vec {
+  uint4 raw;
+  float f;
+  __device__ __forceinline__ void load(const T* p) {
+    if constexpr (VEC == 1)
+      f = to_f32(*p);
+    else
+      raw = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void zero() {
+    raw = make_uint4(0u, 0u, 0u, 0u);
+    f = 0.f;
+  }
+  __device__ __forceinline__ void store(float* o) const {
+    if constexpr (VEC == 1) {
+      __stcs(o, f);
+    } else if constexpr (sizeof(T) == 4) {
+      __stcs(reinterpret_cast<float4*>(o),
+             make_float4(__uint_as_float(raw.x), __uint_as_float(raw.y),
+                         __uint_as_float(raw.z), __uint_as_float(raw.w)));
     } else {
-      return make_float4(to_f32(p[0]), 0.f, 0.f, 0.f);
+      const T* h = reinterpret_cast<const T*>(&raw);
+      __stcs(reinterpret_cast<float4*>(o),
+             make_float4(to_f32(h[0]), to_f32(h[1]), to_f32(h[2]), to_f32(h[3])));
+      __stcs(reinterpret_cast<float4*>(o) + 1,
+             make_float4(to_f32(h[4]), to_f32(h[5]), to_f32(h[6]), to_f32(h[7])));
     }
   }
 };
 
-// One warp a row of the (B * Q) output rows; 64-bit offsets.
-template <typename T, int V>
-__global__ void gather_rows_wide_kernel(const T* __restrict__ x, const int* __restrict__ idx,
-                                        float* __restrict__ out, int N, int Q, int C,
-                                        long long rows) {
-  const int lane = threadIdx.x & 31;
-  const long long warps = static_cast<long long>(gridDim.x) * (blockDim.x / 32);
-  for (long long row = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / 32;
-       row < rows; row += warps) {
-    const int r = idx[row];
-    float* o = out + row * C;
-    if (r < 0 || r >= N) {
-      for (int c = lane; c < C; c += 32) o[c] = 0.0f;
-      continue;
+// LPR lanes a row (a power of two up to 32), 32 / LPR rows a warp at once,
+// UR rows a lane slot per step so that each lane keeps at least UR vectors
+// in flight. A row's index is read once, by its first lane, and
+// shared by a shuffle; int32 or int64 as given. 64-bit offsets.
+constexpr int UR = 2;   // rows a lane slot loads before it stores
+
+template <typename T, typename I, int VEC, int LPR>
+__global__ void __launch_bounds__(256)
+gather_rows_wide_kernel(const T* __restrict__ x, const I* __restrict__ idx,
+                        float* __restrict__ out, int N, int Q, int C, long long rows) {
+  constexpr int RPW = 32 / LPR;                      // rows a warp at once
+  const int lane = threadIdx.x & 31, sub = lane / LPR, l = lane % LPR;
+  const int nv = C / VEC;                            // vectors a row
+  const long long warp = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) / 32;
+  const long long stride = static_cast<long long>(gridDim.x) * (blockDim.x / 32) * RPW;
+  for (long long base = warp * RPW; base < rows; base += UR * stride) {
+    long long row[UR];
+    long long src[UR];
+#pragma unroll
+    for (int u = 0; u < UR; ++u) {
+      row[u] = base + u * stride + sub;
+      long long i = -1;
+      if (l == 0 && row[u] < rows) i = static_cast<long long>(idx[row[u]]);
+      i = __shfl_sync(0xffffffffu, i, sub * LPR);
+      src[u] = (i >= 0 && i < N) ? (row[u] / Q * N + i) * C : -1;
     }
-    const T* src = x + (row / Q * N + r) * static_cast<long long>(C);
-    for (int c = lane * V; c < C; c += 32 * V) {
-      const float4 v = RowVec<T, V>::load(src + c);
-      if constexpr (V == 4)
-        *reinterpret_cast<float4*>(o + c) = v;
-      else
-        o[c] = v.x;
+    for (int v0 = l; v0 < nv; v0 += LPR) {
+      Vec<T, VEC> a[UR];
+#pragma unroll
+      for (int u = 0; u < UR; ++u) {
+        if (src[u] >= 0)
+          a[u].load(x + src[u] + static_cast<long long>(v0) * VEC);
+        else
+          a[u].zero();
+      }
+#pragma unroll
+      for (int u = 0; u < UR; ++u)
+        if (row[u] < rows) a[u].store(out + row[u] * C + static_cast<long long>(v0) * VEC);
     }
   }
 }
 
-template <typename T>
-cudaError_t launch_wide(const void* x, const int* idx, float* out, int N, int Q, int C,
-                        long long rows, int vec, cudaStream_t stream) {
-  const int threads = 256;
-  const long long want = (rows + threads / 32 - 1) / (threads / 32);
-  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
-  const T* xt = static_cast<const T*>(x);
-  if (vec == 4)
-    gather_rows_wide_kernel<T, 4><<<blocks, threads, 0, stream>>>(xt, idx, out, N, Q, C, rows);
-  else
-    gather_rows_wide_kernel<T, 1><<<blocks, threads, 0, stream>>>(xt, idx, out, N, Q, C, rows);
+template <typename T, typename I, int VEC>
+cudaError_t launch_wide(const T* x, const I* idx, float* out, int N, int Q, int C,
+                        long long rows, cudaStream_t stream) {
+  const int nv = C / VEC;
+  int lpr = 1;
+  while (lpr < nv && lpr < 32) lpr *= 2;
+  const long long per_block = 8LL * (32 / lpr) * UR;  // rows a block covers in one step
+  const long long want = (rows + per_block - 1) / per_block;
+  // a block a step's rows: a grid-stride loop only past 256 blocks an SM
+  const int blocks = static_cast<int>(want < 132 * 256 ? want : 132 * 256);
+  switch (lpr) {
+#define PDAE_WIDE_CASE(L)                                                                \
+    case L:                                                                              \
+      gather_rows_wide_kernel<T, I, VEC, L><<<blocks, 256, 0, stream>>>(x, idx, out, N, Q, C, \
+                                                                        rows);          \
+      break;
+    PDAE_WIDE_CASE(1)
+    PDAE_WIDE_CASE(2)
+    PDAE_WIDE_CASE(4)
+    PDAE_WIDE_CASE(8)
+    PDAE_WIDE_CASE(16)
+    PDAE_WIDE_CASE(32)
+#undef PDAE_WIDE_CASE
+    default: return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_wide_t(const void* x, const void* idx, int idx64, float* out, int N, int Q,
+                          int C, long long rows, int vec, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  constexpr int V = 16 / sizeof(T);
+  if (idx64) {
+    const long long* i = static_cast<const long long*>(idx);
+    return vec ? launch_wide<T, long long, V>(xt, i, out, N, Q, C, rows, s)
+               : launch_wide<T, long long, 1>(xt, i, out, N, Q, C, rows, s);
+  }
+  const int* i = static_cast<const int*>(idx);
+  return vec ? launch_wide<T, int, V>(xt, i, out, N, Q, C, rows, s)
+             : launch_wide<T, int, 1>(xt, i, out, N, Q, C, rows, s);
 }
 
 }  // namespace
@@ -220,21 +287,24 @@ PDAE_EXPORT int gather_by_key_small_c(const float* x, const int* keys, const int
   return static_cast<int>(cudaGetLastError());
 }
 
-// x (B, N, C) of dtype 0 f32, 1 bf16, 2 f16; idx (B, Q) int32; out (B, Q, C)
-// f32. vec 4 needs C % 4 == 0 and x and out aligned to 4 elements.
-PDAE_EXPORT int gather_rows_wide(const void* x, int dtype, const int* idx, float* out, int B,
-                                 int N, int Q, int C, int vec, void* stream) {
+// x (B, N, C) of dtype 0 f32, 1 bf16, 2 f16; idx (B, Q) int64 when idx64,
+// else int32; out (B, Q, C) f32. vec: 16-byte vectors (C a multiple of 16 /
+// sizeof(x) and x 16-byte aligned), else one element a lane.
+PDAE_EXPORT int gather_rows_wide(const void* x, int dtype, const void* idx, int idx64,
+                                 float* out, int B, int N, int Q, int C, int vec,
+                                 void* stream) {
   const long long rows = static_cast<long long>(B) * Q;
   if (rows == 0 || C == 0) return static_cast<int>(cudaSuccess);
-  if (C < 0 || N < 1 || dtype < 0 || dtype > 2 || (vec != 1 && vec != 4) ||
-      (vec == 4 && C % 4 != 0))
+  const int V = dtype == 0 ? 4 : 8;
+  if (C < 0 || N < 1 || dtype < 0 || dtype > 2 || (vec != 0 && vec != 1) ||
+      (vec && C % V != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (dtype) {
-    case 0: err = launch_wide<float>(x, idx, out, N, Q, C, rows, vec, s); break;
-    case 1: err = launch_wide<__nv_bfloat16>(x, idx, out, N, Q, C, rows, vec, s); break;
-    default: err = launch_wide<__half>(x, idx, out, N, Q, C, rows, vec, s); break;
+    case 0: err = launch_wide_t<float>(x, idx, idx64, out, N, Q, C, rows, vec, s); break;
+    case 1: err = launch_wide_t<__nv_bfloat16>(x, idx, idx64, out, N, Q, C, rows, vec, s); break;
+    default: err = launch_wide_t<__half>(x, idx, idx64, out, N, Q, C, rows, vec, s); break;
   }
   return static_cast<int>(err);
 }

@@ -4,8 +4,10 @@ plain version.
 Port of ``point_dae_tpu/ops/pallas_folding.py:fused_folding``; the CUDA
 kernels are ``csrc/folding.cu``. Every decoded token is expanded over an
 n-point grid and run through two 3-layer MLPs whose first layer is split
-into a per-token and a per-point half; the kernels keep the expanded
-``(tokens * n, F)`` hiddens on chip in both passes.
+into a per-token and a per-point half. Up to F 512 (the one-block form)
+the kernels keep the expanded ``(tokens * n, F)`` hiddens on chip in both
+passes; wider F takes the wide form, whose hiddens go through device
+memory. The two forms take every shape of the JAX gate (``kernel_takes``).
 
 Numerics of both versions (they are part of the function): every product
 takes bf16 operands and accumulates in f32; bias adds and ReLUs are f32 and
@@ -24,14 +26,23 @@ import torch
 from ..utils import kernels
 
 _BF = torch.bfloat16
-_TOKEN_PAD = 64      # tokens are padded to a multiple of the GEMM tile (csrc/folding.cu, GT)
-_MAX_F = 384         # widest hidden whose row tiles fit a block's shared memory
-_ROWS_BWD = 80       # rows a block of the backward's rows pass owns (csrc/folding.cu, MR_BWD)
+_TOKEN_PAD = 64      # tokens are padded to a multiple of the GEMM tile (csrc/folding.cu, GBM)
+_ONE_BLOCK_F = 512   # widest F of the one-block form (csrc/folding.cu, F_ONE_BLOCK)
+_TILE_ROWS = 80      # rows of a one-block tile (csrc/folding.cu, MR)
+_KSPLIT = 4          # K splits of the transposed small GEMMs (csrc/folding.cu, KSPLIT)
 
 
 def supported(C: int, F: int, n: int) -> bool:
-    """``pallas_folding.supported``: the shapes the fused head is taken for."""
+    """``pallas_folding.supported``: the shapes the fused head is taken for.
+    ``kernel_takes`` holds on every shape inside it."""
     return C % 128 == 0 and F % 128 == 0 and 2 <= n <= 64
+
+
+def kernel_takes(C: int, F: int, n: int) -> bool:
+    """The shapes the kernels are built for (``csrc/folding.cu:shape_ok``):
+    C and F positive multiples of 128 (F <= 512 the one-block form, wider
+    the wide form) and 2 <= n <= 64."""
+    return C > 0 and C % 128 == 0 and F > 0 and F % 128 == 0 and 2 <= n <= 64
 
 
 def stage_params(split_mlp):
@@ -120,7 +131,9 @@ class _FoldCorePlain(torch.autograd.Function):
 
 _P, _I = kernels.P, kernels.I
 _FWD_ARGS = (_P,) * 8 + (_I,) * 4 + (_P,)
-_BWD_ARGS = (_P,) * 20 + (_I,) * 6 + (_P,)
+_BWD_ARGS = (_P,) * 21 + (_I,) * 6 + (_P,)
+_FWD_WIDE_ARGS = (_P,) * 11 + (_I,) * 4 + (_P,)
+_BWD_WIDE_ARGS = (_P,) * 23 + (_I,) * 5 + (_P,)
 
 
 def _pack_small(F, b01, b11, k21, b21, ke2, b02, b12, k22, b22) -> torch.Tensor:
@@ -152,10 +165,19 @@ def folding_fwd_kernel(xb, ksc, gp1, k11, k12, small):
     dev = xb.device
     sp = torch.empty((Tp, 2 * F), dtype=torch.float32, device=dev)
     out = torch.empty((Tp * n, 3), dtype=torch.float32, device=dev)
-    kernels.launch("folding_fwd", "folding", "folding_fwd", _FWD_ARGS,
-                   xb.data_ptr(), ksc.data_ptr(), gp1.data_ptr(), k11.data_ptr(),
-                   k12.data_ptr(), small.data_ptr(), sp.data_ptr(), out.data_ptr(),
-                   Tp, C, F, n, kernels.stream(xb))
+    ptrs = (xb.data_ptr(), ksc.data_ptr(), gp1.data_ptr(), k11.data_ptr(), k12.data_ptr(),
+            small.data_ptr(), sp.data_ptr())
+    if F <= _ONE_BLOCK_F:
+        kernels.launch("folding_fwd", "folding", "folding_fwd", _FWD_ARGS, *ptrs,
+                       out.data_ptr(), Tp, C, F, n, kernels.stream(xb))
+        return out
+    R = Tp * n
+    A = torch.empty((R, F), dtype=_BF, device=dev)
+    H = torch.empty((R, F), dtype=torch.float32, device=dev)
+    f1 = torch.empty((R, 4), dtype=torch.float32, device=dev)
+    kernels.launch("folding_fwd", "folding", "folding_fwd_wide", _FWD_WIDE_ARGS, *ptrs,
+                   A.data_ptr(), H.data_ptr(), f1.data_ptr(), out.data_ptr(), Tp, C, F, n,
+                   kernels.stream(xb))
     return out
 
 
@@ -163,35 +185,48 @@ def folding_bwd_kernel(xb, ksc, gp1, k11, k12, small, g):
     """Launch the backward kernels for cotangent g (Tp * n, 3) f32. Returns
     f32 sums ``(dx (Tp, C), dksc (C, 2F), rows, dk (2, F, F))`` with rows =
     dgp1 (n, F) | db02 (F) | dke2 (3, F) | db12 (F) | dk22 (F, 3) | db11 (F) |
-    dk21 (F, 3) | db21 (3) + 0 and dk = dk11, dk12. The scratch is 3-wide or
-    one bit an element, apart from one (80, F) bf16 slot a block."""
+    dk21 (F, 3) | db21 (3) + 0 and dk = dk11, dk12. The one-block form's
+    scratch is 3-wide or one bit an element, apart from one (80, F) bf16
+    slot a block; the wide form keeps five bf16 and one f32 (Tp * n, F)
+    hiddens."""
     Tp, C = xb.shape
     n, F = gp1.shape
     dev = xb.device
     f32 = torch.float32
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = sms                                   # rows pass: one a multiprocessor
-    parts = max(1, 2 * sms // (2 * (F // 128) ** 2))   # weights pass: two a multiprocessor
     na = n * F + 12 * F + 4
     R = Tp * n
 
     def empty(shape, dtype=f32):
         return torch.empty(shape, dtype=dtype, device=dev)
 
-    sp, f1s, df1s = empty((Tp, 2 * F)), empty((R, 4)), empty((R, 4))
-    m1, m3 = empty((R, F // 32), torch.int32), empty((R, F // 32), torch.int32)
-    a1s = empty((blocks, _ROWS_BWD, F), _BF)
-    dspb = empty((Tp, 2 * F), _BF)
-    part_a = torch.zeros((blocks, na), dtype=f32, device=dev)
-    dkp = empty((2, parts, F, F))
+    sp, dspb = empty((Tp, 2 * F)), empty((Tp, 2 * F), _BF)
+    kpart = empty((_KSPLIT, max(C * 2 * F, F * F)))
     dx, dksc, rows, dk = empty((Tp, C)), empty((C, 2 * F)), empty((na,)), empty((2, F, F))
-    kernels.launch("folding_bwd", "folding", "folding_bwd", _BWD_ARGS,
-                   xb.data_ptr(), ksc.data_ptr(), gp1.data_ptr(), k11.data_ptr(),
-                   k12.data_ptr(), small.data_ptr(), g.data_ptr(), sp.data_ptr(),
-                   f1s.data_ptr(), df1s.data_ptr(), m1.data_ptr(), m3.data_ptr(),
-                   a1s.data_ptr(), dspb.data_ptr(), part_a.data_ptr(), dkp.data_ptr(),
-                   dx.data_ptr(), dksc.data_ptr(), rows.data_ptr(), dk.data_ptr(),
-                   Tp, C, F, n, blocks, parts, kernels.stream(xb))
+    head = (xb.data_ptr(), ksc.data_ptr(), gp1.data_ptr(), k11.data_ptr(), k12.data_ptr(),
+            small.data_ptr(), g.data_ptr(), sp.data_ptr())
+    tail = (dx.data_ptr(), dksc.data_ptr(), rows.data_ptr(), dk.data_ptr(), Tp, C, F, n)
+    if F <= _ONE_BLOCK_F:
+        blocks = 2 * sms                               # rows pass: two a multiprocessor
+        parts = max(1, 2 * sms // (2 * (F // 128) ** 2))   # weights pass: two a multiprocessor
+        f1s, df1s = empty((R, 4)), empty((R, 4))
+        m1, m3 = empty((R, F // 32), torch.int32), empty((R, F // 32), torch.int32)
+        a1s = empty((blocks, _TILE_ROWS, F), _BF)
+        part_a = torch.zeros((blocks, na), dtype=f32, device=dev)
+        dkp = empty((2, parts, F, F))
+        kernels.launch("folding_bwd", "folding", "folding_bwd", _BWD_ARGS, *head,
+                       f1s.data_ptr(), df1s.data_ptr(), m1.data_ptr(), m3.data_ptr(),
+                       a1s.data_ptr(), dspb.data_ptr(), part_a.data_ptr(), dkp.data_ptr(),
+                       kpart.data_ptr(), *tail, blocks, parts, kernels.stream(xb))
+        return dx, dksc, rows, dk
+    parts = max(1, min(4 * sms // (F // 32), R // 256))   # column passes' row partitions
+    hid = [empty((R, F), _BF) for _ in range(5)]           # a0, a1, a2, a3, a cotangent
+    H, f1, df1 = empty((R, F)), empty((R, 4)), empty((R, 4))
+    cpart = empty((parts, 4, F))
+    kernels.launch("folding_bwd", "folding", "folding_bwd_wide", _BWD_WIDE_ARGS, *head,
+                   *(h.data_ptr() for h in hid), H.data_ptr(), f1.data_ptr(), df1.data_ptr(),
+                   dspb.data_ptr(), cpart.data_ptr(), kpart.data_ptr(), *tail, parts,
+                   kernels.stream(xb))
     return dx, dksc, rows, dk
 
 
@@ -270,8 +305,8 @@ def fused_folding(x, grid, p1, p2) -> torch.Tensor:
         return fused_folding_plain(x, grid, p1, p2)
     B, M, C = x.shape
     n, F = grid.shape[0], p1[1][0].shape[0]
-    if not supported(C, F, n) or F > _MAX_F:
-        raise ValueError(f"fused_folding kernel is built for C % 128 == 0, F in "
-                         f"(128, 256, 384) and 2 <= n <= 64, got C={C}, F={F}, n={n}")
+    if not kernel_takes(C, F, n):
+        raise ValueError(f"fused_folding kernels are built for C and F positive multiples "
+                         f"of 128 and 2 <= n <= 64, got C={C}, F={F}, n={n}")
     out = _FoldCore.apply(*core_operands(x, grid, p1, p2))
     return out.reshape(B, M, n, 3)

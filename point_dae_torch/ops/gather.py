@@ -135,12 +135,15 @@ def gather_rows_wide_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 _WIDE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_WIDE_ARGS = (kernels.P, kernels.I, kernels.P, kernels.I, kernels.P, kernels.I, kernels.I,
+              kernels.I, kernels.I, kernels.I, kernels.P)
 
 
 def gather_rows_wide(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """The wide gather kernel on a CUDA tensor, its plain version on a CPU
-    one: x (B, N, C) f32, bf16 or f16, idx (B, Q) -> (B, Q, C) f32, exact.
-    No gradient flows through it."""
+    one: x (B, N, C) f32, bf16 or f16, idx (B, Q) int32 or int64 (read as
+    given, no cast launch; other integer types are widened) -> (B, Q, C)
+    f32, exact. No gradient flows through it."""
     if x.device.type == "cpu":
         return gather_rows_wide_plain(x, idx)
     B, N, C = x.shape
@@ -148,16 +151,18 @@ def gather_rows_wide(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"wide gather takes f32, bf16 or f16 rows, got {x.dtype}")
     if x.requires_grad and torch.is_grad_enabled():
         raise ValueError("the wide gather has no backward")
+    if idx.dim() != 2 or idx.shape[0] != B:
+        raise ValueError(f"idx {tuple(idx.shape)} is not (B, Q) for x {tuple(x.shape)}")
     x = x.contiguous()
-    idx32 = idx.to(torch.int32).contiguous()
-    kernels.require_cuda(x, idx32)
-    Q = idx32.shape[1]
+    idx = (idx if idx.dtype in _INDEX_TYPES else idx.long()).contiguous()
+    kernels.require_cuda(x, idx)
+    Q = idx.shape[1]
     out = torch.empty((B, Q, C), dtype=torch.float32, device=x.device)
-    vec = 4 if C % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0 else 1
-    P, I = kernels.P, kernels.I
-    kernels.launch("gather_rows_wide", "gather", "gather_rows_wide",
-                   (P, I, P, P, I, I, I, I, I, P), x.data_ptr(), _WIDE_DTYPES[x.dtype],
-                   idx32.data_ptr(), out.data_ptr(), B, N, Q, C, vec, kernels.stream(x))
+    vec = C % (16 // x.element_size()) == 0 and x.data_ptr() % 16 == 0
+    kernels.launch("gather_rows_wide", "gather", "gather_rows_wide", _WIDE_ARGS,
+                   x.data_ptr(), _WIDE_DTYPES[x.dtype], idx.data_ptr(),
+                   idx.dtype == torch.int64, out.data_ptr(), B, N, Q, C, int(vec),
+                   kernels.stream(x))
     return out
 
 

@@ -62,7 +62,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for fn in (f"{name}.cu", "common.cuh"):
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fn in (f"{name}.cu", *headers):
         with open(os.path.join(CSRC, fn), "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")

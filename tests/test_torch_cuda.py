@@ -165,23 +165,25 @@ def test_bf16_residual_block_takes_the_mlp_kernels(dev):
             kernels.launches["mlp_ln_bwd"]) == (0, 1, 1)
 
 
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("C", [64, 5])
-def test_wide_gather_kernel_is_exact(dev, dtype, C):
+@pytest.mark.parametrize("C", [64, 5, 8, 384])
+def test_wide_gather_kernel_is_exact(dev, dtype, C, idx_dtype):
     """``gather_rows_wide`` against its plain version and ``torch.gather``,
-    bit for bit (C 64 takes the 4-wide loads, C 5 the scalar ones); indices
-    outside [0, N) give zero rows."""
+    bit for bit, from int32 and int64 indices read as given (C 64, 8 and
+    384 take the 16-byte loads where the row type allows, C 5 the scalar
+    ones); indices outside [0, N) give zero rows."""
     g = _gen(dev, 32)
     x = torch.randn((4, 2048, C), generator=g, device=dev).to(dtype)
-    idx = torch.randint(0, 2048, (4, 3000), generator=g, device=dev, dtype=torch.int32)
+    idx = torch.randint(0, 2048, (4, 3001), generator=g, device=dev).to(idx_dtype)
     got = gather.gather_rows_wide(x, idx)
     assert got.dtype == torch.float32
     assert torch.equal(got, gather.gather_rows_wide_plain(x, idx))
     assert torch.equal(got, torch.gather(x.float(), 1,
                                          idx.long()[..., None].expand(-1, -1, C)))
-    idx[1, 5], idx[2, 0] = -3, 2048
+    idx[1, 5], idx[2, 0], idx[3, 3000] = -3, 2048, 2 ** 31 - 1
     got = gather.gather_rows_wide(x, idx)
-    assert not got[1, 5].any() and not got[2, 0].any()
+    assert not got[1, 5].any() and not got[2, 0].any() and not got[3, 3000].any()
     assert torch.equal(got, gather.gather_rows_wide_plain(x, idx))
 
 
@@ -190,22 +192,22 @@ def _rel(a, b):
     return float((a - b).abs().max()) / (float(b.abs().max()) + 1e-12)
 
 
-@pytest.mark.parametrize("C,tokens", [(128, (2, 32)), (384, (3, 50)), (384, (1, 7))])
-def test_fused_folding_kernels_match_plain(dev, C, tokens):
-    """Output and all thirteen gradients; 150 and 7 tokens are multiples of
-    neither the kernels' token tiles nor the 64-token GEMM tile."""
-    g = _gen(dev, 4)
+def _folding_case(dev, C, F, tokens, n=36, seed=4):
+    g = _gen(dev, seed)
     B, M = tokens
-    n = 36
-    lin = torch.linspace(-0.3, 0.3, 6, device=dev)
-    grid = torch.cartesian_prod(lin, lin)
+    side = int(math.isqrt(n))
+    lin = torch.linspace(-0.3, 0.3, side, device=dev)
+    grid = torch.cartesian_prod(lin, lin)[:n]
+    if grid.shape[0] < n:
+        grid = torch.cat([grid, 0.1 * torch.randn((n - grid.shape[0], 2), generator=g,
+                                                  device=dev)])
 
     def stage(extra):
         def w(i, o):
             return torch.randn((i, o), generator=g, device=dev) / math.sqrt(i)
-        return [(w(C + extra, C), 0.05 * torch.randn((C,), generator=g, device=dev)),
-                (w(C, C), 0.05 * torch.randn((C,), generator=g, device=dev)),
-                (w(C, 3), 0.05 * torch.randn((3,), generator=g, device=dev))]
+        return [(w(C + extra, F), 0.05 * torch.randn((F,), generator=g, device=dev)),
+                (w(F, F), 0.05 * torch.randn((F,), generator=g, device=dev)),
+                (w(F, 3), 0.05 * torch.randn((3,), generator=g, device=dev))]
 
     x = torch.randn((B, M, C), generator=g, device=dev)
     cot = torch.randn((B, M, n, 3), generator=g, device=dev)
@@ -218,10 +220,11 @@ def test_fused_folding_kernels_match_plain(dev, C, tokens):
         out = fn(leaves[0], grid, p1, p2)
         return out, torch.autograd.grad(out, leaves, cot)
 
-    ok, gk = run(folding.fused_folding)
-    op, gp = run(folding.fused_folding_plain)
-    torch.cuda.synchronize()
-    assert ok.shape == (B, M, n, 3) and ok.dtype == torch.float32
+    return run
+
+
+def _assert_folding_close(ok, gk, op, gp):
+    assert ok.dtype == torch.float32
     assert _rel(ok, op) < 1e-2
     for i, (a, b) in enumerate(zip(gk, gp)):
         # 2e-2: bf16 operands, 2^-8 a rounding, summed. A ReLU mask that flips
@@ -232,13 +235,46 @@ def test_fused_folding_kernels_match_plain(dev, C, tokens):
         assert float((err > 2e-2).float().mean()) <= 1e-4, i
 
 
-def test_fused_folding_refuses_shapes_outside_the_kernel(dev):
-    """F = 512 passes the gate but not the kernel: it raises."""
-    assert folding.supported(512, 512, 36)
-    z = lambda *shape: torch.zeros(shape, device=dev)
-    stage = lambda e: ((z(512 + e, 512), z(512)), (z(512, 512), z(512)), (z(512, 3), z(3)))
-    with pytest.raises(ValueError, match="built for"):
-        folding.fused_folding(z(1, 2, 512), z(36, 2), stage(2), stage(3))
+@pytest.mark.parametrize("C,tokens,n", [(128, (2, 32), 36), (384, (3, 50), 36),
+                                        (384, (1, 7), 36), (256, (2, 9), 64),
+                                        (128, (2, 9), 2), (128, (1, 5), 20)])
+def test_fused_folding_kernels_match_plain(dev, C, tokens, n):
+    """Output and all thirteen gradients; 150, 18 and 7 tokens are multiples
+    of neither the kernels' token tiles nor the 64-token GEMM tile, and n 64,
+    2 and 20 give tiles of 2 and 8 tokens with padded rows."""
+    run = _folding_case(dev, C, C, tokens, n)
+    ok, gk = run(folding.fused_folding)
+    op, gp = run(folding.fused_folding_plain)
+    torch.cuda.synchronize()
+    assert ok.shape == (tokens[0], tokens[1], n, 3)
+    _assert_folding_close(ok, gk, op, gp)
+
+
+@pytest.mark.parametrize("C,F", [(512, 512), (384, 512), (256, 640), (128, 1024)])
+def test_fused_folding_takes_every_width_of_the_gate(dev, C, F):
+    """F 512 (the widest one-block form) and F 640 and 1024 (the wide form)
+    run on the kernels and match the plain version under the same bound."""
+    from point_dae_torch.utils import kernels
+
+    assert folding.supported(C, F, 36) and folding.kernel_takes(C, F, 36)
+    run = _folding_case(dev, C, F, (2, 40), 36, seed=7)
+    kernels.reset_launches()
+    ok, gk = run(folding.fused_folding)
+    assert (kernels.launches["folding_fwd"], kernels.launches["folding_bwd"]) == (1, 1)
+    op, gp = run(folding.fused_folding_plain)
+    torch.cuda.synchronize()
+    _assert_folding_close(ok, gk, op, gp)
+
+
+@pytest.mark.parametrize("F", [384, 640])
+def test_fused_folding_backward_repeats_bit_for_bit(dev, F):
+    """Two backward calls on the same inputs agree bit for bit: no atomics,
+    every partial sum in a fixed order."""
+    run = _folding_case(dev, F, F, (4, 33), 36, seed=9)
+    _, first = run(folding.fused_folding)
+    _, second = run(folding.fused_folding)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("T,masked", [(32, True), (64, False), (64, True), (16, True),

@@ -169,3 +169,81 @@ def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
         folding.fused_folding(x, grid, t1, t2)
     with pytest.raises(ValueError, match="built for"):
         folding.fused_folding(torch.empty((2, 4, 64), device="meta"), grid, t1, t2)
+
+
+# the gate grid: inside and around pallas_folding.supported
+GATE_C = (64, 128, 256, 384, 512, 640)
+GATE_F = (64, 128, 200, 384, 512, 640, 1024, 2048)
+GATE_N = (1, 2, 36, 64, 65)
+
+
+def test_kernel_takes_every_shape_of_the_gate():
+    """The kernels (one-block form up to F 512, the wide form above) take
+    exactly the shapes ``pallas_folding.supported`` admits."""
+    for c in GATE_C:
+        for f in GATE_F:
+            for n in GATE_N:
+                want = pallas_folding.supported(c, f, n)
+                assert folding.kernel_takes(c, f, n) == want == folding.supported(c, f, n), (c, f, n)
+
+
+def test_every_gate_shape_reaches_the_device_check():
+    """Off the CPU the wrapper goes to its kernels for every shape inside the
+    gate (here, without a card, the device check raises) and refuses the
+    shapes outside it before any pointer is passed."""
+    def stage(c, f, extra):
+        z = lambda *shape: torch.empty(shape, device="meta")
+        return ((z(c + extra, f), z(f)), (z(f, f), z(f)), (z(f, 3), z(3)))
+
+    for c in GATE_C:
+        for f in GATE_F:
+            for n in GATE_N:
+                x = torch.empty((1, 3, c), device="meta")
+                grid = torch.empty((n, 2), device="meta")
+                match = ("expected one CUDA device" if pallas_folding.supported(c, f, n)
+                         else "built for")
+                with pytest.raises(ValueError, match=match):
+                    folding.fused_folding(x, grid, stage(c, f, 2), stage(c, f, 3))
+
+
+def test_plain_version_matches_jax_kernel_at_f_512():
+    """C = F = 512, the widest one-block form: the output and all thirteen
+    gradients of the plain version against the Pallas kernel in interpret
+    mode, 1 x 3 tokens over a 2 x 2 grid, with the tolerances of the module
+    docstring."""
+    width = 512
+    grid = folding_grid((2, 2), (-0.3, 0.3))
+    rng = np.random.default_rng(512)
+
+    def dense(i, o):
+        return ((rng.normal(size=(i, o)) / np.sqrt(i)).astype(np.float32),
+                (0.05 * rng.normal(size=(o,))).astype(np.float32))
+
+    stages = ((dense(width + 2, width), dense(width, width), dense(width, 3)),
+              (dense(width + 3, width), dense(width, width), dense(width, 3)))
+    x = rng.normal(size=(1, 3, width)).astype(np.float32)
+    tgt = rng.normal(size=(1, 3, 4, 3)).astype(np.float32)
+    jstages = jax.tree_util.tree_map(jnp.asarray, stages)
+
+    def run(x_, p1, p2):
+        return pallas_folding.fused_folding(x_, jnp.asarray(grid), p1, p2, tt=4,
+                                            interpret=True)
+
+    def loss(x_, p1, p2):
+        return jnp.sum((run(x_, p1, p2) - tgt) ** 2)
+
+    want_out = run(jnp.asarray(x), *jstages)
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(x), *jstages)
+
+    xt = torch.from_numpy(x).requires_grad_()
+    tstages = tuple(tuple((torch.from_numpy(k).requires_grad_(),
+                           torch.from_numpy(b).requires_grad_()) for k, b in st)
+                    for st in stages)
+    out = folding.fused_folding(xt, torch.from_numpy(grid), *tstages)
+    _assert_close(out.detach().numpy(), want_out, rtol=1e-4, atol=1e-5, name="out")
+    ((out - torch.from_numpy(tgt)) ** 2).sum().backward()
+    leaves_w = jax.tree_util.tree_leaves(want)
+    leaves_g = [xt] + [t for st in tstages for pair in st for t in pair]
+    assert len(leaves_w) == len(leaves_g) == 13
+    for i, (w, g) in enumerate(zip(leaves_w, leaves_g)):
+        _assert_close(g.grad.numpy(), w, rtol=2 ** -6, atol=1e-4, name=str(i))

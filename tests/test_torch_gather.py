@@ -84,3 +84,30 @@ def test_small_c_gather_raises_off_the_cpu_without_a_card():
     with pytest.raises(ValueError, match="C<=8"):
         gather.gather_rows_small_c(torch.empty((2, 16, 9), device="meta"),
                                    torch.zeros((2, 8), dtype=torch.int64, device="meta"))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_gather_takes_int64_indices_out_of_range(dtype):
+    """int64 indices, some of them -1, N and far past N: the plain version
+    and the wrapper (on the CPU, the plain version) give zero rows there and
+    the int32 result elsewhere, bit for bit ``jnp.take_along_axis``."""
+    B, N, C, Q = 2, 300, 64, 517
+    rng = np.random.default_rng(64)
+    x = rng.normal(size=(B, N, C)).astype(np.float32)
+    idx = rng.integers(0, N, size=(B, Q)).astype(np.int64)
+    bad = idx.copy()
+    bad[0, :3] = (-1, N, 2 ** 40)
+    bad[1, -1] = -(2 ** 35)
+    xj = jnp.asarray(x).astype(dtype)
+    want = np.array(jnp.take_along_axis(xj, jnp.asarray(idx.astype(np.int32))[..., None],
+                                        axis=1).astype(jnp.float32))
+    want[0, :3] = 0.0
+    want[1, -1] = 0.0
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    for fn in (gather.gather_rows_wide, gather.gather_rows_wide_plain):
+        got = fn(xt, torch.from_numpy(bad))
+        assert got.dtype == torch.float32 and got.shape == (B, Q, C)
+        assert np.array_equal(got.numpy(), want), fn.__name__
+    meta = torch.empty((B, N, C), device="meta")
+    with pytest.raises(ValueError, match="expected one CUDA device"):
+        gather.gather_rows_wide(meta, torch.zeros((B, Q), dtype=torch.int64, device="meta"))
