@@ -95,6 +95,18 @@ Phases, each fatal on failure:
               int64 index, rows out of range included, bit for bit, its
               device time beside torch.gather's (kernels phase); the
               profiled flagship step prints the folding kernels' total.
+ 12. MLP backward redesign - both MLP backwards (five wgmma GEMMs) at R
+              16384 and 8192 against their plain twins mlp_ln_bwd_plain and
+              mlp_bwd_plain (each output within 5e-3 of its largest value),
+              two calls bit for bit, the device time split by launch (rows
+              in, dual, dxin, weights, LN rows, sums), TFLOP/s over the five
+              products beside the same five products through torch.matmul
+              (the yardstick; the port never calls it), the plain twin's
+              time; the wide form's backward at C 512, 768 and 1024 beside
+              its plain twin; the build prints the mlp kernels' registers
+              and spills; the profiled steps split the mlp_ kernels' total
+              into forward and backward; the flagship step must launch
+              mlp_ln 16 times a step.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Run from the repository root:
 
@@ -303,6 +315,59 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max()) / (float(want.abs().max()) + 1e-12)
 
 
+MLP_LN_GRADS = ("dx", "dgamma", "dbeta", "dk1", "db1", "dk2", "db2")
+MLP_GRADS = ("dx", "dk1", "db1", "dk2", "db2")
+# A kernel backward against its plain twin with round_out=False: the f32 sum
+# order, the flips of dh's bf16 rounding it causes, and for the bf16 outputs
+# their own rounding (at most half a step, 2^-9 of the value).
+MLP_BWD_TOL = 5e-3
+MLP_BWD_SPLIT = (("rows in", "mlp_bwd_rows_in_kernel"), ("dual", "mlp_bwd_dual_kernel"),
+                 ("dxin", "mlp_bwd_dx"), ("weights", "mlp_bwd_weights_kernel"),
+                 ("LN rows", "mlp_bwd_ln_rows_kernel"), ("sums", "mlp_bwd_sums_kernel"))
+
+
+def mlp_bwd_report(torch, name, kernel, plain, args, C, H, device):
+    """One backward (``kernel(args)``, the raw mlp_ln or mlp backward) at the
+    rows of ``args``: two calls held bit for bit, its time a call (CUDA
+    events) and its device time split by launch (torch.profiler), TFLOP/s
+    over the five products, and the same five products through
+    torch.matmul on bf16 operands of the same shapes (the products'
+    yardstick; the port never calls it); the plain twin's time."""
+    R = args[0].shape[0]
+    one, two = kernel(args), kernel(args)
+    if not all(torch.equal(a, b) for a, b in zip(one, two)):
+        fail(f"{name} backward at R {R}: two calls on the same inputs differ")
+    del one, two
+    ms = cuda_ms(lambda: kernel(args), 20)
+    split = device_split(lambda: kernel(args), MLP_BWD_SPLIT, calls=10)
+    g = torch.Generator(device=device).manual_seed(SEED + 7)
+    bf = torch.bfloat16
+    xin = torch.randn((R, C), generator=g, device=device).to(bf)
+    gbr = torch.randn((R, C), generator=g, device=device).to(bf)
+    dh = torch.randn((R, H), generator=g, device=device).to(bf)
+    act = torch.randn((R, H), generator=g, device=device).to(bf)
+    k1b = torch.randn((C, H), generator=g, device=device).to(bf)
+    k2b = torch.randn((H, C), generator=g, device=device).to(bf)
+
+    def yardstick():
+        return (xin @ k1b, gbr @ k2b.t(), dh @ k1b.t(), xin.t() @ dh, act.t() @ gbr)
+
+    lib_ms = cuda_ms(yardstick, 20)
+    lib_dev, _ = device_ms(yardstick, calls=10)
+    plain_ms = cuda_ms(lambda: plain(args), 5)
+    flops = 5 * 2 * R * C * H
+    prods = split["dual"] + split["dxin"] + split["weights"]
+    note = (f"device {split['total']:.4f} ms: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in split.items() if k != "total" and v)
+        + f"; {flops / split['total'] / 1e9:.1f} TFLOP/s over the five products "
+        f"({flops / prods / 1e9:.1f} in their three launches); torch.matmul's five products "
+        f"{lib_ms:.4f} ms, device {lib_dev:.4f} ({flops / lib_dev / 1e9:.1f} TFLOP/s); "
+        f"two calls bit for bit")
+    log(f"  {name} backward at R {R}, C {C}, H {H}: {ms:.4f} ms a call (plain "
+        f"{plain_ms:.4f}); {note}")
+    return dict(ms=ms, plain_ms=plain_ms, note=note)
+
+
 def relu_flips_ok(got, want, tol=2e-2, flip_tol=1e-1, flip_frac=1e-4) -> bool:
     """The folding head's bound: error over the plain version's largest
     magnitude within ``tol`` (bf16 operands: 2^-8 a rounding, summed), except
@@ -413,43 +478,48 @@ def phase_kernels(torch, pts, device):
     leaves = [t.clone().requires_grad_() for t in (xm, gm, bt, k1, b1, k2, b2)]
     y_k = mlp.fused_mlp_ln(*leaves, row_scale=sc)
     gk = torch.autograd.grad(y_k, leaves, cot)
-    plain = [t.clone().requires_grad_() for t in (xm, gm, bt, k1, b1, k2, b2)]
-    y_p = mlp.fused_mlp_ln_plain(*plain, row_scale=sc)
-    gp = torch.autograd.grad(y_p, plain, cot)
+    y_p = mlp.fused_mlp_ln_plain(xm, gm, bt, k1, b1, k2, b2, sc)
+    gp = mlp.mlp_ln_bwd_plain(xm, gm, bt, k1b, b1, k2b, sc, cot, round_out=False)
     worst = {"y": rel_err(y_k - xm, y_p - xm)}
     abs_err = {"y": float((y_k - y_p).detach().abs().max())}
-    for name, a, b in zip(("dx", "dgamma", "dbeta", "dk1", "db1", "dk2", "db2"), gk, gp):
+    for name, a, b in zip(MLP_LN_GRADS, gk, gp):
         worst[name] = rel_err(a, b)
         abs_err[name] = float((a.float() - b.float()).abs().max())
-    log("  fused_mlp_ln max error / max |plain|: "
-        + " ".join(f"{k} {v:.2e}" for k, v in worst.items()))
-    if max(worst.values()) > 2e-2:      # bf16 operands: 2^-8 per rounding, summed
-        fail(f"fused_mlp_ln disagrees with its plain version: {worst}")
+    log("  fused_mlp_ln max error / max |plain| (gradients against mlp_ln_bwd_plain, "
+        "weights before their bf16 rounding): " + " ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    if worst["y"] > 2e-2:      # bf16 operands: 2^-8 per rounding, summed
+        fail(f"fused_mlp_ln forward disagrees with its plain version: {worst}")
+    if max(v for k, v in worst.items() if k != "y") > MLP_BWD_TOL:
+        fail(f"fused_mlp_ln backward disagrees with mlp_ln_bwd_plain: {worst}")
+    del leaves, y_k, gk, y_p, gp
     fwd_args = (xm, gm, bt, k1b, b1, k2b, b2, sc)
     fwd_ms = cuda_ms(lambda: mlp.mlp_ln_fwd_kernel(*fwd_args), 20)
-    bwd_ms = cuda_ms(lambda: mlp.mlp_ln_bwd_kernel(xm, gm, bt, k1b, b1, k2b, sc, cot), 10)
-    yp2 = mlp.fused_mlp_ln_plain(*plain, row_scale=sc)
     plain_fwd = cuda_ms(lambda: mlp.fused_mlp_ln_plain(xm, gm, bt, k1, b1, k2, b2, sc), 10)
-    plain_bwd = cuda_ms(lambda: torch.autograd.grad(yp2, plain, cot, retain_graph=True), 10)
+    bwd_args = (xm, gm, bt, k1b, b1, k2b, sc, cot)
+    bwd = mlp_bwd_report(torch, "mlp_ln", lambda a: mlp.mlp_ln_bwd_kernel(*a),
+                         lambda a: mlp.mlp_ln_bwd_plain(*a), bwd_args, C, H, device)
     io = R * C * 4
     wbytes = 2 * C * H * 2
     mm = 2 * R * C * H
     for name, ms, pms, nbytes, flops, err in (
             ("mlp_ln_fwd", fwd_ms, plain_fwd, 2 * io + wbytes + R * 4, 2 * mm, abs_err["y"]),
-            ("mlp_ln_bwd", bwd_ms, plain_bwd, 3 * io + 2 * wbytes + R * 4 + C * H * 4,
+            ("mlp_ln_bwd", bwd["ms"], bwd["plain_ms"], 3 * io + 2 * wbytes + R * 4 + C * H * 4,
              5 * mm, max(v for k, v in abs_err.items() if k != "y"))):
         records[name] = dict(
             replaces="point_dae_tpu/ops/pallas_mlp.py:"
                      + ("227" if name.endswith("fwd") else "244"),
             source="point_dae_torch/csrc/mlp.cu", max_abs_err=err, ms=ms,
             plain_ms=pms, library_ms=None, bound=bound_ms(nbytes, flops, BF16_FLOPS),
-            note=f"R {R}, C {C}, H {H}")
-    # the encoder's shape, R = 256 * 32, printed for PERF.md
-    xe = xm[: BATCH * 32].contiguous()
-    sce = sc[: BATCH * 32].contiguous()
-    log(f"  fused_mlp_ln at R {xe.shape[0]}: fwd "
-        f"{cuda_ms(lambda: mlp.mlp_ln_fwd_kernel(xe, gm, bt, k1b, b1, k2b, b2, sce), 20):.4f} ms, bwd "
-        f"{cuda_ms(lambda: mlp.mlp_ln_bwd_kernel(xe, gm, bt, k1b, b1, k2b, sce, cot[: xe.shape[0]].contiguous()), 10):.4f} ms")
+            note=f"R {R}, C {C}, H {H}" + ("; " + bwd["note"] if name.endswith("bwd") else ""))
+    # the encoder's shape, R = 256 * 32
+    Re = BATCH * 32
+    xe = xm[:Re].contiguous()
+    sce = sc[:Re].contiguous()
+    log(f"  fused_mlp_ln at R {Re}: fwd "
+        f"{cuda_ms(lambda: mlp.mlp_ln_fwd_kernel(xe, gm, bt, k1b, b1, k2b, b2, sce), 20):.4f} ms")
+    mlp_bwd_report(torch, "mlp_ln", lambda a: mlp.mlp_ln_bwd_kernel(*a),
+                   lambda a: mlp.mlp_ln_bwd_plain(*a),
+                   (xe, gm, bt, k1b, b1, k2b, sce, cot[:Re].contiguous()), C, H, device)
 
     records.update(phase_folding(torch, device, g))
     records.update(phase_attention(torch, device, g))
@@ -1185,6 +1255,8 @@ def phase_train(torch, config, raw, device, card):
                                                         TRAIN_STEPS, SEED)
     if min(launches[k] for k in FLAGSHIP_COUNTERS) == 0:
         fail(f"train: a kernel was never launched on the main path: {launches}")
+    if (launches["mlp_ln_fwd"], launches["mlp_ln_bwd"]) != (16 * TRAIN_STEPS,) * 2:
+        fail(f"train: the flagship did not launch mlp_ln 16 times a step: {launches}")
     log(f"  launches on the main path ({TRAIN_STEPS} steps): "
         f"{ {k: launches[k] for k in FLAGSHIP_COUNTERS} }")
     log(f"  [{card}] step {steady * 1e3:.2f} ms (median of steps 2-{TRAIN_STEPS}), "
@@ -1227,7 +1299,7 @@ def profile_step(torch, run, card, top: int = 25):
               if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
               and not getattr(e, "is_user_annotation", False)]
     busy = sum(dev_us(e) for e in events)
-    ours = {"mlp_": 0.0, "sum_partials": 0.0, "patchify_kernel": 0.0,
+    ours = {"mlp_": 0.0, "patchify_kernel": 0.0,
             "gather_rows_kernel": 0.0, "nn_half_small_kernel": 0.0,
             "fold_fwd_kernel": 0.0, "fold_bwd_rows_kernel": 0.0,
             "fold_bwd_weights_kernel": 0.0, "::gemm_kernel<": 0.0,
@@ -1245,9 +1317,12 @@ def profile_step(torch, run, card, top: int = 25):
                 ours[k] += dev_us(e)
     # the folding head's kernels: csrc/folding.cu's fold_* and its small GEMMs
     fold = sum(dev_us(e) for e in events if "fold_" in e.key or "::gemm_kernel<" in e.key)
+    # csrc/mlp.cu's backward launches are mlp_bwd_*; the rest of mlp_* the forward
+    mlp_bwd = sum(dev_us(e) for e in events if "mlp_bwd_" in e.key)
     log(f"  [{card}] profiled step: wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), folding kernels in total "
-        f"{fold / 1e3:.2f} ms, ported kernels "
+        f"{fold / 1e3:.2f} ms, mlp_ kernels {ours['mlp_'] / 1e3:.2f} ms (forward "
+        f"{(ours['mlp_'] - mlp_bwd) / 1e3:.2f}, backward {mlp_bwd / 1e3:.2f}), ported kernels "
         + ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in ours.items() if v))
     for e in sorted(events, key=dev_us, reverse=True)[:top]:
         log(f"    {dev_us(e) / 1e3:8.3f} ms {100 * dev_us(e) / busy:5.1f}% "
@@ -2239,40 +2314,45 @@ def phase_mlp_wide_kernels(torch, device):
         leaves = [t.clone().requires_grad_() for t in (x, k1, b1, k2, b2)]
         y_k = mlp.fused_mlp(*leaves)
         gk = torch.autograd.grad(y_k, leaves, cot)
-        plain = [t.clone().requires_grad_() for t in (x, k1, b1, k2, b2)]
-        y_p = mlp.fused_mlp_plain(*plain)
-        gp = torch.autograd.grad(y_p, plain, cot, retain_graph=True)
+        y_p = mlp.fused_mlp_plain(x, k1, b1, k2, b2)
+        gp = mlp.mlp_bwd_plain(x, k1b, b1, k2b, cot, round_out=False)
         worst = {"y": rel_err(y_k, y_p)}
         abs_err = {"y": float((y_k - y_p).detach().abs().max())}
-        for name, a, b in zip(("dx", "dk1", "db1", "dk2", "db2"), gk, gp):
+        for name, a, b in zip(MLP_GRADS, gk, gp):
             worst[name] = rel_err(a, b)
             abs_err[name] = float((a.float() - b.float()).abs().max())
-        log(f"  fused_mlp at R {R} max error / max |plain|: "
+        log(f"  fused_mlp at R {R} max error / max |plain| (gradients against mlp_bwd_plain, "
+            "dx and weights before their bf16 rounding): "
             + " ".join(f"{k} {v:.2e}" for k, v in worst.items()))
-        if max(worst.values()) > 2e-2:      # bf16 operands: 2^-8 per rounding, summed
+        if worst["y"] > 2e-2:      # bf16 operands: 2^-8 per rounding, summed
             fail(f"fused_mlp disagrees with its plain version at R {R}: {worst}")
+        if max(v for k, v in worst.items() if k != "y") > MLP_BWD_TOL:
+            fail(f"fused_mlp backward disagrees with mlp_bwd_plain at R {R}: {worst}")
+        del leaves, y_k, gk, y_p, gp
         fwd_ms = cuda_ms(lambda: mlp.mlp_fwd_kernel(x, k1b, b1, k2b, b2), 20)
-        bwd_ms = cuda_ms(lambda: mlp.mlp_bwd_kernel(x, k1b, b1, k2b, cot), 10)
         plain_fwd = cuda_ms(lambda: mlp.fused_mlp_plain(x, k1, b1, k2, b2), 10)
-        plain_bwd = cuda_ms(lambda: torch.autograd.grad(y_p, plain, cot, retain_graph=True), 10)
+        bwd = mlp_bwd_report(torch, "mlp", lambda a: mlp.mlp_bwd_kernel(*a),
+                             lambda a: mlp.mlp_bwd_plain(*a), (x, k1b, b1, k2b, cot), C, H,
+                             device)
         mm = 2 * R * C * H
         fwd_bytes = R * C * (2 + 4) + 2 * C * H * 2 + (H + C) * 4
         bwd_bytes = R * C * (2 + 4 + 2) + 4 * C * H * 2 + 2 * (H + C) * 4
         if R != BATCH * 64:
             log(f"  fused_mlp at R {R}: fwd {fwd_ms:.4f} ms (plain {plain_fwd:.4f}, bound "
-                f"{bound_ms(fwd_bytes, 2 * mm, BF16_FLOPS)[0]:.4f}), bwd {bwd_ms:.4f} ms "
-                f"(plain {plain_bwd:.4f}, bound {bound_ms(bwd_bytes, 5 * mm, BF16_FLOPS)[0]:.4f})")
+                f"{bound_ms(fwd_bytes, 2 * mm, BF16_FLOPS)[0]:.4f}), bwd {bwd['ms']:.4f} ms "
+                f"(plain {bwd['plain_ms']:.4f}, bound "
+                f"{bound_ms(bwd_bytes, 5 * mm, BF16_FLOPS)[0]:.4f})")
             continue
         for name, ms, pms, nbytes, flops, err, line in (
                 ("mlp_fwd", fwd_ms, plain_fwd, fwd_bytes, 2 * mm, abs_err["y"], "138"),
-                ("mlp_bwd", bwd_ms, plain_bwd, bwd_bytes, 5 * mm,
+                ("mlp_bwd", bwd["ms"], bwd["plain_ms"], bwd_bytes, 5 * mm,
                  max(v for k, v in abs_err.items() if k != "y"), "158")):
             records[name] = dict(
                 replaces=f"point_dae_tpu/ops/pallas_mlp.py:{line}",
                 source="point_dae_torch/csrc/mlp.cu", max_abs_err=err, ms=ms,
                 plain_ms=pms, library_ms=None, bound=bound_ms(nbytes, flops, BF16_FLOPS),
-                note=f"R {R}, C {C}, H {H}")
-        del x, cot, leaves, plain, y_k, y_p, gk, gp
+                note=f"R {R}, C {C}, H {H}" + ("; " + bwd["note"] if name == "mlp_bwd" else ""))
+        del x, cot
 
     before = kernels.launches["gather_rows_wide"]
     B, N, Cw, Q = 16, 2048, 64, 40960
@@ -2326,11 +2406,12 @@ WIDE_MLP_TIME_ROWS = BATCH * 64  # the flagship decoder's row count
 
 
 def phase_mlp_wide_c(torch, device, card):
-    """The mlp_ln and mlp kernels' wide form (rows wider than 384), forward
-    and backward, at C 512, 768 and 1024 (H 4 C) against their plain
+    """The mlp_ln and mlp kernels' wide forward (rows wider than 384) and
+    their one backward at C 512, 768 and 1024 (H 4 C) against their plain
     versions at R 256 with the card tests' tolerances (the output within
-    1e-2, every gradient within 2e-2 of its largest value); then each
-    direction's time at R 16384 beside its plain version and bound."""
+    1e-2 of its largest value, every gradient within MLP_BWD_TOL of the
+    plain twin's); then each direction's time at R 16384 beside its plain
+    version and bound."""
     from point_dae_torch.ops import mlp
 
     g = torch.Generator(device=device).manual_seed(SEED + 95)
@@ -2352,24 +2433,27 @@ def phase_mlp_wide_c(torch, device, card):
         R = WIDE_MLP_CHECK_ROWS
         sc = ((torch.rand((R,), generator=g, device=device) >= 0.1) / 0.9).float()
         cot = torch.randn((R, C), generator=g, device=device)
-        for name, args, kfn, pfn, kw in (
-                ("mlp_ln", ln_args(R), mlp.fused_mlp_ln, mlp.fused_mlp_ln_plain,
-                 {"row_scale": sc}),
-                ("mlp", [torch.randn((R, C), generator=g, device=device).to(bf)] + weights(),
-                 mlp.fused_mlp, mlp.fused_mlp_plain, {})):
+        la = ln_args(R)
+        xb = torch.randn((R, C), generator=g, device=device).to(bf)
+        ma = [xb] + weights()
+        for name, args, kfn, pfn, kw, twin in (
+                ("mlp_ln", la, mlp.fused_mlp_ln, mlp.fused_mlp_ln_plain, {"row_scale": sc},
+                 lambda: mlp.mlp_ln_bwd_plain(la[0], la[1], la[2], la[3].to(bf), la[4],
+                                              la[5].to(bf), sc, cot, round_out=False)),
+                ("mlp", ma, mlp.fused_mlp, mlp.fused_mlp_plain, {},
+                 lambda: mlp.mlp_bwd_plain(xb, ma[1].to(bf), ma[2], ma[3].to(bf), cot,
+                                           round_out=False))):
             lk = [t.clone().requires_grad_() for t in args]
-            lp = [t.clone().requires_grad_() for t in args]
-            yk, yp = kfn(*lk, **kw), pfn(*lp, **kw)
+            yk, yp = kfn(*lk, **kw), pfn(*args, **kw)
             gk = torch.autograd.grad(yk, lk, cot)
-            gp = torch.autograd.grad(yp, lp, cot)
             base = args[0] if name == "mlp_ln" else 0
             worst = {"y": rel_err(yk - base, yp - base)}
-            worst.update({f"g{i}": rel_err(a, b) for i, (a, b) in enumerate(zip(gk, gp))})
+            worst.update({f"g{i}": rel_err(a, b) for i, (a, b) in enumerate(zip(gk, twin()))})
             log(f"  {name} wide form, R {R}, C {C}, H {H}: max error / max |plain| "
                 + " ".join(f"{k} {v:.2e}" for k, v in worst.items()))
-            if worst["y"] > 1e-2 or max(worst.values()) > 2e-2:
+            if worst["y"] > 1e-2 or max(v for k, v in worst.items() if k != "y") > MLP_BWD_TOL:
                 fail(f"{name} wide form at C {C} disagrees with its plain version: {worst}")
-            del lk, lp, yk, yp, gk, gp
+            del lk, yk, yp, gk
 
         R = WIDE_MLP_TIME_ROWS
         xa = ln_args(R)
@@ -2380,19 +2464,24 @@ def phase_mlp_wide_c(torch, device, card):
         mm = 2 * R * C * H
         wbytes = 2 * C * H * 2
         lines = []
-        for name, fwd, bwd, pfwd, io in (
+        for name, fwd, bwd, pfwd, pbwd, io in (
                 ("mlp_ln",
                  lambda: mlp.mlp_ln_fwd_kernel(xa[0], xa[1], xa[2], k1b, xa[4], k2b, xa[6], scr),
                  lambda: mlp.mlp_ln_bwd_kernel(xa[0], xa[1], xa[2], k1b, xa[4], k2b, scr, cotr),
-                 lambda: mlp.fused_mlp_ln_plain(*xa, row_scale=scr), R * C * 4),
+                 lambda: mlp.fused_mlp_ln_plain(*xa, row_scale=scr),
+                 lambda: mlp.mlp_ln_bwd_plain(xa[0], xa[1], xa[2], k1b, xa[4], k2b, scr, cotr),
+                 R * C * 4),
                 ("mlp", lambda: mlp.mlp_fwd_kernel(xb, k1b, xa[4], k2b, xa[6]),
                  lambda: mlp.mlp_bwd_kernel(xb, k1b, xa[4], k2b, cotr),
-                 lambda: mlp.fused_mlp_plain(xb, *xa[3:]), R * C * 2)):
-            f_ms, b_ms, p_ms = cuda_ms(fwd, 5), cuda_ms(bwd, 3), cuda_ms(pfwd, 3)
+                 lambda: mlp.fused_mlp_plain(xb, *xa[3:]),
+                 lambda: mlp.mlp_bwd_plain(xb, k1b, xa[4], k2b, cotr), R * C * 2)):
+            f_ms, b_ms, p_ms, pb_ms = cuda_ms(fwd, 5), cuda_ms(bwd, 5), cuda_ms(pfwd, 3), \
+                cuda_ms(pbwd, 2)
             bf_ = bound_ms(io + R * C * 4 + wbytes, 2 * mm, BF16_FLOPS)
             bb_ = bound_ms(2 * io + R * C * 4 + 2 * wbytes, 5 * mm, BF16_FLOPS)
             lines.append(f"{name} fwd {f_ms:.4f} ms (plain {p_ms:.4f}, bound {bf_[0]:.4f} by "
-                         f"{bf_[1]}), bwd {b_ms:.4f} ms (bound {bb_[0]:.4f} by {bb_[1]})")
+                         f"{bf_[1]}), bwd {b_ms:.4f} ms (plain {pb_ms:.4f}, bound {bb_[0]:.4f} "
+                         f"by {bb_[1]}; {5 * mm / b_ms / 1e9:.1f} TFLOP/s)")
         log(f"  [{card}] wide form at R {R}, C {C}, H {H}: " + "; ".join(lines))
         del xa, xb, k1b, k2b, cotr
         torch.cuda.empty_cache()
@@ -2619,6 +2708,9 @@ def main() -> None:
         if name == "folding":
             log_named_build("folding", text,
                             r"\d((?:fold|gemm|wide)_[a-z0-9_]*?kernel(?:ILb[01]ELb[01]E|ILi\dE)?)")
+            continue
+        if name == "mlp":
+            log_named_build("mlp", text, r"\d(mlp_[a-z_]*?kernel(?:IL[bi]\d+EL[bi]\d+E|IL[bi]\d+E)?)")
             continue
         for line in text.splitlines():
             if "registers" in line or "spill" in line.lower() and "0 bytes" not in line:

@@ -12,38 +12,57 @@
 // Replaces point_dae_tpu/ops/pallas_mlp.py:fused_mlp_ln (_fwd_ln_kernel and
 // _bwd_ln_kernel) and fused_mlp (_fwd_kernel and _bwd_kernel).
 //
-// Design (C in 128, 256, 384; wider rows take the wide form further down,
-// a few plain tiled products a direction). A block owns 64 rows. The forward puts them into shared memory
-// as bf16 (mlp_ln: normalised), then walks the hidden dimension in chunks:
-// h = x @ k1c, GELU, out += a @ k2c. The (64, H) hidden never leaves the
-// chip, as in the TPU kernels. Products are WMMA 16x16x16 bf16 fragments
-// with f32 accumulators; the (64, C) output accumulator stays in registers
-// across the chunks.
-// The TPU backwards accumulated the weight gradients over a sequential
-// grid, which Hopper does not have. Here each is three launches, none with
-// atomics, so the sums are the same from run to run:
-//   A (one block per 64 rows): recompute the hidden chunk by chunk and
-//     dx = dh @ k1^T (mlp_ln: through the LN backward); write the branch
-//     cotangent as bf16 (R, C) scratch (mlp_ln: and LN(x)) and per-block
-//     partial column sums (mlp_ln: dgamma, dbeta, db2; mlp: db2).
-//   B (one block per hidden chunk and row partition): recompute h and dh
-//     from the bf16 rows and cotangent, accumulate dk1 (C, chunk), dk2
-//     (chunk, C) and db1 over the partition's rows in registers, write
-//     per-partition partials. Both forms share it.
-//   C: sum the partials (dk1 and dk2 rounded to bf16, as the TPU kernels'
-//     callers round them).
+// Forward (C in 128, 256, 384; wider rows take the wide form further down).
+// A block owns 64 rows. It puts them into shared memory as bf16 (mlp_ln:
+// normalised), then walks the hidden dimension in chunks: h = x @ k1c,
+// GELU, out += a @ k2c. The (64, H) hidden never leaves the chip, as in the
+// TPU kernels. Products are WMMA 16x16x16 bf16 fragments with f32
+// accumulators; the (64, C) output accumulator stays in registers across
+// the chunks.
+//
+// Backward (every R, C, H multiple of 64): five products, the count of the
+// bound, each a dense GEMM of one engine written for Hopper (wgmma), with
+// the TPU kernel's rounding points. The TPU kernel keeps the (R, H) hidden
+// in VMEM; here bf16(dh) and bf16(GELU(h)) are written once and read once
+// (2 x 48 MiB at R 16384, C 384, H 1536: about 60 us of 3.35 TB/s), and
+// every product then has K >= 64 and 128 x 128 output tiles. Launches:
+//   1. rows in, 32 rows a block, one warp a row: hin = bf16(LN(x)) (mlp_ln),
+//      gbr = bf16(s * g), and the block's column sums of s * g (db2);
+//   2. dual: h = hin k1 and da = gbr k2^T in two accumulators; the epilogue
+//      writes bf16(dh), dh = da GELU'(h + b1), and bf16(GELU(h + b1)), and
+//      each 128-row tile's column sums of the f32 dh (db1 partials);
+//   3. dxin = bf16(dh) k1^T: f32 (mlp_ln) or the bf16 dx (mlp);
+//   4. dk1 = hin^T bf16(dh) and dk2 = bf16(GELU(h))^T gbr in one launch,
+//      R cut into S slices (a function of R, C, H chosen by the caller to
+//      fill the card's SMs evenly), f32 partials a slice;
+//   5. (mlp_ln) the LayerNorm backward, 32 rows a block, one warp a row:
+//      dx, and the block's column sums of dxin xhat and dxin (dgamma,
+//      dbeta);
+//   6. one pass that sums every set of partials in a fixed order (dk1 and
+//      dk2 then rounded to bf16, as the TPU kernels' callers round them).
+// No atomics: every partial has one owner, so two calls give the same bits.
+//
+// The engine (bwd_gemm below): 256 threads, two warpgroups of 64 rows on a
+// 128 x 128 output tile; 64-deep k tiles in a ring of three shared-memory
+// stages fed by cp.async (16 bytes a thread a copy, in the 128-byte
+// swizzle that the wgmma descriptors read; a stage's copies are issued
+// while the products of the stage before run); m64n128k16 products with
+// every operand majorness through the descriptors' transpose bits; the
+// epilogue works on the accumulators in registers, and the dual product's
+// two bf16 tiles leave through shared memory as 16-byte stores along rows
+// (straight from the accumulators' layout a warp's store would cover eight
+// rows with 16 bytes each, half of every 32-byte sector).
 //
 // Bound on the H100: operations. At the flagship decoder shape (R 16384,
 // C 384, H 1536) the forward is 39 GFLOP of bf16 products against 50 MB
-// moved; the backward 97 GFLOP. These plain WMMA loops without TMA, wgmma
-// or pipelining reach a fraction of the tensor-core peak; that is later
-// work.
+// moved; the backward 97 GFLOP. The forward's plain WMMA loops without
+// asynchronous copies reach a fraction of the tensor-core peak.
 #include <cuda_bf16.h>
 #include <mma.h>
 
-#include <type_traits>
-
 #include "common.cuh"
+#include "mma.cuh"
+#include "wgmma.cuh"
 
 using namespace nvcuda;
 using bf16 = __nv_bfloat16;
@@ -54,16 +73,13 @@ constexpr int TR = 64;     // rows per block
 constexpr int NT = 256;    // threads per block
 constexpr int NW = NT / 32;
 constexpr int HCF = 64;    // hidden chunk, forward
-constexpr int HCB = 32;    // hidden chunk, backward
 constexpr int PADH = 8;    // bf16 row padding (keeps 32-byte fragment alignment)
 constexpr int PADF = 4;    // f32 row padding
 
 __host__ __device__ constexpr size_t align128(size_t b) { return (b + 127) / 128 * 128; }
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragAT = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 __device__ __forceinline__ float gelu(float h) {
@@ -253,396 +269,6 @@ mlp_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ k1,
   }
 }
 
-// ------------------------------------------------------- backward, pass A
-
-template <int C>
-struct BwdALayout {
-  static constexpr int LDH = C + PADH;     // hin      (TR, C)  bf16
-  static constexpr int LDG = C + PADH;     // s * g    (TR, C)  bf16
-  static constexpr int LDK1 = HCB + PADH;  // k1 chunk (C, HCB) bf16
-  static constexpr int LDK2 = C + PADH;    // k2 chunk (HCB, C) bf16
-  static constexpr int LDHF = HCB + PADF;  // h, da    (TR, HCB) f32
-  static constexpr int LDDH = HCB + PADH;  // dh       (TR, HCB) bf16
-  static constexpr int LDO = C + PADF;     // dxin     (TR, C) f32, over hin and g
-  static constexpr size_t HIN = 0;
-  static constexpr size_t G = align128(HIN + size_t(TR) * LDH * 2);
-  static constexpr size_t K1 = align128(G + size_t(TR) * LDG * 2);
-  static constexpr size_t K2 = align128(K1 + size_t(C) * LDK1 * 2);
-  static constexpr size_t HF = align128(K2 + size_t(HCB) * LDK2 * 2);
-  static constexpr size_t DA = align128(HF + size_t(TR) * LDHF * 4);
-  static constexpr size_t DH = align128(DA + size_t(TR) * LDHF * 4);
-  static constexpr size_t BYTES = align128(DH + size_t(TR) * LDDH * 2);
-  static constexpr size_t WPART = align128(size_t(TR) * LDO * 4);  // NW x 3 x C f32
-  static_assert(size_t(TR) * LDO * 4 <= K1, "dxin tile must fit over hin and g");
-  static_assert(WPART + size_t(NW) * 3 * C * 4 <= BYTES, "warp partials must fit");
-};
-
-// The rows pass's hidden loop over the block's 64 bf16 rows (hin) and
-// bf16 branch cotangent (g) in shared memory: recompute h chunk by chunk,
-// dh = (g @ k2^T) * GELU'(h + b1) rounded to bf16, and dxin = dh @ k1^T,
-// left in f32 at s_dx (over hin and g) with a barrier after it.
-template <int C>
-__device__ __forceinline__ void bwd_rows_hidden(unsigned char* smem,
-                                                const bf16* __restrict__ k1,
-                                                const float* __restrict__ b1,
-                                                const bf16* __restrict__ k2, int H) {
-  using L = BwdALayout<C>;
-  constexpr int NF = C / 32;
-  const bf16* s_hin = reinterpret_cast<const bf16*>(smem + L::HIN);
-  const bf16* s_g = reinterpret_cast<const bf16*>(smem + L::G);
-  bf16* s_k1 = reinterpret_cast<bf16*>(smem + L::K1);
-  bf16* s_k2 = reinterpret_cast<bf16*>(smem + L::K2);
-  float* s_h = reinterpret_cast<float*>(smem + L::HF);
-  float* s_da = reinterpret_cast<float*>(smem + L::DA);
-  bf16* s_dh = reinterpret_cast<bf16*>(smem + L::DH);
-  float* s_dx = reinterpret_cast<float*>(smem);
-
-  const int warp = threadIdx.x >> 5;
-  const int rw = warp & 3, half = warp >> 2, cf = warp >> 2;
-  FragC acc[NF];
-#pragma unroll
-  for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[j], 0.f);
-
-  for (int h0 = 0; h0 < H; h0 += HCB) {
-    __syncthreads();
-    load_tile(s_k1, L::LDK1, k1 + h0, H, C, HCB);
-    load_tile(s_k2, L::LDK2, k2 + size_t(h0) * C, C, HCB, C);
-    __syncthreads();
-    {
-      FragC hacc, dacc;
-      wmma::fill_fragment(hacc, 0.f);
-      wmma::fill_fragment(dacc, 0.f);
-#pragma unroll 4
-      for (int kk = 0; kk < C / 16; ++kk) {
-        FragA a, ga;
-        FragB b;
-        FragBT bt2;
-        wmma::load_matrix_sync(a, s_hin + rw * 16 * L::LDH + kk * 16, L::LDH);
-        wmma::load_matrix_sync(b, s_k1 + kk * 16 * L::LDK1 + cf * 16, L::LDK1);
-        wmma::mma_sync(hacc, a, b, hacc);
-        wmma::load_matrix_sync(ga, s_g + rw * 16 * L::LDG + kk * 16, L::LDG);
-        wmma::load_matrix_sync(bt2, s_k2 + cf * 16 * L::LDK2 + kk * 16, L::LDK2);
-        wmma::mma_sync(dacc, ga, bt2, dacc);
-      }
-      wmma::store_matrix_sync(s_h + rw * 16 * L::LDHF + cf * 16, hacc, L::LDHF,
-                              wmma::mem_row_major);
-      wmma::store_matrix_sync(s_da + rw * 16 * L::LDHF + cf * 16, dacc, L::LDHF,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < TR * HCB; e += NT) {
-      const int r = e / HCB, c = e % HCB;
-      const float h = s_h[r * L::LDHF + c] + b1[h0 + c];
-      s_dh[r * L::LDDH + c] = __float2bfloat16(s_da[r * L::LDHF + c] * gelu_grad(h));
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < HCB / 16; ++kk) {
-      FragA a;
-      wmma::load_matrix_sync(a, s_dh + rw * 16 * L::LDDH + kk * 16, L::LDDH);
-#pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        FragBT b;
-        wmma::load_matrix_sync(b, s_k1 + (half * NF + j) * 16 * L::LDK1 + kk * 16, L::LDK1);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < NF; ++j)
-    wmma::store_matrix_sync(s_dx + rw * 16 * L::LDO + (half * NF + j) * 16, acc[j],
-                            L::LDO, wmma::mem_row_major);
-  __syncthreads();
-
-}
-
-template <int C>
-__global__ void __launch_bounds__(NT, 1)
-mlp_ln_bwd_rows_kernel(const float* __restrict__ x, const float* __restrict__ gm,
-                       const float* __restrict__ bt, const bf16* __restrict__ k1,
-                       const float* __restrict__ b1, const bf16* __restrict__ k2,
-                       const float* __restrict__ sc, const float* __restrict__ g,
-                       float* __restrict__ dx, bf16* __restrict__ hin_out,
-                       bf16* __restrict__ gbr_out, float* __restrict__ part,
-                       int H, float eps) {
-  using L = BwdALayout<C>;
-  constexpr int V = C / 32;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* s_hin = reinterpret_cast<bf16*>(smem + L::HIN);
-  bf16* s_g = reinterpret_cast<bf16*>(smem + L::G);
-  const float* s_dx = reinterpret_cast<const float*>(smem);
-  float* s_wpart = reinterpret_cast<float*>(smem + L::WPART);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t r0 = size_t(blockIdx.x) * TR;
-
-  // LN(x) and the branch cotangent s * g, to shared memory and to scratch
-  for (int rr = warp; rr < TR; rr += NW) {
-    const size_t row = (r0 + rr) * C;
-    float v[V];
-#pragma unroll
-    for (int k = 0; k < V; ++k) v[k] = x[row + lane + 32 * k];
-    float mu, rs;
-    row_stats<C>(v, eps, mu, rs);
-    const float srow = sc != nullptr ? sc[r0 + rr] : 1.f;
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      const int c = lane + 32 * k;
-      const bf16 hb = __float2bfloat16((v[k] - mu) * rs * gm[c] + bt[c]);
-      const bf16 gb = __float2bfloat16(g[row + c] * srow);
-      s_hin[rr * L::LDH + c] = hb;
-      s_g[rr * L::LDG + c] = gb;
-      hin_out[row + c] = hb;
-      gbr_out[row + c] = gb;
-    }
-  }
-
-  bwd_rows_hidden<C>(smem, k1, b1, k2, H);
-
-  // row-local LayerNorm backward; column partials of dgamma, dbeta, db2
-  float pg[V], pb[V], p2[V];
-#pragma unroll
-  for (int k = 0; k < V; ++k) pg[k] = pb[k] = p2[k] = 0.f;
-  for (int rr = warp; rr < TR; rr += NW) {
-    const size_t row = (r0 + rr) * C;
-    float v[V];
-#pragma unroll
-    for (int k = 0; k < V; ++k) v[k] = x[row + lane + 32 * k];
-    float mu, rs;
-    row_stats<C>(v, eps, mu, rs);
-    const float srow = sc != nullptr ? sc[r0 + rr] : 1.f;
-    float xh[V], dxh[V];
-    float m1 = 0.f, m2 = 0.f;
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      const int c = lane + 32 * k;
-      const float dxin = s_dx[rr * L::LDO + c];
-      xh[k] = (v[k] - mu) * rs;
-      dxh[k] = dxin * gm[c];
-      m1 += dxh[k];
-      m2 += dxh[k] * xh[k];
-      pg[k] += dxin * xh[k];
-      pb[k] += dxin;
-    }
-    m1 = warp_sum(m1) / C;
-    m2 = warp_sum(m2) / C;
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      const int c = lane + 32 * k;
-      const float gk = g[row + c];
-      p2[k] += gk * srow;
-      dx[row + c] = gk + rs * (dxh[k] - m1 - xh[k] * m2);
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < V; ++k) {
-    const int c = lane + 32 * k;
-    s_wpart[(warp * 3 + 0) * C + c] = pg[k];
-    s_wpart[(warp * 3 + 1) * C + c] = pb[k];
-    s_wpart[(warp * 3 + 2) * C + c] = p2[k];
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < 3 * C; e += NT) {
-    float s = 0.f;
-    for (int w = 0; w < NW; ++w) s += s_wpart[w * 3 * C + e];
-    part[size_t(blockIdx.x) * 3 * C + e] = s;
-  }
-}
-
-// The rows pass of mlp: x already bf16, the cotangent unscaled; dx out in
-// bf16 (as the TPU kernel's caller rounds it) and per-block column sums of
-// g (db2 partials).
-template <int C>
-__global__ void __launch_bounds__(NT, 1)
-mlp_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ k1,
-                    const float* __restrict__ b1, const bf16* __restrict__ k2,
-                    const float* __restrict__ g, bf16* __restrict__ dx,
-                    bf16* __restrict__ gbr_out, float* __restrict__ part, int H) {
-  using L = BwdALayout<C>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* s_g = reinterpret_cast<bf16*>(smem + L::G);
-  const float* s_dx = reinterpret_cast<const float*>(smem);
-  const size_t r0 = size_t(blockIdx.x) * TR;
-
-  load_tile(reinterpret_cast<bf16*>(smem + L::HIN), L::LDH, x + r0 * C, C, TR, C);
-  for (int e = threadIdx.x; e < TR * C; e += NT) {
-    const int r = e / C, c = e % C;
-    const bf16 gb = __float2bfloat16(g[(r0 + r) * C + c]);
-    s_g[r * L::LDG + c] = gb;
-    gbr_out[(r0 + r) * C + c] = gb;
-  }
-  bwd_rows_hidden<C>(smem, k1, b1, k2, H);
-  for (int e = threadIdx.x; e < TR * C; e += NT) {
-    const int r = e / C, c = e % C;
-    dx[(r0 + r) * C + c] = __float2bfloat16(s_dx[r * L::LDO + c]);
-  }
-  for (int c = threadIdx.x; c < C; c += NT) {
-    float sum = 0.f;
-    for (int r = 0; r < TR; ++r) sum += g[(r0 + r) * C + c];
-    part[size_t(blockIdx.x) * C + c] = sum;
-  }
-}
-
-// ------------------------------------------------------- backward, pass B
-
-template <int C>
-struct BwdBLayout {
-  static constexpr int LDH = C + PADH;     // hin tile  (TR, C)  bf16
-  static constexpr int LDG = C + PADH;     // s*g tile  (TR, C)  bf16
-  static constexpr int LDK1 = HCB + PADH;  // k1 chunk  (C, HCB) bf16
-  static constexpr int LDK2 = C + PADH;    // k2 chunk  (HCB, C) bf16
-  static constexpr int LDHF = HCB + PADF;  // h, da->dh (TR, HCB) f32
-  static constexpr int LDA = HCB + PADH;   // gelu(h), dh (TR, HCB) bf16
-  static constexpr size_t HIN = 0;
-  static constexpr size_t G = align128(HIN + size_t(TR) * LDH * 2);
-  static constexpr size_t K1 = align128(G + size_t(TR) * LDG * 2);
-  static constexpr size_t K2 = align128(K1 + size_t(C) * LDK1 * 2);
-  static constexpr size_t HF = align128(K2 + size_t(HCB) * LDK2 * 2);
-  static constexpr size_t DH32 = align128(HF + size_t(TR) * LDHF * 4);
-  static constexpr size_t A = align128(DH32 + size_t(TR) * LDHF * 4);
-  static constexpr size_t DHB = align128(A + size_t(TR) * LDA * 2);
-  static constexpr size_t BYTES = align128(DHB + size_t(TR) * LDA * 2);
-};
-
-template <int C>
-__global__ void __launch_bounds__(NT, 1)
-mlp_bwd_weights_kernel(const bf16* __restrict__ hin, const bf16* __restrict__ gbr,
-                          const bf16* __restrict__ k1, const float* __restrict__ b1,
-                          const bf16* __restrict__ k2, float* __restrict__ dk1p,
-                          float* __restrict__ dk2p, float* __restrict__ db1p,
-                          int R, int H, int tiles_per_part) {
-  using L = BwdBLayout<C>;
-  constexpr int NF2 = C / 64;  // fragments a warp owns in dk1 and in dk2
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* s_hin = reinterpret_cast<bf16*>(smem + L::HIN);
-  bf16* s_g = reinterpret_cast<bf16*>(smem + L::G);
-  bf16* s_k1 = reinterpret_cast<bf16*>(smem + L::K1);
-  bf16* s_k2 = reinterpret_cast<bf16*>(smem + L::K2);
-  float* s_h = reinterpret_cast<float*>(smem + L::HF);
-  float* s_dh32 = reinterpret_cast<float*>(smem + L::DH32);
-  bf16* s_a = reinterpret_cast<bf16*>(smem + L::A);
-  bf16* s_dhb = reinterpret_cast<bf16*>(smem + L::DHB);
-
-  const int warp = threadIdx.x >> 5;
-  const int tid = threadIdx.x;
-  const int h0 = blockIdx.x * HCB;
-  const int p = blockIdx.y;
-  const int n_tiles = R / TR;
-  const int t_begin = p * tiles_per_part;
-  const int t_end = min(n_tiles, t_begin + tiles_per_part);
-
-  load_tile(s_k1, L::LDK1, k1 + h0, H, C, HCB);
-  load_tile(s_k2, L::LDK2, k2 + size_t(h0) * C, C, HCB, C);
-
-  const int rw = warp & 3, cf = warp >> 2;   // h / da fragment of this warp
-  const int sub = warp & 1;                  // 16-wide slice of the chunk
-  const int base = (warp >> 1) * NF2;        // first C-fragment of this warp
-  FragC acc2[NF2], acc1[NF2];
-#pragma unroll
-  for (int j = 0; j < NF2; ++j) {
-    wmma::fill_fragment(acc2[j], 0.f);
-    wmma::fill_fragment(acc1[j], 0.f);
-  }
-  float db1 = 0.f;
-
-  for (int t = t_begin; t < t_end; ++t) {
-    __syncthreads();
-    load_tile(s_hin, L::LDH, hin + size_t(t) * TR * C, C, TR, C);
-    load_tile(s_g, L::LDG, gbr + size_t(t) * TR * C, C, TR, C);
-    __syncthreads();
-    {
-      FragC hacc, dacc;
-      wmma::fill_fragment(hacc, 0.f);
-      wmma::fill_fragment(dacc, 0.f);
-#pragma unroll 4
-      for (int kk = 0; kk < C / 16; ++kk) {
-        FragA a, ga;
-        FragB b;
-        FragBT bt2;
-        wmma::load_matrix_sync(a, s_hin + rw * 16 * L::LDH + kk * 16, L::LDH);
-        wmma::load_matrix_sync(b, s_k1 + kk * 16 * L::LDK1 + cf * 16, L::LDK1);
-        wmma::mma_sync(hacc, a, b, hacc);
-        wmma::load_matrix_sync(ga, s_g + rw * 16 * L::LDG + kk * 16, L::LDG);
-        wmma::load_matrix_sync(bt2, s_k2 + cf * 16 * L::LDK2 + kk * 16, L::LDK2);
-        wmma::mma_sync(dacc, ga, bt2, dacc);
-      }
-      wmma::store_matrix_sync(s_h + rw * 16 * L::LDHF + cf * 16, hacc, L::LDHF,
-                              wmma::mem_row_major);
-      wmma::store_matrix_sync(s_dh32 + rw * 16 * L::LDHF + cf * 16, dacc, L::LDHF,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-    for (int e = tid; e < TR * HCB; e += NT) {
-      const int r = e / HCB, c = e % HCB;
-      const float h = s_h[r * L::LDHF + c] + b1[h0 + c];
-      const float dh = s_dh32[r * L::LDHF + c] * gelu_grad(h);
-      s_dh32[r * L::LDHF + c] = dh;
-      s_a[r * L::LDA + c] = __float2bfloat16(gelu(h));
-      s_dhb[r * L::LDA + c] = __float2bfloat16(dh);
-    }
-    __syncthreads();
-    if (tid < HCB)
-      for (int r = 0; r < TR; ++r) db1 += s_dh32[r * L::LDHF + tid];
-#pragma unroll
-    for (int kk = 0; kk < TR / 16; ++kk) {
-      // dk2 (HCB, C) += gelu(h)^T @ (s*g)
-      FragAT at;
-      wmma::load_matrix_sync(at, s_a + kk * 16 * L::LDA + sub * 16, L::LDA);
-#pragma unroll
-      for (int j = 0; j < NF2; ++j) {
-        FragB b;
-        wmma::load_matrix_sync(b, s_g + kk * 16 * L::LDG + (base + j) * 16, L::LDG);
-        wmma::mma_sync(acc2[j], at, b, acc2[j]);
-      }
-      // dk1 (C, HCB) += hin^T @ dh
-      FragB bd;
-      wmma::load_matrix_sync(bd, s_dhb + kk * 16 * L::LDA + sub * 16, L::LDA);
-#pragma unroll
-      for (int i = 0; i < NF2; ++i) {
-        FragAT ah;
-        wmma::load_matrix_sync(ah, s_hin + kk * 16 * L::LDH + (base + i) * 16, L::LDH);
-        wmma::mma_sync(acc1[i], ah, bd, acc1[i]);
-      }
-    }
-  }
-
-  float* dk2_part = dk2p + size_t(p) * H * C;
-  float* dk1_part = dk1p + size_t(p) * C * H;
-#pragma unroll
-  for (int j = 0; j < NF2; ++j) {
-    wmma::store_matrix_sync(dk2_part + size_t(h0 + sub * 16) * C + (base + j) * 16,
-                            acc2[j], C, wmma::mem_row_major);
-    wmma::store_matrix_sync(dk1_part + size_t(base + j) * 16 * H + h0 + sub * 16,
-                            acc1[j], H, wmma::mem_row_major);
-  }
-  if (tid < HCB) db1p[size_t(p) * H + h0 + tid] = db1;
-}
-
-// ----------------------------------------------- backward, pass C (reduce)
-
-__global__ void sum_partials_kernel(const float* __restrict__ in, int parts,
-                                    long long n, float* __restrict__ out_f32,
-                                    bf16* __restrict__ out_bf16) {
-  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-       e < n; e += static_cast<long long>(gridDim.x) * blockDim.x) {
-    float s = 0.f;
-    for (int p = 0; p < parts; ++p) s += in[p * n + e];
-    if (out_bf16 != nullptr)
-      out_bf16[e] = __float2bfloat16(s);
-    else
-      out_f32[e] = s;
-  }
-}
-
-cudaError_t sum_partials(const float* in, int parts, long long n, float* out_f32,
-                         bf16* out_bf16, cudaStream_t stream) {
-  const long long want = (n + 255) / 256;
-  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
-  sum_partials_kernel<<<blocks, 256, 0, stream>>>(in, parts, n, out_f32, out_bf16);
-  return cudaGetLastError();
-}
-
 template <int C>
 cudaError_t launch_fwd(const float* x, const float* gm, const float* bt, const bf16* k1,
                        const float* b1, const bf16* k2, const float* b2, const float* sc,
@@ -652,37 +278,6 @@ cudaError_t launch_fwd(const float* x, const float* gm, const float* bt, const b
   if (err != cudaSuccess) return err;
   mlp_ln_fwd_kernel<C><<<R / TR, NT, smem, stream>>>(x, gm, bt, k1, b1, k2, b2, sc, y, H, eps);
   return cudaGetLastError();
-}
-
-// Pass B over the bf16 rows and cotangent; per-partition partials.
-template <int C>
-cudaError_t launch_bwd_weights(const bf16* hin_s, const bf16* gbr_s, const bf16* k1,
-                               const float* b1, const bf16* k2, float* dk1p, float* dk2p,
-                               float* db1p, int R, int H, int P, cudaStream_t stream) {
-  const size_t smem_b = BwdBLayout<C>::BYTES;
-  cudaError_t err = set_smem(mlp_bwd_weights_kernel<C>, smem_b);
-  if (err != cudaSuccess) return err;
-  const int n_tiles = R / TR;
-  const int tpp = (n_tiles + P - 1) / P;
-  mlp_bwd_weights_kernel<C><<<dim3(H / HCB, P), NT, smem_b, stream>>>(
-      hin_s, gbr_s, k1, b1, k2, dk1p, dk2p, db1p, R, H, tpp);
-  return cudaGetLastError();
-}
-
-template <int C>
-cudaError_t launch_bwd(const float* x, const float* gm, const float* bt, const bf16* k1,
-                       const float* b1, const bf16* k2, const float* sc, const float* g,
-                       float* dx, bf16* hin_s, bf16* gbr_s, float* part_a, float* dk1p,
-                       float* dk2p, float* db1p, int R, int H, int P, float eps,
-                       cudaStream_t stream) {
-  const size_t smem_a = BwdALayout<C>::BYTES;
-  cudaError_t err = set_smem(mlp_ln_bwd_rows_kernel<C>, smem_a);
-  if (err != cudaSuccess) return err;
-  mlp_ln_bwd_rows_kernel<C><<<R / TR, NT, smem_a, stream>>>(
-      x, gm, bt, k1, b1, k2, sc, g, dx, hin_s, gbr_s, part_a, H, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_bwd_weights<C>(hin_s, gbr_s, k1, b1, k2, dk1p, dk2p, db1p, R, H, P, stream);
 }
 
 template <int C>
@@ -695,87 +290,43 @@ cudaError_t launch_mlp_fwd(const bf16* x, const bf16* k1, const float* b1, const
   return cudaGetLastError();
 }
 
-template <int C>
-cudaError_t launch_mlp_bwd(const bf16* x, const bf16* k1, const float* b1, const bf16* k2,
-                           const float* g, bf16* dx, bf16* gbr_s, float* part_a,
-                           float* dk1p, float* dk2p, float* db1p, int R, int H, int P,
-                           cudaStream_t stream) {
-  const size_t smem_a = BwdALayout<C>::BYTES;
-  cudaError_t err = set_smem(mlp_bwd_rows_kernel<C>, smem_a);
-  if (err != cudaSuccess) return err;
-  mlp_bwd_rows_kernel<C><<<R / TR, NT, smem_a, stream>>>(x, k1, b1, k2, g, dx, gbr_s,
-                                                         part_a, H);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_bwd_weights<C>(x, gbr_s, k1, b1, k2, dk1p, dk2p, db1p, R, H, P, stream);
-}
-
-// Pass C for the weights: dk1, dk2 (bf16) and db1 from P partitions.
-cudaError_t sum_weight_partials(const float* dk1p, const float* dk2p, const float* db1p,
-                                int P, int C, int H, void* dk1, void* dk2, float* db1,
-                                cudaStream_t s) {
-  const long long ch = static_cast<long long>(C) * H;
-  cudaError_t err = sum_partials(dk1p, P, ch, nullptr, static_cast<bf16*>(dk1), s);
-  if (err != cudaSuccess) return err;
-  if ((err = sum_partials(dk2p, P, ch, nullptr, static_cast<bf16*>(dk2), s)) != cudaSuccess)
-    return err;
-  return sum_partials(db1p, P, H, db1, nullptr, s);
-}
-
 bool shape_ok(int R, int C, int H) {
   return R > 0 && R % TR == 0 && H % HCF == 0 && (C == 128 || C == 256 || C == 384);
 }
 
-// ------------------------------------------------ the wide form, any C % 64
+// ------------------------------------------- the wide forward, any C % 64
 //
-// Rows wider than 384 do not fit the one-block form (its (64, C) output
-// accumulator in registers and three tiles in shared memory: about 233 KB at
-// C 512). Here each direction is a few launches of one plain tiled product,
-// 64 x 64 output tiles, 32-deep k chunks, WMMA bf16 fragments with f32
-// accumulators, and an epilogue that rounds where the one-block form rounds:
-//   forward: [LN rows to bf16], a = bf16(GELU(x @ k1 + b1)) written once
-//     (R, H), then out = a @ k2 + b2 (mlp_ln: times s, plus x);
-//   backward: [LN rows and bf16(s * g)], one dual product giving h and
-//     da = g @ k2^T per tile, so dh = da * GELU'(h) is rounded to bf16 and
-//     written with bf16(GELU(h)) and per-tile column sums of the f32 dh
-//     (db1); dx from dh @ k1^T (mlp_ln: through the LN backward, one block
-//     per 64 rows); dk1 = x^T @ dh and dk2 = a^T @ g, each output element
-//     summed over all R rows by one block in a fixed order, then rounded to
-//     bf16. No atomics.
+// Rows wider than 384 do not fit the one-block forward (its (64, C) output
+// accumulator in registers and three tiles in shared memory: about 233 KB
+// at C 512). Here the forward is LN rows to bf16 (mlp_ln), then two plain
+// tiled products, 64 x 64 output tiles, 32-deep k chunks, WMMA bf16
+// fragments with f32 accumulators: a = bf16(GELU(x @ k1 + b1)) written once
+// (R, H), then out = a @ k2 + b2 (mlp_ln: times s, plus x).
 
 constexpr int GT = 64;                 // output tile
 constexpr int GK = 32;                 // k chunk
 constexpr int GNT = 128;               // threads
 constexpr int LDC = GT + PADF;         // f32 staging of an output tile
 
-enum Epi { EPI_GELU, EPI_OUT_LN, EPI_OUT, EPI_DH, EPI_F32, EPI_BF16 };
+enum Epi { EPI_GELU, EPI_OUT_LN, EPI_OUT };
 
 struct EpiArgs {
   const float* bias;   // per output column (b1 or b2)
   const float* x;      // residual (EPI_OUT_LN)
   const float* sc;     // per-row scale or null (EPI_OUT_LN)
   void* out;           // f32 or bf16, row stride ldo
-  bf16* out2;          // bf16(GELU(h)) (EPI_DH)
-  float* part;         // per-row-tile column sums of dh (EPI_DH), row stride ldo
   int ldo;
 };
 
-// A is (M, K) row-major, or stored (K, M) when AT; B is (K, N) row-major,
-// or stored (N, K) when BT. With DUAL a second product A2 @ B2 (A2 (M, K)
-// row-major, B2 stored (N, K)) accumulates beside the first.
-template <bool AT, bool BT, bool DUAL>
+// A (M, K) and B (K, N) row-major.
 struct GemmLayout {
-  static constexpr int LDA = AT ? GT + PADH : GK + PADH;
-  static constexpr int LDB = BT ? GK + PADH : GT + PADH;
-  static constexpr int LDA2 = GK + PADH, LDB2 = GK + PADH;
+  static constexpr int LDA = GK + PADH;
+  static constexpr int LDB = GT + PADH;
   static constexpr size_t A = 0;
-  static constexpr size_t B = align128(A + size_t(AT ? GK : GT) * LDA * 2);
-  static constexpr size_t A2 = align128(B + size_t(BT ? GT : GK) * LDB * 2);
-  static constexpr size_t B2 = align128(A2 + (DUAL ? size_t(GT) * LDA2 * 2 : 0));
-  static constexpr size_t OPS = align128(B2 + (DUAL ? size_t(GT) * LDB2 * 2 : 0));
-  static constexpr size_t STAGE = align128(size_t(GT) * LDC * 4);
-  static constexpr size_t STAGES = (DUAL ? 2 : 1) * STAGE;   // over the operands
-  static constexpr size_t BYTES = OPS > STAGES ? OPS : STAGES;
+  static constexpr size_t B = align128(A + size_t(GT) * LDA * 2);
+  static constexpr size_t OPS = align128(B + size_t(GK) * LDB * 2);
+  static constexpr size_t STAGE = align128(size_t(GT) * LDC * 4);   // over the operands
+  static constexpr size_t BYTES = OPS > STAGE ? OPS : STAGE;
 };
 
 // rows x cols bf16 chunk of a row-major matrix (row stride ld) -> shared
@@ -790,74 +341,41 @@ __device__ __forceinline__ void load_chunk(bf16* dst, int sld, const bf16* src, 
   }
 }
 
-template <bool AT, bool BT, bool DUAL, int EPI>
+template <int EPI>
 __global__ void __launch_bounds__(GNT)
 mlp_wide_gemm_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict__ B, int ldb,
-                     const bf16* __restrict__ A2, int lda2, const bf16* __restrict__ B2,
-                     int ldb2, int K, EpiArgs ep) {
-  using L = GemmLayout<AT, BT, DUAL>;
+                     int K, EpiArgs ep) {
+  using L = GemmLayout;
   __shared__ __align__(128) unsigned char smem[L::BYTES];
   bf16* s_a = reinterpret_cast<bf16*>(smem + L::A);
   bf16* s_b = reinterpret_cast<bf16*>(smem + L::B);
-  bf16* s_a2 = reinterpret_cast<bf16*>(smem + L::A2);
-  bf16* s_b2 = reinterpret_cast<bf16*>(smem + L::B2);
   float* s_c = reinterpret_cast<float*>(smem);
-  float* s_c2 = reinterpret_cast<float*>(smem + L::STAGE);
 
   const int m0 = blockIdx.x * GT, n0 = blockIdx.y * GT;
   const int warp = threadIdx.x >> 5;
   const int wm = (warp & 1) * 32, wn = (warp >> 1) * 32;
-  FragC acc[2][2], acc2[2][2];
+  FragC acc[2][2];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::fill_fragment(acc[i][j], 0.f);
-      wmma::fill_fragment(acc2[i][j], 0.f);
-    }
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
   for (int k0 = 0; k0 < K; k0 += GK) {
     __syncthreads();
-    if constexpr (AT)
-      load_chunk(s_a, L::LDA, A + size_t(k0) * lda + m0, lda, GK, GT);
-    else
-      load_chunk(s_a, L::LDA, A + size_t(m0) * lda + k0, lda, GT, GK);
-    if constexpr (BT)
-      load_chunk(s_b, L::LDB, B + size_t(n0) * ldb + k0, ldb, GT, GK);
-    else
-      load_chunk(s_b, L::LDB, B + size_t(k0) * ldb + n0, ldb, GK, GT);
-    if constexpr (DUAL) {
-      load_chunk(s_a2, L::LDA2, A2 + size_t(m0) * lda2 + k0, lda2, GT, GK);
-      load_chunk(s_b2, L::LDB2, B2 + size_t(n0) * ldb2 + k0, ldb2, GT, GK);
-    }
+    load_chunk(s_a, L::LDA, A + size_t(m0) * lda + k0, lda, GT, GK);
+    load_chunk(s_b, L::LDB, B + size_t(k0) * ldb + n0, ldb, GK, GT);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < GK; kk += 16) {
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        std::conditional_t<AT, FragAT, FragA> a;
-        if constexpr (AT)
-          wmma::load_matrix_sync(a, s_a + kk * L::LDA + wm + 16 * i, L::LDA);
-        else
-          wmma::load_matrix_sync(a, s_a + (wm + 16 * i) * L::LDA + kk, L::LDA);
+        FragA a;
+        wmma::load_matrix_sync(a, s_a + (wm + 16 * i) * L::LDA + kk, L::LDA);
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          std::conditional_t<BT, FragBT, FragB> b;
-          if constexpr (BT)
-            wmma::load_matrix_sync(b, s_b + (wn + 16 * j) * L::LDB + kk, L::LDB);
-          else
-            wmma::load_matrix_sync(b, s_b + kk * L::LDB + wn + 16 * j, L::LDB);
+          FragB b;
+          wmma::load_matrix_sync(b, s_b + kk * L::LDB + wn + 16 * j, L::LDB);
           wmma::mma_sync(acc[i][j], a, b, acc[i][j]);
-        }
-        if constexpr (DUAL) {
-          FragA a2;
-          wmma::load_matrix_sync(a2, s_a2 + (wm + 16 * i) * L::LDA2 + kk, L::LDA2);
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            FragBT b2;
-            wmma::load_matrix_sync(b2, s_b2 + (wn + 16 * j) * L::LDB2 + kk, L::LDB2);
-            wmma::mma_sync(acc2[i][j], a2, b2, acc2[i][j]);
-          }
         }
       }
     }
@@ -866,13 +384,9 @@ mlp_wide_gemm_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < 2; ++j)
       wmma::store_matrix_sync(s_c + (wm + 16 * i) * LDC + wn + 16 * j, acc[i][j], LDC,
                               wmma::mem_row_major);
-      if constexpr (DUAL)
-        wmma::store_matrix_sync(s_c2 + (wm + 16 * i) * LDC + wn + 16 * j, acc2[i][j], LDC,
-                                wmma::mem_row_major);
-    }
   __syncthreads();
 
   for (int e = threadIdx.x; e < GT * GT; e += GNT) {
@@ -885,45 +399,23 @@ mlp_wide_gemm_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict
       float u = v + ep.bias[n0 + c];
       if (ep.sc != nullptr) u *= ep.sc[m0 + r];
       static_cast<float*>(ep.out)[o] = ep.x[o] + u;
-    } else if constexpr (EPI == EPI_OUT) {
-      static_cast<float*>(ep.out)[o] = v + ep.bias[n0 + c];
-    } else if constexpr (EPI == EPI_DH) {
-      const float h = v + ep.bias[n0 + c];
-      const float dh = s_c2[r * LDC + c] * gelu_grad(h);
-      s_c2[r * LDC + c] = dh;
-      static_cast<bf16*>(ep.out)[o] = __float2bfloat16(dh);
-      ep.out2[o] = __float2bfloat16(gelu(h));
-    } else if constexpr (EPI == EPI_F32) {
-      static_cast<float*>(ep.out)[o] = v;
     } else {
-      static_cast<bf16*>(ep.out)[o] = __float2bfloat16(v);
-    }
-  }
-  if constexpr (EPI == EPI_DH) {
-    __syncthreads();
-    if (threadIdx.x < GT) {
-      float sum = 0.f;
-      for (int r = 0; r < GT; ++r) sum += s_c2[r * LDC + threadIdx.x];
-      ep.part[size_t(blockIdx.x) * ep.ldo + n0 + threadIdx.x] = sum;
+      static_cast<float*>(ep.out)[o] = v + ep.bias[n0 + c];
     }
   }
 }
 
-template <bool AT, bool BT, bool DUAL, int EPI>
+template <int EPI>
 cudaError_t wide_gemm(const bf16* A, int lda, const bf16* B, int ldb, int M, int N, int K,
-                      const EpiArgs& ep, cudaStream_t stream, const bf16* A2 = nullptr,
-                      int lda2 = 0, const bf16* B2 = nullptr, int ldb2 = 0) {
-  mlp_wide_gemm_kernel<AT, BT, DUAL, EPI><<<dim3(M / GT, N / GT), GNT, 0, stream>>>(
-      A, lda, B, ldb, A2, lda2, B2, ldb2, K, ep);
+                      const EpiArgs& ep, cudaStream_t stream) {
+  mlp_wide_gemm_kernel<EPI><<<dim3(M / GT, N / GT), GNT, 0, stream>>>(A, lda, B, ldb, K, ep);
   return cudaGetLastError();
 }
 
-// One warp a row: hin = bf16(LN(x)) and, where g is given, gbr = bf16(s * g).
+// One warp a row: hin = bf16(LN(x)).
 __global__ void mlp_wide_ln_rows_kernel(const float* __restrict__ x, const float* __restrict__ gm,
-                                        const float* __restrict__ bt,
-                                        const float* __restrict__ g,
-                                        const float* __restrict__ sc, bf16* __restrict__ hin,
-                                        bf16* __restrict__ gbr, int R, int C, float eps) {
+                                        const float* __restrict__ bt, bf16* __restrict__ hin,
+                                        int R, int C, float eps) {
   const int lane = threadIdx.x & 31;
   const size_t r = size_t(blockIdx.x) * (blockDim.x / 32) + (threadIdx.x >> 5);
   if (r >= size_t(R)) return;
@@ -936,97 +428,11 @@ __global__ void mlp_wide_ln_rows_kernel(const float* __restrict__ x, const float
   s = warp_sum(s);
   s2 = warp_sum(s2);
   const float mu = s / C, rs = rsqrtf(s2 / C - mu * mu + eps);
-  const float srow = sc != nullptr ? sc[r] : 1.f;
-  for (int c = lane; c < C; c += 32) {
-    hin[r * C + c] = __float2bfloat16((xr[c] - mu) * rs * gm[c] + bt[c]);
-    if (g != nullptr) gbr[r * C + c] = __float2bfloat16(g[r * C + c] * srow);
-  }
-}
-
-// The LayerNorm backward of 64 rows a block from dxin = dh @ k1^T (f32):
-// dx, and the block's column sums of dgamma, dbeta and db2 (s * g) into
-// part (R / 64, 3, C).
-__global__ void __launch_bounds__(NT)
-mlp_wide_ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gm,
-                       const float* __restrict__ sc, const float* __restrict__ g,
-                       const float* __restrict__ dxin, float* __restrict__ dx,
-                       float* __restrict__ part, int C, float eps) {
-  __shared__ float s_mu[TR], s_rs[TR], s_m1[TR], s_m2[TR];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t r0 = size_t(blockIdx.x) * TR;
-  for (int rr = warp; rr < TR; rr += NW) {
-    const float* xr = x + (r0 + rr) * C;
-    const float* dr = dxin + (r0 + rr) * C;
-    float s = 0.f, s2 = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      s += xr[c];
-      s2 += xr[c] * xr[c];
-    }
-    s = warp_sum(s);
-    s2 = warp_sum(s2);
-    const float mu = s / C, rs = rsqrtf(s2 / C - mu * mu + eps);
-    float m1 = 0.f, m2 = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float dxh = dr[c] * gm[c];
-      m1 += dxh;
-      m2 += dxh * ((xr[c] - mu) * rs);
-    }
-    if (lane == 0) {
-      s_mu[rr] = mu;
-      s_rs[rr] = rs;
-    }
-    m1 = warp_sum(m1);
-    m2 = warp_sum(m2);
-    if (lane == 0) {
-      s_m1[rr] = m1 / C;
-      s_m2[rr] = m2 / C;
-    }
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < C; c += NT) {
-    float pg = 0.f, pb = 0.f, p2 = 0.f;
-    for (int rr = 0; rr < TR; ++rr) {
-      const size_t o = (r0 + rr) * C + c;
-      const float xh = (x[o] - s_mu[rr]) * s_rs[rr];
-      const float d = dxin[o];
-      const float dxh = d * gm[c];
-      pg += d * xh;
-      pb += d;
-      p2 += g[o] * (sc != nullptr ? sc[r0 + rr] : 1.f);
-      dx[o] = g[o] + s_rs[rr] * (dxh - s_m1[rr] - xh * s_m2[rr]);
-    }
-    part[size_t(blockIdx.x) * 3 * C + c] = pg;
-    part[size_t(blockIdx.x) * 3 * C + C + c] = pb;
-    part[size_t(blockIdx.x) * 3 * C + 2 * C + c] = p2;
-  }
-}
-
-// gbr = bf16(g) and each 64-row block's column sums of g (db2 partials).
-__global__ void __launch_bounds__(NT)
-mlp_wide_cot_kernel(const float* __restrict__ g, bf16* __restrict__ gbr,
-                    float* __restrict__ part, int C) {
-  const size_t r0 = size_t(blockIdx.x) * TR;
-  for (int c = threadIdx.x; c < C; c += NT) {
-    float sum = 0.f;
-    for (int rr = 0; rr < TR; ++rr) {
-      const float v = g[(r0 + rr) * C + c];
-      gbr[(r0 + rr) * C + c] = __float2bfloat16(v);
-      sum += v;
-    }
-    part[size_t(blockIdx.x) * C + c] = sum;
-  }
+  for (int c = lane; c < C; c += 32) hin[r * C + c] = __float2bfloat16((xr[c] - mu) * rs * gm[c] + bt[c]);
 }
 
 bool wide_shape_ok(int R, int C, int H) {
   return R > 0 && C > 0 && H > 0 && R % GT == 0 && C % GT == 0 && H % GT == 0;
-}
-
-cudaError_t ln_rows(const float* x, const float* gm, const float* bt, const float* g,
-                    const float* sc, bf16* hin, bf16* gbr, int R, int C, float eps,
-                    cudaStream_t stream) {
-  mlp_wide_ln_rows_kernel<<<(R + NW - 1) / NW, NT, 0, stream>>>(x, gm, bt, g, sc, hin, gbr, R,
-                                                                C, eps);
-  return cudaGetLastError();
 }
 
 // The hidden of the forward, a = bf16(GELU(xin @ k1 + b1)) (R, H), then the
@@ -1035,29 +441,569 @@ template <int EPI>
 cudaError_t wide_fwd(const bf16* xin, const bf16* k1, const float* b1, const bf16* k2,
                      const float* b2, const float* x, const float* sc, float* y, bf16* a_s,
                      int R, int C, int H, cudaStream_t stream) {
-  EpiArgs e1{b1, nullptr, nullptr, a_s, nullptr, nullptr, H};
-  cudaError_t err = wide_gemm<false, false, false, EPI_GELU>(xin, C, k1, H, R, H, C, e1, stream);
+  EpiArgs e1{b1, nullptr, nullptr, a_s, H};
+  cudaError_t err = wide_gemm<EPI_GELU>(xin, C, k1, H, R, H, C, e1, stream);
   if (err != cudaSuccess) return err;
-  EpiArgs e2{b2, x, sc, y, nullptr, nullptr, C};
-  return wide_gemm<false, false, false, EPI>(a_s, H, k2, C, R, C, H, e2, stream);
+  EpiArgs e2{b2, x, sc, y, C};
+  return wide_gemm<EPI>(a_s, H, k2, C, R, C, H, e2, stream);
+}
+// ---------------------------------------------------------------- backward
+
+constexpr int BM = 128, BN = 128, BK = 64;  // output tile, k tile
+constexpr int BT = 256;                     // threads: two warpgroups of 64 rows
+constexpr int RING = 3;                     // shared-memory stages of k tiles
+constexpr int TRB = 32;                     // rows a block of the backward's row passes
+constexpr int CW = 512;                     // columns of a row pass's partials at a time
+
+// GELU and its derivative at h from one erff.
+__device__ __forceinline__ void gelu_and_grad(float h, float& a, float& d) {
+  const float cdf = 0.5f * (1.0f + erff(h * 0.70710678118654752f));
+  a = h * cdf;  // = gelu(h) to the bit: halving is exact
+  d = cdf + h * 0.3989422804014327f * expf(-0.5f * h * h);
 }
 
-// The backward's products shared by both forms, from the bf16 rows xin and
-// cotangent gbr: dh and a (R, H) bf16 with db1 partials (R / 64, H); dk1,
-// dk2 (bf16).
-cudaError_t wide_bwd_hidden(const bf16* xin, const bf16* gbr, const bf16* k1, const float* b1,
-                            const bf16* k2, bf16* dh_s, bf16* a_s, float* db1p, bf16* dk1,
-                            bf16* dk2, int R, int C, int H, cudaStream_t stream) {
-  EpiArgs e{b1, nullptr, nullptr, dh_s, a_s, db1p, H};
-  cudaError_t err =
-      wide_gemm<false, false, true, EPI_DH>(xin, C, k1, H, R, H, C, e, stream, gbr, C, k2, C);
+// A row-major bf16 matrix: element (i, j) at p[i * ld + j].
+struct Operand {
+  const bf16* p;
+  int ld;
+};
+
+// One product C (M, N) = A (M, K) B (K, N) of the engine. A K-major is
+// stored (M, K), MN-major (K, M); B K-major (N, K), MN-major (K, N). The
+// dual product adds C2 = A2 B2 with A2 (M, K) and B2 (N, K), both K-major.
+// K runs over kt tiles of 64, cut into `slices` runs of kps tiles; block b
+// takes slice b / tiles, output tile b % tiles (N fastest).
+struct Problem {
+  Operand a, b, a2, b2;
+  int M, N, kt, tiles_n, tiles, slices, kps;
+  void* out;                // f32 or bf16 (M, N), row stride ldo; a slice at out + s * slice_stride
+  bf16* out2;               // dual: bf16(GELU(h + b1))
+  float* part;              // dual: db1 partials (a row a tile of rows, N)
+  const float* bias;        // dual: b1
+  int ldo;
+  long long slice_stride;
+};
+
+enum BwdEpi { BWD_DH, BWD_F32, BWD_BF16 };
+
+// One product's configuration: operand majorness, the dual product, the
+// epilogue; the shared-memory ring of RING stages of [A][B]([A2][B2]).
+template <bool A_MN_, bool B_MN_, bool DUAL_, int EPI_>
+struct Gemm {
+  static constexpr bool A_MN = A_MN_, B_MN = B_MN_, DUAL = DUAL_;
+  static constexpr int EPI = EPI_;
+  static constexpr int OP = BM * BK * 2;  // bytes of one operand tile (BM = BN)
+  static constexpr int STAGE = OP * (DUAL ? 4 : 2);
+  static constexpr int RED = DUAL ? (BT / 32) * BN * 4 : 0;  // the dual epilogue's column sums
+  static constexpr size_t SMEM = size_t(RING) * STAGE + RED + 1024;  // + slack to align to 1024
+  static_assert(!DUAL || 2 * BM * (BN + 8) * 2 <= RING * STAGE, "the dual's staging fits the ring");
+};
+
+using DualGemm = Gemm<false, true, true, BWD_DH>;
+using DxinGemm = Gemm<false, false, false, BWD_F32>;
+using DxGemm = Gemm<false, false, false, BWD_BF16>;
+using WeightGemm = Gemm<true, true, false, BWD_F32>;
+template <bool A_MN, bool B_MN>
+using CheckGemm = Gemm<A_MN, B_MN, false, BWD_F32>;
+
+// A 128 (M or N) x 64 (k) operand tile into shared memory at dst in the
+// 128-byte swizzle, rows at and past `rows` zero-filled: 1024 copies of 16
+// bytes, four a thread.
+template <bool MN>
+__device__ __forceinline__ void load_operand(unsigned char* dst, Operand o, int r0, int rows,
+                                             int k0) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int idx = threadIdx.x + BT * i;
+    const int c = idx & 7;
+    if constexpr (MN) {  // k row kr of column block cb: 64 columns of 128 bytes
+      const int cb = (idx >> 3) & 1, kr = idx >> 4;
+      const bool ok = r0 + cb * 64 < rows;
+      const bf16* src = o.p + (ok ? size_t(k0 + kr) * o.ld + r0 + cb * 64 + c * 8 : 0);
+      cp_async16(dst + cb * (BK * 128) + kr * 128 + ((c ^ (kr & 7)) << 4), src, ok);
+    } else {             // row r: 64 k of 128 bytes
+      const int r = idx >> 3;
+      const bool ok = r0 + r < rows;
+      const bf16* src = o.p + (ok ? size_t(r0 + r) * o.ld + k0 + c * 8 : 0);
+      cp_async16(dst + r * 128 + ((c ^ (r & 7)) << 4), src, ok);
+    }
+  }
+}
+
+template <class G>
+__device__ __forceinline__ void load_stage(unsigned char* st, const Problem& p, int m0, int n0,
+                                           int k0) {
+  load_operand<G::A_MN>(st, p.a, m0, p.M, k0);
+  load_operand<G::B_MN>(st + G::OP, p.b, n0, p.N, k0);
+  if constexpr (G::DUAL) {
+    load_operand<false>(st + 2 * G::OP, p.a2, m0, p.M, k0);
+    load_operand<false>(st + 3 * G::OP, p.b2, n0, p.N, k0);
+  }
+}
+
+// Descriptor of a k16 step kk of an operand tile at shared address t: this
+// warpgroup's 64 rows (A) or all 128 (B).
+template <bool MN>
+__device__ __forceinline__ uint64_t op_desc(uint32_t t, int kk) {
+  return MN ? wgmma_desc(t + kk * 16 * 128, BK * 128, 1024) : wgmma_desc(t + kk * 32, 16, 1024);
+}
+
+// The k loop of one output tile over k tiles [kt0, kt1): acc (and acc2)
+// hold this warpgroup's 64 x 128 of the tile when it returns.
+template <class G>
+__device__ __forceinline__ void bwd_mainloop(unsigned char* smem, const Problem& p, int m0,
+                                             int n0, int kt0, int kt1, float (&acc)[64],
+                                             float (&acc2)[G::DUAL ? 64 : 1]) {
+  const int wg = threadIdx.x >> 7;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  if constexpr (G::DUAL) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc2[i] = 0.f;
+  }
+#pragma unroll
+  for (int s = 0; s < RING - 1; ++s) {
+    if (kt0 + s < kt1) load_stage<G>(smem + s * G::STAGE, p, m0, n0, (kt0 + s) * BK);
+    cp_async_commit();
+  }
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int i = kt - kt0;
+    cp_async_wait<RING - 2>();
+    fence_proxy_async();
+    __syncthreads();  // tile i landed for all; every warpgroup is done with tile i - 1
+    const uint32_t st = smem_addr(smem + (i % RING) * G::STAGE);
+    const uint32_t a = st + wg * (BK * 128), b = st + G::OP;
+    fence_acc(acc);
+    if constexpr (G::DUAL) fence_acc(acc2);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      wgmma_m64n128k16<G::A_MN, G::B_MN>(acc, op_desc<G::A_MN>(a, kk), op_desc<G::B_MN>(b, kk));
+      if constexpr (G::DUAL)
+        wgmma_m64n128k16<0, 0>(acc2, op_desc<false>(a + 2 * G::OP, kk),
+                               op_desc<false>(b + 2 * G::OP, kk));
+    }
+    wgmma_commit();
+    // tile i + RING - 1 into the stage that tile i - 1 left, while the
+    // products run
+    if (kt + RING - 1 < kt1)
+      load_stage<G>(smem + ((i + RING - 1) % RING) * G::STAGE, p, m0, n0, (kt + RING - 1) * BK);
+    cp_async_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if constexpr (G::DUAL) fence_acc(acc2);
+  }
+  cp_async_wait_all();
+}
+
+// One output tile (block b of the problem) through the k loop and its
+// epilogue, from the accumulators in registers.
+template <class G>
+__device__ __forceinline__ void bwd_gemm(unsigned char* smem_raw, const Problem& p, int b) {
+  unsigned char* smem = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  const int s = b / p.tiles, t = b % p.tiles;
+  const int m0 = (t / p.tiles_n) * BM, n0 = (t % p.tiles_n) * BN;
+  const int kt0 = s * p.kps, kt1 = min(p.kt, kt0 + p.kps);
+  float acc[64], acc2[G::DUAL ? 64 : 1];
+  bwd_mainloop<G>(smem, p, m0, n0, kt0, kt1, acc, acc2);
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int row0 = m0 + (tid >> 7) * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+  const int col0 = n0 + 2 * (lane & 3);
+  if constexpr (G::EPI == BWD_DH) {
+    // bf16(dh) and bf16(GELU(h)) go through shared memory (the ring, free
+    // once both warpgroups are past their products) to leave as 16-byte
+    // stores along whole rows; rows padded by 16 bytes against bank conflicts
+    constexpr int LDS = BN + 8;
+    bf16* s_dh = reinterpret_cast<bf16*>(smem);
+    bf16* s_a = s_dh + BM * LDS;
+    __syncthreads();
+    float cs[32];  // this thread's two rows' sums of dh, two columns of each n8 block
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = col0 + 8 * j;
+      const bool cok = col < p.N;
+      const float bias0 = cok ? p.bias[col] : 0.f, bias1 = cok ? p.bias[col + 1] : 0.f;
+      cs[2 * j] = cs[2 * j + 1] = 0.f;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = row0 + 8 * hf;
+        float a0, a1, d0, d1;
+        gelu_and_grad(acc[4 * j + 2 * hf] + bias0, a0, d0);
+        gelu_and_grad(acc[4 * j + 2 * hf + 1] + bias1, a1, d1);
+        const float dh0 = acc2[4 * j + 2 * hf] * d0, dh1 = acc2[4 * j + 2 * hf + 1] * d1;
+        const int o = (row - m0) * LDS + col - n0;
+        *reinterpret_cast<__nv_bfloat162*>(s_dh + o) = __floats2bfloat162_rn(dh0, dh1);
+        *reinterpret_cast<__nv_bfloat162*>(s_a + o) = __floats2bfloat162_rn(a0, a1);
+        if (cok && row < p.M) {
+          cs[2 * j] += dh0;
+          cs[2 * j + 1] += dh1;
+        }
+      }
+    }
+    // over the 8 row groups of the warp (lanes of equal lane % 4), then the
+    // warps in order through shared memory: one owner a partial
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      float v = cs[k];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      cs[k] = v;
+    }
+    float* red = reinterpret_cast<float*>(smem + size_t(RING) * G::STAGE);
+    if (lane < 4) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        red[(tid >> 5) * BN + 8 * j + 2 * lane] = cs[2 * j];
+        red[(tid >> 5) * BN + 8 * j + 2 * lane + 1] = cs[2 * j + 1];
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < 2 * BM * (BN / 8); i += BT) {
+      const int r = (i / (BN / 8)) % BM, c = (i % (BN / 8)) * 8;
+      const int row = m0 + r, col = n0 + c;
+      if (row >= p.M || col >= p.N) continue;
+      const bool second = i >= BM * (BN / 8);
+      bf16* out = second ? p.out2 : static_cast<bf16*>(p.out);
+      *reinterpret_cast<uint4*>(out + size_t(row) * p.ldo + col) =
+          *reinterpret_cast<const uint4*>((second ? s_a : s_dh) + r * LDS + c);
+    }
+    if (tid < BN && n0 + tid < p.N) {
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < BT / 32; ++w) sum += red[w * BN + tid];
+      p.part[size_t(m0 / BM) * p.N + n0 + tid] = sum;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = col0 + 8 * j;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = row0 + 8 * hf;
+        if (col >= p.N || row >= p.M) continue;
+        const size_t o = size_t(s) * p.slice_stride + size_t(row) * p.ldo + col;
+        const float v0 = acc[4 * j + 2 * hf], v1 = acc[4 * j + 2 * hf + 1];
+        if constexpr (G::EPI == BWD_F32)
+          *reinterpret_cast<float2*>(static_cast<float*>(p.out) + o) = make_float2(v0, v1);
+        else
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.out) + o) =
+              __floats2bfloat162_rn(v0, v1);
+      }
+    }
+  }
+}
+
+// Each product its own kernel name, so that a profile splits the backward
+// by launch.
+__global__ void __launch_bounds__(BT, 1) mlp_bwd_dual_kernel(const Problem p) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  bwd_gemm<DualGemm>(dyn_smem, p, blockIdx.x);
+}
+
+__global__ void __launch_bounds__(BT, 2) mlp_bwd_dxin_kernel(const Problem p) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  bwd_gemm<DxinGemm>(dyn_smem, p, blockIdx.x);
+}
+
+__global__ void __launch_bounds__(BT, 2) mlp_bwd_dx_kernel(const Problem p) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  bwd_gemm<DxGemm>(dyn_smem, p, blockIdx.x);
+}
+
+// dk1 partials (p0's blocks first), then dk2's.
+__global__ void __launch_bounds__(BT, 2)
+mlp_bwd_weights_kernel(const Problem p0, const Problem p1) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  const int n0 = p0.tiles * p0.slices;
+  if (static_cast<int>(blockIdx.x) < n0)
+    bwd_gemm<WeightGemm>(dyn_smem, p0, blockIdx.x);
+  else
+    bwd_gemm<WeightGemm>(dyn_smem, p1, blockIdx.x - n0);
+}
+
+// One engine product of each operand layout, f32 out (the card tests' check
+// of the descriptors and the swizzle).
+template <bool A_MN, bool B_MN>
+__global__ void __launch_bounds__(BT, 2) mlp_bwd_check_kernel(const Problem p) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  bwd_gemm<CheckGemm<A_MN, B_MN>>(dyn_smem, p, blockIdx.x);
+}
+
+Problem make_problem(Operand a, Operand b, int M, int N, int K, void* out, int ldo, int slices) {
+  Problem p{};
+  p.a = a;
+  p.b = b;
+  p.M = M;
+  p.N = N;
+  p.kt = K / BK;
+  p.tiles_n = (N + BN - 1) / BN;
+  p.tiles = ((M + BM - 1) / BM) * p.tiles_n;
+  p.kps = (p.kt + slices - 1) / slices;
+  p.slices = (p.kt + p.kps - 1) / p.kps;
+  p.out = out;
+  p.ldo = ldo;
+  p.slice_stride = static_cast<long long>(M) * N;
+  return p;
+}
+
+template <class G>
+cudaError_t launch_gemm(void (*kernel)(Problem), cudaStream_t stream, const Problem& p) {
+  cudaError_t err = set_smem(kernel, G::SMEM);
   if (err != cudaSuccess) return err;
-  EpiArgs w1{nullptr, nullptr, nullptr, dk1, nullptr, nullptr, H};
-  if ((err = wide_gemm<true, false, false, EPI_BF16>(xin, C, dh_s, H, C, H, R, w1, stream)) !=
-      cudaSuccess)
-    return err;
-  EpiArgs w2{nullptr, nullptr, nullptr, dk2, nullptr, nullptr, C};
-  return wide_gemm<true, false, false, EPI_BF16>(a_s, H, gbr, C, H, C, R, w2, stream);
+  kernel<<<p.tiles * p.slices, BT, G::SMEM, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The rows pass in, a block of 32 rows, one warp a row (float4 columns):
+// (LN) hin = bf16(LN(x)); gbr = bf16(s * g) and the block's column sums of
+// s * g (db2), each warp's rows in order, then the warps in order.
+template <bool LN>
+__global__ void __launch_bounds__(NT)
+mlp_bwd_rows_in_kernel(const float* __restrict__ x, const float* __restrict__ gm,
+                       const float* __restrict__ bt, const float* __restrict__ sc,
+                       const float* __restrict__ g, bf16* __restrict__ hin,
+                       bf16* __restrict__ gbr, float* __restrict__ part, int C, float eps) {
+  __shared__ float4 s_part[NW][CW / 4];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t r0 = size_t(blockIdx.x) * TRB;
+  const int C4 = C / 4;
+  if constexpr (LN) {
+    for (int rr = warp; rr < TRB; rr += NW) {
+      const float4* xr = reinterpret_cast<const float4*>(x + (r0 + rr) * C);
+      float s = 0.f, s2 = 0.f;
+      for (int c = lane; c < C4; c += 32) {
+        const float4 v = xr[c];
+        s += v.x + v.y + v.z + v.w;
+        s2 += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+      }
+      s = warp_sum(s);
+      s2 = warp_sum(s2);
+      const float mu = s / C, rs = rsqrtf(s2 / C - mu * mu + eps);
+      for (int c = lane; c < C4; c += 32) {
+        const float4 v = xr[c], w = reinterpret_cast<const float4*>(gm)[c],
+                     b = reinterpret_cast<const float4*>(bt)[c];
+        uint2 o;
+        o.x = pack_bf16((v.x - mu) * rs * w.x + b.x, (v.y - mu) * rs * w.y + b.y);
+        o.y = pack_bf16((v.z - mu) * rs * w.z + b.z, (v.w - mu) * rs * w.w + b.w);
+        reinterpret_cast<uint2*>(hin + (r0 + rr) * C)[c] = o;
+      }
+    }
+  }
+  for (int c0 = 0; c0 < C4; c0 += CW / 4) {
+    const int cn = min(CW / 4, C4 - c0);
+    for (int c = lane; c < cn; c += 32) s_part[warp][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int rr = warp; rr < TRB; rr += NW) {
+      const float srow = LN && sc != nullptr ? sc[r0 + rr] : 1.f;
+      const float4* gr = reinterpret_cast<const float4*>(g + (r0 + rr) * C) + c0;
+      uint2* go = reinterpret_cast<uint2*>(gbr + (r0 + rr) * C) + c0;
+      for (int c = lane; c < cn; c += 32) {
+        float4 v = gr[c];
+        if (LN) v = make_float4(v.x * srow, v.y * srow, v.z * srow, v.w * srow);
+        go[c] = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+        float4& a = s_part[warp][c];
+        a = make_float4(a.x + v.x, a.y + v.y, a.z + v.z, a.w + v.w);
+      }
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < 4 * cn; c += NT) {
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) sum += reinterpret_cast<const float*>(s_part[w])[c];
+      part[size_t(blockIdx.x) * C + 4 * c0 + c] = sum;
+    }
+    __syncthreads();
+  }
+}
+
+// The LayerNorm backward of 32 rows a block from dxin = bf16(dh) k1^T (f32),
+// one warp a row (float4 columns): dx = g + rs (dxin gm - mean(dxin gm) -
+// xhat mean(dxin gm xhat)), and the block's column sums of dxin xhat and
+// dxin into part (R / 32, 2, C), each warp's rows in order, then the warps.
+__global__ void __launch_bounds__(NT)
+mlp_bwd_ln_rows_kernel(const float* __restrict__ x, const float* __restrict__ gm,
+                       const float* __restrict__ g, const float* __restrict__ dxin,
+                       float* __restrict__ dx, float* __restrict__ part, int C, float eps) {
+  __shared__ float4 s_part[NW][2][CW / 4];
+  __shared__ float s_stat[TRB][4];  // mu, rs, m1, m2
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t r0 = size_t(blockIdx.x) * TRB;
+  const int C4 = C / 4;
+  const float4* gm4 = reinterpret_cast<const float4*>(gm);
+  for (int rr = warp; rr < TRB; rr += NW) {
+    const float4* xr = reinterpret_cast<const float4*>(x + (r0 + rr) * C);
+    const float4* dr = reinterpret_cast<const float4*>(dxin + (r0 + rr) * C);
+    float s = 0.f, s2 = 0.f;
+    for (int c = lane; c < C4; c += 32) {
+      const float4 v = xr[c];
+      s += v.x + v.y + v.z + v.w;
+      s2 += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+    }
+    s = warp_sum(s);
+    s2 = warp_sum(s2);
+    const float mu = s / C, rs = rsqrtf(s2 / C - mu * mu + eps);
+    float m1 = 0.f, m2 = 0.f;
+    for (int c = lane; c < C4; c += 32) {
+      const float4 v = xr[c], d = dr[c], w = gm4[c];
+      const float e0 = d.x * w.x, e1 = d.y * w.y, e2 = d.z * w.z, e3 = d.w * w.w;
+      m1 += e0 + e1 + e2 + e3;
+      m2 += e0 * ((v.x - mu) * rs) + e1 * ((v.y - mu) * rs) + e2 * ((v.z - mu) * rs) +
+            e3 * ((v.w - mu) * rs);
+    }
+    m1 = warp_sum(m1);
+    m2 = warp_sum(m2);
+    if (lane == 0) {
+      s_stat[rr][0] = mu;
+      s_stat[rr][1] = rs;
+      s_stat[rr][2] = m1 / C;
+      s_stat[rr][3] = m2 / C;
+    }
+  }
+  __syncwarp();
+  for (int c0 = 0; c0 < C4; c0 += CW / 4) {
+    const int cn = min(CW / 4, C4 - c0);
+    for (int c = lane; c < cn; c += 32)
+      s_part[warp][0][c] = s_part[warp][1][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int rr = warp; rr < TRB; rr += NW) {
+      const float mu = s_stat[rr][0], rs = s_stat[rr][1], m1 = s_stat[rr][2],
+                  m2 = s_stat[rr][3];
+      const size_t o = (r0 + rr) * C;
+      const float4* xr = reinterpret_cast<const float4*>(x + o) + c0;
+      const float4* dr = reinterpret_cast<const float4*>(dxin + o) + c0;
+      const float4* gr = reinterpret_cast<const float4*>(g + o) + c0;
+      float4* out = reinterpret_cast<float4*>(dx + o) + c0;
+      for (int c = lane; c < cn; c += 32) {
+        const float4 v = xr[c], d = dr[c], gg = gr[c], w = gm4[c0 + c];
+        const float h0 = (v.x - mu) * rs, h1 = (v.y - mu) * rs, h2 = (v.z - mu) * rs,
+                    h3 = (v.w - mu) * rs;
+        out[c] = make_float4(gg.x + rs * (d.x * w.x - m1 - h0 * m2),
+                             gg.y + rs * (d.y * w.y - m1 - h1 * m2),
+                             gg.z + rs * (d.z * w.z - m1 - h2 * m2),
+                             gg.w + rs * (d.w * w.w - m1 - h3 * m2));
+        float4& pg = s_part[warp][0][c];
+        float4& pb = s_part[warp][1][c];
+        pg = make_float4(pg.x + d.x * h0, pg.y + d.y * h1, pg.z + d.z * h2, pg.w + d.w * h3);
+        pb = make_float4(pb.x + d.x, pb.y + d.y, pb.z + d.z, pb.w + d.w);
+      }
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < 4 * cn; c += NT) {
+      float pg = 0.f, pb = 0.f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        pg += reinterpret_cast<const float*>(s_part[w][0])[c];
+        pb += reinterpret_cast<const float*>(s_part[w][1])[c];
+      }
+      part[size_t(blockIdx.x) * 2 * C + 4 * c0 + c] = pg;
+      part[size_t(blockIdx.x) * 2 * C + C + 4 * c0 + c] = pb;
+    }
+    __syncthreads();
+  }
+}
+
+// A set of partials: out[e] = the sum over p of in[p * pstride + e], e < n,
+// to f32 or rounded to bf16. Up to 32 partials one lane an element sums
+// them in order; past that one warp an element, lane l partials l, l + 32,
+// ... in order, then a fixed shuffle tree.
+struct SumSet {
+  const float* in;
+  long long n, pstride;
+  int parts;
+  float* f32;
+  bf16* b16;
+};
+
+struct SumArgs {
+  SumSet set[6];
+  int count;
+};
+
+// Warp units of a set: 32 elements each, or one element each past 32 partials.
+__device__ __forceinline__ long long sum_units(const SumSet& st) {
+  return st.parts <= 32 ? (st.n + 31) / 32 : st.n;
+}
+
+// Every set's units in one index space, so that the small sets run beside
+// the large ones.
+__global__ void __launch_bounds__(NT) mlp_bwd_sums_kernel(const SumArgs a) {
+  const int lane = threadIdx.x & 31;
+  const long long nwarps = (static_cast<long long>(gridDim.x) * blockDim.x) >> 5;
+  long long units = 0;
+  for (int k = 0; k < a.count; ++k) units += sum_units(a.set[k]);
+  for (long long u = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
+       u < units; u += nwarps) {
+    long long v = u;
+    int k = 0;
+    while (v >= sum_units(a.set[k])) v -= sum_units(a.set[k++]);
+    const SumSet& st = a.set[k];
+    float s = 0.f;
+    long long e = v;
+    if (st.parts <= 32) {
+      e = 32 * v + lane;
+      if (e >= st.n) continue;
+      for (int p = 0; p < st.parts; ++p) s += st.in[p * st.pstride + e];
+    } else {
+      for (int p = lane; p < st.parts; p += 32) s += st.in[p * st.pstride + e];
+      s = warp_sum(s);
+      if (lane != 0) continue;
+    }
+    if (st.b16 != nullptr)
+      st.b16[e] = __float2bfloat16(s);
+    else
+      st.f32[e] = s;
+  }
+}
+
+cudaError_t launch_sums(const SumArgs& a, cudaStream_t stream) {
+  mlp_bwd_sums_kernel<<<132 * 8, NT, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+bool bwd_shape_ok(int R, int C, int H, int S) {
+  return R > 0 && C > 0 && H > 0 && R % 64 == 0 && C % 64 == 0 && H % 64 == 0 && S >= 1 &&
+         S <= R / BK;
+}
+
+// Launches 2-4 of both backwards: the dual product, dxin (or dx) and the
+// weights' partials. xin: hin (mlp_ln) or x (mlp), (R, C) bf16.
+cudaError_t bwd_products(const bf16* xin, const bf16* gbr, const bf16* k1, const float* b1,
+                         const bf16* k2, bf16* dh, bf16* a, float* db1p, void* dxo, bool dx_bf16,
+                         float* dk1p, float* dk2p, int R, int C, int H, int S,
+                         cudaStream_t stream) {
+  Problem pd = make_problem({xin, C}, {k1, H}, R, H, C, dh, H, 1);
+  pd.a2 = {gbr, C};
+  pd.b2 = {k2, C};
+  pd.out2 = a;
+  pd.part = db1p;
+  pd.bias = b1;
+  cudaError_t err = launch_gemm<DualGemm>(mlp_bwd_dual_kernel, stream, pd);
+  if (err != cudaSuccess) return err;
+  const Problem px = make_problem({dh, H}, {k1, H}, R, C, H, dxo, C, 1);
+  err = dx_bf16 ? launch_gemm<DxGemm>(mlp_bwd_dx_kernel, stream, px)
+                : launch_gemm<DxinGemm>(mlp_bwd_dxin_kernel, stream, px);
+  if (err != cudaSuccess) return err;
+  const Problem w1 = make_problem({xin, C}, {dh, H}, C, H, R, dk1p, H, S);
+  const Problem w2 = make_problem({a, H}, {gbr, C}, H, C, R, dk2p, C, S);
+  if ((err = set_smem(mlp_bwd_weights_kernel, WeightGemm::SMEM)) != cudaSuccess) return err;
+  mlp_bwd_weights_kernel<<<w1.tiles * w1.slices + w2.tiles * w2.slices, BT, WeightGemm::SMEM,
+                           stream>>>(w1, w2);
+  return cudaGetLastError();
+}
+
+// The sets every backward sums: dk1, dk2 (S slices, to bf16), db1 (a
+// partial a tile of the dual product's rows) and db2 (a partial a block of
+// the rows pass in).
+SumArgs weight_sums(const float* dk1p, const float* dk2p, const float* db1p, const float* db2p,
+                    void* dk1, void* dk2, float* db1, float* db2, int R, int C, int H, int S) {
+  SumArgs a{};
+  const long long ch = static_cast<long long>(C) * H;
+  a.set[0] = {dk1p, ch, ch, S, nullptr, static_cast<bf16*>(dk1)};
+  a.set[1] = {dk2p, ch, ch, S, nullptr, static_cast<bf16*>(dk2)};
+  a.set[2] = {db1p, H, H, (R + BM - 1) / BM, db1, nullptr};
+  a.set[3] = {db2p, C, C, R / TRB, db2, nullptr};
+  a.count = 4;
+  return a;
 }
 
 }  // namespace
@@ -1079,44 +1025,6 @@ PDAE_EXPORT int mlp_ln_fwd(const float* x, const float* gm, const float* bt,
   return static_cast<int>(err);
 }
 
-// Scratch and outputs, all allocated by the caller:
-//   hin_s, gbr_s (R, C) bf16; part_a (R/64, 3, C) f32;
-//   dk1p (P, C, H), dk2p (P, H, C), db1p (P, H) f32;
-//   dk1 (C, H), dk2 (H, C) bf16; db1 (H) f32; dln (3, C) f32 = dgamma, dbeta, db2.
-PDAE_EXPORT int mlp_ln_bwd(const float* x, const float* gm, const float* bt,
-                           const void* k1, const float* b1, const void* k2,
-                           const float* sc, const float* g, float* dx, void* hin_s,
-                           void* gbr_s, float* part_a, float* dk1p, float* dk2p,
-                           float* db1p, void* dk1, void* dk2, float* db1, float* dln,
-                           int R, int C, int H, int P, float eps, void* stream) {
-  if (!shape_ok(R, C, H) || P < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const bf16* k1b = static_cast<const bf16*>(k1);
-  const bf16* k2b = static_cast<const bf16*>(k2);
-  bf16* hs = static_cast<bf16*>(hin_s);
-  bf16* gs = static_cast<bf16*>(gbr_s);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (C) {
-    case 128:
-      err = launch_bwd<128>(x, gm, bt, k1b, b1, k2b, sc, g, dx, hs, gs, part_a, dk1p, dk2p,
-                            db1p, R, H, P, eps, s);
-      break;
-    case 256:
-      err = launch_bwd<256>(x, gm, bt, k1b, b1, k2b, sc, g, dx, hs, gs, part_a, dk1p, dk2p,
-                            db1p, R, H, P, eps, s);
-      break;
-    default:
-      err = launch_bwd<384>(x, gm, bt, k1b, b1, k2b, sc, g, dx, hs, gs, part_a, dk1p, dk2p,
-                            db1p, R, H, P, eps, s);
-      break;
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if ((err = sum_weight_partials(dk1p, dk2p, db1p, P, C, H, dk1, dk2, db1, s)) != cudaSuccess)
-    return static_cast<int>(err);
-  err = sum_partials(part_a, R / TR, 3LL * C, dln, nullptr, s);
-  return static_cast<int>(err);
-}
-
 // out (R, C) f32 = GELU(x @ k1 + b1) @ k2 + b2; x (R, C), k1, k2 bf16.
 PDAE_EXPORT int mlp_fwd(const void* x, const void* k1, const float* b1, const void* k2,
                         const float* b2, float* y, int R, int C, int H, void* stream) {
@@ -1134,47 +1042,8 @@ PDAE_EXPORT int mlp_fwd(const void* x, const void* k1, const float* b1, const vo
   return static_cast<int>(err);
 }
 
-// Scratch and outputs, all allocated by the caller:
-//   gbr_s (R, C) bf16; part_a (R/64, C) f32; dk1p (P, C, H), dk2p (P, H, C),
-//   db1p (P, H) f32; dx (R, C), dk1 (C, H), dk2 (H, C) bf16; db1 (H), db2 (C) f32.
-PDAE_EXPORT int mlp_bwd(const void* x, const void* k1, const float* b1, const void* k2,
-                        const float* g, void* dx, void* gbr_s, float* part_a, float* dk1p,
-                        float* dk2p, float* db1p, void* dk1, void* dk2, float* db1,
-                        float* db2, int R, int C, int H, int P, void* stream) {
-  if (!shape_ok(R, C, H) || P < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* k1b = static_cast<const bf16*>(k1);
-  const bf16* k2b = static_cast<const bf16*>(k2);
-  bf16* dxb = static_cast<bf16*>(dx);
-  bf16* gs = static_cast<bf16*>(gbr_s);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (C) {
-    case 128:
-      err = launch_mlp_bwd<128>(xb, k1b, b1, k2b, g, dxb, gs, part_a, dk1p, dk2p, db1p, R,
-                                H, P, s);
-      break;
-    case 256:
-      err = launch_mlp_bwd<256>(xb, k1b, b1, k2b, g, dxb, gs, part_a, dk1p, dk2p, db1p, R,
-                                H, P, s);
-      break;
-    default:
-      err = launch_mlp_bwd<384>(xb, k1b, b1, k2b, g, dxb, gs, part_a, dk1p, dk2p, db1p, R,
-                                H, P, s);
-      break;
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if ((err = sum_weight_partials(dk1p, dk2p, db1p, P, C, H, dk1, dk2, db1, s)) != cudaSuccess)
-    return static_cast<int>(err);
-  err = sum_partials(part_a, R / TR, C, db2, nullptr, s);
-  return static_cast<int>(err);
-}
-
-// ------------------------------------------------------------ wide entries
-// The wide form (any R, C, H multiple of 64); scratch and outputs allocated
-// by the caller.
-
-// hin_s (R, C), a_s (R, H) bf16 scratch.
+// The wide forwards (any R, C, H multiple of 64); scratch allocated by the
+// caller: hin_s (R, C) and a_s (R, H) bf16.
 PDAE_EXPORT int mlp_ln_fwd_wide(const float* x, const float* gm, const float* bt,
                                 const void* k1, const float* b1, const void* k2,
                                 const float* b2, const float* sc, float* y, void* hin_s,
@@ -1182,46 +1051,14 @@ PDAE_EXPORT int mlp_ln_fwd_wide(const float* x, const float* gm, const float* bt
   if (!wide_shape_ok(R, C, H)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bf16* hs = static_cast<bf16*>(hin_s);
-  cudaError_t err = ln_rows(x, gm, bt, nullptr, nullptr, hs, nullptr, R, C, eps, s);
+  mlp_wide_ln_rows_kernel<<<(R + NW - 1) / NW, NT, 0, s>>>(x, gm, bt, hs, R, C, eps);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   err = wide_fwd<EPI_OUT_LN>(hs, static_cast<const bf16*>(k1), b1, static_cast<const bf16*>(k2),
                              b2, x, sc, y, static_cast<bf16*>(a_s), R, C, H, s);
   return static_cast<int>(err);
 }
 
-// hin_s, gbr_s (R, C) bf16; dh_s, a_s (R, H) bf16; db1p (R/64, H), dxin (R, C),
-// part_a (R/64, 3, C) f32; dk1 (C, H), dk2 (H, C) bf16; db1 (H); dln (3, C) =
-// dgamma, dbeta, db2.
-PDAE_EXPORT int mlp_ln_bwd_wide(const float* x, const float* gm, const float* bt,
-                                const void* k1, const float* b1, const void* k2,
-                                const float* sc, const float* g, float* dx, void* hin_s,
-                                void* gbr_s, void* dh_s, void* a_s, float* db1p, float* dxin,
-                                float* part_a, void* dk1, void* dk2, float* db1, float* dln,
-                                int R, int C, int H, float eps, void* stream) {
-  if (!wide_shape_ok(R, C, H)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* k1b = static_cast<const bf16*>(k1);
-  bf16* hs = static_cast<bf16*>(hin_s);
-  bf16* gs = static_cast<bf16*>(gbr_s);
-  bf16* dhs = static_cast<bf16*>(dh_s);
-  cudaError_t err = ln_rows(x, gm, bt, g, sc, hs, gs, R, C, eps, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if ((err = wide_bwd_hidden(hs, gs, k1b, b1, static_cast<const bf16*>(k2), dhs,
-                             static_cast<bf16*>(a_s), db1p, static_cast<bf16*>(dk1),
-                             static_cast<bf16*>(dk2), R, C, H, s)) != cudaSuccess)
-    return static_cast<int>(err);
-  EpiArgs ed{nullptr, nullptr, nullptr, dxin, nullptr, nullptr, C};
-  if ((err = wide_gemm<false, true, false, EPI_F32>(dhs, H, k1b, H, R, C, H, ed, s)) !=
-      cudaSuccess)
-    return static_cast<int>(err);
-  mlp_wide_ln_bwd_kernel<<<R / TR, NT, 0, s>>>(x, gm, sc, g, dxin, dx, part_a, C, eps);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  if ((err = sum_partials(db1p, R / TR, H, db1, nullptr, s)) != cudaSuccess)
-    return static_cast<int>(err);
-  return static_cast<int>(sum_partials(part_a, R / TR, 3LL * C, dln, nullptr, s));
-}
-
-// a_s (R, H) bf16 scratch.
 PDAE_EXPORT int mlp_fwd_wide(const void* x, const void* k1, const float* b1, const void* k2,
                              const float* b2, float* y, void* a_s, int R, int C, int H,
                              void* stream) {
@@ -1232,30 +1069,80 @@ PDAE_EXPORT int mlp_fwd_wide(const void* x, const void* k1, const float* b1, con
       static_cast<cudaStream_t>(stream)));
 }
 
-// gbr_s (R, C), dh_s, a_s (R, H) bf16; db1p (R/64, H), part_a (R/64, C) f32;
-// dx (R, C), dk1 (C, H), dk2 (H, C) bf16; db1 (H), db2 (C) f32.
-PDAE_EXPORT int mlp_bwd_wide(const void* x, const void* k1, const float* b1, const void* k2,
-                             const float* g, void* dx, void* gbr_s, void* dh_s, void* a_s,
-                             float* db1p, float* part_a, void* dk1, void* dk2, float* db1,
-                             float* db2, int R, int C, int H, void* stream) {
-  if (!wide_shape_ok(R, C, H)) return static_cast<int>(cudaErrorInvalidValue);
+// The backward of mlp_ln for cotangent g (R, C) f32, every R, C, H multiple
+// of 64, six launches. Outputs: dx (R, C) f32; dk1 (C, H), dk2 (H, C) bf16;
+// db1 (H) f32; dln (3, C) f32 = dgamma, dbeta, db2. Scratch: hin, gbr (R, C)
+// and dh, a (R, H) bf16; dxin (R, C), part_ln (R / 32, 2, C), part_b2
+// (R / 32, C), db1p (R / 128 rounded up, H), dk1p (S, C, H), dk2p (S, H, C) f32, S the
+// weights' slices (1 <= S <= R / 64). x, g, gamma, beta, k1, k2 and every
+// scratch buffer 16-byte aligned.
+PDAE_EXPORT int mlp_ln_bwd(const float* x, const float* gm, const float* bt, const void* k1,
+                           const float* b1, const void* k2, const float* sc, const float* g,
+                           float* dx, void* dk1, void* dk2, float* db1, float* dln, void* hin,
+                           void* gbr, void* dh, void* a, float* dxin, float* part_ln,
+                           float* part_b2, float* db1p, float* dk1p, float* dk2p, int R, int C,
+                           int H, int S, float eps, void* stream) {
+  if (!bwd_shape_ok(R, C, H, S)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* k1b = static_cast<const bf16*>(k1);
-  bf16* gs = static_cast<bf16*>(gbr_s);
-  bf16* dhs = static_cast<bf16*>(dh_s);
-  mlp_wide_cot_kernel<<<R / TR, NT, 0, s>>>(g, gs, part_a, C);
+  bf16* hs = static_cast<bf16*>(hin);
+  bf16* gs = static_cast<bf16*>(gbr);
+  mlp_bwd_rows_in_kernel<true><<<R / TRB, NT, 0, s>>>(x, gm, bt, sc, g, hs, gs, part_b2, C, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if ((err = wide_bwd_hidden(xb, gs, k1b, b1, static_cast<const bf16*>(k2), dhs,
-                             static_cast<bf16*>(a_s), db1p, static_cast<bf16*>(dk1),
-                             static_cast<bf16*>(dk2), R, C, H, s)) != cudaSuccess)
-    return static_cast<int>(err);
-  EpiArgs ed{nullptr, nullptr, nullptr, dx, nullptr, nullptr, C};
-  if ((err = wide_gemm<false, true, false, EPI_BF16>(dhs, H, k1b, H, R, C, H, ed, s)) !=
-      cudaSuccess)
-    return static_cast<int>(err);
-  if ((err = sum_partials(db1p, R / TR, H, db1, nullptr, s)) != cudaSuccess)
-    return static_cast<int>(err);
-  return static_cast<int>(sum_partials(part_a, R / TR, C, db2, nullptr, s));
+  err = bwd_products(hs, gs, static_cast<const bf16*>(k1), b1, static_cast<const bf16*>(k2),
+                     static_cast<bf16*>(dh), static_cast<bf16*>(a), db1p, dxin, false, dk1p,
+                     dk2p, R, C, H, S, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mlp_bwd_ln_rows_kernel<<<R / TRB, NT, 0, s>>>(x, gm, g, dxin, dx, part_ln, C, eps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  SumArgs sums = weight_sums(dk1p, dk2p, db1p, part_b2, dk1, dk2, db1, dln + 2 * C, R, C, H, S);
+  sums.set[4] = {part_ln, C, 2LL * C, R / TRB, dln, nullptr};
+  sums.set[5] = {part_ln + C, C, 2LL * C, R / TRB, dln + C, nullptr};
+  sums.count = 6;
+  return static_cast<int>(launch_sums(sums, s));
+}
+
+// The backward of mlp for cotangent g (R, C) f32, five launches. Outputs: dx
+// (R, C), dk1 (C, H), dk2 (H, C) bf16; db1 (H), db2 (C) f32. Scratch: gbr
+// (R, C) and dh, a (R, H) bf16; part_b2, db1p, dk1p, dk2p as for mlp_ln_bwd.
+// x, g, k1, k2 and every scratch buffer 16-byte aligned.
+PDAE_EXPORT int mlp_bwd(const void* x, const void* k1, const float* b1, const void* k2,
+                        const float* g, void* dx, void* dk1, void* dk2, float* db1, float* db2,
+                        void* gbr, void* dh, void* a, float* part_b2, float* db1p, float* dk1p,
+                        float* dk2p, int R, int C, int H, int S, void* stream) {
+  if (!bwd_shape_ok(R, C, H, S)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bf16* gs = static_cast<bf16*>(gbr);
+  mlp_bwd_rows_in_kernel<false><<<R / TRB, NT, 0, s>>>(nullptr, nullptr, nullptr, nullptr, g,
+                                                       nullptr, gs, part_b2, C, 0.f);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = bwd_products(static_cast<const bf16*>(x), gs, static_cast<const bf16*>(k1), b1,
+                     static_cast<const bf16*>(k2), static_cast<bf16*>(dh), static_cast<bf16*>(a),
+                     db1p, dx, true, dk1p, dk2p, R, C, H, S, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      launch_sums(weight_sums(dk1p, dk2p, db1p, part_b2, dk1, dk2, db1, db2, R, C, H, S), s));
+}
+
+// One product of the backward's engine, out (M, N) f32 = A B, for the card
+// tests: A K-major (M, K) or, with a_mn, MN-major (K, M); B K-major (N, K)
+// or, with b_mn, MN-major (K, N); M, N, K multiples of 64.
+PDAE_EXPORT int mlp_bwd_check(const void* a, const void* b, float* out, int a_mn, int b_mn, int M,
+                              int N, int K, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || M % 64 || N % 64 || K % 64)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Problem p = make_problem({static_cast<const bf16*>(a), a_mn ? M : K},
+                                 {static_cast<const bf16*>(b), b_mn ? N : K}, M, N, K, out, N, 1);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (a_mn && b_mn)
+    err = launch_gemm<CheckGemm<true, true>>(mlp_bwd_check_kernel<true, true>, s, p);
+  else if (a_mn)
+    err = launch_gemm<CheckGemm<true, false>>(mlp_bwd_check_kernel<true, false>, s, p);
+  else if (b_mn)
+    err = launch_gemm<CheckGemm<false, true>>(mlp_bwd_check_kernel<false, true>, s, p);
+  else
+    err = launch_gemm<CheckGemm<false, false>>(mlp_bwd_check_kernel<false, false>, s, p);
+  return static_cast<int>(err);
 }

@@ -9,7 +9,9 @@ E[x]^2; matrix operands bf16 with f32 accumulation; exact-erf GELU in f32.
 Gradients come back in the primals' types, as ``_mlp_ln_core_bwd`` and
 ``_mlp_core_bwd`` return them: ``fused_mlp_ln``'s dx, dgamma, dbeta, db1,
 db2 in f32 and dk1, dk2 in bf16; ``fused_mlp``'s dx, dk1, dk2 in bf16 (its
-x enters bf16) and db1, db2 in f32.
+x enters bf16) and db1, db2 in f32. Both backwards, plain and kernel, round
+where the TPU kernels round: bf16(LN(x)), bf16(s g), bf16(dh),
+bf16(GELU(h)).
 """
 from __future__ import annotations
 
@@ -20,8 +22,11 @@ import torch
 
 from ..utils import kernels
 
-_ROW_PARTS = 8   # row partitions of the weight-gradient pass (csrc/mlp.cu, B)
-_ONE_BLOCK_C = (128, 256, 384)   # csrc/mlp.cu's one-block form; wider rows the wide form
+_ONE_BLOCK_C = (128, 256, 384)   # csrc/mlp.cu's one-block forward; wider rows the wide form
+_SMS = 132              # the H100's streaming multiprocessors
+_WEIGHT_BLOCKS = 2      # blocks an SM of csrc/mlp.cu's weight-gradient launch
+_ROW_BLOCK = 32         # rows a block of csrc/mlp.cu's backward row passes
+_DUAL_ROWS = 128        # rows an output tile of csrc/mlp.cu's dual product
 
 
 def supported(R: int, C: int, H: int, tt: int = 256) -> bool:
@@ -32,8 +37,8 @@ def supported(R: int, C: int, H: int, tt: int = 256) -> bool:
 
 def kernel_takes(R: int, C: int, H: int) -> bool:
     """The shapes the kernels are built for: rows, width and hidden width
-    multiples of 64 (the one-block form at C 128, 256 and 384, the wide
-    form at any other)."""
+    multiples of 64 (the one-block forward at C 128, 256 and 384, the wide
+    forward at any other; one backward for all)."""
     return R > 0 and C > 0 and H > 0 and R % 64 == 0 and C % 64 == 0 and H % 64 == 0
 
 
@@ -41,27 +46,135 @@ def _gelu(h: torch.Tensor) -> torch.Tensor:
     return 0.5 * h * (1.0 + torch.erf(h * math.sqrt(0.5)))
 
 
+def _gelu_grad(h: torch.Tensor) -> torch.Tensor:
+    return (0.5 * (1.0 + torch.erf(h * math.sqrt(0.5)))
+            + h * (1.0 / math.sqrt(2.0 * math.pi)) * torch.exp(-0.5 * h * h))
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def weight_slices(R: int, C: int, H: int) -> int:
+    """S, the slices into which the backward cuts the rows for its dk1 and
+    dk2 products: 2 (C / 128) (H / 128) output tiles (rounded up) times S
+    blocks at two an SM, the fewest waves times k tiles a slice, the
+    fewer slices on a tie; every slice keeps at least one 64-row k tile,
+    and the f32 partials stay within 64 MiB. A function of the shape
+    alone, so that two calls sum in one order."""
+    kt = R // 64
+    tiles = 2 * _cdiv(C, 128) * _cdiv(H, 128)
+    slots = _SMS * _WEIGHT_BLOCKS
+    most = min(kt, 32, max(1, (16 << 20) // (2 * C * H)))
+    best, S = None, 1
+    for s in range(1, most + 1):
+        cost = _cdiv(tiles * s, slots) * _cdiv(kt, s)
+        if best is None or cost < best:
+            best, S = cost, s
+    return _cdiv(kt, _cdiv(kt, S))
+
+
+def _ln_f32(x, gamma, beta, eps):
+    """``pallas_mlp.py:_ln_fwd_f32``: (xhat, rsqrt(var + eps), LN(x))."""
+    mu = x.mean(1, keepdim=True)
+    var = (x * x).mean(1, keepdim=True) - mu * mu
+    r = torch.rsqrt(var + eps)
+    xhat = (x - mu) * r
+    return xhat, r, xhat * gamma + beta
+
+
+def _mlp_ln_fwd_plain(x, gamma, beta, k1b, b1, k2b, b2, sc, eps):
+    hin = _ln_f32(x, gamma, beta, eps)[2]
+    bf = torch.bfloat16
+    h = hin.to(bf).float() @ k1b.float() + b1
+    out = _gelu(h).to(bf).float() @ k2b.float() + b2
+    if sc is not None:
+        out = out * sc.reshape(-1, 1)
+    return x + out
+
+
+def mlp_ln_bwd_plain(x, gamma, beta, k1b, b1, k2b, sc, g, eps: float = 1e-6,
+                     round_out: bool = True):
+    """``pallas_mlp.py:_bwd_ln_kernel`` written out in PyTorch, with its
+    rounding points: the twin of ``mlp_ln_bwd_kernel``. x, g (R, C) f32;
+    gamma, beta (C,), b1 (H,) f32; k1b (C, H), k2b (H, C) bf16; sc (R,) f32
+    or None. Returns (dx, dgamma, dbeta, dk1, db1, dk2, db2) in the kernel's
+    types (dk1, dk2 bf16, the rest f32); with ``round_out=False`` dk1 and
+    dk2 are the f32 sums before that rounding, as the Pallas kernel writes
+    them."""
+    bf = torch.bfloat16
+    x, g = x.float(), g.float()
+    xhat, r, hin = _ln_f32(x, gamma, beta, eps)
+    hinb = hin.to(bf).float()
+    h = hinb @ k1b.float() + b1
+    a = _gelu(h).to(bf).float()
+    gbr = g if sc is None else g * sc.reshape(-1, 1)
+    gbrb = gbr.to(bf).float()
+    dh = (gbrb @ k2b.float().t()) * _gelu_grad(h)
+    dhb = dh.to(bf).float()
+    dxin = dhb @ k1b.float().t()
+    dxhat = dxin * gamma
+    m1 = dxhat.mean(1, keepdim=True)
+    m2 = (dxhat * xhat).mean(1, keepdim=True)
+    dx = g + r * (dxhat - m1 - xhat * m2)
+    dk1, dk2 = hinb.t() @ dhb, a.t() @ gbrb
+    if round_out:
+        dk1, dk2 = dk1.to(bf), dk2.to(bf)
+    return dx, (dxin * xhat).sum(0), dxin.sum(0), dk1, dh.sum(0), dk2, gbr.sum(0)
+
+
+class _MlpLnPlain(torch.autograd.Function):
+    """Plain PyTorch version of the ``mlp_ln`` kernels on the core's primals
+    (x, gamma, beta, b1, b2, sc f32; k1b, k2b bf16), its backward
+    ``mlp_ln_bwd_plain``."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, k1b, b1, k2b, b2, sc, eps):
+        ctx.save_for_backward(x, gamma, beta, k1b, b1, k2b, sc)
+        ctx.eps = eps
+        return _mlp_ln_fwd_plain(x, gamma, beta, k1b, b1, k2b, b2, sc, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, beta, k1b, b1, k2b, sc = ctx.saved_tensors
+        return (*mlp_ln_bwd_plain(x, gamma, beta, k1b, b1, k2b, sc, g, ctx.eps), None, None)
+
+
 def fused_mlp_ln_plain(x, gamma, beta, k1, b1, k2, b2, row_scale=None,
                        eps: float = 1e-6) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (differentiable by autograd).
+    """Plain PyTorch version of the kernels, forward and backward.
     x: (..., C) f32 residual stream; k1 (C, H), k2 (H, C) rounded to bf16;
     row_scale: optional (R,) per-row scale. Returns f32."""
     C = x.shape[-1]
-    x2 = x.reshape(-1, C).float()
-    mu = x2.mean(1, keepdim=True)
-    var = (x2 * x2).mean(1, keepdim=True) - mu * mu
-    hin = (x2 - mu) * torch.rsqrt(var + eps) * gamma.float() + beta.float()
     bf = torch.bfloat16
-    h = hin.to(bf).float() @ k1.to(bf).float() + b1.float()
-    out = _gelu(h).to(bf).float() @ k2.to(bf).float() + b2.float()
-    if row_scale is not None:
-        out = out * row_scale.reshape(-1, 1).float()
-    return (x2 + out).reshape(x.shape)
+    sc = None if row_scale is None else row_scale.reshape(-1).float()
+    y = _MlpLnPlain.apply(x.reshape(-1, C).float(), gamma.float(), beta.float(), k1.to(bf),
+                          b1.float(), k2.to(bf), b2.float(), sc, eps)
+    return y.reshape(x.shape)
 
 
 _P, _I, _F = kernels.P, kernels.I, kernels.F
 _FWD_ARGS = (_P,) * 9 + (_I, _I, _I, _F, _P)
-_BWD_ARGS = (_P,) * 19 + (_I, _I, _I, _I, _F, _P)
+
+
+def _require_aligned(*tensors) -> None:
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the mlp kernels read their inputs in 16-byte vectors")
+
+
+def _bwd_scratch(R: int, C: int, H: int, dev):
+    """The backward's scratch, freed when the call returns: gbr (R, C),
+    dh and GELU(h) (R, H) bf16; db2 partials a row-pass block, db1 partials
+    a dual-product tile, dk1 and dk2 partials a slice (f32)."""
+    f32, bf = torch.float32, torch.bfloat16
+    S = weight_slices(R, C, H)
+    return S, (torch.empty((R, C), dtype=bf, device=dev),
+               torch.empty((R, H), dtype=bf, device=dev),
+               torch.empty((R, H), dtype=bf, device=dev),
+               torch.empty((R // _ROW_BLOCK, C), dtype=f32, device=dev),
+               torch.empty((_cdiv(R, _DUAL_ROWS), H), dtype=f32, device=dev),
+               torch.empty((S, C, H), dtype=f32, device=dev),
+               torch.empty((S, H, C), dtype=f32, device=dev))
 
 
 def mlp_ln_fwd_kernel(x, gamma, beta, k1b, b1, k2b, b2, sc, eps: float = 1e-6):
@@ -85,41 +198,29 @@ def mlp_ln_fwd_kernel(x, gamma, beta, k1b, b1, k2b, b2, sc, eps: float = 1e-6):
 
 
 def mlp_ln_bwd_kernel(x, gamma, beta, k1b, b1, k2b, sc, g, eps: float = 1e-6):
-    """Launch the backward kernels for cotangent g (R, C) f32. Returns
-    (dx, dgamma, dbeta, dk1 bf16, db1, dk2 bf16, db2)."""
+    """Launch the backward kernels (six launches, one count) for cotangent g
+    (R, C) f32. Returns (dx, dgamma, dbeta, dk1 bf16, db1, dk2 bf16, db2)."""
     R, C = x.shape
     H = k1b.shape[1]
     dev = x.device
     f32, bf = torch.float32, torch.bfloat16
+    _require_aligned(x, gamma, beta, k1b, k2b, g)
     dx = torch.empty_like(x)
-    hin_s = torch.empty((R, C), dtype=bf, device=dev)
-    gbr_s = torch.empty((R, C), dtype=bf, device=dev)
-    part_a = torch.empty((R // 64, 3, C), dtype=f32, device=dev)
     dk1 = torch.empty((C, H), dtype=bf, device=dev)
     dk2 = torch.empty((H, C), dtype=bf, device=dev)
     db1 = torch.empty((H,), dtype=f32, device=dev)
     dln = torch.empty((3, C), dtype=f32, device=dev)
-    head = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), k1b.data_ptr(), b1.data_ptr(),
-            k2b.data_ptr(), kernels.ptr(sc), g.data_ptr(), dx.data_ptr(), hin_s.data_ptr(),
-            gbr_s.data_ptr())
-    if C in _ONE_BLOCK_C:
-        dk1p = torch.empty((_ROW_PARTS, C, H), dtype=f32, device=dev)
-        dk2p = torch.empty((_ROW_PARTS, H, C), dtype=f32, device=dev)
-        db1p = torch.empty((_ROW_PARTS, H), dtype=f32, device=dev)
-        kernels.launch("mlp_ln_bwd", "mlp", "mlp_ln_bwd", _BWD_ARGS, *head,
-                       part_a.data_ptr(), dk1p.data_ptr(), dk2p.data_ptr(), db1p.data_ptr(),
-                       dk1.data_ptr(), dk2.data_ptr(), db1.data_ptr(), dln.data_ptr(),
-                       R, C, H, _ROW_PARTS, eps, kernels.stream(x))
-    else:
-        dh_s = torch.empty((R, H), dtype=bf, device=dev)
-        a_s = torch.empty((R, H), dtype=bf, device=dev)
-        db1p = torch.empty((R // 64, H), dtype=f32, device=dev)
-        dxin = torch.empty((R, C), dtype=f32, device=dev)
-        kernels.launch("mlp_ln_bwd", "mlp", "mlp_ln_bwd_wide",
-                       (_P,) * 20 + (_I, _I, _I, _F, _P), *head, dh_s.data_ptr(),
-                       a_s.data_ptr(), db1p.data_ptr(), dxin.data_ptr(), part_a.data_ptr(),
-                       dk1.data_ptr(), dk2.data_ptr(), db1.data_ptr(), dln.data_ptr(),
-                       R, C, H, eps, kernels.stream(x))
+    S, (gbr, dh, a, part_b2, db1p, dk1p, dk2p) = _bwd_scratch(R, C, H, dev)
+    hin = torch.empty((R, C), dtype=bf, device=dev)
+    dxin = torch.empty((R, C), dtype=f32, device=dev)
+    part_ln = torch.empty((R // _ROW_BLOCK, 2, C), dtype=f32, device=dev)
+    kernels.launch("mlp_ln_bwd", "mlp", "mlp_ln_bwd", (_P,) * 23 + (_I,) * 4 + (_F, _P),
+                   x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), k1b.data_ptr(),
+                   b1.data_ptr(), k2b.data_ptr(), kernels.ptr(sc), g.data_ptr(),
+                   dx.data_ptr(), dk1.data_ptr(), dk2.data_ptr(), db1.data_ptr(),
+                   dln.data_ptr(), hin.data_ptr(), gbr.data_ptr(), dh.data_ptr(), a.data_ptr(),
+                   dxin.data_ptr(), part_ln.data_ptr(), part_b2.data_ptr(), db1p.data_ptr(),
+                   dk1p.data_ptr(), dk2p.data_ptr(), R, C, H, S, eps, kernels.stream(x))
     return dx, dln[0], dln[1], dk1, db1, dk2, dln[2]
 
 
@@ -167,15 +268,28 @@ def fused_mlp_ln(x, gamma, beta, k1, b1, k2, b2,
 # ---------------------------------------------------------------- MLP alone
 
 
-def _gelu_grad(h: torch.Tensor) -> torch.Tensor:
-    return (0.5 * (1.0 + torch.erf(h * math.sqrt(0.5)))
-            + h * (1.0 / math.sqrt(2.0 * math.pi)) * torch.exp(-0.5 * h * h))
+def mlp_bwd_plain(xb, k1b, b1, k2b, g, round_out: bool = True):
+    """``pallas_mlp.py:_bwd_kernel`` written out in PyTorch, with its
+    rounding points: the twin of ``mlp_bwd_kernel``. xb (R, C), k1b (C, H),
+    k2b (H, C) bf16; b1 (H,) and g (R, C) f32. Returns (dx, dk1, db1, dk2,
+    db2): dx, dk1, dk2 bf16 as ``_mlp_core_bwd`` rounds them, or with
+    ``round_out=False`` the f32 sums that the Pallas kernel writes."""
+    bf = torch.bfloat16
+    g = g.float()
+    h = xb.float() @ k1b.float() + b1
+    a = _gelu(h).to(bf).float()
+    gb = g.to(bf).float()
+    dh = (gb @ k2b.float().t()) * _gelu_grad(h)
+    dhb = dh.to(bf).float()
+    dx, dk1, dk2 = dhb @ k1b.float().t(), xb.float().t() @ dhb, a.t() @ gb
+    if round_out:
+        dx, dk1, dk2 = dx.to(bf), dk1.to(bf), dk2.to(bf)
+    return dx, dk1, dh.sum(0), dk2, g.sum(0)
 
 
 class _MlpPlain(torch.autograd.Function):
     """Plain PyTorch version of the ``mlp`` kernels on the core's primals
-    (xb, k1b, k2b bf16; b1, b2 f32), its backward written out as
-    ``pallas_mlp.py:_bwd_kernel`` computes it, with the same bf16 roundings."""
+    (xb, k1b, k2b bf16; b1, b2 f32), its backward ``mlp_bwd_plain``."""
 
     @staticmethod
     def forward(ctx, xb, k1b, b1, k2b, b2):
@@ -186,15 +300,7 @@ class _MlpPlain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         xb, k1b, b1, k2b = ctx.saved_tensors
-        bf = torch.bfloat16
-        g = g.float()
-        h = xb.float() @ k1b.float() + b1
-        a = _gelu(h).to(bf).float()
-        gb = g.to(bf).float()
-        dh = (gb @ k2b.float().t()) * _gelu_grad(h)
-        dhb = dh.to(bf).float()
-        return ((dhb @ k1b.float().t()).to(bf), (xb.float().t() @ dhb).to(bf),
-                dh.sum(0), (a.t() @ gb).to(bf), g.sum(0))
+        return mlp_bwd_plain(xb, k1b, b1, k2b, g)
 
 
 def mlp_fwd_kernel(xb, k1b, b1, k2b, b2):
@@ -217,36 +323,25 @@ def mlp_fwd_kernel(xb, k1b, b1, k2b, b2):
 
 
 def mlp_bwd_kernel(xb, k1b, b1, k2b, g):
-    """Launch the backward kernels for cotangent g (R, C) f32. Returns
-    (dx bf16, dk1 bf16, db1, dk2 bf16, db2)."""
+    """Launch the backward kernels (five launches, one count) for cotangent g
+    (R, C) f32. Returns (dx bf16, dk1 bf16, db1, dk2 bf16, db2)."""
     R, C = xb.shape
     H = k1b.shape[1]
     dev = xb.device
     f32, bf = torch.float32, torch.bfloat16
+    _require_aligned(xb, k1b, k2b, g)
     dx = torch.empty((R, C), dtype=bf, device=dev)
-    gbr_s = torch.empty((R, C), dtype=bf, device=dev)
-    part_a = torch.empty((R // 64, C), dtype=f32, device=dev)
     dk1 = torch.empty((C, H), dtype=bf, device=dev)
     dk2 = torch.empty((H, C), dtype=bf, device=dev)
     db1 = torch.empty((H,), dtype=f32, device=dev)
     db2 = torch.empty((C,), dtype=f32, device=dev)
-    head = (xb.data_ptr(), k1b.data_ptr(), b1.data_ptr(), k2b.data_ptr(), g.data_ptr(),
-            dx.data_ptr(), gbr_s.data_ptr())
-    tail = (dk1.data_ptr(), dk2.data_ptr(), db1.data_ptr(), db2.data_ptr())
-    if C in _ONE_BLOCK_C:
-        dk1p = torch.empty((_ROW_PARTS, C, H), dtype=f32, device=dev)
-        dk2p = torch.empty((_ROW_PARTS, H, C), dtype=f32, device=dev)
-        db1p = torch.empty((_ROW_PARTS, H), dtype=f32, device=dev)
-        kernels.launch("mlp_bwd", "mlp", "mlp_bwd", (_P,) * 15 + (_I,) * 4 + (_P,), *head,
-                       part_a.data_ptr(), dk1p.data_ptr(), dk2p.data_ptr(), db1p.data_ptr(),
-                       *tail, R, C, H, _ROW_PARTS, kernels.stream(xb))
-    else:
-        dh_s = torch.empty((R, H), dtype=bf, device=dev)
-        a_s = torch.empty((R, H), dtype=bf, device=dev)
-        db1p = torch.empty((R // 64, H), dtype=f32, device=dev)
-        kernels.launch("mlp_bwd", "mlp", "mlp_bwd_wide", (_P,) * 15 + (_I,) * 3 + (_P,),
-                       *head, dh_s.data_ptr(), a_s.data_ptr(), db1p.data_ptr(),
-                       part_a.data_ptr(), *tail, R, C, H, kernels.stream(xb))
+    S, (gbr, dh, a, part_b2, db1p, dk1p, dk2p) = _bwd_scratch(R, C, H, dev)
+    kernels.launch("mlp_bwd", "mlp", "mlp_bwd", (_P,) * 17 + (_I,) * 4 + (_P,),
+                   xb.data_ptr(), k1b.data_ptr(), b1.data_ptr(), k2b.data_ptr(), g.data_ptr(),
+                   dx.data_ptr(), dk1.data_ptr(), dk2.data_ptr(), db1.data_ptr(),
+                   db2.data_ptr(), gbr.data_ptr(), dh.data_ptr(), a.data_ptr(),
+                   part_b2.data_ptr(), db1p.data_ptr(), dk1p.data_ptr(), dk2p.data_ptr(),
+                   R, C, H, S, kernels.stream(xb))
     return dx, dk1, db1, dk2, db2
 
 
@@ -292,6 +387,5 @@ def fused_mlp(x, k1, b1, k2, b2) -> torch.Tensor:
                          f"got R={R}, C={C}, H={H}")
     args = _mlp_primals(x, k1, b1, k2, b2)
     kernels.require_cuda(*args)
-    if any(args[i].data_ptr() % 16 for i in (0, 1, 3)):
-        raise ValueError("fused_mlp kernel reads x, k1 and k2 in 16-byte vectors")
+    _require_aligned(args[0], args[1], args[3])
     return _Mlp.apply(*args).reshape(x.shape)

@@ -81,11 +81,13 @@ def test_patch_chamfer_kernel_matches_plain(dev):
         assert torch.equal(ik, ip) and torch.equal(dk, dp) and torch.equal(nk, np_)
 
 
-@pytest.mark.parametrize("C,scaled", [(384, True), (256, True), (128, False), (512, True),
-                                      (768, False)])
-def test_fused_mlp_ln_kernels_match_plain(dev, C, scaled):
-    g = _gen(dev, 3)
-    R, H = 512, 4 * C
+BWD_TOL = 5e-3   # see _assert_bwd_close
+
+
+def _mlp_ln_case(dev, R, C, H, scaled, seed=3):
+    """Inputs of ``fused_mlp_ln`` (x, gamma, beta, k1, b1, k2, b2 f32), the
+    row scale or None, and a cotangent."""
+    g = _gen(dev, seed)
     args = [torch.randn((R, C), generator=g, device=dev),
             1 + 0.1 * torch.randn((C,), generator=g, device=dev),
             0.05 * torch.randn((C,), generator=g, device=dev),
@@ -94,52 +96,144 @@ def test_fused_mlp_ln_kernels_match_plain(dev, C, scaled):
             torch.randn((H, C), generator=g, device=dev) / math.sqrt(H),
             0.02 * torch.randn((C,), generator=g, device=dev)]
     sc = (torch.rand((R,), generator=g, device=dev) >= 0.1) / 0.9 if scaled else None
-    cot = torch.randn((R, C), generator=g, device=dev)
-    lk = [t.clone().requires_grad_() for t in args]
-    lp = [t.clone().requires_grad_() for t in args]
-    yk = mlp.fused_mlp_ln(*lk, row_scale=sc)
-    yp = mlp.fused_mlp_ln_plain(*lp, row_scale=sc)
-    gk = torch.autograd.grad(yk, lk, cot)
-    gp = torch.autograd.grad(yp, lp, cot)
-
-    def rel(a, b):
-        a, b = a.detach(), b.detach()
-        return float((a - b).abs().max()) / (float(b.abs().max()) + 1e-12)
-
-    assert rel(yk - args[0], yp - args[0]) < 1e-2
-    for a, b in zip(gk, gp):
-        assert rel(a, b) < 2e-2
-    bf = torch.bfloat16
-    raw = mlp.mlp_ln_bwd_kernel(args[0], args[1], args[2], args[3].to(bf).contiguous(),
-                                args[4], args[5].to(bf).contiguous(), sc, cot)
-    assert [t.dtype for t in raw] == [torch.float32] * 3 + [bf, torch.float32, bf,
-                                                            torch.float32]
+    return args, sc, torch.randn((R, C), generator=g, device=dev)
 
 
-@pytest.mark.parametrize("C", [384, 128, 512, 768])
-def test_fused_mlp_kernels_match_plain(dev, C):
-    """The ``mlp`` kernels against ``fused_mlp_plain`` (the same roundings,
-    sums in another order): the output within 1e-2 and every gradient
-    within 2e-2 of its largest value, as for ``mlp_ln``; the raw backward
-    gives dx, dk1, dk2 in bf16 and db1, db2 in f32."""
-    g = _gen(dev, 30)
-    R, H = 512, 4 * C
+def _mlp_case(dev, R, C, H, seed=30):
+    """Inputs of ``fused_mlp`` (x bf16; k1, b1, k2, b2 f32) and a cotangent."""
+    g = _gen(dev, seed)
     args = [torch.randn((R, C), generator=g, device=dev).to(torch.bfloat16),
             torch.randn((C, H), generator=g, device=dev) / math.sqrt(C),
             0.02 * torch.randn((H,), generator=g, device=dev),
             torch.randn((H, C), generator=g, device=dev) / math.sqrt(H),
             0.02 * torch.randn((C,), generator=g, device=dev)]
-    cot = torch.randn((R, C), generator=g, device=dev)
+    return args, torch.randn((R, C), generator=g, device=dev)
+
+
+def _assert_bwd_close(got, want):
+    """A kernel backward against its plain twin with ``round_out=False``:
+    every output within BWD_TOL of the plain one's largest value. The twin
+    rounds where the kernel rounds, so what is left is the f32 sum order,
+    the flips of dh's bf16 rounding it causes (one step of one term of a
+    sum of C or more), and for the bf16 outputs (dk1, dk2; mlp's dx) their
+    own rounding, at most half a step (2^-9 of the value)."""
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert _rel(a, b) < BWD_TOL, (i, _rel(a, b))
+
+
+@pytest.mark.parametrize("C,scaled", [(384, True), (256, True), (128, False), (512, True),
+                                      (768, False)])
+def test_fused_mlp_ln_kernels_match_plain(dev, C, scaled):
+    """The ``mlp_ln`` kernels at R 512, H 4C: the forward against
+    ``fused_mlp_ln_plain`` within 1e-2 of the branch's largest value, the
+    gradients through autograd against ``mlp_ln_bwd_plain`` within BWD_TOL;
+    the raw backward gives dk1, dk2 in bf16 and the rest in f32."""
+    R, H = 512, 4 * C
+    args, sc, cot = _mlp_ln_case(dev, R, C, H, scaled)
     lk = [t.clone().requires_grad_() for t in args]
-    lp = [t.clone().requires_grad_() for t in args]
-    yk, yp = mlp.fused_mlp(*lk), mlp.fused_mlp_plain(*lp)
-    assert yk.dtype == torch.float32 and _rel(yk, yp) < 1e-2
-    for a, b in zip(torch.autograd.grad(yk, lk, cot), torch.autograd.grad(yp, lp, cot)):
-        assert a.dtype == b.dtype and _rel(a, b) < 2e-2
+    yk = mlp.fused_mlp_ln(*lk, row_scale=sc)
+    yp = mlp.fused_mlp_ln_plain(*args, row_scale=sc)
+    assert _rel(yk - args[0], yp - args[0]) < 1e-2
     bf = torch.bfloat16
-    raw = mlp.mlp_bwd_kernel(args[0], args[1].to(bf).contiguous(), args[2],
-                             args[3].to(bf).contiguous(), cot)
+    k1b, k2b = args[3].to(bf).contiguous(), args[5].to(bf).contiguous()
+    want = mlp.mlp_ln_bwd_plain(args[0], args[1], args[2], k1b, args[4], k2b, sc, cot,
+                                round_out=False)
+    _assert_bwd_close(torch.autograd.grad(yk, lk, cot), want)
+    raw = mlp.mlp_ln_bwd_kernel(args[0], args[1], args[2], k1b, args[4], k2b, sc, cot)
+    assert [t.dtype for t in raw] == [torch.float32] * 3 + [bf, torch.float32, bf,
+                                                            torch.float32]
+
+
+@pytest.mark.parametrize("C", [384, 128, 256, 512, 768])
+def test_fused_mlp_kernels_match_plain(dev, C):
+    """The ``mlp`` kernels at R 512, H 4C: the output against
+    ``fused_mlp_plain`` within 1e-2 of its largest value, the gradients
+    through autograd against ``mlp_bwd_plain`` within BWD_TOL; the raw
+    backward gives dx, dk1, dk2 in bf16 and db1, db2 in f32."""
+    R, H = 512, 4 * C
+    args, cot = _mlp_case(dev, R, C, H)
+    lk = [t.clone().requires_grad_() for t in args]
+    yk, yp = mlp.fused_mlp(*lk), mlp.fused_mlp_plain(*args)
+    assert yk.dtype == torch.float32 and _rel(yk, yp) < 1e-2
+    bf = torch.bfloat16
+    k1b, k2b = args[1].to(bf).contiguous(), args[3].to(bf).contiguous()
+    want = mlp.mlp_bwd_plain(args[0], k1b, args[2], k2b, cot, round_out=False)
+    gk = torch.autograd.grad(yk, lk, cot)
+    assert [t.dtype for t in gk] == [bf] + [torch.float32] * 4
+    _assert_bwd_close(gk, want)
+    raw = mlp.mlp_bwd_kernel(args[0], k1b, args[2], k2b, cot)
     assert [t.dtype for t in raw] == [bf, bf, torch.float32, bf, torch.float32]
+
+
+@pytest.mark.parametrize("R,C,H", [(192, 384, 1536), (320, 320, 1280), (512, 384, 384),
+                                   (4096, 384, 1536), (256, 64, 128)])
+@pytest.mark.parametrize("ln", [True, False])
+def test_mlp_backwards_match_plain_at_edge_shapes(dev, R, C, H, ln):
+    """Both backwards where the 128-wide tiles end in a 64-wide edge (R 192
+    and 320; C 320, which also makes dk1's and dk2's tiles ragged; C 64), at
+    C = H, and at R 4096 (11 weight slices), against their plain twins
+    within BWD_TOL."""
+    bf = torch.bfloat16
+    if ln:
+        args, sc, cot = _mlp_ln_case(dev, R, C, H, True, seed=R + C)
+        k1b, k2b = args[3].to(bf).contiguous(), args[5].to(bf).contiguous()
+        prim = (args[0], args[1], args[2], k1b, args[4], k2b, sc, cot)
+        got, want = mlp.mlp_ln_bwd_kernel(*prim), mlp.mlp_ln_bwd_plain(*prim, round_out=False)
+    else:
+        args, cot = _mlp_case(dev, R, C, H, seed=R + C)
+        prim = (args[0], args[1].to(bf).contiguous(), args[2], args[3].to(bf).contiguous(), cot)
+        got, want = mlp.mlp_bwd_kernel(*prim), mlp.mlp_bwd_plain(*prim, round_out=False)
+    _assert_bwd_close(got, want)
+
+
+def test_mlp_backwards_repeat_bit_for_bit_in_one_launch_count(dev):
+    """Two calls of each backward on the same inputs give the same bits (no
+    atomics; every partial has one owner and one order), and each call
+    counts one launch of its wrapper."""
+    from point_dae_torch.utils import kernels
+
+    bf = torch.bfloat16
+    args, sc, cot = _mlp_ln_case(dev, 4096, 384, 1536, True, seed=5)
+    prim = (args[0], args[1], args[2], args[3].to(bf).contiguous(), args[4],
+            args[5].to(bf).contiguous(), sc, cot)
+    margs, mcot = _mlp_case(dev, 4096, 384, 1536, seed=6)
+    mprim = (margs[0], margs[1].to(bf).contiguous(), margs[2], margs[3].to(bf).contiguous(),
+             mcot)
+    kernels.reset_launches()
+    a, b = mlp.mlp_ln_bwd_kernel(*prim), mlp.mlp_ln_bwd_kernel(*prim)
+    c, d = mlp.mlp_bwd_kernel(*mprim), mlp.mlp_bwd_kernel(*mprim)
+    assert (kernels.launches["mlp_ln_bwd"], kernels.launches["mlp_bwd"]) == (2, 2)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert all(torch.equal(x, y) for x, y in zip(c, d))
+
+
+@pytest.mark.parametrize("a_mn,b_mn", [(False, False), (False, True), (True, False),
+                                       (True, True)])
+def test_mlp_bwd_engine_product_of_each_layout_matches_matmul(dev, a_mn, b_mn):
+    """One product of the backward's wgmma engine (``csrc/mlp.cu:
+    mlp_bwd_check``) for each operand layout, K-major or MN-major A and B,
+    at M 192, N 320 (edge tiles of 64), K 256, against the same product of
+    the bf16 operands in f32 (sum order alone: 1e-5 of the largest value)."""
+    import ctypes
+
+    from point_dae_torch.utils import kernels
+
+    M, N, K = 192, 320, 256
+    g = _gen(dev, 40)
+    a = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    b = torch.randn((K, N), generator=g, device=dev).to(torch.bfloat16)
+    a_in = (a.t() if a_mn else a).contiguous()
+    b_in = (b if b_mn else b.t()).contiguous()
+    out = torch.empty((M, N), device=dev)
+    fn = kernels.library("mlp").mlp_bwd_check
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P, P, P, I, I, I, I, I, P]
+    fn.restype = I
+    assert fn(a_in.data_ptr(), b_in.data_ptr(), out.data_ptr(), int(a_mn), int(b_mn), M, N, K,
+              kernels.stream(a)) == 0
+    torch.cuda.synchronize()
+    assert _rel(out, a.float() @ b.float()) < 1e-5
 
 
 def test_bf16_residual_block_takes_the_mlp_kernels(dev):
