@@ -107,6 +107,19 @@ Phases, each fatal on failure:
               and spills; the profiled steps split the mlp_ kernels' total
               into forward and backward; the flagship step must launch
               mlp_ln 16 times a step.
+ 13. EdgeConv and FPS redesign - the previous EdgeConv design
+              (point_dae_torch/tools/edgeconv_parent.cu) is built beside the
+              kernels; at the DGCNN step's four shapes the redesigned
+              selection's idx and both backwards' du are held bit for bit
+              against it, each launch's device time is printed (selection,
+              aggregate; tie weights, counting sort, sums), and torch.topk
+              over torch.cdist is the forward's library time, beside the
+              distances' rounding-rule floor; at (32, 2048) and (4, 4096) the
+              same device split beside the plain versions; fps at 16384
+              points (the streamed form). A profiler window that lost more
+              than 5% of its kernel records (against its launch records) is
+              taken again, and three such windows in a row fail the run,
+              naming the function they timed.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Run from the repository root:
 
@@ -193,6 +206,10 @@ FINETUNE_B = dict(FT_OPTIM, npoints=1024,           # finetune_modelnet_transfer
 FINETUNES = {"A": (FINETUNE_A, 2048, True), "B": (FINETUNE_B, 8192, False)}
 # C, the ScanObjectNN DGCNN fine-tune at 2048 points, joins in main() from
 # FINETUNE_C_CFG (cfgs/generated/, unchanged)
+# kernels each fine-tune recipe's profiled step must show (A's, fps and
+# patchify, are its first and are missed: see phase_finetune)
+FT_PROFILED = {"A": (), "B": ("knn_select_kernel", "edgeconv_bwd_kernel"),
+               "C": ("knn_select_kernel", "edgeconv_bwd_kernel")}
 FT_COUNTERS = {"A": ("fps", "patchify"), "C": ("fps", "knn_aggregate_fwd", "knn_aggregate_bwd_first"),
                "B": ("fps", "knn_aggregate_fwd", "knn_aggregate_bwd_first")}
 PS_BATCH, PS_CHECK_BATCH, PS_STEPS, PS_POINTS = 16, 8, 5, 2048
@@ -248,23 +265,72 @@ def dev_us(e) -> float:
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
 
-def device_ms(fn, calls: int = 50):
-    """Device milliseconds a call of fn: the time of every CUDA kernel
-    torch.profiler records over `calls` calls (after one warm-up), summed,
-    over the count; and the kernels' names."""
+PROFILE_WINDOWS = 3        # windows a device time may take before the run fails
+
+
+def launch_balance(records, kernels):
+    """(kernel records, launch records) of a profiler window: a kernel's
+    activity record against the cudaLaunchKernel or cuLaunchKernel record
+    of its launch (copies and sets have records of their own and count as
+    neither)."""
+    launched = sum(e.count for e in records
+                   if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    recorded = sum(e.count for e in kernels if not e.key.startswith(("Memcpy", "Memset")))
+    return recorded, launched
+
+
+def per_call_ms(us: float, count: int, calls: int) -> float:
+    """Device ms a call of a kernel with ``count`` records of ``us`` in all
+    over ``calls`` calls: its mean times its launches a call where it runs
+    in every call (a lost record then moves nothing), else the total over
+    the calls."""
+    per = round(count / calls)
+    if per >= 1 and count >= per * calls - 1:
+        return us / count * per / 1e3
+    return us / calls / 1e3
+
+
+def kernel_events(fn, calls: int, what: str):
+    """The kernels torch.profiler records over ``calls`` calls of fn, after
+    one warm-up: [(name, device ms a call)], annotations left out (they
+    repeat their kernels' time). A kernel's time a call is its records'
+    mean times its launches a call, so that a record the profiler lost
+    (one of 50 at a window's edge, in some windows) moves nothing. A window
+    can lose more: the T 64 attention forward's whole window once, four of
+    a fine-tune fps kernel's five records. A window holding fewer than 95%
+    as many kernel records as launch records is logged and taken again,
+    and when PROFILE_WINDOWS windows in a row fall short the run fails,
+    naming ``what``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
-              and not getattr(e, "is_user_annotation", False)]
-    return sum(dev_us(e) for e in events) / calls / 1e3, sorted(e.key[:40] for e in events)
+    for attempt in range(1, PROFILE_WINDOWS + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        records = prof.key_averages()
+        events = [e for e in records
+                  if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
+                  and not getattr(e, "is_user_annotation", False)]
+        recorded, launched = launch_balance(records, events)
+        if events and recorded >= 0.95 * launched:
+            return [(e.key, per_call_ms(dev_us(e), e.count, calls)) for e in events]
+        log(f"  profiler window {attempt} of {what} holds {recorded} kernel records of "
+            f"{launched} launches")
+    fail(f"device time of {what}: {PROFILE_WINDOWS} torch.profiler windows in a row lost "
+         f"kernel records")
+
+
+def device_ms(fn, what: str, calls: int = 50):
+    """Device milliseconds a call of fn: the time of every CUDA kernel
+    torch.profiler records a call (``kernel_events``), summed; and the
+    kernels' names. Fails the run, naming ``what``, when the profiler
+    loses the window's kernels."""
+    events = kernel_events(fn, calls, what)
+    return sum(ms for _, ms in events), sorted(key[:40] for key, _ in events)
 
 
 def gather_times(torch, x, idx):
@@ -292,7 +358,7 @@ def gather_times(torch, x, idx):
                lib_ready_ms=cuda_ms(lib_ready, 50),
                plain_ms=cuda_ms(lambda: gather.gather_rows_small_c_plain(x, idx), 50))
     for k, fn in (("dev", kernel), ("lib_cast_dev", lib_cast), ("lib_ready_dev", lib_ready)):
-        out[k], out[k + "_kernels"] = device_ms(fn)
+        out[k], out[k + "_kernels"] = device_ms(fn, f"gather_times {k} at {tuple(x.shape)}")
     return out
 
 
@@ -339,7 +405,8 @@ def mlp_bwd_report(torch, name, kernel, plain, args, C, H, device):
         fail(f"{name} backward at R {R}: two calls on the same inputs differ")
     del one, two
     ms = cuda_ms(lambda: kernel(args), 20)
-    split = device_split(lambda: kernel(args), MLP_BWD_SPLIT, calls=10)
+    split = device_split(lambda: kernel(args), MLP_BWD_SPLIT, calls=10,
+                         what=f"{name} backward at R {R}")
     g = torch.Generator(device=device).manual_seed(SEED + 7)
     bf = torch.bfloat16
     xin = torch.randn((R, C), generator=g, device=device).to(bf)
@@ -353,7 +420,7 @@ def mlp_bwd_report(torch, name, kernel, plain, args, C, H, device):
         return (xin @ k1b, gbr @ k2b.t(), dh @ k1b.t(), xin.t() @ dh, act.t() @ gbr)
 
     lib_ms = cuda_ms(yardstick, 20)
-    lib_dev, _ = device_ms(yardstick, calls=10)
+    lib_dev, _ = device_ms(yardstick, f"{name} yardstick (torch.matmul) at R {R}", calls=10)
     plain_ms = cuda_ms(lambda: plain(args), 5)
     flops = 5 * 2 * R * C * H
     prods = split["dual"] + split["dxin"] + split["weights"]
@@ -588,8 +655,10 @@ def phase_folding(torch, device, g):
             fail("folding_bwd: two calls on the same inputs differ")
         del first, second
         log("  folding_bwd: two calls agree bit for bit")
-        split = device_split(lambda: folding.folding_bwd_kernel(*ops, gpad), FOLD_BWD_LAUNCHES)
-        fsplit = device_split(lambda: folding.folding_fwd_kernel(*ops), FOLD_BWD_LAUNCHES)
+        split = device_split(lambda: folding.folding_bwd_kernel(*ops, gpad), FOLD_BWD_LAUNCHES,
+                             what="folding_bwd")
+        fsplit = device_split(lambda: folding.folding_fwd_kernel(*ops), FOLD_BWD_LAUNCHES,
+                              what="folding_fwd")
     log("  folding_bwd device time by launch: "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items() if v))
     log("  folding_fwd device time by launch: "
@@ -630,27 +699,15 @@ FOLD_BWD_LAUNCHES = (("rows pass", "fold_bwd_rows_kernel"),
                      ("sums", "fold_sum_partials_kernel"))
 
 
-def device_split(fn, names, calls: int = 5):
-    """Device milliseconds a call of fn by kernel name group (torch.profiler
-    over `calls` calls after one warm-up); kernels matching no group (the
+def device_split(fn, names, calls: int = 5, what: str = ""):
+    """Device milliseconds a call of fn by kernel name group
+    (``kernel_events`` over `calls` calls); kernels matching no group (the
     wrapper's allocations) go to "other"."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     out = {label: 0.0 for label, _ in names}
     out["other"] = 0.0
-    for e in prof.key_averages():
-        if (e.device_type != torch.autograd.DeviceType.CUDA or dev_us(e) <= 0
-                or getattr(e, "is_user_annotation", False)):
-            continue
-        label = next((lb for lb, key in names if key in e.key), "other")
-        out[label] += dev_us(e) / calls / 1e3
+    for name, ms in kernel_events(fn, calls, what or "/".join(key for _, key in names)):
+        label = next((lb for lb, key in names if key in name), "other")
+        out[label] += ms
     out["total"] = sum(out.values())
     return out
 
@@ -685,8 +742,8 @@ def fold_head_yardstick(torch, device, xl, grid, p1, p2, cot, split, fsplit):
         out = folding.fused_folding(xl, grid, p1, p2)
         torch.autograd.grad(out, fused_leaves, cot)
 
-    plain_ms, _ = device_ms(plain, 5)
-    fused_ms, _ = device_ms(fused, 5)
+    plain_ms, _ = device_ms(plain, "the plain folding head", 5)
+    fused_ms, _ = device_ms(fused, "the fused folding head", 5)
     log(f"  folding head yardstick, forward + backward device time a call at {Bt * M} tokens: "
         f"plain head (fold_impl xla, cuBLAS) {plain_ms:.4f} ms; fused head {fused_ms:.4f} ms "
         f"(kernels: fwd {fsplit['total'] - fsplit['other']:.4f}, bwd "
@@ -789,12 +846,15 @@ def phase_attention(torch, device, g):
                 lq.detach(), lk.detach(), lv.detach(), attn_mask=amask), 50),
             lib_bwd=cuda_ms(lambda: torch.autograd.grad(
                 lib_out, (lq, lk, lv), lib_cot, retain_graph=True), 50),
-            dev_fwd=device_ms(lambda: attention.attention_fwd_kernel(q, k, v, mask))[0],
-            dev_bwd=device_ms(lambda: attention.attention_bwd_kernel(q, k, v, mask, cot))[0],
+            dev_fwd=device_ms(lambda: attention.attention_fwd_kernel(q, k, v, mask),
+                              f"attention_fwd_kernel T {T}")[0],
+            dev_bwd=device_ms(lambda: attention.attention_bwd_kernel(q, k, v, mask, cot),
+                              f"attention_bwd_kernel T {T}")[0],
             lib_dev_fwd=device_ms(lambda: F.scaled_dot_product_attention(
-                lq.detach(), lk.detach(), lv.detach(), attn_mask=amask))[0],
+                lq.detach(), lk.detach(), lv.detach(), attn_mask=amask), f"SDPA T {T}")[0],
             lib_dev_bwd=device_ms(lambda: torch.autograd.grad(
-                lib_out, (lq, lk, lv), lib_cot, retain_graph=True))[0],
+                lib_out, (lq, lk, lv), lib_cot, retain_graph=True),
+                f"SDPA's autograd backward T {T}")[0],
             bound_fwd=bound_ms(3 * nel * 2 + Bt * T + nel * 4,
                                2 * 2 * Bt * H * T * T * d, BF16_FLOPS),
             bound_bwd=bound_ms(3 * nel * 2 + Bt * T + nel * 4 + 3 * nel * 2,
@@ -919,9 +979,25 @@ def edgeconv_work(B, N, Cf, C, k):
     return fwd, bwd
 
 
-def phase_dgcnn_kernels(torch, corrupted, clean, device):
+# csrc/edgeconv.cu's launches by kernel name: the forward's selection and
+# aggregate, the backward's tie-weight pass ('split'), counting sort and sums
+EDGECONV_SPLIT = (("select", "knn_select_kernel"), ("sqnorm", "row_sqnorm_kernel"),
+                  ("aggregate", "edgeconv_aggregate_kernel"), ("ties", "tie_weights_kernel"),
+                  ("sort", "contrib_"), ("sum", "edgeconv_bwd_kernel"))
+
+
+def split_line(split) -> str:
+    return ", ".join(f"{k} {v:.4f}" for k, v in split.items() if v and k != "total")
+
+
+def phase_dgcnn_kernels(torch, corrupted, clean, device, parent):
     """The DGCNN step's kernels at its shapes (batch 128, 1024 points, k 20)
-    against their plain versions on the card."""
+    against their plain versions on the card; the EdgeConv kernels' device
+    time by launch, torch.topk over torch.cdist beside the forward, and the
+    backwards and the selection held bit for bit against the previous
+    design (``parent``, the library built from
+    point_dae_torch/tools/edgeconv_parent.cu)."""
+    from point_dae_torch.tools import edgeconv_ablation
     from point_dae_torch.losses import chamfer
     from point_dae_torch.ops import edgeconv
 
@@ -961,7 +1037,10 @@ def phase_dgcnn_kernels(torch, corrupted, clean, device):
     # deeper layers see features, duplicated where the points are. U holds
     # bf16 values, as the bf16 edge projection leaves them.
     names = ("knn_aggregate_fwd", "knn_aggregate_bwd_first", "knn_aggregate_bwd_split")
-    tot = {n: dict(ms=0.0, plain_ms=0.0, nbytes=0.0, flops=0.0, err=0.0) for n in names}
+    tot = {n: dict(ms=0.0, plain_ms=0.0, nbytes=0.0, flops=0.0, err=0.0, dev=0.0)
+           for n in names}
+    lib_ms = select_dev = macs = 0.0
+    parts = {"first": {}, "split": {}}
     dup = corrupted[:, :, None, :].eq(corrupted[:, None, :64, :]).all(-1)   # (B, N, 64)
     first_twin = torch.where(dup.any(-1), dup.float().argmax(-1),
                              torch.arange(N, device=device)[None, :].expand(B, -1))
@@ -982,6 +1061,8 @@ def phase_dgcnn_kernels(torch, corrupted, clean, device):
         if not torch.equal(outk[4], idx):
             fail(f"knn_aggregate Cf {Cf}: neighbours differ from the plain version "
                  f"(match {float((outk[4] == idx).float().mean())})")
+        if not torch.equal(edgeconv_ablation.parent_select(parent, xf, k)[1], idx):
+            fail(f"knn_aggregate Cf {Cf}: neighbours differ from the previous design's")
         for nm, a, b in zip(("M", "m", "S1", "S2", "rM", "rm"), outk[:4] + outk[5:], outp):
             if not torch.equal(a.to(b.dtype), b):
                 fail(f"knn_aggregate Cf {Cf}: {nm} differs from the plain version")
@@ -1001,34 +1082,67 @@ def phase_dgcnn_kernels(torch, corrupted, clean, device):
                 fail(f"knn_aggregate bwd {mode} Cf {Cf}: du off by {err:.2e} of max |du|")
             if not torch.equal(du, du2):
                 fail(f"knn_aggregate bwd {mode}: two runs differ in their bits")
+            if not torch.equal(du, edgeconv_ablation.parent_bwd(parent, mode, U, idx, a, c,
+                                                                *cots)):
+                fail(f"knn_aggregate bwd {mode} Cf {Cf}: du differs from the previous "
+                     f"design's in its bits")
             t = tot[f"knn_aggregate_bwd_{mode}"]
             t["err"] = max(t["err"], float((du - want).abs().max()))
             shape_ms[mode] = cuda_ms(run, 5)
+            split = device_split(run, EDGECONV_SPLIT, what=f"knn_aggregate bwd {mode} Cf {Cf}")
+            t["dev"] += split["total"]
+            for key, v in split.items():
+                parts[mode][key] = parts[mode].get(key, 0.0) + v
+            shape_ms[mode + " split"] = split_line(split)
             t["ms"] += shape_ms[mode]
             t["plain_ms"] += cuda_ms(lambda: plain(U, idx, a, c, *cots), 1)
             t["nbytes"] += edgeconv_work(B, N, Cf, C, k)[1][0]
             t["flops"] += edgeconv_work(B, N, Cf, C, k)[1][1]
             del du, du2, want
         t = tot["knn_aggregate_fwd"]
-        shape_ms["fwd"] = cuda_ms(lambda: edgeconv.knn_aggregate_fwd_kernel(U, xf, k, True), 5)
+        fwd = lambda: edgeconv.knn_aggregate_fwd_kernel(U, xf, k, True)  # noqa: E731
+        shape_ms["fwd"] = cuda_ms(fwd, 5)
         t["ms"] += shape_ms["fwd"]
+        split = device_split(fwd, EDGECONV_SPLIT, what=f"knn_aggregate fwd Cf {Cf}")
+        t["dev"] += split["total"]
+        select_dev += split["select"] + split["sqnorm"]
+        shape_ms["fwd split"] = split_line(split)
+        shape_ms["lib"] = cuda_ms(lambda: torch.topk(torch.cdist(xf, xf), k, dim=-1,
+                                                     largest=False), 5)
+        lib_ms += shape_ms["lib"]
+        macs += B * N * N * Cf
         t["plain_ms"] += cuda_ms(lambda: edgeconv.aggregate_plain(
             U, edgeconv.knn_select_plain(xf, k)), 1)
         t["nbytes"] += edgeconv_work(B, N, Cf, C, k)[0][0]
         t["flops"] += edgeconv_work(B, N, Cf, C, k)[0][1]
-        log(f"  knn_aggregate Cf {Cf:3d} C {C:3d}: fwd {shape_ms['fwd']:.4f} ms, bwd first "
-            f"{shape_ms['first']:.4f} ms, bwd split {shape_ms['split']:.4f} ms; forward bit "
-            f"for bit, rows whose 2 nearest tie in U {ties:.4f}")
+        log(f"  knn_aggregate Cf {Cf:3d} C {C:3d}: fwd {shape_ms['fwd']:.4f} ms (device "
+            f"{shape_ms['fwd split']}; torch.topk over torch.cdist {shape_ms['lib']:.4f}), bwd "
+            f"first {shape_ms['first']:.4f} ms (device {shape_ms['first split']}), bwd split "
+            f"{shape_ms['split']:.4f} ms (device {shape_ms['split split']}); forward bit for "
+            f"bit, rows whose 2 nearest tie in U {ties:.4f}; idx and both du bit for bit with "
+            f"the previous design")
         del outk, outp, cots
         torch.cuda.empty_cache()
+    # the distances' multiply-adds as the rounding rule keeps them: a rounded
+    # product and a rounded sum, two instructions at half the FMA rate's flops
+    floor = 2 * macs / (F32_FLOPS / 2) * 1e3
+    notes = {
+        "knn_aggregate_fwd": f"device {tot['knn_aggregate_fwd']['dev']:.4f} ms, of which the "
+                             f"selection {select_dev:.4f}; rounding-rule floor of the distances "
+                             f"{floor:.4f} ms (no FMA); library: torch.topk over torch.cdist",
+        "knn_aggregate_bwd_first": f"device {tot['knn_aggregate_bwd_first']['dev']:.4f} ms: "
+                                   + split_line(parts["first"]),
+        "knn_aggregate_bwd_split": f"device {tot['knn_aggregate_bwd_split']['dev']:.4f} ms: "
+                                   + split_line(parts["split"])}
     for n, line in zip(names, ("98", "457", "340")):
         t = tot[n]
         records[n] = dict(
             replaces=f"point_dae_tpu/ops/pallas_edgeconv.py:{line}",
             source="point_dae_torch/csrc/edgeconv.cu", max_abs_err=t["err"], ms=t["ms"],
-            plain_ms=t["plain_ms"], library_ms=None,
+            plain_ms=t["plain_ms"], library_ms=lib_ms if n == "knn_aggregate_fwd" else None,
             bound=bound_ms(t["nbytes"], t["flops"], F32_FLOPS),
-            note="sum over the four EdgeConv shapes of a step (B 128, N 1024, k 20)")
+            note="sum over the four EdgeConv shapes of a step (B 128, N 1024, k 20); "
+                 + notes[n])
     return records
 
 
@@ -1141,7 +1255,8 @@ def phase_dgcnn_train(torch, config, raw, device, card):
     log(f"  [{card}] DGCNN step {steady * 1e3:.2f} ms (median of steps 2-{TRAIN_STEPS}), "
         f"{DGCNN_BATCH / steady:.1f} clouds/s, first step {first * 1e3:.1f} ms, "
         f"max_memory_allocated {peak / 2 ** 30:.2f} GiB")
-    profile_step(torch, one_more, card)
+    profile_step(torch, one_more, card,
+                 expect=("knn_select_kernel", "edgeconv_bwd_kernel", "contrib_"))
     del one_more
     torch.cuda.empty_cache()
 
@@ -1262,7 +1377,8 @@ def phase_train(torch, config, raw, device, card):
     log(f"  [{card}] step {steady * 1e3:.2f} ms (median of steps 2-{TRAIN_STEPS}), "
         f"{BATCH / steady:.1f} clouds/s, first step {first * 1e3:.1f} ms, "
         f"max_memory_allocated {peak / 2 ** 30:.2f} GiB")
-    profile_step(torch, one_more, card)
+    profile_step(torch, one_more, card, expect=("patchify_kernel", "mlp_ln", "fold_bwd_rows",
+                                                "attention_fwd"))
     del one_more
     torch.cuda.empty_cache()
 
@@ -1281,23 +1397,34 @@ def phase_train(torch, config, raw, device, card):
     return launches, (steady, peak)
 
 
-def profile_step(torch, run, card, top: int = 25):
+def profile_step(torch, run, card, top: int = 25, expect=()):
     """Device time by kernel over one more step, under torch.profiler (which
     slows the host side, so the busy share is a lower bound). Returns (busy
-    microseconds, microseconds by ported kernel)."""
+    microseconds, microseconds by ported kernel). Each name of ``expect``
+    must have device time in the window: else the step is profiled again,
+    and after PROFILE_WINDOWS windows the run fails."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-
-    # kernel records only: operator records and annotations repeat their
-    # kernels' time
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
-              and not getattr(e, "is_user_annotation", False)]
+    for attempt in range(1, PROFILE_WINDOWS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        # kernel records only: operator records and annotations repeat their
+        # kernels' time
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
+                  and not getattr(e, "is_user_annotation", False)]
+        missing = [n for n in expect if not any(n in e.key for e in events)]
+        recorded, launched = launch_balance(prof.key_averages(), events)
+        if events and not missing:
+            break
+        log(f"  profiler window {attempt} of a step recorded no device time for "
+            f"{missing or 'any kernel'} ({recorded} kernel records of {launched} launches)")
+    else:
+        fail(f"profiled step: {PROFILE_WINDOWS} windows recorded no device time for "
+             f"{missing or 'any kernel'}")
     busy = sum(dev_us(e) for e in events)
     ours = {"mlp_": 0.0, "patchify_kernel": 0.0,
             "gather_rows_kernel": 0.0, "nn_half_small_kernel": 0.0,
@@ -1307,7 +1434,7 @@ def profile_step(torch, run, card, top: int = 25):
             "attention_fwd": 0.0, "attention_bwd": 0.0,
             "knn_select_kernel": 0.0, "edgeconv_aggregate_kernel": 0.0,
             "gather_by_key_kernel": 0.0,
-            "edgeconv_bwd_kernel": 0.0, "edgeconv_tie_weights_kernel": 0.0,
+            "edgeconv_bwd_kernel": 0.0, "edgeconv_tie_weights_kernel": 0.0, "contrib_": 0.0,
             "row_sqnorm_kernel": 0.0,
             "nn_half_tiled_kernel": 0.0, "fps_kernel": 0.0, "sort_rows_kernel": 0.0,
             "sum_rows_kernel": 0.0}
@@ -1320,7 +1447,8 @@ def profile_step(torch, run, card, top: int = 25):
     # csrc/mlp.cu's backward launches are mlp_bwd_*; the rest of mlp_* the forward
     mlp_bwd = sum(dev_us(e) for e in events if "mlp_bwd_" in e.key)
     log(f"  [{card}] profiled step: wall {wall_us / 1e3:.2f} ms, device busy "
-        f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), folding kernels in total "
+        f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%; {recorded} kernel records of "
+        f"{launched} launches), folding kernels in total "
         f"{fold / 1e3:.2f} ms, mlp_ kernels {ours['mlp_'] / 1e3:.2f} ms (forward "
         f"{(ours['mlp_'] - mlp_bwd) / 1e3:.2f}, backward {mlp_bwd / 1e3:.2f}), ported kernels "
         + ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in ours.items() if v))
@@ -1344,14 +1472,15 @@ def ft_clouds(torch, name, batch, device, seed):
 def phase_fps_kernels(torch, device):
     """The fps kernel against its plain version, indices equal, at the
     recipes' shapes (B train 8192 -> 1200, B eval 8192 -> 1024, A 2048 ->
-    2048) and one in the per-row gate (1200 -> 1024), on clouds with
-    duplicated and zeroed points; and patchify at the PointTransformer's
-    shape (G 128 of 2048) against its plain version."""
+    2048), one in the per-row gate (1200 -> 1024) and one above the
+    register form's 8192 points (16384 -> 1024, the streamed form), on
+    clouds with duplicated and zeroed points; and patchify at the
+    PointTransformer's shape (G 128 of 2048) against its plain version."""
     from point_dae_torch.ops import fps
 
     g = torch.Generator(device=device).manual_seed(SEED + 20)
     rows = []
-    for N, n in ((8192, 1200), (8192, 1024), (2048, 2048), (1200, 1024)):
+    for N, n in ((8192, 1200), (8192, 1024), (2048, 2048), (1200, 1024), (16384, 1024)):
         pts = torch.randn((FT_BATCH, N, 3), generator=g, device=device)
         pts[:, N // 2:N // 2 + N // 16] = pts[:, :N // 16]        # duplicated points
         pts[:, 5:9] = 0.0                                        # never selectable
@@ -1598,6 +1727,7 @@ def phase_finetune(torch, device, card):
     then 2 steps of A in bf16. Returns the fps launches of the train runs."""
     import numpy as np
     from point_dae_torch.engine import finetune
+    from point_dae_torch.ops import fps as fps_ops
     from point_dae_torch.utils import kernels
 
     fps_launches = 0
@@ -1617,9 +1747,16 @@ def phase_finetune(torch, device, card):
         log(f"  [{card}] {name} train step {steady * 1e3:.2f} ms (median of steps "
             f"2-{FT_STEPS}), {FT_BATCH / steady:.1f} clouds/s, first step {first * 1e3:.1f} ms, "
             f"max_memory_allocated {peak / 2 ** 30:.2f} GiB")
-        busy, ours = profile_step(torch, one_more, card, top=12)
+        busy, ours = profile_step(torch, one_more, card, top=12, expect=FT_PROFILED[name])
+        # the step's fps launch, timed in a window of its own: the profiled
+        # step's window (CPU and CUDA records) loses the step's first kernel
+        # records, fps and then patchify, in every run of this script
+        keep = finetune.point_all(int(config["npoints"]), n_raw)
+        fps_dev, _ = device_ms(lambda: fps_ops.furthest_point_sample(pts[..., :3], keep),
+                               f"the {name} step's fps ({n_raw} -> {keep})", calls=5)
         log(f"  [{card}] {name} fps share of the profiled step's device time: "
-            f"{100 * ours['fps_kernel'] / busy:.1f}% ({ours['fps_kernel'] / 1e3:.3f} ms)")
+            f"{100 * fps_dev * 1e3 / busy:.1f}% ({fps_dev:.3f} ms, its own window; the "
+            f"step's window holds {ours['fps_kernel'] / 1e3:.3f} ms of it)")
         del one_more
 
         eval_step = finetune.make_eval_step(model, config, device=device)
@@ -2093,6 +2230,7 @@ def phase_key_knn_kernels(torch, device, card):
         plain_ms = {"fwd": cuda_ms(lambda: edgeconv.aggregate_plain(
             U, edgeconv.knn_select_plain(xf, k)), 1)}
         bounds = {"fwd": bound_ms(*fwd_work, F32_FLOPS)}
+        splits = {}
         for mode, a, c, plain in (("first", rM, rm, edgeconv.bwd_first_plain),
                                   ("split", M, m, edgeconv.bwd_split_plain)):
             run = lambda: edgeconv.knn_aggregate_bwd_kernel(mode, U, idx, a, c, *cots)
@@ -2106,9 +2244,14 @@ def phase_key_knn_kernels(torch, device, card):
             ms[mode] = cuda_ms(run, 3)
             plain_ms[mode] = cuda_ms(lambda: plain(U, idx, a, c, *cots), 1)
             bounds[mode] = bound_ms(*bwd_work, F32_FLOPS)
+            splits[mode] = split_line(device_split(run, EDGECONV_SPLIT,
+                                                   what=f"knn_aggregate bwd {mode} N {N}"))
+        splits["fwd"] = split_line(device_split(
+            lambda: edgeconv.knn_aggregate_fwd_kernel(U, xf, k, True), EDGECONV_SPLIT,
+            what=f"knn_aggregate fwd N {N}"))
         log(f"  [{card}] knn_aggregate ({Bn}, {N}, Cf {C}, C {C}, k {k}): "
             + "; ".join(f"{w} {ms[w]:.4f} ms (plain {plain_ms[w]:.4f}, bound "
-                        f"{bounds[w][0]:.4f} by {bounds[w][1]})"
+                        f"{bounds[w][0]:.4f} by {bounds[w][1]}; device {splits[w]})"
                         for w in ("fwd", "first", "split"))
             + "; forward bit for bit with the plain version, both backwards (first, "
             "split) bit for bit with it on the CPU")
@@ -2382,9 +2525,10 @@ def phase_mlp_wide_kernels(torch, device):
     lib_ms = cuda_ms(lambda: torch.gather(xw, 1, idx64), 50)
     lib_cast_ms = cuda_ms(lambda: torch.gather(xw, 1, idx.long()[..., None].expand(-1, -1, Cw)), 50)
     bf_ms = cuda_ms(lambda: gather.gather_rows_wide(xb, idx), 50)
-    dev, _ = device_ms(lambda: gather.gather_rows_wide(xw, idx))
-    dev64, _ = device_ms(lambda: gather.gather_rows_wide(xw, idx_l))
-    lib_dev, _ = device_ms(lambda: torch.gather(xw, 1, idx64))
+    dev, _ = device_ms(lambda: gather.gather_rows_wide(xw, idx), "gather_rows_wide")
+    dev64, _ = device_ms(lambda: gather.gather_rows_wide(xw, idx_l),
+                         "gather_rows_wide (int64 index)")
+    lib_dev, _ = device_ms(lambda: torch.gather(xw, 1, idx64), "torch.gather")
     log(f"  gather_rows_wide ({B}, {N}, {Cw}) by {Q} rows: {ms:.4f} ms a call from the int32 "
         f"index (device {dev:.4f}), {ms64:.4f} from int64 (device {dev64:.4f}); torch.gather "
         f"from a ready int64 index {lib_ms:.4f} (device {lib_dev:.4f}), from the int32 index "
@@ -2696,10 +2840,16 @@ def main() -> None:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {torch.get_num_threads()} CPU threads")
 
-    # 2. build
+    # 2. build, with the previous EdgeConv design beside (the yardstick of
+    # the redesigned backward and selection)
+    from point_dae_torch.tools import edgeconv_ablation
+
     t0 = time.perf_counter()
+    parent_join = edgeconv_ablation.build_in_background(["parent"])
     logs = kernels.build()
-    log(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
+    parent = parent_join()["parent"][0]
+    log(f"build: {sorted(logs)} and the previous EdgeConv design in "
+        f"{time.perf_counter() - t0:.1f} s")
     stamp("import and build")
     for name, text in sorted(logs.items()):
         if name == "attention":
@@ -2740,7 +2890,7 @@ def main() -> None:
     records = phase_kernels(torch, pts, device)
     stamp("kernels")
     torch.cuda.empty_cache()
-    records.update(phase_dgcnn_kernels(torch, corrupted_d, clean_d, device))
+    records.update(phase_dgcnn_kernels(torch, corrupted_d, clean_d, device, parent))
     stamp("dgcnn_kernels")
     torch.cuda.empty_cache()
     records.update(phase_fps_kernels(torch, device))

@@ -19,19 +19,20 @@
 //
 // Design. The TPU kernel held a cloud's whole xf and U in VMEM; a Hopper
 // block has 227 KB, so the forward is two launches that meet in idx:
-//  - select: a block is kSelWarps warps, kR query rows a warp. xf streams
-//    through shared memory in (kTileCols columns x kTileCh channels) tiles
-//    shared by the block's rows, the next tile's global loads in flight
-//    while the current one is used. A lane keeps the distances of columns
-//    lane + 32 t of its kR rows in registers (32 * kNT = 1024 columns at
-//    once) and reads four channels of a column at a time. A round is a
-//    minimum over the lane's four cached group minima, a warp argmin by
-//    shuffles over (distance, column), and a masking of the winner with a
-//    rescan of its group of eight registers; the warp's rows go through it
-//    side by side. Above 1024 columns (N <= 4096) the columns stream in
-//    chunks of 1024 and each chunk's rounds merge with the row's running
-//    top-k, kept per warp in shared memory, by (distance, column), the
-//    TPU kernel's multi-tile merge (pallas_knn.py:80-95) done in place.
+//  - select: a block takes 32 query rows and the columns in chunks of
+//    1024. First the block computes the chunk's 32 x 1024 distances into
+//    shared memory: xf streams through a three-stage cp.async ring of (512
+//    columns x 8 channels) tiles, one barrier a tile, two tiles in flight
+//    while one is used, and a thread holds a 4-row x 8-column tile of
+//    sums, so each staged value feeds four or eight multiply-adds. Then
+//    each warp takes two rows, a lane the distances of columns lane + 32 t
+//    in registers, for k rounds: a minimum over the lane's four cached
+//    group minima, a warp argmin over (distance, column) in two redux.sync
+//    minima, and a masking of the winner with a rescan of its group of
+//    eight registers. Above 1024 columns (N <= 4096) each chunk's rounds
+//    merge with the row's running top-k, kept per warp in shared memory,
+//    by (distance, column), the TPU kernel's multi-tile merge
+//    (pallas_knn.py:80-95) done in place.
 //  - aggregate: a warp a row reads the selected rows of U straight from L2
 //    (an exact f32 row read stands where the TPU used a one-hot matrix
 //    product), four channels a lane.
@@ -46,22 +47,25 @@
 //          + gs1[i] + 2 U[j] gs2[i],  cM / cm = the number of the row's
 //          neighbours whose value equals M / m.
 // The TPU summed du over a sequential grid axis with transposed one-hot
-// products. Here the warp that owns target row j finds its contributors
-// itself: the cloud's idx streams through shared memory, the warp scans it
-// for j and keeps the matches in (i, r) order (ballot + popcount) in a
-// list of max(N, 1024) entries (a kNN names a row at most once a source,
-// so nothing is dropped; above N 3376 a block has fewer warps), then sums
-// their cotangent rows in that order, four channels a lane: the (gM, gm)
+// products. Here a stable counting sort of each cloud's idx by target
+// builds every target row's list of contributors in (i, r) order (a kNN
+// row names a target once, so source order is (i, r) order; no float and
+// no order-dependent atomics), then a group of lanes a (target row,
+// channel slice) sums their cotangent rows in list order: the (gM, gm)
 // terms, gs1 and gs2 each in their own sum, du = (acc + s1) + (2 U) s2.
-// No atomics: the result repeats bit for bit. 'split' first runs a pass
-// over source rows that turns (gM, gm) into (gM / cM, gm / cm).
+// The work is linear in N k; the result repeats bit for bit. 'split' first
+// runs a pass over source rows that turns (gM, gm) into (gM / cM, gm / cm).
 //
 // Bounds on the H100 (f32 outside the tensor cores): the forward's distance
-// phase does B*N*N*Cf multiply-adds as two rounded operations each (69
-// GFLOP at B 128, N 1024, Cf 128), against B*N*(Cf + 4.5 C + k)*4 bytes:
-// operations. The backward moves about B*N*C*4*6 bytes and sums B*N*k*C*4
-// terms: bytes.
+// phase does B*N*N*Cf multiply-adds, against B*N*(Cf + 4.5 C + k)*4 bytes:
+// operations. Counted at the FMA rate that is 67 TFLOP/s; kept as two
+// rounded operations each (no FMA, so the neighbours stay the plain
+// version's), the floor is one instruction each at 128 lanes a clock an SM,
+// twice that. The backward moves about B*N*C*4*6 bytes and sums B*N*k*C*4
+// terms: bytes; each source row is read once for each of its k targets,
+// mostly from L2, which sets its pace.
 #include "common.cuh"
+#include "mma.cuh"
 
 #include <cstdint>
 
@@ -71,16 +75,18 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr float kInf = 1e30f;
 
 constexpr int kSelWarps = 16;
-constexpr int kR = 2;                       // query rows a warp
+constexpr int kR = 2;                       // query rows a warp in the rounds
 constexpr int kSelRows = kSelWarps * kR;    // query rows a block
 constexpr int kSelThreads = kSelWarps * 32;
 constexpr int kNT = 32;                     // distance registers a lane and row
-constexpr int kMaxN = 32 * kNT;             // 1024
-constexpr int kTileCols = 128;
-constexpr int kTileCh = 32;
-constexpr int kTileStride = kTileCh + 4;    // floats a column: float4 reads without conflicts
-constexpr int kTileRegs = kTileCols * kTileCh / kSelThreads;   // 8 floats a thread
+constexpr int kMaxN = 32 * kNT;             // 1024 columns a chunk
+constexpr int kTileCols = 512;              // columns a distance tile
+constexpr int kDistCh = 8;                  // channels a distance tile
+constexpr int kRT = 4;                      // rows of a thread's distance tile
+constexpr int kCT = 8;                      // columns of a thread's distance tile
 constexpr int kMaxK = 64;
+static_assert(kSelRows == 8 * kRT && kTileCols == 2 * 32 * kCT && kTileCols == kSelThreads,
+              "16 warps: 8 row groups of 4 x 2 column halves of 256; a thread a column");
 
 // sq[row] = sum_c x[row, c]^2, products rounded, summed in channel order.
 __global__ void row_sqnorm_kernel(const float* __restrict__ x, int rows, int C,
@@ -102,61 +108,131 @@ __device__ __forceinline__ float mac_rn(float acc, float a, float b) {
   return __fadd_rn(acc, __fmul_rn(a, b));
 }
 
-// One tile of xf, columns col0.. and channels cc.., a thread's share in
-// registers: element s of thread t is tile float4 (or float) t + s * threads.
-struct TileRegs {
-  float v[kTileRegs];
+// Distance tiles in order: chunk of kMaxN columns, then its column tiles
+// of kTileCols, then channel slices of kDistCh.
+struct TileGrid {
+  int Ndb, Cf, ncc;
+  __device__ int count() const {
+    const int full = Ndb / kMaxN, rest = Ndb - full * kMaxN;
+    return (full * 2 + (rest + kTileCols - 1) / kTileCols) * ncc;
+  }
+  // (chunk base, column tile, channel slice) of tile T
+  __device__ void at(int T, int& base, int& ct, int& cs) const {
+    const int chunk = T / (2 * ncc), w = T - chunk * 2 * ncc;
+    base = chunk * kMaxN;
+    ct = w / ncc;
+    cs = w - ct * ncc;
+  }
 };
 
+// A distance tile in shared memory: ys[column][8] (the column's channels
+// cc.. in two groups of four, group g of column j at 4 (g ^ (j >> 2 & 1)),
+// so that eight neighbouring lanes' float4 reads of one group fall in
+// distinct banks) and qs[row][8] for the block's query rows. Channels past
+// Cf, columns past Ndb and rows past Nq arrive as zeros (a zero product
+// adds nothing: the sums are never -0).
+constexpr int kStages = 3;                           // tiles in flight
+constexpr int kStageFloats = kTileCols * kDistCh + kSelRows * kDistCh;
+
+__device__ __forceinline__ int swz(int j, int g) { return 4 * (g ^ ((j >> 2) & 1)); }
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+// The threads copy the tile's columns (a thread a column, or two a column
+// when Cf % 4 == 0) and, t < 2 kSelRows (vector) or < kDistCh kSelRows,
+// the query rows' channels.
 template <bool kVec>
-__device__ __forceinline__ void tile_load(TileRegs& r, const float* __restrict__ xb,
-                                          int N, int Cf, int col0, int cc, int nch,
-                                          int nchp) {
-  if constexpr (kVec) {   // Cf % 4 == 0: one float4 is four channels of one column
-    const int per_col = nchp >> 2;
+__device__ __forceinline__ void tile_issue(float* __restrict__ stage, const TileGrid& tg,
+                                           int T, const float* __restrict__ qb,
+                                           const float* __restrict__ yb, int Nq, int row0) {
+  int base, ct, cs;
+  tg.at(T, base, ct, cs);
+  const int cc = cs * kDistCh, nch = min(kDistCh, tg.Cf - cc);
+  const int t = threadIdx.x;
+  float* ys = stage;
+  float* qs = stage + kTileCols * kDistCh;
+  if constexpr (kVec) {   // Cf % 4 == 0: nch is 4 or 8, a group is 16 bytes
+    // two neighbouring threads copy one column's two groups: a warp's
+    // copy reads 16 whole 32-byte sectors
 #pragma unroll
-    for (int s = 0; s < kTileRegs / 4; ++s) {
-      const int e = threadIdx.x + s * kSelThreads;
-      const int j = e / per_col, c4 = e - j * per_col;
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (j < kTileCols && col0 + j < N)
-        val = *reinterpret_cast<const float4*>(
-            xb + static_cast<size_t>(col0 + j) * Cf + cc + 4 * c4);
-      r.v[4 * s] = val.x; r.v[4 * s + 1] = val.y;
-      r.v[4 * s + 2] = val.z; r.v[4 * s + 3] = val.w;
+    for (int h = 0; h < 2; ++h) {
+      const int jt = h * (kTileCols / 2) + (t >> 1), g = t & 1;
+      const int jj = base + ct * kTileCols + jt;
+      const bool ok = jj < tg.Ndb && 4 * g < nch;
+      cp_async16(ys + jt * kDistCh + swz(jt, g),
+                 yb + static_cast<size_t>(ok ? jj : 0) * tg.Cf + cc + 4 * g, ok);
+    }
+    if (t < 2 * kSelRows) {
+      const int r = t >> 1, g = t & 1;
+      const float* pq = qb + static_cast<size_t>(min(row0 + r, Nq - 1)) * tg.Cf + cc + 4 * g;
+      cp_async16(qs + r * kDistCh + 4 * g, pq, 4 * g < nch);
     }
   } else {
+    const int j = base + ct * kTileCols + t;
+    const bool col_ok = j < tg.Ndb;
+    const float* py = yb + static_cast<size_t>(col_ok ? j : 0) * tg.Cf + cc;
 #pragma unroll
-    for (int s = 0; s < kTileRegs; ++s) {
-      const int e = threadIdx.x + s * kSelThreads;
-      const int j = e / nchp, c = e - j * nchp;
-      r.v[s] = (j < kTileCols && col0 + j < N && c < nch)
-                   ? xb[static_cast<size_t>(col0 + j) * Cf + cc + c] : 0.f;
+    for (int c = 0; c < kDistCh; ++c)
+      cp_async4(ys + t * kDistCh + swz(t, c >> 2) + (c & 3), py + (c < nch ? c : 0),
+                col_ok && c < nch);
+    if (t < kDistCh * kSelRows) {
+      const int r = t / kDistCh, c = t % kDistCh;
+      const float* pq = qb + static_cast<size_t>(min(row0 + r, Nq - 1)) * tg.Cf + cc;
+      cp_async4(qs + r * kDistCh + c, pq + (c < nch ? c : 0), c < nch);
     }
   }
 }
 
-template <bool kVec>
-__device__ __forceinline__ void tile_store(const TileRegs& r, float* __restrict__ ys,
-                                           int nchp) {
-  if constexpr (kVec) {
-    const int per_col = nchp >> 2;
+// The tile's channels for a thread's rows rg * 4 .. + 3 and columns
+// half * 256 + lane + 32 t (t < 8): per group of four channels, four
+// broadcast float4 of the rows and eight float4 of the columns feed 128
+// rounded multiply-adds, a channel at a time, so each sum takes its
+// channels in order.
+__device__ __forceinline__ void tile_macs(float (&acc)[kRT][kCT], const float* __restrict__ stage,
+                                          int rg, int half, int lane, int groups) {
+  const float* ys = stage + (half * 256 + lane) * kDistCh;
+  const float* qs = stage + kTileCols * kDistCh + rg * kRT * kDistCh;
+  for (int g = 0; g < groups; ++g) {   // the same for the whole block
+    float4 q[kRT];
 #pragma unroll
-    for (int s = 0; s < kTileRegs / 4; ++s) {
-      const int e = threadIdx.x + s * kSelThreads;
-      const int j = e / per_col, c4 = e - j * per_col;
-      if (j < kTileCols)
-        *reinterpret_cast<float4*>(ys + j * kTileStride + 4 * c4) =
-            make_float4(r.v[4 * s], r.v[4 * s + 1], r.v[4 * s + 2], r.v[4 * s + 3]);
-    }
-  } else {
+    for (int a = 0; a < kRT; ++a) q[a] = *reinterpret_cast<const float4*>(qs + a * kDistCh + 4 * g);
+    float4 y[kCT];
 #pragma unroll
-    for (int s = 0; s < kTileRegs; ++s) {
-      const int e = threadIdx.x + s * kSelThreads;
-      const int j = e / nchp, c = e - j * nchp;
-      if (j < kTileCols) ys[j * kTileStride + c] = r.v[s];
-    }
+    for (int t = 0; t < kCT; ++t)
+      y[t] = *reinterpret_cast<const float4*>(ys + t * 32 * kDistCh + swz(lane, g));
+    // a channel at a time over all 32 sums: 32 independent chains
+#pragma unroll
+    for (int a = 0; a < kRT; ++a)
+#pragma unroll
+      for (int t = 0; t < kCT; ++t) acc[a][t] = mac_rn(acc[a][t], q[a].x, y[t].x);
+#pragma unroll
+    for (int a = 0; a < kRT; ++a)
+#pragma unroll
+      for (int t = 0; t < kCT; ++t) acc[a][t] = mac_rn(acc[a][t], q[a].y, y[t].y);
+#pragma unroll
+    for (int a = 0; a < kRT; ++a)
+#pragma unroll
+      for (int t = 0; t < kCT; ++t) acc[a][t] = mac_rn(acc[a][t], q[a].z, y[t].z);
+#pragma unroll
+    for (int a = 0; a < kRT; ++a)
+#pragma unroll
+      for (int t = 0; t < kCT; ++t) acc[a][t] = mac_rn(acc[a][t], q[a].w, y[t].w);
   }
+}
+
+// An unsigned key in the order of the float (distances are never -0 or NaN:
+// sums of squares and their differences round to +0), for the warp-wide
+// minimum in one instruction.
+__device__ __forceinline__ unsigned float_key(float f) {
+  const unsigned u = __float_as_uint(f);
+  return u ^ ((u >> 31) ? 0xffffffffu : 0x80000000u);
+}
+
+__device__ __forceinline__ float key_float(unsigned key) {
+  return __uint_as_float(key ^ ((key >> 31) ? 0x80000000u : 0xffffffffu));
 }
 
 constexpr int kGroup = 8;   // distance registers a group; kNT / kGroup == 4 groups
@@ -189,12 +265,22 @@ __device__ __forceinline__ void take(float (&d)[kNT], bool mine, int tl, float& 
 
 // kNN selection of query rows against a database's columns: idx (B, Nq, k)
 // and, with kDists, the distances, ascending, lower column on ties. The
-// EdgeConv forward passes one cloud as both. Up to kMaxN columns a row's
-// distances sit in the lanes' registers at once. kStream handles more: the
-// columns go by in chunks of kMaxN, each chunk's k rounds drawing from the
-// chunk's registers and from the head of the row's running top-k (kept per
-// warp in shared memory), so the merge orders by (distance, column) as one
-// pass over all columns would.
+// EdgeConv forward passes one cloud as both. A block takes kSelRows query
+// rows and the columns in chunks of kMaxN, in two phases a chunk:
+//  - distances: the block's (kSelRows x kMaxN) distances into shared
+//    memory, as tiles of kTileCols columns x kDistCh channels staged
+//    through a kStages-deep cp.async ring (one barrier a tile; the copies
+//    need no registers, so they fly on through the rounds). With the
+//    tile after next loaded through registers the loop waited on those
+//    loads: on the H100, at Cf 128, it took 2.60 ms a call, and 1.89 with
+//    no multiply-add at all.
+//    A thread holds a 4-row x 8-column tile of sums (tile_macs).
+//  - rounds: a warp takes kR rows, a lane the distances of columns
+//    lane + 32 t in registers, and runs k rounds of first-argmin
+//    extraction; kStream (more than kMaxN columns) merges each chunk's
+//    rounds with the row's running top-k, kept per warp in shared memory,
+//    by (distance, column), so the result is that of one pass over all
+//    columns.
 template <bool kVec, bool kStream, bool kDists>
 __global__ void __launch_bounds__(kSelThreads)
 knn_select_kernel(const float* __restrict__ qx, const float* __restrict__ sqq,
@@ -202,9 +288,8 @@ knn_select_kernel(const float* __restrict__ qx, const float* __restrict__ sqq,
                   int Ndb, int Cf, int k, int row_blocks, int* __restrict__ idx,
                   float* __restrict__ dists) {
   extern __shared__ __align__(16) float smem[];
-  const int Cfp = (Cf + 3) & ~3;               // q rows padded with zeros
-  float* qs = smem;                            // [kSelRows][Cfp]
-  float* ys = smem + kSelRows * Cfp;           // [kTileCols][kTileStride]
+  float* dist = smem;                                   // [kSelRows][kMaxN]
+  float* stages = dist + kSelRows * kMaxN;              // [kStages][kStageFloats]
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x / row_blocks;
@@ -213,84 +298,70 @@ knn_select_kernel(const float* __restrict__ qx, const float* __restrict__ sqq,
   const float* yb = yx + static_cast<size_t>(b) * Ndb * Cf;
   const float* sqqb = sqq + static_cast<size_t>(b) * Nq;
   const float* sqyb = sqy + static_cast<size_t>(b) * Ndb;
-  // kStream: a warp's running lists, [buffer][row][kMaxK] values then columns
-  float* lv = ys + kTileCols * kTileStride + warp * (4 * kR * kMaxK);
-  int* li = reinterpret_cast<int*>(lv + 2 * kR * kMaxK);
-
-  for (int e = threadIdx.x; e < kSelRows * Cfp; e += kSelThreads) {
-    const int r = e / Cfp, c = e - r * Cfp;
-    qs[e] = c < Cf ? qb[static_cast<size_t>(min(row0 + r, Nq - 1)) * Cf + c] : 0.f;
-  }
+  // kStream: a warp's running lists, [buffer][row][k] values then columns
+  float* lv = stages + kStages * kStageFloats + warp * (4 * kR * k);
+  int* li = reinterpret_cast<int*>(lv + 2 * kR * k);
+  // the distance phase's thread tile: rows rg * 4 .. + 3, columns
+  // half * 256 + lane + 32 t of the column tile (t < 8)
+  const int rg = warp >> 1, half = warp & 1;
 
   int i0[kR], i1[kR];        // !kStream: round r's column (and distance) in
   float v0[kR], v1[kR];      // lane r & 31, r < 32 in i0 / v0, else i1 / v1
   int cur = 0;               // kStream: the buffer holding the running lists
-  TileRegs regs;
-  tile_load<kVec>(regs, yb, Ndb, Cf, 0, 0, min(kTileCh, Cf), (min(kTileCh, Cf) + 3) & ~3);
-  for (int base = 0; base < Ndb; base += kMaxN) {   // one chunk unless kStream
-    const int ncols = min(kMaxN, Ndb - base);
-    // ---- distances: d[a][t] is row kR * warp + a against column base + 32 t + lane
-    float d[kR][kNT];
-#pragma unroll
-    for (int a = 0; a < kR; ++a)
-#pragma unroll
-      for (int t = 0; t < kNT; ++t) d[a][t] = 0.f;
 
-    for (int cc = 0; cc < Cf; cc += kTileCh) {
-      const int nch = min(kTileCh, Cf - cc);
-      const int nchp = (nch + 3) & ~3;
+  const TileGrid tg{Ndb, Cf, (Cf + kDistCh - 1) / kDistCh};
+  const int ntiles = tg.count();
+  // tile T goes to stage T % kStages; each issue is one commit group
+  for (int T = 0; T < kStages - 1; ++T) {
+    if (T < ntiles) tile_issue<kVec>(stages + T * kStageFloats, tg, T, qb, yb, Nq, row0);
+    cp_async_commit();
+  }
+  int T = 0;   // the tile computed next
+  for (int base = 0; base < Ndb; base += kMaxN) {
+    const int ncols = min(kMaxN, Ndb - base);
+    for (int ct = 0; ct * kTileCols < ncols; ++ct) {
+      float acc[kRT][kCT];
 #pragma unroll
-      for (int tc = 0; tc < kNT / 4; ++tc) {
-        const int col0 = tc * kTileCols;
-        if (col0 < ncols) {   // the same for the whole block
-          __syncthreads();   // the tile before is used up (and qs is written)
-          tile_store<kVec>(regs, ys, nchp);
-          __syncthreads();
-          {   // the next tile's loads fly while this one is used
-            int ncol = col0 + kTileCols, ncc = cc, nbase = base;
-            if (ncol >= ncols) { ncol = 0; ncc = cc + kTileCh; }
-            if (ncc >= Cf) { ncc = 0; nbase = base + kMaxN; }
-            if (nbase < Ndb) {
-              const int nn = min(kTileCh, Cf - ncc);
-              tile_load<kVec>(regs, yb, Ndb, Cf, nbase + ncol, ncc, nn, (nn + 3) & ~3);
-            }
-          }
-          const float* q = qs + (kR * warp) * Cfp + cc;
-          for (int c = 0; c < nchp; c += 4) {
-            float4 qv[kR];
+      for (int a = 0; a < kRT; ++a)
 #pragma unroll
-            for (int a = 0; a < kR; ++a)
-              qv[a] = *reinterpret_cast<const float4*>(q + a * Cfp + c);
+        for (int v = 0; v < kCT; ++v) acc[a][v] = 0.f;
+      for (int cs = 0; cs < tg.ncc; ++cs, ++T) {
+        cp_async_wait<kStages - 2>();   // tile T has landed
+        __syncthreads();                // for every thread; stage T - 1 is free
+        const int next = T + kStages - 1;
+        if (next < ntiles)
+          tile_issue<kVec>(stages + (next % kStages) * kStageFloats, tg, next, qb, yb, Nq, row0);
+        cp_async_commit();
+        const int nch = min(kDistCh, Cf - cs * kDistCh);
+        tile_macs(acc, stages + (T % kStages) * kStageFloats, rg, half, lane, nch > 4 ? 2 : 1);
+      }
+
+      // ---- the column tile's distances into shared memory
 #pragma unroll
-            for (int u = 0; u < 4; ++u) {
-              const float4 y =
-                  *reinterpret_cast<const float4*>(ys + (lane + 32 * u) * kTileStride + c);
+      for (int a = 0; a < kRT; ++a) {
+        const int row = rg * kRT + a;
+        const float qq = sqqb[min(row0 + row, Nq - 1)];
 #pragma unroll
-              for (int a = 0; a < kR; ++a) {
-                float acc = d[a][tc * 4 + u];
-                acc = mac_rn(acc, qv[a].x, y.x);
-                acc = mac_rn(acc, qv[a].y, y.y);
-                acc = mac_rn(acc, qv[a].z, y.z);
-                acc = mac_rn(acc, qv[a].w, y.w);
-                d[a][tc * 4 + u] = acc;
-              }
-            }
-          }
+        for (int t = 0; t < kCT; ++t) {
+          const int col = ct * kTileCols + half * 256 + lane + 32 * t;
+          dist[row * kMaxN + col] =
+              col < ncols ? __fadd_rn(__fsub_rn(qq, __fmul_rn(2.0f, acc[a][t])), sqyb[base + col])
+                          : kInf;
         }
       }
     }
-    // no block barrier below, up to the next chunk's tiles
+    __syncthreads();
+
+    // ---- k rounds of first-argmin extraction over the chunk, the warp's
+    // rows side by side. A lane keeps the minimum of each group of kGroup
+    // registers, so a round rescans only the group the winner sat in (the
+    // same group for the whole warp) instead of all kNT registers.
+    float d[kR][kNT];
 #pragma unroll
     for (int a = 0; a < kR; ++a) {
-      const int i = min(row0 + kR * warp + a, Nq - 1);
-      const float qq = sqqb[i];
 #pragma unroll
-      for (int t = 0; t < kNT; ++t) {
-        const int j = 32 * t + lane;
-        d[a][t] = j < ncols
-                      ? __fadd_rn(__fsub_rn(qq, __fmul_rn(2.0f, d[a][t])), sqyb[base + j])
-                      : kInf;
-      }
+      for (int t = 0; t < kNT; ++t)   // columns past the chunk were never written
+        d[a][t] = 32 * t + lane < ncols ? dist[(kR * warp + a) * kMaxN + 32 * t + lane] : kInf;
       if (!kStream) {
         i0[a] = 0;
         i1[a] = 0;
@@ -298,11 +369,6 @@ knn_select_kernel(const float* __restrict__ qx, const float* __restrict__ sqq,
         v1[a] = 0.f;
       }
     }
-
-    // ---- k rounds of first-argmin extraction, the warp's rows side by side.
-    // A lane keeps the minimum of each group of kGroup registers, so a round
-    // rescans only the group the winner sat in (the same group for the whole
-    // warp) instead of all kNT registers.
     float gb[kR][kNT / kGroup];
     int gt[kR][kNT / kGroup];
 #pragma unroll
@@ -331,16 +397,12 @@ knn_select_kernel(const float* __restrict__ qx, const float* __restrict__ sqq,
         bj[a] = base + 32 * bt + lane;
       }
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-        for (int a = 0; a < kR; ++a) {
-          const float ov = __shfl_xor_sync(kFull, best[a], off);
-          const int oj = __shfl_xor_sync(kFull, bj[a], off);
-          if (ov < best[a] || (ov == best[a] && oj < bj[a])) {
-            best[a] = ov;
-            bj[a] = oj;
-          }
-        }
+      for (int a = 0; a < kR; ++a) {   // the warp's least (distance, column)
+        const unsigned key = float_key(best[a]);
+        const unsigned kmin = __reduce_min_sync(kFull, key);
+        bj[a] = static_cast<int>(
+            __reduce_min_sync(kFull, key == kmin ? static_cast<unsigned>(bj[a]) : 0xffffffffu));
+        best[a] = key_float(kmin);
       }
 #pragma unroll
       for (int a = 0; a < kR; ++a) {
@@ -349,8 +411,8 @@ knn_select_kernel(const float* __restrict__ qx, const float* __restrict__ sqq,
           float v = best[a];
           int j = bj[a];
           if (base > 0) {   // the list's columns all precede this chunk's
-            const float hv = lv[(cur * kR + a) * kMaxK + head[a]];
-            const int hj = li[(cur * kR + a) * kMaxK + head[a]];
+            const float hv = lv[(cur * kR + a) * k + head[a]];
+            const int hj = li[(cur * kR + a) * k + head[a]];
             from_list = hv < v || (hv == v && hj < j);
             if (from_list) {
               v = hv;
@@ -359,8 +421,8 @@ knn_select_kernel(const float* __restrict__ qx, const float* __restrict__ sqq,
             }
           }
           if (lane == 0) {
-            lv[((cur ^ 1) * kR + a) * kMaxK + r] = v;
-            li[((cur ^ 1) * kR + a) * kMaxK + r] = j;
+            lv[((cur ^ 1) * kR + a) * k + r] = v;
+            li[((cur ^ 1) * kR + a) * k + r] = j;
           }
         } else if (lane == (r & 31)) {
           if (r < 32) {
@@ -388,6 +450,7 @@ knn_select_kernel(const float* __restrict__ qx, const float* __restrict__ sqq,
       __syncwarp();
     }
   }
+  cp_async_wait<0>();
 #pragma unroll
   for (int a = 0; a < kR; ++a) {
     const int i = row0 + kR * warp + a;
@@ -395,8 +458,8 @@ knn_select_kernel(const float* __restrict__ qx, const float* __restrict__ sqq,
       const size_t o = (static_cast<size_t>(b) * Nq + i) * k;
       for (int r = lane; r < k; r += 32) {
         if constexpr (kStream) {
-          idx[o + r] = li[(cur * kR + a) * kMaxK + r];
-          if constexpr (kDists) dists[o + r] = lv[(cur * kR + a) * kMaxK + r];
+          idx[o + r] = li[(cur * kR + a) * k + r];
+          if constexpr (kDists) dists[o + r] = lv[(cur * kR + a) * k + r];
         } else {
           idx[o + r] = r < 32 ? i0[a] : i1[a];
           if constexpr (kDists) dists[o + r] = r < 32 ? v0[a] : v1[a];
@@ -418,6 +481,9 @@ __device__ __forceinline__ Vec<kV> ld(const float* p) {
   if constexpr (kV == 4) {
     const float4 t = *reinterpret_cast<const float4*>(p);
     out.v[0] = t.x; out.v[1] = t.y; out.v[2] = t.z; out.v[3] = t.w;
+  } else if constexpr (kV == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    out.v[0] = t.x; out.v[1] = t.y;
   } else {
     out.v[0] = *p;
   }
@@ -428,6 +494,8 @@ template <int kV>
 __device__ __forceinline__ void st(float* p, const Vec<kV>& x) {
   if constexpr (kV == 4)
     *reinterpret_cast<float4*>(p) = make_float4(x.v[0], x.v[1], x.v[2], x.v[3]);
+  else if constexpr (kV == 2)
+    *reinterpret_cast<float2*>(p) = make_float2(x.v[0], x.v[1]);
   else
     *p = x.v[0];
 }
@@ -555,123 +623,297 @@ edgeconv_tie_weights_kernel(const float* __restrict__ U, const int* __restrict__
   }
 }
 
-constexpr int kBwdWarps = 16;   // target rows a backward block, at most
-constexpr int kChunk = 4096;    // idx entries staged a pass
-// A kNN row names a column at most once, so a target row has at most N
-// contributors: a warp's list holds max(N, kMaxN) entries, and above
-// N = 3376 fewer warps a block keep the lists inside kMaxSmem.
-constexpr int kMaxSmem = 232448;
+// ---- backward: contributor lists by a stable counting sort of idx by
+// target, then one ordered gather-sum a (target row, channel slice).
+//
+// A cloud's source rows are cut into at most kMaxSegs segments of seg rows
+// (seg >= kMinSeg). count: a block a (cloud, segment) counts its entries
+// by target in shared memory (integer atomics: a count does not depend on
+// their order) and writes the N counts. scan: a block a cloud turns them
+// into each segment's first slot in each target's list, and each target's
+// list start. place: a block a (cloud, segment) walks its rows in order,
+// one warp, a lane an entry: the k targets of a row are distinct (a kNN
+// names a column once), so no two lanes of a row share a cursor, and rows
+// in ascending i give each list in ascending (i, r).
+constexpr int kMaxSegs = 16;
+constexpr int kMinSeg = 64;
+constexpr int kSortThreads = 256;
+constexpr int kScanThreads = 1024;
+constexpr int kSumWarps = 2;
+
+int segment_rows(int N) {
+  const int seg = (N + kMaxSegs - 1) / kMaxSegs;
+  return seg > kMinSeg ? seg : kMinSeg;
+}
+
+// Scratch of the backward, in ints: counts (B, kMaxSegs, N), list starts
+// (B, N + 1), lists (B, N k).
+struct Lists {
+  int* counts;
+  int* start;
+  int* list;
+};
+
+Lists carve(int* work, int B, int N, int k) {
+  Lists l;
+  l.counts = work;
+  l.start = work + static_cast<size_t>(B) * kMaxSegs * N;
+  l.list = l.start + static_cast<size_t>(B) * (N + 1);
+  return l;
+}
+
+__global__ void __launch_bounds__(kSortThreads)
+contrib_count_kernel(const int* __restrict__ idx, int N, int k, int seg, int S,
+                     int* __restrict__ counts) {
+  extern __shared__ int hist[];   // [N]
+  const int b = blockIdx.x / S, s = blockIdx.x % S;
+  for (int j = threadIdx.x; j < N; j += kSortThreads) hist[j] = 0;
+  __syncthreads();
+  const int i0 = s * seg, i1 = min(N, i0 + seg);
+  const int* ib = idx + (static_cast<size_t>(b) * N + i0) * k;
+  for (int e = threadIdx.x; e < (i1 - i0) * k; e += kSortThreads) {
+    const int j = ib[e];
+    if (j >= 0 && j < N) atomicAdd(&hist[j], 1);
+  }
+  __syncthreads();
+  int* out = counts + (static_cast<size_t>(b) * kMaxSegs + s) * N;
+  for (int j = threadIdx.x; j < N; j += kSortThreads) out[j] = hist[j];
+}
+
+// A thread owns jpt <= 4 consecutive targets (N <= 4096): their counts
+// become exclusive sums over the segments, in place, and their totals an
+// exclusive sum over the targets.
+__global__ void __launch_bounds__(kScanThreads)
+contrib_scan_kernel(int* __restrict__ counts, int N, int S, int* __restrict__ start) {
+  __shared__ int warp_tot[kScanThreads / 32];
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int jpt = (N + kScanThreads - 1) / kScanThreads;
+  const int j0 = threadIdx.x * jpt;
+  int* cb = counts + static_cast<size_t>(b) * kMaxSegs * N;
+  int tot[4] = {0, 0, 0, 0};
+  int mine = 0;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int j = j0 + t;
+    if (t < jpt && j < N) {
+      int run = 0;
+      for (int s = 0; s < S; ++s) {
+        const int c = cb[s * N + j];
+        cb[s * N + j] = run;
+        run += c;
+      }
+      tot[t] = run;
+      mine += run;
+    }
+  }
+  int incl = mine;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int t = __shfl_up_sync(kFull, incl, off);
+    if (lane >= off) incl += t;
+  }
+  if (lane == 31) warp_tot[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int v = warp_tot[lane];
+    int w = v;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(kFull, w, off);
+      if (lane >= off) w += t;
+    }
+    warp_tot[lane] = w - v;
+  }
+  __syncthreads();
+  int run = warp_tot[warp] + incl - mine;
+  int* sb = start + static_cast<size_t>(b) * (N + 1);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int j = j0 + t;
+    if (t < jpt && j < N) {
+      sb[j] = run;
+      run += tot[t];
+    }
+  }
+  if (threadIdx.x == kScanThreads - 1) sb[N] = run;
+}
+
+// The segment's idx rows are staged in shared memory first, so the walk
+// waits on shared memory only.
+__global__ void __launch_bounds__(kSortThreads)
+contrib_place_kernel(const int* __restrict__ idx, const int* __restrict__ counts,
+                     const int* __restrict__ start, int N, int k, int seg, int S,
+                     int* __restrict__ list) {
+  extern __shared__ int sm[];
+  int* cur = sm;                  // [N] the next slot of each target's list
+  int* rows = sm + N;             // [seg * k]
+  const int b = blockIdx.x / S, s = blockIdx.x % S;
+  const int i0 = s * seg, i1 = min(N, i0 + seg);
+  const int* cb = counts + (static_cast<size_t>(b) * kMaxSegs + s) * N;
+  const int* sb = start + static_cast<size_t>(b) * (N + 1);
+  for (int j = threadIdx.x; j < N; j += kSortThreads) cur[j] = sb[j] + cb[j];
+  const int* ib = idx + (static_cast<size_t>(b) * N + i0) * k;
+  for (int e = threadIdx.x; e < (i1 - i0) * k; e += kSortThreads) rows[e] = ib[e];
+  __syncthreads();
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  int* lb = list + static_cast<size_t>(b) * N * k;
+  for (int i = i0; i < i1; ++i) {
+    for (int r = lane; r < k; r += 32) {
+      const int j = rows[(i - i0) * k + r];
+      if (j >= 0 && j < N) {
+        const int pos = cur[j];
+        cur[j] = pos + 1;
+        lb[pos] = i * k + r;
+      }
+    }
+    __syncwarp();
+  }
+}
 
 template <int kV>
 __device__ __forceinline__ void ld_rounds(const uint8_t* p, int (&out)[kV]) {
   if constexpr (kV == 4) {
     const uchar4 t = *reinterpret_cast<const uchar4*>(p);
     out[0] = t.x; out[1] = t.y; out[2] = t.z; out[3] = t.w;
+  } else if constexpr (kV == 2) {
+    const uchar2 t = *reinterpret_cast<const uchar2*>(p);
+    out[0] = t.x; out[1] = t.y;
   } else {
     out[0] = *p;
   }
 }
 
+
+// Sum pass: a warp a (target row j, channel slice), kV channels a lane. It
+// walks j's list in order and sums, per channel, the (gA, gB) terms, gs1
+// and gs2 each in its own sum; du = (acc + s1) + (2 U) s2, no fused
+// multiply-add. A gA (gB) row is loaded only where one of the lane's
+// channels takes it: the term is zero elsewhere, so the bits are those of
+// loading it always. A batch of entries' loads is in flight at once (a
+// hub's long list is walked by one warp), and blocks of two warps let a
+// hub's warp hold little beside it.
 // kSplit == false: a = rM, c = rm (bytes), gA = gM, gB = gm.
 // kSplit == true:  a = M,  c = m (float),  gA = wM, gB = wm.
-template <bool kSplit, int kV>
-__global__ void __launch_bounds__(kBwdWarps * 32)
-edgeconv_bwd_kernel(const float* __restrict__ U, const int* __restrict__ idx,
-                    const void* __restrict__ a_, const void* __restrict__ c_,
-                    const float* __restrict__ gA, const float* __restrict__ gB,
-                    const float* __restrict__ gs1, const float* __restrict__ gs2,
-                    int N, int C, int k, int row_blocks, int list_cap,
-                    float* __restrict__ du) {
-  extern __shared__ __align__(16) int ism[];
-  int* chunk = ism;                                   // [kChunk]
-  const int warps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  int* list = ism + kChunk + warp * list_cap;         // matches e = i * k + r
-  const int b = blockIdx.x / row_blocks;
-  const int j = (blockIdx.x % row_blocks) * warps + warp;
-  const int E = N * k;
-  const int* ib = idx + static_cast<size_t>(b) * E;
+constexpr int kSumMinBlocks = 10;   // 102 registers a thread at most
 
-  // ---- this row's contributors, in (i, r) order
-  int n = 0;
-  for (int e0 = 0; e0 < E; e0 += kChunk) {
-    const int lim = min(kChunk, E - e0);
-    __syncthreads();
-    for (int e = threadIdx.x; e < lim; e += blockDim.x) chunk[e] = ib[e0 + e];
-    __syncthreads();
-    if (j < N) {
-      for (int base = 0; base < lim; base += 128) {
-        // a lane takes four neighbouring entries
-        const int e = base + 4 * lane;
-        int4 v = make_int4(-1, -1, -1, -1);
-        if (e + 3 < lim) {
-          v = *reinterpret_cast<const int4*>(chunk + e);
-        } else {
-          if (e < lim) v.x = chunk[e];
-          if (e + 1 < lim) v.y = chunk[e + 1];
-          if (e + 2 < lim) v.z = chunk[e + 2];
-        }
-        const bool h0 = v.x == j, h1 = v.y == j, h2 = v.z == j, h3 = v.w == j;
-        const unsigned any = __ballot_sync(kFull, h0 || h1 || h2 || h3);
-        if (any == 0u) continue;   // the same for the whole warp
-        const int mine = h0 + h1 + h2 + h3;
-        // entries before this lane's: an inclusive scan over the lanes
-        int incl = mine;
+template <bool kSplit, int kV>
+__global__ void __launch_bounds__(kSumWarps * 32, kSumMinBlocks)
+edgeconv_bwd_kernel(const float* __restrict__ U, const int* __restrict__ start,
+                    const int* __restrict__ list, const void* __restrict__ a_,
+                    const void* __restrict__ c_, const float* __restrict__ gA_,
+                    const float* __restrict__ gB_, const float* __restrict__ gs1_,
+                    const float* __restrict__ gs2_, int N, int C, int k, int slices,
+                    long long groups, float* __restrict__ du) {
+  constexpr int kBatch = 4;   // list entries whose rows are loaded together
+  const int lane = threadIdx.x & 31;
+  const long long grp = static_cast<long long>(blockIdx.x) * kSumWarps + (threadIdx.x >> 5);
+  if (grp >= groups) return;   // whole warp
+  const int slice = static_cast<int>(grp % slices);
+  const int j = static_cast<int>(grp / slices % N);
+  const int b = static_cast<int>(grp / slices / N);
+  const int* sb = start + static_cast<size_t>(b) * (N + 1);
+  const int beg = sb[j];
+  const int n = sb[j + 1] - beg;
+  const int c = (slice * 32 + lane) * kV;
+  const bool active = c < C;
+  const int* lb = list + static_cast<size_t>(b) * N * k + beg;
+  const size_t cloud = static_cast<size_t>(b) * N;
+  const int cc = active ? c : 0;
+  const Vec<kV> u = ld<kV>(U + (cloud + j) * C + cc);
+  // the cloud's rows; a source row's offset i C + cc fits an int (N <= 4096)
+  const size_t cb = cloud * C;
+  const float *gA = gA_ + cb, *gB = gB_ + cb, *gs1 = gs1_ + cb, *gs2 = gs2_ + cb;
+  const float* fa = kSplit ? static_cast<const float*>(a_) + cb : nullptr;
+  const float* fc = kSplit ? static_cast<const float*>(c_) + cb : nullptr;
+  const uint8_t* ba = kSplit ? nullptr : static_cast<const uint8_t*>(a_) + cb;
+  const uint8_t* bc = kSplit ? nullptr : static_cast<const uint8_t*>(c_) + cb;
+  float acc[kV], s1[kV], s2[kV];
 #pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-          const int t = __shfl_up_sync(kFull, incl, off);
-          if (lane >= off) incl += t;
+  for (int x = 0; x < kV; ++x) { acc[x] = 0.f; s1[x] = 0.f; s2[x] = 0.f; }
+
+  for (int q0 = 0; q0 < n; q0 += 32) {
+    const int my_e = q0 + lane < n ? lb[q0 + lane] : 0;
+    const int cnt = min(32, n - q0);   // the same for the whole warp
+    for (int t0 = 0; t0 < cnt; t0 += kBatch) {
+      int rr[kBatch];
+      bool on[kBatch];
+      int o[kBatch];
+#pragma unroll
+      for (int t = 0; t < kBatch; ++t) {
+        const int e = __shfl_sync(kFull, my_e, (t0 + t) & 31);
+        on[t] = active && t0 + t < cnt;
+        const int i = e / k;
+        rr[t] = e - i * k;
+        o[t] = i * C + cc;
+      }
+      // the batch's rows: gs1, gs2 and the tie tests first (s1, s2 taken
+      // at once, in list order), then the (gA, gB) rows the tests select
+      bool tA[kBatch][kV], tB[kBatch][kV], anyA[kBatch], anyB[kBatch];
+      {
+        Vec<kV> t1[kBatch], t2[kBatch];
+#pragma unroll
+        for (int t = 0; t < kBatch; ++t) {
+          anyA[t] = anyB[t] = false;
+          if (on[t]) {
+            t1[t] = ld<kV>(gs1 + o[t]);
+            t2[t] = ld<kV>(gs2 + o[t]);
+            if constexpr (kSplit) {
+              const Vec<kV> vM = ld<kV>(fa + o[t]);
+              const Vec<kV> vm = ld<kV>(fc + o[t]);
+#pragma unroll
+              for (int x = 0; x < kV; ++x) {
+                tA[t][x] = u.v[x] == vM.v[x];
+                tB[t][x] = u.v[x] == vm.v[x];
+              }
+            } else {
+              int qM[kV], qm[kV];
+              ld_rounds<kV>(ba + o[t], qM);
+              ld_rounds<kV>(bc + o[t], qm);
+#pragma unroll
+              for (int x = 0; x < kV; ++x) {
+                tA[t][x] = qM[x] == rr[t];
+                tB[t][x] = qm[x] == rr[t];
+              }
+            }
+#pragma unroll
+            for (int x = 0; x < kV; ++x) {
+              anyA[t] |= tA[t][x];
+              anyB[t] |= tB[t][x];
+            }
+          }
         }
-        int pos = n + incl - mine;
-        if (h0) { if (pos < list_cap) list[pos] = e0 + e; ++pos; }
-        if (h1) { if (pos < list_cap) list[pos] = e0 + e + 1; ++pos; }
-        if (h2) { if (pos < list_cap) list[pos] = e0 + e + 2; ++pos; }
-        if (h3) { if (pos < list_cap) list[pos] = e0 + e + 3; ++pos; }
-        n += __shfl_sync(kFull, incl, 31);
+#pragma unroll
+        for (int t = 0; t < kBatch; ++t) {
+          if (on[t]) {
+#pragma unroll
+            for (int x = 0; x < kV; ++x) {
+              s1[x] += t1[t].v[x];
+              s2[x] += t2[t].v[x];
+            }
+          }
+        }
+      }
+      Vec<kV> ga[kBatch], gb[kBatch];
+#pragma unroll
+      for (int t = 0; t < kBatch; ++t) {
+#pragma unroll
+        for (int x = 0; x < kV; ++x) { ga[t].v[x] = 0.f; gb[t].v[x] = 0.f; }
+        if (anyA[t]) ga[t] = ld<kV>(gA + o[t]);
+        if (anyB[t]) gb[t] = ld<kV>(gB + o[t]);
+      }
+#pragma unroll
+      for (int t = 0; t < kBatch; ++t) {
+        if (on[t]) {
+#pragma unroll
+          for (int x = 0; x < kV; ++x)
+            acc[x] += (tA[t][x] ? ga[t].v[x] : 0.f) + (tB[t][x] ? gb[t].v[x] : 0.f);
+        }
       }
     }
   }
-  if (j >= N) return;
-  n = min(n, list_cap);   // n <= N <= list_cap when idx rows are a kNN's
-  __syncwarp();
-
-  // ---- their cotangent rows, summed in that order
-  const size_t cloud = static_cast<size_t>(b) * N;
-  for (int c0 = 0; c0 < C; c0 += 32 * kV) {
-    const int c = c0 + lane * kV;
-    if (c >= C) continue;   // no warp-wide operation below
-    const Vec<kV> u = ld<kV>(U + (cloud + j) * C + c);
-    float acc[kV], s1[kV], s2[kV];
-#pragma unroll
-    for (int x = 0; x < kV; ++x) { acc[x] = 0.f; s1[x] = 0.f; s2[x] = 0.f; }
-#pragma unroll 4
-    for (int q = 0; q < n; ++q) {
-      const int e = list[q];
-      const int i = e / k, r = e - i * k;
-      const size_t o = (cloud + i) * C + c;
-      const Vec<kV> a = ld<kV>(gA + o), bb = ld<kV>(gB + o);
-      const Vec<kV> t1 = ld<kV>(gs1 + o), t2 = ld<kV>(gs2 + o);
-      if constexpr (kSplit) {
-        const Vec<kV> vM = ld<kV>(static_cast<const float*>(a_) + o);
-        const Vec<kV> vm = ld<kV>(static_cast<const float*>(c_) + o);
-#pragma unroll
-        for (int x = 0; x < kV; ++x)
-          acc[x] += (u.v[x] == vM.v[x] ? a.v[x] : 0.f) + (u.v[x] == vm.v[x] ? bb.v[x] : 0.f);
-      } else {
-        int qM[kV], qm[kV];
-        ld_rounds<kV>(static_cast<const uint8_t*>(a_) + o, qM);
-        ld_rounds<kV>(static_cast<const uint8_t*>(c_) + o, qm);
-#pragma unroll
-        for (int x = 0; x < kV; ++x)
-          acc[x] += (qM[x] == r ? a.v[x] : 0.f) + (qm[x] == r ? bb.v[x] : 0.f);
-      }
-#pragma unroll
-      for (int x = 0; x < kV; ++x) {
-        s1[x] += t1.v[x];
-        s2[x] += t2.v[x];
-      }
-    }
+  if (active) {
     Vec<kV> out;
 #pragma unroll
     for (int x = 0; x < kV; ++x)   // (acc + s1) + (2 u) s2, no fused multiply-add
@@ -681,30 +923,62 @@ edgeconv_bwd_kernel(const float* __restrict__ U, const int* __restrict__ idx,
   }
 }
 
-template <bool kSplit, int kV>
-int launch_bwd(const float* U, const int* idx, const void* a, const void* c,
-               const float* gA, const float* gB, const float* gs1, const float* gs2,
-               int B, int N, int C, int k, float* du, cudaStream_t stream) {
-  const int list_cap = N > kMaxN ? N : kMaxN;
-  const int fit = static_cast<int>((kMaxSmem - kChunk * sizeof(int)) / (list_cap * sizeof(int)));
-  const int warps = fit < kBwdWarps ? fit : kBwdWarps;
-  const size_t smem = (kChunk + static_cast<size_t>(warps) * list_cap) * sizeof(int);
-  cudaError_t err = set_smem(edgeconv_bwd_kernel<kSplit, kV>, smem);
+int launch_lists(const int* idx, int B, int N, int k, const Lists& l, cudaStream_t stream) {
+  const int seg = segment_rows(N);
+  const int S = (N + seg - 1) / seg;
+  size_t smem = static_cast<size_t>(N) * sizeof(int);
+  cudaError_t err = set_smem(contrib_count_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int row_blocks = (N + warps - 1) / warps;
-  edgeconv_bwd_kernel<kSplit, kV><<<B * row_blocks, warps * 32, smem, stream>>>(
-      U, idx, a, c, gA, gB, gs1, gs2, N, C, k, row_blocks, list_cap, du);
+  contrib_count_kernel<<<B * S, kSortThreads, smem, stream>>>(idx, N, k, seg, S, l.counts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  contrib_scan_kernel<<<B, kScanThreads, 0, stream>>>(l.counts, N, S, l.start);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  smem = (static_cast<size_t>(N) + static_cast<size_t>(seg) * k) * sizeof(int);
+  err = set_smem(contrib_place_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  contrib_place_kernel<<<B * S, kSortThreads, smem, stream>>>(idx, l.counts, l.start, N, k,
+                                                               seg, S, l.list);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kSplit, int kV>
+int launch_sum(const float* U, const Lists& l, const void* a, const void* c, const float* gA,
+               const float* gB, const float* gs1, const float* gs2, int B, int N, int C,
+               int k, float* du, cudaStream_t stream) {
+  const int slices = (C + 32 * kV - 1) / (32 * kV);
+  const long long groups = static_cast<long long>(B) * N * slices;
+  const long long blocks = (groups + kSumWarps - 1) / kSumWarps;
+  edgeconv_bwd_kernel<kSplit, kV><<<static_cast<unsigned>(blocks), kSumWarps * 32, 0, stream>>>(
+      U, l.start, l.list, a, c, gA, gB, gs1, gs2, N, C, k, slices, groups, du);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The lists, then the sums: float4 channels a lane for C above 64, float2
+// for an even C, else one.
+template <bool kSplit>
+int launch_bwd(const float* U, const int* idx, const void* a, const void* c, const float* gA,
+               const float* gB, const float* gs1, const float* gs2, int* work, int B, int N,
+               int C, int k, float* du, cudaStream_t stream) {
+  const Lists l = carve(work, B, N, k);
+  const int err = launch_lists(idx, B, N, k, l, stream);
+  if (err != 0) return err;
+  const int vec = C % 4 == 0 && C > 64 ? 4 : C % 2 == 0 ? 2 : 1;   // channels a lane
+  if (vec == 4)
+    return launch_sum<kSplit, 4>(U, l, a, c, gA, gB, gs1, gs2, B, N, C, k, du, stream);
+  if (vec == 2)
+    return launch_sum<kSplit, 2>(U, l, a, c, gA, gB, gs1, gs2, B, N, C, k, du, stream);
+  return launch_sum<kSplit, 1>(U, l, a, c, gA, gB, gs1, gs2, B, N, C, k, du, stream);
 }
 
 template <bool kVec, bool kStream, bool kDists>
 int launch_select3(const float* q, const float* sqq, const float* y, const float* sqy,
                    int B, int Nq, int Ndb, int Cf, int k, int* idx, float* dists,
                    cudaStream_t stream) {
-  const int Cfp = (Cf + 3) & ~3;
   const size_t smem =
-      (static_cast<size_t>(kSelRows) * Cfp + kTileCols * kTileStride +
-       (kStream ? kSelWarps * 4 * kR * kMaxK : 0)) * sizeof(float);
+      (static_cast<size_t>(kSelRows) * kMaxN + kStages * kStageFloats +
+       (kStream ? static_cast<size_t>(kSelWarps) * 4 * kR * k : 0)) * sizeof(float);
   cudaError_t err = set_smem(knn_select_kernel<kVec, kStream, kDists>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int row_blocks = (Nq + kSelRows - 1) / kSelRows;
@@ -813,24 +1087,23 @@ PDAE_EXPORT int knn_select(const float* q, const float* y, float* sqq, float* sq
   return launch_select<true>(q, sqq, y, sqy, B, Nq, Ndb, C, k, idx, dists, stream);
 }
 
+// work: B (kMaxSegs N + N + 1 + N k) ints of scratch (struct Lists).
 PDAE_EXPORT int edgeconv_bwd_first(const float* U, const int* idx, const uint8_t* rM,
                                    const uint8_t* rm, const float* gM, const float* gm,
-                                   const float* gs1, const float* gs2, int B, int N,
-                                   int C, int k, float* du, void* stream_) {
+                                   const float* gs1, const float* gs2, int* work, int B,
+                                   int N, int C, int k, float* du, void* stream_) {
   if (bad_shape(N, k) || C < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  return C % 4 == 0
-             ? launch_bwd<false, 4>(U, idx, rM, rm, gM, gm, gs1, gs2, B, N, C, k, du, stream)
-             : launch_bwd<false, 1>(U, idx, rM, rm, gM, gm, gs1, gs2, B, N, C, k, du, stream);
+  return launch_bwd<false>(U, idx, rM, rm, gM, gm, gs1, gs2, work, B, N, C, k, du,
+                           static_cast<cudaStream_t>(stream_));
 }
 
 // wM, wm (B, N, C) are scratch.
 PDAE_EXPORT int edgeconv_bwd_split(const float* U, const int* idx, const float* M,
                                    const float* m, const float* gM, const float* gm,
                                    const float* gs1, const float* gs2, float* wM,
-                                   float* wm, int B, int N, int C, int k, float* du,
-                                   void* stream_) {
+                                   float* wm, int* work, int B, int N, int C, int k,
+                                   float* du, void* stream_) {
   if (bad_shape(N, k) || C < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
@@ -844,7 +1117,15 @@ PDAE_EXPORT int edgeconv_bwd_split(const float* U, const int* idx, const float* 
         U, idx, M, m, gM, gm, rows, N, C, k, wM, wm);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  return C % 4 == 0
-             ? launch_bwd<true, 4>(U, idx, M, m, wM, wm, gs1, gs2, B, N, C, k, du, stream)
-             : launch_bwd<true, 1>(U, idx, M, m, wM, wm, gs1, gs2, B, N, C, k, du, stream);
+  return launch_bwd<true>(U, idx, M, m, wM, wm, gs1, gs2, work, B, N, C, k, du, stream);
+}
+
+// The backward's contributor lists alone, for checks, into work laid out as
+// the backward's: B kMaxSegs N ints of counts, then the list starts
+// (B, N + 1), then the lists (B, N k) of entries i k + r.
+PDAE_EXPORT int edgeconv_contributor_lists(const int* idx, int* work, int B, int N, int k,
+                                           void* stream_) {
+  if (bad_shape(N, k)) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return static_cast<int>(cudaSuccess);
+  return launch_lists(idx, B, N, k, carve(work, B, N, k), static_cast<cudaStream_t>(stream_));
 }

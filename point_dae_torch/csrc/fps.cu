@@ -12,18 +12,23 @@
 // equal the plain PyTorch version's bit for bit: FPS is chaotic, and one
 // different pick changes every later one.
 //
-// Design: one block of 1024 threads per cloud. Each thread keeps PPT points
-// (n = tid + j * 1024) and their running min-distance in registers; the
-// coordinates also sit in shared memory (SoA, 12 B a point) so that every
-// thread reads the last pick's coordinates from there. An iteration is the
-// distance update, a warp-shuffle argmax, one barrier, and a redundant
-// merge of the 32 warp results by every warp (double-buffered, so one
-// barrier an iteration suffices).
+// Design: one block of 1024 threads per cloud. Up to kRegPoints points
+// (N <= 8192), each thread keeps PPT points (n = tid + j * 1024) and their
+// running min-distance in registers; the coordinates also sit in shared
+// memory (SoA, 12 B a point) so that every thread reads the last pick's
+// coordinates from there. Above that (no upper limit) the streamed form
+// keeps each point as one float4 (x, y, z, min_d) in a scratch buffer the
+// caller allocates, min_d = -1 marking a point that is never picked, and
+// each iteration streams the cloud's buffer (16 B a point: 256 KB at 16384
+// points, which stays in L2) and reads the last pick from the input. An
+// iteration is the distance update, a warp-shuffle argmax, one barrier, and
+// a redundant merge of the 32 warp results by every warp (double-buffered,
+// so one barrier an iteration suffices).
 //
 // Bound on the H100: about 8 f32 operations a point an iteration (tens of
 // microseconds at the recipes' shapes); what sets the time is the n serial
 // iterations, each ending in a barrier and a shuffle reduction, and only B
-// of the 132 SMs busy.
+// of the 132 SMs busy; the streamed form adds the buffer's pass through L2.
 #include <cfloat>
 #include <climits>
 
@@ -33,7 +38,9 @@ namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxPPT = 8;  // N <= 8192
+constexpr int kMaxPPT = 8;
+constexpr int kRegPoints = kThreads * kMaxPPT;  // 8192: above, the streamed form
+constexpr int kStreamBatch = 4;                  // points a thread loads at once, streamed
 
 // larger value wins, equal values go to the lower index
 __device__ __forceinline__ void argmax_merge(float& v, int& i, float ov, int oi) {
@@ -51,6 +58,24 @@ __device__ __forceinline__ void warp_argmax(float& v, int& i) {
   }
 }
 
+// The block's argmax of each thread's (v, i). Every warp merges the 32 warp
+// results itself: no second barrier. The caller alternates between two
+// buffers: the one written in iteration it + 2 is this one, and no warp gets
+// there before every warp has passed the barrier of iteration it + 1.
+__device__ __forceinline__ int block_argmax(float v, int i, float* wv, int* wi) {
+  const int lane = threadIdx.x & 31;
+  warp_argmax(v, i);
+  if (lane == 0) {
+    wv[threadIdx.x >> 5] = v;
+    wi[threadIdx.x >> 5] = i;
+  }
+  __syncthreads();
+  v = wv[lane];
+  i = wi[lane];
+  warp_argmax(v, i);
+  return i;
+}
+
 template <int PPT>
 __global__ void __launch_bounds__(kThreads)
 fps_kernel(const float* __restrict__ pts, int N, int n_samples,
@@ -64,8 +89,6 @@ fps_kernel(const float* __restrict__ pts, int N, int n_samples,
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const float* cloud = pts + static_cast<size_t>(b) * N * 3;
   int* picks = out + static_cast<size_t>(b) * n_samples;
 
@@ -109,20 +132,58 @@ fps_kernel(const float* __restrict__ pts, int N, int n_samples,
         }
       }
     }
-    warp_argmax(best_v, best_i);
-    const int buf = it & 1;
-    if (lane == 0) {
-      warp_v[buf][warp] = best_v;
-      warp_i[buf][warp] = best_i;
+    last = block_argmax(best_v, best_i, warp_v[it & 1], warp_i[it & 1]);
+  }
+}
+
+// Streamed form, any N: point n is buf[n] = (x, y, z, min_d), min_d = -1
+// for a point that is never picked; the loop over a thread's points runs
+// in ascending n, so ties keep the lower index.
+__global__ void __launch_bounds__(kThreads)
+fps_stream_kernel(const float* __restrict__ pts, int N, int n_samples,
+                  float4* __restrict__ buf_all, int* __restrict__ out) {
+  __shared__ float warp_v[2][kWarps];
+  __shared__ int warp_i[2][kWarps];
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const float* cloud = pts + static_cast<size_t>(b) * N * 3;
+  float4* buf = buf_all + static_cast<size_t>(b) * N;
+  int* picks = out + static_cast<size_t>(b) * n_samples;
+
+  for (int n = tid; n < N; n += kThreads) {
+    const float x = cloud[3 * n], y = cloud[3 * n + 1], z = cloud[3 * n + 2];
+    const float mag = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
+    buf[n] = make_float4(x, y, z, mag > 1e-3f ? 1e10f : -1.0f);
+  }
+  // each thread reads back only what it wrote: no barrier before the loop
+  int last = 0;
+  for (int it = 0; it < n_samples; ++it) {
+    if (tid == 0) picks[it] = last;
+    const float px = cloud[3 * last], py = cloud[3 * last + 1], pz = cloud[3 * last + 2];
+    float best_v = -FLT_MAX;
+    int best_i = INT_MAX;
+    for (int n0 = tid; n0 < N; n0 += kStreamBatch * kThreads) {
+      float4 p[kStreamBatch];   // loaded together, then taken in ascending n
+#pragma unroll
+      for (int u = 0; u < kStreamBatch; ++u) {
+        const int n = n0 + u * kThreads;
+        p[u] = n < N ? buf[n] : make_float4(0.f, 0.f, 0.f, -1.f);
+      }
+#pragma unroll
+      for (int u = 0; u < kStreamBatch; ++u) {
+        const int n = n0 + u * kThreads;
+        float cand = p[u].w;
+        if (p[u].w >= 0.0f) {
+          cand = fminf(p[u].w, sq_dist3(p[u].x, p[u].y, p[u].z, px, py, pz));
+          buf[n].w = cand;
+        }
+        if (n < N && cand > best_v) {
+          best_v = cand;
+          best_i = n;
+        }
+      }
     }
-    __syncthreads();
-    // every warp merges the 32 warp results itself: no second barrier. The
-    // buffer written in iteration it + 2 is this one, and no warp gets
-    // there before every warp has passed the barrier of iteration it + 1.
-    float v = warp_v[buf][lane];
-    int i = warp_i[buf][lane];
-    warp_argmax(v, i);
-    last = i;
+    last = block_argmax(best_v, best_i, warp_v[it & 1], warp_i[it & 1]);
   }
 }
 
@@ -138,9 +199,10 @@ cudaError_t launch(const float* pts, int B, int N, int n_samples, int* out,
 
 }  // namespace
 
-PDAE_EXPORT int fps(const float* pts, int B, int N, int n_samples, int* out,
+// buf (B, N) float4 is scratch for N > 8192 and may be null below.
+PDAE_EXPORT int fps(const float* pts, int B, int N, int n_samples, void* buf, int* out,
                     void* stream) {
-  if (N < 1 || N > kThreads * kMaxPPT || n_samples < 1 || B < 1)
+  if (N < 1 || n_samples < 1 || B < 1 || (N > kRegPoints && buf == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ppt = (N + kThreads - 1) / kThreads;
@@ -148,6 +210,10 @@ PDAE_EXPORT int fps(const float* pts, int B, int N, int n_samples, int* out,
   if (ppt <= 1) err = launch<1>(pts, B, N, n_samples, out, s);
   else if (ppt <= 2) err = launch<2>(pts, B, N, n_samples, out, s);
   else if (ppt <= 4) err = launch<4>(pts, B, N, n_samples, out, s);
-  else err = launch<8>(pts, B, N, n_samples, out, s);
+  else if (ppt <= kMaxPPT) err = launch<kMaxPPT>(pts, B, N, n_samples, out, s);
+  else {
+    fps_stream_kernel<<<B, kThreads, 0, s>>>(pts, N, n_samples, static_cast<float4*>(buf), out);
+    err = cudaGetLastError();
+  }
   return static_cast<int>(err);
 }

@@ -18,7 +18,8 @@ On a CUDA tensor the forwards and both backwards are the kernels of
 ``csrc/edgeconv.cu`` (N <= 4096, the whole JAX gate); on a CPU tensor their
 plain PyTorch versions below, which repeat the kernels' arithmetic
 (distances summed in channel order, aggregates in round order, each
-backward's three sums in (source, round) order).
+backward's three sums in (source, round) order: the order of the
+contributor lists the backward kernels build, ``contributor_lists_plain``).
 """
 from __future__ import annotations
 
@@ -155,9 +156,57 @@ def knn_aggregate_fwd_kernel(U: torch.Tensor, xf: torch.Tensor, k: int,
     return M, m, S1, S2, idx, rM, rm
 
 
+def contributor_lists_plain(idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernels' contributor lists: idx (B, N, k) -> (start
+    (B, N + 1), entries (B, N k)) int32, where target j's list is
+    ``entries[b, start[b, j]:start[b, j + 1]]``, the entries i k + r with
+    idx[b, i, r] == j in ascending (i, r): a stable sort of each cloud's idx
+    by target."""
+    B, N, k = idx.shape
+    flat = idx.reshape(B, N * k).long()
+    entries = torch.sort(flat, dim=1, stable=True).indices.int()
+    counts = torch.zeros((B, N), dtype=torch.long, device=idx.device)
+    counts.scatter_add_(1, flat, torch.ones_like(flat))
+    start = torch.zeros((B, N + 1), dtype=torch.long, device=idx.device)
+    start[:, 1:] = torch.cumsum(counts, 1)
+    return start.int(), entries
+
+
+# csrc/edgeconv.cu: the backward's scratch (struct Lists): kMaxSegs = 16
+# segments' counts, the list starts and the lists
+_MAX_SEGS = 16
+
+
+def _bwd_work(B: int, N: int, k: int, device) -> torch.Tensor:
+    return torch.empty((B * (_MAX_SEGS * N + N + 1 + N * k),), dtype=torch.int32,
+                       device=device)
+
+
+def contributor_lists_kernel(idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernels' counting sort alone (the library's
+    ``edgeconv_contributor_lists`` check entry, off every model path and
+    not counted): (start (B, N + 1), entries (B, N k)) as
+    ``contributor_lists_plain`` gives them."""
+    idx = idx.detach().to(torch.int32).contiguous()
+    kernels.require_cuda(idx)
+    B, N, k = idx.shape
+    if not supported(N, k):
+        raise NotImplementedError(f"contributor lists: idx {tuple(idx.shape)}")
+    work = _bwd_work(B, N, k, idx.device)
+    fn = kernels.library("edgeconv").edgeconv_contributor_lists
+    fn.argtypes = [kernels.P, kernels.P, kernels.I, kernels.I, kernels.I, kernels.P]
+    err = fn(idx.data_ptr(), work.data_ptr(), B, N, k, kernels.stream(idx))
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel edgeconv_contributor_lists failed to launch ({err})")
+    o = B * _MAX_SEGS * N
+    e = o + B * (N + 1)
+    return work[o:e].view(B, N + 1), work[e:e + B * N * k].view(B, N * k)
+
+
 def knn_aggregate_bwd_kernel(grad_mode: str, U, idx, a, c, gM, gm, gs1, gs2
                              ) -> torch.Tensor:
-    """Launch a backward kernel. ``first``: (a, c) = (rM, rm) as the forward
+    """Launch a backward: the contributor lists by a counting sort of idx,
+    then the ordered sums. ``first``: (a, c) = (rM, rm) as the forward
     kernel wrote them (uint8); ``split``: (a, c) = (M, m). Returns du
     (B, N, C) f32."""
     ts = [t.detach().contiguous() for t in (U, idx, a, c, gM, gm, gs1, gs2)]
@@ -171,17 +220,19 @@ def knn_aggregate_bwd_kernel(grad_mode: str, U, idx, a, c, gM, gm, gs1, gs2
             f"the knn_aggregate backward kernels are built for f32 clouds of "
             f"N <= 4096 points, got U {tuple(U.shape)} {U.dtype}, k {k}")
     du = torch.empty((B, N, C), dtype=torch.float32, device=U.device)
+    work = _bwd_work(B, N, k, U.device)
     P, I = kernels.P, kernels.I
     ptrs = [t.data_ptr() for t in ts]
     if grad_mode == "first":
         kernels.launch("knn_aggregate_bwd_first", "edgeconv", "edgeconv_bwd_first",
-                       (P,) * 8 + (I,) * 4 + (P, P), *ptrs, B, N, C, k,
+                       (P,) * 9 + (I,) * 4 + (P, P), *ptrs, work.data_ptr(), B, N, C, k,
                        du.data_ptr(), kernels.stream(U))
     else:
         wM, wm = torch.empty_like(du), torch.empty_like(du)
         kernels.launch("knn_aggregate_bwd_split", "edgeconv", "edgeconv_bwd_split",
-                       (P,) * 10 + (I,) * 4 + (P, P), *ptrs, wM.data_ptr(),
-                       wm.data_ptr(), B, N, C, k, du.data_ptr(), kernels.stream(U))
+                       (P,) * 11 + (I,) * 4 + (P, P), *ptrs, wM.data_ptr(),
+                       wm.data_ptr(), work.data_ptr(), B, N, C, k, du.data_ptr(),
+                       kernels.stream(U))
     return du
 
 

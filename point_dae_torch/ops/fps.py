@@ -15,14 +15,21 @@ import torch
 
 from ..utils import kernels
 
-MAX_POINTS = 8192    # csrc/fps.cu: 1024 threads x 8 points in registers
+REGISTER_POINTS = 8192   # csrc/fps.cu: 1024 threads x 8 points in registers; above, streamed
 
 
 def use_fps_kernel(device_type: str, n_points: int) -> bool:
     """The union of the two FPS gates of ``geometry.py:115-126`` (the
     batched kernel at N >= 512, N % 128 == 0; the per-row one at N >= 512,
-    N % 8 == 0) with "on TPU" read as "on CUDA"."""
+    N % 8 == 0) with "on TPU" read as "on CUDA". No upper bound: the
+    kernel takes every N."""
     return device_type == "cuda" and n_points >= 512 and n_points % 8 == 0
+
+
+def kernel_takes(n_points: int, n_samples: int) -> bool:
+    """The shapes ``csrc/fps.cu`` takes: any cloud size, registers up to
+    ``REGISTER_POINTS`` points and the streamed form above."""
+    return n_points >= 1 and n_samples >= 1
 
 
 def furthest_point_sample_plain(points: torch.Tensor, n_samples: int) -> torch.Tensor:
@@ -46,29 +53,27 @@ def furthest_point_sample_plain(points: torch.Tensor, n_samples: int) -> torch.T
 
 
 def fps_kernel(points: torch.Tensor, n_samples: int) -> torch.Tensor:
-    """Launch the kernel. points: (B, N, 3) f32 contiguous on a CUDA device,
-    N at most ``MAX_POINTS``. Returns (B, n_samples) int32."""
+    """Launch the kernel. points: (B, N, 3) f32 contiguous on a CUDA device.
+    Returns (B, n_samples) int32."""
     kernels.require_cuda(points)
     B, N, D = points.shape
-    if points.dtype != torch.float32 or D != 3 or not 1 <= N <= MAX_POINTS or n_samples < 1:
-        raise ValueError(f"fps kernel is built for (B, N <= {MAX_POINTS}, 3) f32 and "
-                         f"n_samples >= 1, got {tuple(points.shape)} {points.dtype}, "
-                         f"{n_samples}")
+    if points.dtype != torch.float32 or D != 3 or not kernel_takes(N, n_samples):
+        raise ValueError(f"fps kernel is built for (B, N, 3) f32 and n_samples >= 1, got "
+                         f"{tuple(points.shape)} {points.dtype}, {n_samples}")
     out = torch.empty((B, n_samples), dtype=torch.int32, device=points.device)
+    # the streamed form's (x, y, z, min_d) a point
+    buf = (torch.empty((B, N, 4), dtype=torch.float32, device=points.device)
+           if N > REGISTER_POINTS else None)
     P, I = kernels.P, kernels.I
-    kernels.launch("fps", "fps", "fps", (P, I, I, I, P, P), points.data_ptr(), B, N,
-                   n_samples, out.data_ptr(), kernels.stream(points))
+    kernels.launch("fps", "fps", "fps", (P, I, I, I, P, P, P), points.data_ptr(), B, N,
+                   n_samples, kernels.ptr(buf), out.data_ptr(), kernels.stream(points))
     return out
 
 
 def furthest_point_sample(points: torch.Tensor, n_samples: int) -> torch.Tensor:
     """(B, N, 3) -> (B, n_samples) int32: the kernel on a CUDA tensor inside
-    the gate (a cloud above ``MAX_POINTS`` there raises), the plain version
-    on a CPU tensor or outside the gate."""
+    the gate, the plain version on a CPU tensor or outside the gate."""
     B, N, _ = points.shape
     if not use_fps_kernel(points.device.type, N):
         return furthest_point_sample_plain(points, n_samples)
-    if N > MAX_POINTS:
-        raise NotImplementedError(
-            f"fps kernel is built for at most {MAX_POINTS} points a cloud, got {N}")
     return fps_kernel(points.detach().float().contiguous(), n_samples)

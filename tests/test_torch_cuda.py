@@ -543,6 +543,68 @@ def test_knn_aggregate_above_1024_points_is_exact(dev, B, N, C, k):
         assert torch.equal(du.cpu(), want), mode
 
 
+# (B, N, Cf, C): the smallest DGCNN cloud, a cloud off the 32-column grid,
+# the ScanObjectNN fine-tune's clouds, the gate's largest N
+GATE_SHAPES = [(2, 1024, 64, 64), (3, 1000, 3, 64), (32, 2048, 64, 64), (4, 4096, 64, 64)]
+
+
+@pytest.mark.parametrize("B,N,Cf,C", GATE_SHAPES)
+def test_knn_select_matches_plain_at_gate_shapes(dev, B, N, Cf, C):
+    """The redesigned selection (distances staged in shared memory, then
+    the rounds): idx equal to the plain version's, duplicated rows
+    included; the forward's aggregates bit for bit."""
+    g = _gen(dev, 41)
+    xf = torch.randn((B, N, Cf), generator=g, device=dev)
+    xf[:, N - 48:] = xf[:, :48]
+    U = torch.randn((B, N, C), generator=g, device=dev).bfloat16().float()
+    M, m, S1, S2, idx, rM, rm = edgeconv.knn_aggregate_fwd_kernel(U, xf, 20, True)
+    want = edgeconv.knn_select_plain(xf, 20)
+    assert torch.equal(idx, want)
+    for a, b in zip((M, m, S1, S2, rM, rm), edgeconv.aggregate_plain(U, want)):
+        assert torch.equal(a.to(b.dtype), b)
+
+
+@pytest.mark.parametrize("B,N,Cf,C", GATE_SHAPES + [(2, 1000, 3, 48), (2, 700, 5, 130),
+                                                    (2, 500, 3, 33)])
+def test_knn_aggregate_backwards_at_gate_shapes(dev, B, N, Cf, C):
+    """Both backwards (counting sort, then the ordered sums) within 1e-5 of
+    the plain version's largest magnitude on the card (scatter_add_'s
+    atomics add in another order), bit for bit with it on the CPU (each sum
+    in (i, r) order) and with a second call; C 48 leaves lanes idle, C 130
+    takes three channel slices, C 33 one channel a lane."""
+    g = _gen(dev, 42)
+    xf = torch.randn((B, N, Cf), generator=g, device=dev)
+    xf[:, N - 48:] = xf[:, :48]
+    U = torch.randn((B, N, C), generator=g, device=dev).bfloat16().float()
+    U[:, N - 48:] = U[:, :48]
+    cots = [torch.randn((B, N, C), generator=g, device=dev) for _ in range(4)]
+    M, m, _, _, idx, rM, rm = edgeconv.knn_aggregate_fwd_kernel(U, xf, 20, True)
+    for mode, a, c, plain in (("first", rM, rm, edgeconv.bwd_first_plain),
+                              ("split", M, m, edgeconv.bwd_split_plain)):
+        du = edgeconv.knn_aggregate_bwd_kernel(mode, U, idx, a, c, *cots)
+        again = edgeconv.knn_aggregate_bwd_kernel(mode, U, idx, a, c, *cots)
+        assert torch.equal(du, again), mode
+        assert _rel(du, plain(U, idx, a, c, *cots)) < 1e-5, mode
+        want = plain(U.cpu(), idx.cpu(), a.cpu(), c.cpu(), *[t.cpu() for t in cots])
+        assert torch.equal(du.cpu(), want), mode
+
+
+@pytest.mark.parametrize("B,N,k", [(2, 1024, 20), (3, 1000, 20), (4, 4096, 20), (2, 300, 64),
+                                   (2, 96, 7)])
+def test_contributor_lists_kernel_matches_plain(dev, B, N, k):
+    """The backward's counting sort alone (the library's check entry): list
+    starts and entries equal to ``contributor_lists_plain``'s, a hub row
+    named by every row included."""
+    g = _gen(dev, 43)
+    xf = torch.randn((B, N, 16), generator=g, device=dev)
+    xf[:, N // 2:] = xf[:, :1]                          # half the cloud on one point
+    idx = edgeconv.knn_select_plain(xf, k)
+    start, entries = edgeconv.contributor_lists_kernel(idx)
+    want_start, want_entries = edgeconv.contributor_lists_plain(idx.cpu())
+    assert torch.equal(start.cpu(), want_start)
+    assert torch.equal(entries.cpu(), want_entries)
+
+
 def test_knn_kernel_matches_plain(dev):
     """The MaskFeat shapes, small: 64 queries in 1024 points (k 32) and a
     cloud in itself at C 64 (k 20). idx equal, dists bit for bit."""
@@ -609,11 +671,13 @@ def test_scatter_kernel_matches_plain(dev, B, Q, N, C, dtype):
 
 
 @pytest.mark.parametrize("B,N,n", [(3, 1024, 200), (2, 512, 512), (2, 1200, 1024),
-                                   (1, 8192, 300), (2, 700, 64), (2, 2048, 2048)])
+                                   (1, 8192, 300), (2, 700, 64), (2, 2048, 2048),
+                                   (2, 8200, 300), (2, 16384, 256), (1, 20480, 200)])
 def test_fps_kernel_matches_plain(dev, B, N, n):
     """Bit for bit: n < N, n == N (the picks repeat once the selectable
     points run out), N not a multiple of 1024 and of 128, duplicated points
-    and points inside the unselectable radius."""
+    and points inside the unselectable radius; above 8192 points the
+    streamed form."""
     g = _gen(dev, 8)
     pts = torch.randn((B, N, 3), generator=g, device=dev)
     pts[:, N // 2:N // 2 + N // 8] = pts[:, :N // 8]
@@ -627,8 +691,8 @@ def test_fps_kernel_matches_plain(dev, B, N, n):
 
 
 def test_fps_dispatch_follows_the_gate(dev):
-    """Inside the gate the kernel runs; outside it the plain version; a
-    cloud above the kernel's size inside the gate raises."""
+    """Inside the gate the kernel runs, above 8192 points too; outside it
+    the plain version."""
     from point_dae_torch.utils import kernels
 
     pts = torch.randn((2, 1000, 3), generator=_gen(dev, 9), device=dev)
@@ -638,8 +702,10 @@ def test_fps_dispatch_follows_the_gate(dev):
     geometry.furthest_point_sample(pts[:, :500], 16)           # below 512
     geometry.furthest_point_sample(pts[:, :999], 16)           # N % 8 != 0
     assert kernels.launches["fps"] == before + 1
-    with pytest.raises(NotImplementedError, match="at most 8192"):
-        geometry.furthest_point_sample(torch.zeros((1, 8200, 3), device=dev), 16)
+    big = torch.randn((1, 8200, 3), generator=_gen(dev, 10), device=dev)
+    assert torch.equal(geometry.furthest_point_sample(big, 16),
+                       fps_ops.furthest_point_sample_plain(big, 16))
+    assert kernels.launches["fps"] == before + 2
 
 
 @pytest.mark.parametrize("name", ["PointTransformer", "DGCNN"])

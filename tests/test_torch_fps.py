@@ -64,16 +64,25 @@ def _jax_gate(N):
 
 
 @pytest.mark.parametrize("N", [64, 504, 511, 512, 520, 1000, 1024, 1200, 2048, 2400,
-                               8192, 8200, 16384])
+                               8192, 8200, 16384, 16392, 100000, 1 << 20])
 def test_gate_is_the_union_of_the_jax_gates(N):
     assert fps.use_fps_kernel("cuda", N) is _jax_gate(N)
     assert fps.use_fps_kernel("cpu", N) is False
 
 
+@pytest.mark.parametrize("N", [512, 1200, 8192, 8200, 16384, 16392, 100000, 1 << 20])
+def test_kernel_takes_every_n_of_the_gate(N):
+    """The JAX gates have no upper bound, and neither has the kernel: up to
+    8192 points in registers, the streamed form above."""
+    assert _jax_gate(N) and fps.use_fps_kernel("cuda", N)
+    assert fps.kernel_takes(N, 1) and fps.kernel_takes(N, N)
+    assert (N > fps.REGISTER_POINTS) is (N > 8192)
+
+
 def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
     """Inside the gate a tensor off the CPU launches the kernel or raises:
-    on a host without a GPU the launch raises; a cloud above the kernel's
-    size raises before it."""
+    on a host without a GPU the launch raises, for a cloud above the
+    register form's 8192 points as below it."""
     def boom(*a, **k):
         raise AssertionError("the plain version ran inside the gate")
 
@@ -81,5 +90,5 @@ def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
     monkeypatch.setattr(fps, "use_fps_kernel", lambda dev, n: True)
     with pytest.raises(ValueError, match="expected one CUDA device"):
         fps.furthest_point_sample(torch.empty((2, 1024, 3), device="meta"), 16)
-    with pytest.raises(NotImplementedError, match="at most 8192"):
+    with pytest.raises(ValueError, match="expected one CUDA device"):
         fps.furthest_point_sample(torch.empty((2, 8200, 3), device="meta"), 16)
