@@ -82,7 +82,7 @@ Phases, each fatal on failure:
               one; the attention kernels' registers and shared memory, and
               fused_attention at three gate shapes off the models' path
               (T 40 d 32 masked, T 128 d 64, T 256 d 128) against its plain
-              version (kernels phase); the mlp_ln and mlp wide form at C
+              version (kernels phase); the mlp_ln and mlp kernels at C
               512, 768 and 1024 (H 4 C) against their plain versions at R
               256 and timed at R 16384;
  11. folding redesign - the fused folding backward's device time split
@@ -102,8 +102,8 @@ Phases, each fatal on failure:
               in, dual, dxin, weights, LN rows, sums), TFLOP/s over the five
               products beside the same five products through torch.matmul
               (the yardstick; the port never calls it), the plain twin's
-              time; the wide form's backward at C 512, 768 and 1024 beside
-              its plain twin; the build prints the mlp kernels' registers
+              time; the backward at C 512, 768 and 1024 beside its plain
+              twin; the build prints the mlp kernels' registers
               and spills; the profiled steps split the mlp_ kernels' total
               into forward and backward; the flagship step must launch
               mlp_ln 16 times a step.
@@ -120,6 +120,13 @@ Phases, each fatal on failure:
               than 5% of its kernel records (against its launch records) is
               taken again, and three such windows in a row fail the run,
               naming the function they timed.
+ 14. MLP forward redesign - both MLP forwards (LN rows for mlp_ln, then
+              two wgmma GEMMs over a bf16 hidden) at R 16384 and 8192 and at
+              C 512, 768 and 1024 against their plain versions (the branch
+              within 5e-3 of its largest value), two calls bit for bit, the
+              device time split by launch (LN rows, hidden, out), TFLOP/s
+              over the two products beside the same two products through
+              torch.matmul (the yardstick; the port never calls it).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Run from the repository root:
 
@@ -390,48 +397,72 @@ MLP_BWD_TOL = 5e-3
 MLP_BWD_SPLIT = (("rows in", "mlp_bwd_rows_in_kernel"), ("dual", "mlp_bwd_dual_kernel"),
                  ("dxin", "mlp_bwd_dx"), ("weights", "mlp_bwd_weights_kernel"),
                  ("LN rows", "mlp_bwd_ln_rows_kernel"), ("sums", "mlp_bwd_sums_kernel"))
+# A kernel forward against its plain version, over the largest value of the
+# MLP branch (mlp_ln: y - x): both round the hidden to bf16 at the same
+# points, so what is left is the f32 sum order and erff against torch.erf,
+# which now and then move one bf16 rounding of the hidden (or of LN(x)) by
+# one step, one term of a sum of H (or C) terms.
+MLP_FWD_TOL = 5e-3
+MLP_FWD_SPLIT = (("LN rows", "mlp_fwd_ln_rows_kernel"), ("hidden", "mlp_fwd_hidden_kernel"),
+                 ("out", "mlp_fwd_out_kernel"))
 
 
-def mlp_bwd_report(torch, name, kernel, plain, args, C, H, device):
-    """One backward (``kernel(args)``, the raw mlp_ln or mlp backward) at the
-    rows of ``args``: two calls held bit for bit, its time a call (CUDA
-    events) and its device time split by launch (torch.profiler), TFLOP/s
-    over the five products, and the same five products through
-    torch.matmul on bf16 operands of the same shapes (the products'
-    yardstick; the port never calls it); the plain twin's time."""
-    R = args[0].shape[0]
-    one, two = kernel(args), kernel(args)
+# Each direction's launches (device_split's names), the launches that run its
+# products, and its products as (A's shape, B's shape, A transposed, B
+# transposed) over (R, C, H): torch.matmul runs the same products on bf16
+# operands as the yardstick.
+MLP_DIRECTIONS = {
+    "forward": (MLP_FWD_SPLIT, ("hidden", "out"),
+                lambda R, C, H: (((R, C), (C, H), False, False),
+                                 ((R, H), (H, C), False, False))),
+    "backward": (MLP_BWD_SPLIT, ("dual", "dxin", "weights"),
+                 lambda R, C, H: (((R, C), (C, H), False, False),
+                                  ((R, C), (H, C), False, True),
+                                  ((R, H), (C, H), False, True),
+                                  ((R, C), (R, H), True, False),
+                                  ((R, H), (R, C), True, False))),
+}
+
+
+def mlp_report(torch, name, direction, call, R, C, H, device, plain=None, iters=20):
+    """One direction of an MLP kernel (``call()``, the raw mlp_ln or mlp
+    forward or backward) at R rows: two calls held bit for bit, its time a
+    call (CUDA events) and its device time split by launch (torch.profiler),
+    TFLOP/s over its products, and the same products through torch.matmul on
+    bf16 operands of the same shapes (the products' yardstick; the port never
+    calls it); ``plain()``'s time beside it where given."""
+    split_names, prod_keys, products = MLP_DIRECTIONS[direction]
+    products = products(R, C, H)
+    one, two = call(), call()
+    one, two = ((one,), (two,)) if torch.is_tensor(one) else (one, two)
     if not all(torch.equal(a, b) for a, b in zip(one, two)):
-        fail(f"{name} backward at R {R}: two calls on the same inputs differ")
+        fail(f"{name} {direction} at R {R}: two calls on the same inputs differ")
     del one, two
-    ms = cuda_ms(lambda: kernel(args), 20)
-    split = device_split(lambda: kernel(args), MLP_BWD_SPLIT, calls=10,
-                         what=f"{name} backward at R {R}")
+    ms = cuda_ms(call, iters)
+    split = device_split(call, split_names, calls=10, what=f"{name} {direction} at R {R}")
     g = torch.Generator(device=device).manual_seed(SEED + 7)
-    bf = torch.bfloat16
-    xin = torch.randn((R, C), generator=g, device=device).to(bf)
-    gbr = torch.randn((R, C), generator=g, device=device).to(bf)
-    dh = torch.randn((R, H), generator=g, device=device).to(bf)
-    act = torch.randn((R, H), generator=g, device=device).to(bf)
-    k1b = torch.randn((C, H), generator=g, device=device).to(bf)
-    k2b = torch.randn((H, C), generator=g, device=device).to(bf)
+    ops = [tuple(torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+                 for shape in (a, b)) for a, b, _, _ in products]
 
     def yardstick():
-        return (xin @ k1b, gbr @ k2b.t(), dh @ k1b.t(), xin.t() @ dh, act.t() @ gbr)
+        return [(a.t() if ta else a) @ (b.t() if tb else b)
+                for (a, b), (_, _, ta, tb) in zip(ops, products)]
 
-    lib_ms = cuda_ms(yardstick, 20)
-    lib_dev, _ = device_ms(yardstick, f"{name} yardstick (torch.matmul) at R {R}", calls=10)
-    plain_ms = cuda_ms(lambda: plain(args), 5)
-    flops = 5 * 2 * R * C * H
-    prods = split["dual"] + split["dxin"] + split["weights"]
+    lib_ms = cuda_ms(yardstick, iters)
+    lib_dev, _ = device_ms(yardstick, f"{name} {direction} yardstick (torch.matmul) at R {R}",
+                           calls=10)
+    flops = sum(2 * a[0] * a[1] * (b[0] if tb else b[1]) for a, b, _, tb in products)
+    prods = sum(split[k] for k in prod_keys)
+    plain_ms = cuda_ms(plain, 5) if plain is not None else None
+    n = len(products)
     note = (f"device {split['total']:.4f} ms: " + ", ".join(
         f"{k} {v:.4f}" for k, v in split.items() if k != "total" and v)
-        + f"; {flops / split['total'] / 1e9:.1f} TFLOP/s over the five products "
-        f"({flops / prods / 1e9:.1f} in their three launches); torch.matmul's five products "
-        f"{lib_ms:.4f} ms, device {lib_dev:.4f} ({flops / lib_dev / 1e9:.1f} TFLOP/s); "
-        f"two calls bit for bit")
-    log(f"  {name} backward at R {R}, C {C}, H {H}: {ms:.4f} ms a call (plain "
-        f"{plain_ms:.4f}); {note}")
+        + f"; {flops / split['total'] / 1e9:.1f} TFLOP/s over the {n} products "
+        f"({flops / max(prods, 1e-9) / 1e9:.1f} in their {len(prod_keys)} launches); "
+        f"torch.matmul's {n} products {lib_ms:.4f} ms, device {lib_dev:.4f} "
+        f"({flops / lib_dev / 1e9:.1f} TFLOP/s); two calls bit for bit")
+    log(f"  {name} {direction} at R {R}, C {C}, H {H}: {ms:.4f} ms a call"
+        + (f" (plain {plain_ms:.4f})" if plain is not None else "") + f"; {note}")
     return dict(ms=ms, plain_ms=plain_ms, note=note)
 
 
@@ -528,8 +559,10 @@ def phase_kernels(torch, pts, device):
         bound=bound_ms(nbytes, 2 * P * Nq * M * 8, F32_FLOPS),
         note="both directions, 36 vs 32 and 32 vs 36")
 
-    # -- fused LN + MLP + residual: decoder shape R = 256 * 64
-    R, C, H = BATCH * 64, 384, 1536
+    # -- fused LN + MLP + residual: the decoder's rows, R = 256 * 64, then the
+    # encoder's, R = 256 * 32 (the first rows of the same inputs)
+    C, H = 384, 1536
+    R = BATCH * 64
     xm = torch.randn((R, C), generator=g, device=device)
     gm = 1 + 0.1 * torch.randn((C,), generator=g, device=device)
     bt = 0.05 * torch.randn((C,), generator=g, device=device)
@@ -542,51 +575,49 @@ def phase_kernels(torch, pts, device):
     cot = torch.randn((R, C), generator=g, device=device)
     bf = torch.bfloat16
     k1b, k2b = k1.to(bf).contiguous(), k2.to(bf).contiguous()
-    leaves = [t.clone().requires_grad_() for t in (xm, gm, bt, k1, b1, k2, b2)]
-    y_k = mlp.fused_mlp_ln(*leaves, row_scale=sc)
-    gk = torch.autograd.grad(y_k, leaves, cot)
-    y_p = mlp.fused_mlp_ln_plain(xm, gm, bt, k1, b1, k2, b2, sc)
-    gp = mlp.mlp_ln_bwd_plain(xm, gm, bt, k1b, b1, k2b, sc, cot, round_out=False)
-    worst = {"y": rel_err(y_k - xm, y_p - xm)}
-    abs_err = {"y": float((y_k - y_p).detach().abs().max())}
-    for name, a, b in zip(MLP_LN_GRADS, gk, gp):
-        worst[name] = rel_err(a, b)
-        abs_err[name] = float((a.float() - b.float()).abs().max())
-    log("  fused_mlp_ln max error / max |plain| (gradients against mlp_ln_bwd_plain, "
-        "weights before their bf16 rounding): " + " ".join(f"{k} {v:.2e}" for k, v in worst.items()))
-    if worst["y"] > 2e-2:      # bf16 operands: 2^-8 per rounding, summed
-        fail(f"fused_mlp_ln forward disagrees with its plain version: {worst}")
-    if max(v for k, v in worst.items() if k != "y") > MLP_BWD_TOL:
-        fail(f"fused_mlp_ln backward disagrees with mlp_ln_bwd_plain: {worst}")
-    del leaves, y_k, gk, y_p, gp
-    fwd_args = (xm, gm, bt, k1b, b1, k2b, b2, sc)
-    fwd_ms = cuda_ms(lambda: mlp.mlp_ln_fwd_kernel(*fwd_args), 20)
-    plain_fwd = cuda_ms(lambda: mlp.fused_mlp_ln_plain(xm, gm, bt, k1, b1, k2, b2, sc), 10)
-    bwd_args = (xm, gm, bt, k1b, b1, k2b, sc, cot)
-    bwd = mlp_bwd_report(torch, "mlp_ln", lambda a: mlp.mlp_ln_bwd_kernel(*a),
-                         lambda a: mlp.mlp_ln_bwd_plain(*a), bwd_args, C, H, device)
-    io = R * C * 4
-    wbytes = 2 * C * H * 2
-    mm = 2 * R * C * H
-    for name, ms, pms, nbytes, flops, err in (
-            ("mlp_ln_fwd", fwd_ms, plain_fwd, 2 * io + wbytes + R * 4, 2 * mm, abs_err["y"]),
-            ("mlp_ln_bwd", bwd["ms"], bwd["plain_ms"], 3 * io + 2 * wbytes + R * 4 + C * H * 4,
-             5 * mm, max(v for k, v in abs_err.items() if k != "y"))):
-        records[name] = dict(
-            replaces="point_dae_tpu/ops/pallas_mlp.py:"
-                     + ("227" if name.endswith("fwd") else "244"),
-            source="point_dae_torch/csrc/mlp.cu", max_abs_err=err, ms=ms,
-            plain_ms=pms, library_ms=None, bound=bound_ms(nbytes, flops, BF16_FLOPS),
-            note=f"R {R}, C {C}, H {H}" + ("; " + bwd["note"] if name.endswith("bwd") else ""))
-    # the encoder's shape, R = 256 * 32
-    Re = BATCH * 32
-    xe = xm[:Re].contiguous()
-    sce = sc[:Re].contiguous()
-    log(f"  fused_mlp_ln at R {Re}: fwd "
-        f"{cuda_ms(lambda: mlp.mlp_ln_fwd_kernel(xe, gm, bt, k1b, b1, k2b, b2, sce), 20):.4f} ms")
-    mlp_bwd_report(torch, "mlp_ln", lambda a: mlp.mlp_ln_bwd_kernel(*a),
-                   lambda a: mlp.mlp_ln_bwd_plain(*a),
-                   (xe, gm, bt, k1b, b1, k2b, sce, cot[:Re].contiguous()), C, H, device)
+    for R in (BATCH * 64, BATCH * 32):
+        x_r, sc_r, cot_r = (t[:R].contiguous() for t in (xm, sc, cot))
+        leaves = [t.clone().requires_grad_() for t in (x_r, gm, bt, k1, b1, k2, b2)]
+        y_k = mlp.fused_mlp_ln(*leaves, row_scale=sc_r)
+        gk = torch.autograd.grad(y_k, leaves, cot_r)
+        y_p = mlp.fused_mlp_ln_plain(x_r, gm, bt, k1, b1, k2, b2, sc_r)
+        gp = mlp.mlp_ln_bwd_plain(x_r, gm, bt, k1b, b1, k2b, sc_r, cot_r, round_out=False)
+        worst = {"y": rel_err(y_k - x_r, y_p - x_r)}
+        abs_err = {"y": float((y_k - y_p).detach().abs().max())}
+        for name, a, b in zip(MLP_LN_GRADS, gk, gp):
+            worst[name] = rel_err(a, b)
+            abs_err[name] = float((a.float() - b.float()).abs().max())
+        log(f"  fused_mlp_ln at R {R} max error / max |plain| (gradients against "
+            "mlp_ln_bwd_plain, weights before their bf16 rounding): "
+            + " ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+        if worst["y"] > MLP_FWD_TOL:
+            fail(f"fused_mlp_ln forward disagrees with its plain version at R {R}: {worst}")
+        if max(v for k, v in worst.items() if k != "y") > MLP_BWD_TOL:
+            fail(f"fused_mlp_ln backward disagrees with mlp_ln_bwd_plain at R {R}: {worst}")
+        del leaves, y_k, gk, y_p, gp
+        fwd_args = (x_r, gm, bt, k1b, b1, k2b, b2, sc_r)
+        fwd = mlp_report(torch, "mlp_ln", "forward", lambda: mlp.mlp_ln_fwd_kernel(*fwd_args),
+                         R, C, H, device,
+                         plain=lambda: mlp.fused_mlp_ln_plain(x_r, gm, bt, k1, b1, k2, b2, sc_r))
+        bwd_args = (x_r, gm, bt, k1b, b1, k2b, sc_r, cot_r)
+        bwd = mlp_report(torch, "mlp_ln", "backward", lambda: mlp.mlp_ln_bwd_kernel(*bwd_args),
+                         R, C, H, device, plain=lambda: mlp.mlp_ln_bwd_plain(*bwd_args))
+        if R != BATCH * 64:
+            continue
+        io = R * C * 4
+        wbytes = 2 * C * H * 2
+        mm = 2 * R * C * H
+        for name, rep, nbytes, flops, err in (
+                ("mlp_ln_fwd", fwd, 2 * io + wbytes + R * 4, 2 * mm, abs_err["y"]),
+                ("mlp_ln_bwd", bwd, 3 * io + 2 * wbytes + R * 4 + C * H * 4, 5 * mm,
+                 max(v for k, v in abs_err.items() if k != "y"))):
+            records[name] = dict(
+                replaces="point_dae_tpu/ops/pallas_mlp.py:"
+                         + ("227" if name.endswith("fwd") else "244"),
+                source="point_dae_torch/csrc/mlp.cu", max_abs_err=err, ms=rep["ms"],
+                plain_ms=rep["plain_ms"], library_ms=None,
+                bound=bound_ms(nbytes, flops, BF16_FLOPS),
+                note=f"R {R}, C {C}, H {H}; " + rep["note"])
 
     records.update(phase_folding(torch, device, g))
     records.update(phase_attention(torch, device, g))
@@ -1377,8 +1408,8 @@ def phase_train(torch, config, raw, device, card):
     log(f"  [{card}] step {steady * 1e3:.2f} ms (median of steps 2-{TRAIN_STEPS}), "
         f"{BATCH / steady:.1f} clouds/s, first step {first * 1e3:.1f} ms, "
         f"max_memory_allocated {peak / 2 ** 30:.2f} GiB")
-    profile_step(torch, one_more, card, expect=("patchify_kernel", "mlp_ln", "fold_bwd_rows",
-                                                "attention_fwd"))
+    profile_step(torch, one_more, card,
+                 expect=("patchify_kernel", "mlp_fwd_ln_rows", "fold_bwd_rows", "attention_fwd"))
     del one_more
     torch.cuda.empty_cache()
 
@@ -2467,16 +2498,17 @@ def phase_mlp_wide_kernels(torch, device):
         log(f"  fused_mlp at R {R} max error / max |plain| (gradients against mlp_bwd_plain, "
             "dx and weights before their bf16 rounding): "
             + " ".join(f"{k} {v:.2e}" for k, v in worst.items()))
-        if worst["y"] > 2e-2:      # bf16 operands: 2^-8 per rounding, summed
+        if worst["y"] > MLP_FWD_TOL:
             fail(f"fused_mlp disagrees with its plain version at R {R}: {worst}")
         if max(v for k, v in worst.items() if k != "y") > MLP_BWD_TOL:
             fail(f"fused_mlp backward disagrees with mlp_bwd_plain at R {R}: {worst}")
         del leaves, y_k, gk, y_p, gp
-        fwd_ms = cuda_ms(lambda: mlp.mlp_fwd_kernel(x, k1b, b1, k2b, b2), 20)
-        plain_fwd = cuda_ms(lambda: mlp.fused_mlp_plain(x, k1, b1, k2, b2), 10)
-        bwd = mlp_bwd_report(torch, "mlp", lambda a: mlp.mlp_bwd_kernel(*a),
-                             lambda a: mlp.mlp_bwd_plain(*a), (x, k1b, b1, k2b, cot), C, H,
-                             device)
+        fwd = mlp_report(torch, "mlp", "forward", lambda: mlp.mlp_fwd_kernel(x, k1b, b1, k2b, b2),
+                         R, C, H, device, plain=lambda: mlp.fused_mlp_plain(x, k1, b1, k2, b2))
+        fwd_ms, plain_fwd = fwd["ms"], fwd["plain_ms"]
+        bwd_args = (x, k1b, b1, k2b, cot)
+        bwd = mlp_report(torch, "mlp", "backward", lambda: mlp.mlp_bwd_kernel(*bwd_args),
+                         R, C, H, device, plain=lambda: mlp.mlp_bwd_plain(*bwd_args))
         mm = 2 * R * C * H
         fwd_bytes = R * C * (2 + 4) + 2 * C * H * 2 + (H + C) * 4
         bwd_bytes = R * C * (2 + 4 + 2) + 4 * C * H * 2 + 2 * (H + C) * 4
@@ -2494,7 +2526,7 @@ def phase_mlp_wide_kernels(torch, device):
                 replaces=f"point_dae_tpu/ops/pallas_mlp.py:{line}",
                 source="point_dae_torch/csrc/mlp.cu", max_abs_err=err, ms=ms,
                 plain_ms=pms, library_ms=None, bound=bound_ms(nbytes, flops, BF16_FLOPS),
-                note=f"R {R}, C {C}, H {H}" + ("; " + bwd["note"] if name == "mlp_bwd" else ""))
+                note=f"R {R}, C {C}, H {H}; " + (bwd["note"] if name == "mlp_bwd" else fwd["note"]))
         del x, cot
 
     before = kernels.launches["gather_rows_wide"]
@@ -2544,18 +2576,19 @@ def phase_mlp_wide_kernels(torch, device):
     return records, kernels.launches["gather_rows_wide"] - before
 
 
-WIDE_MLP_C = (512, 768, 1024)   # the wide form's widths checked, H = 4 C
+WIDE_MLP_C = (512, 768, 1024)   # widths past the flagship's checked, H = 4 C
 WIDE_MLP_CHECK_ROWS = 256
 WIDE_MLP_TIME_ROWS = BATCH * 64  # the flagship decoder's row count
 
 
 def phase_mlp_wide_c(torch, device, card):
-    """The mlp_ln and mlp kernels' wide forward (rows wider than 384) and
-    their one backward at C 512, 768 and 1024 (H 4 C) against their plain
-    versions at R 256 with the card tests' tolerances (the output within
-    1e-2 of its largest value, every gradient within MLP_BWD_TOL of the
-    plain twin's); then each direction's time at R 16384 beside its plain
-    version and bound."""
+    """The mlp_ln and mlp kernels at rows wider than 384, C 512, 768 and
+    1024 (H 4 C), against their plain versions at R 256 with the card
+    tests' tolerances (the output within MLP_FWD_TOL of the branch's largest
+    value, every gradient within MLP_BWD_TOL of the plain twin's); then each
+    direction's time at R 16384 beside its plain version and bound, the
+    forward's device time by launch and its two products through
+    torch.matmul (mlp_report)."""
     from point_dae_torch.ops import mlp
 
     g = torch.Generator(device=device).manual_seed(SEED + 95)
@@ -2593,10 +2626,11 @@ def phase_mlp_wide_c(torch, device, card):
             base = args[0] if name == "mlp_ln" else 0
             worst = {"y": rel_err(yk - base, yp - base)}
             worst.update({f"g{i}": rel_err(a, b) for i, (a, b) in enumerate(zip(gk, twin()))})
-            log(f"  {name} wide form, R {R}, C {C}, H {H}: max error / max |plain| "
+            log(f"  {name}, R {R}, C {C}, H {H}: max error / max |plain| "
                 + " ".join(f"{k} {v:.2e}" for k, v in worst.items()))
-            if worst["y"] > 1e-2 or max(v for k, v in worst.items() if k != "y") > MLP_BWD_TOL:
-                fail(f"{name} wide form at C {C} disagrees with its plain version: {worst}")
+            if worst["y"] > MLP_FWD_TOL or \
+                    max(v for k, v in worst.items() if k != "y") > MLP_BWD_TOL:
+                fail(f"{name} at C {C} disagrees with its plain version: {worst}")
             del lk, yk, yp, gk
 
         R = WIDE_MLP_TIME_ROWS
@@ -2619,14 +2653,14 @@ def phase_mlp_wide_c(torch, device, card):
                  lambda: mlp.mlp_bwd_kernel(xb, k1b, xa[4], k2b, cotr),
                  lambda: mlp.fused_mlp_plain(xb, *xa[3:]),
                  lambda: mlp.mlp_bwd_plain(xb, k1b, xa[4], k2b, cotr), R * C * 2)):
-            f_ms, b_ms, p_ms, pb_ms = cuda_ms(fwd, 5), cuda_ms(bwd, 5), cuda_ms(pfwd, 3), \
-                cuda_ms(pbwd, 2)
+            f_ms = mlp_report(torch, name, "forward", fwd, R, C, H, device, iters=5)["ms"]
+            b_ms, p_ms, pb_ms = cuda_ms(bwd, 5), cuda_ms(pfwd, 3), cuda_ms(pbwd, 2)
             bf_ = bound_ms(io + R * C * 4 + wbytes, 2 * mm, BF16_FLOPS)
             bb_ = bound_ms(2 * io + R * C * 4 + 2 * wbytes, 5 * mm, BF16_FLOPS)
             lines.append(f"{name} fwd {f_ms:.4f} ms (plain {p_ms:.4f}, bound {bf_[0]:.4f} by "
                          f"{bf_[1]}), bwd {b_ms:.4f} ms (plain {pb_ms:.4f}, bound {bb_[0]:.4f} "
                          f"by {bb_[1]}; {5 * mm / b_ms / 1e9:.1f} TFLOP/s)")
-        log(f"  [{card}] wide form at R {R}, C {C}, H {H}: " + "; ".join(lines))
+        log(f"  [{card}] wide rows at R {R}, C {C}, H {H}: " + "; ".join(lines))
         del xa, xb, k1b, k2b, cotr
         torch.cuda.empty_cache()
 

@@ -7,25 +7,36 @@
 //     f32 (R, C); the block takes it when its residual stream is not f32.
 // k1 (C, H) and k2 (H, C) bf16; products in bf16 with f32 accumulation;
 // GELU in f32 with erff (the TPU kernels use the Abramowitz-Stegun erf,
-// 1.5e-7 from it).
+// 1.5e-7 from it). Every R, C, H multiple of 64, both directions.
 //
 // Replaces point_dae_tpu/ops/pallas_mlp.py:fused_mlp_ln (_fwd_ln_kernel and
 // _bwd_ln_kernel) and fused_mlp (_fwd_kernel and _bwd_kernel).
 //
-// Forward (C in 128, 256, 384; wider rows take the wide form further down).
-// A block owns 64 rows. It puts them into shared memory as bf16 (mlp_ln:
-// normalised), then walks the hidden dimension in chunks: h = x @ k1c,
-// GELU, out += a @ k2c. The (64, H) hidden never leaves the chip, as in the
-// TPU kernels. Products are WMMA 16x16x16 bf16 fragments with f32
-// accumulators; the (64, C) output accumulator stays in registers across
-// the chunks.
+// Every product of both directions is a dense GEMM of one engine written
+// for Hopper (gemm_tile below), with the TPU kernels' rounding points. The
+// TPU kernels keep the (R, H) hidden in VMEM; here it is written once in
+// bf16 and read once (2 x 48 MiB at R 16384, C 384, H 1536: about 30 us of
+// 3.35 TB/s each way, much of it in the 50 MB L2), and every product has
+// K >= 64 and 128 x 128 output tiles. Keeping the hidden on chip would take
+// one fused pass whose warpgroup holds a 64 x C f32 output accumulator
+// (192 registers a thread at C 384, beside the hidden tile's): it spills.
 //
-// Backward (every R, C, H multiple of 64): five products, the count of the
-// bound, each a dense GEMM of one engine written for Hopper (wgmma), with
-// the TPU kernel's rounding points. The TPU kernel keeps the (R, H) hidden
-// in VMEM; here bf16(dh) and bf16(GELU(h)) are written once and read once
-// (2 x 48 MiB at R 16384, C 384, H 1536: about 60 us of 3.35 TB/s), and
-// every product then has K >= 64 and 128 x 128 output tiles. Launches:
+// Forward, two products in three launches (two for mlp, whose x enters
+// bf16):
+//   1. (mlp_ln) LN rows, one warp a row: hin = bf16(LN(x)) (R, C);
+//   2. hidden: a = bf16(GELU(hin k1 + b1)) (R, H); bias and GELU on the
+//      accumulators in f32, the bf16 tile staged in the ring's shared
+//      memory and stored as 16-byte stores along rows;
+//   3. out: y = x + s (a k2 + b2) (mlp_ln; x read as float2 where y is
+//      written) or y = a k2 + b2 (mlp), float2 stores from the accumulators.
+// Bound on the H100: operations. At the flagship decoder shape the two
+// products are 38.65 GFLOP of bf16, 0.0391 ms at 989 TFLOP/s, against
+// about 0.02 ms for x, y and the weights at 3.35 TB/s. Both product
+// launches run two blocks an SM, so that one tile's epilogue (the hidden's
+// erff and its stores) runs beside another tile's k loop: the hidden
+// product has only C / 64 k tiles (6 at C 384).
+//
+// Backward: five products, the count of the bound, in six launches:
 //   1. rows in, 32 rows a block, one warp a row: hin = bf16(LN(x)) (mlp_ln),
 //      gbr = bf16(s * g), and the block's column sums of s * g (db2);
 //   2. dual: h = hin k1 and da = gbr k2^T in two accumulators; the epilogue
@@ -41,419 +52,48 @@
 //   6. one pass that sums every set of partials in a fixed order (dk1 and
 //      dk2 then rounded to bf16, as the TPU kernels' callers round them).
 // No atomics: every partial has one owner, so two calls give the same bits.
+// The backward's 97 GFLOP at the flagship shape are bound by operations too.
 //
-// The engine (bwd_gemm below): 256 threads, two warpgroups of 64 rows on a
-// 128 x 128 output tile; 64-deep k tiles in a ring of three shared-memory
-// stages fed by cp.async (16 bytes a thread a copy, in the 128-byte
-// swizzle that the wgmma descriptors read; a stage's copies are issued
-// while the products of the stage before run); m64n128k16 products with
-// every operand majorness through the descriptors' transpose bits; the
-// epilogue works on the accumulators in registers, and the dual product's
-// two bf16 tiles leave through shared memory as 16-byte stores along rows
-// (straight from the accumulators' layout a warp's store would cover eight
-// rows with 16 bytes each, half of every 32-byte sector).
-//
-// Bound on the H100: operations. At the flagship decoder shape (R 16384,
-// C 384, H 1536) the forward is 39 GFLOP of bf16 products against 50 MB
-// moved; the backward 97 GFLOP. The forward's plain WMMA loops without
-// asynchronous copies reach a fraction of the tensor-core peak.
+// The engine: 256 threads, two warpgroups of 64 rows on a 128 x 128 output
+// tile; 64-deep k tiles in a ring of three shared-memory stages fed by
+// cp.async (16 bytes a thread a copy, in the 128-byte swizzle that the
+// wgmma descriptors read; a stage's copies are issued while the products of
+// the stage before run); m64n128k16 products with every operand majorness
+// through the descriptors' transpose bits; the epilogue works on the
+// accumulators in registers, and bf16 tiles leave through shared memory as
+// 16-byte stores along rows (straight from the accumulators' layout a
+// warp's store would cover eight rows with 16 bytes each, half of every
+// 32-byte sector).
 #include <cuda_bf16.h>
-#include <mma.h>
 
 #include "common.cuh"
 #include "mma.cuh"
 #include "wgmma.cuh"
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 namespace {
 
-constexpr int TR = 64;     // rows per block
-constexpr int NT = 256;    // threads per block
+constexpr int NT = 256;    // threads a block of the row passes
 constexpr int NW = NT / 32;
-constexpr int HCF = 64;    // hidden chunk, forward
-constexpr int PADH = 8;    // bf16 row padding (keeps 32-byte fragment alignment)
-constexpr int PADF = 4;    // f32 row padding
-
-__host__ __device__ constexpr size_t align128(size_t b) { return (b + 127) / 128 * 128; }
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-__device__ __forceinline__ float gelu(float h) {
-  return 0.5f * h * (1.0f + erff(h * 0.70710678118654752f));
-}
-
-__device__ __forceinline__ float gelu_grad(float h) {
-  const float cdf = 0.5f * (1.0f + erff(h * 0.70710678118654752f));
-  return cdf + h * 0.3989422804014327f * expf(-0.5f * h * h);
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
 
-// rows x cols bf16 tile, global row stride gld -> shared row stride sld;
-// cols and both strides are multiples of 8 (16-byte vectors).
-__device__ __forceinline__ void load_tile(bf16* dst, int sld, const bf16* src,
-                                          size_t gld, int rows, int cols) {
-  const int vpr = cols / 8;
-  for (int v = threadIdx.x; v < rows * vpr; v += NT) {
-    const int r = v / vpr, c = (v % vpr) * 8;
-    *reinterpret_cast<uint4*>(dst + r * sld + c) =
-        *reinterpret_cast<const uint4*>(src + r * gld + c);
-  }
-}
-
-// LayerNorm statistics of one row held as V values a lane (c = lane + 32k).
-template <int C>
-__device__ __forceinline__ void row_stats(const float (&v)[C / 32], float eps,
-                                          float& mu, float& rs) {
-  float s = 0.f, s2 = 0.f;
-#pragma unroll
-  for (int k = 0; k < C / 32; ++k) {
-    s += v[k];
-    s2 += v[k] * v[k];
-  }
-  s = warp_sum(s);
-  s2 = warp_sum(s2);
-  mu = s / C;
-  rs = rsqrtf(s2 / C - mu * mu + eps);
-}
-
-// ------------------------------------------------------------------ forward
-
-template <int C>
-struct FwdLayout {
-  static constexpr int LDH = C + PADH;     // hin     (TR, C)  bf16
-  static constexpr int LDK1 = HCF + PADH;  // k1 chunk (C, HCF) bf16
-  static constexpr int LDK2 = C + PADH;    // k2 chunk (HCF, C) bf16
-  static constexpr int LDHF = HCF + PADF;  // h       (TR, HCF) f32
-  static constexpr int LDA = HCF + PADH;   // gelu(h) (TR, HCF) bf16
-  static constexpr int LDO = C + PADF;     // output  (TR, C)  f32, over hin..k2
-  static constexpr size_t HIN = 0;
-  static constexpr size_t K1 = align128(HIN + size_t(TR) * LDH * 2);
-  static constexpr size_t K2 = align128(K1 + size_t(C) * LDK1 * 2);
-  static constexpr size_t HF = align128(K2 + size_t(HCF) * LDK2 * 2);
-  static constexpr size_t A = align128(HF + size_t(TR) * LDHF * 4);
-  static constexpr size_t BYTES = align128(A + size_t(TR) * LDA * 2);
-  static_assert(size_t(TR) * LDO * 4 <= HF, "output tile must fit over hin, k1, k2");
-};
-
-// The forward's hidden loop over the block's 64 bf16 rows in shared memory
-// (hin): GELU(hin @ k1 + b1) @ k2 chunk by chunk, then the (64, C) result
-// in f32 at s_out (over hin, k1 and k2) with a barrier after it.
-template <int C>
-__device__ __forceinline__ void fwd_hidden(unsigned char* smem, const bf16* __restrict__ k1,
-                                           const float* __restrict__ b1,
-                                           const bf16* __restrict__ k2, int H) {
-  using L = FwdLayout<C>;
-  constexpr int NF = C / 32;  // output column fragments a warp owns
-  const bf16* s_hin = reinterpret_cast<const bf16*>(smem + L::HIN);
-  bf16* s_k1 = reinterpret_cast<bf16*>(smem + L::K1);
-  bf16* s_k2 = reinterpret_cast<bf16*>(smem + L::K2);
-  float* s_h = reinterpret_cast<float*>(smem + L::HF);
-  bf16* s_a = reinterpret_cast<bf16*>(smem + L::A);
-  float* s_out = reinterpret_cast<float*>(smem);
-
-  const int warp = threadIdx.x >> 5;
-  const int rw = warp & 3, half = warp >> 2;
-  FragC acc[NF];
-#pragma unroll
-  for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[j], 0.f);
-
-  for (int h0 = 0; h0 < H; h0 += HCF) {
-    __syncthreads();
-    load_tile(s_k1, L::LDK1, k1 + h0, H, C, HCF);
-    load_tile(s_k2, L::LDK2, k2 + size_t(h0) * C, C, HCF, C);
-    __syncthreads();
-#pragma unroll
-    for (int f = 0; f < HCF / 32; ++f) {
-      const int cf = half * (HCF / 32) + f;
-      FragC hacc;
-      wmma::fill_fragment(hacc, 0.f);
-#pragma unroll 4
-      for (int kk = 0; kk < C / 16; ++kk) {
-        FragA a;
-        FragB b;
-        wmma::load_matrix_sync(a, s_hin + rw * 16 * L::LDH + kk * 16, L::LDH);
-        wmma::load_matrix_sync(b, s_k1 + kk * 16 * L::LDK1 + cf * 16, L::LDK1);
-        wmma::mma_sync(hacc, a, b, hacc);
-      }
-      wmma::store_matrix_sync(s_h + rw * 16 * L::LDHF + cf * 16, hacc, L::LDHF,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < TR * HCF; e += NT) {
-      const int r = e / HCF, c = e % HCF;
-      s_a[r * L::LDA + c] = __float2bfloat16(gelu(s_h[r * L::LDHF + c] + b1[h0 + c]));
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < HCF / 16; ++kk) {
-      FragA a;
-      wmma::load_matrix_sync(a, s_a + rw * 16 * L::LDA + kk * 16, L::LDA);
-#pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        FragB b;
-        wmma::load_matrix_sync(b, s_k2 + kk * 16 * L::LDK2 + (half * NF + j) * 16, L::LDK2);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < NF; ++j)
-    wmma::store_matrix_sync(s_out + rw * 16 * L::LDO + (half * NF + j) * 16, acc[j],
-                            L::LDO, wmma::mem_row_major);
-  __syncthreads();
-}
-
-template <int C>
-__global__ void __launch_bounds__(NT, 1)
-mlp_ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gm,
-                  const float* __restrict__ bt, const bf16* __restrict__ k1,
-                  const float* __restrict__ b1, const bf16* __restrict__ k2,
-                  const float* __restrict__ b2, const float* __restrict__ sc,
-                  float* __restrict__ y, int H, float eps) {
-  using L = FwdLayout<C>;
-  constexpr int V = C / 32;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* s_hin = reinterpret_cast<bf16*>(smem + L::HIN);
-  const float* s_out = reinterpret_cast<const float*>(smem);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t r0 = size_t(blockIdx.x) * TR;
-
-  for (int rr = warp; rr < TR; rr += NW) {
-    const float* xr = x + (r0 + rr) * C;
-    float v[V];
-#pragma unroll
-    for (int k = 0; k < V; ++k) v[k] = xr[lane + 32 * k];
-    float mu, rs;
-    row_stats<C>(v, eps, mu, rs);
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      const int c = lane + 32 * k;
-      s_hin[rr * L::LDH + c] = __float2bfloat16((v[k] - mu) * rs * gm[c] + bt[c]);
-    }
-  }
-  fwd_hidden<C>(smem, k1, b1, k2, H);
-  for (int e = threadIdx.x; e < TR * C; e += NT) {
-    const int r = e / C, c = e % C;
-    float v = s_out[r * L::LDO + c] + b2[c];
-    if (sc != nullptr) v *= sc[r0 + r];
-    y[(r0 + r) * C + c] = x[(r0 + r) * C + c] + v;
-  }
-}
-
-// out = GELU(x @ k1 + b1) @ k2 + b2 for x already bf16.
-template <int C>
-__global__ void __launch_bounds__(NT, 1)
-mlp_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ k1,
-               const float* __restrict__ b1, const bf16* __restrict__ k2,
-               const float* __restrict__ b2, float* __restrict__ y, int H) {
-  using L = FwdLayout<C>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const float* s_out = reinterpret_cast<const float*>(smem);
-  const size_t r0 = size_t(blockIdx.x) * TR;
-
-  load_tile(reinterpret_cast<bf16*>(smem + L::HIN), L::LDH, x + r0 * C, C, TR, C);
-  fwd_hidden<C>(smem, k1, b1, k2, H);
-  for (int e = threadIdx.x; e < TR * C; e += NT) {
-    const int r = e / C, c = e % C;
-    y[(r0 + r) * C + c] = s_out[r * L::LDO + c] + b2[c];
-  }
-}
-
-template <int C>
-cudaError_t launch_fwd(const float* x, const float* gm, const float* bt, const bf16* k1,
-                       const float* b1, const bf16* k2, const float* b2, const float* sc,
-                       float* y, int R, int H, float eps, cudaStream_t stream) {
-  const size_t smem = FwdLayout<C>::BYTES;
-  cudaError_t err = set_smem(mlp_ln_fwd_kernel<C>, smem);
-  if (err != cudaSuccess) return err;
-  mlp_ln_fwd_kernel<C><<<R / TR, NT, smem, stream>>>(x, gm, bt, k1, b1, k2, b2, sc, y, H, eps);
-  return cudaGetLastError();
-}
-
-template <int C>
-cudaError_t launch_mlp_fwd(const bf16* x, const bf16* k1, const float* b1, const bf16* k2,
-                           const float* b2, float* y, int R, int H, cudaStream_t stream) {
-  const size_t smem = FwdLayout<C>::BYTES;
-  cudaError_t err = set_smem(mlp_fwd_kernel<C>, smem);
-  if (err != cudaSuccess) return err;
-  mlp_fwd_kernel<C><<<R / TR, NT, smem, stream>>>(x, k1, b1, k2, b2, y, H);
-  return cudaGetLastError();
-}
-
-bool shape_ok(int R, int C, int H) {
-  return R > 0 && R % TR == 0 && H % HCF == 0 && (C == 128 || C == 256 || C == 384);
-}
-
-// ------------------------------------------- the wide forward, any C % 64
-//
-// Rows wider than 384 do not fit the one-block forward (its (64, C) output
-// accumulator in registers and three tiles in shared memory: about 233 KB
-// at C 512). Here the forward is LN rows to bf16 (mlp_ln), then two plain
-// tiled products, 64 x 64 output tiles, 32-deep k chunks, WMMA bf16
-// fragments with f32 accumulators: a = bf16(GELU(x @ k1 + b1)) written once
-// (R, H), then out = a @ k2 + b2 (mlp_ln: times s, plus x).
-
-constexpr int GT = 64;                 // output tile
-constexpr int GK = 32;                 // k chunk
-constexpr int GNT = 128;               // threads
-constexpr int LDC = GT + PADF;         // f32 staging of an output tile
-
-enum Epi { EPI_GELU, EPI_OUT_LN, EPI_OUT };
-
-struct EpiArgs {
-  const float* bias;   // per output column (b1 or b2)
-  const float* x;      // residual (EPI_OUT_LN)
-  const float* sc;     // per-row scale or null (EPI_OUT_LN)
-  void* out;           // f32 or bf16, row stride ldo
-  int ldo;
-};
-
-// A (M, K) and B (K, N) row-major.
-struct GemmLayout {
-  static constexpr int LDA = GK + PADH;
-  static constexpr int LDB = GT + PADH;
-  static constexpr size_t A = 0;
-  static constexpr size_t B = align128(A + size_t(GT) * LDA * 2);
-  static constexpr size_t OPS = align128(B + size_t(GK) * LDB * 2);
-  static constexpr size_t STAGE = align128(size_t(GT) * LDC * 4);   // over the operands
-  static constexpr size_t BYTES = OPS > STAGE ? OPS : STAGE;
-};
-
-// rows x cols bf16 chunk of a row-major matrix (row stride ld) -> shared
-// memory (row stride sld); cols a multiple of 8.
-__device__ __forceinline__ void load_chunk(bf16* dst, int sld, const bf16* src, size_t ld,
-                                           int rows, int cols) {
-  const int vpr = cols / 8;
-  for (int v = threadIdx.x; v < rows * vpr; v += GNT) {
-    const int r = v / vpr, c = (v % vpr) * 8;
-    *reinterpret_cast<uint4*>(dst + r * sld + c) =
-        *reinterpret_cast<const uint4*>(src + r * ld + c);
-  }
-}
-
-template <int EPI>
-__global__ void __launch_bounds__(GNT)
-mlp_wide_gemm_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict__ B, int ldb,
-                     int K, EpiArgs ep) {
-  using L = GemmLayout;
-  __shared__ __align__(128) unsigned char smem[L::BYTES];
-  bf16* s_a = reinterpret_cast<bf16*>(smem + L::A);
-  bf16* s_b = reinterpret_cast<bf16*>(smem + L::B);
-  float* s_c = reinterpret_cast<float*>(smem);
-
-  const int m0 = blockIdx.x * GT, n0 = blockIdx.y * GT;
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 32;
-  FragC acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += GK) {
-    __syncthreads();
-    load_chunk(s_a, L::LDA, A + size_t(m0) * lda + k0, lda, GT, GK);
-    load_chunk(s_b, L::LDB, B + size_t(k0) * ldb + n0, ldb, GK, GT);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GK; kk += 16) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        FragA a;
-        wmma::load_matrix_sync(a, s_a + (wm + 16 * i) * L::LDA + kk, L::LDA);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          FragB b;
-          wmma::load_matrix_sync(b, s_b + kk * L::LDB + wn + 16 * j, L::LDB);
-          wmma::mma_sync(acc[i][j], a, b, acc[i][j]);
-        }
-      }
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(s_c + (wm + 16 * i) * LDC + wn + 16 * j, acc[i][j], LDC,
-                              wmma::mem_row_major);
-  __syncthreads();
-
-  for (int e = threadIdx.x; e < GT * GT; e += GNT) {
-    const int r = e / GT, c = e % GT;
-    const size_t o = size_t(m0 + r) * ep.ldo + n0 + c;
-    const float v = s_c[r * LDC + c];
-    if constexpr (EPI == EPI_GELU) {
-      static_cast<bf16*>(ep.out)[o] = __float2bfloat16(gelu(v + ep.bias[n0 + c]));
-    } else if constexpr (EPI == EPI_OUT_LN) {
-      float u = v + ep.bias[n0 + c];
-      if (ep.sc != nullptr) u *= ep.sc[m0 + r];
-      static_cast<float*>(ep.out)[o] = ep.x[o] + u;
-    } else {
-      static_cast<float*>(ep.out)[o] = v + ep.bias[n0 + c];
-    }
-  }
-}
-
-template <int EPI>
-cudaError_t wide_gemm(const bf16* A, int lda, const bf16* B, int ldb, int M, int N, int K,
-                      const EpiArgs& ep, cudaStream_t stream) {
-  mlp_wide_gemm_kernel<EPI><<<dim3(M / GT, N / GT), GNT, 0, stream>>>(A, lda, B, ldb, K, ep);
-  return cudaGetLastError();
-}
-
-// One warp a row: hin = bf16(LN(x)).
-__global__ void mlp_wide_ln_rows_kernel(const float* __restrict__ x, const float* __restrict__ gm,
-                                        const float* __restrict__ bt, bf16* __restrict__ hin,
-                                        int R, int C, float eps) {
-  const int lane = threadIdx.x & 31;
-  const size_t r = size_t(blockIdx.x) * (blockDim.x / 32) + (threadIdx.x >> 5);
-  if (r >= size_t(R)) return;
-  const float* xr = x + r * C;
-  float s = 0.f, s2 = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    s += xr[c];
-    s2 += xr[c] * xr[c];
-  }
-  s = warp_sum(s);
-  s2 = warp_sum(s2);
-  const float mu = s / C, rs = rsqrtf(s2 / C - mu * mu + eps);
-  for (int c = lane; c < C; c += 32) hin[r * C + c] = __float2bfloat16((xr[c] - mu) * rs * gm[c] + bt[c]);
-}
-
-bool wide_shape_ok(int R, int C, int H) {
-  return R > 0 && C > 0 && H > 0 && R % GT == 0 && C % GT == 0 && H % GT == 0;
-}
-
-// The hidden of the forward, a = bf16(GELU(xin @ k1 + b1)) (R, H), then the
-// output product with its epilogue.
-template <int EPI>
-cudaError_t wide_fwd(const bf16* xin, const bf16* k1, const float* b1, const bf16* k2,
-                     const float* b2, const float* x, const float* sc, float* y, bf16* a_s,
-                     int R, int C, int H, cudaStream_t stream) {
-  EpiArgs e1{b1, nullptr, nullptr, a_s, H};
-  cudaError_t err = wide_gemm<EPI_GELU>(xin, C, k1, H, R, H, C, e1, stream);
-  if (err != cudaSuccess) return err;
-  EpiArgs e2{b2, x, sc, y, C};
-  return wide_gemm<EPI>(a_s, H, k2, C, R, C, H, e2, stream);
-}
-// ---------------------------------------------------------------- backward
+// ------------------------------------------------------------------ engine
 
 constexpr int BM = 128, BN = 128, BK = 64;  // output tile, k tile
 constexpr int BT = 256;                     // threads: two warpgroups of 64 rows
 constexpr int RING = 3;                     // shared-memory stages of k tiles
 constexpr int TRB = 32;                     // rows a block of the backward's row passes
 constexpr int CW = 512;                     // columns of a row pass's partials at a time
+
+// GELU at h, the forward's hidden: gelu_and_grad's a to the bit.
+__device__ __forceinline__ float gelu(float h) {
+  return h * (0.5f * (1.0f + erff(h * 0.70710678118654752f)));
+}
 
 // GELU and its derivative at h from one erff.
 __device__ __forceinline__ void gelu_and_grad(float h, float& a, float& d) {
@@ -479,12 +119,17 @@ struct Problem {
   void* out;                // f32 or bf16 (M, N), row stride ldo; a slice at out + s * slice_stride
   bf16* out2;               // dual: bf16(GELU(h + b1))
   float* part;              // dual: db1 partials (a row a tile of rows, N)
-  const float* bias;        // dual: b1
+  const float* bias;        // dual, hidden: b1; out: b2
+  const float* res;         // out (mlp_ln): the residual x (M, N), row stride ldo
+  const float* rscale;      // out (mlp_ln): the per-row scale s (M) or null
   int ldo;
   long long slice_stride;
 };
 
-enum BwdEpi { BWD_DH, BWD_F32, BWD_BF16 };
+// The epilogues: the backward's dual (bf16(dh), bf16(GELU(h)), db1
+// partials), f32 and bf16 stores; the forward's hidden (bf16(GELU(acc +
+// b1))) and output (acc + b2; mlp_ln: times s, plus x).
+enum Epi { BWD_DH, BWD_F32, BWD_BF16, FWD_GELU, FWD_OUT, FWD_OUT_LN };
 
 // One product's configuration: operand majorness, the dual product, the
 // epilogue; the shared-memory ring of RING stages of [A][B]([A2][B2]).
@@ -497,8 +142,12 @@ struct Gemm {
   static constexpr int RED = DUAL ? (BT / 32) * BN * 4 : 0;  // the dual epilogue's column sums
   static constexpr size_t SMEM = size_t(RING) * STAGE + RED + 1024;  // + slack to align to 1024
   static_assert(!DUAL || 2 * BM * (BN + 8) * 2 <= RING * STAGE, "the dual's staging fits the ring");
+  static_assert(BM * (BN + 8) * 2 <= RING * STAGE, "the hidden's staging fits the ring");
 };
 
+using HiddenGemm = Gemm<false, true, false, FWD_GELU>;
+template <bool LN>
+using OutGemm = Gemm<false, true, false, LN ? FWD_OUT_LN : FWD_OUT>;
 using DualGemm = Gemm<false, true, true, BWD_DH>;
 using DxinGemm = Gemm<false, false, false, BWD_F32>;
 using DxGemm = Gemm<false, false, false, BWD_BF16>;
@@ -551,9 +200,9 @@ __device__ __forceinline__ uint64_t op_desc(uint32_t t, int kk) {
 // The k loop of one output tile over k tiles [kt0, kt1): acc (and acc2)
 // hold this warpgroup's 64 x 128 of the tile when it returns.
 template <class G>
-__device__ __forceinline__ void bwd_mainloop(unsigned char* smem, const Problem& p, int m0,
-                                             int n0, int kt0, int kt1, float (&acc)[64],
-                                             float (&acc2)[G::DUAL ? 64 : 1]) {
+__device__ __forceinline__ void mainloop(unsigned char* smem, const Problem& p, int m0, int n0,
+                                         int kt0, int kt1, float (&acc)[64],
+                                         float (&acc2)[G::DUAL ? 64 : 1]) {
   const int wg = threadIdx.x >> 7;
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
@@ -599,13 +248,13 @@ __device__ __forceinline__ void bwd_mainloop(unsigned char* smem, const Problem&
 // One output tile (block b of the problem) through the k loop and its
 // epilogue, from the accumulators in registers.
 template <class G>
-__device__ __forceinline__ void bwd_gemm(unsigned char* smem_raw, const Problem& p, int b) {
+__device__ __forceinline__ void gemm_tile(unsigned char* smem_raw, const Problem& p, int b) {
   unsigned char* smem = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
   const int s = b / p.tiles, t = b % p.tiles;
   const int m0 = (t / p.tiles_n) * BM, n0 = (t % p.tiles_n) * BN;
   const int kt0 = s * p.kps, kt1 = min(p.kt, kt0 + p.kps);
   float acc[64], acc2[G::DUAL ? 64 : 1];
-  bwd_mainloop<G>(smem, p, m0, n0, kt0, kt1, acc, acc2);
+  mainloop<G>(smem, p, m0, n0, kt0, kt1, acc, acc2);
 
   const int tid = threadIdx.x, lane = tid & 31;
   const int row0 = m0 + (tid >> 7) * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
@@ -675,6 +324,57 @@ __device__ __forceinline__ void bwd_gemm(unsigned char* smem_raw, const Problem&
       for (int w = 0; w < BT / 32; ++w) sum += red[w * BN + tid];
       p.part[size_t(m0 / BM) * p.N + n0 + tid] = sum;
     }
+  } else if constexpr (G::EPI == FWD_GELU) {
+    // bf16(GELU(h + b1)) through shared memory as in BWD_DH: one tile
+    constexpr int LDS = BN + 8;
+    bf16* s_h = reinterpret_cast<bf16*>(smem);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = col0 + 8 * j;
+      const bool cok = col < p.N;
+      const float bias0 = cok ? p.bias[col] : 0.f, bias1 = cok ? p.bias[col + 1] : 0.f;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int o = (row0 + 8 * hf - m0) * LDS + col - n0;
+        *reinterpret_cast<__nv_bfloat162*>(s_h + o) = __floats2bfloat162_rn(
+            gelu(acc[4 * j + 2 * hf] + bias0), gelu(acc[4 * j + 2 * hf + 1] + bias1));
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < BM * (BN / 8); i += BT) {
+      const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
+      const int row = m0 + r, col = n0 + c;
+      if (row >= p.M || col >= p.N) continue;
+      *reinterpret_cast<uint4*>(static_cast<bf16*>(p.out) + size_t(row) * p.ldo + col) =
+          *reinterpret_cast<const uint4*>(s_h + r * LDS + c);
+    }
+  } else if constexpr (G::EPI == FWD_OUT || G::EPI == FWD_OUT_LN) {
+    // y = acc + b2 (mlp_ln: times s, then plus x, rounded in that order)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = col0 + 8 * j;
+      if (col >= p.N) continue;
+      const float bias0 = p.bias[col], bias1 = p.bias[col + 1];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = row0 + 8 * hf;
+        if (row >= p.M) continue;
+        const size_t o = size_t(row) * p.ldo + col;
+        float v0 = acc[4 * j + 2 * hf] + bias0, v1 = acc[4 * j + 2 * hf + 1] + bias1;
+        if constexpr (G::EPI == FWD_OUT_LN) {
+          if (p.rscale != nullptr) {
+            const float sr = p.rscale[row];
+            v0 = __fmul_rn(v0, sr);
+            v1 = __fmul_rn(v1, sr);
+          }
+          const float2 xr = *reinterpret_cast<const float2*>(p.res + o);
+          v0 += xr.x;
+          v1 += xr.y;
+        }
+        *reinterpret_cast<float2*>(static_cast<float*>(p.out) + o) = make_float2(v0, v1);
+      }
+    }
   } else {
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
@@ -695,21 +395,32 @@ __device__ __forceinline__ void bwd_gemm(unsigned char* smem_raw, const Problem&
   }
 }
 
-// Each product its own kernel name, so that a profile splits the backward
-// by launch.
+// Each product its own kernel name, so that a profile splits both
+// directions by launch (the forward's mlp_fwd_*, the backward's mlp_bwd_*).
+__global__ void __launch_bounds__(BT, 2) mlp_fwd_hidden_kernel(const Problem p) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  gemm_tile<HiddenGemm>(dyn_smem, p, blockIdx.x);
+}
+
+template <bool LN>
+__global__ void __launch_bounds__(BT, 2) mlp_fwd_out_kernel(const Problem p) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  gemm_tile<OutGemm<LN>>(dyn_smem, p, blockIdx.x);
+}
+
 __global__ void __launch_bounds__(BT, 1) mlp_bwd_dual_kernel(const Problem p) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
-  bwd_gemm<DualGemm>(dyn_smem, p, blockIdx.x);
+  gemm_tile<DualGemm>(dyn_smem, p, blockIdx.x);
 }
 
 __global__ void __launch_bounds__(BT, 2) mlp_bwd_dxin_kernel(const Problem p) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
-  bwd_gemm<DxinGemm>(dyn_smem, p, blockIdx.x);
+  gemm_tile<DxinGemm>(dyn_smem, p, blockIdx.x);
 }
 
 __global__ void __launch_bounds__(BT, 2) mlp_bwd_dx_kernel(const Problem p) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
-  bwd_gemm<DxGemm>(dyn_smem, p, blockIdx.x);
+  gemm_tile<DxGemm>(dyn_smem, p, blockIdx.x);
 }
 
 // dk1 partials (p0's blocks first), then dk2's.
@@ -718,9 +429,9 @@ mlp_bwd_weights_kernel(const Problem p0, const Problem p1) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   const int n0 = p0.tiles * p0.slices;
   if (static_cast<int>(blockIdx.x) < n0)
-    bwd_gemm<WeightGemm>(dyn_smem, p0, blockIdx.x);
+    gemm_tile<WeightGemm>(dyn_smem, p0, blockIdx.x);
   else
-    bwd_gemm<WeightGemm>(dyn_smem, p1, blockIdx.x - n0);
+    gemm_tile<WeightGemm>(dyn_smem, p1, blockIdx.x - n0);
 }
 
 // One engine product of each operand layout, f32 out (the card tests' check
@@ -728,7 +439,7 @@ mlp_bwd_weights_kernel(const Problem p0, const Problem p1) {
 template <bool A_MN, bool B_MN>
 __global__ void __launch_bounds__(BT, 2) mlp_bwd_check_kernel(const Problem p) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
-  bwd_gemm<CheckGemm<A_MN, B_MN>>(dyn_smem, p, blockIdx.x);
+  gemm_tile<CheckGemm<A_MN, B_MN>>(dyn_smem, p, blockIdx.x);
 }
 
 Problem make_problem(Operand a, Operand b, int M, int N, int K, void* out, int ldo, int slices) {
@@ -756,6 +467,38 @@ cudaError_t launch_gemm(void (*kernel)(Problem), cudaStream_t stream, const Prob
   return cudaGetLastError();
 }
 
+// hin = bf16(LN(x)) of row r, by one warp (float4 columns).
+__device__ __forceinline__ void ln_row(const float* __restrict__ x, const float* __restrict__ gm,
+                                       const float* __restrict__ bt, bf16* __restrict__ hin,
+                                       size_t r, int C, float eps) {
+  const int lane = threadIdx.x & 31, C4 = C / 4;
+  const float4* xr = reinterpret_cast<const float4*>(x + r * C);
+  float s = 0.f, s2 = 0.f;
+  for (int c = lane; c < C4; c += 32) {
+    const float4 v = xr[c];
+    s += v.x + v.y + v.z + v.w;
+    s2 += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+  }
+  s = warp_sum(s);
+  s2 = warp_sum(s2);
+  const float mu = s / C, rs = rsqrtf(s2 / C - mu * mu + eps);
+  for (int c = lane; c < C4; c += 32) {
+    const float4 v = xr[c], w = reinterpret_cast<const float4*>(gm)[c],
+                 b = reinterpret_cast<const float4*>(bt)[c];
+    uint2 o;
+    o.x = pack_bf16((v.x - mu) * rs * w.x + b.x, (v.y - mu) * rs * w.y + b.y);
+    o.y = pack_bf16((v.z - mu) * rs * w.z + b.z, (v.w - mu) * rs * w.w + b.w);
+    reinterpret_cast<uint2*>(hin + r * C)[c] = o;
+  }
+}
+
+// The forward's LN rows: one warp a row, NW rows a block (R a multiple of NW).
+__global__ void __launch_bounds__(NT)
+mlp_fwd_ln_rows_kernel(const float* __restrict__ x, const float* __restrict__ gm,
+                       const float* __restrict__ bt, bf16* __restrict__ hin, int C, float eps) {
+  ln_row(x, gm, bt, hin, size_t(blockIdx.x) * NW + (threadIdx.x >> 5), C, eps);
+}
+
 // The rows pass in, a block of 32 rows, one warp a row (float4 columns):
 // (LN) hin = bf16(LN(x)); gbr = bf16(s * g) and the block's column sums of
 // s * g (db2), each warp's rows in order, then the warps in order.
@@ -770,26 +513,7 @@ mlp_bwd_rows_in_kernel(const float* __restrict__ x, const float* __restrict__ gm
   const size_t r0 = size_t(blockIdx.x) * TRB;
   const int C4 = C / 4;
   if constexpr (LN) {
-    for (int rr = warp; rr < TRB; rr += NW) {
-      const float4* xr = reinterpret_cast<const float4*>(x + (r0 + rr) * C);
-      float s = 0.f, s2 = 0.f;
-      for (int c = lane; c < C4; c += 32) {
-        const float4 v = xr[c];
-        s += v.x + v.y + v.z + v.w;
-        s2 += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
-      }
-      s = warp_sum(s);
-      s2 = warp_sum(s2);
-      const float mu = s / C, rs = rsqrtf(s2 / C - mu * mu + eps);
-      for (int c = lane; c < C4; c += 32) {
-        const float4 v = xr[c], w = reinterpret_cast<const float4*>(gm)[c],
-                     b = reinterpret_cast<const float4*>(bt)[c];
-        uint2 o;
-        o.x = pack_bf16((v.x - mu) * rs * w.x + b.x, (v.y - mu) * rs * w.y + b.y);
-        o.y = pack_bf16((v.z - mu) * rs * w.z + b.z, (v.w - mu) * rs * w.w + b.w);
-        reinterpret_cast<uint2*>(hin + (r0 + rr) * C)[c] = o;
-      }
-    }
+    for (int rr = warp; rr < TRB; rr += NW) ln_row(x, gm, bt, hin, r0 + rr, C, eps);
   }
   for (int c0 = 0; c0 < C4; c0 += CW / 4) {
     const int cn = min(CW / 4, C4 - c0);
@@ -960,9 +684,27 @@ cudaError_t launch_sums(const SumArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-bool bwd_shape_ok(int R, int C, int H, int S) {
-  return R > 0 && C > 0 && H > 0 && R % 64 == 0 && C % 64 == 0 && H % 64 == 0 && S >= 1 &&
-         S <= R / BK;
+bool shape_ok(int R, int C, int H) {
+  return R > 0 && C > 0 && H > 0 && R % 64 == 0 && C % 64 == 0 && H % 64 == 0;
+}
+
+bool bwd_shape_ok(int R, int C, int H, int S) { return shape_ok(R, C, H) && S >= 1 && S <= R / BK; }
+
+// The forward's two products: a = bf16(GELU(xin k1 + b1)), then y = a k2 +
+// b2 (LN: times s, plus x). xin: hin (mlp_ln) or x (mlp), (R, C) bf16.
+template <bool LN>
+cudaError_t fwd_products(const bf16* xin, const bf16* k1, const float* b1, const bf16* k2,
+                         const float* b2, const float* x, const float* sc, float* y, bf16* a,
+                         int R, int C, int H, cudaStream_t stream) {
+  Problem ph = make_problem({xin, C}, {k1, H}, R, H, C, a, H, 1);
+  ph.bias = b1;
+  cudaError_t err = launch_gemm<HiddenGemm>(mlp_fwd_hidden_kernel, stream, ph);
+  if (err != cudaSuccess) return err;
+  Problem po = make_problem({a, H}, {k2, C}, R, C, H, y, C, 1);
+  po.bias = b2;
+  po.res = x;
+  po.rscale = sc;
+  return launch_gemm<OutGemm<LN>>(mlp_fwd_out_kernel<LN>, stream, po);
 }
 
 // Launches 2-4 of both backwards: the dual product, dxin (or dx) and the
@@ -1008,64 +750,32 @@ SumArgs weight_sums(const float* dk1p, const float* dk2p, const float* db1p, con
 
 }  // namespace
 
-PDAE_EXPORT int mlp_ln_fwd(const float* x, const float* gm, const float* bt,
-                           const void* k1, const float* b1, const void* k2,
-                           const float* b2, const float* sc, float* y, int R, int C,
-                           int H, float eps, void* stream) {
+// y (R, C) f32 = x + s (GELU(LN(x) k1 + b1) k2 + b2), three launches; x
+// f32, k1 (C, H), k2 (H, C) bf16, sc (R) or null. Scratch: hin (R, C) and
+// a (R, H) bf16. x, gamma, beta, k1, k2 and the scratch 16-byte aligned.
+PDAE_EXPORT int mlp_ln_fwd(const float* x, const float* gm, const float* bt, const void* k1,
+                           const float* b1, const void* k2, const float* b2, const float* sc,
+                           float* y, void* hin, void* a, int R, int C, int H, float eps,
+                           void* stream) {
   if (!shape_ok(R, C, H)) return static_cast<int>(cudaErrorInvalidValue);
-  const bf16* k1b = static_cast<const bf16*>(k1);
-  const bf16* k2b = static_cast<const bf16*>(k2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (C) {
-    case 128: err = launch_fwd<128>(x, gm, bt, k1b, b1, k2b, b2, sc, y, R, H, eps, s); break;
-    case 256: err = launch_fwd<256>(x, gm, bt, k1b, b1, k2b, b2, sc, y, R, H, eps, s); break;
-    default: err = launch_fwd<384>(x, gm, bt, k1b, b1, k2b, b2, sc, y, R, H, eps, s); break;
-  }
-  return static_cast<int>(err);
-}
-
-// out (R, C) f32 = GELU(x @ k1 + b1) @ k2 + b2; x (R, C), k1, k2 bf16.
-PDAE_EXPORT int mlp_fwd(const void* x, const void* k1, const float* b1, const void* k2,
-                        const float* b2, float* y, int R, int C, int H, void* stream) {
-  if (!shape_ok(R, C, H)) return static_cast<int>(cudaErrorInvalidValue);
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* k1b = static_cast<const bf16*>(k1);
-  const bf16* k2b = static_cast<const bf16*>(k2);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (C) {
-    case 128: err = launch_mlp_fwd<128>(xb, k1b, b1, k2b, b2, y, R, H, s); break;
-    case 256: err = launch_mlp_fwd<256>(xb, k1b, b1, k2b, b2, y, R, H, s); break;
-    default: err = launch_mlp_fwd<384>(xb, k1b, b1, k2b, b2, y, R, H, s); break;
-  }
-  return static_cast<int>(err);
-}
-
-// The wide forwards (any R, C, H multiple of 64); scratch allocated by the
-// caller: hin_s (R, C) and a_s (R, H) bf16.
-PDAE_EXPORT int mlp_ln_fwd_wide(const float* x, const float* gm, const float* bt,
-                                const void* k1, const float* b1, const void* k2,
-                                const float* b2, const float* sc, float* y, void* hin_s,
-                                void* a_s, int R, int C, int H, float eps, void* stream) {
-  if (!wide_shape_ok(R, C, H)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  bf16* hs = static_cast<bf16*>(hin_s);
-  mlp_wide_ln_rows_kernel<<<(R + NW - 1) / NW, NT, 0, s>>>(x, gm, bt, hs, R, C, eps);
+  bf16* hs = static_cast<bf16*>(hin);
+  mlp_fwd_ln_rows_kernel<<<R / NW, NT, 0, s>>>(x, gm, bt, hs, C, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = wide_fwd<EPI_OUT_LN>(hs, static_cast<const bf16*>(k1), b1, static_cast<const bf16*>(k2),
-                             b2, x, sc, y, static_cast<bf16*>(a_s), R, C, H, s);
-  return static_cast<int>(err);
+  return static_cast<int>(fwd_products<true>(hs, static_cast<const bf16*>(k1), b1,
+                                             static_cast<const bf16*>(k2), b2, x, sc, y,
+                                             static_cast<bf16*>(a), R, C, H, s));
 }
 
-PDAE_EXPORT int mlp_fwd_wide(const void* x, const void* k1, const float* b1, const void* k2,
-                             const float* b2, float* y, void* a_s, int R, int C, int H,
-                             void* stream) {
-  if (!wide_shape_ok(R, C, H)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(wide_fwd<EPI_OUT>(
+// out (R, C) f32 = GELU(x k1 + b1) k2 + b2, two launches; x (R, C), k1, k2
+// bf16. Scratch: a (R, H) bf16. x, k1, k2 and a 16-byte aligned.
+PDAE_EXPORT int mlp_fwd(const void* x, const void* k1, const float* b1, const void* k2,
+                        const float* b2, float* y, void* a, int R, int C, int H, void* stream) {
+  if (!shape_ok(R, C, H)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(fwd_products<false>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(k1), b1,
-      static_cast<const bf16*>(k2), b2, nullptr, nullptr, y, static_cast<bf16*>(a_s), R, C, H,
+      static_cast<const bf16*>(k2), b2, nullptr, nullptr, y, static_cast<bf16*>(a), R, C, H,
       static_cast<cudaStream_t>(stream)));
 }
 

@@ -22,7 +22,6 @@ import torch
 
 from ..utils import kernels
 
-_ONE_BLOCK_C = (128, 256, 384)   # csrc/mlp.cu's one-block forward; wider rows the wide form
 _SMS = 132              # the H100's streaming multiprocessors
 _WEIGHT_BLOCKS = 2      # blocks an SM of csrc/mlp.cu's weight-gradient launch
 _ROW_BLOCK = 32         # rows a block of csrc/mlp.cu's backward row passes
@@ -37,8 +36,7 @@ def supported(R: int, C: int, H: int, tt: int = 256) -> bool:
 
 def kernel_takes(R: int, C: int, H: int) -> bool:
     """The shapes the kernels are built for: rows, width and hidden width
-    multiples of 64 (the one-block forward at C 128, 256 and 384, the wide
-    forward at any other; one backward for all)."""
+    multiples of 64 (one forward and one backward for all)."""
     return R > 0 and C > 0 and H > 0 and R % 64 == 0 and C % 64 == 0 and H % 64 == 0
 
 
@@ -154,7 +152,6 @@ def fused_mlp_ln_plain(x, gamma, beta, k1, b1, k2, b2, row_scale=None,
 
 
 _P, _I, _F = kernels.P, kernels.I, kernels.F
-_FWD_ARGS = (_P,) * 9 + (_I, _I, _I, _F, _P)
 
 
 def _require_aligned(*tensors) -> None:
@@ -178,22 +175,21 @@ def _bwd_scratch(R: int, C: int, H: int, dev):
 
 
 def mlp_ln_fwd_kernel(x, gamma, beta, k1b, b1, k2b, b2, sc, eps: float = 1e-6):
-    """Launch the forward kernel. x (R, C) f32, gamma/beta (C,) f32, k1b
-    (C, H) and k2b (H, C) bf16, b1 (H,), b2 (C,) f32, sc (R,) f32 or None;
-    all contiguous on one CUDA device. Returns y (R, C) f32."""
+    """Launch the forward kernels (LN rows, the hidden product, the output
+    product; one count). x (R, C) f32, gamma/beta (C,) f32, k1b (C, H) and
+    k2b (H, C) bf16, b1 (H,), b2 (C,) f32, sc (R,) f32 or None; all
+    contiguous on one CUDA device. Returns y (R, C) f32."""
     R, C = x.shape
     H = k1b.shape[1]
+    bf = torch.bfloat16
+    _require_aligned(x, gamma, beta, k1b, k2b)
     y = torch.empty_like(x)
-    ptrs = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), k1b.data_ptr(), b1.data_ptr(),
-            k2b.data_ptr(), b2.data_ptr(), kernels.ptr(sc), y.data_ptr())
-    if C in _ONE_BLOCK_C:
-        kernels.launch("mlp_ln_fwd", "mlp", "mlp_ln_fwd", _FWD_ARGS, *ptrs, R, C, H, eps,
-                       kernels.stream(x))
-        return y
-    hin_s = torch.empty((R, C), dtype=torch.bfloat16, device=x.device)
-    a_s = torch.empty((R, H), dtype=torch.bfloat16, device=x.device)
-    kernels.launch("mlp_ln_fwd", "mlp", "mlp_ln_fwd_wide", (_P,) * 11 + (_I, _I, _I, _F, _P),
-                   *ptrs, hin_s.data_ptr(), a_s.data_ptr(), R, C, H, eps, kernels.stream(x))
+    hin = torch.empty((R, C), dtype=bf, device=x.device)
+    a = torch.empty((R, H), dtype=bf, device=x.device)
+    kernels.launch("mlp_ln_fwd", "mlp", "mlp_ln_fwd", (_P,) * 11 + (_I, _I, _I, _F, _P),
+                   x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), k1b.data_ptr(),
+                   b1.data_ptr(), k2b.data_ptr(), b2.data_ptr(), kernels.ptr(sc), y.data_ptr(),
+                   hin.data_ptr(), a.data_ptr(), R, C, H, eps, kernels.stream(x))
     return y
 
 
@@ -304,21 +300,17 @@ class _MlpPlain(torch.autograd.Function):
 
 
 def mlp_fwd_kernel(xb, k1b, b1, k2b, b2):
-    """Launch the forward kernel. xb (R, C), k1b (C, H), k2b (H, C) bf16;
-    b1 (H,), b2 (C,) f32; all contiguous on one CUDA device. Returns (R, C)
-    f32."""
+    """Launch the forward kernels (the hidden product, the output product;
+    one count). xb (R, C), k1b (C, H), k2b (H, C) bf16; b1 (H,), b2 (C,)
+    f32; all contiguous on one CUDA device. Returns (R, C) f32."""
     R, C = xb.shape
     H = k1b.shape[1]
+    _require_aligned(xb, k1b, k2b)
     y = torch.empty((R, C), dtype=torch.float32, device=xb.device)
-    ptrs = (xb.data_ptr(), k1b.data_ptr(), b1.data_ptr(), k2b.data_ptr(), b2.data_ptr(),
-            y.data_ptr())
-    if C in _ONE_BLOCK_C:
-        kernels.launch("mlp_fwd", "mlp", "mlp_fwd", (_P,) * 6 + (_I, _I, _I, _P), *ptrs,
-                       R, C, H, kernels.stream(xb))
-        return y
-    a_s = torch.empty((R, H), dtype=torch.bfloat16, device=xb.device)
-    kernels.launch("mlp_fwd", "mlp", "mlp_fwd_wide", (_P,) * 7 + (_I, _I, _I, _P), *ptrs,
-                   a_s.data_ptr(), R, C, H, kernels.stream(xb))
+    a = torch.empty((R, H), dtype=torch.bfloat16, device=xb.device)
+    kernels.launch("mlp_fwd", "mlp", "mlp_fwd", (_P,) * 7 + (_I, _I, _I, _P), xb.data_ptr(),
+                   k1b.data_ptr(), b1.data_ptr(), k2b.data_ptr(), b2.data_ptr(), y.data_ptr(),
+                   a.data_ptr(), R, C, H, kernels.stream(xb))
     return y
 
 
@@ -387,5 +379,4 @@ def fused_mlp(x, k1, b1, k2, b2) -> torch.Tensor:
                          f"got R={R}, C={C}, H={H}")
     args = _mlp_primals(x, k1, b1, k2, b2)
     kernels.require_cuda(*args)
-    _require_aligned(args[0], args[1], args[3])
     return _Mlp.apply(*args).reshape(x.shape)

@@ -1,13 +1,15 @@
-"""Ablations of the MLP backward (``csrc/mlp.cu``) on one NVIDIA GPU.
+"""Ablations of the MLP kernels (``csrc/mlp.cu``) on one NVIDIA GPU.
 
 Builds variants of ``csrc/mlp.cu`` (nvcc, sm_90a, into
 ``build/mlp_ablation/``), each with one change that removes a part of the
-dual product's work (the first GEMM of the backward, whose epilogue applies
-GELU), and times the ``mlp`` backward at the flagship shape (R 16384, C 384,
-H 1536): its time a call (CUDA events) and the device time of each of its
-launches (torch.profiler). A variant's outputs are wrong by design; only
-its time is read. Every variant keeps the accumulators in use: a product
-whose results nobody reads is dropped by the compiler.
+work of the backward's dual product (the first GEMM of the backward, whose
+epilogue applies GELU) or of the forward's hidden product (whose epilogue
+applies GELU and stores the bf16 hidden), and times the ``mlp`` backward
+and the ``mlp_ln`` and ``mlp`` forwards at the flagship shape (R 16384, C
+384, H 1536): each one's time a call (CUDA events) and the device time of
+each of its launches (torch.profiler). A variant's outputs are wrong by
+design; only its time is read. Every variant keeps the accumulators in
+use: a product whose results nobody reads is dropped by the compiler.
 
     python3 -m point_dae_torch.tools.mlp_ablation
 """
@@ -27,6 +29,9 @@ COPY_OUT = """      *reinterpret_cast<uint4*>(out + size_t(row) * p.ldo + col) =
 SECOND = """      if constexpr (G::DUAL)
         wgmma_m64n128k16<0, 0>(acc2, op_desc<false>(a + 2 * G::OP, kk),
                                op_desc<false>(b + 2 * G::OP, kk));"""
+FWD_GELU = "  return h * (0.5f * (1.0f + erff(h * 0.70710678118654752f)));"
+FWD_STORE = """      *reinterpret_cast<uint4*>(static_cast<bf16*>(p.out) + size_t(row) * p.ldo + col) =
+          *reinterpret_cast<const uint4*>(s_h + r * LDS + c);"""
 
 # name: (the change, replacements)
 VARIANTS = {
@@ -39,6 +44,11 @@ VARIANTS = {
                     "to device memory dropped (staging and db1 sums kept)", [(COPY_OUT, "")]),
     "one_product": ("the dual product's second GEMM (gbr k2^T) dropped: its accumulator "
                     "stays 0", [(SECOND, "")]),
+    "fwd_no_gelu": ("the forward hidden's GELU replaced by a = h (no erff; bias and bf16 "
+                    "staging kept)", [(FWD_GELU, "  return h;")]),
+    "fwd_no_store": ("the forward hidden's 16-byte stores from shared to device memory "
+                     "dropped (GELU and staging kept; the output product reads stale "
+                     "memory)", [(FWD_STORE, "")]),
 }
 
 
@@ -81,9 +91,11 @@ def main() -> None:
             log, _ = proc.communicate()
             if proc.returncode:
                 raise SystemExit(f"nvcc failed on variant {name}:\n{log[-3000:]}")
-            regs = re.search(r"mlp_bwd_dual_kernel[^\n]*sm_90a'\n(?:[^\n]*\n){0,3}?[^\n]*Used "
-                             r"(\d+) registers", log)
-            libs[name] = (ctypes.CDLL(lib), regs.group(1) if regs else "?")
+            regs = {k: re.search(k + r"[^\n]*sm_90a'\n(?:[^\n]*\n){0,3}?[^\n]*Used "
+                                 r"(\d+) registers", log) for k in ("mlp_bwd_dual_kernel",
+                                                                   "mlp_fwd_hidden_kernel")}
+            libs[name] = (ctypes.CDLL(lib), {k.split("_")[1]: m.group(1) if m else "?"
+                                             for k, m in regs.items()})
     finally:
         for proc, _ in procs.values():
             if proc.poll() is None:
@@ -104,8 +116,19 @@ def main() -> None:
             torch.empty((C,), device=dev)]
     S, scratch = mlp._bwd_scratch(R, C, H, dev)
     stream = torch.cuda.current_stream().cuda_stream
-    P, I = ctypes.c_void_p, ctypes.c_int
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ptrs = [t.data_ptr() for t in (x, k1, b1, k2, cot, *outs, *scratch)]
+    # the forwards: mlp on x, mlp_ln on an f32 x with a row scale
+    xf = torch.randn((R, C), generator=g, device=dev)
+    gm = 1 + 0.1 * torch.randn((C,), generator=g, device=dev)
+    bt = 0.05 * torch.randn((C,), generator=g, device=dev)
+    b2 = 0.02 * torch.randn((C,), generator=g, device=dev)
+    sc = ((torch.rand((R,), generator=g, device=dev) >= 0.1) / 0.9).float()
+    y = torch.empty((R, C), device=dev)
+    hin = torch.empty((R, C), dtype=bf, device=dev)
+    act = torch.empty((R, H), dtype=bf, device=dev)
+    fwd_ptrs = [t.data_ptr() for t in (x, k1, b1, k2, b2, y, act)]
+    ln_ptrs = [t.data_ptr() for t in (xf, gm, bt, k1, b1, k2, b2, sc, y, hin, act)]
 
     def timed(call, iters):
         for _ in range(2):
@@ -128,20 +151,27 @@ def main() -> None:
         out = {}
         for e in prof.key_averages():
             us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-            m = re.search(r"mlp_bwd_([a-z_]+?)_kernel", e.key)
+            m = re.search(r"mlp_(?:bwd|fwd)_([a-z_]+?)_kernel", e.key)
             if m and us > 0:
                 out[m.group(1)] = out.get(m.group(1), 0.0) + us / calls / 1e3
         return out
 
     for name, (lib, regs) in libs.items():
-        fn = lib.mlp_bwd
-        fn.argtypes = [P] * 17 + [I] * 4 + [P]
-        call = lambda: fn(*ptrs, R, C, H, S, stream)  # noqa: E731
-        ms = timed(call, 20)
-        split = by_launch(call)
-        print(f"{name:15s} mlp_bwd {ms:.4f} ms a call; device "
-              + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
-              + f" ms; dual kernel {regs} registers (change: {VARIANTS[name][0]})", flush=True)
+        bwd, fwd, ln_fwd = lib.mlp_bwd, lib.mlp_fwd, lib.mlp_ln_fwd
+        bwd.argtypes = [P] * 17 + [I] * 4 + [P]
+        fwd.argtypes = [P] * 7 + [I] * 3 + [P]
+        ln_fwd.argtypes = [P] * 11 + [I] * 3 + [F, P]
+        calls = (("mlp_bwd", lambda: bwd(*ptrs, R, C, H, S, stream)),
+                 ("mlp_ln_fwd", lambda: ln_fwd(*ln_ptrs, R, C, H, 1e-6, stream)),
+                 ("mlp_fwd", lambda: fwd(*fwd_ptrs, R, C, H, stream)))
+        for what, call in calls:
+            ms = timed(call, 20)
+            split = by_launch(call)
+            print(f"{name:15s} {what:10s} {ms:.4f} ms a call; device "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+                  + " ms", flush=True)
+        print(f"{name:15s} registers: dual {regs['bwd']}, hidden {regs['fwd']} (change: "
+              f"{VARIANTS[name][0]})", flush=True)
 
 
 if __name__ == "__main__":

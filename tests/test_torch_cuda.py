@@ -82,6 +82,12 @@ def test_patch_chamfer_kernel_matches_plain(dev):
 
 
 BWD_TOL = 5e-3   # see _assert_bwd_close
+# A kernel forward against its plain version, over the largest value of the
+# MLP branch (mlp_ln: y - x). Both round the hidden (and LN(x)) to bf16 at
+# the same points, so what is left is the f32 sum order and erff against
+# torch.erf, which can move one bf16 rounding of the hidden by one step: one
+# term of a sum of H terms.
+FWD_TOL = 5e-3
 
 
 def _mlp_ln_case(dev, R, C, H, scaled, seed=3):
@@ -126,7 +132,7 @@ def _assert_bwd_close(got, want):
                                       (768, False)])
 def test_fused_mlp_ln_kernels_match_plain(dev, C, scaled):
     """The ``mlp_ln`` kernels at R 512, H 4C: the forward against
-    ``fused_mlp_ln_plain`` within 1e-2 of the branch's largest value, the
+    ``fused_mlp_ln_plain`` within FWD_TOL of the branch's largest value, the
     gradients through autograd against ``mlp_ln_bwd_plain`` within BWD_TOL;
     the raw backward gives dk1, dk2 in bf16 and the rest in f32."""
     R, H = 512, 4 * C
@@ -134,7 +140,7 @@ def test_fused_mlp_ln_kernels_match_plain(dev, C, scaled):
     lk = [t.clone().requires_grad_() for t in args]
     yk = mlp.fused_mlp_ln(*lk, row_scale=sc)
     yp = mlp.fused_mlp_ln_plain(*args, row_scale=sc)
-    assert _rel(yk - args[0], yp - args[0]) < 1e-2
+    assert _rel(yk - args[0], yp - args[0]) < FWD_TOL
     bf = torch.bfloat16
     k1b, k2b = args[3].to(bf).contiguous(), args[5].to(bf).contiguous()
     want = mlp.mlp_ln_bwd_plain(args[0], args[1], args[2], k1b, args[4], k2b, sc, cot,
@@ -148,14 +154,14 @@ def test_fused_mlp_ln_kernels_match_plain(dev, C, scaled):
 @pytest.mark.parametrize("C", [384, 128, 256, 512, 768])
 def test_fused_mlp_kernels_match_plain(dev, C):
     """The ``mlp`` kernels at R 512, H 4C: the output against
-    ``fused_mlp_plain`` within 1e-2 of its largest value, the gradients
+    ``fused_mlp_plain`` within FWD_TOL of its largest value, the gradients
     through autograd against ``mlp_bwd_plain`` within BWD_TOL; the raw
     backward gives dx, dk1, dk2 in bf16 and db1, db2 in f32."""
     R, H = 512, 4 * C
     args, cot = _mlp_case(dev, R, C, H)
     lk = [t.clone().requires_grad_() for t in args]
     yk, yp = mlp.fused_mlp(*lk), mlp.fused_mlp_plain(*args)
-    assert yk.dtype == torch.float32 and _rel(yk, yp) < 1e-2
+    assert yk.dtype == torch.float32 and _rel(yk, yp) < FWD_TOL
     bf = torch.bfloat16
     k1b, k2b = args[1].to(bf).contiguous(), args[3].to(bf).contiguous()
     want = mlp.mlp_bwd_plain(args[0], k1b, args[2], k2b, cot, round_out=False)
@@ -166,8 +172,13 @@ def test_fused_mlp_kernels_match_plain(dev, C):
     assert [t.dtype for t in raw] == [bf, bf, torch.float32, bf, torch.float32]
 
 
-@pytest.mark.parametrize("R,C,H", [(192, 384, 1536), (320, 320, 1280), (512, 384, 384),
-                                   (4096, 384, 1536), (256, 64, 128)])
+# (R, C, H) where the engine's 128-wide tiles end in a 64-wide edge (R 192
+# and 320; C 320), at C = H, at R 4096 and with one 64-deep k tile (C 64)
+EDGE_SHAPES = [(192, 384, 1536), (320, 320, 1280), (512, 384, 384), (4096, 384, 1536),
+               (256, 64, 128)]
+
+
+@pytest.mark.parametrize("R,C,H", EDGE_SHAPES)
 @pytest.mark.parametrize("ln", [True, False])
 def test_mlp_backwards_match_plain_at_edge_shapes(dev, R, C, H, ln):
     """Both backwards where the 128-wide tiles end in a 64-wide edge (R 192
@@ -185,6 +196,64 @@ def test_mlp_backwards_match_plain_at_edge_shapes(dev, R, C, H, ln):
         prim = (args[0], args[1].to(bf).contiguous(), args[2], args[3].to(bf).contiguous(), cot)
         got, want = mlp.mlp_bwd_kernel(*prim), mlp.mlp_bwd_plain(*prim, round_out=False)
     _assert_bwd_close(got, want)
+
+
+def _mlp_fwd_call(dev, R, C, H, kind, seed):
+    """A forward of ``kind`` (mlp_ln with a row scale, mlp_ln without, mlp)
+    at (R, C, H): (kernel call, plain call, the residual the branch is
+    measured past)."""
+    bf = torch.bfloat16
+    if kind == "mlp":
+        args, _ = _mlp_case(dev, R, C, H, seed=seed)
+        prim = (args[0], args[1].to(bf).contiguous(), args[2], args[3].to(bf).contiguous(),
+                args[4])
+        return (lambda: mlp.mlp_fwd_kernel(*prim), lambda: mlp.fused_mlp_plain(*args), 0)
+    args, sc, _ = _mlp_ln_case(dev, R, C, H, kind == "ln_scaled", seed=seed)
+    prim = (args[0], args[1], args[2], args[3].to(bf).contiguous(), args[4],
+            args[5].to(bf).contiguous(), args[6], sc)
+    return (lambda: mlp.mlp_ln_fwd_kernel(*prim),
+            lambda: mlp.fused_mlp_ln_plain(*args, row_scale=sc), args[0])
+
+
+@pytest.mark.parametrize("R,C,H", EDGE_SHAPES)
+@pytest.mark.parametrize("kind", ["ln_scaled", "ln", "mlp"])
+def test_mlp_forwards_match_plain_at_edge_shapes(dev, R, C, H, kind):
+    """Both forwards where the engine's 128-wide tiles end in a 64-wide edge
+    (R 192 and 320, C 320: ragged M and N), at C = H, at R 4096 and with a
+    single 64-deep k tile (C 64), against their plain versions within
+    FWD_TOL of the branch's largest value."""
+    kernel, plain, base = _mlp_fwd_call(dev, R, C, H, kind, seed=R + C + 1)
+    got, want = kernel(), plain()
+    assert got.dtype == torch.float32 and got.shape == (R, C)
+    assert _rel(got - base, want - base) < FWD_TOL
+
+
+def test_mlp_forwards_repeat_bit_for_bit_in_one_launch_count(dev):
+    """Two calls of each forward on the same inputs give the same bits, and
+    each call counts one launch of its wrapper (its two or three launches
+    count as one)."""
+    from point_dae_torch.utils import kernels
+
+    ln, _, _ = _mlp_fwd_call(dev, 4096, 384, 1536, "ln_scaled", seed=7)
+    mf, _, _ = _mlp_fwd_call(dev, 4096, 384, 1536, "mlp", seed=8)
+    kernels.reset_launches()
+    a, b, c, d = ln(), ln(), mf(), mf()
+    assert (kernels.launches["mlp_ln_fwd"], kernels.launches["mlp_fwd"]) == (2, 2)
+    assert torch.equal(a, b) and torch.equal(c, d)
+
+
+def test_mlp_forwards_raise_on_unaligned_inputs(dev):
+    """The forwards' cp.async copies read 16-byte vectors: an input that does
+    not start on 16 bytes raises instead of launching."""
+    bf = torch.bfloat16
+    args, sc, _ = _mlp_ln_case(dev, 256, 128, 512, True)
+    k1b, k2b = args[3].to(bf).contiguous(), args[5].to(bf).contiguous()
+    x = torch.empty(256 * 128 + 2, device=dev)[2:].view(256, 128).copy_(args[0])
+    with pytest.raises(ValueError, match="16-byte"):
+        mlp.mlp_ln_fwd_kernel(x, args[1], args[2], k1b, args[4], k2b, args[6], sc)
+    xb = torch.empty(256 * 128 + 4, dtype=bf, device=dev)[4:].view(256, 128)
+    with pytest.raises(ValueError, match="16-byte"):
+        mlp.mlp_fwd_kernel(xb, k1b, args[4], k2b, args[6])
 
 
 def test_mlp_backwards_repeat_bit_for_bit_in_one_launch_count(dev):
