@@ -127,6 +127,21 @@ Phases, each fatal on failure:
               device time split by launch (LN rows, hidden, out), TFLOP/s
               over the two products beside the same two products through
               torch.matmul (the yardstick; the port never calls it).
+ 15. FPS and patchify redesign - the previous FPS and patchify designs
+              (point_dae_torch/tools/fps_parent.cu, patchify_parent.cu) are
+              built beside the kernels; fps at the fine-tune shapes under
+              its plan (ops/fps.py:plan: clusters of four blocks at 8192
+              points, one block at 2048 and fewer) and at (32, 8192) -> 1200
+              also under clusters of 2 and 8 blocks and one block, picks bit
+              for bit with the plain version and the previous design, each
+              time beside the previous design's; patchify at (256, 1024) G
+              64 and at (16 and 32, 2048) G 128, fps_idx and knn_idx bit for
+              bit with the previous design, its device time by launch (the
+              FPS launch, the kNN rows launch). A profiler window of a
+              library yardstick (torch.gather, torch.matmul, SDPA) lost
+              PROFILE_WINDOWS times in a row is logged and the yardstick's
+              device time and library_ms are reported as null; the port's
+              own kernels' windows still fail the run.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Run from the repository root:
 
@@ -273,17 +288,41 @@ def dev_us(e) -> float:
 
 
 PROFILE_WINDOWS = 3        # windows a device time may take before the run fails
+# A profiler window loses the kernel records of its first few launches
+# (about five): a profiled step's window misses four to five records, its
+# first kernels among them, and a window of five fps calls opened right
+# after one held none or one of them, behind a single 10 ms primer kernel
+# too. So each window first launches PRIMER_LAUNCHES short
+# torch.cuda._sleep kernels (about 10 ms in all at 1.98 GHz), waits for
+# them, and leaves those kernels and their launches out of what it counts.
+PRIMER_LAUNCHES = 32
+PRIMER_CYCLES = 20_000_000 // PRIMER_LAUNCHES
+PRIMER_KERNEL = "spin_kernel"
+
+
+def prime_profiler(torch) -> None:
+    for _ in range(PRIMER_LAUNCHES):
+        torch.cuda._sleep(PRIMER_CYCLES)
+    torch.cuda.synchronize()
 
 
 def launch_balance(records, kernels):
     """(kernel records, launch records) of a profiler window: a kernel's
     activity record against the cudaLaunchKernel or cuLaunchKernel record
     of its launch (copies and sets have records of their own and count as
-    neither)."""
+    neither); the primer's launches are left out."""
     launched = sum(e.count for e in records
                    if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
     recorded = sum(e.count for e in kernels if not e.key.startswith(("Memcpy", "Memset")))
-    return recorded, launched
+    return recorded, max(launched - PRIMER_LAUNCHES, 0)
+
+
+def window_kernels(torch, records):
+    """The kernel records of a profiler window (annotations and operator
+    records repeat their kernels' time), the primer left out."""
+    return [e for e in records
+            if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
+            and not getattr(e, "is_user_annotation", False) and PRIMER_KERNEL not in e.key]
 
 
 def per_call_ms(us: float, count: int, calls: int) -> float:
@@ -297,7 +336,7 @@ def per_call_ms(us: float, count: int, calls: int) -> float:
     return us / calls / 1e3
 
 
-def kernel_events(fn, calls: int, what: str):
+def kernel_events(fn, calls: int, what: str, library: bool = False):
     """The kernels torch.profiler records over ``calls`` calls of fn, after
     one warm-up: [(name, device ms a call)], annotations left out (they
     repeat their kernels' time). A kernel's time a call is its records'
@@ -307,7 +346,9 @@ def kernel_events(fn, calls: int, what: str):
     a fine-tune fps kernel's five records. A window holding fewer than 95%
     as many kernel records as launch records is logged and taken again,
     and when PROFILE_WINDOWS windows in a row fall short the run fails,
-    naming ``what``."""
+    naming ``what``; but for a ``library`` yardstick (a PyTorch call the
+    port never makes, timed beside a kernel) it logs the loss and returns
+    None, and its device time and library_ms are reported as null."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -315,29 +356,40 @@ def kernel_events(fn, calls: int, what: str):
     torch.cuda.synchronize()
     for attempt in range(1, PROFILE_WINDOWS + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            prime_profiler(torch)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         records = prof.key_averages()
-        events = [e for e in records
-                  if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
-                  and not getattr(e, "is_user_annotation", False)]
+        events = window_kernels(torch, records)
         recorded, launched = launch_balance(records, events)
         if events and recorded >= 0.95 * launched:
             return [(e.key, per_call_ms(dev_us(e), e.count, calls)) for e in events]
         log(f"  profiler window {attempt} of {what} holds {recorded} kernel records of "
             f"{launched} launches")
+    if library:
+        log(f"  torch.profiler lost {PROFILE_WINDOWS} windows in a row of {what}, a library "
+            f"yardstick: its device time and library_ms are reported as null")
+        return None
     fail(f"device time of {what}: {PROFILE_WINDOWS} torch.profiler windows in a row lost "
          f"kernel records")
 
 
-def device_ms(fn, what: str, calls: int = 50):
+def device_ms(fn, what: str, calls: int = 50, library: bool = False):
     """Device milliseconds a call of fn: the time of every CUDA kernel
     torch.profiler records a call (``kernel_events``), summed; and the
     kernels' names. Fails the run, naming ``what``, when the profiler
-    loses the window's kernels."""
-    events = kernel_events(fn, calls, what)
+    loses the window's kernels; for a ``library`` yardstick returns (None,
+    []) instead."""
+    events = kernel_events(fn, calls, what, library)
+    if events is None:
+        return None, []
     return sum(ms for _, ms in events), sorted(key[:40] for key, _ in events)
+
+
+def ms_text(v) -> str:
+    """A device time, or "null" where the profiler lost a library window."""
+    return "null" if v is None else f"{v:.4f}"
 
 
 def gather_times(torch, x, idx):
@@ -365,15 +417,17 @@ def gather_times(torch, x, idx):
                lib_ready_ms=cuda_ms(lib_ready, 50),
                plain_ms=cuda_ms(lambda: gather.gather_rows_small_c_plain(x, idx), 50))
     for k, fn in (("dev", kernel), ("lib_cast_dev", lib_cast), ("lib_ready_dev", lib_ready)):
-        out[k], out[k + "_kernels"] = device_ms(fn, f"gather_times {k} at {tuple(x.shape)}")
+        out[k], out[k + "_kernels"] = device_ms(fn, f"gather_times {k} at {tuple(x.shape)}",
+                                                library=k != "dev")
     return out
 
 
 def gather_line(t) -> str:
     return (f"{t['ms']:.4f} ms a call, device {t['dev']:.4f} ms; torch.gather from the int32 "
             f"index (cast included) {t['lib_cast_ms']:.4f} ms a call, device "
-            f"{t['lib_cast_dev']:.4f} ms ({len(t['lib_cast_dev_kernels'])} kernels); from a "
-            f"ready int64 index {t['lib_ready_ms']:.4f} ms, device {t['lib_ready_dev']:.4f} ms; "
+            f"{ms_text(t['lib_cast_dev'])} ms ({len(t['lib_cast_dev_kernels'])} kernels); from a "
+            f"ready int64 index {t['lib_ready_ms']:.4f} ms, device "
+            f"{ms_text(t['lib_ready_dev'])} ms; "
             f"plain {t['plain_ms']:.4f} ms")
 
 
@@ -450,7 +504,7 @@ def mlp_report(torch, name, direction, call, R, C, H, device, plain=None, iters=
 
     lib_ms = cuda_ms(yardstick, iters)
     lib_dev, _ = device_ms(yardstick, f"{name} {direction} yardstick (torch.matmul) at R {R}",
-                           calls=10)
+                           calls=10, library=True)
     flops = sum(2 * a[0] * a[1] * (b[0] if tb else b[1]) for a, b, _, tb in products)
     prods = sum(split[k] for k in prod_keys)
     plain_ms = cuda_ms(plain, 5) if plain is not None else None
@@ -459,8 +513,9 @@ def mlp_report(torch, name, direction, call, R, C, H, device, plain=None, iters=
         f"{k} {v:.4f}" for k, v in split.items() if k != "total" and v)
         + f"; {flops / split['total'] / 1e9:.1f} TFLOP/s over the {n} products "
         f"({flops / max(prods, 1e-9) / 1e9:.1f} in their {len(prod_keys)} launches); "
-        f"torch.matmul's {n} products {lib_ms:.4f} ms, device {lib_dev:.4f} "
-        f"({flops / lib_dev / 1e9:.1f} TFLOP/s); two calls bit for bit")
+        f"torch.matmul's {n} products {lib_ms:.4f} ms, device {ms_text(lib_dev)} "
+        f"({'null' if lib_dev is None else f'{flops / lib_dev / 1e9:.1f}'} TFLOP/s); two calls "
+        f"bit for bit")
     log(f"  {name} {direction} at R {R}, C {C}, H {H}: {ms:.4f} ms a call"
         + (f" (plain {plain_ms:.4f})" if plain is not None else "") + f"; {note}")
     return dict(ms=ms, plain_ms=plain_ms, note=note)
@@ -478,7 +533,37 @@ def relu_flips_ok(got, want, tol=2e-2, flip_tol=1e-1, flip_frac=1e-4) -> bool:
     return float(err.max()) <= flip_tol and float((err > tol).float().mean()) <= flip_frac
 
 
-def phase_kernels(torch, pts, device):
+PATCHIFY_SPLIT = (("fps", "patchify_fps_"), ("knn rows", "patchify_knn_"))
+
+
+def patchify_report(torch, pts, G, S, parent):
+    """The patchify kernel at (B, N), G, S against the previous design
+    (``parent``, built from point_dae_torch/tools/patchify_parent.cu): fps_idx
+    and knn_idx bit for bit; its time a call beside the parent's, and its
+    device time by launch (the FPS launch, the kNN rows launch). Returns
+    (fps_idx, knn_idx, ms a call, line)."""
+    from point_dae_torch.ops import fps, patchify
+    from point_dae_torch.tools import fps_ablation
+
+    B, N, _ = pts.shape
+    fk, kk = patchify.fused_patchify(pts, G, S)
+    fq, kq = fps_ablation.parent_patchify(parent, pts, G, S)
+    torch.cuda.synchronize()
+    if not (torch.equal(fk, fq) and torch.equal(kk, kq)):
+        fail(f"patchify at ({B}, {N}), G {G}: fps_idx or knn_idx differs from the previous "
+             f"design")
+    ms = cuda_ms(lambda: patchify.fused_patchify(pts, G, S), 20)
+    parent_ms = cuda_ms(lambda: fps_ablation.parent_patchify(parent, pts, G, S), 5)
+    split = device_split(lambda: patchify.fused_patchify(pts, G, S), PATCHIFY_SPLIT,
+                         what=f"patchify ({B}, {N}), G {G}")
+    p = fps.plan(B, N, *fps.card(pts.device))
+    line = (f"{ms:.4f} ms a call (previous design {parent_ms:.4f}), device {split['total']:.4f}: "
+            f"fps {split['fps']:.4f} (plan {tuple(p)}, {p.form}), knn rows "
+            f"{split['knn rows']:.4f}; fps_idx and knn_idx bit for bit with the previous design")
+    return fk, kk, ms, line
+
+
+def phase_kernels(torch, pts, device, parents):
     """Each kernel against its plain version at the flagship shapes."""
     from point_dae_torch.losses import chamfer
     from point_dae_torch.ops import gather, mlp, patchify
@@ -489,8 +574,11 @@ def phase_kernels(torch, pts, device):
     B, N, _ = pts.shape
     G, S = 64, 32
 
-    # -- patchify: fps exact; knn only at genuine near-ties (tools/tpu_smoke.py)
-    fps_k, knn_k = patchify.fused_patchify(pts, G, S)
+    # -- patchify: fps exact; knn only at genuine near-ties (tools/tpu_smoke.py);
+    # both bit for bit with the previous design
+    fps_k, knn_k, patchify_ms, line = patchify_report(torch, pts, G, S,
+                                                      parents["patchify_parent"])
+    log(f"  patchify ({B}, {N}), G {G}, S {S}: {line}")
     fps_p, knn_p = patchify.fused_patchify_plain(pts, G, S)
     torch.cuda.synchronize()
     if not torch.equal(fps_k, fps_p):
@@ -507,10 +595,10 @@ def phase_kernels(torch, pts, device):
         replaces="point_dae_tpu/ops/pallas_patchify.py:43",
         source="point_dae_torch/csrc/patchify.cu",
         max_abs_err=float((dk - dp).abs().max()),       # selected kNN distances
-        ms=cuda_ms(lambda: patchify.fused_patchify(pts, G, S), 20),
+        ms=patchify_ms,
         plain_ms=cuda_ms(lambda: patchify.fused_patchify_plain(pts, G, S), 3),
         library_ms=None, bound=bound_ms(nbytes, B * G * N * 8, F32_FLOPS),
-        note=f"knn idx match {match:.6f}")
+        note=f"knn idx match {match:.6f}; {line}")
 
     # -- small-C gather: exact, int32 (the path's) and int64 indices
     idx = knn_k.reshape(B, G * S)
@@ -525,10 +613,11 @@ def phase_kernels(torch, pts, device):
         replaces="point_dae_tpu/ops/pallas_scatter.py:116",
         source="point_dae_torch/csrc/gather.cu",
         max_abs_err=float((got - want).abs().max()), ms=t["ms"], plain_ms=t["plain_ms"],
-        library_ms=t["lib_cast_ms"], bound=bound_ms(nbytes, 0, F32_FLOPS),
+        library_ms=None if t["lib_cast_dev"] is None else t["lib_cast_ms"],
+        bound=bound_ms(nbytes, 0, F32_FLOPS),
         note=f"device {t['dev']:.4f} ms; library: torch.gather from the int32 index, cast "
-             f"included (device {t['lib_cast_dev']:.4f}); from a ready int64 index "
-             f"{t['lib_ready_ms']:.4f} (device {t['lib_ready_dev']:.4f})")
+             f"included (device {ms_text(t['lib_cast_dev'])}); from a ready int64 index "
+             f"{t['lib_ready_ms']:.4f} (device {ms_text(t['lib_ready_dev'])})")
 
     # -- patch chamfer: 256*51 patches, 36 rebuilt points vs 32 true ones
     neigh, _ = group_neighborhood(pts, G, S)
@@ -882,10 +971,11 @@ def phase_attention(torch, device, g):
             dev_bwd=device_ms(lambda: attention.attention_bwd_kernel(q, k, v, mask, cot),
                               f"attention_bwd_kernel T {T}")[0],
             lib_dev_fwd=device_ms(lambda: F.scaled_dot_product_attention(
-                lq.detach(), lk.detach(), lv.detach(), attn_mask=amask), f"SDPA T {T}")[0],
+                lq.detach(), lk.detach(), lv.detach(), attn_mask=amask), f"SDPA T {T}",
+                library=True)[0],
             lib_dev_bwd=device_ms(lambda: torch.autograd.grad(
                 lib_out, (lq, lk, lv), lib_cot, retain_graph=True),
-                f"SDPA's autograd backward T {T}")[0],
+                f"SDPA's autograd backward T {T}", library=True)[0],
             bound_fwd=bound_ms(3 * nel * 2 + Bt * T + nel * 4,
                                2 * 2 * Bt * H * T * T * d, BF16_FLOPS),
             bound_bwd=bound_ms(3 * nel * 2 + Bt * T + nel * 4 + 3 * nel * 2,
@@ -897,8 +987,8 @@ def phase_attention(torch, device, g):
         f"bound {s64['bound_bwd'][0]:.4f})")
     for T, sh in shapes.items():
         log(f"  fused_attention T {T} device time (torch.profiler): fwd {sh['dev_fwd']:.4f} ms "
-            f"(SDPA {sh['lib_dev_fwd']:.4f}), bwd {sh['dev_bwd']:.4f} ms (SDPA's autograd "
-            f"backward {sh['lib_dev_bwd']:.4f})")
+            f"(SDPA {ms_text(sh['lib_dev_fwd'])}), bwd {sh['dev_bwd']:.4f} ms (SDPA's autograd "
+            f"backward {ms_text(sh['lib_dev_bwd'])})")
     attention_gate_shapes(torch, device, g)
     s32 = shapes[32]
     records = {}
@@ -906,10 +996,11 @@ def phase_attention(torch, device, g):
         records[f"attention_{way}"] = dict(
             replaces=f"point_dae_tpu/ops/pallas_attn.py:{line}",
             source="point_dae_torch/csrc/attention.cu", max_abs_err=errs[way],
-            ms=s32[way], plain_ms=s32[f"plain_{way}"], library_ms=s32[f"lib_{way}"],
+            ms=s32[way], plain_ms=s32[f"plain_{way}"],
+            library_ms=None if s32[f"lib_dev_{way}"] is None else s32[f"lib_{way}"],
             bound=s32[f"bound_{way}"],
             note=f"B 256, H 6, d 64, T 32 with a key mask (12 of a step's 16 launches); "
-                 f"device {s32[f'dev_{way}']:.4f} ms, SDPA's {s32[f'lib_dev_{way}']:.4f}")
+                 f"device {s32[f'dev_{way}']:.4f} ms, SDPA's {ms_text(s32[f'lib_dev_{way}'])}")
     return records
 
 
@@ -1409,7 +1500,7 @@ def phase_train(torch, config, raw, device, card):
         f"{BATCH / steady:.1f} clouds/s, first step {first * 1e3:.1f} ms, "
         f"max_memory_allocated {peak / 2 ** 30:.2f} GiB")
     profile_step(torch, one_more, card,
-                 expect=("patchify_kernel", "mlp_fwd_ln_rows", "fold_bwd_rows", "attention_fwd"))
+                 expect=("patchify_knn_rows", "mlp_fwd_ln_rows", "fold_bwd_rows", "attention_fwd"))
     del one_more
     torch.cuda.empty_cache()
 
@@ -1438,15 +1529,12 @@ def profile_step(torch, run, card, top: int = 25, expect=()):
 
     for attempt in range(1, PROFILE_WINDOWS + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prime_profiler(torch)
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        # kernel records only: operator records and annotations repeat their
-        # kernels' time
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
-                  and not getattr(e, "is_user_annotation", False)]
+        events = window_kernels(torch, prof.key_averages())
         missing = [n for n in expect if not any(n in e.key for e in events)]
         recorded, launched = launch_balance(prof.key_averages(), events)
         if events and not missing:
@@ -1457,7 +1545,7 @@ def profile_step(torch, run, card, top: int = 25, expect=()):
         fail(f"profiled step: {PROFILE_WINDOWS} windows recorded no device time for "
              f"{missing or 'any kernel'}")
     busy = sum(dev_us(e) for e in events)
-    ours = {"mlp_": 0.0, "patchify_kernel": 0.0,
+    ours = {"mlp_": 0.0, "patchify_": 0.0,
             "gather_rows_kernel": 0.0, "nn_half_small_kernel": 0.0,
             "fold_fwd_kernel": 0.0, "fold_bwd_rows_kernel": 0.0,
             "fold_bwd_weights_kernel": 0.0, "::gemm_kernel<": 0.0,
@@ -1500,49 +1588,80 @@ def ft_clouds(torch, name, batch, device, seed):
     return pts.to(device), labels.to(device)
 
 
-def phase_fps_kernels(torch, device):
-    """The fps kernel against its plain version, indices equal, at the
-    recipes' shapes (B train 8192 -> 1200, B eval 8192 -> 1024, A 2048 ->
-    2048), one in the per-row gate (1200 -> 1024) and one above the
-    register form's 8192 points (16384 -> 1024, the streamed form), on
-    clouds with duplicated and zeroed points; and patchify at the
-    PointTransformer's shape (G 128 of 2048) against its plain version."""
-    from point_dae_torch.ops import fps
+# the fine-tune paths' FPS shapes (B 32): the DGCNN fine-tune train step (and
+# its vote draws), its eval step, fine-tune A and C's resample, a cloud in the
+# per-row gate, and one past a block's registers (no shipped config)
+FPS_SHAPES = ((8192, 1200), (8192, 1024), (2048, 2048), (1200, 1024), (16384, 1024))
+# forms the plan does not take at (32, 8192) -> 1200, held there too
+FPS_EXTRA_PLANS = ((2, 128, 32), (8, 64, 16), (1, 256, 32))
 
+
+def phase_fps_kernels(torch, device, parents):
+    """The fps kernel against its plain version and the previous design
+    (``parents["fps_parent"]``), picks equal bit for bit, at the recipes'
+    shapes under the plan of each (clusters of four blocks at 8192 points,
+    one block at 2048 and fewer) and at (32, 8192) -> 1200 also under the
+    forms the plan does not take there (clusters of 2 and 8 blocks, one
+    block), on clouds with duplicated and zeroed points; each shape's time
+    beside the previous design's; and patchify at the PointTransformer's
+    shape (G 128 of 2048) against its plain version and the previous
+    design."""
+    from point_dae_torch.ops import fps
+    from point_dae_torch.tools import fps_ablation
+
+    parent = parents["fps_parent"]
     g = torch.Generator(device=device).manual_seed(SEED + 20)
     rows = []
-    for N, n in ((8192, 1200), (8192, 1024), (2048, 2048), (1200, 1024), (16384, 1024)):
+    for N, n in FPS_SHAPES:
         pts = torch.randn((FT_BATCH, N, 3), generator=g, device=device)
         pts[:, N // 2:N // 2 + N // 16] = pts[:, :N // 16]        # duplicated points
         pts[:, 5:9] = 0.0                                        # never selectable
         got, want = fps.fps_kernel(pts, n), fps.furthest_point_sample_plain(pts, n)
+        prev = fps_ablation.parent_fps(parent, pts, n)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             fail(f"fps ({N} -> {n}): picks differ from the plain version (match "
                  f"{float((got == want).float().mean())})")
+        if not torch.equal(got, prev):
+            fail(f"fps ({N} -> {n}): picks differ from the previous design")
         if bool((got[:, 1:, None] == torch.arange(5, 9, device=device)).any()):
             fail(f"fps ({N} -> {n}): a zeroed point was picked")
+        extra = []
+        for q in FPS_EXTRA_PLANS if (N, n) == FPS_SHAPES[0] else ():
+            q = fps.FpsPlan(*q)
+            if not torch.equal(fps.fps_kernel(pts, n, use_plan=q), want):
+                fail(f"fps ({N} -> {n}) under plan {tuple(q)}: picks differ from the plain "
+                     f"version")
+            extra.append(f"{tuple(q)} {cuda_ms(lambda: fps.fps_kernel(pts, n, use_plan=q), 5):.4f}")
+        p = fps.plan(FT_BATCH, N, *fps.card(device))
         ms = cuda_ms(lambda: fps.fps_kernel(pts, n), 10)
+        prev_ms = cuda_ms(lambda: fps_ablation.parent_fps(parent, pts, n), 5)
         plain = cuda_ms(lambda: fps.furthest_point_sample_plain(pts, n), 1)
         bound = bound_ms(pts.numel() * 4 + FT_BATCH * n * 4, FT_BATCH * N * n * 8, F32_FLOPS)
         rows.append((N, n, ms, plain, bound))
-        log(f"  fps ({FT_BATCH}, {N}) -> {n}: {ms:.4f} ms (plain {plain:.4f}, bound "
-            f"{bound[0]:.4f} by {bound[1]}), picks equal")
-    check_patchify_g128(torch, torch.randn((FT_BATCH, 2048, 3), generator=g, device=device))
+        log(f"  fps ({FT_BATCH}, {N}) -> {n}: {ms:.4f} ms, {ms / (n - 1) * 1e3:.3f} us an "
+            f"iteration, plan {tuple(p)} ({p.form}) (previous design {prev_ms:.4f}, plain "
+            f"{plain:.4f}, bound {bound[0]:.4f} by {bound[1]}), picks equal to both"
+            + (f"; other plans, equal too: {', '.join(extra)} ms" if extra else ""))
+        del pts
+    check_patchify_g128(torch, torch.randn((FT_BATCH, 2048, 3), generator=g, device=device),
+                        parents)
     N, n, ms, plain, bound = rows[0]
     return {"fps": dict(
         replaces="point_dae_tpu/ops/pallas_fps.py:15", source="point_dae_torch/csrc/fps.cu",
         max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=None, bound=bound,
-        note=f"B {FT_BATCH}, {N} -> {n} (the DGCNN fine-tune train step); picks equal")}
+        note=f"B {FT_BATCH}, {N} -> {n} (the DGCNN fine-tune train step); picks equal to the "
+             f"plain version's and the previous design's")}
 
 
-def check_patchify_g128(torch, pts):
-    """patchify at G 128, S 32 of (B, 2048, 3) against its plain version:
-    fps equal, kNN equal but at near-ties (selected distances to 1e-4)."""
+def check_patchify_g128(torch, pts, parents):
+    """patchify at G 128, S 32 of (B, 2048, 3) against its plain version
+    (fps equal, kNN equal but at near-ties: selected distances to 1e-4) and
+    bit for bit against the previous design, with its launches' device time."""
     from point_dae_torch.ops import patchify
 
     B = pts.shape[0]
-    fk, kk = patchify.fused_patchify(pts, 128, 32)
+    fk, kk, _, line = patchify_report(torch, pts, 128, 32, parents["patchify_parent"])
     fp, kp = patchify.fused_patchify_plain(pts, 128, 32)
     torch.cuda.synchronize()
     center = pts.gather(1, fk.long()[..., None].expand(-1, -1, 3))
@@ -1553,10 +1672,10 @@ def check_patchify_g128(torch, pts):
         fail(f"patchify at ({B}, 2048), G 128: differs from the plain version ({match})")
     bound = bound_ms(pts.numel() * 4 + fk.numel() * 4 + kk.numel() * 4, B * 128 * 2048 * 8,
                      F32_FLOPS)
-    log(f"  patchify ({B}, 2048), G 128, S 32: "
-        f"{cuda_ms(lambda: patchify.fused_patchify(pts, 128, 32), 10):.4f} ms (plain "
+    log(f"  patchify ({B}, 2048), G 128, S 32: {line} (plain "
         f"{cuda_ms(lambda: patchify.fused_patchify_plain(pts, 128, 32), 1):.4f}, bound "
-        f"{bound[0]:.4f} by {bound[1]}), fps equal, knn idx match {match:.6f}")
+        f"{bound[0]:.4f} by {bound[1]}), fps equal to the plain version's, knn idx match "
+        f"{match:.6f}")
 
 
 def dgcnn_feature_plain(torch, enc, x, inputs=None):
@@ -1779,14 +1898,15 @@ def phase_finetune(torch, device, card):
             f"2-{FT_STEPS}), {FT_BATCH / steady:.1f} clouds/s, first step {first * 1e3:.1f} ms, "
             f"max_memory_allocated {peak / 2 ** 30:.2f} GiB")
         busy, ours = profile_step(torch, one_more, card, top=12, expect=FT_PROFILED[name])
-        # the step's fps launch, timed in a window of its own: the profiled
-        # step's window (CPU and CUDA records) loses the step's first kernel
-        # records, fps and then patchify, in every run of this script
+        # the step's fps launch, one kernel of 0.7 ms, timed by CUDA events
+        # over back-to-back calls: a profiler window of five such calls
+        # opened right after the profiled step held none or one of their
+        # kernel records in its first try in every run, and in three tries
+        # in a row once
         keep = finetune.point_all(int(config["npoints"]), n_raw)
-        fps_dev, _ = device_ms(lambda: fps_ops.furthest_point_sample(pts[..., :3], keep),
-                               f"the {name} step's fps ({n_raw} -> {keep})", calls=5)
+        fps_dev = cuda_ms(lambda: fps_ops.furthest_point_sample(pts[..., :3], keep), 5)
         log(f"  [{card}] {name} fps share of the profiled step's device time: "
-            f"{100 * fps_dev * 1e3 / busy:.1f}% ({fps_dev:.3f} ms, its own window; the "
+            f"{100 * fps_dev * 1e3 / busy:.1f}% ({fps_dev:.3f} ms a call, CUDA events; the "
             f"step's window holds {ours['fps_kernel'] / 1e3:.3f} ms of it)")
         del one_more
 
@@ -1837,7 +1957,7 @@ def phase_finetune(torch, device, card):
     return fps_launches
 
 
-def phase_scatter_kernels(torch, device, card):
+def phase_scatter_kernels(torch, device, card, parents):
     """scatter_rows_add at the two part-segmentation shapes, on real
     indices: PointTransformerPartSeg's interpolation (three_nn of 2048
     points to their 128 FPS centres: B 16, Q 6144, N 128, C 1152) and
@@ -1910,7 +2030,7 @@ def phase_scatter_kernels(torch, device, card):
     log(f"  [{card}] gather_rows_small_c (B {B}, N {PS_POINTS}, C 3) by {Q} rows: "
         f"{gather_line(gather_times(torch, pts, idx_dg))}; bound {bound[0]:.4f} by {bound[1]}; "
         f"bit for bit, int32 and int64 indices")
-    check_patchify_g128(torch, pts)
+    check_patchify_g128(torch, pts, parents)
     return {"scatter_rows_add": dict(
         replaces="point_dae_tpu/ops/pallas_scatter.py:24",
         source="point_dae_torch/csrc/scatter.cu", max_abs_err=tot["err"], ms=tot["ms"],
@@ -2560,19 +2680,19 @@ def phase_mlp_wide_kernels(torch, device):
     dev, _ = device_ms(lambda: gather.gather_rows_wide(xw, idx), "gather_rows_wide")
     dev64, _ = device_ms(lambda: gather.gather_rows_wide(xw, idx_l),
                          "gather_rows_wide (int64 index)")
-    lib_dev, _ = device_ms(lambda: torch.gather(xw, 1, idx64), "torch.gather")
+    lib_dev, _ = device_ms(lambda: torch.gather(xw, 1, idx64), "torch.gather", library=True)
     log(f"  gather_rows_wide ({B}, {N}, {Cw}) by {Q} rows: {ms:.4f} ms a call from the int32 "
         f"index (device {dev:.4f}), {ms64:.4f} from int64 (device {dev64:.4f}); torch.gather "
-        f"from a ready int64 index {lib_ms:.4f} (device {lib_dev:.4f}), from the int32 index "
+        f"from a ready int64 index {lib_ms:.4f} (device {ms_text(lib_dev)}), from the int32 index "
         f"(cast included) {lib_cast_ms:.4f}; bf16 rows {bf_ms:.4f}")
     records["gather_rows_wide"] = dict(
         replaces="point_dae_tpu/ops/pallas_scatter.py:101",
         source="point_dae_torch/csrc/gather.cu", max_abs_err=0.0, ms=ms,
         plain_ms=cuda_ms(lambda: gather.gather_rows_wide_plain(xw, idx), 50),
-        library_ms=lib_ms,
+        library_ms=None if lib_dev is None else lib_ms,
         bound=bound_ms(xw.numel() * 4 + idx.numel() * 4 + got.numel() * 4, 0, F32_FLOPS),
         note=f"({B}, {N}, {Cw}) by {Q} rows, bit for bit; int64 index {ms64:.4f} ms; device "
-             f"{dev:.4f} (torch.gather {lib_dev:.4f}); bf16 rows {bf_ms:.4f} ms")
+             f"{dev:.4f} (torch.gather {ms_text(lib_dev)}); bf16 rows {bf_ms:.4f} ms")
     return records, kernels.launches["gather_rows_wide"] - before
 
 
@@ -2874,15 +2994,18 @@ def main() -> None:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {torch.get_num_threads()} CPU threads")
 
-    # 2. build, with the previous EdgeConv design beside (the yardstick of
-    # the redesigned backward and selection)
-    from point_dae_torch.tools import edgeconv_ablation
+    # 2. build, with the previous EdgeConv, FPS and patchify designs beside
+    # (the yardsticks of the redesigned kernels)
+    from point_dae_torch.tools import edgeconv_ablation, fps_ablation
 
     t0 = time.perf_counter()
     parent_join = edgeconv_ablation.build_in_background(["parent"])
+    parents_join = edgeconv_ablation.build_in_background(["fps_parent", "patchify_parent"],
+                                                         fps_ablation.build)
     logs = kernels.build()
     parent = parent_join()["parent"][0]
-    log(f"build: {sorted(logs)} and the previous EdgeConv design in "
+    parents = {name: lib for name, (lib, _) in parents_join().items()}
+    log(f"build: {sorted(logs)} and the previous EdgeConv, FPS and patchify designs in "
         f"{time.perf_counter() - t0:.1f} s")
     stamp("import and build")
     for name, text in sorted(logs.items()):
@@ -2921,16 +3044,16 @@ def main() -> None:
 
     # 3. kernels
     log("kernels:")
-    records = phase_kernels(torch, pts, device)
+    records = phase_kernels(torch, pts, device, parents)
     stamp("kernels")
     torch.cuda.empty_cache()
     records.update(phase_dgcnn_kernels(torch, corrupted_d, clean_d, device, parent))
     stamp("dgcnn_kernels")
     torch.cuda.empty_cache()
-    records.update(phase_fps_kernels(torch, device))
+    records.update(phase_fps_kernels(torch, device, parents))
     stamp("fps_kernels")
     torch.cuda.empty_cache()
-    records.update(phase_scatter_kernels(torch, device, card))
+    records.update(phase_scatter_kernels(torch, device, card, parents))
     stamp("scatter_kernels")
     torch.cuda.empty_cache()
     records.update(phase_key_knn_kernels(torch, device, card))

@@ -3,159 +3,237 @@
 //
 // Replaces point_dae_tpu/ops/pallas_patchify.py:fused_patchify_pallas.
 //
-// Design: one block per cloud. The cloud's coordinates (SoA), the running
-// min-distance and the selectable flags live in shared memory (17 B a
-// point). FPS runs its G iterations with a block argmax (lowest index on
-// equal values, as jnp.argmax). The TPU kernel kept every FPS distance row
-// as the (G, N) kNN matrix in VMEM; 64 rows of 1024 points would take
-// 256 KB here, more than a block's 227 KB, so each kNN row is recomputed
-// instead (3 coordinates a point): one warp owns a centre and extracts its
-// S nearest as successive minima of the (distance, index) order, which is
-// exactly the argmin-then-mask extraction of the TPU kernel.
+// Design: two launches that meet in fps_idx.
+//  - patchify_fps_sample_kernel: the G iterations of the FPS loop of
+//    csrc/fps_loop.cuh in its register form (a row takes at most
+//    patchify_max_points(), below the streamed form's 65536), so fps_idx
+//    equals the fps kernel's picks by construction; the caller passes the
+//    plan of ops/fps.py:plan, so a few large clouds spread over thread-block
+//    clusters as fps does.
+//  - patchify_knn_rows_kernel: the B*G kNN rows over the whole card, a warp
+//    a row, eight rows of one cloud a block with the cloud staged in shared
+//    memory (SoA). A lane computes the distances of its points n = lane +
+//    32 t once, into registers (VPL = N / 32 <= 64 of them), as the bits of
+//    the float (distances are >= +0, so the unsigned order is the float
+//    order), and keeps the minimum of each group of eight registers. Then S
+//    rounds each take the least (distance, index): a minimum over the
+//    lane's group minima (the lower register on a tie), one redux.sync
+//    minimum of the distance and one of the index over the lanes holding
+//    it, and the winner's register masked and its group rescanned (the same
+//    group for the whole warp). That is the TPU kernel's argmin-then-mask
+//    extraction (pallas_patchify.py:103-114): equal distances go lowest
+//    index first.
+//  - above 2048 points a row, patchify_knn_scan_kernel: S rounds of "least
+//    (distance, index) after the previous one", each recomputing the row's
+//    distances from the staged cloud (the previous design's kNN phase).
+// The TPU kernel kept every FPS distance row as the (G, N) kNN matrix in
+// VMEM; here each row's distances are computed again from its centre, nine
+// operations a point, which costs less than storing and reloading them.
 //
-// Bound on the H100: neither bytes (12 KB a cloud) nor FLOPs (G*N*8); the
-// G serial FPS iterations, each ending in a block-wide argmax and two
-// barriers, set the time. All distances use round-to-nearest intrinsics so
-// they equal the plain PyTorch version bit for bit (FPS is chaotic: one
-// different pick changes every later pick).
-#include <cfloat>
-#include <climits>
-
-#include "common.cuh"
+// Bound on the H100: neither bytes (12 B a point, 4 B an index out) nor
+// operations (G*N*9 for the rows); the FPS phase's serial iterations (see
+// fps_loop.cuh) and, for the rows, the S dependent rounds of two warp
+// reductions each. All distances use round-to-nearest intrinsics in the
+// plain version's order, so both outputs equal it bit for bit.
+#include "fps_loop.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+using fps_loop::kFull;
+using fps_loop::State;
 
-// (value, index) pair order used for the FPS argmax: larger value wins,
-// equal values go to the lower index.
-__device__ __forceinline__ void argmax_merge(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
+constexpr unsigned kNone = 0xffffffffu;   // an index no point has
+
+template <int PPT, int C>
+__global__ void __launch_bounds__(fps_loop::kThreads)
+patchify_fps_sample_kernel(const float* __restrict__ pts, int N, int G,
+                           int* __restrict__ fps_out) {
+  extern __shared__ float4 spts[];
+  __shared__ State<C> st;
+  const int b = blockIdx.x / C;
+  fps_loop::run<PPT, C>(pts + static_cast<size_t>(b) * N * 3, N, G,
+                        fps_out + static_cast<size_t>(b) * G, spts, st);
+}
+
+template <int PPT, int C>
+struct FpsLaunch {
+  static cudaError_t run(const float* pts, int B, int N, int G, int threads, int* fps_out,
+                         cudaStream_t s) {
+    return fps_loop::launch(patchify_fps_sample_kernel<PPT, C>, C, B * C, threads,
+                            fps_loop::smem_bytes(threads, PPT), s, pts, N, G, fps_out);
+  }
+};
+
+constexpr int kRowWarps = 8;         // kNN rows a block, all of one cloud
+constexpr int kRowThreads = kRowWarps * 32;
+constexpr int kGroup = 8;            // distance registers a group
+constexpr int kMaxVPL = 64;          // registers a lane: rows of up to 2048 points
+constexpr unsigned kMasked = 0xffffffffu;   // above every distance's bits
+
+// Stage cloud b (N points) into shared memory as x, y, z arrays.
+__device__ __forceinline__ void stage_cloud(const float* __restrict__ cloud, int N, float* sx,
+                                            float* sy, float* sz) {
+  for (int n = threadIdx.x; n < N; n += kRowThreads) {
+    sx[n] = cloud[3 * n];
+    sy[n] = cloud[3 * n + 1];
+    sz[n] = cloud[3 * n + 2];
+  }
+  __syncthreads();
+}
+
+// Minimum of group Q of a lane's distances and its register, the lower
+// register on a tie.
+template <int Q, int VPL>
+__device__ __forceinline__ void group_min(const unsigned (&d)[VPL], unsigned& best, int& bt) {
+  best = d[Q * kGroup];
+  bt = Q * kGroup;
+#pragma unroll
+  for (int t = Q * kGroup + 1; t < (Q + 1) * kGroup; ++t)
+    if (d[t] < best) {
+      best = d[t];
+      bt = t;
+    }
+}
+
+// Mask register tl of the lane with `mine` in group Q when the round's winner
+// sits there (q == tl / kGroup is the same for the whole warp), then find
+// the group's minimum again.
+template <int Q, int VPL>
+__device__ __forceinline__ void take(unsigned (&d)[VPL], bool mine, int tl,
+                                     unsigned (&gk)[VPL / kGroup], int (&gt)[VPL / kGroup]) {
+  if constexpr (Q < VPL / kGroup) {
+    if (Q == tl / kGroup) {
+#pragma unroll
+      for (int t = Q * kGroup; t < (Q + 1) * kGroup; ++t)
+        if (mine && t == tl) d[t] = kMasked;
+      group_min<Q>(d, gk[Q], gt[Q]);
+    } else {
+      take<Q + 1>(d, mine, tl, gk, gt);
+    }
   }
 }
 
-// Strict (distance, index) order used by the kNN extraction.
-__device__ __forceinline__ bool lex_less(float a, int ai, float b, int bi) {
-  return a < b || (a == b && ai < bi);
+template <int Q, int VPL>
+__device__ __forceinline__ void all_group_mins(const unsigned (&d)[VPL],
+                                               unsigned (&gk)[VPL / kGroup],
+                                               int (&gt)[VPL / kGroup]) {
+  if constexpr (Q < VPL / kGroup) {
+    group_min<Q>(d, gk[Q], gt[Q]);
+    all_group_mins<Q + 1>(d, gk, gt);
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
-patchify_kernel(const float* __restrict__ pts, int N, int G, int S,
-                int* __restrict__ fps_out, int* __restrict__ knn_out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sx = reinterpret_cast<float*>(smem);
+template <int VPL>
+__global__ void __launch_bounds__(kRowThreads)
+patchify_knn_rows_kernel(const float* __restrict__ pts, const int* __restrict__ fps_idx, int N,
+                         int G, int S, int* __restrict__ knn_out) {
+  __shared__ float sx[VPL * 32], sy[VPL * 32], sz[VPL * 32];
+  const int lane = threadIdx.x & 31;
+  const int per_cloud = (G + kRowWarps - 1) / kRowWarps;
+  const int b = blockIdx.x / per_cloud;
+  const int g = (blockIdx.x % per_cloud) * kRowWarps + (threadIdx.x >> 5);
+  stage_cloud(pts + static_cast<size_t>(b) * N * 3, N, sx, sy, sz);
+  if (g >= G) return;   // whole warp
+  const int c = fps_idx[static_cast<size_t>(b) * G + g];
+  const float px = sx[c], py = sy[c], pz = sz[c];
+
+  unsigned d[VPL];
+#pragma unroll
+  for (int t = 0; t < VPL; ++t) {
+    const int n = 32 * t + lane;
+    d[t] = n < N ? __float_as_uint(sq_dist3(sx[n], sy[n], sz[n], px, py, pz)) : kMasked;
+  }
+  unsigned gk[VPL / kGroup];
+  int gt[VPL / kGroup];
+  all_group_mins<0>(d, gk, gt);
+
+  int* out = knn_out + (static_cast<size_t>(b) * G + g) * S;
+  for (int r = 0; r < S; ++r) {
+    unsigned bk = gk[0];
+    int bt = gt[0];
+#pragma unroll
+    for (int q = 1; q < VPL / kGroup; ++q)
+      if (gk[q] < bk) {   // strict: the lower register stays on a tie
+        bk = gk[q];
+        bt = gt[q];
+      }
+    const unsigned kmin = __reduce_min_sync(kFull, bk);
+    const unsigned n =
+        __reduce_min_sync(kFull, bk == kmin ? static_cast<unsigned>(32 * bt + lane) : kNone);
+    if (lane == 0) out[r] = static_cast<int>(n);
+    take<0>(d, lane == static_cast<int>(n & 31), static_cast<int>(n >> 5), gk, gt);
+  }
+}
+
+// Rows of more than kMaxVPL * 32 points: S rounds over the staged cloud, each
+// the least (distance, index) strictly after the previous round's.
+__global__ void __launch_bounds__(kRowThreads)
+patchify_knn_scan_kernel(const float* __restrict__ pts, const int* __restrict__ fps_idx, int N,
+                         int G, int S, int* __restrict__ knn_out) {
+  extern __shared__ float scloud[];
+  float* sx = scloud;
   float* sy = sx + N;
   float* sz = sy + N;
-  float* min_d = sz + N;
-  unsigned char* selectable = reinterpret_cast<unsigned char*>(min_d + N);
-  __shared__ float warp_v[kWarps];
-  __shared__ int warp_i[kWarps];
-  __shared__ int picks[1024];  // G <= 1024, checked by the launcher
-  __shared__ int last_pick;
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const float* cloud = pts + static_cast<size_t>(b) * N * 3;
-
-  for (int n = tid; n < N; n += kThreads) {
-    const float x = cloud[3 * n], y = cloud[3 * n + 1], z = cloud[3 * n + 2];
-    sx[n] = x;
-    sy[n] = y;
-    sz[n] = z;
-    min_d[n] = 1e10f;
-    const float mag = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
-                                __fmul_rn(z, z));
-    selectable[n] = mag > 1e-3f;
-  }
-  if (tid == 0) last_pick = 0;  // first pick is index 0
-  __syncthreads();
-
-  // ---- phase 1: furthest point sampling
-  for (int it = 0; it < G; ++it) {
-    const int last = last_pick;
-    if (tid == 0) picks[it] = last;
-    const float px = sx[last], py = sy[last], pz = sz[last];
-    float best_v = -FLT_MAX;
-    int best_i = INT_MAX;
-    for (int n = tid; n < N; n += kThreads) {
-      const float d = sq_dist3(sx[n], sy[n], sz[n], px, py, pz);
-      const float m = fminf(min_d[n], d);
-      min_d[n] = m;
-      const float cand = selectable[n] ? m : -1.0f;
-      if (cand > best_v) {  // n rises within a thread: ties keep the lower
-        best_v = cand;
-        best_i = n;
+  const int lane = threadIdx.x & 31;
+  const int per_cloud = (G + kRowWarps - 1) / kRowWarps;
+  const int b = blockIdx.x / per_cloud;
+  const int g = (blockIdx.x % per_cloud) * kRowWarps + (threadIdx.x >> 5);
+  stage_cloud(pts + static_cast<size_t>(b) * N * 3, N, sx, sy, sz);
+  if (g >= G) return;   // whole warp
+  const int c = fps_idx[static_cast<size_t>(b) * G + g];
+  const float px = sx[c], py = sy[c], pz = sz[c];
+  int* out = knn_out + (static_cast<size_t>(b) * G + g) * S;
+  unsigned prev_k = 0;
+  int prev_i = -1;
+  for (int r = 0; r < S; ++r) {
+    unsigned bk = kMasked;
+    unsigned bi = kNone;
+    for (int n = lane; n < N; n += 32) {   // n rises: the first of equal keys stays
+      const unsigned k = __float_as_uint(sq_dist3(sx[n], sy[n], sz[n], px, py, pz));
+      if ((k > prev_k || (k == prev_k && n > prev_i)) && k < bk) {
+        bk = k;
+        bi = static_cast<unsigned>(n);
       }
     }
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, best_v, off);
-      const int oi = __shfl_down_sync(0xffffffffu, best_i, off);
-      argmax_merge(best_v, best_i, ov, oi);
-    }
-    if (lane == 0) {
-      warp_v[warp] = best_v;
-      warp_i[warp] = best_i;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      float v = warp_v[0];
-      int i = warp_i[0];
-      for (int w = 1; w < kWarps; ++w) argmax_merge(v, i, warp_v[w], warp_i[w]);
-      last_pick = i;
-    }
-    __syncthreads();
+    const unsigned kmin = __reduce_min_sync(kFull, bk);
+    const unsigned n = __reduce_min_sync(kFull, bk == kmin ? bi : kNone);
+    if (lane == 0) out[r] = static_cast<int>(n);
+    prev_k = kmin;
+    prev_i = static_cast<int>(n);
   }
-  for (int g = tid; g < G; g += kThreads) fps_out[b * G + g] = picks[g];
+}
 
-  // ---- phase 2: kNN rows, one warp per centre
-  for (int g = warp; g < G; g += kWarps) {
-    const int c = picks[g];
-    const float px = sx[c], py = sy[c], pz = sz[c];
-    float prev_d = -FLT_MAX;
-    int prev_i = -1;
-    int* out = knn_out + (static_cast<size_t>(b) * G + g) * S;
-    for (int j = 0; j < S; ++j) {
-      // smallest (distance, index) strictly after the previous pick
-      float bd = FLT_MAX;
-      int bi = INT_MAX;
-      for (int n = lane; n < N; n += 32) {
-        const float d = sq_dist3(sx[n], sy[n], sz[n], px, py, pz);
-        if (lex_less(prev_d, prev_i, d, n) && lex_less(d, n, bd, bi)) {
-          bd = d;
-          bi = n;
-        }
-      }
-      for (int off = 16; off > 0; off >>= 1) {
-        const float od = __shfl_xor_sync(0xffffffffu, bd, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-        if (lex_less(od, oi, bd, bi)) {
-          bd = od;
-          bi = oi;
-        }
-      }
-      if (lane == 0) out[j] = bi;
-      prev_d = bd;
-      prev_i = bi;
-    }
-  }
+template <int VPL>
+cudaError_t launch_rows(const float* pts, const int* fps_idx, int B, int N, int G, int S,
+                        int* knn_out, cudaStream_t s) {
+  const int blocks = B * ((G + kRowWarps - 1) / kRowWarps);
+  patchify_knn_rows_kernel<VPL><<<blocks, kRowThreads, 0, s>>>(pts, fps_idx, N, G, S, knn_out);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-PDAE_EXPORT int patchify_smem_bytes(int N) { return 17 * N; }
+// The largest cloud a kNN row takes: the scan kernel stages 12 B a point.
+PDAE_EXPORT int patchify_max_points() { return 232448 / 12; }
 
-PDAE_EXPORT int patchify(const float* pts, int B, int N, int G, int S,
-                         int* fps_out, int* knn_out, void* stream) {
-  if (G > 1024 || S > N || G > N) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(patchify_smem_bytes(N));
-  cudaError_t err = set_smem(patchify_kernel, smem);
+// The FPS phase's plan (ops/fps.py:plan, register form) is the caller's.
+// Two launches: FPS, then the rows.
+PDAE_EXPORT int patchify(const float* pts, int B, int N, int G, int S, int cluster, int threads,
+                         int ppt, int* fps_out, int* knn_out, void* stream) {
+  if (B < 1 || N < 1 || G < 1 || S < 1 || S > N || N > patchify_max_points() ||
+      !fps_loop::plan_ok(N, cluster, threads, ppt))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = fps_loop::by_plan<FpsLaunch>(ppt, cluster, pts, B, N, G, threads, fps_out, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  patchify_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      pts, N, G, S, fps_out, knn_out);
+  if (N <= 512) return static_cast<int>(launch_rows<16>(pts, fps_out, B, N, G, S, knn_out, s));
+  if (N <= 1024) return static_cast<int>(launch_rows<32>(pts, fps_out, B, N, G, S, knn_out, s));
+  if (N <= kMaxVPL * 32)
+    return static_cast<int>(launch_rows<kMaxVPL>(pts, fps_out, B, N, G, S, knn_out, s));
+  const size_t smem = static_cast<size_t>(N) * 12;
+  err = set_smem(patchify_knn_scan_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  patchify_knn_scan_kernel<<<B * ((G + kRowWarps - 1) / kRowWarps), kRowThreads, smem, s>>>(
+      pts, fps_out, N, G, S, knn_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,7 +2,9 @@
 
 Port of ``point_dae_tpu/ops/pallas_fps.py`` (``fps_pallas_batched`` and
 ``fps_pallas``, one function in two TPU layouts); the CUDA kernel is
-``csrc/fps.cu``. Conventions: the first pick is index 0, points with
+``csrc/fps.cu`` over the loop of ``csrc/fps_loop.cuh``, which the fused
+patchify's FPS phase shares, and ``plan`` says how a launch spreads the
+clouds over the card. Conventions: the first pick is index 0, points with
 ``(x*x + y*y) + z*z <= 1e-3`` are never picked, each pick is the argmax of
 the running min-distance over the selectable points (the others count as
 -1), lowest index first on ties. Distances are computed coordinate-wise,
@@ -11,11 +13,102 @@ in both versions, so their picks agree bit for bit.
 """
 from __future__ import annotations
 
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
+
 import torch
 
 from ..utils import kernels
 
-REGISTER_POINTS = 8192   # csrc/fps.cu: 1024 threads x 8 points in registers; above, streamed
+BLOCK_THREADS = 256      # csrc/fps_loop.cuh kThreads: most threads a block
+PPTS = (4, 8, 16, 32)    # points a thread in registers (the kernel's instantiations)
+BLOCK_POINTS = BLOCK_THREADS * PPTS[-1]          # 8192 points a block
+CLUSTERS = (1, 2, 4, 8)  # blocks a cloud: 1, or a thread-block cluster
+REGISTER_POINTS = CLUSTERS[-1] * BLOCK_POINTS    # 65536; above, the streamed form
+STREAM_THREADS = BLOCK_THREADS                   # the streamed form's one block a cloud
+# Measured on the H100 (tools/fps_ablation.py): a block of four warps with
+# more points a thread beats eight warps with fewer; a cloud gains from a
+# cluster only while each block keeps 2048 points or more (the cluster's
+# exchange costs about 0.2 us an iteration), and from a cluster of eight
+# blocks not at all (it sends each candidate to eight blocks and waits for
+# eight): eight only where the registers need them.
+TARGET_THREADS = 128
+MIN_SHARE = 2048
+MAX_SPREAD = 4
+H100_SMS = 132
+
+
+class FpsPlan(NamedTuple):
+    """How ``csrc/fps.cu`` (and the patchify's FPS phase) launches: ``cluster``
+    blocks a cloud of ``threads`` threads with ``ppt`` points a thread in
+    registers, or with ``ppt`` 0 the streamed form."""
+    cluster: int
+    threads: int
+    ppt: int
+
+    @property
+    def form(self) -> str:
+        return "stream" if self.ppt == 0 else "cluster" if self.cluster > 1 else "block"
+
+
+def block_shape(share: int) -> Tuple[int, int]:
+    """(threads, points a thread) of a block holding ``share`` points: the
+    fewest points a thread that keep it within ``TARGET_THREADS`` threads
+    (at 32 points a thread, up to ``BLOCK_THREADS``)."""
+    ppt = next(p for p in PPTS if p * TARGET_THREADS >= share or p == PPTS[-1])
+    return -(-share // (32 * ppt)) * 32, ppt
+
+
+def plan(batch: int, n_points: int, sms: int = H100_SMS,
+         cluster_slots: Optional[Callable[[int, int, int], int]] = None) -> FpsPlan:
+    """The launch for ``batch`` clouds of ``n_points``: the fewest blocks a
+    cloud whose registers hold it (at most ``BLOCK_POINTS`` a block), then
+    twice as many, up to ``MAX_SPREAD``, while each block keeps ``MIN_SHARE``
+    points or more and the card holds every cloud's cluster at once (``cluster_slots(c,
+    threads, ppt)`` clusters, as the card reports them for that launch; by
+    default ``sms // c``); each block as ``block_shape`` says. Above
+    ``REGISTER_POINTS``, the streamed form."""
+    if n_points > REGISTER_POINTS:
+        return FpsPlan(1, STREAM_THREADS, 0)
+
+    def shape(c: int) -> FpsPlan:
+        return FpsPlan(c, *block_shape(-(-n_points // c)))
+
+    def fits(p: FpsPlan) -> bool:
+        return batch <= (cluster_slots(*p) if cluster_slots else sms // p.cluster)
+
+    c = CLUSTERS[0]
+    while c * BLOCK_POINTS < n_points:
+        c *= 2
+    while c < MAX_SPREAD and n_points >= 2 * c * MIN_SHARE and fits(shape(2 * c)):
+        c *= 2
+    return shape(c)
+
+
+_cards: Dict[int, Tuple[int, Callable[[int, int, int], int]]] = {}
+
+
+def card(device: torch.device) -> Tuple[int, Callable[[int, int, int], int]]:
+    """(SMs, cluster_slots) of a CUDA device, for ``plan``: cluster_slots(c,
+    threads, ppt) is the number of clusters of that launch the card holds at
+    once (``cudaOccupancyMaxActiveClusters``, asked once a launch shape)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _cards:
+        fn = kernels.library("fps").fps_cluster_slots
+        fn.argtypes = [kernels.I] * 3
+        fn.restype = kernels.I
+        known: Dict[Tuple[int, int, int], int] = {}
+
+        def slots(c: int, threads: int, ppt: int) -> int:
+            key = (c, threads, ppt)
+            if key not in known:
+                with torch.cuda.device(index):
+                    known[key] = fn(c, threads, ppt)
+                if known[key] < 1:
+                    raise RuntimeError(f"the card holds no cluster of the fps kernel {key}")
+            return known[key]
+
+        _cards[index] = (torch.cuda.get_device_properties(index).multi_processor_count, slots)
+    return _cards[index]
 
 
 def use_fps_kernel(device_type: str, n_points: int) -> bool:
@@ -28,7 +121,8 @@ def use_fps_kernel(device_type: str, n_points: int) -> bool:
 
 def kernel_takes(n_points: int, n_samples: int) -> bool:
     """The shapes ``csrc/fps.cu`` takes: any cloud size, registers up to
-    ``REGISTER_POINTS`` points and the streamed form above."""
+    ``REGISTER_POINTS`` points (across a cluster of blocks above
+    ``BLOCK_POINTS``) and the streamed form above."""
     return n_points >= 1 and n_samples >= 1
 
 
@@ -52,21 +146,25 @@ def furthest_point_sample_plain(points: torch.Tensor, n_samples: int) -> torch.T
     return out.int()
 
 
-def fps_kernel(points: torch.Tensor, n_samples: int) -> torch.Tensor:
+def fps_kernel(points: torch.Tensor, n_samples: int,
+               use_plan: Optional[FpsPlan] = None) -> torch.Tensor:
     """Launch the kernel. points: (B, N, 3) f32 contiguous on a CUDA device.
-    Returns (B, n_samples) int32."""
+    Returns (B, n_samples) int32. ``use_plan`` replaces ``plan``'s launch (a
+    check or an ablation reaching every form)."""
     kernels.require_cuda(points)
     B, N, D = points.shape
     if points.dtype != torch.float32 or D != 3 or not kernel_takes(N, n_samples):
         raise ValueError(f"fps kernel is built for (B, N, 3) f32 and n_samples >= 1, got "
                          f"{tuple(points.shape)} {points.dtype}, {n_samples}")
+    p = use_plan or plan(B, N, *card(points.device))
     out = torch.empty((B, n_samples), dtype=torch.int32, device=points.device)
     # the streamed form's (x, y, z, min_d) a point
     buf = (torch.empty((B, N, 4), dtype=torch.float32, device=points.device)
-           if N > REGISTER_POINTS else None)
+           if p.ppt == 0 else None)
     P, I = kernels.P, kernels.I
-    kernels.launch("fps", "fps", "fps", (P, I, I, I, P, P, P), points.data_ptr(), B, N,
-                   n_samples, kernels.ptr(buf), out.data_ptr(), kernels.stream(points))
+    kernels.launch("fps", "fps", "fps", (P, I, I, I, I, I, I, P, P, P), points.data_ptr(), B,
+                   N, n_samples, p.cluster, p.threads, p.ppt, kernels.ptr(buf),
+                   out.data_ptr(), kernels.stream(points))
     return out
 
 

@@ -168,14 +168,15 @@ def build(names) -> dict:
                 proc.wait()
 
 
-def build_in_background(names):
-    """Start ``build(names)`` on a thread; the returned function joins it
-    and returns the libraries (or raises the build's error)."""
+def build_in_background(names, builder=None):
+    """Start ``build(names)`` (or ``builder(names)``, another tool's build)
+    on a thread; the returned function joins it and returns the libraries
+    (or raises the build's error)."""
     box = {}
 
     def run():
         try:
-            box["libs"] = build(names)
+            box["libs"] = (builder or build)(names)
         except BaseException as e:  # handed to the caller on join
             box["err"] = e
 

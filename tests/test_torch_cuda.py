@@ -41,6 +41,43 @@ def test_patchify_kernel_matches_plain(dev):
     assert float((kk == kp).float().mean()) > 0.9999
 
 
+def _lattice(dev, B, N, seed):
+    """Integer-lattice points (many equal distances and duplicated points),
+    a block of them at the origin (never picked)."""
+    g = _gen(dev, seed)
+    pts = torch.randint(-4, 5, (B, N, 3), generator=g, device=dev).float()
+    pts[:, 10:20] = 0.0
+    return pts
+
+
+@pytest.mark.parametrize("B,N,G,S", [(4, 1024, 64, 32), (2, 2048, 128, 32), (3, 512, 16, 8),
+                                     (2, 4096, 32, 16)])
+def test_patchify_kernel_is_exact_at_lattice_ties(dev, B, N, G, S):
+    """fps_idx and knn_idx equal the plain version's bit for bit on a lattice
+    cloud: equal distances go lowest index first; at N 512 and 1024 the
+    registers of the rows kernel, at 2048 its largest form, at 4096 the scan
+    kernel."""
+    pts = _lattice(dev, B, N, 21)
+    fk, kk = patchify.fused_patchify(pts, G, S)
+    fp, kp = patchify.fused_patchify_plain(pts, G, S)
+    torch.cuda.synchronize()
+    assert torch.equal(fk, fp) and torch.equal(kk, kp)
+    assert torch.equal(fk, fps_ops.fps_kernel(pts, G))
+
+
+@pytest.mark.parametrize("plan", [(1, 256, 4), (2, 64, 8), (4, 64, 4), (8, 32, 4),
+                                  (1, 128, 8), (2, 256, 16)])
+def test_patchify_kernel_matches_plain_under_every_fps_plan(dev, plan, monkeypatch):
+    """The FPS phase under each form and cluster size: both outputs bit for
+    bit the plain version's."""
+    pts = _lattice(dev, 3, 1024, 22)
+    monkeypatch.setattr(fps_ops, "plan", lambda *a, **k: fps_ops.FpsPlan(*plan))
+    fk, kk = patchify.fused_patchify(pts, 32, 16)
+    fp, kp = patchify.fused_patchify_plain(pts, 32, 16)
+    torch.cuda.synchronize()
+    assert torch.equal(fk, fp) and torch.equal(kk, kp)
+
+
 def test_gather_kernel_is_exact(dev):
     g = _gen(dev, 1)
     x = torch.randn((4, 1024, 3), generator=g, device=dev)
@@ -739,24 +776,74 @@ def test_scatter_kernel_matches_plain(dev, B, Q, N, C, dtype):
     assert x.grad.dtype == dtype and torch.equal(x.grad, got.to(dtype))
 
 
-@pytest.mark.parametrize("B,N,n", [(3, 1024, 200), (2, 512, 512), (2, 1200, 1024),
-                                   (1, 8192, 300), (2, 700, 64), (2, 2048, 2048),
-                                   (2, 8200, 300), (2, 16384, 256), (1, 20480, 200)])
-def test_fps_kernel_matches_plain(dev, B, N, n):
-    """Bit for bit: n < N, n == N (the picks repeat once the selectable
-    points run out), N not a multiple of 1024 and of 128, duplicated points
-    and points inside the unselectable radius; above 8192 points the
-    streamed form."""
-    g = _gen(dev, 8)
-    pts = torch.randn((B, N, 3), generator=g, device=dev)
+def _fps_cloud(dev, B, N, seed=8):
+    """Normal points, a block of them duplicated, a few at the origin and one
+    just inside the unselectable radius."""
+    pts = torch.randn((B, N, 3), generator=_gen(dev, seed), device=dev)
     pts[:, N // 2:N // 2 + N // 8] = pts[:, :N // 8]
     pts[0, 3:9] = 0.0
-    pts[-1, 11] = 0.018
+    pts[-1, min(11, N - 1)] = 0.018
+    return pts
+
+
+@pytest.mark.parametrize("B,N,n", [(3, 1024, 200), (2, 512, 512), (2, 1200, 1024),
+                                   (1, 8192, 300), (2, 700, 64), (2, 2048, 2048),
+                                   (2, 8200, 300), (2, 16384, 256), (1, 20480, 200),
+                                   (2, 65536, 64), (1, 65544, 48), (1, 100000, 32),
+                                   (33, 2048, 100), (40, 8192, 64)])
+def test_fps_kernel_matches_plain(dev, B, N, n):
+    """Bit for bit under the plan of each shape: n < N, n == N (the picks
+    repeat once the selectable points run out), N not a multiple of 1024 and
+    of 128, duplicated points and points inside the unselectable radius;
+    one block, clusters of 2, 4 and 8 (65536 points, the most the registers
+    hold), and above 65536 points the streamed form."""
+    pts = _fps_cloud(dev, B, N)
     got = fps_ops.fps_kernel(pts, n)
     want = fps_ops.furthest_point_sample_plain(pts, n)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert not any(i in got[0, 1:].tolist() for i in range(3, 9))
+
+
+# every points-a-thread and cluster size of the kernel, with shares that do
+# not divide N and blocks past the cloud's end
+FPS_PLANS = [(c, t, p) for c in fps_ops.CLUSTERS for p in fps_ops.PPTS for t in (32, 96, 256)]
+
+
+@pytest.mark.parametrize("cluster,threads,ppt", FPS_PLANS)
+def test_fps_kernel_matches_plain_under_every_plan(dev, cluster, threads, ppt):
+    """Each (cluster, threads, points a thread) the kernel instantiates, at
+    the largest cloud it holds less 37 points and at a cloud smaller than its
+    threads: the picks bit for bit the plain version's."""
+    for N in (cluster * threads * ppt - 37, cluster * threads // 3):
+        pts = _fps_cloud(dev, 2, N, seed=N)
+        n = min(N, 96)
+        got = fps_ops.fps_kernel(pts, n, use_plan=fps_ops.FpsPlan(cluster, threads, ppt))
+        want = fps_ops.furthest_point_sample_plain(pts, n)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (N, n)
+
+
+def test_fps_runs_the_plans_cluster_launch(dev):
+    """At the fine-tune shapes the plan takes a cluster and the profiler sees
+    the kernel of that plan (its template arguments), never the one-block
+    form; a plan the kernel does not take raises, so does a cluster size it
+    has no instantiation of."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for B, N, n in ((32, 8192, 1200), (32, 16384, 1024)):
+        p = fps_ops.plan(B, N, *fps_ops.card(dev))
+        assert p.form == "cluster" and p.cluster > 1
+        pts = _fps_cloud(dev, B, N)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fps_ops.fps_kernel(pts, n)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() if "fps_kernel" in e.key]
+        assert names and all(f"fps_kernel<{p.ppt}, {p.cluster}>" in k for k in names), names
+    pts = _fps_cloud(dev, 2, 4096)
+    for bad in ((3, 256, 8), (2, 64, 8), (1, 512, 8), (2, 256, 12)):
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            fps_ops.fps_kernel(pts, 16, use_plan=fps_ops.FpsPlan(*bad))
 
 
 def test_fps_dispatch_follows_the_gate(dev):

@@ -73,10 +73,13 @@ def test_gate_is_the_union_of_the_jax_gates(N):
 @pytest.mark.parametrize("N", [512, 1200, 8192, 8200, 16384, 16392, 100000, 1 << 20])
 def test_kernel_takes_every_n_of_the_gate(N):
     """The JAX gates have no upper bound, and neither has the kernel: up to
-    8192 points in registers, the streamed form above."""
+    8192 points in one block's registers, up to 65536 across a cluster of
+    blocks, the streamed form above."""
     assert _jax_gate(N) and fps.use_fps_kernel("cuda", N)
     assert fps.kernel_takes(N, 1) and fps.kernel_takes(N, N)
-    assert (N > fps.REGISTER_POINTS) is (N > 8192)
+    assert (N > fps.BLOCK_POINTS) is (N > 8192)
+    assert (N > fps.REGISTER_POINTS) is (N > 65536)
+    assert (fps.plan(32, N).form == "stream") is (N > 65536)
 
 
 def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
