@@ -142,6 +142,17 @@ Phases, each fatal on failure:
               PROFILE_WINDOWS times in a row is logged and the yardstick's
               device time and library_ms are reported as null; the port's
               own kernels' windows still fail the run.
+ 16. aggregate and scatter redesign - the previous aggregate and scatter
+              designs (point_dae_torch/tools/aggregate_parent.cu,
+              scatter_parent.cu) are built beside the kernels; at the DGCNN
+              step's four EdgeConv shapes, at (32, 2048) and at (4, 4096)
+              the aggregate alone (the staged form under
+              ops/edgeconv.py:aggregate_plan) bit for bit against the
+              previous design with track on and off, each design's device
+              time and the bound by bytes; scatter_rows_add at the three
+              partseg cases bit for bit against the previous design, its
+              device time split into count, place and sums beside the
+              previous design's sort and sums.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Run from the repository root:
 
@@ -534,6 +545,8 @@ def relu_flips_ok(got, want, tol=2e-2, flip_tol=1e-1, flip_frac=1e-4) -> bool:
 
 
 PATCHIFY_SPLIT = (("fps", "patchify_fps_"), ("knn rows", "patchify_knn_"))
+# csrc/chamfer.cu's kernels against whatever else a call launches
+CHAMFER_SPLIT = (("kernels", "nn_half"),)
 
 
 def patchify_report(torch, pts, G, S, parent):
@@ -638,6 +651,8 @@ def phase_kernels(torch, pts, device, parents):
 
     P, Nq, M = x.shape[0], 36, 32
     nbytes = 2 * (P * (Nq * 3 + M * 3) * 4) + P * (Nq + M) * (4 + 4 + 12)
+    small_dev = device_split(lambda: (chamfer.nn_half_small(x, y), chamfer.nn_half_small(y, x)),
+                             CHAMFER_SPLIT, 20, "nn_half_small, both directions")
     records["nn_half_small"] = dict(
         replaces="point_dae_tpu/losses/chamfer.py:107",
         source="point_dae_torch/csrc/chamfer.cu", max_abs_err=max(errs),
@@ -646,7 +661,8 @@ def phase_kernels(torch, pts, device, parents):
                                   chamfer.nn_half_small_plain(y, x)), 5),
         library_ms=cuda_ms(lib_chamfer, 20),
         bound=bound_ms(nbytes, 2 * P * Nq * M * 8, F32_FLOPS),
-        note="both directions, 36 vs 32 and 32 vs 36")
+        note=f"both directions, 36 vs 32 and 32 vs 36; device {small_dev['total']:.4f} ms: "
+             + split_line(small_dev))
 
     # -- fused LN + MLP + residual: the decoder's rows, R = 256 * 64, then the
     # encoder's, R = 256 * 32 (the first rows of the same inputs)
@@ -1104,7 +1120,7 @@ def edgeconv_work(B, N, Cf, C, k):
 # csrc/edgeconv.cu's launches by kernel name: the forward's selection and
 # aggregate, the backward's tie-weight pass ('split'), counting sort and sums
 EDGECONV_SPLIT = (("select", "knn_select_kernel"), ("sqnorm", "row_sqnorm_kernel"),
-                  ("aggregate", "edgeconv_aggregate_kernel"), ("ties", "tie_weights_kernel"),
+                  ("aggregate", "edgeconv_aggregate"), ("ties", "tie_weights_kernel"),
                   ("sort", "contrib_"), ("sum", "edgeconv_bwd_kernel"))
 
 
@@ -1112,13 +1128,42 @@ def split_line(split) -> str:
     return ", ".join(f"{k} {v:.4f}" for k, v in split.items() if v and k != "total")
 
 
-def phase_dgcnn_kernels(torch, corrupted, clean, device, parent):
+def aggregate_report(torch, U, idx, parent, what):
+    """The aggregate alone (aggregate_from_idx's launch, the staged form under
+    ops/edgeconv.py:aggregate_plan) at one shape against the previous design
+    (``parent``, built from point_dae_torch/tools/aggregate_parent.cu): every
+    output bit for bit with track on and off; the device ms a call of each
+    with track on (torch.profiler; the previous design's a yardstick, null
+    where its windows are lost) and the bound by bytes (U, idx, the four f32
+    outputs and the two round bytes). Returns (ms, previous ms, bound, plan)."""
+    from point_dae_torch.ops import edgeconv
+    from point_dae_torch.tools import rowreduce_ablation
+
+    B, N, C = U.shape
+    k = idx.shape[-1]
+    for track in (True, False):
+        got = edgeconv.aggregate_fwd_kernel(U, idx, track)
+        prev = rowreduce_ablation.parent_aggregate(parent, U, idx, track)
+        torch.cuda.synchronize()
+        if not all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, prev)):
+            fail(f"aggregate {what}: differs from the previous design in its bits "
+                 f"(track {track})")
+    ms, _ = device_ms(lambda: edgeconv.aggregate_fwd_kernel(U, idx, True), f"aggregate {what}",
+                      10)
+    prev_ms, _ = device_ms(lambda: rowreduce_ablation.parent_aggregate(parent, U, idx, True),
+                           f"previous aggregate {what}", 10, library=True)
+    bound = bound_ms(B * N * (22 * C + 4 * k), 0, F32_FLOPS)
+    return ms, prev_ms, bound, edgeconv.aggregate_plan(B, N, C)
+
+
+def phase_dgcnn_kernels(torch, corrupted, clean, device, parent, parents):
     """The DGCNN step's kernels at its shapes (batch 128, 1024 points, k 20)
     against their plain versions on the card; the EdgeConv kernels' device
     time by launch, torch.topk over torch.cdist beside the forward, and the
     backwards and the selection held bit for bit against the previous
     design (``parent``, the library built from
-    point_dae_torch/tools/edgeconv_parent.cu)."""
+    point_dae_torch/tools/edgeconv_parent.cu); the aggregate alone against
+    its previous design (``parents["aggregate_parent"]``, aggregate_report)."""
     from point_dae_torch.tools import edgeconv_ablation
     from point_dae_torch.losses import chamfer
     from point_dae_torch.ops import edgeconv
@@ -1143,6 +1188,8 @@ def phase_dgcnn_kernels(torch, corrupted, clean, device, parent):
         d = torch.cdist(x, y) ** 2
         return d.min(2).values, d.min(1).values
 
+    tiled_dev = device_split(lambda: (chamfer.nn_half_tiled(x, y), chamfer.nn_half_tiled(y, x)),
+                             CHAMFER_SPLIT, 20, "nn_half_tiled, both directions")
     records["nn_half_tiled"] = dict(
         replaces="point_dae_tpu/losses/chamfer.py:41",
         source="point_dae_torch/csrc/chamfer.cu", max_abs_err=0.0,
@@ -1151,7 +1198,8 @@ def phase_dgcnn_kernels(torch, corrupted, clean, device, parent):
                                   chamfer.nn_half_tiled_plain(y, x)), 3),
         library_ms=cuda_ms(lib_chamfer, 10),
         bound=bound_ms(2 * (2 * B * N * 3 * 4 + B * N * 8), 2 * B * N * N * 9, F32_FLOPS),
-        note="both directions, 1024 vs 1024, bit for bit")
+        note=f"both directions, 1024 vs 1024, bit for bit; device {tiled_dev['total']:.4f} ms: "
+             + split_line(tiled_dev))
     del x, y
 
     # -- fused kNN aggregate at the four EdgeConv shapes. Layer 1 sees the
@@ -1162,6 +1210,7 @@ def phase_dgcnn_kernels(torch, corrupted, clean, device, parent):
     tot = {n: dict(ms=0.0, plain_ms=0.0, nbytes=0.0, flops=0.0, err=0.0, dev=0.0)
            for n in names}
     lib_ms = select_dev = macs = 0.0
+    agg = dict(ms=0.0, prev_ms=0.0, bound=0.0)
     parts = {"first": {}, "split": {}}
     dup = corrupted[:, :, None, :].eq(corrupted[:, None, :64, :]).all(-1)   # (B, N, 64)
     first_twin = torch.where(dup.any(-1), dup.float().argmax(-1),
@@ -1237,6 +1286,14 @@ def phase_dgcnn_kernels(torch, corrupted, clean, device, parent):
             U, edgeconv.knn_select_plain(xf, k)), 1)
         t["nbytes"] += edgeconv_work(B, N, Cf, C, k)[0][0]
         t["flops"] += edgeconv_work(B, N, Cf, C, k)[0][1]
+        a_ms, a_prev, a_bound, a_plan = aggregate_report(
+            torch, U, idx, parents["aggregate_parent"], f"Cf {Cf} C {C}")
+        agg["ms"] += a_ms
+        agg["prev_ms"] += a_prev if a_prev is not None else math.nan
+        agg["bound"] += a_bound[0]
+        log(f"  aggregate Cf {Cf:3d} C {C:3d} (plan {tuple(a_plan)}): device {a_ms:.4f} ms, "
+            f"previous design {ms_text(a_prev)}, bound {a_bound[0]:.4f} by bytes; bit for bit "
+            f"with the previous design, track on and off")
         log(f"  knn_aggregate Cf {Cf:3d} C {C:3d}: fwd {shape_ms['fwd']:.4f} ms (device "
             f"{shape_ms['fwd split']}; torch.topk over torch.cdist {shape_ms['lib']:.4f}), bwd "
             f"first {shape_ms['first']:.4f} ms (device {shape_ms['first split']}), bwd split "
@@ -1251,7 +1308,9 @@ def phase_dgcnn_kernels(torch, corrupted, clean, device, parent):
     notes = {
         "knn_aggregate_fwd": f"device {tot['knn_aggregate_fwd']['dev']:.4f} ms, of which the "
                              f"selection {select_dev:.4f}; rounding-rule floor of the distances "
-                             f"{floor:.4f} ms (no FMA); library: torch.topk over torch.cdist",
+                             f"{floor:.4f} ms (no FMA); the aggregate alone {agg['ms']:.4f} ms "
+                             f"(previous design {agg['prev_ms']:.4f}, bound {agg['bound']:.4f} by "
+                             f"bytes); library: torch.topk over torch.cdist",
         "knn_aggregate_bwd_first": f"device {tot['knn_aggregate_bwd_first']['dev']:.4f} ms: "
                                    + split_line(parts["first"]),
         "knn_aggregate_bwd_split": f"device {tot['knn_aggregate_bwd_split']['dev']:.4f} ms: "
@@ -1551,12 +1610,12 @@ def profile_step(torch, run, card, top: int = 25, expect=()):
             "fold_bwd_weights_kernel": 0.0, "::gemm_kernel<": 0.0,
             "fold_sum_partials_kernel": 0.0,
             "attention_fwd": 0.0, "attention_bwd": 0.0,
-            "knn_select_kernel": 0.0, "edgeconv_aggregate_kernel": 0.0,
+            "knn_select_kernel": 0.0, "edgeconv_aggregate": 0.0,
             "gather_by_key_kernel": 0.0,
             "edgeconv_bwd_kernel": 0.0, "edgeconv_tie_weights_kernel": 0.0, "contrib_": 0.0,
             "row_sqnorm_kernel": 0.0,
-            "nn_half_tiled_kernel": 0.0, "fps_kernel": 0.0, "sort_rows_kernel": 0.0,
-            "sum_rows_kernel": 0.0}
+            "nn_half_tiled_kernel": 0.0, "fps_kernel": 0.0, "scatter_count_kernel": 0.0,
+            "scatter_place_kernel": 0.0, "scatter_sum_kernel": 0.0}
     for e in events:
         for k in ours:
             if k in e.key:
@@ -1957,6 +2016,12 @@ def phase_finetune(torch, device, card):
     return fps_launches
 
 
+# csrc/scatter.cu's launches, and those of its previous design
+SCATTER_SPLIT = (("count", "scatter_count"), ("place", "scatter_place"),
+                 ("sums", "scatter_sum"))
+SCATTER_PARENT_SPLIT = (("sort", "sort_rows"), ("sums", "sum_rows"))
+
+
 def phase_scatter_kernels(torch, device, card, parents):
     """scatter_rows_add at the two part-segmentation shapes, on real
     indices: PointTransformerPartSeg's interpolation (three_nn of 2048
@@ -1967,12 +2032,17 @@ def phase_scatter_kernels(torch, device, card, parents):
     summed in ascending q) and the same bits on a second launch; the gap of
     the card's index_add_ (atomics, no fixed order) is printed. Times: the
     kernel, the plain version (scatter_add_ on the card) and index_add_
-    (one call over the flattened rows). Then the forward kernels of the two
+    (one call over the flattened rows); held bit for bit against the previous
+    design too (``parents["scatter_parent"]``, built from
+    point_dae_torch/tools/scatter_parent.cu), each design's device time by
+    launch (count, place, sums; the previous design's sort, sums).
+    Then the forward kernels of the two
     paths at their shapes: gather_rows_small_c of the (16, 2048, 3) cloud
     by its kNN rows (DGCNNPartSeg's first edge gather), equal to its plain
     version, and patchify at (16, 2048), G 128, S 32."""
     from point_dae_torch.ops import gather
     from point_dae_torch.ops.geometry import fps_knn, knn, three_nn
+    from point_dae_torch.tools import rowreduce_ablation
 
     g_ = torch.Generator(device=device).manual_seed(SEED + 40)
     pts = torch.randn((PS_BATCH, PS_POINTS, 3), generator=g_, device=device)
@@ -2003,6 +2073,17 @@ def phase_scatter_kernels(torch, device, card, parents):
                  f"{float((got.cpu() - want).abs().max())})")
         if not torch.equal(got, again):
             fail(f"scatter_rows_add {name}: two launches differ in their bits")
+        idx32 = idx.int().contiguous()
+
+        def previous():
+            return rowreduce_ablation.parent_scatter(parents["scatter_parent"], idx32, g, N)
+
+        if not torch.equal(previous(), got):
+            fail(f"scatter_rows_add {name}: differs from the previous design in its bits")
+        split = device_split(lambda: gather.scatter_rows_add(idx, g, N), SCATTER_SPLIT, 10,
+                             f"scatter_rows_add {name}")
+        prev_split = device_split(previous, SCATTER_PARENT_SPLIT, 10,
+                                  f"the previous scatter_rows_add {name}")
         hub = int(torch.bincount(idx[0].long(), minlength=N).max())
         ms = cuda_ms(lambda: gather.scatter_rows_add(idx, g, N), 20)
         plain = cuda_ms(lambda: gather.scatter_rows_add_plain(idx, g, N), 5)
@@ -2011,7 +2092,9 @@ def phase_scatter_kernels(torch, device, card, parents):
         bound = bound_ms(nbytes, B * Q * C, F32_FLOPS)
         log(f"  [{card}] scatter_rows_add {name} (B {B}, Q {Q}, N {N}, C {C}, {str(dtype)[6:]}): "
             f"{ms:.4f} ms (plain {plain:.4f}, index_add_ {lib_ms:.4f}, bound {bound[0]:.4f} by "
-            f"{bound[1]}); bit for bit with the CPU, index_add_ off by {lib_err:.2e} of "
+            f"{bound[1]}), device {split['total']:.4f} ({split_line(split)}), previous design "
+            f"device {prev_split['total']:.4f} ({split_line(prev_split)}); bit for bit with "
+            f"the CPU and the previous design, index_add_ off by {lib_err:.2e} of "
             f"{top:.2f}; most contributors of a row {hub}")
         if dtype == torch.float32:
             tot["err"] = max(tot["err"], float((got.cpu() - want).abs().max()))
@@ -2165,7 +2248,7 @@ def phase_partseg(torch, device, card):
             f"ms, max_memory_allocated {peak / 2 ** 30:.2f} GiB")
         busy, ours = profile_step(torch, lambda: step(state, b["pts"], b["onehot"], b["seg_t"],
                                                       generator=g), card, top=15)
-        sc = ours["sort_rows_kernel"] + ours["sum_rows_kernel"]
+        sc = sum(ours[f"scatter_{k}_kernel"] for k in ("count", "place", "sum"))
         log(f"  [{card}] {name} scatter_rows_add share of the profiled step's device time: "
             f"{100 * sc / busy:.1f}% ({sc / 1e3:.3f} ms)")
 
@@ -2213,7 +2296,7 @@ def load_cfg(path):
     return cfg_from_yaml_file(os.path.join(os.path.dirname(os.path.abspath(__file__)), path))
 
 
-def phase_key_knn_kernels(torch, device, card):
+def phase_key_knn_kernels(torch, device, card, parents):
     """key_gather, knn and aggregate_from_idx against their plain versions on the card
     at the paths' shapes, and knn_aggregate above 1024 points:
 
@@ -2228,14 +2311,17 @@ def phase_key_knn_kernels(torch, device, card):
       within 1e-5 relative; torch.topk over torch.cdist timed beside it;
     - aggregate_from_idx at the DGCNN step's four shapes (128, 1024, C 64 /
       64 / 128 / 256, k 20, over the plain kNN's idx): bit for bit with its
-      plain version and with knn_aggregate's aggregates;
+      plain version, with knn_aggregate's aggregates and with the previous
+      design (``parents["aggregate_parent"]``);
     - knn_aggregate at (32, 2048, C 64, k 20), the shipped ScanObjectNN
       DGCNN fine-tune's clouds, and at (4, 4096, C 64, k 20): forward bit for
       bit with the plain version on the card, both backwards bit for bit
       with the plain version on the CPU (each sum in (source, round) order),
-      the same bits on a second launch."""
+      the same bits on a second launch; the aggregate alone against the
+      previous design (aggregate_report)."""
     from point_dae_torch.ops import edgeconv, gather, tiled_knn as knn_ops
     from point_dae_torch.ops.geometry import fps_knn, group_points
+    from point_dae_torch.tools import rowreduce_ablation
 
     records = {}
     g = torch.Generator(device=device).manual_seed(SEED + 60)
@@ -2344,6 +2430,9 @@ def phase_key_knn_kernels(torch, device, card):
             fail(f"aggregate_from_idx C {C}: differs from the plain version")
         if not all(torch.equal(a, b) for a, b in zip(out[:4], fused[:4])):
             fail(f"aggregate_from_idx C {C}: differs from knn_aggregate's aggregates")
+        prev = rowreduce_ablation.parent_aggregate(parents["aggregate_parent"], U, idx, True)
+        if not all(torch.equal(a, b) for a, b in zip(out, prev)):
+            fail(f"aggregate_from_idx C {C}: differs from the previous design in its bits")
         tot["ms"] += cuda_ms(lambda: edgeconv.aggregate_fwd_kernel(U, idx, True), 10)
         tot["plain_ms"] += cuda_ms(lambda: edgeconv.aggregate_plain(U, idx), 2)
         tot["nbytes"] += B * 1024 * (C * 4 + 20 * 4 + 4 * C * 4 + 2 * C)
@@ -2400,6 +2489,11 @@ def phase_key_knn_kernels(torch, device, card):
         splits["fwd"] = split_line(device_split(
             lambda: edgeconv.knn_aggregate_fwd_kernel(U, xf, k, True), EDGECONV_SPLIT,
             what=f"knn_aggregate fwd N {N}"))
+        a_ms, a_prev, a_bound, a_plan = aggregate_report(
+            torch, U, idx, parents["aggregate_parent"], f"({Bn}, {N})")
+        log(f"  [{card}] aggregate ({Bn}, {N}, C {C}, k {k}) (plan {tuple(a_plan)}): device "
+            f"{a_ms:.4f} ms, previous design {ms_text(a_prev)}, bound {a_bound[0]:.4f} by "
+            f"bytes; bit for bit with the previous design, track on and off")
         log(f"  [{card}] knn_aggregate ({Bn}, {N}, Cf {C}, C {C}, k {k}): "
             + "; ".join(f"{w} {ms[w]:.4f} ms (plain {plain_ms[w]:.4f}, bound "
                         f"{bounds[w][0]:.4f} by {bounds[w][1]}; device {splits[w]})"
@@ -2994,19 +3088,22 @@ def main() -> None:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {torch.get_num_threads()} CPU threads")
 
-    # 2. build, with the previous EdgeConv, FPS and patchify designs beside
+    # 2. build, with the previous EdgeConv, FPS, patchify, aggregate and scatter designs
     # (the yardsticks of the redesigned kernels)
-    from point_dae_torch.tools import edgeconv_ablation, fps_ablation
+    from point_dae_torch.tools import edgeconv_ablation, fps_ablation, rowreduce_ablation
 
     t0 = time.perf_counter()
     parent_join = edgeconv_ablation.build_in_background(["parent"])
     parents_join = edgeconv_ablation.build_in_background(["fps_parent", "patchify_parent"],
                                                          fps_ablation.build)
+    rowreduce_join = edgeconv_ablation.build_in_background(
+        ["aggregate_parent", "scatter_parent"], rowreduce_ablation.build)
     logs = kernels.build()
     parent = parent_join()["parent"][0]
     parents = {name: lib for name, (lib, _) in parents_join().items()}
-    log(f"build: {sorted(logs)} and the previous EdgeConv, FPS and patchify designs in "
-        f"{time.perf_counter() - t0:.1f} s")
+    parents.update({name: lib for name, (lib, _) in rowreduce_join().items()})
+    log(f"build: {sorted(logs)} and the previous EdgeConv, FPS, patchify, aggregate and "
+        f"scatter designs in {time.perf_counter() - t0:.1f} s")
     stamp("import and build")
     for name, text in sorted(logs.items()):
         if name == "attention":
@@ -3047,7 +3144,7 @@ def main() -> None:
     records = phase_kernels(torch, pts, device, parents)
     stamp("kernels")
     torch.cuda.empty_cache()
-    records.update(phase_dgcnn_kernels(torch, corrupted_d, clean_d, device, parent))
+    records.update(phase_dgcnn_kernels(torch, corrupted_d, clean_d, device, parent, parents))
     stamp("dgcnn_kernels")
     torch.cuda.empty_cache()
     records.update(phase_fps_kernels(torch, device, parents))
@@ -3056,7 +3153,7 @@ def main() -> None:
     records.update(phase_scatter_kernels(torch, device, card, parents))
     stamp("scatter_kernels")
     torch.cuda.empty_cache()
-    records.update(phase_key_knn_kernels(torch, device, card))
+    records.update(phase_key_knn_kernels(torch, device, card, parents))
     stamp("key_knn_kernels")
     torch.cuda.empty_cache()
     recs, wide_launches = phase_mlp_wide_kernels(torch, device)

@@ -33,9 +33,17 @@
 //    merge with the row's running top-k, kept per warp in shared memory,
 //    by (distance, column), the TPU kernel's multi-tile merge
 //    (pallas_knn.py:80-95) done in place.
-//  - aggregate: a warp a row reads the selected rows of U straight from L2
+//  - aggregate: a block takes one cloud, one channel slice of W = 4, 8, 16
+//    or 32 channels and a chunk of its rows, and first copies the cloud's
+//    whole slice of U (N x W f32) into shared memory with 16-byte cp.async
 //    (an exact f32 row read stands where the TPU used a one-hot matrix
-//    product), four channels a lane.
+//    product). Then W / 4 lanes take a row, a float4 each, and walk its k
+//    rounds in shared memory; the outputs go out as whole float4 (uchar4)
+//    slices. Each U element leaves L2 once a block instead of k times.
+//    The plan (ops/edgeconv.py:aggregate_plan) picks the slice, the row
+//    chunks and the block's warps. Where not even a 4-channel slice fits a
+//    block's 227 KB (N above 14528) the L2 form stays: a warp a row reads
+//    the rows from L2, four channels a lane.
 // Products and sums whose rounding decides a neighbour or an output bit are
 // round-to-nearest intrinsics in the plain version's order (channel order
 // for the distance, round order for the sums), so the forward agrees with
@@ -61,9 +69,13 @@
 // operations. Counted at the FMA rate that is 67 TFLOP/s; kept as two
 // rounded operations each (no FMA, so the neighbours stay the plain
 // version's), the floor is one instruction each at 128 lanes a clock an SM,
-// twice that. The backward moves about B*N*C*4*6 bytes and sums B*N*k*C*4
-// terms: bytes; each source row is read once for each of its k targets,
-// mostly from L2, which sets its pace.
+// twice that. The aggregate alone moves B*N*(4.5 C + k)*4 bytes (with
+// track): bytes; it issues about nine lane operations an element and round
+// (two compares and selects for the rounds, max, min, a sum, a product and
+// a sum) and, staged, a shared-memory load a round for four channels. The
+// backward moves about B*N*C*4*6 bytes and sums B*N*k*C*4 terms: bytes;
+// each source row is read once for each of its k targets, mostly from L2,
+// which sets its pace.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -575,6 +587,118 @@ edgeconv_aggregate_kernel(const float* __restrict__ U, const int* __restrict__ i
   }
 }
 
+// The staged form: a block of kWarps warps a (cloud, channel slice of W =
+// 4 kL channels, chunk of chunk_rows rows). The slice of the whole cloud,
+// su[N][W], is copied in first (16 bytes at a time where C % 4 == 0, else a
+// channel at a time; channels past C arrive as zeros and are never stored).
+// Then kL lanes take a row, a float4 of the slice each, and walk the row's
+// k rounds in round order: the row's lanes read its indices together from
+// idx, four rounds in one 16-byte load where the rows are 16-byte aligned
+// (k % 4 == 0), and each round's float4 from shared memory. Blocks are
+// ordered slice fastest, so that the slices of a row's output lines are
+// written together.
+template <int kL, bool kTrack, int kWarps>
+__global__ void __launch_bounds__(kWarps * 32)
+edgeconv_aggregate_staged_kernel(const float* __restrict__ U, const int* __restrict__ idx,
+                                 int N, int C, int k, int slices, int chunks, int chunk_rows,
+                                 int vec, int idx4, float* __restrict__ M,
+                                 float* __restrict__ m, float* __restrict__ S1,
+                                 float* __restrict__ S2, uint8_t* __restrict__ rM,
+                                 uint8_t* __restrict__ rm) {
+  constexpr int W = 4 * kL;
+  constexpr int kRows = 32 / kL;              // rows a warp takes at once
+  constexpr int kThreads = kWarps * 32;
+  extern __shared__ __align__(16) float su[];  // [N][W]
+  const int s = blockIdx.x % slices;
+  const int rest = blockIdx.x / slices;
+  const int chunk = rest % chunks, b = rest / chunks;
+  const int c0 = s * W;
+  const float* Ub = U + static_cast<size_t>(b) * N * C;
+  if (vec) {
+    for (int e = threadIdx.x; e < N * kL; e += kThreads) {
+      const int j = e / kL, c = c0 + 4 * (e % kL);
+      cp_async16(su + 4 * e, Ub + static_cast<size_t>(j) * C + (c < C ? c : 0), c < C);
+    }
+  } else {
+    for (int e = threadIdx.x; e < N * W; e += kThreads) {
+      const int j = e / W, c = c0 + e % W;
+      cp_async4(su + e, Ub + static_cast<size_t>(j) * C + (c < C ? c : 0), c < C);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane % kL;
+  const int c = c0 + 4 * t;
+  const int r0 = chunk * chunk_rows, r1 = min(N, r0 + chunk_rows);
+  const float* sl = su + 4 * t;
+  for (int row = r0 + warp * kRows + lane / kL; row < r1; row += kWarps * kRows) {
+    const int* ir = idx + (static_cast<size_t>(b) * N + row) * k;
+    float vM[4], vm[4], s1[4], s2[4];
+    int irM[4], irm[4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      vM[x] = -kInf; vm[x] = kInf; s1[x] = 0.f; s2[x] = 0.f; irM[x] = 0; irm[x] = 0;
+    }
+    auto round = [&](int j, int r) {
+      const float4 u4 = *reinterpret_cast<const float4*>(sl + j * W);
+      const float u[4] = {u4.x, u4.y, u4.z, u4.w};
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const float v = u[x];
+        if constexpr (kTrack) {
+          if (v > vM[x]) irM[x] = r;
+          if (v < vm[x]) irm[x] = r;
+        }
+        vM[x] = fmaxf(vM[x], v);
+        vm[x] = fminf(vm[x], v);
+        s1[x] = __fadd_rn(s1[x], v);
+        s2[x] = __fadd_rn(s2[x], __fmul_rn(v, v));
+      }
+    };
+    if (idx4) {
+      for (int r = 0; r < k; r += 4) {
+        const int4 j = *reinterpret_cast<const int4*>(ir + r);
+        round(j.x, r);
+        round(j.y, r + 1);
+        round(j.z, r + 2);
+        round(j.w, r + 3);
+      }
+    } else {
+#pragma unroll 4
+      for (int r = 0; r < k; ++r) round(ir[r], r);
+    }
+    if (c >= C) continue;
+    const size_t o = (static_cast<size_t>(b) * N + row) * C + c;
+    if (vec) {
+      *reinterpret_cast<float4*>(M + o) = make_float4(vM[0], vM[1], vM[2], vM[3]);
+      *reinterpret_cast<float4*>(m + o) = make_float4(vm[0], vm[1], vm[2], vm[3]);
+      *reinterpret_cast<float4*>(S1 + o) = make_float4(s1[0], s1[1], s1[2], s1[3]);
+      *reinterpret_cast<float4*>(S2 + o) = make_float4(s2[0], s2[1], s2[2], s2[3]);
+      if constexpr (kTrack) {
+        *reinterpret_cast<uchar4*>(rM + o) = make_uchar4(irM[0], irM[1], irM[2], irM[3]);
+        *reinterpret_cast<uchar4*>(rm + o) = make_uchar4(irm[0], irm[1], irm[2], irm[3]);
+      }
+    } else {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        if (c + x < C) {
+          M[o + x] = vM[x];
+          m[o + x] = vm[x];
+          S1[o + x] = s1[x];
+          S2[o + x] = s2[x];
+          if constexpr (kTrack) {
+            rM[o + x] = static_cast<uint8_t>(irM[x]);
+            rm[o + x] = static_cast<uint8_t>(irm[x]);
+          }
+        }
+      }
+    }
+  }
+}
+
 // 'split' pass over source rows: wM = gM / max(cM, 1), wm = gm / max(cm, 1).
 template <int kV>
 __global__ void __launch_bounds__(kAggWarps * 32)
@@ -1035,21 +1159,91 @@ bool bad_shape(int N, int k) {
   return N < 1 || N > kMaxStreamN || k < 1 || k > kMaxK || k > N;
 }
 
+template <int kL, bool kTrack, int kWarps>
+int launch_staged(const float* U, const int* idx, int B, int N, int C, int k, int chunks,
+                  float* M, float* m, float* S1, float* S2, uint8_t* rM, uint8_t* rm,
+                  cudaStream_t stream) {
+  constexpr int W = 4 * kL;
+  const auto kernel = edgeconv_aggregate_staged_kernel<kL, kTrack, kWarps>;
+  const int slices = (C + W - 1) / W;
+  const int chunk_rows = (N + chunks - 1) / chunks;
+  const size_t smem = static_cast<size_t>(N) * W * sizeof(float);
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = static_cast<long long>(B) * chunks * slices;
+  const int idx4 = k % 4 == 0 && reinterpret_cast<uintptr_t>(idx) % 16 == 0;
+  kernel<<<static_cast<unsigned>(blocks), kWarps * 32, smem, stream>>>(
+      U, idx, N, C, k, slices, chunks, chunk_rows, C % 4 == 0, idx4, M, m, S1, S2, rM, rm);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kL, int kWarps>
+int launch_staged_t(const float* U, const int* idx, int B, int N, int C, int k, int track,
+                    int chunks, float* M, float* m, float* S1, float* S2, uint8_t* rM,
+                    uint8_t* rm, cudaStream_t stream) {
+  return track ? launch_staged<kL, true, kWarps>(U, idx, B, N, C, k, chunks, M, m, S1, S2,
+                                                 rM, rm, stream)
+               : launch_staged<kL, false, kWarps>(U, idx, B, N, C, k, chunks, M, m, S1, S2,
+                                                  rM, rm, stream);
+}
+
+template <int kWarps>
+int launch_staged_w(const float* U, const int* idx, int B, int N, int C, int k, int track,
+                    int lanes, int chunks, float* M, float* m, float* S1, float* S2,
+                    uint8_t* rM, uint8_t* rm, cudaStream_t stream) {
+  switch (lanes) {
+    case 1:
+      return launch_staged_t<1, kWarps>(U, idx, B, N, C, k, track, chunks, M, m, S1, S2, rM,
+                                        rm, stream);
+    case 2:
+      return launch_staged_t<2, kWarps>(U, idx, B, N, C, k, track, chunks, M, m, S1, S2, rM,
+                                        rm, stream);
+    case 4:
+      return launch_staged_t<4, kWarps>(U, idx, B, N, C, k, track, chunks, M, m, S1, S2, rM,
+                                        rm, stream);
+    case 8:
+      return launch_staged_t<8, kWarps>(U, idx, B, N, C, k, track, chunks, M, m, S1, S2, rM,
+                                        rm, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The aggregate under the caller's plan (ops/edgeconv.py:aggregate_plan):
+// lanes 1, 2, 4 or 8 a row (slices of 4 lanes channels) in chunks row
+// chunks a cloud, blocks of 8, 16 or 32 warps: the staged form; lanes 0,
+// the L2 form.
 int launch_aggregate_any(const float* U, const int* idx, int B, int N, int C, int k,
-                         int track, float* M, float* m, float* S1, float* S2, uint8_t* rM,
-                         uint8_t* rm, cudaStream_t stream) {
-  return C % 4 == 0
-             ? launch_aggregate<4>(U, idx, B, N, C, k, track, M, m, S1, S2, rM, rm, stream)
-             : launch_aggregate<1>(U, idx, B, N, C, k, track, M, m, S1, S2, rM, rm, stream);
+                         int track, int lanes, int chunks, int warps, float* M, float* m,
+                         float* S1, float* S2, uint8_t* rM, uint8_t* rm, cudaStream_t stream) {
+  if (chunks < 1 || chunks > N) return static_cast<int>(cudaErrorInvalidValue);
+  if (lanes == 0)
+    return C % 4 == 0
+               ? launch_aggregate<4>(U, idx, B, N, C, k, track, M, m, S1, S2, rM, rm, stream)
+               : launch_aggregate<1>(U, idx, B, N, C, k, track, M, m, S1, S2, rM, rm, stream);
+  switch (warps) {
+    case 8:
+      return launch_staged_w<8>(U, idx, B, N, C, k, track, lanes, chunks, M, m, S1, S2, rM, rm,
+                                stream);
+    case 16:
+      return launch_staged_w<16>(U, idx, B, N, C, k, track, lanes, chunks, M, m, S1, S2, rM,
+                                 rm, stream);
+    case 32:
+      return launch_staged_w<32>(U, idx, B, N, C, k, track, lanes, chunks, M, m, S1, S2, rM,
+                                 rm, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// sq (B, N) is scratch. rM / rm (bytes) may be null when track == 0.
+// sq (B, N) is scratch. rM / rm (bytes) may be null when track == 0. The
+// aggregate runs under the plan (lanes, chunks, warps) of ops/edgeconv.py.
 PDAE_EXPORT int edgeconv_fwd(const float* xf, const float* U, float* sq, int B, int N,
-                             int Cf, int C, int k, int track, float* M, float* m,
-                             float* S1, float* S2, int* idx, uint8_t* rM, uint8_t* rm,
-                             void* stream_) {
+                             int Cf, int C, int k, int track, int lanes, int chunks,
+                             int warps, float* M, float* m, float* S1, float* S2, int* idx,
+                             uint8_t* rM, uint8_t* rm, void* stream_) {
   if (bad_shape(N, k) || Cf < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
@@ -1057,18 +1251,21 @@ PDAE_EXPORT int edgeconv_fwd(const float* xf, const float* U, float* sq, int B, 
   if (err != 0) return err;
   err = launch_select<false>(xf, sq, xf, sq, B, N, N, Cf, k, idx, nullptr, stream);
   if (err != 0) return err;
-  return launch_aggregate_any(U, idx, B, N, C, k, track, M, m, S1, S2, rM, rm, stream);
+  return launch_aggregate_any(U, idx, B, N, C, k, track, lanes, chunks, warps, M, m, S1, S2,
+                              rM, rm, stream);
 }
 
 // aggregate_from_idx: the forward's aggregate launch over a given
-// distance-ordered idx (B, N, k). rM / rm may be null when track == 0.
+// distance-ordered idx (B, N, k), under the plan (lanes, chunks, warps).
+// rM / rm may be null when track == 0.
 PDAE_EXPORT int edgeconv_aggregate(const float* U, const int* idx, int B, int N, int C,
-                                   int k, int track, float* M, float* m, float* S1,
-                                   float* S2, uint8_t* rM, uint8_t* rm, void* stream_) {
+                                   int k, int track, int lanes, int chunks, int warps,
+                                   float* M, float* m, float* S1, float* S2, uint8_t* rM,
+                                   uint8_t* rm, void* stream_) {
   if (N < 1 || k < 1 || k > kMaxK || C < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaSuccess);
-  return launch_aggregate_any(U, idx, B, N, C, k, track, M, m, S1, S2, rM, rm,
-                              static_cast<cudaStream_t>(stream_));
+  return launch_aggregate_any(U, idx, B, N, C, k, track, lanes, chunks, warps, M, m, S1, S2,
+                              rM, rm, static_cast<cudaStream_t>(stream_));
 }
 
 // knn_pallas: the k nearest of Ndb database rows y (B, Ndb, C) for each of Nq

@@ -23,7 +23,7 @@ contributor lists the backward kernels build, ``contributor_lists_plain``).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -31,6 +31,76 @@ from ..utils import kernels
 from .tiled_knn import knn_plain
 
 _INF = 1e30
+
+# csrc/edgeconv.cu's aggregate: the staged form copies a cloud's slice of U
+# (N x 4 lanes channels f32) into a block's shared memory; lanes 0 is the
+# L2 form, for clouds where not even a slice of four channels fits.
+AGG_LANES = (8, 4, 2, 1)        # lanes a row, a float4 each: slices of 32, 16, 8, 4
+AGG_WARPS = (8, 16, 32)         # warps a block the kernel is built for
+L2_WARPS = 8                    # the L2 form's warps a block, a row each
+BLOCK_SMEM = 232448             # a block's shared memory on the H100 (227 KB)
+SM_SMEM = 233472                # an SM's (228 KB), of which a block reserves 1 KB
+H100_SMS = 132
+
+
+class AggPlan(NamedTuple):
+    """How the aggregate launches: ``lanes`` lanes a row (a slice of
+    ``4 lanes`` channels a block) in ``chunks`` row chunks a cloud, blocks of
+    ``warps`` warps; or with ``lanes`` 0 the L2 form (a warp a row)."""
+    lanes: int
+    chunks: int
+    warps: int = 8
+
+    @property
+    def form(self) -> str:
+        return "staged" if self.lanes else "L2"
+
+    def smem(self, N: int) -> int:
+        """Dynamic shared memory a block of this plan takes at N points."""
+        return N * 16 * self.lanes
+
+    def blocks(self, B: int, N: int, C: int) -> int:
+        if not self.lanes:
+            return -(-B * N // L2_WARPS)
+        return B * self.chunks * -(-C // (4 * self.lanes))
+
+
+def blocks_per_sm(smem: int) -> int:
+    return SM_SMEM // (smem + 1024)
+
+
+def aggregate_plan(B: int, N: int, C: int, sms: int = H100_SMS) -> AggPlan:
+    """The staged form with the widest slice (no wider than C needs) that
+    fits a block; 32 warps an SM, as one block or two (64 registers a
+    thread leave no room for more); then row chunks doubled while the
+    blocks still fit one wave of the card and a chunk keeps a pass of the
+    block's rows (each chunk copies the cloud's slice again). The L2 form
+    only where not even a slice of four channels fits (N above
+    ``BLOCK_SMEM // 16``). Measured on the H100 (tools/rowreduce_ablation.py,
+    PERF.md): at 1024, 2048 and 4096 points the widest slice with 32 warps
+    beat narrower slices, blocks of 8 warps, and more chunks than a wave."""
+    fits = [L for L in AGG_LANES if N * 16 * L <= BLOCK_SMEM and (4 * L < C + 4 or L == 1)]
+    if not fits:
+        return AggPlan(0, 1)
+    lanes = fits[0]
+    per_sm = blocks_per_sm(N * 16 * lanes)
+    warps = 32 if per_sm == 1 else 16
+    slots = sms * min(per_sm, 32 // warps)
+    rows_a_pass = warps * 32 // lanes
+    blocks = B * -(-C // (4 * lanes))
+    chunks = 1
+    while blocks * chunks * 2 <= slots and -(-N // (2 * chunks)) >= rows_a_pass:
+        chunks *= 2
+    return AggPlan(lanes, chunks, warps)
+
+
+def _plan_for(U: torch.Tensor, use_plan: Optional[AggPlan]) -> AggPlan:
+    B, N, C = U.shape
+    plan = use_plan or aggregate_plan(B, N, C, kernels.card_sms(U.device))
+    if plan.lanes not in (0,) + AGG_LANES or not 1 <= plan.chunks <= N or (
+            plan.lanes and (plan.smem(N) > BLOCK_SMEM or plan.warps not in AGG_WARPS)):
+        raise NotImplementedError(f"the aggregate kernel takes no plan {plan} at N {N}")
+    return plan
 
 
 def supported(N: int, k: int) -> bool:
@@ -129,11 +199,18 @@ def _check(U: torch.Tensor, xf: torch.Tensor, k: int) -> None:
         raise ValueError(f"knn_aggregate: U {tuple(U.shape)}, xf {tuple(xf.shape)}, k {k}")
 
 
-def knn_aggregate_fwd_kernel(U: torch.Tensor, xf: torch.Tensor, k: int,
-                             track: bool):
-    """Launch the forward kernels: (M, m, S1, S2, idx, rM, rm); rM / rm are
-    uint8 (a round is below 64), and None without ``track``."""
+def _aligned(U: torch.Tensor) -> torch.Tensor:
+    """U, contiguous and 16-byte aligned (the kernels read float4 rows)."""
     U = U.detach().contiguous()
+    return U if U.data_ptr() % 16 == 0 else U.clone()
+
+
+def knn_aggregate_fwd_kernel(U: torch.Tensor, xf: torch.Tensor, k: int,
+                             track: bool, use_plan: Optional[AggPlan] = None):
+    """Launch the forward kernels: (M, m, S1, S2, idx, rM, rm); rM / rm are
+    uint8 (a round is below 64), and None without ``track``. The aggregate
+    launches under ``aggregate_plan`` (or ``use_plan``)."""
+    U = _aligned(U)
     xf = xf.detach().contiguous()
     kernels.require_cuda(U, xf)
     B, N, C = U.shape
@@ -146,11 +223,13 @@ def knn_aggregate_fwd_kernel(U: torch.Tensor, xf: torch.Tensor, k: int,
     rM, rm = (f(torch.uint8), f(torch.uint8)) if track else (None, None)
     idx = torch.empty((B, N, k), dtype=torch.int32, device=U.device)
     sq = torch.empty((B, N), dtype=torch.float32, device=U.device)
+    plan = _plan_for(U, use_plan)
     P, I = kernels.P, kernels.I
     kernels.launch("knn_aggregate_fwd", "edgeconv", "edgeconv_fwd",
-                   (P, P, P, I, I, I, I, I, I, P, P, P, P, P, P, P, P),
+                   (P, P, P) + (I,) * 9 + (P,) * 8,
                    xf.data_ptr(), U.data_ptr(), sq.data_ptr(), B, N, xf.shape[2], C,
-                   k, int(track), M.data_ptr(), m.data_ptr(), S1.data_ptr(),
+                   k, int(track), *plan, M.data_ptr(), m.data_ptr(),
+                   S1.data_ptr(),
                    S2.data_ptr(), idx.data_ptr(), kernels.ptr(rM), kernels.ptr(rm),
                    kernels.stream(U))
     return M, m, S1, S2, idx, rM, rm
@@ -236,10 +315,12 @@ def knn_aggregate_bwd_kernel(grad_mode: str, U, idx, a, c, gM, gm, gs1, gs2
     return du
 
 
-def aggregate_fwd_kernel(U: torch.Tensor, idx: torch.Tensor, track: bool):
+def aggregate_fwd_kernel(U: torch.Tensor, idx: torch.Tensor, track: bool,
+                         use_plan: Optional[AggPlan] = None):
     """Launch the aggregate alone over a given idx (B, N, k): (M, m, S1, S2,
-    rM, rm), rM / rm uint8 and None without ``track``."""
-    U = U.detach().contiguous()
+    rM, rm), rM / rm uint8 and None without ``track``; under
+    ``aggregate_plan`` (or ``use_plan``)."""
+    U = _aligned(U)
     idx = idx.detach().to(torch.int32).contiguous()
     kernels.require_cuda(U, idx)
     B, N, C = U.shape
@@ -250,10 +331,12 @@ def aggregate_fwd_kernel(U: torch.Tensor, idx: torch.Tensor, track: bool):
     f = lambda dt: torch.empty((B, N, C), dtype=dt, device=U.device)
     M, m, S1, S2 = (f(torch.float32) for _ in range(4))
     rM, rm = (f(torch.uint8), f(torch.uint8)) if track else (None, None)
+    plan = _plan_for(U, use_plan)
     P, I = kernels.P, kernels.I
     kernels.launch("aggregate_from_idx", "edgeconv", "edgeconv_aggregate",
-                   (P, P, I, I, I, I, I, P, P, P, P, P, P, P), U.data_ptr(), idx.data_ptr(),
-                   B, N, C, k, int(track), M.data_ptr(), m.data_ptr(), S1.data_ptr(),
+                   (P, P) + (I,) * 8 + (P,) * 7, U.data_ptr(), idx.data_ptr(),
+                   B, N, C, k, int(track), *plan, M.data_ptr(),
+                   m.data_ptr(), S1.data_ptr(),
                    S2.data_ptr(), kernels.ptr(rM), kernels.ptr(rm), kernels.stream(U))
     return M, m, S1, S2, rM, rm
 

@@ -15,11 +15,16 @@ is a plain ``scatter_add_`` in g's type.
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Optional, Tuple
+
 import torch
 
 from ..utils import kernels
 
-MAX_ROWS = 2048     # csrc/scatter.cu: 16 warps' row histograms in shared memory
+MAX_ROWS = 2048     # csrc/scatter.cu: 16 warps' row histograms in a block's shared memory
+MAX_SEGS = 16       # csrc/scatter.cu kMaxSegs: segments a cloud of the counting sort
+MIN_SEG = 512       # entries a segment keeps at least
+H100_SMS = 132
 
 
 def use_small_c_kernel(x: torch.Tensor, q: int) -> bool:
@@ -38,29 +43,83 @@ def use_scatter_kernel(device_type: str, B: int, Q: int, N: int, C: int) -> bool
 
 def scatter_rows_add_plain(idx: torch.Tensor, g: torch.Tensor, n_rows: int) -> torch.Tensor:
     """Plain PyTorch version of the scatter kernel: idx (B, Q), g (B, Q, C)
-    -> (B, n_rows, C) f32, ``out[b, m] = sum of g[b, q] over idx[b, q] == m``.
-    On the CPU, ``scatter_add_`` adds each element's contributors in
-    ascending q, which is the kernel's order, so the two agree bit for bit."""
+    -> (B, n_rows, C) f32, ``out[b, m] = sum of g[b, q] over idx[b, q] == m``;
+    entries outside [0, n_rows) add nothing (they go to a spare row). On the
+    CPU, ``scatter_add_`` adds each element's contributors in ascending q,
+    which is the kernel's order, so the two agree bit for bit."""
     B, Q, C = g.shape
-    out = torch.zeros((B, n_rows, C), dtype=torch.float32, device=g.device)
-    return out.scatter_add_(1, idx.long()[..., None].expand(-1, -1, C), g.float())
+    idx = idx.long()
+    key = torch.where((idx >= 0) & (idx < n_rows), idx, n_rows)
+    out = torch.zeros((B, n_rows + 1, C), dtype=torch.float32, device=g.device)
+    out.scatter_add_(1, key[..., None].expand(-1, -1, C), g.float())
+    return out[:, :n_rows].contiguous()
 
 
-def _vec_width(g: torch.Tensor) -> int:
-    """Elements a lane loads at once: the largest of 4, 2, 1 that divides C,
-    fits C in one warp's slice and keeps every row's loads aligned."""
-    C = g.shape[-1]
-    for v in (4, 2):
-        if C % v == 0 and 32 * v <= C and g.data_ptr() % (v * g.element_size()) == 0:
-            return v
-    return 1
+class ScatterPlan(NamedTuple):
+    """How ``csrc/scatter.cu`` launches: ``segs`` segments a cloud for the
+    counting sort (a block each), then the sums with ``vec`` elements a lane
+    and ``lanes`` lanes a row (32 / lanes rows a warp)."""
+    segs: int
+    vec: int
+    lanes: int
 
 
-def scatter_rows_add(idx: torch.Tensor, g: torch.Tensor, n_rows: int) -> torch.Tensor:
+def scatter_plan(B: int, Q: int, C: int, elem_bytes: int, aligned_bytes: int,
+                 sms: int = H100_SMS) -> ScatterPlan:
+    """The sort: segments of at least ``MIN_SEG`` entries, about one block an
+    SM over the B clouds, at most ``MAX_SEGS`` (each segment's place pass
+    reads the cloud's counts and walks all N rows, so more segments cost
+    more than they spread). The sums: the widest load (16 bytes down to one
+    element) that divides C and the alignment of g (``aligned_bytes``, a
+    power of two), then the fewest lanes (a power of two, at most 32) whose
+    loads cover C."""
+    segs = max(1, min(MAX_SEGS, round(sms / max(B, 1)), Q // MIN_SEG))
+    vec = next(v for v in (16 // elem_bytes, 4, 2, 1)
+               if v <= 8 and C % v == 0 and aligned_bytes % (v * elem_bytes) == 0)
+    lanes = 1
+    while lanes < 32 and lanes * vec < C:
+        lanes *= 2
+    return ScatterPlan(segs, vec, lanes)
+
+
+def scatter_work_ints(B: int, Q: int, N: int, segs: int) -> int:
+    """Ints of the kernel's scratch: the segments' counts (B, segs, N), the
+    list starts (B, N + 1) and the lists (B, Q)."""
+    return B * (segs * N + N + 1 + Q)
+
+
+def scatter_lists_plain(idx: torch.Tensor, n_rows: int, segs: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The counting sort's scratch as the kernel leaves it, idx (B, Q) ->
+    (counts (B, segs, N): the entries of segment s in row m; start (B, N + 1):
+    where each row's list begins; order (B, Q): the lists one after another,
+    each in ascending q, then -1 where the kernel leaves its scratch
+    unwritten (as many as the entries outside [0, N))), all int32. Segment s
+    holds q in [s seg, (s + 1) seg), seg = ceil(Q / segs)."""
+    B, Q = idx.shape
+    idx = idx.long()
+    valid = (idx >= 0) & (idx < n_rows)
+    key = torch.where(valid, idx, torch.full_like(idx, n_rows))
+    seg = -(-Q // segs)
+    onehot = torch.zeros((B, segs, n_rows + 1), dtype=torch.long, device=idx.device)
+    onehot.index_put_((torch.arange(B, device=idx.device)[:, None].expand(B, Q),
+                       torch.arange(Q, device=idx.device)[None, :].expand(B, Q) // seg, key),
+                      torch.ones_like(key), accumulate=True)
+    counts = onehot[:, :, :n_rows]
+    start = torch.zeros((B, n_rows + 1), dtype=torch.long, device=idx.device)
+    start[:, 1:] = torch.cumsum(counts.sum(1), 1)
+    order = torch.argsort(key, dim=1, stable=True)
+    order = torch.where(torch.arange(Q, device=idx.device) < start[:, n_rows:], order, -1)
+    return counts.int(), start.int(), order.int()
+
+
+def scatter_rows_add(idx: torch.Tensor, g: torch.Tensor, n_rows: int,
+                     use_plan: Optional[ScatterPlan] = None) -> torch.Tensor:
     """The scatter kernel on a CUDA tensor, its plain version on a CPU one.
     idx (B, Q) int in [0, n_rows), g (B, Q, C) f32 or bf16 -> (B, n_rows, C)
     f32, each element the sum of its contributors in ascending q. Built for
-    n_rows <= ``MAX_ROWS``."""
+    n_rows <= ``MAX_ROWS``; launched under ``scatter_plan`` (or
+    ``use_plan``)."""
     if g.device.type == "cpu":
         return scatter_rows_add_plain(idx, g, n_rows)
     B, Q, C = g.shape
@@ -72,16 +131,37 @@ def scatter_rows_add(idx: torch.Tensor, g: torch.Tensor, n_rows: int) -> torch.T
     kernels.require_cuda(g, idx32)
     if tuple(idx32.shape) != (B, Q):
         raise ValueError(f"idx {tuple(idx32.shape)} does not match g {tuple(g.shape)}")
-    row_ptr = torch.empty((B, n_rows + 1), dtype=torch.int32, device=g.device)
-    order = torch.empty((B, Q), dtype=torch.int32, device=g.device)
+    plan = use_plan or scatter_plan(B, Q, C, g.element_size(), g.data_ptr() & -g.data_ptr(),
+                                    kernels.card_sms(g.device))
+    work = torch.empty((scatter_work_ints(B, Q, n_rows, plan.segs),), dtype=torch.int32,
+                       device=g.device)
     out = torch.empty((B, n_rows, C), dtype=torch.float32, device=g.device)
     P, I = kernels.P, kernels.I
     kernels.launch("scatter_rows_add", "scatter", "scatter_rows_add",
-                   (P, I, P, I, I, I, I, I, P, P, P, P), g.data_ptr(),
-                   int(g.dtype == torch.bfloat16), idx32.data_ptr(), B, Q, n_rows, C,
-                   _vec_width(g), row_ptr.data_ptr(), order.data_ptr(), out.data_ptr(),
-                   kernels.stream(g))
+                   (P, I, P) + (I,) * 7 + (P, P, P), g.data_ptr(),
+                   int(g.dtype == torch.bfloat16), idx32.data_ptr(), B, Q, n_rows, C, *plan,
+                   work.data_ptr(), out.data_ptr(), kernels.stream(g))
     return out
+
+
+def scatter_lists_kernel(idx: torch.Tensor, n_rows: int, segs: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The scatter kernel's counting sort alone (the library's
+    ``scatter_lists`` check entry, off every model path and not counted):
+    (counts, start, order) as ``scatter_lists_plain`` gives them."""
+    idx32 = idx.to(torch.int32).contiguous()
+    kernels.require_cuda(idx32)
+    B, Q = idx32.shape
+    work = torch.empty((scatter_work_ints(B, Q, n_rows, segs),), dtype=torch.int32,
+                       device=idx.device)
+    fn = kernels.library("scatter").scatter_lists
+    fn.argtypes = [kernels.P] + [kernels.I] * 4 + [kernels.P, kernels.P]
+    err = fn(idx32.data_ptr(), B, Q, n_rows, segs, work.data_ptr(), kernels.stream(idx32))
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel scatter_lists failed to launch ({err})")
+    o = B * segs * n_rows
+    e = o + B * (n_rows + 1)
+    return work[:o].view(B, segs, n_rows), work[o:e].view(B, n_rows + 1), work[e:].view(B, Q)
 
 
 def gather_rows_small_c_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

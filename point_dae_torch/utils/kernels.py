@@ -139,6 +139,18 @@ def stream(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
+_sms: Dict[int, int] = {}
+
+
+def card_sms(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device (asked once), for the
+    launch plans."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sms[index]
+
+
 def require_cuda(*tensors: torch.Tensor, contiguous: bool = True) -> None:
     """Kernel inputs must be tensors on one CUDA device, contiguous unless
     the kernel reads them by their strides."""

@@ -776,6 +776,123 @@ def test_scatter_kernel_matches_plain(dev, B, Q, N, C, dtype):
     assert x.grad.dtype == dtype and torch.equal(x.grad, got.to(dtype))
 
 
+@pytest.fixture(scope="module")
+def parents():
+    """The previous aggregate and scatter designs (point_dae_torch/tools/
+    aggregate_parent.cu, scatter_parent.cu), built once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from point_dae_torch.tools import rowreduce_ablation
+
+    return {n: lib for n, (lib, _) in
+            rowreduce_ablation.build(["aggregate_parent", "scatter_parent"]).items()}
+
+
+AGG_LIMIT = edgeconv.BLOCK_SMEM // 16      # the last N a 4-channel slice takes
+
+
+@pytest.mark.parametrize("N", [1, 20, 1023, 1024, 2048, 4096, AGG_LIMIT + 1])
+@pytest.mark.parametrize("C", [3, 64, 66, 256])
+def test_aggregate_is_exact_against_plain_and_previous_design(dev, parents, N, C):
+    """aggregate_from_idx under its plan (the staged form, or the L2 form one
+    point past the staged form's limit) at k 1, 20 and 64 (repeated rows
+    where k > N), track on and off: every output bit for bit with the plain
+    version and the previous design, the same bits on a second launch."""
+    from point_dae_torch.tools import rowreduce_ablation
+
+    B = 128 if N <= 20 else 4 if N <= 4096 else 1
+    g = _gen(dev, N + C)
+    U = torch.randn((B, N, C), generator=g, device=dev).bfloat16().float()
+    U[:, N // 2:N // 2 + min(N // 2, 8)] = U[:, :min(N // 2, 8)]      # value ties
+    plan = edgeconv.aggregate_plan(B, N, C)
+    assert plan.form == ("L2" if N > AGG_LIMIT else "staged")
+    for k in (1, 20, 64):
+        idx = torch.randint(0, N, (B, N, k), generator=g, device=dev, dtype=torch.int32)
+        want = edgeconv.aggregate_plain(U, idx)
+        for track in (True, False):
+            got = edgeconv.aggregate_fwd_kernel(U, idx, track)
+            again = edgeconv.aggregate_fwd_kernel(U, idx, track)
+            prev = rowreduce_ablation.parent_aggregate(parents["aggregate_parent"], U, idx, track)
+            outs = 6 if track else 4
+            assert all(t is None for t in got[outs:])
+            for i in range(outs):
+                assert torch.equal(got[i], again[i]) and torch.equal(got[i], prev[i]), (k, i)
+                assert torch.equal(got[i].to(want[i].dtype), want[i]), (k, track, i)
+
+
+@pytest.mark.parametrize("plan", [edgeconv.AggPlan(lanes, chunks) for lanes in (0, 1, 2, 4, 8)
+                                  for chunks in (1, 3)])
+def test_aggregate_gives_the_same_bits_under_every_plan(dev, plan):
+    """Every slice width (and the L2 form), whole clouds and three row
+    chunks, at C 66 (a ragged last slice, rows not 16-byte aligned) and C 64."""
+    g = _gen(dev, 31)
+    for C in (66, 64):
+        U = torch.randn((3, 300, C), generator=g, device=dev)
+        idx = torch.randint(0, 300, (3, 300, 20), generator=g, device=dev, dtype=torch.int32)
+        got = edgeconv.aggregate_fwd_kernel(U, idx, True, use_plan=plan)
+        for a, b in zip(got, edgeconv.aggregate_plain(U, idx)):
+            assert torch.equal(a.to(b.dtype), b), (plan, C)
+
+
+# (B, Q, N): Q that no segment count divides, one row, 2048 rows
+SCATTER_EDGES = [(3, 40961, 2048), (2, 5000, 1), (4, 6143, 128), (1, 777, 2048)]
+
+
+def _scatter_idx(dev, B, Q, N, kind, seed):
+    g = _gen(dev, seed)
+    idx = torch.randint(0, N, (B, Q), generator=g, device=dev, dtype=torch.int32)
+    if kind == "hub":
+        idx[:, ::3] = N // 2                          # a third of the entries to one row
+    elif kind == "one row":
+        idx[:] = N - 1                                # every row unnamed but one
+    elif kind == "outside":
+        idx[:, 1::7] = -1 - idx[:, 1::7]              # outside [0, N): add nothing
+        idx[:, 2::9] = N + idx[:, 2::9]
+    return idx
+
+
+@pytest.mark.parametrize("B,Q,N", SCATTER_EDGES)
+@pytest.mark.parametrize("kind", ["hub", "one row", "outside"])
+def test_scatter_kernel_is_exact_at_edge_cases(dev, parents, B, Q, N, kind):
+    """f32 and bf16 g, every load width the kernel takes (f32 V 1, 2, 4; bf16
+    V 1, 2, 4, 8) with the lanes that cover C 64, under the plan's segments:
+    bit for bit with the plain version on the CPU and with the previous
+    design, the same bits on a second launch."""
+    from point_dae_torch.tools import rowreduce_ablation
+
+    idx = _scatter_idx(dev, B, Q, N, kind, Q + N)
+    C = 64
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.randn((B, Q, C), generator=_gen(dev, Q), device=dev).to(dtype)
+        want = gather.scatter_rows_add_plain(idx.cpu(), g.cpu(), N)
+        prev = rowreduce_ablation.parent_scatter(parents["scatter_parent"], idx, g, N)
+        assert torch.equal(prev.cpu(), want)
+        base = gather.scatter_plan(B, Q, C, g.element_size(), 256)
+        for vec in ((1, 2, 4, 8) if dtype == torch.bfloat16 else (1, 2, 4)):
+            lanes = min(32, C // vec)
+            plan = base._replace(vec=vec, lanes=lanes)
+            got = gather.scatter_rows_add(idx, g, N, use_plan=plan)
+            again = gather.scatter_rows_add(idx, g, N, use_plan=plan)
+            assert torch.equal(got, again) and torch.equal(got, prev), (dtype, vec)
+            assert torch.equal(got.cpu(), want), (dtype, vec)
+
+
+@pytest.mark.parametrize("B,Q,N", SCATTER_EDGES + [(16, 40960, 2048), (16, 6144, 128)])
+@pytest.mark.parametrize("segs", [1, 7, 16])
+def test_scatter_sort_scratch_matches_its_plain_layout(dev, B, Q, N, segs):
+    """The counting sort alone (the library's ``scatter_lists`` entry):
+    segment counts, list starts and lists as ``scatter_lists_plain`` lays
+    them out, idx outside [0, N) left out."""
+    idx = _scatter_idx(dev, B, Q, N, "outside", 3 * Q + segs)
+    counts, start, order = gather.scatter_lists_kernel(idx, N, segs)
+    w_counts, w_start, w_order = gather.scatter_lists_plain(idx.cpu(), N, segs)
+    torch.cuda.synchronize()
+    assert torch.equal(counts.cpu(), w_counts) and torch.equal(start.cpu(), w_start)
+    for b in range(B):
+        n = int(w_start[b, N])
+        assert torch.equal(order[b, :n].cpu(), w_order[b, :n])
+
+
 def _fps_cloud(dev, B, N, seed=8):
     """Normal points, a block of them duplicated, a few at the origin and one
     just inside the unselectable radius."""
