@@ -153,6 +153,18 @@ Phases, each fatal on failure:
               partseg cases bit for bit against the previous design, its
               device time split into count, place and sums beside the
               previous design's sort and sums.
+ 17. chamfer redesign - the previous chamfer design
+              (point_dae_torch/tools/chamfer_parent.cu, a launch a direction)
+              is built beside the kernels; the patch chamfer at the
+              flagship's 13056 patches of 36 and 32 points and the tiled
+              chamfer at the DGCNN step's (128, 1024, 1024), each both
+              directions in one launch under its plan
+              (losses/chamfer.py:patch_plan, tiled_plan): dist, idx and near
+              bit for bit with the two plain halves and the previous design,
+              each design's time a call and device time, the bound (the
+              patch half's by bytes read once and twice; the tiled half's
+              rounding-rule floor); each train step launches each chamfer
+              kernel once; key_gather's device time beside its wrapper's.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Run from the repository root:
 
@@ -547,6 +559,43 @@ def relu_flips_ok(got, want, tol=2e-2, flip_tol=1e-1, flip_frac=1e-4) -> bool:
 PATCHIFY_SPLIT = (("fps", "patchify_fps_"), ("knn rows", "patchify_knn_"))
 # csrc/chamfer.cu's kernels against whatever else a call launches
 CHAMFER_SPLIT = (("kernels", "nn_half"),)
+# issue rates of the tiled chamfer's rounding-rule floor (eight instructions a
+# pair, 128 lanes a clock an SM): the H100 SXM's boost clock and a clock
+# under full load (the card's clock is not set by this script)
+CLOCKS_HZ = (1.98e9, 1.755e9)
+
+
+def chamfer_report(torch, x, y, small, parent, what):
+    """Both directions of one chamfer kernel at a path's shape, one launch
+    (``nn_half_small_pair`` or ``nn_half_tiled_pair``): every output bit for
+    bit with the two plain halves and with the previous design (``parent``,
+    built from point_dae_torch/tools/chamfer_parent.cu: a launch a
+    direction); each design's time a call (CUDA events) and device time
+    (torch.profiler; the previous design's a yardstick, null where its
+    windows are lost). Returns (ms, device split, previous ms, previous
+    device ms)."""
+    from point_dae_torch.losses import chamfer
+    from point_dae_torch.tools import chamfer_ablation
+
+    pair = chamfer.nn_half_small_pair if small else chamfer.nn_half_tiled_pair
+    plain = chamfer.nn_half_small_plain if small else chamfer.nn_half_tiled_plain
+    got = pair(x, y)
+    want = plain(x, y) + plain(y, x)
+    prev = chamfer_ablation.parent_pair(parent, x, y, small)
+    torch.cuda.synchronize()
+    for i, (a, b, c) in enumerate(zip(got, want, prev)):
+        if not torch.equal(a, b):
+            fail(f"{what}: output {i} differs from the plain halves (max |diff| "
+                 f"{float((a.float() - b.float()).abs().max())})")
+        if not torch.equal(a, c):
+            fail(f"{what}: output {i} differs from the previous design")
+    del got, want, prev
+    ms = cuda_ms(lambda: pair(x, y), 20)
+    split = device_split(lambda: pair(x, y), CHAMFER_SPLIT, 20, what)
+    previous = lambda: chamfer_ablation.parent_pair(parent, x, y, small)  # noqa: E731
+    prev_ms = cuda_ms(previous, 20)
+    prev_dev, _ = device_ms(previous, f"previous design of {what}", 20, library=True)
+    return ms, split, prev_ms, prev_dev
 
 
 def patchify_report(torch, pts, G, S, parent):
@@ -632,37 +681,37 @@ def phase_kernels(torch, pts, device, parents):
              f"included (device {ms_text(t['lib_cast_dev'])}); from a ready int64 index "
              f"{t['lib_ready_ms']:.4f} (device {ms_text(t['lib_ready_dev'])})")
 
-    # -- patch chamfer: 256*51 patches, 36 rebuilt points vs 32 true ones
+    # -- patch chamfer: 256*51 patches, 36 rebuilt points vs 32 true ones, both
+    # directions in one launch, bit for bit with the plain halves and the
+    # previous design
     neigh, _ = group_neighborhood(pts, G, S)
     y = neigh[:, :51].reshape(-1, S, 3).contiguous()               # (13056, 32, 3)
     x = (torch.randn((y.shape[0], 36, 3), generator=g, device=device) * 0.05).contiguous()
-    errs = []
-    for a, b in ((x, y), (y, x)):
-        dk_, ik, nk = chamfer.nn_half_small(a, b)
-        dp_, ip, np_ = chamfer.nn_half_small_plain(a, b)
-        same = float((ik == ip).float().mean())
-        if not (torch.allclose(dk_, dp_, rtol=1e-6, atol=0) and same > 0.9999):
-            fail(f"patch chamfer: dist/idx disagree (idx match {same})")
-        errs.append(float((dk_ - dp_).abs().max()))
+    ms, split, prev_ms, prev_dev = chamfer_report(torch, x, y, True, parents["chamfer_parent"],
+                                                  "nn_half_small_pair")
 
     def lib_chamfer():
         d = torch.cdist(x, y) ** 2
         return d.min(2).values, d.min(1).values
 
     P, Nq, M = x.shape[0], 36, 32
-    nbytes = 2 * (P * (Nq * 3 + M * 3) * 4) + P * (Nq + M) * (4 + 4 + 12)
-    small_dev = device_split(lambda: (chamfer.nn_half_small(x, y), chamfer.nn_half_small(y, x)),
-                             CHAMFER_SPLIT, 20, "nn_half_small, both directions")
+    inputs = P * (Nq + M) * 3 * 4
+    nbytes = inputs + P * (Nq + M) * (4 + 4 + 12)          # each input read once
+    bound = bound_ms(nbytes, 2 * P * Nq * M * 8, F32_FLOPS)
+    line = (f"{ms:.4f} ms a call, device {split['total']:.4f} (plan "
+            f"{tuple(chamfer.patch_plan(Nq, M))}); previous design (a launch a direction) "
+            f"{prev_ms:.4f} a call, device {ms_text(prev_dev)}; bound {bound[0]:.4f} by "
+            f"{bound[1]} (each input read once; "
+            f"{(nbytes + inputs) / HBM_BYTES_PER_S * 1e3:.4f} reading each twice); dist, idx "
+            f"and near bit for bit with the plain halves and the previous design")
+    log(f"  patch chamfer ({P}, {Nq} and {M}), both directions: {line}")
     records["nn_half_small"] = dict(
         replaces="point_dae_tpu/losses/chamfer.py:107",
-        source="point_dae_torch/csrc/chamfer.cu", max_abs_err=max(errs),
-        ms=cuda_ms(lambda: (chamfer.nn_half_small(x, y), chamfer.nn_half_small(y, x)), 20),
+        source="point_dae_torch/csrc/chamfer.cu", max_abs_err=0.0, ms=ms,
         plain_ms=cuda_ms(lambda: (chamfer.nn_half_small_plain(x, y),
                                   chamfer.nn_half_small_plain(y, x)), 5),
-        library_ms=cuda_ms(lib_chamfer, 20),
-        bound=bound_ms(nbytes, 2 * P * Nq * M * 8, F32_FLOPS),
-        note=f"both directions, 36 vs 32 and 32 vs 36; device {small_dev['total']:.4f} ms: "
-             + split_line(small_dev))
+        library_ms=cuda_ms(lib_chamfer, 20), bound=bound,
+        note=f"both directions, 36 vs 32 and 32 vs 36, one launch: {line}")
 
     # -- fused LN + MLP + residual: the decoder's rows, R = 256 * 64, then the
     # encoder's, R = 256 * 32 (the first rows of the same inputs)
@@ -1163,43 +1212,48 @@ def phase_dgcnn_kernels(torch, corrupted, clean, device, parent, parents):
     backwards and the selection held bit for bit against the previous
     design (``parent``, the library built from
     point_dae_torch/tools/edgeconv_parent.cu); the aggregate alone against
-    its previous design (``parents["aggregate_parent"]``, aggregate_report)."""
+    its previous design (``parents["aggregate_parent"]``, aggregate_report);
+    the tiled chamfer against its plain halves and previous design
+    (``parents["chamfer_parent"]``, chamfer_report)."""
     from point_dae_torch.tools import edgeconv_ablation
     from point_dae_torch.losses import chamfer
     from point_dae_torch.ops import edgeconv
+    from point_dae_torch.utils import kernels
 
     records = {}
     g = torch.Generator(device=device).manual_seed(SEED + 5)
     B, N, k = DGCNN_BATCH, 1024, 20
 
-    # -- tiled chamfer: a reconstruction against the clean cloud, both ways
+    # -- tiled chamfer: a reconstruction against the clean cloud, both ways in
+    # one launch, bit for bit with the plain halves and the previous design
     x = (clean + 0.05 * torch.randn(clean.shape, generator=g, device=device)).contiguous()
     x[:, 7] = clean[:, 9]                      # exact hits: distance 0
     y = clean.contiguous()
-    for a, b in ((x, y), (y, x)):
-        dk, ik = chamfer.nn_half_tiled(a, b)
-        dp, ip = chamfer.nn_half_tiled_plain(a, b)
-        if not (torch.equal(ik, ip) and torch.equal(dk, dp)):
-            fail(f"tiled chamfer: differs from the plain version (idx match "
-                 f"{float((ik == ip).float().mean())}, max |d| "
-                 f"{float((dk - dp).abs().max())})")
+    ms, split, prev_ms, prev_dev = chamfer_report(torch, x, y, False,
+                                                  parents["chamfer_parent"],
+                                                  "nn_half_tiled_pair")
 
     def lib_chamfer():
         d = torch.cdist(x, y) ** 2
         return d.min(2).values, d.min(1).values
 
-    tiled_dev = device_split(lambda: (chamfer.nn_half_tiled(x, y), chamfer.nn_half_tiled(y, x)),
-                             CHAMFER_SPLIT, 20, "nn_half_tiled, both directions")
+    pairs = 2 * B * N * N
+    floor = [pairs * 8 / (kernels.card_sms(device) * 128 * hz) * 1e3 for hz in CLOCKS_HZ]
+    bound = bound_ms(2 * (2 * B * N * 3 * 4 + B * N * 8), pairs * 9, F32_FLOPS)
+    line = (f"{ms:.4f} ms a call, device {split['total']:.4f} (plan "
+            f"{tuple(chamfer.tiled_plan(B, N, N, kernels.card_sms(device)))}); previous design "
+            f"(a launch a direction) {prev_ms:.4f} a call, device {ms_text(prev_dev)}; bound "
+            f"{bound[0]:.4f} by {bound[1]}; rounding-rule floor (eight instructions a pair) "
+            f"{floor[0]:.4f}-{floor[1]:.4f} at {CLOCKS_HZ[0] / 1e9:.3f}-{CLOCKS_HZ[1] / 1e9:.3f} "
+            f"GHz; dist and idx bit for bit with the plain halves and the previous design")
+    log(f"  tiled chamfer ({B}, {N}, {N}), both directions: {line}")
     records["nn_half_tiled"] = dict(
         replaces="point_dae_tpu/losses/chamfer.py:41",
-        source="point_dae_torch/csrc/chamfer.cu", max_abs_err=0.0,
-        ms=cuda_ms(lambda: (chamfer.nn_half_tiled(x, y), chamfer.nn_half_tiled(y, x)), 20),
+        source="point_dae_torch/csrc/chamfer.cu", max_abs_err=0.0, ms=ms,
         plain_ms=cuda_ms(lambda: (chamfer.nn_half_tiled_plain(x, y),
                                   chamfer.nn_half_tiled_plain(y, x)), 3),
-        library_ms=cuda_ms(lib_chamfer, 10),
-        bound=bound_ms(2 * (2 * B * N * 3 * 4 + B * N * 8), 2 * B * N * N * 9, F32_FLOPS),
-        note=f"both directions, 1024 vs 1024, bit for bit; device {tiled_dev['total']:.4f} ms: "
-             + split_line(tiled_dev))
+        library_ms=cuda_ms(lib_chamfer, 10), bound=bound,
+        note=f"both directions, 1024 vs 1024, one launch: {line}")
     del x, y
 
     # -- fused kNN aggregate at the four EdgeConv shapes. Layer 1 sees the
@@ -1431,6 +1485,8 @@ def phase_dgcnn_train(torch, config, raw, device, card):
                                                         TRAIN_STEPS, SEED + 7)
     if min(launches[k] for k in DGCNN_COUNTERS) == 0:
         fail(f"train: a DGCNN kernel was never launched on the main path: {launches}")
+    if launches["nn_half_tiled"] != TRAIN_STEPS:
+        fail(f"train: the DGCNN chamfer did not take one launch a step: {launches}")
     log(f"  launches on the DGCNN path ({TRAIN_STEPS} steps): "
         f"{ {k: v for k, v in launches.items() if v} }")
     log(f"  [{card}] DGCNN step {steady * 1e3:.2f} ms (median of steps 2-{TRAIN_STEPS}), "
@@ -1553,6 +1609,8 @@ def phase_train(torch, config, raw, device, card):
         fail(f"train: a kernel was never launched on the main path: {launches}")
     if (launches["mlp_ln_fwd"], launches["mlp_ln_bwd"]) != (16 * TRAIN_STEPS,) * 2:
         fail(f"train: the flagship did not launch mlp_ln 16 times a step: {launches}")
+    if launches["nn_half_small"] != TRAIN_STEPS:
+        fail(f"train: the flagship's patch chamfer did not take one launch a step: {launches}")
     log(f"  launches on the main path ({TRAIN_STEPS} steps): "
         f"{ {k: launches[k] for k in FLAGSHIP_COUNTERS} }")
     log(f"  [{card}] step {steady * 1e3:.2f} ms (median of steps 2-{TRAIN_STEPS}), "
@@ -2365,20 +2423,24 @@ def phase_key_knn_kernels(torch, device, card, parents):
         if not torch.equal(got[ok], packed[ok]):
             fail(f"key_gather {name}: differs from the argsort-pack path")
         ms = cuda_ms(lambda: gather.gather_by_key(x, keys, draw), 50)
+        dev = device_split(lambda: gather.gather_by_key(x, keys, draw),
+                           (("kernel", "gather_by_key_kernel"),), 20, f"key_gather {name}")
         plain = cuda_ms(lambda: gather.gather_by_key_plain(x, keys, draw), 20)
         pack_ms = cuda_ms(argsort_pack, 20)
         nbytes = x.numel() * 4 + keys.numel() * 4 + draw.numel() * 4 + got.numel() * 4
         bound = bound_ms(nbytes, 0, F32_FLOPS)
         log(f"  [{card}] key_gather {name} ({B}, {x.shape[1]}, 3) -> 1024: {ms:.4f} ms "
-            f"(plain {plain:.4f}, argsort-pack path {pack_ms:.4f}, bound {bound[0]:.4f} by "
-            f"{bound[1]}); bit for bit, equal to the argsort-pack path")
-        rows.append((ms, plain, bound))
-    ms, plain, bound = rows[0]
+            f"a call, device {dev['total']:.4f} ({split_line(dev)}) (plain {plain:.4f}, "
+            f"argsort-pack path {pack_ms:.4f}, bound {bound[0]:.4f} by {bound[1]}); bit for "
+            f"bit, equal to the argsort-pack path")
+        rows.append((ms, plain, bound, dev["total"]))
+    ms, plain, bound, dev = rows[0]
     records["key_gather"] = dict(
         replaces="point_dae_tpu/ops/pallas_scatter.py:176",
         source="point_dae_torch/csrc/gather.cu", max_abs_err=0.0, ms=ms, plain_ms=plain,
         library_ms=None, bound=bound,
-        note="dropout_patch_pointmae shape (128, 2048, 3) -> 1024; no single PyTorch call")
+        note=f"dropout_patch_pointmae shape (128, 2048, 3) -> 1024, device {dev:.4f} ms "
+             f"(dropout_global_p3 shape {rows[1][3]:.4f}); no single PyTorch call")
     del flat, pidx
 
     # -- knn at MaskFeat's five shapes
@@ -3088,9 +3150,10 @@ def main() -> None:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {torch.get_num_threads()} CPU threads")
 
-    # 2. build, with the previous EdgeConv, FPS, patchify, aggregate and scatter designs
+    # 2. build, with the previous EdgeConv, FPS, patchify, aggregate, scatter and chamfer designs
     # (the yardsticks of the redesigned kernels)
-    from point_dae_torch.tools import edgeconv_ablation, fps_ablation, rowreduce_ablation
+    from point_dae_torch.tools import (chamfer_ablation, edgeconv_ablation, fps_ablation,
+                                       rowreduce_ablation)
 
     t0 = time.perf_counter()
     parent_join = edgeconv_ablation.build_in_background(["parent"])
@@ -3098,12 +3161,15 @@ def main() -> None:
                                                          fps_ablation.build)
     rowreduce_join = edgeconv_ablation.build_in_background(
         ["aggregate_parent", "scatter_parent"], rowreduce_ablation.build)
+    chamfer_join = edgeconv_ablation.build_in_background(["chamfer_parent"],
+                                                         chamfer_ablation.build)
     logs = kernels.build()
     parent = parent_join()["parent"][0]
     parents = {name: lib for name, (lib, _) in parents_join().items()}
     parents.update({name: lib for name, (lib, _) in rowreduce_join().items()})
-    log(f"build: {sorted(logs)} and the previous EdgeConv, FPS, patchify, aggregate and "
-        f"scatter designs in {time.perf_counter() - t0:.1f} s")
+    parents.update({name: lib for name, (lib, _) in chamfer_join().items()})
+    log(f"build: {sorted(logs)} and the previous EdgeConv, FPS, patchify, aggregate, "
+        f"scatter and chamfer designs in {time.perf_counter() - t0:.1f} s")
     stamp("import and build")
     for name, text in sorted(logs.items()):
         if name == "attention":

@@ -1011,3 +1011,127 @@ def test_tiny_finetune_step_on_the_card(dev, name):
     assert logits.shape == vote.shape == (4, 15)
     assert torch.isfinite(logits).all() and torch.isfinite(vote).all()
     assert kernels.launches["fps"] == 4
+
+
+@pytest.fixture(scope="module")
+def chamfer_parent():
+    """The previous chamfer design (point_dae_torch/tools/chamfer_parent.cu),
+    built once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from point_dae_torch.tools import chamfer_ablation
+
+    return chamfer_ablation.build(["chamfer_parent"])["chamfer_parent"][0]
+
+
+def _assert_pair_exact(got, x, y, parent, small):
+    """A pair entry's outputs bit for bit with the two plain halves and with
+    the previous design's two launches."""
+    from point_dae_torch.tools import chamfer_ablation
+
+    plain = chamfer.nn_half_small_plain if small else chamfer.nn_half_tiled_plain
+    want = plain(x, y) + plain(y, x)
+    prev = chamfer_ablation.parent_pair(parent, x, y, small)
+    assert len(got) == len(want) == len(prev)
+    for i, (a, b, c) in enumerate(zip(got, want, prev)):
+        assert torch.equal(a, b), i
+        assert torch.equal(a, c), i
+
+
+@pytest.mark.parametrize("B,N,M", [(3, 700, 1500), (2, 512, 512), (1, 1, 262144),
+                                   (1, 262144, 1), (4, 1023, 2049), (128, 1024, 1024)])
+def test_tiled_chamfer_pair_is_exact(dev, chamfer_parent, B, N, M):
+    """Both directions in one launch under the plan, bit for bit with the
+    plain halves and the previous design: a duplicated target in two column
+    ranges of the plan and in two chunks of one range (an exact hit on it, so
+    the first copy must win), exact hits; the same bits on a second launch
+    and under plans with other groups and rows a thread."""
+    g = _gen(dev, N + M)
+    x = torch.randn((B, N, 3), generator=g, device=dev)
+    y = torch.randn((B, M, 3), generator=g, device=dev)
+    plan = chamfer.tiled_plan(B, N, M)
+    for t, cols, other in ((y, M, x), (x, N, y)):
+        ranges = [r for r in plan.ranges(cols) if r[1] > r[0]]
+        src = min(10, cols - 1)
+        dups = [c for c in (src + 3 * chamfer.TILED_CHUNK, ranges[-1][0] + 1) if src < c < cols]
+        for c in dups:
+            t[:, c] = t[:, src]
+        other[:, 0] = t[:, src]                        # an exact hit on the duplicated target
+    x[:, -1] = y[:, M // 2]
+    got = chamfer.nn_half_tiled_pair(x, y)
+    _assert_pair_exact(got, x, y, chamfer_parent, small=False)
+    assert all(torch.equal(a, b) for a, b in zip(got, chamfer.nn_half_tiled_pair(x, y)))
+    for p in (plan._replace(groups=1, piece=chamfer.TILED_STAGE),
+              chamfer.TiledPlan(8, 8, 4, 300), chamfer.TiledPlan(1, 2, 2, 64)):
+        assert all(torch.equal(a, b) for a, b in zip(got, chamfer.nn_half_tiled_pair(x, y, p))), p
+    assert float(got[0].min()) >= 0.0 and float(got[2].min()) >= 0.0
+
+
+@pytest.mark.parametrize("case", ["equal_targets", "large", "subnormal"])
+def test_tiled_chamfer_pair_is_exact_at_edge_values(dev, chamfer_parent, case):
+    """Every target equal (index 0 everywhere), coordinates near 1e3, and
+    near 1e-20 (products under f32's least normal): bit for bit with the
+    plain halves and the previous design."""
+    g = _gen(dev, 61)
+    B, N, M = 2, 600, 900
+    x = torch.randn((B, N, 3), generator=g, device=dev)
+    y = torch.randn((B, M, 3), generator=g, device=dev)
+    if case == "equal_targets":
+        y[:] = y[:, :1]
+        x[:] = x[:, :1]
+    elif case == "large":
+        x, y = 1e3 + x, 1e3 + y
+    else:
+        x, y = 1e-20 * x, 1e-20 * y
+    got = chamfer.nn_half_tiled_pair(x, y)
+    _assert_pair_exact(got, x, y, chamfer_parent, small=False)
+    if case == "equal_targets":
+        assert int(got[1].max()) == 0 and int(got[3].max()) == 0
+
+
+@pytest.mark.parametrize("P", [100, 4096, 4097, 13056])
+@pytest.mark.parametrize("N,M", [(36, 32), (32, 36), (1, 64), (64, 1), (64, 64), (17, 5)])
+def test_patch_chamfer_pair_is_exact(dev, chamfer_parent, P, N, M):
+    """Both directions in one launch under the plan, bit for bit with the
+    plain halves and the previous design (dist, idx and near): tied targets,
+    identical patches, exact hits; the same bits on a second launch and
+    under other plans."""
+    g = _gen(dev, P + N + M)
+    x = 0.1 * torch.randn((P, N, 3), generator=g, device=dev)
+    y = 0.1 * torch.randn((P, M, 3), generator=g, device=dev)
+    if M > 9:
+        y[:, 9] = y[:, 3]                              # tie: first index wins
+    if N > 7:
+        x[:, 7] = x[:, 2]
+    x[1], y[1] = x[0], y[0]                            # identical patches
+    x[2, 0] = y[2, -1]                                 # an exact hit
+    got = chamfer.nn_half_small_pair(x, y)
+    _assert_pair_exact(got, x, y, chamfer_parent, small=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, chamfer.nn_half_small_pair(x, y)))
+    for p in (chamfer.PatchPlan(1, 32), chamfer.PatchPlan(5, 96), chamfer.PatchPlan(32, 256)):
+        assert all(torch.equal(a, b) for a, b in zip(got, chamfer.nn_half_small_pair(x, y, p))), p
+    assert all(torch.equal(a, b) for a, b in zip(got[:3], chamfer.nn_half_small(x, y)))
+
+
+@pytest.mark.parametrize("shapes", [((4096, 36, 3), (4096, 32, 3)),
+                                    ((2, 700, 3), (2, 1500, 3))])
+def test_nn_distance_launches_one_chamfer_kernel_a_call(dev, shapes):
+    """nn_distance takes its gate's pair entry: one launch a call, both
+    directions equal to the plain halves, gradients finite."""
+    from point_dae_torch.utils import kernels
+
+    g = _gen(dev, 62)
+    x = torch.randn(shapes[0], generator=g, device=dev).requires_grad_()
+    y = torch.randn(shapes[1], generator=g, device=dev).requires_grad_()
+    small = chamfer.use_small_kernel(x, y.shape[1])
+    name = "nn_half_small" if small else "nn_half_tiled"
+    assert small or chamfer.use_tiled_kernel(x, y.shape[1])
+    kernels.reset_launches()
+    d1, d2, i1, i2 = chamfer.nn_distance(x, y)
+    assert kernels.launches[name] == 1 and sum(kernels.launches.values()) == 1
+    plain = chamfer.nn_half_small_plain if small else chamfer.nn_half_tiled_plain
+    w1, w2 = plain(x.detach(), y.detach()), plain(y.detach(), x.detach())
+    assert torch.equal(i1, w1[1]) and torch.equal(i2, w2[1])
+    assert torch.equal(d1, w1[0].clamp_min(0.0)) and torch.equal(d2, w2[0].clamp_min(0.0))
+    (d1.mean() + d2.mean()).backward()
+    assert torch.isfinite(x.grad).all() and torch.isfinite(y.grad).all()
