@@ -165,6 +165,16 @@ Phases, each fatal on failure:
               patch half's by bytes read once and twice; the tiled half's
               rounding-rule floor); each train step launches each chamfer
               kernel once; key_gather's device time beside its wrapper's.
+ 18. key gather redesign - the key gather (csrc/gather.cu:
+              gather_by_key_small_c) at both dropout shapes from int64 keys
+              and ranks, from the mask with f32 uniforms and with int64
+              ranks, and through resample_batch, each bit for bit with its
+              plain twin (key_gather_report); a masked resample_batch is
+              one kernel launch under torch.profiler (launches_a_call);
+              its call time, each form's device time and bound; the
+              dropout_patch_pointmae and dropout_global_p3 steps each
+              profiled (busy time). Its previous design is timed by
+              point_dae_torch/tools/key_gather_ablation.py, not here.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Run from the repository root:
 
@@ -2354,15 +2364,122 @@ def load_cfg(path):
     return cfg_from_yaml_file(os.path.join(os.path.dirname(os.path.abspath(__file__)), path))
 
 
+def key_gather_report(torch, name, x, mask, g, card):
+    """The key gather at one dropout shape, Q 1024: form (a) from the int64
+    keys and ranks the previous resample built, form (b) from the mask with
+    the f32 uniforms the dropouts draw and with int64 ranks, and
+    ``resample_batch`` (mask in, rows out), each bit for bit with its plain
+    twin and with each other, a cloud with no valid point giving zeros and
+    the rest equal to the argsort-pack path of the CPU. The masked
+    resample must be one kernel launch (torch.profiler, ``launches_a_call``).
+    Returns (gather_by_mask ms a call, its plain twin's ms, its bound, its
+    device ms); logs form (a)'s and resample_batch's times beside them."""
+    from point_dae_torch.ops import gather
+    from point_dae_torch.ops.geometry import resample_batch
+
+    B, N, C = x.shape
+    Q = 1024
+    u = torch.rand((B, Q), generator=g, device=x.device)
+    draw = gather.ranks_from_uniforms(mask, u)
+    keys = torch.where(mask, torch.cumsum(mask.int(), 1) - 1, -1)
+    want = gather.gather_by_key_plain(x, keys, draw)
+    got = {"keys": gather.gather_by_key(x, keys, draw),
+           "mask, uniforms": gather.gather_by_mask(x, mask, u),
+           "mask, int64 ranks": gather.gather_by_mask(x, mask, draw),
+           "resample_batch": resample_batch(x, mask, Q, draws=u)}
+    twin = gather.gather_by_mask_plain(x, mask, u)
+    packed = torch.gather(x, 1, torch.gather(
+        torch.sort((~mask).to(torch.uint8), dim=1, stable=True).indices, 1,
+        draw)[..., None].expand(-1, -1, C))
+    torch.cuda.synchronize()
+    if not torch.equal(twin, want):
+        fail(f"key_gather {name}: the two plain twins differ")
+    for form, out in got.items():
+        if not torch.equal(out, want):
+            fail(f"key_gather {name}: {form} differs from the plain version")
+    empty = mask.sum(1) == 0
+    if empty.any() and got["mask, uniforms"][empty].any():
+        fail(f"key_gather {name}: a cloud with no valid point did not give zeros")
+    if not torch.equal(want[~empty], packed[~empty]):
+        fail(f"key_gather {name}: differs from the argsort-pack path")
+    per_call = launches_a_call(torch, lambda: resample_batch(x, mask, Q, draws=u), 20,
+                               f"resample_batch {name}")
+    if per_call != 1:
+        fail(f"key_gather {name}: a masked resample_batch made {per_call} kernel launches, "
+             f"not one")
+
+    def form_b():
+        return gather.gather_by_mask(x, mask, u)
+
+    def form_a():
+        return gather.gather_by_key(x, keys, draw)
+
+    ms = cuda_ms(form_b, 50)
+    ms_a = cuda_ms(form_a, 50)
+    ms_r = cuda_ms(lambda: resample_batch(x, mask, Q, draws=u), 50)
+    dev = device_split(form_b, (("kernel", "gather_by_key_kernel"),), 20, f"key_gather {name}")
+    dev_a = device_split(form_a, (("kernel", "gather_by_key_kernel"),), 20,
+                         f"key_gather keys {name}")
+    plain = cuda_ms(lambda: gather.gather_by_mask_plain(x, mask, u), 20)
+    pack_ms = cuda_ms(lambda: torch.gather(x, 1, torch.gather(
+        torch.sort((~mask).to(torch.uint8), dim=1, stable=True).indices, 1,
+        gather.ranks_from_uniforms(mask, u))[..., None].expand(-1, -1, C)), 20)
+    # bytes: the mask (or int64 keys) and the draws once, the output once, each
+    # selected row once (the distinct rows this run's draws pick)
+    picked = torch.where(draw < mask.sum(1, keepdim=True),
+                         torch.arange(B, device=x.device)[:, None] * N + draw, -1)
+    rows_once = (int(torch.unique(picked).numel()) - int(bool((picked < 0).any()))) * C * 4
+    out_bytes = B * Q * C * 4
+    bound = bound_ms(mask.numel() + u.numel() * 4 + out_bytes + rows_once, 0, F32_FLOPS)
+    bound_a = bound_ms(keys.numel() * 8 + draw.numel() * 8 + out_bytes + rows_once, 0,
+                       F32_FLOPS)
+    log(f"  [{card}] key_gather {name} ({B}, {N}, {C}) -> {Q}, a masked resample "
+        f"{per_call} launch: from the mask and f32 uniforms {ms:.4f} ms a call, device "
+        f"{dev['total']:.4f} ({split_line(dev)}), bound {bound[0]:.4f} by {bound[1]}; "
+        f"from int64 keys and ranks {ms_a:.4f} ms, device {dev_a['total']:.4f}, bound "
+        f"{bound_a[0]:.4f}; resample_batch {ms_r:.4f} ms a call; plain twin {plain:.4f}, "
+        f"argsort-pack path {pack_ms:.4f}; every form bit for bit with the plain "
+        f"version and the argsort-pack path")
+    return ms, plain, bound, dev["total"]
+
+
+def launches_a_call(torch, fn, calls: int, what: str) -> float:
+    """Kernel launches a call of fn under torch.profiler: the launch records
+    (cudaLaunchKernel and its variants) over ``calls`` calls, after one
+    warm-up, each window primed as ``kernel_events`` primes it, the
+    primer's launches left out; a window whose kernel records fall short of
+    its launch records is taken again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, PROFILE_WINDOWS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prime_profiler(torch)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        records = prof.key_averages()
+        launched = sum(e.count for e in records
+                       if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+        launched = max(launched - PRIMER_LAUNCHES, 0)
+        recorded, _ = launch_balance(records, window_kernels(torch, records))
+        if recorded >= 0.95 * launched and launched:
+            return launched / calls
+        log(f"  profiler window {attempt} of {what} holds {recorded} kernel records of "
+            f"{launched} launches")
+    fail(f"launches of {what}: {PROFILE_WINDOWS} torch.profiler windows in a row lost "
+         f"kernel records")
+
+
 def phase_key_knn_kernels(torch, device, card, parents):
     """key_gather, knn and aggregate_from_idx against their plain versions on the card
     at the paths' shapes, and knn_aggregate above 1024 points:
 
     - key_gather at the dropout_patch_pointmae shape ((128, 2048, 3) -> 1024,
       the patches of a 64-patch mask with about half kept) and the
-      dropout_global_p3 shape ((128, 1024, 3) -> 1024, 716 kept), bit for
-      bit, a cloud with no valid point giving zeros; beside it the
-      argsort-pack path it replaces (no single PyTorch call computes it);
+      dropout_global_p3 shape ((128, 1024, 3) -> 1024, 716 kept), both forms
+      (``key_gather_report``);
     - knn at MaskFeat_dgcnn's five shapes: 64 FPS centres in 1024 points, C
       3, k 32, and the teacher's four EdgeConv kNNs, (128, 1024, 1024) at C
       3 / 64 / 64 / 128, k 20: idx equal but at counted distance ties, dists
@@ -2377,7 +2494,7 @@ def phase_key_knn_kernels(torch, device, card, parents):
       with the plain version on the CPU (each sum in (source, round) order),
       the same bits on a second launch; the aggregate alone against the
       previous design (aggregate_report)."""
-    from point_dae_torch.ops import edgeconv, gather, tiled_knn as knn_ops
+    from point_dae_torch.ops import edgeconv, tiled_knn as knn_ops
     from point_dae_torch.ops.geometry import fps_knn, group_points
     from point_dae_torch.tools import rowreduce_ablation
 
@@ -2399,48 +2516,15 @@ def phase_key_knn_kernels(torch, device, card, parents):
         1, order, torch.arange(1024, device=device).expand(B, -1)) < int(1024 * (1.0 - 0.3))
     rows = []
     for name, x, mask in (("patch", flat, mask_p), ("global_p3", pts, mask_g)):
-        cnt = mask.sum(1).clamp_min(1)[:, None]
-        draw = (torch.rand((B, 1024), generator=g, device=device) * cnt).long().clamp_max(cnt - 1)
-        keys = torch.where(mask, torch.cumsum(mask.int(), 1) - 1, -1)
-        got = gather.gather_by_key(x, keys, draw)
-        want = gather.gather_by_key_plain(x, keys, draw)
-        packed = torch.gather(x, 1, torch.gather(
-            torch.sort((~mask).to(torch.uint8), dim=1, stable=True).indices, 1,
-            draw)[..., None].expand(-1, -1, 3))
-
-        def argsort_pack():
-            o = torch.sort((~mask).to(torch.uint8), dim=1, stable=True).indices
-            return torch.gather(x, 1, torch.gather(o, 1, draw)[..., None].expand(-1, -1, 3))
-
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            fail(f"key_gather {name}: differs from the plain version")
-        ok = torch.ones(B, dtype=torch.bool, device=device)
-        if name == "patch":
-            ok[5] = False
-            if got[5].any():
-                fail("key_gather: a cloud with no valid point did not give zeros")
-        if not torch.equal(got[ok], packed[ok]):
-            fail(f"key_gather {name}: differs from the argsort-pack path")
-        ms = cuda_ms(lambda: gather.gather_by_key(x, keys, draw), 50)
-        dev = device_split(lambda: gather.gather_by_key(x, keys, draw),
-                           (("kernel", "gather_by_key_kernel"),), 20, f"key_gather {name}")
-        plain = cuda_ms(lambda: gather.gather_by_key_plain(x, keys, draw), 20)
-        pack_ms = cuda_ms(argsort_pack, 20)
-        nbytes = x.numel() * 4 + keys.numel() * 4 + draw.numel() * 4 + got.numel() * 4
-        bound = bound_ms(nbytes, 0, F32_FLOPS)
-        log(f"  [{card}] key_gather {name} ({B}, {x.shape[1]}, 3) -> 1024: {ms:.4f} ms "
-            f"a call, device {dev['total']:.4f} ({split_line(dev)}) (plain {plain:.4f}, "
-            f"argsort-pack path {pack_ms:.4f}, bound {bound[0]:.4f} by {bound[1]}); bit for "
-            f"bit, equal to the argsort-pack path")
-        rows.append((ms, plain, bound, dev["total"]))
-    ms, plain, bound, dev = rows[0]
+        rows.append(key_gather_report(torch, name, x, mask, g, card))
+    (ms, plain, bound, dev), other = rows
     records["key_gather"] = dict(
         replaces="point_dae_tpu/ops/pallas_scatter.py:176",
         source="point_dae_torch/csrc/gather.cu", max_abs_err=0.0, ms=ms, plain_ms=plain,
         library_ms=None, bound=bound,
-        note=f"dropout_patch_pointmae shape (128, 2048, 3) -> 1024, device {dev:.4f} ms "
-             f"(dropout_global_p3 shape {rows[1][3]:.4f}); no single PyTorch call")
+        note=f"gather_by_mask (mask and f32 uniforms, the dropouts' call) at the "
+             f"dropout_patch_pointmae shape (128, 2048, 3) -> 1024, device {dev:.4f} ms "
+             f"(dropout_global_p3 shape {other[3]:.4f}); no single PyTorch call")
     del flat, pidx
 
     # -- knn at MaskFeat's five shapes
@@ -2684,6 +2768,7 @@ def phase_dropout_maskfeat_train(torch, raw, device, card):
             f"{first * 1e3:.1f} ms, max_memory_allocated {peak / 2 ** 30:.2f} GiB")
         if i == 0:
             out["dropout"] = launches
+        if i < 2:   # dropout_patch_pointmae and dropout_global_p3: busy time
             profile_step(torch, one_more, card, top=12)
         del one_more
         torch.cuda.empty_cache()

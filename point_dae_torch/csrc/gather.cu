@@ -16,15 +16,33 @@
 // so one store a row would leave sectors partly filled.
 //
 // Second entry, gather_by_key_small_c: the rank-keyed select
-// out[b, q, :] = x[b, n*, :] where keys[b, n*] == draw[b, q], zeros where no
+// out[b, q, :] = x[b, n*, :] where key[b, n*] == draw[b, q], zeros where no
 // key matches. Replaces point_dae_tpu/ops/pallas_scatter.py:
 // gather_by_key_small_c_pallas, whose one-hot compare and product do N * Q
-// work a cloud. Here a block first inverts its cloud's keys into a table
-// inv[key] = n in shared memory (N ints, filled with -1; the valid keys of
-// a row are distinct ranks), then its threads copy x[b, inv[draw]] or
-// zeros, one output element a thread: N + Q C work a block, exact. A cloud's
-// Q rows are split over several blocks, each rebuilding the table. Bound:
-// bytes (keys, draws and the output once, the selected rows once).
+// work a cloud, and the key building of its caller
+// (point_dae_tpu/ops/geometry.py:326-331: rank = cumsum(mask) - 1, keys =
+// where(mask, rank, -1), draws below the cloud's valid count). Two key
+// sources: keys as given (int32 or int64, distinct where >= 0), or a bool
+// mask (B, N), whose key at a valid point is its rank, the number of valid
+// points before it. Draws int32 or int64 ranks, or with a mask f32
+// uniforms, which become min(trunc(u * float(max(cnt, 1))), max(cnt, 1) - 1)
+// for the cloud's valid count cnt: the rounding of the plain chain
+// (draws * cnt).long().clamp_max(cnt - 1), whose f32-by-int64 product
+// multiplies in f32. Bound: bytes (the mask or keys, the draws and the
+// output once, each selected row once).
+//
+// Design: one block of up to 1024 threads a cloud (ops/gather.py:
+// key_gather_threads), a thread a draw. From a mask, the cloud's ranks are
+// found once, without a table: a warp's ballot over 32 mask bytes is one
+// 32-bit slice of the row in shared memory, every warp sums the slices'
+// popcounts into a prefix across its lanes, and the point of rank d is the
+// lane whose prefix passes d (a binary search by shuffles), then the slice
+// in that lane's share, then the bit in the slice. From keys, a table
+// inv[key] = n in shared memory. A 3-wide row (12 bytes) moves in an
+// 8-byte and a 4-byte access, each aligned, in and out; other widths are
+// staged in shared memory and written out as 16-byte stores. Keys and
+// draws are read as given, so int64 ones need no cast launch.
+// tools/key_gather_ablation.py times the variants.
 //
 // Third entry, gather_rows_wide: out[b, q, :] = f32(x[b, idx[b, q], :]) for
 // any C and x in f32, bf16 or f16, zeros where the index falls outside
@@ -41,6 +59,9 @@
 // (pallas_scatter.py:267-276).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+
+#include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -104,32 +125,186 @@ cudaError_t launch_gather_rows(const float* x, const I* idx, float* out, int B, 
   return cudaGetLastError();
 }
 
-constexpr int kKeyRows = 256;   // draws a key-gather block
+constexpr int kKeyMaxN = 12288;     // table entries a block holds: 48 KB
+constexpr int kKeyMaxThreads = 1024;
 
-// 32-bit index arithmetic: the launcher checks that every offset fits.
-__global__ void gather_by_key_kernel(const float* __restrict__ x,
-                                     const int* __restrict__ keys,
-                                     const int* __restrict__ draw,
-                                     float* __restrict__ out, int N, int Q, int C,
-                                     int q_blocks) {
-  extern __shared__ int inv[];   // [N]
-  const int b = blockIdx.x / q_blocks;
-  const int q0 = (blockIdx.x % q_blocks) * kKeyRows;
-  const int* kb = keys + static_cast<unsigned>(b) * N;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) inv[n] = -1;
-  __syncthreads();
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    const int key = kb[n];
-    if (key >= 0 && key < N) inv[key] = n;
+__device__ __forceinline__ int warp_inclusive_sum(int v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += u;
+  }
+  return v;
+}
+
+// A draw's rank: integers as given; an f32 uniform u becomes
+// min(trunc(u * float(max(cnt, 1))), max(cnt, 1) - 1).
+__device__ __forceinline__ long long draw_rank(int d, int) { return d; }
+__device__ __forceinline__ long long draw_rank(long long d, int) { return d; }
+__device__ __forceinline__ long long draw_rank(float u, int cnt) {
+  const int c = max(cnt, 1);
+  const long long d = static_cast<long long>(__fmul_rn(u, static_cast<float>(c)));
+  return d < c - 1 ? d : c - 1;
+}
+
+// A 3-wide row (12 bytes, 4-byte aligned) in two loads or stores: 8 bytes
+// where they are 8-byte aligned and the other 4.
+__device__ __forceinline__ float3 load_row3(const float* row) {
+  const bool even = (reinterpret_cast<uintptr_t>(row) & 7) == 0;
+  const float2 a = __ldg(reinterpret_cast<const float2*>(row + (even ? 0 : 1)));
+  const float c = __ldg(row + (even ? 2 : 0));
+  return even ? make_float3(a.x, a.y, c) : make_float3(c, a.x, a.y);
+}
+
+__device__ __forceinline__ void store_row3(float* row, float3 v) {
+  const bool even = (reinterpret_cast<uintptr_t>(row) & 7) == 0;
+  *reinterpret_cast<float2*>(row + (even ? 0 : 1)) =
+      even ? make_float2(v.x, v.y) : make_float2(v.y, v.z);
+  row[even ? 2 : 0] = even ? v.z : v.x;
+}
+
+// The position of the k-th (from 0) set bit of w, which has more than k.
+__device__ __forceinline__ int select_bit(unsigned w, int k) {
+  int pos = 0;
+#pragma unroll
+  for (int step = 16; step > 0; step >>= 1) {
+    const int c = __popc((w >> pos) & ((1u << step) - 1));
+    if (k >= c) {
+      k -= c;
+      pos += step;
+    }
+  }
+  return pos;
+}
+
+// K: bool (a mask) or int / long long (keys); D: int, long long or float.
+// One block a cloud. From a mask: warp w's ballot over 32 elements in a
+// round is the row's slice n / 32, and every warp sums the slices'
+// popcounts, lane l the slices [l sp, (l + 1) sp), into a prefix across its
+// lanes; the point of rank d is then found without a table: the lane whose
+// prefix passes d (a binary search by shuffles), the slice within that
+// lane's, and the bit within the slice. From keys: a table inv[key] = n,
+// filled with -1 first. 32-bit offsets: the launcher checks that every one
+// fits.
+template <typename K, typename D>
+__global__ void __launch_bounds__(kKeyMaxThreads)
+gather_by_key_kernel(const float* __restrict__ x, const K* __restrict__ keys,
+                     const D* __restrict__ draw, float* __restrict__ out, int N, int Q,
+                     int C) {
+  constexpr bool kMask = std::is_same<K, bool>::value;
+  extern __shared__ float4 smem4[];
+  const int T = blockDim.x, t = threadIdx.x, lane = t & 31;
+  float4* stage4 = smem4;                              // [T C / 4 + 1]
+  float* stage = reinterpret_cast<float*>(smem4);
+  int* inv = reinterpret_cast<int*>(smem4 + T * C / 4 + 1);   // keys: [N]
+  unsigned* ballots = reinterpret_cast<unsigned*>(inv);        // mask: [N / 32]
+  const unsigned b = blockIdx.x;
+  const float* xb = x + b * static_cast<unsigned>(N) * C;
+  const D* db = draw + b * static_cast<unsigned>(Q);
+
+  const int S = (N + 31) / 32, sp = (S + 31) / 32;    // slices, a lane's slices
+  int incl = 0, lane_sum = 0, cnt = 0;                 // mask: the prefix over lanes, the count
+  if constexpr (kMask) {
+    const unsigned char* mb = reinterpret_cast<const unsigned char*>(keys) + b * N;
+    for (int n = t; n - lane < N; n += T) {
+      const unsigned bal = __ballot_sync(0xffffffffu, n < N && mb[n] != 0);
+      if (lane == 0) ballots[n / 32] = bal;
+    }
+  } else {
+    const K* kb = keys + b * N;
+    for (int n = t; n < N; n += T) inv[n] = -1;
+    __syncthreads();
+    for (int n = t; n < N; n += T) {
+      const long long key = static_cast<long long>(kb[n]);
+      if (key >= 0 && key < N) inv[key] = n;
+    }
   }
   __syncthreads();
-  const int rows = min(kKeyRows, Q - q0);
-  const unsigned o = (static_cast<unsigned>(b) * Q + q0) * C;
-  for (int e = threadIdx.x; e < rows * C; e += blockDim.x) {
-    const int q = e / C, c = e - q * C;
-    const int d = draw[static_cast<unsigned>(b) * Q + q0 + q];
-    const int n = (d >= 0 && d < N) ? inv[d] : -1;
-    out[o + e] = n >= 0 ? x[(static_cast<unsigned>(b) * N + n) * C + c] : 0.0f;
+  if constexpr (kMask) {
+    for (int s = lane * sp; s < min(S, (lane + 1) * sp); ++s) lane_sum += __popc(ballots[s]);
+    incl = warp_inclusive_sum(lane_sum);
+    cnt = __shfl_sync(0xffffffffu, incl, 31);
+  }
+
+  for (int p0 = 0; p0 < Q; p0 += T) {
+    const int rows = min(T, Q - p0);
+    const unsigned o0 = (b * static_cast<unsigned>(Q) + p0) * C;
+    const int shift = static_cast<int>(o0 & 3);
+    long long d = -1;
+    if (t < rows) d = draw_rank(db[p0 + t], cnt);
+    int n = -1;
+    if constexpr (kMask) {
+      // the first lane whose prefix passes d; every lane takes part
+      int L = 0;
+#pragma unroll
+      for (int step = 16; step > 0; step >>= 1)
+        if (__shfl_sync(0xffffffffu, incl, L + step - 1) <= d) L += step;
+      const int before = __shfl_sync(0xffffffffu, incl - lane_sum, min(L, 31));
+      if (d >= 0 && d < cnt) {
+        int rem = static_cast<int>(d) - before, sl = L * sp;
+        for (int c = __popc(ballots[sl]); rem >= c; c = __popc(ballots[sl])) {
+          rem -= c;
+          ++sl;
+        }
+        n = sl * 32 + select_bit(ballots[sl], rem);
+      }
+    } else {
+      if (d >= 0 && d < N) n = inv[d];
+    }
+    if (C == 3) {   // a 3-wide row in two loads and two stores, each aligned; no staging
+      if (t < rows) {
+        float3 v = load_row3(xb + max(n, 0) * 3);
+        if (n < 0) v = make_float3(0.0f, 0.0f, 0.0f);
+        store_row3(out + o0 + 3 * t, v);
+      }
+      continue;
+    }
+    if (t < rows) {
+      const float* src = xb + max(n, 0) * C;
+      for (int c = 0; c < C; ++c) stage[shift + t * C + c] = n >= 0 ? __ldg(src + c) : 0.0f;
+    }
+    __syncthreads();
+    const int total = rows * C;
+    const int head = min((4 - shift) & 3, total);   // elements before the 16-byte boundary
+    float* ob = out + o0;
+    if (t < head) ob[t] = stage[shift + t];
+    const int nv = (total - head) / 4;
+    const float4* bv = stage4 + (shift + head) / 4;
+    for (int v = t; v < nv; v += T) reinterpret_cast<float4*>(ob + head)[v] = bv[v];
+    const int e = head + 4 * nv + t;
+    if (e < total) ob[e] = stage[shift + e];
+    __syncthreads();
+  }
+}
+
+template <typename K, typename D>
+cudaError_t launch_key(const float* x, const void* keys, const void* draw, float* out, int B,
+                       int N, int Q, int C, int threads, cudaStream_t s) {
+  auto kernel = gather_by_key_kernel<K, D>;
+  constexpr bool kMask = std::is_same<K, bool>::value;
+  const size_t smem = (threads * C / 4 + 1) * sizeof(float4) +
+                      (kMask ? (N + 31) / 32 : N) * sizeof(int);
+  const cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<B, threads, smem, s>>>(x, static_cast<const K*>(keys), static_cast<const D*>(draw),
+                                  out, N, Q, C);
+  return cudaGetLastError();
+}
+
+template <typename K>
+cudaError_t launch_key_draw(int draw_type, const float* x, const void* keys, const void* draw,
+                            float* out, int B, int N, int Q, int C, int threads,
+                            cudaStream_t s) {
+  switch (draw_type) {
+    case 0: return launch_key<K, int>(x, keys, draw, out, B, N, Q, C, threads, s);
+    case 1: return launch_key<K, long long>(x, keys, draw, out, B, N, Q, C, threads, s);
+    case 2:
+      if constexpr (std::is_same<K, bool>::value)
+        return launch_key<K, float>(x, keys, draw, out, B, N, Q, C, threads, s);
+      else
+        return cudaErrorInvalidValue;
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -270,21 +445,30 @@ PDAE_EXPORT int gather_rows_small_c(const float* x, const void* idx, int idx64, 
   return static_cast<int>(err);
 }
 
-// keys (B, N) int32: distinct ranks, -1 for rows no draw may pick; draw
-// (B, Q) int32 >= 0. N up to 12288 (the table in 48 KB of shared memory).
-PDAE_EXPORT int gather_by_key_small_c(const float* x, const int* keys, const int* draw,
-                                      float* out, int B, int N, int Q, int C,
-                                      void* stream) {
+// x (B, N, C <= 8) f32; keys (B, N): key_type 0 a bool mask, 1 int32 keys,
+// 2 int64 keys (distinct where >= 0); draw (B, Q): draw_type 0 int32 ranks,
+// 1 int64 ranks, 2 f32 uniforms (with a mask only); out (B, Q, C) f32,
+// 16-byte aligned. N up to 12288 (the keys' table in 48 KB of shared
+// memory); a block of `threads` (a multiple of 32 up to 1024) a cloud.
+PDAE_EXPORT int gather_by_key_small_c(const float* x, const void* keys, int key_type,
+                                      const void* draw, int draw_type, float* out, int B,
+                                      int N, int Q, int C, int threads, void* stream) {
   const long long total = static_cast<long long>(B) * Q * C;
-  if (total == 0) return static_cast<int>(cudaSuccess);
-  if (N < 1 || N > 12288 || total >= (1LL << 31) ||
-      static_cast<long long>(B) * N * C >= (1LL << 31))
+  if (B < 0 || Q < 0 || N < 1 || N > kKeyMaxN || C < 1 || C > 8 ||
+      total >= (1LL << 31) || static_cast<long long>(B) * N * C >= (1LL << 31) ||
+      threads < 32 || threads > kKeyMaxThreads || threads % 32 != 0 || key_type < 0 ||
+      key_type > 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int q_blocks = (Q + kKeyRows - 1) / kKeyRows;
-  gather_by_key_kernel<<<B * q_blocks, 256, N * sizeof(int),
-                         static_cast<cudaStream_t>(stream)>>>(x, keys, draw, out, N, Q, C,
-                                                              q_blocks);
-  return static_cast<int>(cudaGetLastError());
+  if (total == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (key_type == 0)
+    err = launch_key_draw<bool>(draw_type, x, keys, draw, out, B, N, Q, C, threads, s);
+  else if (key_type == 1)
+    err = launch_key_draw<int>(draw_type, x, keys, draw, out, B, N, Q, C, threads, s);
+  else
+    err = launch_key_draw<long long>(draw_type, x, keys, draw, out, B, N, Q, C, threads, s);
+  return static_cast<int>(err);
 }
 
 // x (B, N, C) of dtype 0 f32, 1 bf16, 2 f16; idx (B, Q) int64 when idx64,

@@ -8,7 +8,8 @@ Port of ``point_dae_tpu/ops/pallas_scatter.py:gather_rows``,
 one: both packages keep the library gather forward),
 ``scatter_rows_add_pallas`` (CUDA kernel ``csrc/scatter.cu``) and the
 rank-keyed select ``gather_by_key_small_c_pallas`` (the second entry of
-``csrc/gather.cu``), which the masked resample uses. Inside the
+``csrc/gather.cu``: ``gather_by_key`` from given keys, ``gather_by_mask``
+from a mask, which the masked resample uses). Inside the
 JAX gate of the scatter (C >= 32, N <= 2048, B*Q*C >= 2^24) the backward of
 ``gather_rows`` on a CUDA tensor launches the scatter kernel; elsewhere it
 is a plain ``scatter_add_`` in g's type.
@@ -297,26 +298,94 @@ def gather_by_key_plain(x: torch.Tensor, keys: torch.Tensor, draw: torch.Tensor
     return torch.where(n[..., None] >= 0, got, torch.zeros((), device=x.device))
 
 
-def gather_by_key(x: torch.Tensor, keys: torch.Tensor, draw: torch.Tensor) -> torch.Tensor:
-    """The key gather kernel on a CUDA tensor, its plain version on a CPU
-    one. x (B, N, C <= 8) f32, keys (B, N), draw (B, Q) -> (B, Q, C) f32.
-    No gradient flows through it."""
-    if x.device.type == "cpu":
-        return gather_by_key_plain(x, keys, draw)
+def ranks_from_uniforms(mask: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Uniforms u (B, Q) in [0, 1) -> int64 ranks floor(u * cnt) below each
+    row's valid count cnt of mask (B, N) (at least 1); the f32-by-int64
+    product multiplies in f32. The key gather kernel rounds the same way."""
+    cnt = mask.sum(1).clamp_min(1)[:, None]
+    return (u * cnt).long().clamp_max(cnt - 1)
+
+
+def gather_by_mask_plain(x: torch.Tensor, mask: torch.Tensor, draws: torch.Tensor
+                         ) -> torch.Tensor:
+    """Plain PyTorch version of the key gather from a mask: x (B, N, C), mask
+    (B, N) bool, draws (B, Q) ranks or f32 uniforms (``ranks_from_uniforms``)
+    -> (B, Q, C) f32: the point of rank draw among the row's valid points,
+    zeros where the rank is not below the row's valid count. The keys are
+    those of ``point_dae_tpu/ops/geometry.py:329-330``."""
+    if draws.is_floating_point():
+        draws = ranks_from_uniforms(mask, draws)
+    rank = torch.cumsum(mask.to(torch.int32), dim=1) - 1
+    keys = torch.where(mask, rank, -1)
+    return gather_by_key_plain(x, keys, draws)
+
+
+KEY_MAX_N = 12288       # csrc/gather.cu kKeyMaxN: the keys' table in 48 KB of shared memory
+_KEY_TYPES = {torch.bool: 0, torch.int32: 1, torch.int64: 2}
+_DRAW_TYPES = {torch.int32: 0, torch.int64: 1, torch.float32: 2}
+_KEY_ARGS = (kernels.P, kernels.P, kernels.I, kernels.P, kernels.I, kernels.P) + \
+    (kernels.I,) * 5 + (kernels.P,)
+
+
+def key_gather_threads(Q: int) -> int:
+    """Threads of a key-gather block, one block a cloud: a thread a draw,
+    the draws rounded up to a warp, 128 to 1024 (more draws take several
+    passes)."""
+    return min(1024, max(128, -(-Q // 32) * 32))
+
+
+def _key_gather(x: torch.Tensor, keys: torch.Tensor, draw: torch.Tensor,
+                threads: Optional[int]) -> torch.Tensor:
+    """Check the shapes of either form, then launch the kernel."""
     B, N, C = x.shape
-    if C > 8 or x.dtype != torch.float32 or N > 12288:
-        raise ValueError(f"key gather takes (B, N <= 12288, C <= 8) f32, got "
+    if C > 8 or x.dtype != torch.float32 or N > KEY_MAX_N:
+        raise ValueError(f"key gather takes (B, N <= {KEY_MAX_N}, C <= 8) f32, got "
                          f"{tuple(x.shape)} {x.dtype}")
     if x.requires_grad and torch.is_grad_enabled():
         raise ValueError("the key gather has no backward")
-    x = x.contiguous()
-    keys32 = keys.to(torch.int32).contiguous()
-    draw32 = draw.to(torch.int32).contiguous()
-    kernels.require_cuda(x, keys32, draw32)
-    Q = draw32.shape[1]
+    if tuple(keys.shape) != (B, N) or draw.dim() != 2 or draw.shape[0] != B:
+        raise ValueError(f"keys {tuple(keys.shape)} and draws {tuple(draw.shape)} do not "
+                         f"match x {tuple(x.shape)}")
+    x, keys, draw = x.contiguous(), keys.contiguous(), draw.contiguous()
+    kernels.require_cuda(x, keys, draw)
+    Q = draw.shape[1]
     out = torch.empty((B, Q, C), dtype=torch.float32, device=x.device)
-    P, I = kernels.P, kernels.I
-    kernels.launch("key_gather", "gather", "gather_by_key_small_c",
-                   (P, P, P, P, I, I, I, I, P), x.data_ptr(), keys32.data_ptr(),
-                   draw32.data_ptr(), out.data_ptr(), B, N, Q, C, kernels.stream(x))
+    kernels.launch("key_gather", "gather", "gather_by_key_small_c", _KEY_ARGS, x.data_ptr(),
+                   keys.data_ptr(), _KEY_TYPES[keys.dtype], draw.data_ptr(),
+                   _DRAW_TYPES[draw.dtype], out.data_ptr(), B, N, Q, C,
+                   threads or key_gather_threads(Q), kernels.stream(x))
     return out
+
+
+def gather_by_key(x: torch.Tensor, keys: torch.Tensor, draw: torch.Tensor,
+                  threads: Optional[int] = None) -> torch.Tensor:
+    """The key gather kernel from given keys on a CUDA tensor, its plain
+    version on a CPU one: x (B, N <= 12288, C <= 8) f32, keys (B, N) and
+    draw (B, Q) int32 or int64, read as given (other integer types are
+    widened) -> (B, Q, C) f32; ``threads`` a block (``key_gather_threads``
+    when None). No gradient flows through it."""
+    if x.device.type == "cpu":
+        return gather_by_key_plain(x, keys, draw)
+    if keys.dtype == torch.bool or keys.is_floating_point() or draw.is_floating_point():
+        raise ValueError(f"gather_by_key takes integer keys and draws, got {keys.dtype} and "
+                         f"{draw.dtype} (gather_by_mask takes a mask)")
+    keys = keys if keys.dtype in _INDEX_TYPES else keys.long()
+    draw = draw if draw.dtype in _INDEX_TYPES else draw.long()
+    return _key_gather(x, keys, draw, threads)
+
+
+def gather_by_mask(x: torch.Tensor, mask: torch.Tensor, draws: torch.Tensor,
+                   threads: Optional[int] = None) -> torch.Tensor:
+    """The key gather kernel from a mask on a CUDA tensor (one launch: the
+    ranks, the uniforms' conversion and the copy), ``gather_by_mask_plain``
+    on a CPU one: x (B, N <= 12288, C <= 8) f32, mask (B, N) bool, draws (B,
+    Q) int32 or int64 ranks or f32 uniforms, read as given -> (B, Q, C)
+    f32; ``threads`` a block (``key_gather_threads`` when None). No
+    gradient flows through it."""
+    if x.device.type == "cpu":
+        return gather_by_mask_plain(x, mask, draws)
+    if draws.is_floating_point() and draws.dtype != torch.float32:
+        raise ValueError(f"uniform draws must be f32, got {draws.dtype}")
+    mask = mask if mask.dtype == torch.bool else mask != 0
+    draws = draws if draws.dtype in _DRAW_TYPES else draws.long()
+    return _key_gather(x, mask, draws, threads)

@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import fps
-from .gather import gather_by_key, gather_rows
+from .gather import gather_by_mask, gather_rows, ranks_from_uniforms
 from .tiled_knn import knn_kernel
 from .patchify import fused_patchify
 
@@ -142,9 +142,10 @@ def resample_batch(points: torch.Tensor, mask: Optional[torch.Tensor], num: int,
     count, which is at least 1), or uniforms in [0, 1) that become the ranks
     floor(u * count); sampled from ``generator`` when not given. Rank q is
     the q-th valid point in its original order: inside the JAX gate on CUDA
-    the rank-keyed gather kernel selects it (a row with no valid point
-    gives zeros there), elsewhere a stable sort packs the valid points to
-    the front (such a row gives ``points[0]``), as in the JAX package."""
+    the key gather kernel selects it from the mask and the draws in one
+    launch (a row with no valid point gives zeros there), elsewhere a stable
+    sort packs the valid points to the front (such a row gives
+    ``points[0]``), as in the JAX package."""
     B, N, C = points.shape
     if mask is None:
         if draws is None:
@@ -153,13 +154,10 @@ def resample_batch(points: torch.Tensor, mask: Optional[torch.Tensor], num: int,
         return gather_rows(points, draws)
     if draws is None:
         draws = torch.rand((B, num), generator=generator, device=points.device)
-    if draws.is_floating_point():
-        cnt = mask.sum(1).clamp_min(1)[:, None]
-        draws = (draws * cnt).long().clamp_max(cnt - 1)
     if use_key_gather_kernel(points, num):
-        rank = torch.cumsum(mask.to(torch.int32), dim=1) - 1
-        keys = torch.where(mask, rank, -1)
-        return gather_by_key(points, keys, draws)
+        return gather_by_mask(points, mask, draws)
+    if draws.is_floating_point():
+        draws = ranks_from_uniforms(mask, draws)
     order = torch.sort((~mask).to(torch.uint8), dim=1, stable=True).indices
     pos = torch.gather(order, 1, draws.long())
     return torch.gather(points, 1, pos[..., None].expand(-1, -1, C))

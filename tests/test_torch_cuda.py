@@ -748,6 +748,144 @@ def test_key_gather_and_aggregate_from_idx_kernels_are_exact(dev):
     assert all(torch.equal(a, b) for a, b in zip(out[:4], fused[:4]))
 
 
+def _key_gather_case(dev, B, N, Q, C, seed):
+    """Clouds of N points with a random mask: cloud 0 with no valid point,
+    cloud 1 all valid, cloud 2 with one; uniforms with some just under 1.0
+    and at 0; the ranks they give and, in cloud 1, ranks past the count."""
+    g = _gen(dev, seed)
+    x = torch.randn((B, N, C), generator=g, device=dev)
+    mask = torch.rand((B, N), generator=g, device=dev) > 0.5
+    mask[0] = False
+    mask[1] = True
+    mask[2] = False
+    mask[2, N // 2] = True
+    u = torch.rand((B, Q), generator=g, device=dev)
+    u[:, :3] = 1.0 - 2.0 ** -24
+    u[:, 3] = 0.0
+    ranks = gather.ranks_from_uniforms(mask, u)
+    past = ranks.clone()
+    past[1, :5] = N + torch.arange(5, device=dev)
+    return x, mask, u, ranks, past
+
+
+@pytest.mark.parametrize("N", [1, 31, 1000, 2048, 12288])
+@pytest.mark.parametrize("draws", ["int32", "int64", "f32"])
+def test_key_gather_from_mask_is_exact(dev, N, draws):
+    """Form (b), the mask and the draws as given: bit for bit with
+    ``gather_by_mask_plain`` at Q 777 (no multiple of a block's draws), the
+    cloud with no valid point all zeros, the same bits on a second launch,
+    one launch counted."""
+    from point_dae_torch.utils import kernels
+
+    x, mask, u, ranks, _ = _key_gather_case(dev, 4, N, 777, 3, 31)
+    d = {"int32": ranks.int(), "int64": ranks, "f32": u}[draws]
+    before = kernels.launches["key_gather"]
+    got = gather.gather_by_mask(x, mask, d)
+    again = gather.gather_by_mask(x, mask, d)
+    torch.cuda.synchronize()
+    assert kernels.launches["key_gather"] == before + 2
+    assert torch.equal(got, gather.gather_by_mask_plain(x, mask, d))
+    assert torch.equal(got, again)
+    assert not got[0].any() and got[1].any()
+
+
+@pytest.mark.parametrize("N", [1, 31, 1000, 2048, 12288])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_key_gather_from_keys_is_exact(dev, N, dtype):
+    """Form (a), keys and ranks as given (int32 or int64): bit for bit with
+    ``gather_by_key_plain``, ranks past the count giving zeros, the cloud
+    with no valid point all zeros, the same bits on a second launch."""
+    x, mask, _, _, past = _key_gather_case(dev, 4, N, 777, 3, 32)
+    keys = torch.where(mask, torch.cumsum(mask.int(), 1) - 1, -1).to(dtype)
+    d = past.to(dtype)
+    got = gather.gather_by_key(x, keys, d)
+    again = gather.gather_by_key(x, keys, d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather.gather_by_key_plain(x, keys, d))
+    assert torch.equal(got, again)
+    assert not got[0].any() and not got[1, :5].any()
+
+
+@pytest.mark.parametrize("threads", [128, 256, 512, 1024])
+@pytest.mark.parametrize("N,C", [(2048, 3), (1000, 1), (12288, 8)])
+def test_key_gather_is_exact_at_every_block_width(dev, threads, N, C):
+    """Both forms in blocks of 128 to 1024 threads, with more draws than a
+    block's threads (several passes) and several mask rounds a block:
+    bit for bit with the plain twins."""
+    x, mask, u, _, past = _key_gather_case(dev, 3, N, 1500, C, 33)
+    keys = torch.where(mask, torch.cumsum(mask.int(), 1) - 1, -1)
+    got_b = gather.gather_by_mask(x, mask, u, threads=threads)
+    got_a = gather.gather_by_key(x, keys, past, threads=threads)
+    torch.cuda.synchronize()
+    assert torch.equal(got_b, gather.gather_by_mask_plain(x, mask, u))
+    assert torch.equal(got_a, gather.gather_by_key_plain(x, keys, past))
+
+
+def test_key_gather_takes_unaligned_inputs(dev):
+    """A mask that starts one byte in and rows that start one float in (so a
+    row's 8-byte half sits at the other end): both forms give the same bits
+    as their plain twins."""
+    x, mask, u, ranks, _ = _key_gather_case(dev, 4, 2049, 600, 3, 34)
+    m = mask[:, 1:]
+    xo = torch.empty(x[:, 1:].numel() + 1, device=dev)[1:].view(4, 2048, 3)
+    xo.copy_(x[:, 1:])
+    assert xo.is_contiguous() and xo.data_ptr() % 8 == 4
+    got = gather.gather_by_mask(xo, m, u)
+    assert torch.equal(got, gather.gather_by_mask_plain(xo, m, u))
+    keys = torch.where(m, torch.cumsum(m.int(), 1) - 1, -1)
+    r = gather.ranks_from_uniforms(m, u)
+    assert torch.equal(gather.gather_by_key(xo, keys, r), gather.gather_by_key_plain(xo, keys, r))
+
+
+def test_key_gather_refuses_what_it_does_not_take(dev):
+    """C 9, N 12289 and a non-f32 x raise in the wrapper, as do float draws
+    for given keys and f64 uniforms for a mask."""
+    mask = torch.ones((2, 64), dtype=torch.bool, device=dev)
+    u = torch.rand((2, 16), device=dev)
+    with pytest.raises(ValueError):
+        gather.gather_by_mask(torch.zeros((2, 64, 9), device=dev), mask, u)
+    with pytest.raises(ValueError):
+        gather.gather_by_mask(torch.zeros((2, 12289, 3), device=dev),
+                              torch.ones((2, 12289), dtype=torch.bool, device=dev), u)
+    with pytest.raises(ValueError):
+        gather.gather_by_mask(torch.zeros((2, 64, 3), dtype=torch.float16, device=dev), mask, u)
+    with pytest.raises(ValueError):
+        gather.gather_by_key(torch.zeros((2, 64, 3), device=dev), mask.long(), u)
+    with pytest.raises(ValueError):
+        gather.gather_by_mask(torch.zeros((2, 64, 3), device=dev), mask, u.double())
+
+
+def test_masked_resample_is_one_launch(dev):
+    """Inside the JAX gate a masked ``resample_batch`` is one kernel launch
+    from the mask and the f32 draws: the key gather's counter rises by one a
+    call, and no PyTorch operator but an allocation (which launches nothing)
+    is dispatched, so no PyTorch kernel runs beside it; bit for bit with the
+    plain twin. The operators are seen by a dispatch mode, not a profiler,
+    so the device tracer is left alone."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from point_dae_torch.utils import kernels
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.add(str(func))
+            return func(*args, **(kwargs or {}))
+
+    x, mask, u, _, _ = _key_gather_case(dev, 64, 2048, 1024, 3, 35)
+    want = gather.gather_by_mask_plain(x, mask, u)
+    before = kernels.launches["key_gather"]
+    with Ops() as seen:
+        for _ in range(5):
+            got = geometry.resample_batch(x, mask, 1024, draws=u)
+    assert kernels.launches["key_gather"] == before + 5
+    assert seen.ops <= {"aten.empty.memory_format"}, seen.ops
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("B,Q,N,C", [(16, 6144, 128, 1152), (16, 40960, 2048, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_scatter_kernel_matches_plain(dev, B, Q, N, C, dtype):
