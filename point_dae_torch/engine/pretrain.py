@@ -26,10 +26,13 @@ class PipelineDraws:
     """The pipeline's draws: ``clean`` (B, npoints) indexes the raw clouds;
     ``corrupted`` (B, npoints) indexes the corrupted clouds, or, when the
     corruption returns a validity mask, ranks into each cloud's valid
-    subset; ``corrupt`` holds the cloud corruptions' own draws."""
+    subset; ``corrupt`` holds the cloud corruptions' own draws (one entry
+    a ``corrupt_type`` position) and ``augment`` the augmentations' (one a
+    ``aug_type`` position)."""
     corrupted: torch.Tensor
     clean: torch.Tensor
     corrupt: Optional[CloudCorruptDraws] = None
+    augment: Optional[list] = None
 
 
 @dataclass
@@ -47,17 +50,19 @@ def device_pipeline(raw: torch.Tensor, aug_type: Sequence[str],
                     generator: Optional[torch.Generator] = None,
                     device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, Nraw, C) raw clouds -> (corrupted (B, npoints, 3), clean
-    (B, npoints, C)): augment xyz, corrupt the full cloud, then resample
+    (B, npoints, C)): augment xyz, corrupt the full cloud (into a buffer of
+    ``corruption_capacity`` rows when a family adds points), then resample
     both streams independently, with replacement (the corrupted one from
     its valid subset when the corruption masks points out). Normals
     (columns 3:) ride along with the clean sample."""
     dev = resolve_device(device)
     raw = raw.to(dev)
-    xyz = augment_batch(raw[..., :3], aug_type)
-    full = torch.cat([xyz, raw[..., 3:]], dim=-1)
-    corrupt = corrupted = clean = None      # drawn from the generator
+    augment = corrupt = corrupted = clean = None      # drawn from the generator
     if draws is not None:
-        corrupt, corrupted, clean = draws.corrupt, draws.corrupted, draws.clean
+        augment, corrupt = draws.augment, draws.corrupt
+        corrupted, clean = draws.corrupted, draws.clean
+    xyz = augment_batch(raw[..., :3], aug_type, draws=augment, generator=generator)
+    full = torch.cat([xyz, raw[..., 3:]], dim=-1)
     outs, mask = corrupt_batch(xyz, corrupt_type, draws=corrupt, generator=generator)
     return (resample_batch(outs, mask, npoints, draws=corrupted, generator=generator),
             resample_batch(full, None, npoints, draws=clean, generator=generator))

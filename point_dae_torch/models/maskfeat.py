@@ -51,6 +51,8 @@ class MaskFeat_dgcnn(_CAETransformerBase):
     ``model(corrupted, clean, draws=None, generator=None) -> (loss,
     zeros)``; ``corrupted`` is unused, as in the reference."""
 
+    always_masked = True
+
     def __init__(self, config, generator: Optional[torch.Generator] = None):
         super().__init__(config, generator)
         C = int(self.tcfg["trans_dim"])

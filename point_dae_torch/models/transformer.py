@@ -1,16 +1,18 @@
 """The flagship transformer Point-DAE (port of
-``point_dae_tpu/models/transformer.py:47-82,103-200,234-427,457-573,601-634``)
+``point_dae_tpu/models/transformer.py:47-82,103-231,234-427,457-573,601-634``)
 and the classification fine-tune model ``PointTransformer`` (``:742-801``).
 
 Static-shape MAE design, as in the JAX package: the mask ratio is bounded
 (U(0.5, 0.8) with ``rand_ratio``), so the visible tokens are packed into a
 fixed V = G - floor(0.5 G) slots (padding slots are invalid attention keys
 and are zeroed on the scatter back), and the local reconstruction packs the
-masked tokens into M = floor(0.8 G) slots with zero-weight padding.
+masked tokens into M = floor(0.8 G) slots with zero-weight padding. Without
+``Drop-Patch`` in ``corrupt_type`` the model runs unmasked: every token
+goes through the encoder, no mask token, every patch enters the loss.
 
-Random draws (patch mask, affine_r3 parameters, stochastic-depth keep
-masks) are inputs: ``forward`` takes a ``ModelDraws`` or samples one from
-the given ``torch.Generator``.
+Random draws (patch mask, patch corruptions, stochastic-depth keep masks)
+are inputs: ``forward`` takes a ``ModelDraws`` or samples one from the
+given ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..data.corruptions_patch import AffineR3Draws, corrupt_patches, sample_affine_r3
+from ..data.corruptions_patch import corrupt_patches, sample_patch_draws
 from ..losses.chamfer import build_loss_func, masked_chamfer_l2
 from ..ops.folding import fused_folding, stage_params, supported as fold_supported
 from ..ops.geometry import group_neighborhood
@@ -61,8 +63,8 @@ def sample_patch_mask(batch: int, num_group: int, mask_ratio: float,
 @dataclass
 class ModelDraws:
     """Every random draw of one training forward."""
-    mask: torch.Tensor                       # (B, G) bool, True = masked
-    affine: Optional[AffineR3Draws]          # the 'affine_r3' corruption
+    mask: Optional[torch.Tensor]             # (B, G) bool, True = masked; None unmasked
+    corrupt: Optional[list]                  # patch corruptions, one entry a position
     dp_encoder: Optional[torch.Tensor]       # (depth, 2, B) bool keep masks
     dp_decoder: Optional[torch.Tensor]       # (decoder_depth, 2, B)
 
@@ -73,21 +75,15 @@ def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(a, 1, view.expand(idx.shape + a.shape[2:]))
 
 
-class MaskTransformerEncoder(nn.Module):
-    """Patch embed + random masking + ViT encoder on the packed visible
-    tokens. Returns the (B, G, C) all-G layout, zeros at masked slots.
-    ``embed_all`` embeds all G patches and then takes the visible rows, so
-    that the PatchEncoder's BatchNorm statistics run over all G (the
-    reference's dataflow); by default only the visible patches are
-    embedded. ``residual_dtype`` and ``remat`` go to the block stack."""
+class NormalTransformerEncoder(nn.Module):
+    """Patch embed + ViT encoder over every token + a final LayerNorm (JAX
+    ``transformer.py:203-231``, the unmasked variant). Torch names
+    ``encoder``, ``pos_embed``, ``blocks``, ``norm``; ``residual_dtype`` and
+    ``remat`` go to the block stack."""
 
     def __init__(self, trans_dim, depth, num_heads, encoder_dims, drop_path_rate,
-                 mask_ratio, rand_ratio, dtype, generator, embed_all: bool = False,
-                 residual_dtype=None, remat: bool = False):
+                 dtype, generator, residual_dtype=None, remat: bool = False):
         super().__init__()
-        self.mask_ratio = mask_ratio
-        self.rand_ratio = rand_ratio
-        self.embed_all = embed_all
         self.encoder = PatchEncoder(encoder_dims, dtype=dtype, generator=generator)
         self.pos_embed = PosEmbedMLP(trans_dim, generator=generator)
         self.blocks = TransformerEncoder(trans_dim, depth, num_heads,
@@ -95,6 +91,29 @@ class MaskTransformerEncoder(nn.Module):
                                          dtype=dtype, generator=generator,
                                          residual_dtype=residual_dtype, remat=remat)
         self.norm = LayerNorm(trans_dim)
+
+    def forward(self, neighborhood, center, dp_masks=None):
+        x = self.blocks(self.encoder(neighborhood), self.pos_embed(center), None, dp_masks)
+        return self.norm(x)
+
+
+class MaskTransformerEncoder(NormalTransformerEncoder):
+    """Patch embed + random masking + ViT encoder on the packed visible
+    tokens. Returns the (B, G, C) all-G layout, zeros at masked slots.
+    ``embed_all`` embeds all G patches and then takes the visible rows, so
+    that the PatchEncoder's BatchNorm statistics run over all G (the
+    reference's dataflow); by default only the visible patches are
+    embedded. Its parameters are ``NormalTransformerEncoder``'s, whose
+    forward is the encoder without masking (``noaug``)."""
+
+    def __init__(self, trans_dim, depth, num_heads, encoder_dims, drop_path_rate,
+                 mask_ratio, rand_ratio, dtype, generator, embed_all: bool = False,
+                 residual_dtype=None, remat: bool = False):
+        super().__init__(trans_dim, depth, num_heads, encoder_dims, drop_path_rate,
+                         dtype, generator, residual_dtype=residual_dtype, remat=remat)
+        self.mask_ratio = mask_ratio
+        self.rand_ratio = rand_ratio
+        self.embed_all = embed_all
 
     def forward(self, neighborhood, center, mask, dp_masks=None):
         B, G = neighborhood.shape[:2]
@@ -120,18 +139,21 @@ class MaskTransformerEncoder(nn.Module):
 
 
 class _CAETransformerBase(nn.Module):
-    """Shared parts of the masked transformer DAEs (JAX
-    ``transformer.py:234-428``): the config keys they read, the encoder,
-    decoder and mask token (built by the subclass, in its order of
-    parameter creation), the draws, the decoder pass over all G tokens and
-    the packing of the masked tokens. Builds no loss function: each model
-    has its own. Only the masked mode (``mask_type: rand``) is ported.
+    """Shared parts of the transformer DAEs (JAX ``transformer.py:234-428``):
+    the config keys they read, the encoder, decoder and mask token (built by
+    the subclass, in its order of parameter creation), the draws, the
+    decoder pass over all G tokens, the loss weights and the packing of the
+    masked tokens. Builds no loss function: each model has its own. The
+    masked mode (``Drop-Patch`` in ``corrupt_type``) takes ``mask_type:
+    rand`` only; the unmasked mode runs every token and has no mask token.
 
     The memory keys of ``transformer_config``, read as the JAX package reads
     them: ``residual_dtype: bf16`` (the stacks' residual stream in bf16),
     ``remat`` (the encoder's blocks recomputed in the backward),
     ``embed_all_patches`` and ``remat_fold`` (the flagship's folding head
     recomputed in the backward). None of them adds a parameter."""
+
+    always_masked = False          # masked whatever corrupt_type says (MaskFeat)
 
     def __init__(self, config, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -140,20 +162,26 @@ class _CAETransformerBase(nn.Module):
         dt = t.get("dtype", config.get("dtype"))
         self.compute_dtype = torch.bfloat16 if str(dt) in ("bf16", "bfloat16") else None
         self.corrupt_type = tuple(config.get("corrupt_type", ()))
+        self.masked_mode = self.always_masked or "Drop-Patch" in self.corrupt_type
         self.num_group = int(config["num_group"])
         self.group_size = int(config["group_size"])
         self.all_patch = str(config.get("all_patch", "False")) == "True"
         self.rand_ratio = str(t.get("rand_ratio", "False")) == "True"
         self.mask_ratio = float(t.get("mask_ratio", 0.6))
-        if t.get("mask_type", "rand") != "rand":
+        if self.masked_mode and t.get("mask_type", "rand") != "rand":
             raise NotImplementedError("only mask_type 'rand' is ported")
         rd = t.get("residual_dtype")
         self.residual_dtype = torch.bfloat16 if str(rd) in ("bf16", "bfloat16") else None
         self.remat = bool(t.get("remat", False))
         self.embed_all = bool(t.get("embed_all_patches", False))
 
-    def _make_encoder(self, generator) -> MaskTransformerEncoder:
+    def _make_encoder(self, generator) -> NormalTransformerEncoder:
         t = self.tcfg
+        if not self.masked_mode:
+            return NormalTransformerEncoder(
+                int(t["trans_dim"]), t["depth"], t["num_heads"], t["encoder_dims"],
+                t.get("drop_path_rate", 0.1), self.compute_dtype, generator,
+                residual_dtype=self.residual_dtype, remat=self.remat)
         return MaskTransformerEncoder(
             int(t["trans_dim"]), t["depth"], t["num_heads"], t["encoder_dims"],
             t.get("drop_path_rate", 0.1), self.mask_ratio, self.rand_ratio,
@@ -172,34 +200,60 @@ class _CAETransformerBase(nn.Module):
             torch.empty(1, 1, int(self.tcfg["trans_dim"])), 0.0, 0.02, -0.04, 0.04,
             generator=generator))
 
-    def _sample_affine(self, batch: int, generator, device) -> Optional[AffineR3Draws]:
+    def _sample_corrupt(self, batch: int, generator, device) -> Optional[list]:
+        """The patch corruptions' draws; the base model corrupts no patch."""
         return None
 
     def sample_draws(self, batch: int, generator: Optional[torch.Generator],
                      device) -> ModelDraws:
-        """Draw a forward's randomness from ``generator``."""
+        """Draw a forward's randomness from ``generator`` (no patch mask
+        when unmasked)."""
         mask = sample_patch_mask(batch, self.num_group, self.mask_ratio,
-                                 self.rand_ratio, generator, device)
-        affine = self._sample_affine(batch, generator, device)
+                                 self.rand_ratio, generator, device) \
+            if self.masked_mode else None
+        corrupt = self._sample_corrupt(batch, generator, device)
         dp_enc = stack_dp_masks(self.MAE_encoder.blocks.dpr, batch, generator, device)
         dp_dec = stack_dp_masks(self.MAE_decoder.dpr, batch, generator, device)
-        return ModelDraws(mask, affine, dp_enc, dp_dec)
+        return ModelDraws(mask, corrupt, dp_enc, dp_dec)
+
+    def _encode(self, t_neigh, t_center, draws: ModelDraws, dp_enc):
+        """(tokens (B, G, C), mask (B, G) bool): all False when unmasked."""
+        if self.masked_mode:
+            return self.MAE_encoder(t_neigh, t_center, draws.mask, dp_enc), draws.mask
+        x = self.MAE_encoder(t_neigh, t_center, dp_enc)
+        return x, torch.zeros(x.shape[:2], dtype=torch.bool, device=x.device)
 
     def _decode(self, x_vis: torch.Tensor, mask: torch.Tensor, center: torch.Tensor,
                 dp_dec: Optional[torch.Tensor]) -> torch.Tensor:
-        """Swap masked slots for the mask token, add the decoder's position
-        embedding of the true centres, run the decoder over all G tokens."""
-        x_full = torch.where(mask[..., None], self.mask_token, x_vis)
+        """Swap masked slots for the mask token (masked mode), add the
+        decoder's position embedding of the true centres, run the decoder
+        over all G tokens."""
+        x_full = torch.where(mask[..., None], self.mask_token, x_vis) \
+            if self.masked_mode else x_vis
         return self.MAE_decoder(x_full, self.decoder_pos_embed(center), None, dp_dec)
+
+    def _loss_weights(self, mask: torch.Tensor) -> torch.Tensor:
+        """(B * G,) f32: the masked patches, or every patch (``all_patch``,
+        or the unmasked mode)."""
+        if not self.masked_mode or self.all_patch:
+            return torch.ones(mask.numel(), device=mask.device)
+        return mask.float().reshape(-1)
+
+    def encode(self, pts: torch.Tensor) -> torch.Tensor:
+        """Global feature for the SVM probes: max + mean over every token of
+        the encoder run without masking. pts (B, N, >= 3) -> (B, C)."""
+        neigh, center = group_neighborhood(pts[..., :3], self.num_group, self.group_size)
+        x = NormalTransformerEncoder.forward(self.MAE_encoder, neigh, center)
+        return x.amax(1) + x.mean(1)
 
     def _masked_pack_idx(self, mask: torch.Tensor):
         """(midx (B, M), w (B * M,) f32) packing the masked token slots first
         to the fixed capacity M = floor(max_ratio * G), padding slots with
         weight 0; or None when every token enters the loss (``all_patch``)
-        or packing would not shrink anything."""
+        or packing would not shrink anything, and when unmasked."""
         G = mask.shape[1]
         M = static_num_masked(0.8 if self.rand_ratio else self.mask_ratio, G)
-        if self.all_patch or M >= G:
+        if not self.masked_mode or self.all_patch or M >= G:
             return None
         order = torch.sort((~mask).to(torch.uint8), dim=-1, stable=True).indices
         w = torch.arange(M, device=mask.device)[None, :] < mask.sum(-1)[:, None]
@@ -221,8 +275,8 @@ class PointCAE_transformer_fc_global_folding_local(_CAETransformerBase):
     (chamfer against the patch centres) and a two-stage folding head on the
     decoded masked tokens (masked chamfer against the centred patches).
 
-    Ported for the masked configuration (``Drop-Patch`` in corrupt_type,
-    ``mask_type: rand``). At bf16 compute on a CUDA tensor the folding head
+    Masked (``Drop-Patch`` in corrupt_type, ``mask_type: rand``) or
+    unmasked (all G tokens through the encoder, no mask token). At bf16 compute on a CUDA tensor the folding head
     runs as the ``fused_folding`` kernel unless ``fold_impl: xla`` asks for
     the plain ``SplitMLP`` products; the parameters are the same either way.
     ``remat_fold: True`` recomputes the folding head in the backward, with
@@ -233,8 +287,6 @@ class PointCAE_transformer_fc_global_folding_local(_CAETransformerBase):
         super().__init__(config, generator)
         self.fold_impl = str(self.tcfg.get("fold_impl", "auto"))
         self.remat_fold = str(self.tcfg.get("remat_fold", "False")) == "True"
-        if "Drop-Patch" not in self.corrupt_type:
-            raise NotImplementedError("the unmasked encoder is not ported yet")
         if config.get("loss", "cdl2") != "cdl2":
             raise NotImplementedError(f"loss {config.get('loss')!r} is not ported yet")
         C = int(self.tcfg["trans_dim"])
@@ -243,7 +295,8 @@ class PointCAE_transformer_fc_global_folding_local(_CAETransformerBase):
         self.MAE_encoder = self._make_encoder(g)
         self.decoder_pos_embed = PosEmbedMLP(C, generator=g)
         self.MAE_decoder = self._make_decoder(g)
-        self.mask_token = self._make_mask_token(g)
+        if self.masked_mode:
+            self.mask_token = self._make_mask_token(g)
         self.coarse_pred = MLP(C, (1024, 1024, 3 * 64), dtype=dtype, generator=g)
         self.folding1 = SplitMLP(C, 2, (C, C, 3), dtype=dtype, generator=g)
         self.folding2 = SplitMLP(C, 3, (C, C, 3), dtype=dtype, generator=g)
@@ -251,9 +304,9 @@ class PointCAE_transformer_fc_global_folding_local(_CAETransformerBase):
                              persistent=False)
         self.global_loss_fn = build_loss_func("cdl2")
 
-    def _sample_affine(self, batch: int, generator, device) -> Optional[AffineR3Draws]:
-        return sample_affine_r3(batch, generator, device) \
-            if "affine_r3" in self.corrupt_type else None
+    def _sample_corrupt(self, batch: int, generator, device) -> Optional[list]:
+        return sample_patch_draws(self.corrupt_type, batch, self.num_group,
+                                  self.group_size, generator, device)
 
     def _fold_fused(self, x_rec: torch.Tensor) -> torch.Tensor:
         """The fused branch of ``_fold``."""
@@ -279,9 +332,7 @@ class PointCAE_transformer_fc_global_folding_local(_CAETransformerBase):
         B, G, S = neigh.shape[:3]
         pack = self._masked_pack_idx(mask)
         if pack is None:
-            weight = torch.ones(B * G, device=mask.device) if self.all_patch \
-                else mask.float().reshape(-1)
-            return x_rec, neigh.reshape(B * G, S, 3), weight
+            return x_rec, neigh.reshape(B * G, S, 3), self._loss_weights(mask)
         midx, w = pack
         return _take(x_rec, midx), _take(neigh, midx).reshape(-1, S, 3), w
 
@@ -299,12 +350,11 @@ class PointCAE_transformer_fc_global_folding_local(_CAETransformerBase):
         t_neigh, t_center = neigh + center[:, :, None, :], center
         if self.training:
             t_neigh, t_center = corrupt_patches(t_neigh, t_center, self.corrupt_type,
-                                                draws.affine)
+                                                draws.corrupt)
         t_neigh = t_neigh - t_center[:, :, None, :]
-        mask = draws.mask
         dp_enc = draws.dp_encoder if self.training else None
         dp_dec = draws.dp_decoder if self.training else None
-        x_vis = self.MAE_encoder(t_neigh, t_center, mask, dp_enc)
+        x_vis, mask = self._encode(t_neigh, t_center, draws, dp_enc)
 
         vis = ~mask[..., None]
         neg = torch.where(vis, x_vis, torch.full((), -1e9, device=x_vis.device))

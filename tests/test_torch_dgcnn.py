@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import _jax_draws as jd
 from point_dae_tpu import ops as jops
 from point_dae_tpu.data import corruptions as jc
 from point_dae_tpu.engine.pretrain import (init_model as j_init_model,
@@ -33,50 +34,10 @@ TYPES = ("affine_r3", "dropout_local")
 B, NRAW, NPOINTS, STEPS_PER_EPOCH = 4, 256, 64, 10
 
 
-def _affine_draws(key):
-    """The draws of ``compose_random_affines(key, 3)``, from the sub-keys it
-    splits."""
-    k_n, k_perm, k_lv, *kp = jax.random.split(key, 8)
-    return dict(
-        count=jax.random.randint(k_n, (), 1, 4),
-        perm=jax.random.permutation(k_perm, 5),
-        levels=jax.random.randint(k_lv, (5,), 0, 5).astype(jnp.float32),
-        translate=jax.random.uniform(kp[0], (3,), minval=-0.5, maxval=0.5),
-        scale=jax.random.uniform(kp[1], (3,), minval=0.5, maxval=2.0),
-        angles=jax.random.uniform(kp[2], (3,), minval=-np.pi, maxval=np.pi),
-        reflect=jax.random.bernoulli(kp[3], 0.5, (3,)),
-        shear=jax.random.uniform(kp[4], (6,), minval=-0.5, maxval=0.5))
-
-
-def _cloud_draws(key, n):
-    """One cloud's draws, split from its ``corrupt_cloud`` key as
-    ``corrupt_cloud`` and ``dropout_local`` split them (TYPES order:
-    affine_r3 is type 0, dropout_local type 1)."""
-    k_drop = jax.random.split(jax.random.fold_in(key, 1))[1]
-    k_ratio, k_nc, k_sizes, k_seeds = jax.random.split(k_drop, 4)
-    nc = jax.random.randint(k_nc, (), 1, 8)
-    return dict(
-        _affine_draws(jax.random.split(jax.random.fold_in(key, 0))[1]),
-        ratio=jax.random.uniform(k_ratio, (), minval=0.1, maxval=0.5),
-        num_clusters=nc,
-        picks=jax.random.randint(k_sizes, (n,), 0, jnp.maximum(nc, 1)),
-        seed_u=jax.vmap(lambda k: jax.random.uniform(k, (n,)))(
-            jax.random.split(k_seeds, 7)))
-
-
-def _to_torch(tree):
-    return {k: torch.from_numpy(np.array(v)) for k, v in jax.device_get(tree).items()}
-
-
-_AFFINE_FIELDS = ("count", "perm", "levels", "translate", "scale", "angles", "reflect",
-                  "shear")
-
-
 def _torch_draws(keys, n) -> tc.CloudCorruptDraws:
-    d = _to_torch(jax.jit(jax.vmap(lambda k: _cloud_draws(k, n)))(keys))
-    return tc.CloudCorruptDraws(
-        tc.CloudAffineDraws(**{k: d[k] for k in _AFFINE_FIELDS}),
-        tc.DropoutLocalDraws(d["ratio"], d["num_clusters"], d["picks"], d["seed_u"]))
+    """The draws of ``vmap(corrupt_cloud)`` over ``keys``, split from each
+    cloud's key as ``corrupt_cloud`` and its families split them."""
+    return jd.batch_cloud_draws(keys, n, TYPES)
 
 
 def test_cloud_corruptions_match_jax():
@@ -97,15 +58,17 @@ def test_cloud_corruptions_match_jax():
     out, m2 = tc.corrupt_batch(torch.from_numpy(pts), TYPES, generator=g)
     assert out.shape == (6, 512, 3) and m2.dtype == torch.bool and (m2.sum(1) >= 256).all()
     assert tc.corrupt_batch(torch.from_numpy(pts), ("clean",))[1] is None
-    with pytest.raises(NotImplementedError, match="jitter"):
-        tc.corrupt_batch(torch.from_numpy(pts), ("jitter",))
+    with pytest.raises(NotImplementedError, match="rotate_x"):
+        tc.corrupt_batch(torch.from_numpy(pts), ("rotate_x",))
 
 
 def test_compose_random_affines_matches_jax():
     keys = jax.random.split(jax.random.key(9), 16)
     A, b = jax.jit(jax.vmap(lambda k: jc.compose_random_affines(k, 3)))(keys)
-    d = _to_torch(jax.jit(jax.vmap(_affine_draws))(keys))
-    At, bt = tc.compose_random_affines(tc.CloudAffineDraws(**d))
+    d = jax.device_get(jax.jit(jax.vmap(lambda k: jd._composite(k, 3, jc.AFFINE_NAMES)))(keys))
+    draws = tc.CloudAffineDraws(jd._t(d["count"]), jd._t(d["perm"]), jd._t(d["levels"]),
+                                tuple(jd._t(p) for p in d["params"]))
+    At, bt = tc.compose_random_affines(draws)
     np.testing.assert_allclose(At.numpy(), np.asarray(A), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(bt.numpy(), np.asarray(b), rtol=1e-5, atol=1e-6)
     assert set(d["count"].tolist()) == {1, 2, 3}

@@ -119,8 +119,8 @@ def _run_torch(cfg, raw, init, pipe, mask, affine, dp_enc):
     draws = StepDraws(
         PipelineDraws(torch.tensor(pipe[0]).long(), torch.tensor(pipe[1]).long()),
         ModelDraws(torch.from_numpy(mask),
-                   AffineR3Draws(count, perm.tolist(), torch.tensor(A),
-                                 torch.tensor(bvec), torch.tensor(m)),
+                   [AffineR3Draws(count, perm.tolist(), torch.tensor(A),
+                                  torch.tensor(bvec), torch.tensor(m)), None],
                    torch.from_numpy(dp_enc), None))
     metrics = step(state, torch.from_numpy(raw), draws=draws)
     params, stats = to_flax(model.state_dict())
