@@ -192,6 +192,31 @@ Phases, each fatal on failure:
               mlp_ln 16 times a step each at T 64 and R 16384, folding over
               16384 tokens and the patch chamfer over 16384 pairs (phase
               corrupt_train).
+ 20. run     - the data and run layer through the port's CLI
+              (point_dae_torch.cli.main) in process, in a temporary
+              directory, after the partseg phase, every launch counter
+              zeroed before it: cfgs/pretrain_synthetic_flagship_cached.yaml
+              at full width (bs 256, float16 device cache) with max_epoch 1
+              and 768 Synthetic clouds (3 steps an epoch), its overrides
+              written into a copy and printed; cfgs/pretrain_synthetic_dgcnn
+              .yaml as shipped (streaming loader, SVM probe each epoch), then
+              again with --resume and max_epoch 6, which must continue at
+              epoch 5 from the saved step; a full-width PointTransformer
+              fine-tune on Synthetic warm-started with --ckpts from the
+              flagship's ckpt-last.pth (the warm start must merge tensors),
+              then --test --vote from its ckpt-best.pth (299 voting passes);
+              one epoch of cfgs/partseg_shapenetpart.yaml on a ShapeNetPart
+              tree of random shapes written there, then --test from its
+              best_model.pth. Fatal: a raised exception, a non-finite loss, a
+              missing [Training] EPOCH or [Validation] EPOCH line or
+              checkpoint, a resume that does not continue, a counter of the
+              paths (the flagship's, the DGCNN's, fps, scatter_rows_add) at 0.
+              Printed beside the card: each run's clouds/s over its loop
+              (host clock, loader or device cache included, first epoch
+              apart), each configuration's busy time in one profiled step,
+              and the LinearSVC probe's seconds at ModelNet40's size (9843 x
+              F train, 40 classes) on the card at F 384 and 1024 and on the
+              host CPU at F 384.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Run from the repository root:
 
@@ -3585,6 +3610,388 @@ def phase_corrupt_train(torch, raw_d, device, card):
 T0 = time.perf_counter()
 
 
+# -- the data and run layer: the CLI in process, from configs
+RUN_FLAGSHIP_CFG = "cfgs/pretrain_synthetic_flagship_cached.yaml"
+RUN_FLAGSHIP_CUT = {"max_epoch": 1,                       # epochs 0 and 1
+                    "dataset": {"train": {"others": {"size": 768}}}}   # 3 steps an epoch
+RUN_DGCNN_CFG = "cfgs/pretrain_synthetic_dgcnn.yaml"       # as shipped
+RUN_FT_CFG = {             # cfgs/finetune_synthetic_transformer.yaml at full width
+    "optimizer": {"type": "AdamW", "part": "all",
+                  "kwargs": {"lr": 0.0005, "weight_decay": 0.05}},
+    "scheduler": {"type": "CosLR", "kwargs": {"epochs": 2, "initial_epochs": 0}},
+    "dataset": {s: {"_base_": "cfgs/dataset_configs/Synthetic.yaml",
+                    "others": {"subset": sub, "npoints": 1024, "size": n, "seed": seed,
+                               "aug_type": aug}}
+                for s, sub, n, seed, aug in (("train", "train", 64, 0, ["translate", "scale"]),
+                                             ("val", "test", 64, 1, ["clean"]),
+                                             ("test", "test", 32, 1, ["clean"]))},
+    "model": {"NAME": "PointTransformer", "trans_dim": 384, "depth": 12,
+              "drop_path_rate": 0.1, "cls_dim": 15, "num_heads": 6, "group_size": 32,
+              "num_group": 64, "encoder_dims": 384},
+    "npoints": 1024, "total_bs": 32, "step_per_update": 1, "max_epoch": 1,
+    "grad_norm_clip": 10}
+RUN_PARTSEG_CFG = "cfgs/partseg_shapenetpart.yaml"
+RUN_PARTSEG_TREE = {"Airplane": ("02691156", 24, 8), "Chair": ("03001627", 8, 8)}
+RUN_PARTSEG_ROWS = 2500    # points a shape file, subsampled to the recipe's 2048
+RUN_COUNTERS = FLAGSHIP_COUNTERS + DGCNN_COUNTERS + ("fps", "scatter_rows_add")
+MODELNET_PROBE = (9843, 2468, 40)   # ModelNet40's train / test clouds and classes
+PROBE_WIDTHS = (384, 1024)          # the flagship's and the DGCNN encoder's features
+
+
+def write_config(src, dst, cut):
+    """Copy a YAML config with ``_base_`` paths made absolute and the nested
+    keys of ``cut`` written over it."""
+    import yaml
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = src if isinstance(src, dict) else yaml.safe_load(open(os.path.join(root, src)))
+    cfg = copy.deepcopy(cfg)
+
+    def absolute(node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                if k == "_base_" and isinstance(v, str) and not os.path.isabs(v):
+                    node[k] = os.path.join(root, v)
+                else:
+                    absolute(v)
+
+    def merge(node, over):
+        for k, v in over.items():
+            if isinstance(v, dict) and isinstance(node.get(k), dict):
+                merge(node[k], v)
+            else:
+                node[k] = v
+
+    absolute(cfg)
+    merge(cfg, cut)
+    os.makedirs(os.path.dirname(dst), exist_ok=True)
+    with open(dst, "w") as f:
+        yaml.safe_dump(cfg, f, sort_keys=False)
+    return dst
+
+
+def partseg_tree(root):
+    """A ShapeNetPart tree (synsetoffset2category.txt, train_test_split/*.json,
+    txt clouds of x y z nx ny nz part) of random shapes with random parts of
+    their category."""
+    import numpy as np
+
+    from point_dae_torch.engine.partseg import SEG_CLASSES
+
+    rng = np.random.default_rng(SEED + 60)
+    os.makedirs(os.path.join(root, "train_test_split"))
+    with open(os.path.join(root, "synsetoffset2category.txt"), "w") as f:
+        f.writelines(f"{name}\t{synset}\n" for name, (synset, _, _) in RUN_PARTSEG_TREE.items())
+    lists = {"train": [], "test": [], "val": []}
+    for name, (synset, n_train, n_test) in RUN_PARTSEG_TREE.items():
+        os.makedirs(os.path.join(root, synset))
+        for i in range(n_train + n_test):
+            sid = f"{name.lower()}{i:03d}"
+            data = np.concatenate([rng.normal(size=(RUN_PARTSEG_ROWS, 6)),
+                                   rng.choice(SEG_CLASSES[name], (RUN_PARTSEG_ROWS, 1))], 1)
+            np.savetxt(os.path.join(root, synset, f"{sid}.txt"), data, fmt="%.6f")
+            lists["train" if i < n_train else "test"].append(f"shape_data/{synset}/{sid}")
+    for split, ids in lists.items():
+        with open(os.path.join(root, "train_test_split", f"shuffled_{split}_file_list.json"),
+                  "w") as f:
+            json.dump(ids, f)
+
+
+class LogLines:
+    """The lines a run logs under its logger name (the config's stem)."""
+
+    def __init__(self, name):
+        import logging
+
+        self.logger, self.lines = logging.getLogger(name), []
+        self.handler = logging.Handler()
+        self.handler.emit = lambda record: self.lines.append(record.getMessage())
+        self.logger.addHandler(self.handler)
+
+    def close(self):
+        self.logger.removeHandler(self.handler)
+
+    def training(self):
+        """(epoch, EpochTime s, [losses]) of each '[Training] EPOCH' line."""
+        import re
+
+        out = []
+        for ln in self.lines:
+            m = re.match(r"^\[Training\] EPOCH: (\d+) EpochTime = (\S+) \(s\) Losses = (.*)$", ln)
+            if m:
+                out.append((int(m.group(1)), float(m.group(2)),
+                            [float(v) for v in json.loads(m.group(3).replace("'", '"'))]))
+        return out
+
+    def starting(self, prefix):
+        return [ln for ln in self.lines if ln.startswith(prefix)]
+
+
+def cli_run(what, argv, name, device, epochs, validation=True, ckpts=("ckpt-last",)):
+    """Run the port's CLI in process; fail unless it logged a '[Training]
+    EPOCH' line for each of ``epochs`` with finite losses, a '[Validation]
+    EPOCH' line for each where ``validation``, and wrote ``ckpts``. Returns
+    (result, lines, experiment path, seconds)."""
+    from point_dae_torch import cli
+
+    lines = LogLines(name)
+    t0 = time.perf_counter()
+    try:
+        out = cli.main(argv, device=device)
+    except Exception as e:  # noqa: BLE001 - any failure of the run fails the phase
+        fail(f"run {what}: {type(e).__name__}: {e}")
+    finally:
+        lines.close()
+    seconds = time.perf_counter() - t0
+    train = lines.training()
+    if [e for e, _, _ in train] != list(epochs):
+        fail(f"run {what}: [Training] EPOCH lines for epochs {[e for e, _, _ in train]}, "
+             f"expected {list(epochs)}")
+    if not all(math.isfinite(v) for _, _, losses in train for v in losses):
+        fail(f"run {what}: a non-finite loss: {train}")
+    val = lines.starting("[Validation] EPOCH: ")
+    if validation and len(val) != len(epochs):
+        fail(f"run {what}: {len(val)} [Validation] EPOCH lines for {len(epochs)} epochs")
+    exp = os.path.join(argv[argv.index("--root_folder") + 1], name,
+                       os.path.basename(os.path.dirname(argv[argv.index("--config") + 1])),
+                       argv[argv.index("--exp_name") + 1])
+    for c in ckpts:
+        if not os.path.exists(os.path.join(exp, f"{c}.pth")):
+            fail(f"run {what}: no {c}.pth in {exp}")
+    for ln in train:
+        log(f"    [Training] EPOCH: {ln[0]} EpochTime = {ln[1]:.3f} (s) Losses = {ln[2]}")
+    for ln in val:
+        log(f"    {ln}")
+    return out, lines, exp, seconds
+
+
+def loop_rate(train, steps, batch):
+    """Clouds/s over the epochs after the first (host clock, loader or device
+    cache included)."""
+    later = [t for e, t, _ in train[1:]]
+    return steps * batch * len(later) / sum(later)
+
+
+def profile_config(torch, config, kind, batch, card, device):
+    """The configuration's busy time in one profiled step of a model built
+    from it (two steps first), on one batch of its train set."""
+    import numpy as np
+
+    from point_dae_torch.data.datasets import build_dataset_from_cfg
+    from point_dae_torch.engine import finetune, partseg, pretrain
+    from point_dae_torch.engine.train_state import TrainState
+    from point_dae_torch.models import build_model_from_cfg
+
+    train = config["dataset"]["train"]
+    ds = build_dataset_from_cfg(train["_base_"], train["others"], device=device)
+    items = [ds[i] for i in range(batch)]
+    pts = torch.from_numpy(np.stack([it["points"] for it in items]).astype(np.float32))
+    g = torch.Generator(device=device).manual_seed(SEED + 61)
+    if kind == "pretrain":
+        model = pretrain.init_model(config, seed=SEED, device=device)
+        step = pretrain.make_train_step(model, config, device=device)
+        raw = pts.to(device)
+        run = lambda: step(state, raw, generator=g)  # noqa: E731
+    elif kind == "finetune":
+        model = build_model_from_cfg(config["model"], device=device, seed=SEED)
+        step = finetune.make_finetune_step(model, config, device=device)
+        labels = torch.tensor([it["label"] for it in items])
+        run = lambda: step(state, pts, labels, generator=g)  # noqa: E731
+    else:
+        model = build_model_from_cfg(config["model"], device=device, seed=SEED)
+        step = partseg.make_seg_train_step(model, device=device)
+        onehot = torch.eye(16)[torch.tensor([it["label"] for it in items])]
+        seg = torch.from_numpy(np.stack([it["seg"] for it in items]))
+        run = lambda: step(state, pts, onehot, seg, generator=g)  # noqa: E731
+    state = TrainState.create(model, config, 100, config.get("grad_norm_clip"))
+    for _ in range(2):
+        run()
+    busy, _ = profile_step(torch, run, card, top=6)
+    del model, state, step
+    torch.cuda.empty_cache()
+    return busy / 1e3
+
+
+def svm_probe_times(torch, card, device):
+    """evaluate_svm at ModelNet40's probe size on seeded class-structured
+    features, on the card at both encoders' widths and on the host CPU at
+    the flagship's: seconds for fit + predict, Newton iterations, accuracy."""
+    import numpy as np
+
+    from point_dae_torch.engine.pretrain import LinearSVC
+
+    n_train, n_test, classes = MODELNET_PROBE
+    rng = np.random.default_rng(SEED + 62)
+    out = {}
+    for width, dev in [(w, device) for w in PROBE_WIDTHS] + [(PROBE_WIDTHS[0], "cpu")]:
+        centers = rng.normal(size=(classes, width))
+        y, yt = rng.integers(0, classes, n_train), rng.integers(0, classes, n_test)
+        x = (0.3 * centers[y] + rng.normal(size=(n_train, width))).astype(np.float32)
+        xt = (0.3 * centers[yt] + rng.normal(size=(n_test, width))).astype(np.float32)
+        xd, xtd = torch.from_numpy(x).to(device), torch.from_numpy(xt).to(device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clf = LinearSVC(C=0.01, device=dev).fit(xd, y)
+        acc = float((clf.predict(xtd).cpu().numpy() == yt).mean())
+        seconds = time.perf_counter() - t0
+        if not 1.5 / classes < acc <= 1.0:
+            fail(f"SVM probe at width {width} on {dev}: accuracy {acc} near chance")
+        where = f"{card}" if dev == device else "host CPU, float64"
+        log(f"  [{where}] SVM probe at ModelNet40's size ({n_train} x {width} train, "
+            f"{n_test} test, {classes} classes): {seconds:.2f} s fit + predict, "
+            f"{clf.n_iter_} Newton iterations, accuracy {acc:.4f}")
+        out[(width, str(dev))] = seconds
+    return out
+
+
+def phase_run(torch, device, card):
+    """The data and run layer through the CLI (point_dae_torch.cli.main) in a
+    temporary directory: the flagship cached pretrain at full width (size and
+    epochs cut), the DGCNN pretrain as shipped and its resume, a full-width
+    fine-tune warm-started from the flagship's ckpt-last with a test and
+    vote from its ckpt-best, one epoch of part segmentation on a ShapeNetPart
+    tree with a test; every kernel of those paths launched; each
+    configuration's busy time in one profiled step; the SVM probe's time at
+    ModelNet40's size."""
+    import shutil
+    import tempfile
+
+    from point_dae_torch.utils import kernels
+    from point_dae_torch.utils.config import cfg_from_yaml_file
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_run_")
+    exp_root = os.path.join(tmp, "experiments")
+    rates = {}
+    try:
+        kernels.reset_launches()
+        # 1. the flagship cached pretrain, full width
+        flag = write_config(RUN_FLAGSHIP_CFG, os.path.join(tmp, "cfgs", os.path.basename(
+            RUN_FLAGSHIP_CFG)), RUN_FLAGSHIP_CUT)
+        log(f"  {RUN_FLAGSHIP_CFG} with {RUN_FLAGSHIP_CUT}:")
+        fcfg = cfg_from_yaml_file(flag)
+        out, lines, flag_exp, sec = cli_run(
+            "flagship", ["--config", flag, "--exp_name", "run", "--root_folder", exp_root],
+            "pretrain_synthetic_flagship_cached", device, range(2), validation=False)
+        bs = fcfg["total_bs"]
+        spe = fcfg["dataset"]["train"]["others"]["size"] // bs      # the cache's floor
+        if out["state"].step != 2 * spe:
+            fail(f"run flagship: {out['state'].step} optimizer steps, expected {2 * spe}")
+        rates["flagship"] = (loop_rate(lines.training(), spe, bs), sec)
+        del out
+        torch.cuda.empty_cache()
+
+        # 2. the DGCNN pretrain as shipped, then a resume two epochs on
+        dg = os.path.join(tmp, "cfgs", os.path.basename(RUN_DGCNN_CFG))
+        dg_argv = ["--config", write_config(RUN_DGCNN_CFG, dg, {}), "--exp_name", "run",
+                   "--root_folder", exp_root]
+        log(f"  {RUN_DGCNN_CFG} as shipped (its _base_ paths made absolute):")
+        dcfg = cfg_from_yaml_file(dg)
+        out, lines, dg_exp, sec = cli_run("dgcnn", dg_argv, "pretrain_synthetic_dgcnn", device,
+                                          range(5), ckpts=("ckpt-best", "ckpt-last"))
+        spe, bs = dcfg["dataset"]["train"]["others"]["size"] // dcfg["total_bs"], dcfg["total_bs"]
+        if out["state"].step != 5 * spe:
+            fail(f"run dgcnn: {out['state'].step} optimizer steps, expected {5 * spe}")
+        rates["dgcnn"] = (loop_rate(lines.training(), spe, bs), sec)
+        resumed = write_config(RUN_DGCNN_CFG, dg, {"max_epoch": 6})
+        log("  the same with --resume and max_epoch 6:")
+        out, lines, _, _ = cli_run("dgcnn resume", ["--config", resumed, "--exp_name", "run",
+                                                    "--root_folder", exp_root, "--resume"],
+                                   "pretrain_synthetic_dgcnn", device, (5, 6))
+        if out["state"].step != 7 * spe or not lines.starting("[RESUME] epoch 4"):
+            fail(f"run dgcnn resume: did not continue at epoch 5 from step {5 * spe}: "
+                 f"{out['state'].step} steps, {lines.starting('[RESUME]')}")
+        del out
+
+        # 3. a full-width fine-tune from the flagship's ckpt-last, then a test with votes
+        ft = write_config(RUN_FT_CFG, os.path.join(tmp, "cfgs", "finetune_synthetic_full.yaml"),
+                          {})
+        log(f"  fine-tune (PointTransformer, trans_dim 384, depth 12, G 64 x S 32, bs 32) "
+            f"from {flag_exp}/ckpt-last.pth:")
+        out, lines, ft_exp, sec = cli_run(
+            "finetune", ["--config", ft, "--exp_name", "run", "--root_folder", exp_root,
+                         "--finetune_model", "--ckpts",
+                         os.path.join(flag_exp, "ckpt-last.pth")],
+            "finetune_synthetic_full", device, range(2), ckpts=("ckpt-best", "ckpt-last"))
+        merged = lines.starting("[LOAD] merged ")
+        if not merged or int(merged[0].split()[2]) == 0:
+            fail(f"run finetune: the warm start merged no tensor: {merged}")
+        log(f"    {merged[0]}")
+        rates["finetune"] = (loop_rate(lines.training(), RUN_FT_CFG["dataset"]["train"]["others"]
+                                       ["size"] // RUN_FT_CFG["total_bs"],
+                                       RUN_FT_CFG["total_bs"]), sec)
+        del out
+        t0 = time.perf_counter()
+        out, lines, _, _ = cli_run(
+            "finetune test", ["--config", ft, "--exp_name", "run", "--root_folder", exp_root,
+                              "--finetune_model", "--test", "--vote", "--ckpts",
+                              os.path.join(ft_exp, "ckpt-best.pth")],
+            "finetune_synthetic_full", device, (), validation=False, ckpts=())
+        votes = lines.starting("[TEST_VOTE]")
+        if not lines.starting("[TEST] acc = ") or len(votes) != 299:
+            fail(f"run finetune test: {lines.starting('[TEST]')[:2]}, {len(votes)} vote lines")
+        log(f"    {lines.starting('[TEST] acc = ')[0]}; {votes[-1]} "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+        # 4. one epoch of part segmentation on a ShapeNetPart tree, then a test
+        tree = os.path.join(tmp, "shapenetpart")
+        partseg_tree(tree)
+        ps = write_config(RUN_PARTSEG_CFG, os.path.join(tmp, "cfgs",
+                                                        os.path.basename(RUN_PARTSEG_CFG)),
+                          {"max_epoch": 0, "dataset": {s: {"others": {"DATA_PATH": tree}}
+                                                       for s in ("train", "test")}})
+        log(f"  {RUN_PARTSEG_CFG} with max_epoch 0 on {sum(a + b for _, a, b in RUN_PARTSEG_TREE.values())} "
+            f"random shapes of {RUN_PARTSEG_ROWS} points:")
+        pcfg = cfg_from_yaml_file(ps)
+        lines = LogLines("partseg_shapenetpart")
+        from point_dae_torch import cli
+        t0 = time.perf_counter()
+        try:
+            res = cli.main(["--config", ps, "--exp_name", "run", "--root_folder", exp_root],
+                           device=device)
+            sec = time.perf_counter() - t0
+            res_test = cli.main(["--config", ps, "--exp_name", "run", "--root_folder", exp_root,
+                                 "--test", "--ckpts", os.path.join(
+                                     exp_root, "partseg_shapenetpart", "cfgs", "run",
+                                     "best_model.pth")], device=device)
+        except Exception as e:  # noqa: BLE001 - any failure of the run fails the phase
+            fail(f"run partseg: {type(e).__name__}: {e}")
+        finally:
+            lines.close()
+        loss = lines.starting("Epoch 0 train loss = ")
+        if (not loss or not math.isfinite(float(loss[0].split()[5]))
+                or not lines.starting("Best inctance avg mIOU is: ")
+                or not lines.starting("[TEST] test inctance avg mIOU = ")):
+            fail(f"run partseg: lines missing or a non-finite loss: {lines.lines[-8:]}")
+        for ln in (loss[0], lines.starting("Epoch 0 test inctance")[0],
+                   lines.starting("[TEST] test inctance")[0]):
+            log(f"    {ln}")
+        ps_steps = sum(a for _, a, _ in RUN_PARTSEG_TREE.values()) // pcfg["total_bs"]
+        rates["partseg"] = (ps_steps * pcfg["total_bs"] / sec, sec)
+        del res, res_test
+
+        used = {k: kernels.launches[k] for k in RUN_COUNTERS}
+        log(f"  launches over the run phase: {used}")
+        if min(used.values()) == 0:
+            fail(f"run: a kernel of the run layer's paths was never launched: {used}")
+
+        # each configuration's busy time, one profiled step
+        busy = {
+            "flagship": profile_config(torch, fcfg, "pretrain", fcfg["total_bs"], card, device),
+            "dgcnn": profile_config(torch, dcfg, "pretrain", dcfg["total_bs"], card, device),
+            "finetune": profile_config(torch, cfg_from_yaml_file(ft), "finetune",
+                                       RUN_FT_CFG["total_bs"], card, device),
+            "partseg": profile_config(torch, pcfg, "partseg", pcfg["total_bs"], card, device)}
+        for name, (rate, sec) in rates.items():
+            over = "the whole run (one epoch, its eval, the set-up)" if name == "partseg" \
+                else "the loop's epochs after the first (loader or device cache included)"
+            log(f"  [{card}] run {name}: {rate:.1f} clouds/s over {over}, host clock; "
+                f"{sec:.1f} s the whole run; busy {busy[name]:.2f} ms in one profiled step "
+                f"of the configuration")
+        svm_probe_times(torch, card, device)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def stamp(what: str) -> None:
     log(f"[{time.perf_counter() - T0:.1f} s] {what} done")
 
@@ -3764,6 +4171,12 @@ def main() -> None:
     log("partseg:")
     launches["scatter_rows_add"] = phase_partseg(torch, device, card)
     stamp("partseg")
+    torch.cuda.empty_cache()
+
+    # 8. the data and run layer through the CLI
+    log("run:")
+    phase_run(torch, device, card)
+    stamp("run")
     # gather_rows_wide is the one kernel without a path: the JAX package keeps
     # XLA's gather forward on purpose (point_dae_tpu/ops/pallas_scatter.py:
     # 267-276) and the port its plain one, so the rule leaves it out and its

@@ -1,5 +1,5 @@
-"""Classification fine-tune steps and accuracy loops (port of
-``point_dae_tpu/engine/finetune.py:35-260,391-403``).
+"""Classification fine-tune: the steps, the accuracy loops and the runs
+(port of ``point_dae_tpu/engine/finetune.py``).
 
 A train step resamples each cloud on the device (FPS to ``point_all``,
 1200/2400/4800/8192 for npoints 1024/2048/4096/8192, then a random
@@ -13,12 +13,16 @@ logits of ``times`` draws of the train resample plus scale-and-translate.
 
 Random draws are inputs: a step takes a ``FinetuneDraws`` (a sequence of
 them for the vote step) or draws from the given ``torch.Generator``.
-``run_finetune`` and ``test_net`` (data sets, loader, checkpoint files)
-are not ported yet.
+``run_finetune`` (reference runner_finetune.run_net) trains from a config,
+validates each epoch and votes when the accuracy crosses the reference's
+trigger; ``test_net`` evaluates a checkpoint, with repeated voting under
+``--vote``.
 """
 from __future__ import annotations
 
 import math
+import os
+import time
 from dataclasses import dataclass
 from typing import Callable, Iterable, Optional, Sequence
 
@@ -30,6 +34,8 @@ from ..data.corruptions_patch import _batched_rot
 from ..models.common import ClsDraws
 from ..ops.geometry import furthest_point_sample, gather_points
 from ..utils.device import resolve_device
+from ..utils.logger import ScalarWriter, print_log
+from ..utils.meters import AverageMeter
 from .train_state import TrainState
 
 POINT_ALL = {1024: 1200, 2048: 2400, 4096: 4800, 8192: 8192}
@@ -266,3 +272,129 @@ def vote_eval(vote_step: Callable, batches: Iterable[dict], batch_size: int,
               generator: Optional[torch.Generator] = None) -> float:
     """Voting accuracy in percent (``finetune.py:391-403``)."""
     return _accuracy(lambda p: vote_step(p, generator=generator), batches, batch_size)
+
+
+def _warm_start(model: torch.nn.Module, ckpts: str, logger_name: str) -> None:
+    """Merge a checkpoint's tensors into ``model`` by name and shape, a
+    pretrain encoder re-rooted (``utils/checkpoint.py:strip_prefixes``)."""
+    from ..utils.checkpoint import load_params, merge_pretrained, strip_prefixes
+
+    merge_pretrained(model, strip_prefixes(load_params(ckpts, ckpts)), logger=logger_name)
+
+
+def run_finetune(config, args, logger_name: str = "PointDAE", device=None):
+    """The fine-tune run (runner_finetune.run_net :83-270): FPS resample,
+    (smooth) cross-entropy, gradient clip, validation each epoch, voting
+    under ``--vote`` when the accuracy crosses the reference's trigger
+    (:254-262), ckpt-best and ckpt-last. Returns {"best_acc", "best_vote",
+    "state"}."""
+    from ..data.datasets import build_dataset_from_cfg
+    from ..data.loader import DataLoader
+    from ..models import build_model_from_cfg
+    from ..utils.checkpoint import resume_checkpoint, save_checkpoint
+
+    dev = resolve_device(device)
+    seed = int(getattr(args, "seed", 0))
+    dcfg = config["dataset"]
+    train_set = build_dataset_from_cfg(dcfg["train"]["_base_"], dcfg["train"]["others"],
+                                       device=dev)
+    val_set = build_dataset_from_cfg(dcfg["val"]["_base_"], dcfg["val"]["others"],
+                                     device=dev)
+    total_bs = int(config.get("total_bs", 32))
+    loader = DataLoader(train_set, total_bs, shuffle=True, seed=seed)
+
+    def val_batches():
+        return DataLoader(val_set, total_bs, shuffle=False, drop_last=False)
+
+    max_epoch = int(config.get("max_epoch", 300))
+    model = build_model_from_cfg(config["model"], device=dev, seed=seed)
+    if getattr(args, "ckpts", None):
+        _warm_start(model, args.ckpts, logger_name)
+    state = TrainState.create(model, config, max(len(loader), 1),
+                              config.get("grad_norm_clip"))
+    train_step = make_finetune_step(model, config, device=dev)
+    eval_step = make_eval_step(model, config, device=dev)
+    vote_step = make_vote_step(model, config, device=dev)
+    generator = torch.Generator(device=dev).manual_seed(seed + 7)
+
+    best_acc, best_vote, start_epoch = 0.0, 0.0, 0
+    auto = getattr(args, "auto_resume", False) and os.path.exists(
+        os.path.join(args.experiment_path, "ckpt-last.pth"))
+    if getattr(args, "resume", False) or auto:
+        state, start_epoch, best_acc = resume_checkpoint(args.experiment_path, state,
+                                                         logger=logger_name)
+    writer = ScalarWriter(getattr(args, "tfboard_path", None))
+    try:
+        for epoch in range(start_epoch, max_epoch + 1):
+            loader.set_epoch(epoch)
+            meters = AverageMeter(["loss", "acc"])
+            t0 = time.time()
+            step_metrics = []
+            for batch in loader:
+                # metrics stay on the device: one read at the epoch's end
+                step_metrics.append(train_step(
+                    state, torch.from_numpy(np.asarray(batch["points"], np.float32)),
+                    torch.from_numpy(np.asarray(batch["label"])), generator=generator))
+            if step_metrics:
+                for loss, acc in torch.stack([torch.stack([m["loss"], m["acc"]])
+                                              for m in step_metrics]).tolist():
+                    meters.update([loss, acc])
+            writer.add_scalar("Loss/Epoch/loss", meters.avg(0), epoch)
+            writer.add_scalar("Metric/TrainACC", meters.avg(1), epoch)
+            print_log(f"[Training] EPOCH: {epoch} EpochTime = "
+                      f"{time.time() - t0:.3f} (s) "
+                      f"Losses = ['{meters.avg(0):.4f}', '{meters.avg(1):.4f}']",
+                      logger=logger_name)
+            acc = evaluate(eval_step, val_batches(), total_bs)
+            writer.add_scalar("Metric/ACC", acc, epoch)
+            print_log(f"[Validation] EPOCH: {epoch}  acc = {acc:.4f} "
+                      f"time = {time.time() - t0:.1f}s", logger=logger_name)
+            better = acc > best_acc
+            if better:
+                best_acc = acc
+                save_checkpoint(args.experiment_path, "ckpt-best", state, epoch, best_acc,
+                                logger=logger_name)
+            # the 91 band votes only on improving epochs (:254-262)
+            if getattr(args, "vote", False) and (acc > 92.1 or (better and acc > 91)):
+                vacc = vote_eval(vote_step, val_batches(), total_bs, generator)
+                best_vote = max(best_vote, vacc)
+                print_log(f"[Validation_vote] EPOCH: {epoch}  vote_acc = {vacc:.4f}",
+                          logger=logger_name)
+            save_checkpoint(args.experiment_path, "ckpt-last", state, epoch, best_acc,
+                            logger=logger_name)
+    finally:
+        writer.close()
+    return {"best_acc": best_acc, "best_vote": best_vote, "state": state}
+
+
+def test_net(config, args, logger_name: str = "PointDAE", device=None) -> float:
+    """The test protocol (runner_finetune.py:686-748): the accuracy of the
+    ``--ckpts`` checkpoint, then under ``--vote`` ``vote_repeats`` (299)
+    voting passes, keeping the best."""
+    from ..data.datasets import build_dataset_from_cfg
+    from ..data.loader import DataLoader
+    from ..models import build_model_from_cfg
+
+    dev = resolve_device(device)
+    dcfg = config["dataset"]
+    test_set = build_dataset_from_cfg(dcfg["test"]["_base_"], dcfg["test"]["others"],
+                                      device=dev)
+    total_bs = int(config.get("total_bs", 32))
+    model = build_model_from_cfg(config["model"], device=dev, seed=0)
+    _warm_start(model, args.ckpts, logger_name)
+
+    def batches():
+        return DataLoader(test_set, total_bs, shuffle=False, drop_last=False)
+
+    acc = evaluate(make_eval_step(model, config, device=dev), batches(), total_bs)
+    print_log(f"[TEST] acc = {acc:.4f}", logger=logger_name)
+    if getattr(args, "vote", False):
+        vote_step = make_vote_step(model, config, device=dev)
+        generator = torch.Generator(device=dev).manual_seed(int(getattr(args, "seed", 0)))
+        best = 0.0
+        for it in range(int(getattr(args, "vote_repeats", 299))):
+            v = vote_eval(vote_step, batches(), total_bs, generator)
+            best = max(best, v)
+            print_log(f"[TEST_VOTE] iter {it}: acc = {v:.4f} best = {best:.4f}",
+                      logger=logger_name)
+    return acc

@@ -1,5 +1,6 @@
-"""Part-segmentation train and eval steps and the category-restricted mIoU
-(port of ``point_dae_tpu/engine/partseg.py:27-145``).
+"""Part segmentation: the train and eval steps, the category-restricted
+mIoU and the runs (port of ``point_dae_tpu/engine/partseg.py``; reference
+segmentation/main.py).
 
 A train step scales and shifts each cloud (``scale_shift``), runs the model
 in train mode, takes the NLL over the per-point log-probs, clips the
@@ -8,11 +9,13 @@ update (``engine/train_state.py``); the BatchNorm running statistics move
 during the forward. Random draws are inputs: a step takes a ``SegDraws`` or
 draws one from the given ``torch.Generator``. ``evaluate_partseg``
 restricts each shape's argmax to its category's parts and reports the
-instance and class mIoU. ``run_partseg`` and ``test_partseg`` (data sets,
-loader, checkpoint files) are not ported yet.
+instance and class mIoU. ``run_partseg`` trains on ShapeNetPart and keeps
+the best-mIoU weights in ``best_model.pth``; ``test_partseg`` evaluates a
+checkpoint once.
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, Iterable, Optional, Sequence
 
 import numpy as np
@@ -20,7 +23,9 @@ import torch
 
 from ..models.partseg import N_CATEGORIES, SegDraws, seg_nll_loss
 from ..utils.device import resolve_device
-from .finetune import pad_to_batch
+from ..utils.logger import print_log
+from ..utils.meters import AverageMeter
+from .finetune import _warm_start, pad_to_batch
 from .train_state import TrainState
 
 SEG_CLASSES = {
@@ -127,3 +132,92 @@ def evaluate_partseg(eval_step: Callable, batches: Iterable[dict], batch_size: i
         gts.append(np.asarray(batch["seg"]))
         names.extend(bnames)
     return compute_miou(np.concatenate(preds), np.concatenate(gts), names)
+
+
+def _test_batches(config, dev):
+    from ..data.datasets import build_dataset_from_cfg
+    from ..data.loader import DataLoader
+
+    dcfg = config["dataset"]
+    split = dcfg.get("test", dcfg["train"])
+    test_set = build_dataset_from_cfg(split["_base_"], split["others"], device=dev)
+    total_bs = int(config.get("total_bs", 16))
+    return lambda: DataLoader(test_set, total_bs, shuffle=False, drop_last=False)
+
+
+def test_partseg(config, args, logger_name: str = "PointDAE", device=None):
+    """``--test`` on a ShapeNetPart config: the category-restricted mIoU of
+    the ``--ckpts`` checkpoint, once (the reference has no test mode)."""
+    from ..models import build_model_from_cfg
+
+    if not getattr(args, "ckpts", None):
+        raise ValueError("--test on a partseg config requires --ckpts")
+    dev = resolve_device(device)
+    batches = _test_batches(config, dev)
+    model = build_model_from_cfg(config["model"], device=dev, seed=0)
+    _warm_start(model, args.ckpts, logger_name)
+    m = evaluate_partseg(make_seg_eval_step(model, device=dev), batches(),
+                         int(config.get("total_bs", 16)), sorted(SEG_CLASSES))
+    print_log(f"[TEST] test inctance avg mIOU = {m['instance_miou']:.5f} "
+              f"class avg mIOU = {m['class_miou']:.5f}", logger=logger_name)
+    return m
+
+
+def run_partseg(config, args, logger_name: str = "PointDAE", device=None):
+    """The ShapeNetPart run (segmentation/main.py:181-323). Returns
+    {"best_instance_miou", "best_class_miou"}."""
+    from ..data.datasets import build_dataset_from_cfg
+    from ..data.loader import DataLoader
+    from ..models import build_model_from_cfg
+    from ..utils.checkpoint import save_checkpoint
+
+    dev = resolve_device(device)
+    seed = int(getattr(args, "seed", 0))
+    dcfg = config["dataset"]
+    train_set = build_dataset_from_cfg(dcfg["train"]["_base_"], dcfg["train"]["others"],
+                                       device=dev)
+    test_batches = _test_batches(config, dev)
+    cat_names = sorted(SEG_CLASSES)
+    total_bs = int(config.get("total_bs", 16))
+    loader = DataLoader(train_set, total_bs, shuffle=True, seed=seed)
+    model = build_model_from_cfg(config["model"], device=dev, seed=0)
+    if getattr(args, "ckpts", None):
+        _warm_start(model, args.ckpts, logger_name)
+    state = TrainState.create(model, config, max(len(loader), 1),
+                              config.get("grad_norm_clip"))
+    train_step = make_seg_train_step(model, device=dev)
+    eval_step = make_seg_eval_step(model, device=dev)
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    eye = np.eye(N_CATEGORIES, dtype=np.float32)
+    best_inst = best_cls = 0.0
+    for epoch in range(int(config.get("max_epoch", 300)) + 1):
+        loader.set_epoch(epoch)
+        meters = AverageMeter(["loss", "acc"])
+        t0 = time.time()
+        step_metrics = []
+        for batch in loader:
+            step_metrics.append(train_step(
+                state, torch.from_numpy(np.asarray(batch["points"][..., :3], np.float32)),
+                torch.from_numpy(eye[np.asarray(batch["label"])]),
+                torch.from_numpy(np.asarray(batch["seg"])), generator=generator))
+        if step_metrics:
+            for loss, acc in torch.stack([torch.stack([m["loss"], m["acc"]])
+                                          for m in step_metrics]).tolist():
+                meters.update([loss, acc])
+        print_log(f"Epoch {epoch} train loss = {meters.avg(0):.5f} "
+                  f"train acc = {meters.avg(1):.5f}", logger=logger_name)
+        m = evaluate_partseg(eval_step, test_batches(), total_bs, cat_names)
+        improved = m["instance_miou"] > best_inst
+        best_inst = max(best_inst, m["instance_miou"])
+        best_cls = max(best_cls, m["class_miou"])
+        print_log(f"Epoch {epoch} test inctance avg mIOU = {m['instance_miou']:.5f} "
+                  f"class avg mIOU = {m['class_miou']:.5f} "
+                  f"time = {time.time() - t0:.1f}s", logger=logger_name)
+        print_log(f"Best inctance avg mIOU is: {best_inst:.5f}", logger=logger_name)
+        print_log(f"Best class avg mIOU is: {best_cls:.5f}", logger=logger_name)
+        # best_model holds the best-mIoU weights (segmentation/main.py saves
+        # only on improvement)
+        if improved:
+            save_checkpoint(args.experiment_path, "best_model", state, epoch, best_inst,
+                            logger=logger_name)
+    return {"best_instance_miou": best_inst, "best_class_miou": best_cls}

@@ -1,8 +1,9 @@
 """String -> constructor registry (the port's own copy of
 ``point_dae_tpu/utils/registry.py``, which the port never imports).
 
-Model classes register under a name and are built from config dicts whose
-``NAME`` key selects the constructor (reference ``models/build.py``).
+Model and dataset classes register under a name and are built from config
+dicts whose ``NAME`` key selects the constructor (reference
+``models/build.py``, ``datasets/build.py``).
 """
 from __future__ import annotations
 
@@ -62,3 +63,4 @@ class Registry:
 
 
 MODELS = Registry("models")
+DATASETS = Registry("datasets")
