@@ -694,22 +694,12 @@ def phase_kernels(torch, pts, device, parents):
     fps_k, knn_k, patchify_ms, line = patchify_report(torch, pts, G, S,
                                                       parents["patchify_parent"])
     log(f"  patchify ({B}, {N}), G {G}, S {S}: {line}")
-    fps_p, knn_p = patchify.fused_patchify_plain(pts, G, S)
-    torch.cuda.synchronize()
-    if not torch.equal(fps_k, fps_p):
-        fail("patchify: fps_idx differs from the plain version")
-    center = pts.gather(1, fps_k.long()[..., None].expand(-1, -1, 3))
-    d_all = ((pts[:, None] - center[:, :, None]) ** 2).sum(-1)     # (B, G, N)
-    dk = d_all.gather(-1, knn_k.long())
-    dp = d_all.gather(-1, knn_p.long())
-    match = float((knn_k == knn_p).float().mean())
-    if not (torch.allclose(dk, dp, rtol=1e-4, atol=1e-4) and match > 0.9999):
-        fail(f"patchify: knn disagrees beyond near-ties (idx match {match})")
+    _, _, match, err = check_patchify(torch, pts, G, S, "patchify")
     nbytes = pts.numel() * 4 + fps_k.numel() * 4 + knn_k.numel() * 4
     records["patchify"] = dict(
         replaces="point_dae_tpu/ops/pallas_patchify.py:43",
         source="point_dae_torch/csrc/patchify.cu",
-        max_abs_err=float((dk - dp).abs().max()),       # selected kNN distances
+        max_abs_err=err,                                # selected kNN distances
         ms=patchify_ms,
         plain_ms=cuda_ms(lambda: patchify.fused_patchify_plain(pts, G, S), 3),
         library_ms=None, bound=bound_ms(nbytes, B * G * N * 8, F32_FLOPS),
@@ -1668,17 +1658,18 @@ def phase_check(torch, config, raw, device):
         fail(f"check: a kernel gate stayed closed at batch {CHECK_BATCH}: {used}")
 
 
-def run_steps(torch, config, raw, device, steps, seed, watch=None):
-    """``steps`` train steps of a freshly initialised model: per-step host
-    times (each ending in a synchronise), losses, the launch counters of
-    those steps, the peak of max_memory_allocated, and a closure that takes
-    one more step. ``watch(model)``, if given, is called on the model before
-    the first step."""
+def run_steps(torch, config, raw, device, steps, seed, watch=None, model=None):
+    """``steps`` train steps of a freshly initialised model (or of
+    ``model``): per-step host times (each ending in a synchronise), losses,
+    the launch counters of those steps, the peak of max_memory_allocated,
+    and a closure that takes one more step. ``watch(model)``, if given, is
+    called on the model before the first step."""
     from point_dae_torch.engine.pretrain import init_model, make_train_step
     from point_dae_torch.engine.train_state import TrainState
     from point_dae_torch.utils import kernels
 
-    model = init_model(config, seed=seed, device=device)
+    if model is None:
+        model = init_model(config, seed=seed, device=device)
     if watch is not None:
         watch(model)
     state = TrainState.create(model, config, steps_per_epoch=100)
@@ -3607,6 +3598,210 @@ def phase_corrupt_train(torch, raw_d, device, card):
             f"{bz / 1e3:.2f} ms, peak {pk / 2 ** 30:.2f} GiB")
 
 
+# -- the MaskSurf family and the dVAE tokenizer: five configurations at full
+# width, bs 128, from (128, 8192, 6) clouds with unit normals
+MASKSURF_BATCH, MASKSURF_STEPS = 128, 5
+MASKSURF_V2_CFG = "cfgs/generated/pretrain_MaskSurf_v2.yaml"
+RUN_DVAE_CFG = "cfgs/pretrain_synthetic_dvae.yaml"
+RUN_TOKENDIS_CFG = "cfgs/pretrain_synthetic_masksurf_tokendis.yaml"
+DVAE_DIMS = ("num_tokens", "encoder_dims", "tokens_dims", "decoder_dims")
+MASKSURF_KERNELS = ("patchify", "gather_rows_small_c", "nn_half_small", "mlp_ln_fwd",
+                    "mlp_ln_bwd", "attention_fwd", "attention_bwd")
+_SURF = {"patchify": 1, "gather_rows_small_c": 2, "nn_half_small": 1}
+_DECODER = {"mlp_ln_fwd": 4, "mlp_ln_bwd": 4, "attention_fwd": 4, "attention_bwd": 4}
+# (what, config, transformer_config keys (None: Point_dVAE at its defaults),
+# launches a step of each kernel of MASKSURF_KERNELS (0 where not named),
+# card-against-CPU tolerance on each loss, relative: kNN near-ties move
+# patches in the masked transformers, as in the flagship)
+MASKSURF_RUNS = (
+    ("MaskSurf_v2 (f32, as shipped)", MASKSURF_V2_CFG, {}, _SURF, 2e-2),
+    ("MaskSurf_v2 (bf16)", MASKSURF_V2_CFG, {"dtype": "bf16"}, dict(_SURF, **_DECODER), 2e-2),
+    ("MaskSurf", "cfgs/pretrain_MaskSurf.yaml", {}, _SURF, 2e-2),
+    ("MaskSurf_v2_token_dis", "cfgs/generated/pretrain_MaskSurf_dvae_token.yaml", {},
+     {"patchify": 1, "gather_rows_small_c": 1}, 2e-2),
+    ("Point_dVAE (8192 tokens, 256 wide)", RUN_DVAE_CFG, None,
+     {"patchify": 1, "gather_rows_small_c": 1, "nn_half_small": 2}, 1e-3))
+
+
+def masksurf_config(path, keys):
+    """A MaskSurf run's config: the shipped one with ``keys`` written into
+    its transformer_config, or (keys None) the synthetic dVAE recipe with
+    the tokenizer at its defaults (the dims keys dropped) at bs 128."""
+    from point_dae_torch.utils.config import ConfigDict
+
+    config = copy.deepcopy(load_cfg(path))
+    if keys is None:
+        for k in DVAE_DIMS:
+            config["model"].pop(k)
+        config["total_bs"] = MASKSURF_BATCH
+    else:
+        config["model"]["transformer_config"].update(keys)
+    return ConfigDict(config)
+
+
+def check_patchify(torch, pts, G, S, what):
+    """The patchify kernel against its plain version: fps_idx bit for bit,
+    kNN rows equal but at genuine near-ties (the selected distances within
+    1e-4, more than 99.99% of the indices equal). Returns (fps_idx,
+    knn_idx, the share of equal indices, the largest gap of the selected
+    distances)."""
+    from point_dae_torch.ops import patchify
+
+    fk, kk = patchify.fused_patchify(pts, G, S)
+    fp, kp = patchify.fused_patchify_plain(pts, G, S)
+    torch.cuda.synchronize()
+    if not torch.equal(fk, fp):
+        fail(f"{what}: fps_idx differs from the plain version")
+    center = pts.gather(1, fk.long()[..., None].expand(-1, -1, 3))
+    d_all = ((pts[:, None] - center[:, :, None]) ** 2).sum(-1)     # (B, G, N)
+    dk, dp = d_all.gather(-1, kk.long()), d_all.gather(-1, kp.long())
+    match = float((kk == kp).float().mean())
+    if not (torch.allclose(dk, dp, rtol=1e-4, atol=1e-4) and match > 0.9999):
+        fail(f"{what}: knn disagrees beyond near-ties (idx match {match})")
+    return fk, kk, match, float((dk - dp).abs().max())
+
+
+def masksurf_kernels(torch, raw, device):
+    """Each kernel of the MaskSurf and dVAE paths against its plain version
+    at the paths' shapes, each behind its gate: patchify at (128, 1024) and
+    at the Objaverse configs' (128, 8192), G 64, S 32; the small-C gather
+    by 2048 rows a cloud from the strided xyz and normal views (C 3) and
+    the curve variants' attributes (C 5), bit for bit; both directions of
+    the patch chamfer over 4864 packed pairs of 32 and 32 points (the
+    masked patches) and the dVAE's 8192 of 32 and 32 and of 8 and 32, bit
+    for bit; attention at the decoder's (128, 64, 6, 64) within 2e-2 of the
+    plain version's largest value. mlp_ln at the decoder's R 8192, C 384 is
+    the kernels phase's R 8192 case."""
+    from point_dae_torch.losses import chamfer
+    from point_dae_torch.ops import attention, gather, patchify
+
+    g = torch.Generator(device=device).manual_seed(SEED + 80)
+    G, S = 64, 32
+    for n in (1024, 8192):
+        pts = raw[:, :n, :3].contiguous()
+        _, knn_idx, match, _ = check_patchify(torch, pts, G, S,
+                                              f"masksurf patchify ({MASKSURF_BATCH}, {n})")
+        ms = cuda_ms(lambda: patchify.fused_patchify(pts, G, S), 10)
+        log(f"  patchify ({MASKSURF_BATCH}, {n}), G {G}, S {S}: {ms:.4f} ms a call; fps_idx "
+            f"bit for bit with the plain version, knn idx match {match:.6f}")
+        if n == 1024:
+            idx = knn_idx.reshape(MASKSURF_BATCH, G * S)
+    x6 = raw[:, :1024].contiguous()
+    x8 = torch.cat([x6, x6[..., :2]], -1)
+    for what, view in (("xyz, C 3", x6[..., :3]), ("normals, C 3", x6[..., 3:]),
+                       ("curve attributes, C 5", x8[..., 3:])):
+        if not gather.use_small_c_kernel(view, idx.shape[1]):
+            fail(f"masksurf: the small-C gather's gate is closed for the {what} view")
+        got = gather.gather_rows_small_c(view, idx)
+        if not torch.equal(got, gather.gather_rows_small_c_plain(view, idx)):
+            fail(f"masksurf: gather_rows_small_c ({what}) differs from the plain version")
+        ms = cuda_ms(lambda: gather.gather_rows_small_c(view, idx), 20)
+        log(f"  gather_rows_small_c {tuple(view.shape)} by {idx.shape[1]} rows ({what}, the "
+            f"strided view copied first): {ms:.4f} ms a call, bit for bit")
+    for P, n, m in ((4864, 32, 32), (8192, 32, 32), (8192, 8, 32)):
+        x = (torch.randn((P, n, 3), generator=g, device=device) * 0.05).contiguous()
+        y = (torch.randn((P, m, 3), generator=g, device=device) * 0.05).contiguous()
+        if not chamfer.use_small_kernel(x, m):
+            fail(f"masksurf: the patch chamfer's gate is closed at ({P}, {n}, {m})")
+        got = chamfer.nn_half_small_pair(x, y)
+        want = chamfer.nn_half_small_plain(x, y) + chamfer.nn_half_small_plain(y, x)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"masksurf: the patch chamfer at ({P}, {n}, {m}) differs from the plain halves")
+        ms = cuda_ms(lambda: chamfer.nn_half_small_pair(x, y), 20)
+        log(f"  patch chamfer {P} pairs of {n} and {m} points, both directions: {ms:.4f} ms "
+            f"a call; dist, idx and near bit for bit with the plain halves")
+    Bt, T, H, d = MASKSURF_BATCH, 64, 6, 64
+    if not attention.supported(Bt, T, H, d):
+        fail("masksurf: the attention gate is closed at the decoder's shape")
+    bf = torch.bfloat16
+    qkv = torch.randn((Bt, T, 3, H, d), generator=g, device=device)
+    cot = torch.randn((Bt, T, H, d), generator=g, device=device)
+
+    def run(fn):
+        leaf = qkv.clone().requires_grad_()
+        q, k, v = leaf.to(bf).unbind(2)
+        out = fn(q, k, v, None)
+        return out, torch.autograd.grad(out, leaf, cot)[0]
+
+    (ok, gk), (op, gp) = run(attention.fused_attention), run(attention.fused_attention_plain)
+    worst = max(rel_err(ok, op), rel_err(gk, gp))
+    if worst > 2e-2:
+        fail(f"masksurf: fused_attention at ({Bt}, {T}, {H}, {d}) off its plain version: {worst}")
+    q, k, v = (t.to(bf) for t in qkv.unbind(2))
+    fwd_ms = cuda_ms(lambda: attention.attention_fwd_kernel(q, k, v, None), 20)
+    log(f"  fused_attention ({Bt}, {T}, {H}, {d}): forward {fwd_ms:.4f} ms a call; output "
+        f"and dq, dk, dv within {worst:.2e} of the plain version's largest")
+
+
+def masksurf_check(torch, config, raw, device, tol, what):
+    """One train-mode forward at MASKSURF_BATCH (every gate of the path
+    open) on the card against the CPU with the same weights, clouds and
+    draws: each loss within ``tol`` relative. Returns (the card's model,
+    the launches of its forward)."""
+    from point_dae_torch.engine.pretrain import device_pipeline, init_model
+    from point_dae_torch.utils import kernels
+
+    cpu_model = init_model(config, seed=SEED + 81, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(device)
+    d = config["dataset"]["train"]["others"]
+    g = torch.Generator(device=device).manual_seed(SEED + 82)
+    _, clean = device_pipeline(raw, d["aug_type"], d["corrupt_type"], d["npoints"],
+                               generator=g, device=device)
+    draws = gpu_model.sample_draws(MASKSURF_BATCH, g, device)
+    before = dict(kernels.launches)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lg = [float(v) for v in gpu_model(clean, clean, draws=draws)]
+        used = {k: kernels.launches[k] - before[k] for k in MASKSURF_KERNELS}
+        cln = clean.cpu()
+        lc = [float(v) for v in cpu_model(cln, cln, draws=on_device(draws, "cpu"))]
+    log(f"  {what}, batch {MASKSURF_BATCH}: card losses {lg[0]:.6f} {lg[1]:.6f}; cpu "
+        f"({time.perf_counter() - t0:.1f} s) {lc[0]:.6f} {lc[1]:.6f}; launches "
+        f"{ {k: v for k, v in used.items() if v} }")
+    if not all(math.isfinite(v) for v in lg + lc):
+        fail(f"masksurf: non-finite loss in the {what} check")
+    if any(abs(a_ - b_) > tol * abs(b_) for a_, b_ in zip(lg, lc)):
+        fail(f"masksurf: {what}: card losses {lg} off the CPU's {lc} beyond {tol}")
+    del cpu_model
+    return gpu_model, used
+
+
+def phase_masksurf(torch, device, card):
+    """The MaskSurf family and the dVAE tokenizer at full width: the path's
+    kernels against their plain versions (masksurf_kernels); then for each
+    of MASKSURF_RUNS a card-against-CPU check at bs 128 (masksurf_check), 5
+    steps with each kernel's launches a step held to the run's, a profiled
+    step's busy time, the step time and peak memory."""
+    g = torch.Generator(device=device).manual_seed(SEED + 83)
+    raw = torch.randn((MASKSURF_BATCH, NRAW, 6), generator=g, device=device)
+    raw[..., 3:] /= raw[..., 3:].norm(dim=-1, keepdim=True)
+    masksurf_kernels(torch, raw, device)
+    records = {}
+    for what, path, keys, want, tol in MASKSURF_RUNS:
+        config = masksurf_config(path, keys)
+        model, used = masksurf_check(torch, config, raw, device, tol, what)
+        if min(used[k] for k in want if not k.endswith("_bwd")) == 0:   # a forward: no backward
+            fail(f"masksurf: {what}: a kernel gate of the path stayed closed: {used}")
+        log(f"  {what}, {MASKSURF_STEPS} steps:")
+        steady, first, launches, peak, one_more = run_steps(
+            torch, config, raw, device, MASKSURF_STEPS, SEED + 84, model=model)
+        per_step = {k: launches[k] / MASKSURF_STEPS for k in MASKSURF_KERNELS}
+        if any(per_step[k] != want.get(k, 0) for k in MASKSURF_KERNELS):
+            fail(f"masksurf: {what}: launches a step {per_step}, expected {want}")
+        busy, _ = profile_step(torch, one_more, card, top=8)
+        records[what] = (steady, busy, peak)
+        log(f"  [{card}] {what}: step {steady * 1e3:.2f} ms (median of steps "
+            f"2-{MASKSURF_STEPS}), {MASKSURF_BATCH / steady:.1f} clouds/s, first step "
+            f"{first * 1e3:.1f} ms, busy {busy / 1e3:.2f} ms, max_memory_allocated "
+            f"{peak / 2 ** 30:.2f} GiB; launches a step "
+            f"{ {k: v for k, v in per_step.items() if v} }")
+        del model, one_more
+        torch.cuda.empty_cache()
+    for what, (st, bz, pk) in records.items():
+        log(f"  [{card}] masksurf: {what}: {st * 1e3:.2f} ms a step, busy {bz / 1e3:.2f} ms, "
+            f"peak {pk / 2 ** 30:.2f} GiB")
+
+
 T0 = time.perf_counter()
 
 
@@ -3969,6 +4164,25 @@ def phase_run(torch, device, card):
         rates["partseg"] = (ps_steps * pcfg["total_bs"] / sec, sec)
         del res, res_test
 
+        # 5. the dVAE tokenizer, then token_dis with it as dvae_config.ckpt
+        dv = write_config(RUN_DVAE_CFG, os.path.join(tmp, "cfgs", os.path.basename(
+            RUN_DVAE_CFG)), {})
+        log(f"  {RUN_DVAE_CFG} as shipped:")
+        _, _, dv_exp, sec = cli_run("dvae", ["--config", dv, "--exp_name", "run",
+                                             "--root_folder", exp_root],
+                                    "pretrain_synthetic_dvae", device, range(3))
+        ckpt = os.path.join(dv_exp, "ckpt-last.pth")
+        td = write_config(RUN_TOKENDIS_CFG, os.path.join(tmp, "cfgs", os.path.basename(
+            RUN_TOKENDIS_CFG)), {"model": {"dvae_config": {"ckpt": ckpt}}})
+        log(f"  {RUN_TOKENDIS_CFG} with model.dvae_config.ckpt {ckpt}:")
+        _, lines, _, sec_td = cli_run("token_dis", ["--config", td, "--exp_name", "run",
+                                                    "--root_folder", exp_root],
+                                      "pretrain_synthetic_masksurf_tokendis", device, range(3))
+        merged = lines.starting("[LOAD] merged ")
+        if not merged or int(merged[0].split()[2]) == 0:
+            fail(f"run token_dis: the tokenizer checkpoint merged no tensor: {merged}")
+        log(f"    {merged[0]}; dVAE run {sec:.1f} s, token_dis run {sec_td:.1f} s")
+
         used = {k: kernels.launches[k] for k in RUN_COUNTERS}
         log(f"  launches over the run phase: {used}")
         if min(used.values()) == 0:
@@ -4160,6 +4374,10 @@ def main() -> None:
     phase_corrupt_train(torch, raw_d, device, card)
     stamp("corrupt_train")
     del raw_d, corrupted_d, clean_d
+    torch.cuda.empty_cache()
+    log("masksurf (the MaskSurf family, the dVAE tokenizer):")
+    phase_masksurf(torch, device, card)
+    stamp("masksurf")
     torch.cuda.empty_cache()
 
     # 6. the classification fine-tune entry

@@ -53,9 +53,10 @@ class PipelineDraws:
 class StepDraws:
     """``model``: the model's own draws, a ``ModelDraws`` for the
     transformer models, the list of ``DropoutDraws`` of its in-model
-    dropouts for a DGCNN DAE; None draws them from the generator."""
+    dropouts for a DGCNN DAE, the Gumbel noise (B, G, V) for
+    ``Point_dVAE``; None draws them from the generator."""
     pipeline: PipelineDraws
-    model: Optional[Union[ModelDraws, Sequence[DropoutDraws]]] = None
+    model: Optional[Union[ModelDraws, Sequence[DropoutDraws], torch.Tensor]] = None
 
 
 def device_pipeline(raw: torch.Tensor, aug_type: Sequence[str],
@@ -283,6 +284,38 @@ def _teacher_state(state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tenso
             for k, v in state_dict.items()}
 
 
+def _dvae_state(state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A dVAE checkpoint's tensors under ``dvae_teacher.``: Point-BERT's
+    ``dVAE.pth`` names (``encoder.``, ``dgcnn_1.``, ``codebook``, ...) with
+    its 1x1 convolution weights flattened to (out, in), or a ``Point_dVAE``
+    checkpoint's (``dvae.``)."""
+    out = {}
+    for k, v in state_dict.items():
+        if v.dim() > 2 and all(d == 1 for d in v.shape[2:]):
+            v = v.reshape(v.shape[:2])
+        out["dvae_teacher." + (k[len("dvae."):] if k.startswith("dvae.") else k)] = v
+    return out
+
+
+def merge_dvae_teacher(model: torch.nn.Module, path: str,
+                       logger: Optional[str] = None) -> list:
+    """``model.dvae_config.ckpt``: the tokenizer of ``MaskSurf_v2_token_dis``
+    from a Point-BERT ``dVAE.pth`` or a ``Point_dVAE`` checkpoint (the
+    JAX package's ``engine/pretrain.py:433-475``). Raises ValueError when
+    no parameter of ``dvae_teacher`` is named in the file: the reference
+    loads it strictly, and a random tokenizer would waste the run. Returns
+    the unmatched names."""
+    from ..utils.checkpoint import load_params, merge_pretrained
+
+    src = _dvae_state(load_params(path, path))
+    own = {n for n, _ in model.named_parameters() if n.startswith("dvae_teacher.")}
+    if not own & set(src):
+        raise ValueError(f"dvae_config.ckpt {path!r} matched 0 of the dvae_teacher "
+                         f"parameters - check dvae_config dims (num_tokens/encoder_dims/...) "
+                         f"against the checkpoint")
+    return merge_pretrained(model, src, logger=logger)
+
+
 def run_pretrain(config, args, logger_name: str = "PointDAE",
                  device=None) -> Dict[str, Any]:
     """The pretraining run (runner_pretrain.run_net). ``args`` carries the
@@ -335,9 +368,9 @@ def run_pretrain(config, args, logger_name: str = "PointDAE",
     if teacher_ckpt and hasattr(model, "teacher"):
         merge_pretrained(model, _teacher_state(load_params(teacher_ckpt, teacher_ckpt)),
                          logger=logger_name)
-    if (mcfg.get("dvae_config") or {}).get("ckpt"):
-        raise NotImplementedError("dvae_config.ckpt (the MaskSurf tokenizer) is not ported "
-                                  "yet: ROADMAP.md Queue 1 item 5")
+    dvae_ckpt = (mcfg.get("dvae_config") or {}).get("ckpt")
+    if dvae_ckpt and hasattr(model, "dvae_teacher"):
+        merge_dvae_teacher(model, dvae_ckpt, logger=logger_name)
 
     state = TrainState.create(model, config, steps_per_epoch, config.get("grad_norm_clip"))
     start_epoch, best_acc = 0, 0.0

@@ -12,7 +12,10 @@ contains ``teacher`` (the frozen teacher of ``MaskFeat_dgcnn``) are left
 out of the optimizer: no update and no weight decay, as the JAX package's
 ``set_to_zero`` label gives them. The learning rate follows
 the per-epoch CosLR schedule evaluated at the optimizer's step count
-before the update, as optax's ``scale_by_schedule`` does. As in the JAX
+before the update, as optax's ``scale_by_schedule`` does. A parameter that
+the loss does not reach (MaskSurf's unused ``coarse_pred``) gets a zero
+gradient, as in optax, so that its weight still decays; ``torch.optim.AdamW``
+would skip it. As in the JAX
 package, the schedule reads ``warmup_epochs`` and ignores the shipped
 configs' ``initial_epochs`` key.
 """
@@ -106,13 +109,16 @@ class TrainState:
                    grad_norm_clip=grad_norm_clip)
 
     def apply_gradients(self) -> None:
-        """One AdamW update from the gradients in ``.grad`` (clipped first
-        when ``grad_norm_clip`` is set), at the learning rate of the
-        current step; then the step count advances."""
+        """One AdamW update from the gradients in ``.grad`` (a missing one
+        taken as zeros; clipped first when ``grad_norm_clip`` is set), at
+        the learning rate of the current step; then the step count
+        advances."""
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         if self.grad_norm_clip is not None:
-            grads = [p.grad for g in self.optimizer.param_groups for p in g["params"]
-                     if p.grad is not None]
-            clip_by_global_norm_(grads, self.grad_norm_clip)
+            clip_by_global_norm_([p.grad for p in params], self.grad_norm_clip)
         lr = self.schedule(self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr

@@ -371,20 +371,92 @@ def chamfer_l2(xyz1: torch.Tensor, xyz2: torch.Tensor) -> torch.Tensor:
     return d1.mean() + d2.mean()
 
 
+def chamfer_l1(xyz1: torch.Tensor, xyz2: torch.Tensor) -> torch.Tensor:
+    """(mean(sqrt(dist1 + eps)) + mean(sqrt(dist2 + eps))) / 2, eps 1e-12
+    (ChamferDistanceL1; the eps keeps the gradient finite at exact
+    matches)."""
+    d1, d2, _, _ = nn_distance(xyz1, xyz2)
+    return ((d1 + 1e-12).sqrt().mean() + (d2 + 1e-12).sqrt().mean()) / 2.0
+
+
+def weighted_mean(per: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """sum(w * per) / max(sum(w), 1e-8)."""
+    return (per * weight).sum() / weight.sum().clamp_min(1e-8)
+
+
 def masked_chamfer_l2(xyz1: torch.Tensor, xyz2: torch.Tensor,
                       weight: torch.Tensor) -> torch.Tensor:
     """Per-set chamfer-L2 over the leading axis, weighted: sum(w * per) /
     max(sum(w), 1e-8). xyz1/xyz2 (B, S, D), weight (B,)."""
     d1, d2, _, _ = nn_distance(xyz1, xyz2)
-    per = d1.mean(-1) + d2.mean(-1)
-    return (per * weight).sum() / weight.sum().clamp_min(1e-8)
+    return weighted_mean(d1.mean(-1) + d2.mean(-1), weight)
 
 
-LOSS_REGISTRY = {"cdl2": chamfer_l2}
+def masked_chamfer_l1(xyz1: torch.Tensor, xyz2: torch.Tensor,
+                      weight: torch.Tensor) -> torch.Tensor:
+    """``masked_chamfer_l2`` with each set's chamfer-L1 as the term."""
+    d1, d2, _, _ = nn_distance(xyz1, xyz2)
+    per = ((d1 + 1e-12).sqrt().mean(-1) + (d2 + 1e-12).sqrt().mean(-1)) / 2.0
+    return weighted_mean(per, weight)
+
+
+# ------- normal-aware distances (the MaskSurf family)
+
+def normalize(v: torch.Tensor) -> torch.Tensor:
+    """v over its norm along the last axis (at least 1e-12)."""
+    return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True).clamp_min(1e-12)
+
+
+def dis_normalized_l2(n1: torch.Tensor, n2: torch.Tensor) -> torch.Tensor:
+    """Orientation-agnostic distance of unit normals: min(|n1 - n2|^2,
+    |n1 + n2|^2) over the last axis."""
+    n1, n2 = normalize(n1), normalize(n2)
+    return torch.minimum(((n1 - n2) ** 2).sum(-1), ((n1 + n2) ** 2).sum(-1))
+
+
+def dis_normalized_l1(n1: torch.Tensor, n2: torch.Tensor) -> torch.Tensor:
+    n1, n2 = normalize(n1), normalize(n2)
+    return torch.minimum((n1 - n2).abs().sum(-1), (n1 + n2).abs().sum(-1))
+
+
+def dis_normalized_l2_strict(n1: torch.Tensor, n2: torch.Tensor) -> torch.Tensor:
+    n1, n2 = normalize(n1), normalize(n2)
+    return ((n1 - n2) ** 2).sum(-1)
+
+
+def take_points(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """a (P, N) or (P, N, C), idx (P, M) -> a's rows at idx along axis 1."""
+    if a.dim() == 2:
+        return torch.gather(a, 1, idx.long())
+    return torch.gather(a, 1, idx.long()[..., None].expand(-1, -1, a.shape[-1]))
+
+
+def masked_chamfer_withnormal_idx(xyz1, xyz2, normal1, normal2, weight, normal_dis=None):
+    """``masked_chamfer_l2_withnormal`` and the chamfer's indices (i1, i2),
+    for callers that pair further channels through the same
+    correspondence."""
+    normal_dis = normal_dis or dis_normalized_l2
+    d1, d2, i1, i2 = nn_distance(xyz1, xyz2)
+    nd1 = normal_dis(normal1, take_points(normal2, i1))
+    nd2 = normal_dis(normal2, take_points(normal1, i2))
+    return (weighted_mean(d1.mean(-1) + d2.mean(-1), weight),
+            weighted_mean(nd1.mean(-1) + nd2.mean(-1), weight), i1, i2)
+
+
+def masked_chamfer_l2_withnormal(xyz1, xyz2, normal1, normal2, weight, normal_dis=None):
+    """Per-set chamfer-L2 and normal distance through the xyz
+    correspondence (ChamferDistanceL2_withnormal), weighted over the
+    leading axis: (xyz loss, normal loss). xyz and normals (P, S, 3),
+    weight (P,); ``normal_dis`` defaults to ``dis_normalized_l2``."""
+    return masked_chamfer_withnormal_idx(xyz1, xyz2, normal1, normal2, weight,
+                                         normal_dis)[:2]
+
+
+LOSS_REGISTRY = {"cdl1": chamfer_l1, "cdl2": chamfer_l2}
 
 
 def build_loss_func(loss_type: str):
-    """The model-side loss switch; this slice ports ``cdl2``."""
+    """The model-side loss switch (cdl1, cdl2)."""
     if loss_type not in LOSS_REGISTRY:
-        raise NotImplementedError(f"loss {loss_type!r} (ported: cdl2)")
+        raise NotImplementedError(f"loss {loss_type!r} (supported: cdl1, cdl2)")
     return LOSS_REGISTRY[loss_type]

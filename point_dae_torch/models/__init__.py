@@ -5,7 +5,7 @@ import torch
 
 from ..utils.device import resolve_device
 from ..utils.registry import MODELS
-from . import dae_dgcnn, maskfeat, partseg, transformer  # noqa: F401
+from . import dae_dgcnn, dvae, maskfeat, masksurf, partseg, transformer  # noqa: F401
 
 
 def build_model_from_cfg(cfg, device=None, seed: int = 0,

@@ -24,7 +24,7 @@ import torch
 import torch.nn as nn
 
 from ..data.corruptions_patch import corrupt_patches, sample_patch_draws
-from ..losses.chamfer import build_loss_func, masked_chamfer_l2
+from ..losses.chamfer import build_loss_func, masked_chamfer_l1, masked_chamfer_l2
 from ..ops.folding import fused_folding, stage_params, supported as fold_supported
 from ..ops.geometry import group_neighborhood
 from ..utils.registry import MODELS
@@ -32,6 +32,15 @@ from .common import ClsDraws, dropout_from_mask, folding_grid, sample_dropout_ma
 from .layers import (MLP, BatchNorm, Dense, PatchEncoder, PosEmbedMLP, SplitMLP,
                      TransformerDecoder, TransformerEncoder, LayerNorm, checkpointed,
                      stack_dp_masks)
+
+
+def masked_loss_fn(loss_type: str):
+    """The local reconstruction's weighted chamfer for ``loss``."""
+    if loss_type == "cdl1":
+        return masked_chamfer_l1
+    if loss_type == "cdl2":
+        return masked_chamfer_l2
+    raise NotImplementedError(loss_type)
 
 
 def static_num_masked(ratio: float, num_group: int) -> int:
@@ -239,6 +248,14 @@ class _CAETransformerBase(nn.Module):
             return torch.ones(mask.numel(), device=mask.device)
         return mask.float().reshape(-1)
 
+    def _global_feature(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """max + mean over the visible tokens of x (B, G, C): masked slots
+        enter neither reduction."""
+        vis = ~mask[..., None]
+        neg = torch.where(vis, x, torch.full((), -1e9, device=x.device))
+        cnt = vis.sum(1).clamp_min(1).float()
+        return neg.amax(1) + torch.where(vis, x, 0.0).sum(1) / cnt
+
     def encode(self, pts: torch.Tensor) -> torch.Tensor:
         """Global feature for the SVM probes: max + mean over every token of
         the encoder run without masking. pts (B, N, >= 3) -> (B, C)."""
@@ -287,8 +304,6 @@ class PointCAE_transformer_fc_global_folding_local(_CAETransformerBase):
         super().__init__(config, generator)
         self.fold_impl = str(self.tcfg.get("fold_impl", "auto"))
         self.remat_fold = str(self.tcfg.get("remat_fold", "False")) == "True"
-        if config.get("loss", "cdl2") != "cdl2":
-            raise NotImplementedError(f"loss {config.get('loss')!r} is not ported yet")
         C = int(self.tcfg["trans_dim"])
         dtype = self.compute_dtype
         g = generator
@@ -302,7 +317,8 @@ class PointCAE_transformer_fc_global_folding_local(_CAETransformerBase):
         self.folding2 = SplitMLP(C, 3, (C, C, 3), dtype=dtype, generator=g)
         self.register_buffer("grid", torch.from_numpy(folding_grid((6, 6))),
                              persistent=False)
-        self.global_loss_fn = build_loss_func("cdl2")
+        self.loss = config.get("loss", "cdl2")
+        self.global_loss_fn = build_loss_func(self.loss)
 
     def _sample_corrupt(self, batch: int, generator, device) -> Optional[list]:
         return sample_patch_draws(self.corrupt_type, batch, self.num_group,
@@ -356,10 +372,7 @@ class PointCAE_transformer_fc_global_folding_local(_CAETransformerBase):
         dp_dec = draws.dp_decoder if self.training else None
         x_vis, mask = self._encode(t_neigh, t_center, draws, dp_enc)
 
-        vis = ~mask[..., None]
-        neg = torch.where(vis, x_vis, torch.full((), -1e9, device=x_vis.device))
-        cnt = vis.sum(1).clamp_min(1).float()
-        gfeat = neg.amax(1) + torch.where(vis, x_vis, 0.0).sum(1) / cnt
+        gfeat = self._global_feature(x_vis, mask)
         coarse = self.coarse_pred(gfeat).float().reshape(B, -1, 3)
         loss2 = self.global_loss_fn(coarse, center)
 
@@ -367,7 +380,7 @@ class PointCAE_transformer_fc_global_folding_local(_CAETransformerBase):
         x_loc, gt, w = self._local_recon_inputs(x_rec, neigh, mask)
         fold = checkpointed(self._fold, x_loc) if self.remat_fold else self._fold(x_loc)
         rebuild = fold.reshape(gt.shape[0], -1, 3)
-        loss1 = masked_chamfer_l2(rebuild, gt, w)
+        loss1 = masked_loss_fn(self.loss)(rebuild, gt, w)
         return loss1, loss2
 
 

@@ -56,6 +56,28 @@ for _i in range(1, 5):
 _RULES += [("teacher.conv5.0", "teacher/conv5"), ("teacher.bn5", "teacher/bn5"),
            ("increase_dim", "increase_dim")]
 
+# the MaskSurf family's second head (convert_torch._MASKSURF_RULES)
+_RULES.append(("increase_dim2", "increase_dim2"))
+
+# the dVAE tokenizer (convert_torch._DVAE_RULES, Point-BERT's names) under
+# Point_dVAE's ``dvae`` and MaskSurf_v2_token_dis's ``dvae_teacher``
+for _p in ("dvae", "dvae_teacher"):
+    _RULES += [(f"{_p}.encoder.first_conv.0", f"{_p}/encoder/conv1"),
+               (f"{_p}.encoder.first_conv.1", f"{_p}/encoder/bn1"),
+               (f"{_p}.encoder.first_conv.3", f"{_p}/encoder/conv2"),
+               (f"{_p}.encoder.second_conv.0", f"{_p}/encoder/conv3"),
+               (f"{_p}.encoder.second_conv.1", f"{_p}/encoder/bn2"),
+               (f"{_p}.encoder.second_conv.3", f"{_p}/encoder/conv4"),
+               (f"{_p}.codebook", f"{_p}/codebook")]
+    for _d in ("dgcnn_1", "dgcnn_2"):
+        _RULES.append((f"{_p}.{_d}.input_trans", f"{_p}/{_d}/input_trans"))
+        _RULES += [(f"{_p}.{_d}.layer{_i}.{_j}", f"{_p}/{_d}/layer{_i}{_s}")
+                   for _i in range(1, 6) for _j, _s in ((0, ""), (1, "_gn"))]
+    _RULES += [(f"{_p}.decoder.mlp.{2 * _i}", f"{_p}/decoder/mlp/dense{_i}") for _i in range(3)]
+    _RULES += [(f"{_p}.decoder.final_conv.{_i}", f"{_p}/decoder/{_f}")
+               for _i, _f in ((0, "final0"), (1, "final_bn0"), (3, "final1"),
+                              (4, "final_bn1"), (6, "final_out"))]
+
 # the DGCNN family (convert_torch._DGCNN_RULES)
 _DGCNN_ENCODER = []
 for _i in range(1, 5):
@@ -138,6 +160,16 @@ def _match(table, name: str):
     raise KeyError(f"no conversion rule for {name!r}")
 
 
+def _bare(path: str):
+    """The torch name of a flax path that a rule maps whole (a parameter
+    with no leaf name: mask_token, codebook), else None."""
+    for pat, tmpl in _FLAX_TO_TORCH:
+        m = pat.match(path)
+        if m and m.group("leaf") is None:
+            return tmpl
+    return None
+
+
 def _set(tree: Dict, path: str, value) -> None:
     *heads, last = path.split("/")
     for h in heads:
@@ -158,11 +190,12 @@ def _flatten(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
 
 def to_flax(state_dict: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
     """Port ``state_dict`` -> nested ``(params, batch_stats)`` of numpy
-    arrays, laid out as the JAX package's models initialise them."""
+    arrays (copies: later updates of the model leave them as they are),
+    laid out as the JAX package's models initialise them."""
     params, stats = {}, {}
     table = _TORCH_TO_FLAX[_family(state_dict)]
     for name, t in state_dict.items():
-        v = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+        v = t.detach().cpu().numpy().copy() if isinstance(t, torch.Tensor) else np.array(t)
         path, leaf = _match(table, name)
         if leaf is None:                        # bare parameter (mask_token, cls_token)
             _set(params, path, v)
@@ -186,9 +219,9 @@ def from_flax(params: Dict, batch_stats: Dict) -> Dict[str, torch.Tensor]:
     for tree, is_stats in ((params, False), (batch_stats, True)):
         for path, v in _flatten(tree).items():
             head, _, leaf = path.rpartition("/")
-            if not head:                        # bare parameter (mask_token)
-                name, _ = _match(_FLAX_TO_TORCH, path)
-                out[name] = torch.from_numpy(np.array(v))
+            bare = not is_stats and _bare(path)
+            if bare:                            # bare parameter (mask_token, codebook)
+                out[bare] = torch.from_numpy(np.array(v))
                 continue
             prefix, _ = _match(_FLAX_TO_TORCH, head)
             if is_stats:
