@@ -217,6 +217,33 @@ Phases, each fatal on failure:
               and the LinearSVC probe's seconds at ModelNet40's size (9843 x
               F train, 40 classes) on the card at F 384 and 1024 and on the
               host CPU at F 384.
+ 21. m2ae    - the Point-M2AE family at full width from random (128, 8192,
+              6) clouds with unit normals resampled to 2048 points: fps at
+              (128, 2048) -> 512 and (128, 512) -> 256, the kNN selection
+              (256 queries into 512 centres, k 8), the small-C gather of
+              both xyz groups, the scatter-add of the scale-1 merge's and
+              three_interpolate's backwards, the patch chamfer (32768 pairs
+              of 16 and 8) and the MDAE head's tiled chamfer (128, 512,
+              512) against their plain versions, bit for bit; Point_M2AE
+              (cfgs/pretrain_PointM2AE.yaml as shipped) and
+              Point_MDAE_with_fc_center_p with ['affine_r3', 'Drop-Patch']
+              each on the card against the CPU at bs 32 (losses within 1e-4
+              relative), then 5 and 2 steps at bs 128 with each kernel's
+              launches a step held to M2AE_RUNS, a profiled step's busy
+              time, the step time and peak memory; the M2AE fine-tune
+              (cfgs/finetune_scan_hardest_tf_pointm2ae.yaml, bs 32 of
+              2048): eval logits against the CPU, 5 train steps, a profiled
+              one, an eval and a 10-draw vote step, launches held;
+ 22. probe   - fps at (64, 1024) and (64, 2048) and DGCNN_feat's first
+              EdgeConv forward at (64, 1024) against their plain versions;
+              then --svm_classification with DGCNN_feat and with
+              Point_M2AE_SVMFeature and --task_affinity with DGCNN_feat
+              through point_dae_torch.cli.main on Synthetic clouds at
+              ModelNet40's split sizes (9843 / 2468, the configs' npoints):
+              each run's log lines, extraction seconds and launches, each
+              SVC fit's SMO iterations and seconds, the head's seconds;
+              then the port's SVC fitted on the card and on the host CPU
+              over 8 classes of the M2AE features, predictions equal.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Run from the repository root:
 
@@ -4206,6 +4233,452 @@ def phase_run(torch, device, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- the Point-M2AE family at full width (cfgs/pretrain_PointM2AE.yaml as
+# shipped): bs 128 from (128, 8192, 6) clouds with unit normals, resampled
+# to 2048 points; num_groups 512/256/64, group_sizes 16/8/8, dims
+# 96/192/384, depths 5/5/5, 6 heads, decoder 384/192
+M2AE_BATCH, M2AE_CHECK_BATCH, M2AE_STEPS, MDAE_STEPS = 128, 32, 5, 2
+M2AE_CFG = "cfgs/pretrain_PointM2AE.yaml"
+M2AE_FT_CFG = "cfgs/finetune_scan_hardest_tf_pointm2ae.yaml"
+M2AE_KERNELS = ("fps", "knn", "gather_rows_small_c", "scatter_rows_add", "nn_half_small",
+                "nn_half_tiled")
+# launches a pretrain step: FPS 2048 -> 512 and 512 -> 256 (256 -> 64 is
+# under the gate); the kNN of scale 1 (256 queries into 512 centres, k 8);
+# the xyz groups of scales 0 and 1 (B Q >= 2^18); the backwards of the
+# scale-1 token merge (128 2048 96 rows into 512) and of the decoder's
+# three_interpolate (128 768 384 into 64); the 32768 patch pairs of 16 and
+# 8 points. The MDAE variant adds the tiled chamfer of its scale-0 head
+# (512 x 512 points).
+_M2AE_STEP = {"fps": 2, "knn": 1, "gather_rows_small_c": 2, "scatter_rows_add": 2,
+              "nn_half_small": 1}
+M2AE_RUNS = (("Point_M2AE", {}, M2AE_STEPS, _M2AE_STEP),
+             ("Point_MDAE_with_fc_center_p ['affine_r3', 'Drop-Patch']",
+              {"NAME": "Point_MDAE_with_fc_center_p", "corrupt_type": ["affine_r3", "Drop-Patch"]},
+              MDAE_STEPS, dict(_M2AE_STEP, nn_half_tiled=1)))
+# the fine-tune at bs 32 of 2048 points (FPS 2048 -> 2048 first): a train
+# or eval step launches FPS 3 times, the kNN once, the small-C gather once
+# (scale 0: 32 x 8192 rows; scale 1's 32 x 2048 is under its gate); a
+# 10-draw vote step ten times that
+M2AE_FT_BATCH, M2AE_FT_STEPS, M2AE_VOTES = 32, 5, 10
+_M2AE_FT = {"fps": 3, "knn": 1, "gather_rows_small_c": 1}
+
+
+def m2ae_config(keys):
+    """The shipped M2AE pretrain config with ``keys`` written into its model."""
+    from point_dae_torch.utils.config import ConfigDict
+
+    config = copy.deepcopy(load_cfg(M2AE_CFG))
+    config["model"].update(copy.deepcopy(keys))
+    return ConfigDict(config)
+
+
+def kernel_vs_plain(torch, what, got, want):
+    """Fail unless every output of a kernel call equals its plain version's."""
+    torch.cuda.synchronize()
+    if len(got) != len(want) or not all(torch.equal(a.to(b.dtype), b)
+                                        for a, b in zip(got, want)):
+        fail(f"{what} differs from its plain version")
+
+
+def m2ae_kernels(torch, clean, device):
+    """Each kernel of the M2AE path against its plain version at the path's
+    shapes, bit for bit (the kNN: distances within 1e-5 relative, indices
+    differing only at distance ties), with its time a call beside the plain
+    version's: FPS at (128, 2048) -> 512 and (128, 512) -> 256; the kNN of
+    256 queries into 512 centres, k 8; the small-C gather of both xyz
+    groups; the row scatter-add of the scale-1 merge's and of
+    three_interpolate's backwards (on the CPU for the plain version, as the
+    partseg kernels phase holds it); the patch chamfer over 32768 pairs of
+    16 and 8 points; the MDAE head's tiled chamfer (128, 512, 512)."""
+    from point_dae_torch.losses import chamfer
+    from point_dae_torch.ops import fps, gather, tiled_knn
+    from point_dae_torch.ops.geometry import gather_points, three_nn
+
+    g = torch.Generator(device=device).manual_seed(SEED + 90)
+    pts = clean[..., :3].contiguous()
+    B = pts.shape[0]
+    c0 = gather_points(pts, fps.furthest_point_sample(pts, 512))
+    c1 = gather_points(c0, fps.furthest_point_sample(c0, 256))
+    for src, n in ((pts, 512), (c0, 256)):
+        if not fps.use_fps_kernel("cuda", src.shape[1]):
+            fail(f"m2ae: the fps gate is closed at {tuple(src.shape)}")
+        kernel_vs_plain(torch, f"m2ae: fps {tuple(src.shape)} -> {n}",
+                        [fps.furthest_point_sample(src, n)],
+                        [fps.furthest_point_sample_plain(src, n)])
+        ms = cuda_ms(lambda: fps.furthest_point_sample(src, n), 10)
+        plain = cuda_ms(lambda: fps.furthest_point_sample_plain(src, n), 1)
+        log(f"  fps {tuple(src.shape)} -> {n}: {ms:.4f} ms a call (plain {plain:.4f}), "
+            f"bit for bit")
+    dk, ik = tiled_knn.knn_kernel(c1, c0, 8)
+    dp, ip = tiled_knn.knn_plain(c1, c0, 8)
+    torch.cuda.synchronize()
+    differ = ik != ip
+    rel = float(((dk - dp).abs() / dp.abs().clamp_min(1e-30)).max())
+    if rel > 1e-5 or (differ.any() and not torch.equal(dk[differ], dp[differ])):
+        fail(f"m2ae: knn (128, 256, 512, k 8): dists off by {rel:.2e} or idx differ off a tie")
+    ms = cuda_ms(lambda: tiled_knn.knn_kernel(c1, c0, 8), 10)
+    plain = cuda_ms(lambda: tiled_knn.knn_plain(c1, c0, 8), 2)
+    log(f"  knn (128, 256 queries, 512 centres, k 8): {ms:.4f} ms a call (plain {plain:.4f}); "
+        f"idx differ at {int(differ.sum())} ties")
+    idx0 = tiled_knn.knn_plain(c0, pts, 16)[1].reshape(B, -1)
+    for what, x, idx in (("scale 0 (128, 2048, 3) by 8192 rows", pts, idx0),
+                         ("scale 1 (128, 512, 3) by 2048 rows", c0, ik.reshape(B, -1))):
+        if not gather.use_small_c_kernel(x, idx.shape[1]):
+            fail(f"m2ae: the small-C gate is closed at {what}")
+        kernel_vs_plain(torch, f"m2ae: gather_rows_small_c {what}",
+                        [gather.gather_rows_small_c(x, idx)],
+                        [gather.gather_rows_small_c_plain(x, idx)])
+        ms = cuda_ms(lambda: gather.gather_rows_small_c(x, idx), 20)
+        log(f"  gather_rows_small_c {what}: {ms:.4f} ms a call, bit for bit")
+    _, i3 = three_nn(c1, gather_points(c1, fps.furthest_point_sample(c1, 64)))
+    for what, idx, N, C in (("the scale-1 merge, (128, 2048) rows of 96 into 512",
+                             ik.reshape(B, -1), 512, 96),
+                            ("three_interpolate, (128, 768) rows of 384 into 64",
+                             i3.reshape(B, -1), 64, 384)):
+        if not gather.use_scatter_kernel("cuda", B, idx.shape[1], N, C):
+            fail(f"m2ae: the scatter gate is closed at {what}")
+        grad = torch.randn((B, idx.shape[1], C), generator=g, device=device)
+        got = gather.scatter_rows_add(idx, grad, N)
+        want = gather.scatter_rows_add_plain(idx.cpu(), grad.cpu(), N)
+        if not torch.equal(got.cpu(), want):
+            fail(f"m2ae: scatter_rows_add at {what} differs from the plain version on the CPU")
+        ms = cuda_ms(lambda: gather.scatter_rows_add(idx, grad, N), 20)
+        plain = cuda_ms(lambda: gather.scatter_rows_add_plain(idx, grad, N), 5)
+        log(f"  scatter_rows_add at {what}: {ms:.4f} ms a call (plain {plain:.4f}), bit for "
+            f"bit with the plain version on the CPU")
+    x = (torch.randn((B * 256, 16, 3), generator=g, device=device) * 0.05).contiguous()
+    y = (torch.randn((B * 256, 8, 3), generator=g, device=device) * 0.05).contiguous()
+    if not chamfer.use_small_kernel(x, 8):
+        fail("m2ae: the patch chamfer's gate is closed at 32768 pairs of 16 and 8")
+    kernel_vs_plain(torch, "m2ae: the patch chamfer (32768, 16, 8)",
+                    chamfer.nn_half_small_pair(x, y),
+                    chamfer.nn_half_small_plain(x, y) + chamfer.nn_half_small_plain(y, x))
+    ms = cuda_ms(lambda: chamfer.nn_half_small_pair(x, y), 20)
+    log(f"  patch chamfer 32768 pairs of 16 and 8 points, both directions: {ms:.4f} ms a call, "
+        f"bit for bit with the plain halves")
+    x = torch.randn((B, 512, 3), generator=g, device=device)
+    if not chamfer.use_tiled_kernel(x, 512):
+        fail("m2ae: the tiled chamfer's gate is closed at (128, 512, 512)")
+    kernel_vs_plain(torch, "m2ae: the tiled chamfer (128, 512, 512)",
+                    chamfer.nn_half_tiled_pair(x, c0),
+                    chamfer.nn_half_tiled_plain(x, c0) + chamfer.nn_half_tiled_plain(c0, x))
+    ms = cuda_ms(lambda: chamfer.nn_half_tiled_pair(x, c0), 20)
+    log(f"  tiled chamfer (128, 512, 512), both directions: {ms:.4f} ms a call, bit for bit")
+
+
+def m2ae_check(torch, config, clean, device, what):
+    """One train-mode forward at M2AE_CHECK_BATCH (every forward gate of the
+    path open but the scale-1 gather's, which needs 128 clouds) on the card
+    against the CPU with the same weights, clouds and draws: each loss
+    within 1e-4 relative. The pyramids' kNN picks that differ between the
+    card and the CPU (near-ties of the distance rounding) are counted.
+    Returns the card's model."""
+    from point_dae_torch.engine.pretrain import init_model
+    from point_dae_torch.utils import kernels
+
+    cpu_model = init_model(config, seed=SEED + 91, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(device)
+    cln = clean[:M2AE_CHECK_BATCH]
+    g = torch.Generator(device=device).manual_seed(SEED + 92)
+    draws = gpu_model.sample_draws(M2AE_CHECK_BATCH, g, device)
+    before = dict(kernels.launches)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lg = [float(v) for v in gpu_model(cln, cln, draws=draws)]
+        used = {k: kernels.launches[k] - before[k] for k in M2AE_KERNELS}
+        _, _, ig = gpu_model._group(cln)
+        c = cln.cpu()
+        lc = [float(v) for v in cpu_model(c, c, draws=on_device(draws, "cpu"))]
+        _, _, ic = cpu_model._group(c)
+    flips = [int((a.cpu() != b).sum()) for a, b in zip(ig, ic)]
+    log(f"  {what}, batch {M2AE_CHECK_BATCH}: card losses {lg[0]:.7f} {lg[1]:.7f}; cpu "
+        f"({time.perf_counter() - t0:.1f} s) {lc[0]:.7f} {lc[1]:.7f}; kNN picks that differ "
+        f"by scale {flips}; launches { {k: v for k, v in used.items() if v} }")
+    if not all(math.isfinite(v) for v in lg + lc):
+        fail(f"m2ae: non-finite loss in the {what} check")
+    if any(abs(a_ - b_) > 1e-4 * abs(b_) for a_, b_ in zip(lg, lc)):
+        fail(f"m2ae: {what}: card losses {lg} off the CPU's {lc} beyond 1e-4 relative")
+    if min(used[k] for k in ("fps", "knn", "gather_rows_small_c", "nn_half_small")) == 0:
+        fail(f"m2ae: {what}: a forward kernel gate stayed closed: {used}")
+    del cpu_model
+    return gpu_model
+
+
+def m2ae_finetune(torch, device, card):
+    """cfgs/finetune_scan_hardest_tf_pointm2ae.yaml at bs 32 of 2048
+    points: eval logits on the card against the CPU, then M2AE_FT_STEPS train
+    steps, a profiled one, an eval step and a vote step, each with its
+    launches held to _M2AE_FT. Returns (step, busy, peak)."""
+    import numpy as np
+
+    from point_dae_torch.engine import finetune
+    from point_dae_torch.engine.train_state import TrainState
+    from point_dae_torch.models import build_model_from_cfg
+    from point_dae_torch.utils import kernels
+
+    config = load_cfg(M2AE_FT_CFG)
+    rng = np.random.default_rng(SEED + 93)
+    pts = torch.from_numpy(rng.normal(size=(M2AE_FT_BATCH, 2048, 3)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, config["model"]["cls_dim"], M2AE_FT_BATCH))
+    cpu_model = build_model_from_cfg(config["model"], device="cpu", seed=SEED + 94)
+    model = copy.deepcopy(cpu_model).to(device)
+    eval_step = finetune.make_eval_step(model, config, device=device)
+    kernels.reset_launches()
+    lg = eval_step(pts.to(device))
+    torch.cuda.synchronize()
+    used = {k: kernels.launches[k] for k in _M2AE_FT}
+    t0 = time.perf_counter()
+    lc = finetune.make_eval_step(cpu_model, config, device="cpu")(pts)
+    err = float((lg.cpu() - lc).abs().max() / lc.abs().max())
+    log(f"  fine-tune eval logits (32, 2048) on the card against the CPU "
+        f"({time.perf_counter() - t0:.1f} s): {err:.2e} of the largest; launches {used}")
+    if err > 1e-4 or used != _M2AE_FT:
+        fail(f"m2ae: fine-tune eval: logits off the CPU's by {err:.2e} or launches {used}, "
+             f"expected {_M2AE_FT}")
+    del cpu_model
+    state = TrainState.create(model, config, 100, config.get("grad_norm_clip"))
+    step = finetune.make_finetune_step(model, config, device=device)
+    g = torch.Generator(device=device).manual_seed(SEED + 95)
+    pd, ld = pts.to(device), labels.to(device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    times = []
+    for _ in range(M2AE_FT_STEPS):
+        t0 = time.perf_counter()
+        m = step(state, pd, ld, generator=g)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    per_step = {k: kernels.launches[k] / M2AE_FT_STEPS for k in _M2AE_FT}
+    peak = torch.cuda.max_memory_allocated()
+    if per_step != _M2AE_FT or not math.isfinite(float(m["loss"])):
+        fail(f"m2ae: fine-tune train: launches a step {per_step} (expected {_M2AE_FT}) or loss "
+             f"{float(m['loss'])}")
+    steady = sorted(times[1:])[(M2AE_FT_STEPS - 2) // 2]
+    busy, _ = profile_step(torch, lambda: step(state, pd, ld, generator=g), card, top=6)
+    eval_ms = cuda_ms(lambda: eval_step(pd), 3)
+    vote = finetune.make_vote_step(model, config, times=M2AE_VOTES, device=device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    vote(pd, generator=g)
+    torch.cuda.synchronize()
+    vote_ms = (time.perf_counter() - t0) * 1e3
+    vote_used = {k: kernels.launches[k] for k in _M2AE_FT}
+    if vote_used != {k: v * M2AE_VOTES for k, v in _M2AE_FT.items()}:
+        fail(f"m2ae: the vote step launched {vote_used}")
+    log(f"  [{card}] M2AE fine-tune (bs 32 of 2048): train step {steady * 1e3:.2f} ms (median "
+        f"of steps 2-{M2AE_FT_STEPS}), loss {float(m['loss']):.4f}, busy {busy / 1e3:.2f} ms, "
+        f"peak {peak / 2 ** 30:.2f} GiB; launches a step {per_step}; eval step {eval_ms:.2f} "
+        f"ms; vote step ({M2AE_VOTES} draws) {vote_ms:.1f} ms, launches {vote_used}")
+    del model, state, step
+    torch.cuda.empty_cache()
+    return steady, busy, peak
+
+
+def phase_m2ae(torch, device, card):
+    """The Point-M2AE family at full width: the path's kernels against their
+    plain versions (m2ae_kernels); Point_M2AE and the MDAE variant each on
+    the card against the CPU (m2ae_check), then their steps with each
+    kernel's launches a step held to the run's, a profiled step's busy time,
+    the step time and peak memory; then the fine-tune (m2ae_finetune)."""
+    from point_dae_torch.engine.pretrain import device_pipeline
+
+    g = torch.Generator(device=device).manual_seed(SEED + 96)
+    raw = torch.randn((M2AE_BATCH, NRAW, 6), generator=g, device=device)
+    raw[..., 3:] /= raw[..., 3:].norm(dim=-1, keepdim=True)
+    base = m2ae_config({})
+    d = base["dataset"]["train"]["others"]
+    _, clean = device_pipeline(raw, d["aug_type"], d["corrupt_type"], d["npoints"],
+                               generator=g, device=device)
+    m2ae_kernels(torch, clean, device)
+    torch.cuda.empty_cache()
+    records = {}
+    for what, keys, steps, want in M2AE_RUNS:
+        config = m2ae_config(keys)
+        model = m2ae_check(torch, config, clean, device, what)
+        log(f"  {what}, {steps} steps at bs {M2AE_BATCH}:")
+        steady, first, launches, peak, one_more = run_steps(
+            torch, config, raw, device, steps, SEED + 97, model=model)
+        per_step = {k: launches[k] / steps for k in M2AE_KERNELS}
+        if any(per_step[k] != want.get(k, 0) for k in M2AE_KERNELS):
+            fail(f"m2ae: {what}: launches a step {per_step}, expected {want}")
+        busy, _ = profile_step(torch, one_more, card, top=8)
+        records[what] = (steady, busy, peak)
+        log(f"  [{card}] {what}: step {steady * 1e3:.2f} ms (median of steps 2-{steps}), "
+            f"{M2AE_BATCH / steady:.1f} clouds/s, first step {first * 1e3:.1f} ms, busy "
+            f"{busy / 1e3:.2f} ms, max_memory_allocated {peak / 2 ** 30:.2f} GiB; launches a "
+            f"step { {k: v for k, v in per_step.items() if v} }")
+        del model, one_more
+        torch.cuda.empty_cache()
+    records["Point_M2AE_Finetune (bs 32 of 2048)"] = m2ae_finetune(torch, device, card)
+    for what, (st, bz, pk) in records.items():
+        log(f"  [{card}] m2ae: {what}: {st * 1e3:.2f} ms a step, busy {bz / 1e3:.2f} ms, "
+            f"peak {pk / 2 ** 30:.2f} GiB")
+
+
+# -- the frozen-feature probes through the CLI: both modes on the Synthetic
+# reader at ModelNet40's split sizes (MODELNET_PROBE), the configs' npoints
+PROBE_RUNS = (   # (what, shipped config, CLI flag, launches an extraction batch)
+    ("DGCNN_feat SVM", "cfgs/finetune_modelnet_svm_classification.yaml",
+     "--svm_classification", {"fps": 1, "knn_aggregate_fwd": 4}),
+    ("Point_M2AE_SVMFeature SVM", "cfgs/generated/finetune_modelnet_svm_pointm2ae.yaml",
+     "--svm_classification", {"fps": 3, "knn": 1, "gather_rows_small_c": 1}),
+    ("DGCNN_feat task affinity", "cfgs/finetune_modelnet_taskaffinity.yaml",
+     "--task_affinity", {"fps": 1, "knn_aggregate_fwd": 4}))
+PROBE_SVC_CLASSES, PROBE_SVC_C = 8, 1.0   # the card-against-CPU SVC fit
+
+
+def probe_cli(torch, what, src, flag, per_batch, tmp, device):
+    """One probe mode through point_dae_torch.cli.main on a copy of ``src``
+    whose splits are Synthetic clouds at ModelNet40's sizes: the seconds of
+    its extraction, of its SVC fits (each C's SMO iterations) or of its
+    affinity head, its log lines, and the inputs of its grid search."""
+    from point_dae_torch import cli
+    from point_dae_torch.engine import probe
+    from point_dae_torch.utils import kernels
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_cfg(src)
+    npoints = int(cfg["npoints"])
+    syn = os.path.join(root, "cfgs", "dataset_configs", "Synthetic.yaml")
+    n_train, n_test, classes = MODELNET_PROBE
+    cut = {"dataset": {s: {"_base_": syn, "others": {"size": n, "seed": seed, "N_POINTS": npoints,
+                                                     "num_classes": classes}}
+                       for s, n, seed in (("train", n_train, 0), ("test", n_test, 1))}}
+    stem = "probe_" + os.path.splitext(os.path.basename(src))[0]
+    path = write_config(src, os.path.join(tmp, "cfgs", stem + ".yaml"), cut)
+    seconds = {"extract": 0.0, "fits": [], "head": 0.0}
+    grid_inputs = []
+    orig = (probe.extract_features, probe.svm_grid_search, probe.fit_linear_head, probe.SVC)
+
+    def timed(key, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            seconds[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    class TimedSVC(orig[3]):
+        def fit(self, X, y):
+            t0 = time.perf_counter()
+            super().fit(X, y)
+            torch.cuda.synchronize()
+            seconds["fits"].append((self.C, self.n_iter_, time.perf_counter() - t0,
+                                    self.converged_))
+            return self
+
+    probe.extract_features = timed("extract", orig[0])
+    probe.svm_grid_search = lambda *a, **k: grid_inputs.append(a[:4]) or orig[1](*a, **k)
+    probe.fit_linear_head = timed("head", orig[2])
+    probe.SVC = TimedSVC
+    lines = LogLines(stem)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        out = cli.main(["--config", path, flag, "--exp_name", "probe", "--root_folder",
+                        os.path.join(tmp, "experiments")], device=device)
+    except Exception as e:  # noqa: BLE001 - any failure of the run fails the phase
+        fail(f"probe {what}: {type(e).__name__}: {e}")
+    finally:
+        lines.close()
+        probe.extract_features, probe.svm_grid_search, probe.fit_linear_head, probe.SVC = orig
+    total = time.perf_counter() - t0
+    batches = sum(-(-n // 64) for n in (n_train, n_test))
+    used = {k: kernels.launches[k] for k in per_batch}
+    if used != {k: v * batches for k, v in per_batch.items()}:
+        fail(f"probe {what}: launches {used} over {batches} extraction batches, expected "
+             f"{per_batch} a batch")
+    wanted = ("[SVM]",) if flag == "--svm_classification" else ("[TaskAffinity]", "[Validation]")
+    shown = [ln for ln in lines.lines if ln.startswith(wanted)]
+    if len(shown) != (7 if flag == "--svm_classification" else 2) or not math.isfinite(out):
+        fail(f"probe {what}: result {out}, log lines {shown}")
+    for ln in shown:
+        log(f"    {ln}")
+    return out, seconds, total, used, batches, grid_inputs
+
+
+def probe_kernels(torch, device):
+    """The probes' kernels against their plain versions at their shapes, bit
+    for bit: FPS at an extraction batch of 64 clouds, (64, 1024) -> 1024
+    and (64, 2048) -> 2048; DGCNN_feat's first EdgeConv forward
+    (knn_aggregate at (64, 1024), Cf 3, C 64, k 20: neighbours, maxima,
+    minima and sums)."""
+    from point_dae_torch.ops import edgeconv, fps
+
+    g = torch.Generator(device=device).manual_seed(SEED + 98)
+    for n in (1024, 2048):
+        pts = torch.randn((64, n, 3), generator=g, device=device)
+        kernel_vs_plain(torch, f"probe: fps (64, {n}) -> {n}",
+                        [fps.furthest_point_sample(pts, n)],
+                        [fps.furthest_point_sample_plain(pts, n)])
+        ms = cuda_ms(lambda: fps.furthest_point_sample(pts, n), 10)
+        log(f"  fps (64, {n}) -> {n}: {ms:.4f} ms a call, bit for bit")
+    xf = torch.randn((64, 1024, 3), generator=g, device=device)
+    U = torch.randn((64, 1024, 64), generator=g, device=device).bfloat16().float()
+    outk = edgeconv.knn_aggregate_fwd_kernel(U, xf, 20, True)
+    idx = edgeconv.knn_select_plain(xf, 20)
+    kernel_vs_plain(torch, "probe: knn_aggregate (64, 1024, C 64, k 20)",
+                    list(outk[:5]), list(edgeconv.aggregate_plain(U, idx)[:4]) + [idx])
+    ms = cuda_ms(lambda: edgeconv.knn_aggregate_fwd_kernel(U, xf, 20, True), 10)
+    log(f"  knn_aggregate forward (64, 1024, C 64, k 20): {ms:.4f} ms a call, bit for bit")
+
+
+def phase_probe(torch, device, card):
+    """The probes' kernels at their shapes (probe_kernels); then the
+    frozen-feature probes through the CLI in process (PROBE_RUNS),
+    each printed with its seconds (extraction, each SVC fit with its SMO
+    iterations, the affinity head) and its launches; then the port's SVC
+    fitted on the card and on the host CPU over the same features (the
+    M2AE grid's, its first PROBE_SVC_CLASSES classes, C PROBE_SVC_C): the
+    predictions must be equal."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from point_dae_torch.engine.probe import SVC
+
+    probe_kernels(torch, device)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_probe_")
+    try:
+        grids = {}
+        for what, src, flag, per_batch in PROBE_RUNS:
+            out, sec, total, used, batches, grid = probe_cli(torch, what, src, flag, per_batch,
+                                                             tmp, device)
+            fits = ", ".join(f"C {c:g} {n} iterations {s:.2f} s" + ("" if ok else " NOT CONVERGED")
+                             for c, n, s, ok in sec["fits"])
+            log(f"  [{card}] probe {what}: result {out:.4f}; {total:.1f} s in all, extraction "
+                f"{sec['extract']:.1f} s ({batches} batches of 64, launches {used}), "
+                + (f"SVC grid {sum(s for _, _, s, _ in sec['fits']):.2f} s ({fits})"
+                   if sec["fits"] else f"affinity head (300 epochs) {sec['head']:.2f} s"))
+            if not all(ok for *_, ok in sec["fits"]):
+                fail(f"probe {what}: an SVC fit stopped at its iteration cap")
+            if grid:
+                grids[what] = grid[0]
+        tr_f, tr_l, te_f, te_l = grids["Point_M2AE_SVMFeature SVM"]
+        tr = np.flatnonzero(np.asarray(tr_l) < PROBE_SVC_CLASSES)
+        te = np.flatnonzero(np.asarray(te_l) < PROBE_SVC_CLASSES)
+        x, xt = tr_f[torch.from_numpy(tr).to(device)], te_f[torch.from_numpy(te).to(device)]
+        preds, secs = [], []
+        for dev in (device, "cpu"):
+            t0 = time.perf_counter()
+            clf = SVC(C=PROBE_SVC_C, device=dev).fit(x, tr_l[tr])
+            preds.append(clf.predict(xt).cpu())
+            secs.append((time.perf_counter() - t0, clf.n_iter_))
+        same = int((preds[0] == preds[1]).sum())
+        log(f"  SVC (C {PROBE_SVC_C:g}) over the M2AE features of {PROBE_SVC_CLASSES} classes "
+            f"({len(tr)} x {x.shape[1]} train, {len(te)} test): [{card}] {secs[0][0]:.2f} s, "
+            f"{secs[0][1]} iterations; host CPU {secs[1][0]:.2f} s, {secs[1][1]} iterations; "
+            f"predictions equal on {same} of {len(te)}")
+        if same != len(te):
+            fail("probe: the SVC's predictions on the card differ from its CPU fit's")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def stamp(what: str) -> None:
     log(f"[{time.perf_counter() - T0:.1f} s] {what} done")
 
@@ -4395,6 +4868,16 @@ def main() -> None:
     log("run:")
     phase_run(torch, device, card)
     stamp("run")
+    torch.cuda.empty_cache()
+
+    # 9. the Point-M2AE family and the frozen-feature probes
+    log("m2ae (the Point-M2AE family):")
+    phase_m2ae(torch, device, card)
+    stamp("m2ae")
+    torch.cuda.empty_cache()
+    log("probe (the SVM and task-affinity modes through the CLI):")
+    phase_probe(torch, device, card)
+    stamp("probe")
     # gather_rows_wide is the one kernel without a path: the JAX package keeps
     # XLA's gather forward on purpose (point_dae_tpu/ops/pallas_scatter.py:
     # 267-276) and the port its plain one, so the rule leaves it out and its

@@ -175,9 +175,14 @@ def main(argv=None, device=None):
         from .engine.partseg import run_partseg
 
         return run_partseg(config, args, **run)
-    for flag in ("svm_classification", "task_affinity"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} {NOT_PORTED}")
+    if args.svm_classification:
+        from .engine.probe import svm_classification
+
+        return svm_classification(config, args, **run)
+    if args.task_affinity:
+        from .engine.probe import task_affinity
+
+        return task_affinity(config, args, **run)
     if args.finetune_model or args.scratch_model:
         from .engine.finetune import run_finetune
 

@@ -1,7 +1,8 @@
 """Patch-level corruption (port of
-``point_dae_tpu/data/corruptions_patch.py:45-170,197-317``): each family
-acts jointly on absolute patch coordinates (B, G, S, 3) and their centres
-(B, G, 3), with per-sample parameters.
+``point_dae_tpu/data/corruptions_patch.py:45-317``): each family acts
+jointly on absolute patch coordinates (B, G, S, 3) and their centres
+(B, G, 3), with per-sample parameters; ``corrupt_patches_multi`` applies
+one affine draw to every scale of a pyramid.
 
 Reference quirks kept: the affine families and 'affine_r3' pin the
 severity level to 4; the tensor library's translate multiplies instead of
@@ -10,8 +11,9 @@ two signs on x and y); 'scan' ignores its level; 'dropout_global' and
 'add_local' keep S points a patch (refilled from the kept points, and
 noised copies in place of random originals).
 
-Every random draw is an input: ``corrupt_patches`` takes one entry per
-``corrupt_type`` position (``sample_patch_draws``). A name outside
+Every random draw is an input: ``corrupt_patches`` and
+``corrupt_patches_multi`` take one entry per ``corrupt_type`` position
+(``sample_patch_draws``, ``sample_patch_multi_draws``). A name outside
 ``PATCH_SUPPORTED`` raises NotImplementedError, as in the JAX package.
 """
 from __future__ import annotations
@@ -293,3 +295,47 @@ def corrupt_patches(neigh: torch.Tensor, center: torch.Tensor, types: Sequence[s
         if fam is not None:
             neigh, center = fam[1](d, neigh, center)
     return neigh, center
+
+
+_MULTI = frozenset(AFFINE_NAMES) | {"affine_r3", "rotate_z"}
+
+
+def _multi_family(t: str):
+    """The (sample, apply) of a family that ``corrupt_patches_multi`` takes
+    (the affine ones), None for the no-ops; NotImplementedError else."""
+    if t in _NOOPS:
+        return None
+    if t not in _MULTI:
+        raise NotImplementedError(f"list patch corruption {t!r}")
+    return _FAMILIES[t]
+
+
+def sample_patch_multi_draws(types: Sequence[str], batch: int,
+                             generator: Optional[torch.Generator], device) -> List:
+    """``corrupt_patches_multi``'s draws: one entry per position of
+    ``types`` (None for 'clean' and 'Drop-Patch')."""
+    return [None if fam is None else fam[0](batch, 0, 0, generator, device)
+            for fam in [_multi_family(t) for t in types]]
+
+
+def corrupt_patches_multi(neighs: Sequence[torch.Tensor], centers: Sequence[torch.Tensor],
+                          types: Sequence[str], draws: Optional[Sequence] = None,
+                          generator: Optional[torch.Generator] = None
+                          ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """The list variant (``corruptions_patch.py:173-194``): each affine
+    family's one per-sample transform applied to every (neigh, center)
+    scale pair of a pyramid, in absolute coordinates. Only the affine
+    families (and the no-ops) are taken, as in the reference; another name
+    raises NotImplementedError. ``draws``: one entry per position, or None
+    to sample them."""
+    families = [_multi_family(t) for t in types]
+    if draws is None:
+        draws = sample_patch_multi_draws(types, neighs[0].shape[0], generator,
+                                         neighs[0].device)
+    neighs, centers = list(neighs), list(centers)
+    for fam, d in zip(families, draws):
+        if fam is None:
+            continue
+        for s in range(len(neighs)):
+            neighs[s], centers[s] = fam[1](d, neighs[s], centers[s])
+    return neighs, centers

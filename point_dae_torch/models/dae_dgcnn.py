@@ -1,6 +1,8 @@
 """DGCNN-backbone DAE pretraining models (port of
 ``point_dae_tpu/models/dae_dgcnn.py:31-92``): ``Point_CAE_DGCNN_FCOnly``;
-and the classification fine-tune model ``DGCNN`` (``:202-236``).
+the classification fine-tune model ``DGCNN`` (``:202-236``), the linear
+probe ``DGCNN_Linear`` and the SVM feature extractor ``DGCNN_feat``
+(``:239-264``).
 
 Calling convention: ``model(corrupted, clean) -> (loss_xyz, loss_normal)``;
 ``encode`` returns the global feature. Of the configured corruptions the
@@ -118,13 +120,10 @@ class _ClsHead(nn.Sequential):
         return self[7](x)
 
 
-@MODELS.register_module()
-class DGCNN(nn.Module):
-    """Classification fine-tune model (``dae_dgcnn.py:225-236``): the f32
-    DGCNN encoder (``edgeconv_impl`` default ``auto``: the fused kernel on
-    CUDA; ``edgeconv_knn`` as in the pretrain models) and ``_ClsHead`` on its global feature. Calling convention:
-    ``model(pts (B, N, 3)) -> logits (B, cls_dim)``; in training the head's
-    dropout masks come from ``draws`` or from ``generator``."""
+class _DGCNNEncoderModel(nn.Module):
+    """A model around the f32 DGCNN encoder with the fine-tune model's
+    encoder keys (``edgeconv_impl``, ``edgeconv_exact_grads``,
+    ``edgeconv_knn``)."""
 
     def __init__(self, config, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -133,6 +132,22 @@ class DGCNN(nn.Module):
             exact_grads=bool(config.get("edgeconv_exact_grads", False)),
             knn_impl=str(config.get("edgeconv_knn", "kernel")),
             generator=generator)
+
+    def encode(self, pts: torch.Tensor) -> torch.Tensor:
+        """The global feature (B, 1024)."""
+        return self.dgcnn_encoder(pts[..., :3])[0]
+
+
+@MODELS.register_module()
+class DGCNN(_DGCNNEncoderModel):
+    """Classification fine-tune model (``dae_dgcnn.py:225-236``): the f32
+    DGCNN encoder (``edgeconv_impl`` default ``auto``: the fused kernel on
+    CUDA; ``edgeconv_knn`` as in the pretrain models) and ``_ClsHead`` on its global feature. Calling convention:
+    ``model(pts (B, N, 3)) -> logits (B, cls_dim)``; in training the head's
+    dropout masks come from ``draws`` or from ``generator``."""
+
+    def __init__(self, config, generator: Optional[torch.Generator] = None):
+        super().__init__(config, generator)
         self.cls_head_finetune = _ClsHead(int(config.get("cls_dim", 40)), generator)
 
     def sample_draws(self, batch: int, generator: Optional[torch.Generator],
@@ -143,9 +158,32 @@ class DGCNN(nn.Module):
 
     def forward(self, pts: torch.Tensor, draws: Optional[ClsDraws] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        feat = self.dgcnn_encoder(pts[..., :3])[0]
+        feat = self.encode(pts)
         if not self.training:
             return self.cls_head_finetune(feat)
         if draws is None:
             draws = self.sample_draws(pts.shape[0], generator, pts.device)
         return self.cls_head_finetune(feat, draws.dropout)
+
+
+@MODELS.register_module()
+class DGCNN_Linear(_DGCNNEncoderModel):
+    """Linear probe: one Dense (``cls``) on the encoder's global feature.
+    It has no random draw; ``draws`` and ``generator`` are taken for the
+    fine-tune step's calling convention."""
+
+    def __init__(self, config, generator: Optional[torch.Generator] = None):
+        super().__init__(config, generator)
+        self.cls = Dense(1024, int(config.get("cls_dim", 40)), generator=generator)
+
+    def forward(self, pts: torch.Tensor, draws: Optional[ClsDraws] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.cls(self.encode(pts))
+
+
+@MODELS.register_module()
+class DGCNN_feat(_DGCNNEncoderModel):
+    """SVM feature extractor: ``model(pts) -> (B, 1024)``."""
+
+    def forward(self, pts: torch.Tensor) -> torch.Tensor:
+        return self.encode(pts)

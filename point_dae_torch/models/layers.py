@@ -346,14 +346,17 @@ class TransformerEncoder(nn.Module):
     """Block stack with the positional embedding re-added before every
     block. Torch names: ``blocks.{i}``. ``residual_dtype`` casts the stream
     and the embedding at entry (JAX ``layers.py:414-417``); ``remat``
-    recomputes each block in the backward (``checkpointed``)."""
+    recomputes each block in the backward (``checkpointed``). ``dpr``
+    gives each block's stochastic-depth rate (default: 0 to
+    ``drop_path_rate`` across the stack)."""
 
     def __init__(self, dim: int, depth: int, num_heads: int,
                  drop_path_rate: float = 0.0, dtype=None,
                  generator: Optional[torch.Generator] = None,
-                 residual_dtype=None, remat: bool = False):
+                 residual_dtype=None, remat: bool = False,
+                 dpr: Optional[Sequence[float]] = None):
         super().__init__()
-        self.dpr = _dpr(drop_path_rate, depth)
+        self.dpr = _dpr(drop_path_rate, depth) if dpr is None else list(dpr)
         self.residual_dtype = residual_dtype
         self.remat = remat
         self.blocks = nn.ModuleList(
@@ -399,20 +402,25 @@ class PatchEncoder(nn.Module):
     """Mini-PointNet patch embedding: (B, G, S, 3) -> (B, G, C) f32.
     ``first_conv`` = Dense 3->128, BN, ReLU, Dense 128->256; the per-patch
     max is concatenated back (as a ``SplitDense``) into ``second_conv`` =
-    512->512, BN, ReLU, 512->C; a final max over the patch."""
+    512->512, BN, ReLU, 512->C; a final max over the patch. For merged
+    features (``in_channels`` > 3, Point-M2AE's token embedding) the widths
+    follow the reference's Token_Embed rule instead: in -> in -> in | 2 in
+    -> C -> C."""
 
     def __init__(self, encoder_channel: int, dtype=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, in_channels: int = 3):
         super().__init__()
         self.encoder_channel = encoder_channel
+        w1, w2, w3 = (128, 256, 512) if in_channels == 3 else \
+            (in_channels, in_channels, encoder_channel)
         self.first_conv = nn.ModuleList([
-            Dense(3, 128, dtype=dtype, generator=generator),
-            BatchNorm(128, dtype=dtype), nn.ReLU(),
-            Dense(128, 256, dtype=dtype, generator=generator)])
+            Dense(in_channels, w1, dtype=dtype, generator=generator),
+            BatchNorm(w1, dtype=dtype), nn.ReLU(),
+            Dense(w1, w2, dtype=dtype, generator=generator)])
         self.second_conv = nn.ModuleList([
-            SplitDense(512, 512, dtype=dtype, generator=generator),
-            BatchNorm(512, dtype=dtype), nn.ReLU(),
-            Dense(512, encoder_channel, dtype=dtype, generator=generator)])
+            SplitDense(2 * w2, w3, dtype=dtype, generator=generator),
+            BatchNorm(w3, dtype=dtype), nn.ReLU(),
+            Dense(w3, encoder_channel, dtype=dtype, generator=generator)])
 
     def forward(self, groups: torch.Tensor) -> torch.Tensor:
         B, G, S, C = groups.shape

@@ -1,6 +1,8 @@
 """The flagship transformer Point-DAE (port of
-``point_dae_tpu/models/transformer.py:47-82,103-231,234-427,457-573,601-634``)
-and the classification fine-tune model ``PointTransformer`` (``:742-801``).
+``point_dae_tpu/models/transformer.py:47-82,103-231,234-427,457-573,601-634``),
+the classification fine-tune models ``PointTransformer`` (``:742-801``)
+and ``PointTransformerNoClassToken`` (``:804-837``), and the SVM feature
+extractor ``PointTransformerNoClassTokenSVMFeature`` (``:864-883``).
 
 Static-shape MAE design, as in the JAX package: the mask ratio is bounded
 (U(0.5, 0.8) with ``rand_ratio``), so the visible tokens are packed into a
@@ -471,3 +473,63 @@ class PointTransformer(nn.Module):
         x = self.norm(self.blocks(x, pos, None, None if draws is None else draws.drop_path))
         feat = torch.cat([x[:, 0], x[:, 1:].amax(1)], -1)
         return self.cls_head_finetune(feat, None if draws is None else draws.dropout)
+
+
+@MODELS.register_module()
+class PointTransformerNoClassToken(nn.Module):
+    """Classification fine-tune without a class token (``transformer.py:
+    804-837``): patch embedding, the ViT encoder over the patch tokens, a
+    final LayerNorm, max + mean pooling and ``_FinetuneHead`` (256, 256).
+    f32. Calling convention as ``PointTransformer``'s."""
+
+    HEAD = (256, 256)
+
+    def __init__(self, config, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        c = config
+        self.num_group, self.group_size = int(c["num_group"]), int(c["group_size"])
+        C = int(c["trans_dim"])
+        g = generator
+        self.encoder = PatchEncoder(int(c["encoder_dims"]), generator=g)
+        self.pos_embed = PosEmbedMLP(C, generator=g)
+        self.blocks = TransformerEncoder(C, int(c["depth"]), int(c["num_heads"]),
+                                         drop_path_rate=float(c.get("drop_path_rate", 0.1)),
+                                         generator=g)
+        self.norm = LayerNorm(C)
+        if self.HEAD:
+            self.cls_head_finetune = _FinetuneHead(C, self.HEAD, int(c["cls_dim"]),
+                                                   generator=g)
+
+    def sample_draws(self, batch: int, generator: Optional[torch.Generator],
+                     device) -> ClsDraws:
+        """Draw a training forward's randomness from ``generator``."""
+        return ClsDraws(
+            sample_dropout_masks(batch, self.HEAD, _FinetuneHead.RATE, generator, device),
+            stack_dp_masks(self.blocks.dpr, batch, generator, device))
+
+    def encode(self, pts: torch.Tensor, drop_path: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+        """max + mean of the normed tokens: pts (B, N, >= 3) -> (B, C)."""
+        neigh, center = group_neighborhood(pts[..., :3], self.num_group, self.group_size)
+        x = self.blocks(self.encoder(neigh), self.pos_embed(center), None, drop_path)
+        x = self.norm(x)
+        return x.amax(1) + x.mean(1)
+
+    def forward(self, pts: torch.Tensor, draws: Optional[ClsDraws] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training:
+            return self.cls_head_finetune(self.encode(pts))
+        if draws is None:
+            draws = self.sample_draws(pts.shape[0], generator, pts.device)
+        return self.cls_head_finetune(self.encode(pts, draws.drop_path), draws.dropout)
+
+
+@MODELS.register_module()
+class PointTransformerNoClassTokenSVMFeature(PointTransformerNoClassToken):
+    """SVM feature extractor on the same backbone, without the head
+    (``transformer.py:864-883``): ``model(pts) -> (B, C)``."""
+
+    HEAD = ()
+
+    def forward(self, pts: torch.Tensor) -> torch.Tensor:
+        return self.encode(pts)

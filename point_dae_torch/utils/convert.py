@@ -17,7 +17,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-# (torch module prefix, flax path); {i} is a block index
+# (torch module prefix, flax path); {i} (and {j}) are indices
 _RULES = [
     ("MAE_encoder.encoder.first_conv.0", "MAE_encoder/encoder/conv1"),
     ("MAE_encoder.encoder.first_conv.1", "MAE_encoder/encoder/bn1"),
@@ -42,11 +42,12 @@ _RULES = [
     ("folding2.2", "fold/folding2/dense1"),
     ("folding2.4", "fold/folding2/dense2"),
 ]
+# a transformer block's leaves
+_BLOCK_LEAVES = (("norm1", "norm1"), ("attn.qkv", "attn/qkv"), ("attn.proj", "attn/proj"),
+                 ("norm2", "norm2"), ("mlp.fc1", "mlp_fc1"), ("mlp.fc2", "mlp_fc2"))
 for _torch, _flax in (("MAE_encoder.blocks.blocks.{i}", "MAE_encoder/blocks/block{i}"),
                       ("MAE_decoder.blocks.{i}", "MAE_decoder/block{i}")):
-    for _t, _f in (("norm1", "norm1"), ("attn.qkv", "attn/qkv"),
-                   ("attn.proj", "attn/proj"), ("norm2", "norm2"),
-                   ("mlp.fc1", "mlp_fc1"), ("mlp.fc2", "mlp_fc2")):
+    for _t, _f in _BLOCK_LEAVES:
         _RULES.append((f"{_torch}.{_t}", f"{_flax}/{_f}"))
 
 # MaskFeat_dgcnn: its DGCNN teacher and the 1024-wide head
@@ -113,9 +114,37 @@ _RULES += [
     ("encoder.second_conv.1", "encoder/bn2"), ("encoder.second_conv.3", "encoder/conv4"),
     ("pos_embed.0", "pos_embed/fc1"), ("pos_embed.2", "pos_embed/fc2"),
     ("norm", "norm"), ("cls_token", "cls_token"), ("cls_pos", "cls_pos")]
-for _t, _f in (("norm1", "norm1"), ("attn.qkv", "attn/qkv"), ("attn.proj", "attn/proj"),
-               ("norm2", "norm2"), ("mlp.fc1", "mlp_fc1"), ("mlp.fc2", "mlp_fc2")):
+for _t, _f in _BLOCK_LEAVES:
     _RULES.append((f"blocks.blocks.{{i}}.{_t}", f"blocks/block{{i}}/{_f}"))
+
+# the Point-M2AE family (convert_torch._M2AE_RULES); {j} is a block index
+# within stage {i}
+for _t, _f in (("first_conv.0", "conv1"), ("first_conv.1", "bn1"), ("first_conv.3", "conv2"),
+               ("second_conv.0", "conv3"), ("second_conv.1", "bn2"),
+               ("second_conv.3", "conv4")):
+    _RULES.append((f"h_encoder.token_embed.{{i}}.{_t}", f"h_encoder/token_embed{{i}}/{_f}"))
+for _t, _f in _BLOCK_LEAVES:
+    _RULES += [(f"h_encoder.encoder_blocks.{{i}}.blocks.{{j}}.{_t}",
+                f"h_encoder/stage{{i}}/block{{j}}/{_f}"),
+               (f"h_decoder.{{i}}.blocks.{{j}}.{_t}", f"h_decoder{{i}}/block{{j}}/{_f}")]
+for _p, _f in (("h_encoder.encoder_pos_embeds", "h_encoder/pos_embed"),
+               ("decoder_pos_embeds", "decoder_pos_embed")):
+    _RULES += [(f"{_p}.{{i}}.0", f"{_f}{{i}}/dense0"), (f"{_p}.{{i}}.2", f"{_f}{{i}}/dense1")]
+_RULES += [("h_encoder.encoder_norms.{i}", "h_encoder/norm{i}"),
+           ("token_prop.{i}.fuse.net.0", "token_prop{i}/fuse_conv"),
+           ("token_prop.{i}.fuse.net.1", "token_prop{i}/fuse_bn"),
+           ("decoder_norm", "decoder_norm"), ("rec_head", "rec_head")]
+for _n, _s in (("net1", 1), ("net2", 2)):
+    _RULES += [(f"token_prop.{{i}}.extraction.operation.{{j}}.{_n}.0",
+                f"token_prop{{i}}/res{{j}}_conv{_s}"),
+               (f"token_prop.{{i}}.extraction.operation.{{j}}.{_n}.1",
+                f"token_prop{{i}}/res{{j}}_bn{_s}")]
+# the fc-center heads: the reference's coarse_pred_0 reads the coarsest of
+# its three scales, the JAX package's the finest
+_RULES += [(f"coarse_pred_{_k}.{2 * _d}", f"coarse_pred_{2 - _k}/dense{_d}")
+           for _k in range(3) for _d in range(3)]
+# DGCNN_Linear's classifier
+_RULES.append(("cls", "cls"))
 
 # the two fine-tune heads share their torch names at other indices, so a
 # state_dict takes the DGCNN head's rules when it holds a DGCNN encoder
@@ -129,7 +158,7 @@ _STATS = {"running_mean": "mean", "running_var": "var"}
 
 
 def _pattern(fmt: str, sep: str) -> re.Pattern:
-    esc = re.escape(fmt).replace(r"\{i\}", r"(?P<i>\d+)")
+    esc = re.escape(fmt).replace(r"\{i\}", r"(?P<i>\d+)").replace(r"\{j\}", r"(?P<j>\d+)")
     return re.compile(f"^{esc}(?:{re.escape(sep)}(?P<leaf>[A-Za-z_]+))?$")
 
 
@@ -155,8 +184,8 @@ def _match(table, name: str):
     for pat, tmpl in table:
         m = pat.match(name)
         if m:
-            return tmpl.format(i=m.group("i")) if "{i}" in tmpl else tmpl, \
-                m.group("leaf")
+            idx = {k: v for k, v in m.groupdict().items() if k != "leaf"}
+            return tmpl.format(**idx), m.group("leaf")
     raise KeyError(f"no conversion rule for {name!r}")
 
 
