@@ -244,6 +244,30 @@ Phases, each fatal on failure:
               SVC fit's SMO iterations and seconds, the head's seconds;
               then the port's SVC fitted on the card and on the host CPU
               over 8 classes of the M2AE features, predictions equal.
+ 23. backbones - fps at (128, 1024) -> 64, (32, 1024) -> 512 and (32,
+              512) -> 128, the small-C gather of the ball queries' xyz
+              groups (3DETR's and both PointNet++ levels'), the row
+              scatter-add of PointNet++'s sa2 feature gather, the patch
+              chamfer over 3DETR's 6528 masked patches and patchify at
+              (128, 1024) G 64 and (32, 2048) and (32, 8192) G 128 against
+              their plain versions (zoo_kernels); then 3DETR
+              (PointCAE_transformer_fc_global_fc_local_3detr), Point_MAE
+              and MaskFeat_transformer, each from its shipped config at bs
+              128 from (128, 8192, 6) raw clouds: the train-mode losses on
+              the card against the CPU (1e-4 relative), 3 steps with every
+              launch counter a step held to BACKBONE_RUNS, a profiled
+              step's busy time, the step time and peak memory; 3DETR's
+              pretrain through the CLI on Synthetic clouds (SVM probe
+              through encode);
+ 24. part modes - the linear probe and the non-linear head under
+              optimizer.part only_new, the diff_lr fine-tune (bs 32 of
+              2048) and PointNetv2 (bs 32 of 1024), each from its shipped
+              config: eval logits on the card against the CPU (1e-4 of the
+              largest), 3 train steps with every launch counter a step held
+              to PART_RUNS (under only_new only cls tensors move, BatchNorm
+              statistics included), a profiled step; then the linear probe
+              through the CLI on Synthetic clouds, after which only
+              cls.weight and cls.bias differ from the initial weights.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Run from the repository root:
 
@@ -4679,6 +4703,303 @@ def phase_probe(torch, device, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- the backbones of the pretrain zoo (3DETR, Point-MAE, the transformer
+# MaskFeat) and the fine-tunes of the optimizer's part modes and PointNet++,
+# each at its shipped widths
+BACKBONE_BATCH, BACKBONE_STEPS = 128, 3
+DETR_CFG = ("cfgs/generated/pretrain_PointCAE_transformer_dropout_patch_affine_r3_maskpatch_"
+            "p0005_3detr.yaml")
+BACKBONE_RUNS = (   # (what, shipped config, launches a step)
+    ("3DETR", DETR_CFG, {"fps": 1, "gather_rows_small_c": 2, "nn_half_small": 1}),
+    ("Point_MAE", "cfgs/pretrain_PointMAE.yaml",
+     {"patchify": 1, "gather_rows_small_c": 1, "nn_half_small": 1}),
+    ("MaskFeat_transformer", "cfgs/pretrain_MaskFeat_transformer.yaml",
+     {"patchify": 1, "gather_rows_small_c": 1}))
+PART_BATCH, PART_STEPS = 32, 3
+PART_RUNS = (       # (what, shipped config, points a cloud, launches a train step)
+    ("linear probe (only_new)", "cfgs/generated/finetune_scan_objbg_linear_classification.yaml",
+     2048, {"fps": 1, "patchify": 1}),
+    ("non-linear head (only_new)",
+     "cfgs/generated/finetune_scan_objbg_non_linear_classification.yaml", 2048,
+     {"fps": 1, "patchify": 1}),
+    ("diff_lr", "cfgs/generated/finetune_scan_objbg_transferring_features_diff_lr.yaml", 2048,
+     {"fps": 1, "patchify": 1}),
+    ("PointNetv2", "cfgs/generated/finetune_modelnet_transferring_features_PointNetv2.yaml",
+     1024, {"fps": 3, "gather_rows_small_c": 2, "scatter_rows_add": 1}))
+RUN_LINEAR_CUT = {  # the linear probe's CLI run on Synthetic clouds, one epoch
+    "dataset": {s: {"_base_": "cfgs/dataset_configs/Synthetic.yaml",
+                    "others": {"subset": sub, "npoints": 2048, "size": n, "seed": seed,
+                               "aug_type": ["clean"]}}
+                for s, sub, n, seed in (("train", "train", 64, 0), ("val", "test", 32, 1),
+                                        ("test", "test", 32, 1))},
+    "max_epoch": 0, "model": {"cls_dim": 15}}
+RUN_DETR_CUT = {    # the 3DETR pretrain's CLI run on Synthetic clouds, one epoch
+    "dataset": {s: {"_base_": "cfgs/dataset_configs/Synthetic.yaml",
+                    "others": dict(o, subset=sub, npoints=1024, size=n, seed=seed)}
+                for s, sub, n, seed, o in (
+                    ("train", "train", 256, 0, {"aug_type": ["norm"], "corrupt_type": ["clean"]}),
+                    ("val", "test", 64, 1, {"aug_type": ["clean"]}),
+                    ("extra_train", "train", 64, 2, {"aug_type": ["clean"]}))},
+    "max_epoch": 0}
+
+
+def launches_a_step(steps):
+    """Every launch counter's count a step over the last ``steps`` steps
+    (the counters zeroed before them), the counters at 0 left out."""
+    from point_dae_torch.utils import kernels
+
+    return {k: v / steps for k, v in kernels.launches.items() if v}
+
+
+def zoo_kernels(torch, raw, device):
+    """Each kernel of the slice's paths against its plain version at the
+    paths' shapes, bit for bit, with its time a call: fps at 3DETR's (128,
+    1024) -> 64 and PointNet++'s (32, 1024) -> 512 and (32, 512) -> 128;
+    the small-C gather of the ball queries' xyz groups (3DETR: 2048 rows a
+    cloud; PointNet++: 16384 and 8192); the row scatter-add of PointNet++'s
+    sa2 feature gather's backward ((32, 8192) rows of 128 into 512), against
+    the plain version on the CPU; the patch chamfer over 3DETR's 6528
+    masked patches of 32 and 32 points; patchify at (128, 1024) G 64 and at
+    the fine-tunes' (32, 2048) and (32, 8192) G 128."""
+    from point_dae_torch.losses import chamfer
+    from point_dae_torch.ops import fps, gather, patchify
+    from point_dae_torch.ops.geometry import ball_query, gather_points
+
+    g = torch.Generator(device=device).manual_seed(SEED + 100)
+    pts = raw[:, :1024, :3].contiguous()
+    ft = torch.randn((PART_BATCH, 1024, 3), generator=g, device=device)
+    c64 = gather_points(pts, fps.furthest_point_sample(pts, 64))
+    c512 = gather_points(ft, fps.furthest_point_sample(ft, 512))
+    for src, n in ((pts, 64), (ft, 512), (c512, 128)):
+        if not fps.use_fps_kernel("cuda", src.shape[1]):
+            fail(f"zoo: the fps gate is closed at {tuple(src.shape)}")
+        kernel_vs_plain(torch, f"zoo: fps {tuple(src.shape)} -> {n}",
+                        [fps.furthest_point_sample(src, n)],
+                        [fps.furthest_point_sample_plain(src, n)])
+        ms = cuda_ms(lambda: fps.furthest_point_sample(src, n), 10)
+        log(f"  fps {tuple(src.shape)} -> {n}: {ms:.4f} ms a call, bit for bit")
+    c128 = gather_points(c512, fps.furthest_point_sample(c512, 128))
+    groups = (("3DETR's balls (128, 1024, 3) by 64 x 32", pts, ball_query(0.2, 32, pts, c64)),
+              ("sa1's balls (32, 1024, 3) by 512 x 32", ft, ball_query(0.2, 32, ft, c512)),
+              ("sa2's balls (32, 512, 3) by 128 x 64", c512, ball_query(0.4, 64, c512, c128)))
+    for what, x, nidx in groups:
+        idx = nidx.reshape(x.shape[0], -1)
+        if not gather.use_small_c_kernel(x, idx.shape[1]):
+            fail(f"zoo: the small-C gate is closed at {what}")
+        kernel_vs_plain(torch, f"zoo: gather_rows_small_c {what}",
+                        [gather.gather_rows_small_c(x, idx)],
+                        [gather.gather_rows_small_c_plain(x, idx)])
+        ms = cuda_ms(lambda: gather.gather_rows_small_c(x, idx), 20)
+        log(f"  gather_rows_small_c {what}: {ms:.4f} ms a call, bit for bit")
+    idx = groups[2][2].reshape(PART_BATCH, -1)
+    if not gather.use_scatter_kernel("cuda", PART_BATCH, idx.shape[1], 512, 128):
+        fail("zoo: the scatter gate is closed at sa2's feature gather")
+    grad = torch.randn((PART_BATCH, idx.shape[1], 128), generator=g, device=device)
+    got = gather.scatter_rows_add(idx, grad, 512)
+    if not torch.equal(got.cpu(), gather.scatter_rows_add_plain(idx.cpu(), grad.cpu(), 512)):
+        fail("zoo: scatter_rows_add at sa2's feature gather differs from the plain version")
+    ms = cuda_ms(lambda: gather.scatter_rows_add(idx, grad, 512), 20)
+    log(f"  scatter_rows_add (32, 8192) rows of 128 into 512: {ms:.4f} ms a call, bit for bit "
+        f"with the plain version on the CPU")
+    x = (torch.randn((BACKBONE_BATCH * 51, 32, 3), generator=g, device=device) * 0.2).contiguous()
+    y = (torch.randn((BACKBONE_BATCH * 51, 32, 3), generator=g, device=device) * 0.2).contiguous()
+    if not chamfer.use_small_kernel(x, 32):
+        fail("zoo: the patch chamfer's gate is closed at 3DETR's masked patches")
+    kernel_vs_plain(torch, "zoo: the patch chamfer (6528, 32, 32)",
+                    chamfer.nn_half_small_pair(x, y),
+                    chamfer.nn_half_small_plain(x, y) + chamfer.nn_half_small_plain(y, x))
+    ms = cuda_ms(lambda: chamfer.nn_half_small_pair(x, y), 20)
+    log(f"  patch chamfer 6528 pairs of 32 and 32 points, both directions: {ms:.4f} ms a call, "
+        f"bit for bit with the plain halves")
+    for B, N, G in ((BACKBONE_BATCH, 1024, 64), (PART_BATCH, 2048, 128), (PART_BATCH, 8192, 128)):
+        p = pts if N == 1024 else torch.randn((B, N, 3), generator=g, device=device)
+        _, _, match, gap = check_patchify(torch, p, G, 32, f"zoo: patchify ({B}, {N}) G {G}")
+        ms = cuda_ms(lambda: patchify.fused_patchify(p, G, 32), 10)
+        log(f"  patchify ({B}, {N}) G {G} S 32: {ms:.4f} ms a call; kNN indices equal "
+            f"{100 * match:.4f}%, selected distances within {gap:.1e}")
+
+
+def phase_backbones(torch, device, card):
+    """The pretrain models of the slice at their shipped configs from (128,
+    8192, 6) raw clouds: the kernels at the paths' shapes (zoo_kernels);
+    each model's train-mode forward at batch 128 (every gate open) on the
+    card against the CPU with the same weights, clouds and draws, both
+    losses within 1e-4 relative; BACKBONE_STEPS steps with every launch
+    counter a step held to BACKBONE_RUNS, a profiled step's busy time, the
+    step time and peak memory; then 3DETR's pretrain through the CLI on
+    Synthetic clouds (one epoch of 2 steps, the SVM probe through
+    ``encode``)."""
+    import shutil
+    import tempfile
+
+    from point_dae_torch.engine.pretrain import device_pipeline, init_model
+
+    g = torch.Generator(device=device).manual_seed(SEED + 101)
+    raw = torch.randn((BACKBONE_BATCH, NRAW, 6), generator=g, device=device)
+    raw[..., 3:] /= raw[..., 3:].norm(dim=-1, keepdim=True)
+    zoo_kernels(torch, raw, device)
+    records = {}
+    for what, path, want in BACKBONE_RUNS:
+        config = load_cfg(path)
+        d = config["dataset"]["train"]["others"]
+        cor, cln = device_pipeline(raw, d["aug_type"], d["corrupt_type"], d["npoints"],
+                                   generator=g, device=device)
+        cpu_model = init_model(config, seed=SEED + 102, device="cpu")
+        model = copy.deepcopy(cpu_model).to(device)
+        draws = model.sample_draws(BACKBONE_BATCH, g, device)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            lg = [float(v) for v in model(cor, cln, draws=draws)]
+            lc = [float(v) for v in cpu_model(cor.cpu(), cln.cpu(), draws=on_device(draws, "cpu"))]
+        log(f"  {what} ({path}), batch {BACKBONE_BATCH}: card losses {lg[0]:.7f} {lg[1]:.7f}; "
+            f"cpu ({time.perf_counter() - t0:.1f} s) {lc[0]:.7f} {lc[1]:.7f}")
+        if not all(math.isfinite(v) for v in lg + lc) or any(
+                abs(a - b) > 1e-4 * abs(b) for a, b in zip(lg, lc)):
+            fail(f"zoo: {what}: card losses {lg} off the CPU's {lc} beyond 1e-4 relative")
+        del cpu_model
+        steady, first, launches, peak, one_more = run_steps(
+            torch, config, raw, device, BACKBONE_STEPS, SEED + 103, model=model)
+        per_step = {k: v / BACKBONE_STEPS for k, v in launches.items() if v}
+        if per_step != want:
+            fail(f"zoo: {what}: launches a step {per_step}, expected {want}")
+        busy, _ = profile_step(torch, one_more, card, top=6)
+        records[what] = (steady, busy, peak)
+        log(f"  [{card}] {what}: step {steady * 1e3:.2f} ms (median of steps 2-{BACKBONE_STEPS}), "
+            f"{BACKBONE_BATCH / steady:.1f} clouds/s, first step {first * 1e3:.1f} ms, busy "
+            f"{busy / 1e3:.2f} ms, max_memory_allocated {peak / 2 ** 30:.2f} GiB; launches a step "
+            f"{per_step}")
+        del model, one_more
+        torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_zoo_")
+    try:
+        cfg = write_config(DETR_CFG, os.path.join(tmp, "cfgs", os.path.basename(DETR_CFG)),
+                           RUN_DETR_CUT)
+        name = os.path.splitext(os.path.basename(DETR_CFG))[0]
+        log(f"  {DETR_CFG} through the CLI on Synthetic clouds (256 train, one epoch):")
+        out, lines, _, sec = cli_run("3DETR pretrain", ["--config", cfg, "--exp_name", "run",
+                                                        "--root_folder", tmp], name, device,
+                                     range(1))
+        if out["state"].step != 2:
+            fail(f"run 3DETR pretrain: {out['state'].step} optimizer steps, expected 2")
+        log(f"  [{card}] 3DETR pretrain through the CLI: {sec:.1f} s, best SVM acc "
+            f"{out['best_acc']:.4f}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for what, (st, bz, pk) in records.items():
+        log(f"  [{card}] zoo: {what} (bs {BACKBONE_BATCH}): {st * 1e3:.2f} ms a step, busy "
+            f"{bz / 1e3:.2f} ms, peak {pk / 2 ** 30:.2f} GiB")
+
+
+def part_mode_run(torch, what, path, n, want, device, card):
+    """One fine-tune configuration at bs 32 of ``n`` points: eval logits on
+    the card against the CPU (within 1e-4 of the largest; launches of the
+    eval held to the train step's less the backward's), PART_STEPS train
+    steps with each launch counter a step held to ``want``; under
+    ``only_new`` every parameter but the ``cls`` ones and every BatchNorm
+    statistic unchanged, the ``cls`` ones moved; a profiled step. Returns
+    (step time, busy, peak)."""
+    import numpy as np
+
+    from point_dae_torch.engine import finetune
+    from point_dae_torch.engine.train_state import TrainState
+    from point_dae_torch.models import build_model_from_cfg
+    from point_dae_torch.utils import kernels
+
+    config = load_cfg(path)
+    rng = np.random.default_rng(SEED + 104)
+    pts = torch.from_numpy(rng.normal(size=(PART_BATCH, n, 3)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, config["model"]["cls_dim"], PART_BATCH))
+    cpu_model = build_model_from_cfg(config["model"], device="cpu", seed=SEED + 105)
+    model = copy.deepcopy(cpu_model).to(device)
+    eval_step = finetune.make_eval_step(model, config, device=device)
+    kernels.reset_launches()
+    lg = eval_step(pts.to(device))
+    torch.cuda.synchronize()
+    used = launches_a_step(1)
+    t0 = time.perf_counter()
+    lc = finetune.make_eval_step(cpu_model, config, device="cpu")(pts)
+    err = float((lg.cpu() - lc).abs().max() / lc.abs().max())
+    want_eval = {k: v for k, v in want.items() if k != "scatter_rows_add"}
+    log(f"  {what} ({path}): eval logits ({PART_BATCH}, {n}) on the card against the CPU "
+        f"({time.perf_counter() - t0:.1f} s): {err:.2e} of the largest; launches {used}")
+    if err > 1e-4 or used != want_eval:
+        fail(f"zoo: {what}: eval logits off the CPU's by {err:.2e} or launches {used}, "
+             f"expected {want_eval}")
+    del cpu_model
+    state = TrainState.create(model, config, 100, config.get("grad_norm_clip"))
+    part = config["optimizer"].get("part", "all")
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    step = finetune.make_finetune_step(model, config, device=device)
+    g = torch.Generator(device=device).manual_seed(SEED + 106)
+    pd, ld = pts.to(device), labels.to(device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    times = []
+    for _ in range(PART_STEPS):
+        t0 = time.perf_counter()
+        m = step(state, pd, ld, generator=g)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    per_step = launches_a_step(PART_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    if per_step != want or not math.isfinite(float(m["loss"])):
+        fail(f"zoo: {what}: launches a step {per_step} (expected {want}) or loss "
+             f"{float(m['loss'])}")
+    after = model.state_dict()
+    moved = sorted(k for k in before if not torch.equal(before[k], after[k]))
+    if part == "only_new" and (not moved or any("cls" not in k for k in moved)):
+        fail(f"zoo: {what}: only_new moved {moved[:8]} (every one must be a cls tensor)")
+    groups = sorted({gr["lr_scale"] for gr in state.optimizer.param_groups})
+    steady = sorted(times[1:])[(PART_STEPS - 2) // 2]
+    busy, _ = profile_step(torch, lambda: step(state, pd, ld, generator=g), card, top=6)
+    log(f"  [{card}] {what} (bs {PART_BATCH} of {n}, part {part}, rate scales {groups}): train "
+        f"step {steady * 1e3:.2f} ms (median of steps 2-{PART_STEPS}), loss "
+        f"{float(m['loss']):.4f}, busy {busy / 1e3:.2f} ms, peak {peak / 2 ** 30:.2f} GiB; "
+        f"launches a step {per_step}; {len(moved)} of {len(before)} tensors moved")
+    del model, state, step
+    torch.cuda.empty_cache()
+    return steady, busy, peak
+
+
+def phase_part_modes(torch, device, card):
+    """The fine-tunes of the part modes and PointNet++ (part_mode_run for
+    each of PART_RUNS); then the linear probe through the CLI on Synthetic
+    clouds (one epoch), after which every tensor of its checkpoint but the
+    ``cls`` ones, BatchNorm statistics included, equals the model's initial
+    weights."""
+    import shutil
+    import tempfile
+
+    from point_dae_torch.models import build_model_from_cfg
+
+    records = {what: part_mode_run(torch, what, path, n, want, device, card)
+               for what, path, n, want in PART_RUNS}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_part_")
+    try:
+        src = PART_RUNS[0][1]
+        cfg = write_config(src, os.path.join(tmp, "cfgs", os.path.basename(src)), RUN_LINEAR_CUT)
+        name = os.path.splitext(os.path.basename(src))[0]
+        log(f"  {src} through the CLI on Synthetic clouds (64 train, one epoch):")
+        out, _, exp, sec = cli_run("linear probe", ["--config", cfg, "--exp_name", "run",
+                                                    "--root_folder", tmp, "--finetune_model"],
+                                   name, device, range(1), ckpts=("ckpt-last",))
+        saved = torch.load(os.path.join(exp, "ckpt-last.pth"), map_location="cpu",
+                           weights_only=True)["base_model"]
+        fresh = build_model_from_cfg(load_cfg(cfg)["model"], device="cpu", seed=0).state_dict()
+        moved = sorted(k for k in fresh if not torch.equal(fresh[k], saved[k]))
+        if moved != ["cls.bias", "cls.weight"]:
+            fail(f"run linear probe: the tensors that moved are {moved[:8]}, expected the cls "
+                 f"Dense's")
+        log(f"  [{card}] linear probe through the CLI: {sec:.1f} s, best acc "
+            f"{out['best_acc']:.4f}; only cls.weight and cls.bias moved")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for what, (st, bz, pk) in records.items():
+        log(f"  [{card}] zoo: {what}: {st * 1e3:.2f} ms a step, busy {bz / 1e3:.2f} ms, "
+            f"peak {pk / 2 ** 30:.2f} GiB")
+
+
 def stamp(what: str) -> None:
     log(f"[{time.perf_counter() - T0:.1f} s] {what} done")
 
@@ -4878,6 +5199,16 @@ def main() -> None:
     log("probe (the SVM and task-affinity modes through the CLI):")
     phase_probe(torch, device, card)
     stamp("probe")
+    torch.cuda.empty_cache()
+
+    # 10. 3DETR, Point-MAE, the transformer MaskFeat; the part modes and PointNet++
+    log("backbones (3DETR, Point_MAE, MaskFeat_transformer):")
+    phase_backbones(torch, device, card)
+    stamp("backbones")
+    torch.cuda.empty_cache()
+    log("part modes (only_new, diff_lr, the linear probe, PointNetv2):")
+    phase_part_modes(torch, device, card)
+    stamp("part_modes")
     # gather_rows_wide is the one kernel without a path: the JAX package keeps
     # XLA's gather forward on purpose (point_dae_tpu/ops/pallas_scatter.py:
     # 267-276) and the port its plain one, so the rule leaves it out and its

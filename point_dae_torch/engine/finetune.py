@@ -7,7 +7,10 @@ A train step resamples each cloud on the device (FPS to ``point_all``,
 train-time augmentation (``none`` by default), runs the model in train
 mode, takes the (smooth) cross-entropy, clips the gradients by their
 global norm and makes one AdamW update; the BatchNorm running statistics
-move during the forward. The eval step takes FPS to ``npoints``; the raw
+move during the forward, except under ``optimizer.part: only_new`` (the
+linear probes), whose train forward runs every BatchNorm in eval mode: on
+its running statistics, which stay as they are, while dropout and
+stochastic depth stay in train mode. The eval step takes FPS to ``npoints``; the raw
 eval step feeds the clouds as they are; the vote step averages the raw
 logits of ``times`` draws of the train resample plus scale-and-translate.
 
@@ -32,6 +35,7 @@ import torch.nn.functional as F
 
 from ..data.corruptions_patch import _batched_rot
 from ..models.common import ClsDraws
+from ..models.layers import BatchNorm
 from ..ops.geometry import furthest_point_sample, gather_points
 from ..utils.device import resolve_device
 from ..utils.logger import ScalarWriter, print_log
@@ -163,6 +167,9 @@ def make_finetune_step(model: torch.nn.Module, config, smooth: Optional[bool] = 
         raise ValueError(f"train_aug {aug!r}")
     smooth = read_smooth(config) if smooth is None else smooth
     loss_fn = smooth_cross_entropy if smooth else cross_entropy
+    # the reference's set_bn_eval under only_new (runner_finetune.py:30-37)
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)] \
+        if config.get("optimizer", {}).get("part") == "only_new" else []
 
     def step(state: TrainState, pts: torch.Tensor, labels: torch.Tensor,
              generator: Optional[torch.Generator] = None,
@@ -174,10 +181,12 @@ def make_finetune_step(model: torch.nn.Module, config, smooth: Optional[bool] = 
         params = draws.aug if draws.aug is not None else _sample_aug(aug, pts, generator)
         pts = augment(pts, aug, params)
         model.train()
+        for m in norms:
+            m.eval()
         logits = model(pts, draws=draws.model, generator=generator)
         loss = loss_fn(logits, labels)
         acc = (logits.argmax(-1) == labels).float().mean() * 100.0
-        state.optimizer.zero_grad(set_to_none=True)
+        state.zero_grad()
         loss.backward()
         state.apply_gradients()
         return {"loss": loss.detach(), "acc": acc.detach()}

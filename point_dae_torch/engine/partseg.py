@@ -64,7 +64,7 @@ def make_seg_train_step(model: torch.nn.Module, device=None) -> Callable:
         logp = model(pts, cls_onehot, draws=draws)
         loss = seg_nll_loss(logp, seg)
         acc = (logp.argmax(-1) == seg).float().mean()
-        state.optimizer.zero_grad(set_to_none=True)
+        state.zero_grad()
         loss.backward()
         state.apply_gradients()
         return {"loss": loss.detach(), "acc": acc.detach()}

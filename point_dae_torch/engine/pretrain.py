@@ -143,7 +143,7 @@ def make_train_step(model: torch.nn.Module, config, device=None) -> Callable:
                                       generator=generator)
         loss = compute_loss(loss_type, loss_xyz, loss_normal, normal_weight,
                             gradual_weight)
-        state.optimizer.zero_grad(set_to_none=True)
+        state.zero_grad()
         loss.backward()
         state.apply_gradients()
         return {"loss_xyz": loss_xyz.detach(), "loss_normal": loss_normal.detach()}

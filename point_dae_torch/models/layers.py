@@ -431,3 +431,37 @@ class PatchEncoder(nn.Module):
         g = h.amax(dim=1)                                    # (BG, 256)
         h = conv4(torch.relu(bn2(conv3(g, h))))
         return h.amax(dim=1).reshape(B, G, self.encoder_channel).float()
+
+
+class _BNHolder(nn.Module):
+    """pointnet2's ``BatchNorm2d`` wrapper, whose norm sits at ``bn``."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.bn = BatchNorm(dim)
+
+
+class _ConvBN(nn.Module):
+    """One shared-MLP layer: Dense (no bias) + BatchNorm + ReLU. Torch
+    names ``conv`` and ``bn.bn``, as pointnet2's ``Conv2d`` layers have."""
+
+    def __init__(self, din: int, dout: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.conv = Dense(din, dout, bias=False, generator=generator)
+        self.bn = _BNHolder(dout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.bn.bn(self.conv(x)))
+
+
+class SharedMLP(nn.Sequential):
+    """pointnet2's ``SharedMLP``: ``_ConvBN`` layers over the last axis of
+    grouped points (B, M, K, C), f32, BatchNorm statistics over every row.
+    Torch names ``layer{i}``."""
+
+    def __init__(self, din: int, widths: Sequence[int],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        for i, d in enumerate(widths):
+            self.add_module(f"layer{i}", _ConvBN(din, d, generator))
+            din = d

@@ -65,7 +65,7 @@ class _MaskSurfBase(_CAETransformerBase):
         # masksurf.py:100-109: f32, no memory keys
         self.MAE_encoder = MaskTransformerEncoder(
             C, t["depth"], t["num_heads"], t["encoder_dims"], t.get("drop_path_rate", 0.1),
-            self.mask_ratio, self.rand_ratio, None, g)
+            self.mask_ratio, self.rand_ratio, None, g, mask_type=self.mask_type)
         self.decoder_pos_embed = PosEmbedMLP(C, generator=g)
         self.MAE_decoder = self._make_decoder(g)
         self.mask_token = self._make_mask_token(g)
@@ -89,9 +89,10 @@ class _MaskSurfBase(_CAETransformerBase):
         xyz, attr, center = self._group_surfels(surfels, attrs)
         dp_enc = draws.dp_encoder if self.training else None
         dp_dec = draws.dp_decoder if self.training else None
-        x_vis = self.MAE_encoder(xyz, center, draws.mask, dp_enc)
-        x_rec = self._decode(x_vis, draws.mask, center, dp_dec)
-        return xyz, attr, center, x_vis, x_rec, draws.mask
+        mask = self.patch_mask(draws, center)
+        x_vis = self.MAE_encoder(xyz, center, mask, dp_enc)
+        x_rec = self._decode(x_vis, mask, center, dp_dec)
+        return xyz, attr, center, x_vis, x_rec, mask
 
 
 @MODELS.register_module()

@@ -1,8 +1,10 @@
 """The flagship transformer Point-DAE (port of
-``point_dae_tpu/models/transformer.py:47-82,103-231,234-427,457-573,601-634``),
-the classification fine-tune models ``PointTransformer`` (``:742-801``)
-and ``PointTransformerNoClassToken`` (``:804-837``), and the SVM feature
-extractor ``PointTransformerNoClassTokenSVMFeature`` (``:864-883``).
+``point_dae_tpu/models/transformer.py:47-231,234-427,457-573,601-634``),
+the classification fine-tune models ``PointTransformer`` (``:742-801``),
+``PointTransformerNoClassToken`` (``:804-837``) and the linear probe
+``PointTransformer_LinearClassification`` (``:838-860``, also registered
+as ``PointTransformerLinearClassification``, ``:1143-1144``), and the SVM
+feature extractor ``PointTransformerNoClassTokenSVMFeature`` (``:864-883``).
 
 Static-shape MAE design, as in the JAX package: the mask ratio is bounded
 (U(0.5, 0.8) with ``rand_ratio``), so the visible tokens are packed into a
@@ -12,9 +14,9 @@ masked tokens into M = floor(0.8 G) slots with zero-weight padding. Without
 ``Drop-Patch`` in ``corrupt_type`` the model runs unmasked: every token
 goes through the encoder, no mask token, every patch enters the loss.
 
-Random draws (patch mask, patch corruptions, stochastic-depth keep masks)
-are inputs: ``forward`` takes a ``ModelDraws`` or samples one from the
-given ``torch.Generator``.
+Random draws (patch mask, or the block mask's seed patch, patch
+corruptions, stochastic-depth keep masks) are inputs: ``forward`` takes a
+``ModelDraws`` or samples one from the given ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -71,6 +73,21 @@ def sample_patch_mask(batch: int, num_group: int, mask_ratio: float,
     return rank < num_mask
 
 
+def sample_block_mask(centers: torch.Tensor, mask_ratio: float,
+                      seed_idx: torch.Tensor) -> torch.Tensor:
+    """Block masking (JAX ``transformer.py:85-101``): each cloud masks the
+    floor(ratio * G) patch centres nearest its seed patch ``seed_idx``
+    (B,), the seed included, nearer first and lower index first on ties.
+    centers (B, G, 3) -> (B, G) bool, True = masked."""
+    B, G, _ = centers.shape
+    seed = _take(centers, seed_idx.reshape(B, 1))                # (B, 1, 3)
+    d = ((centers - seed) ** 2).sum(-1)
+    order = torch.argsort(d, dim=-1, stable=True)
+    rank = torch.empty_like(order).scatter_(
+        1, order, torch.arange(G, device=centers.device).expand(B, -1))
+    return rank < static_num_masked(mask_ratio, G)
+
+
 @dataclass
 class ModelDraws:
     """Every random draw of one training forward."""
@@ -78,6 +95,7 @@ class ModelDraws:
     corrupt: Optional[list]                  # patch corruptions, one entry a position
     dp_encoder: Optional[torch.Tensor]       # (depth, 2, B) bool keep masks
     dp_decoder: Optional[torch.Tensor]       # (decoder_depth, 2, B)
+    block_seed: Optional[torch.Tensor] = None   # (B,) seed patches of mask_type block
 
 
 def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -104,26 +122,34 @@ class NormalTransformerEncoder(nn.Module):
         self.norm = LayerNorm(trans_dim)
 
     def forward(self, neighborhood, center, dp_masks=None):
+        return self.noaug(neighborhood, center, dp_masks)
+
+    def noaug(self, neighborhood, center, dp_masks=None):
+        """The encoder over every patch, without masking (the JAX
+        encoder's ``noaug``); a subclass's masked forward leaves it as is."""
         x = self.blocks(self.encoder(neighborhood), self.pos_embed(center), None, dp_masks)
         return self.norm(x)
 
 
 class MaskTransformerEncoder(NormalTransformerEncoder):
-    """Patch embed + random masking + ViT encoder on the packed visible
-    tokens. Returns the (B, G, C) all-G layout, zeros at masked slots.
+    """Patch embed + masking + ViT encoder on the packed visible tokens.
+    Returns the (B, G, C) all-G layout, zeros at masked slots. The visible
+    capacity is V = G - floor(min_ratio * G), min_ratio 0.5 under
+    ``rand_ratio`` and ``mask_ratio`` otherwise (always under
+    ``mask_type: block``).
     ``embed_all`` embeds all G patches and then takes the visible rows, so
     that the PatchEncoder's BatchNorm statistics run over all G (the
     reference's dataflow); by default only the visible patches are
-    embedded. Its parameters are ``NormalTransformerEncoder``'s, whose
-    forward is the encoder without masking (``noaug``)."""
+    embedded. Its parameters are ``NormalTransformerEncoder``'s; ``noaug``
+    runs it without masking."""
 
     def __init__(self, trans_dim, depth, num_heads, encoder_dims, drop_path_rate,
                  mask_ratio, rand_ratio, dtype, generator, embed_all: bool = False,
-                 residual_dtype=None, remat: bool = False):
+                 residual_dtype=None, remat: bool = False, mask_type: str = "rand"):
         super().__init__(trans_dim, depth, num_heads, encoder_dims, drop_path_rate,
                          dtype, generator, residual_dtype=residual_dtype, remat=remat)
         self.mask_ratio = mask_ratio
-        self.rand_ratio = rand_ratio
+        self.rand_ratio = rand_ratio and mask_type != "block"
         self.embed_all = embed_all
 
     def forward(self, neighborhood, center, mask, dp_masks=None):
@@ -156,7 +182,9 @@ class _CAETransformerBase(nn.Module):
     decoder pass over all G tokens, the loss weights and the packing of the
     masked tokens. Builds no loss function: each model has its own. The
     masked mode (``Drop-Patch`` in ``corrupt_type``) takes ``mask_type:
-    rand`` only; the unmasked mode runs every token and has no mask token.
+    rand`` or ``block`` (whose ratio is always ``mask_ratio``: ``rand_ratio``
+    is a knob of the random mask only); the unmasked mode runs every token
+    and has no mask token.
 
     The memory keys of ``transformer_config``, read as the JAX package reads
     them: ``residual_dtype: bf16`` (the stacks' residual stream in bf16),
@@ -177,10 +205,12 @@ class _CAETransformerBase(nn.Module):
         self.num_group = int(config["num_group"])
         self.group_size = int(config["group_size"])
         self.all_patch = str(config.get("all_patch", "False")) == "True"
-        self.rand_ratio = str(t.get("rand_ratio", "False")) == "True"
+        self.mask_type = str(t.get("mask_type", "rand"))
+        if self.masked_mode and self.mask_type not in ("rand", "block"):
+            raise NotImplementedError(f"mask_type {self.mask_type!r}")
+        self.rand_ratio = (str(t.get("rand_ratio", "False")) == "True"
+                           and self.mask_type != "block")
         self.mask_ratio = float(t.get("mask_ratio", 0.6))
-        if self.masked_mode and t.get("mask_type", "rand") != "rand":
-            raise NotImplementedError("only mask_type 'rand' is ported")
         rd = t.get("residual_dtype")
         self.residual_dtype = torch.bfloat16 if str(rd) in ("bf16", "bfloat16") else None
         self.remat = bool(t.get("remat", False))
@@ -197,7 +227,7 @@ class _CAETransformerBase(nn.Module):
             int(t["trans_dim"]), t["depth"], t["num_heads"], t["encoder_dims"],
             t.get("drop_path_rate", 0.1), self.mask_ratio, self.rand_ratio,
             self.compute_dtype, generator, embed_all=self.embed_all,
-            residual_dtype=self.residual_dtype, remat=self.remat)
+            residual_dtype=self.residual_dtype, remat=self.remat, mask_type=self.mask_type)
 
     def _make_decoder(self, generator) -> TransformerDecoder:
         t = self.tcfg
@@ -218,19 +248,33 @@ class _CAETransformerBase(nn.Module):
     def sample_draws(self, batch: int, generator: Optional[torch.Generator],
                      device) -> ModelDraws:
         """Draw a forward's randomness from ``generator`` (no patch mask
-        when unmasked)."""
-        mask = sample_patch_mask(batch, self.num_group, self.mask_ratio,
-                                 self.rand_ratio, generator, device) \
-            if self.masked_mode else None
+        when unmasked; the seed patches, not the mask, under ``mask_type:
+        block``)."""
+        mask = seed = None
+        if self.masked_mode and self.mask_type == "block":
+            seed = torch.randint(0, self.num_group, (batch,), generator=generator,
+                                 device=device)
+        elif self.masked_mode:
+            mask = sample_patch_mask(batch, self.num_group, self.mask_ratio,
+                                     self.rand_ratio, generator, device)
         corrupt = self._sample_corrupt(batch, generator, device)
         dp_enc = stack_dp_masks(self.MAE_encoder.blocks.dpr, batch, generator, device)
         dp_dec = stack_dp_masks(self.MAE_decoder.dpr, batch, generator, device)
-        return ModelDraws(mask, corrupt, dp_enc, dp_dec)
+        return ModelDraws(mask, corrupt, dp_enc, dp_dec, seed)
+
+    def patch_mask(self, draws: ModelDraws, center: torch.Tensor) -> torch.Tensor:
+        """The (B, G) patch mask of a forward: the drawn one, or under
+        ``mask_type: block`` the block around each drawn seed patch of the
+        centres the encoder sees."""
+        if self.mask_type == "block":
+            return sample_block_mask(center, self.mask_ratio, draws.block_seed)
+        return draws.mask
 
     def _encode(self, t_neigh, t_center, draws: ModelDraws, dp_enc):
         """(tokens (B, G, C), mask (B, G) bool): all False when unmasked."""
         if self.masked_mode:
-            return self.MAE_encoder(t_neigh, t_center, draws.mask, dp_enc), draws.mask
+            mask = self.patch_mask(draws, t_center)
+            return self.MAE_encoder(t_neigh, t_center, mask, dp_enc), mask
         x = self.MAE_encoder(t_neigh, t_center, dp_enc)
         return x, torch.zeros(x.shape[:2], dtype=torch.bool, device=x.device)
 
@@ -262,7 +306,7 @@ class _CAETransformerBase(nn.Module):
         """Global feature for the SVM probes: max + mean over every token of
         the encoder run without masking. pts (B, N, >= 3) -> (B, C)."""
         neigh, center = group_neighborhood(pts[..., :3], self.num_group, self.group_size)
-        x = NormalTransformerEncoder.forward(self.MAE_encoder, neigh, center)
+        x = self.MAE_encoder.noaug(neigh, center)
         return x.amax(1) + x.mean(1)
 
     def _masked_pack_idx(self, mask: torch.Tensor):
@@ -277,6 +321,16 @@ class _CAETransformerBase(nn.Module):
         order = torch.sort((~mask).to(torch.uint8), dim=-1, stable=True).indices
         w = torch.arange(M, device=mask.device)[None, :] < mask.sum(-1)[:, None]
         return order[:, :M], w.float().reshape(-1)
+
+    def _local_recon_inputs(self, x_rec, neigh, mask):
+        """(tokens, GT patches, loss weights), packed to the masked-token
+        capacity M = floor(max_ratio * G) when only masked patches count."""
+        B, G, S = neigh.shape[:3]
+        pack = self._masked_pack_idx(mask)
+        if pack is None:
+            return x_rec, neigh.reshape(B * G, S, 3), self._loss_weights(mask)
+        midx, w = pack
+        return _take(x_rec, midx), _take(neigh, midx).reshape(-1, S, 3), w
 
     def _pack_local(self, mask: torch.Tensor, *tensors: torch.Tensor):
         """(w, packed...): per-token tensors packed to the masked-token
@@ -343,16 +397,6 @@ class PointCAE_transformer_fc_global_folding_local(_CAETransformerBase):
         gridb = self.grid.expand(B, M, n, 2).to(self.compute_dtype or x_rec.dtype)
         f1 = self.folding1(x_rec, gridb)
         return self.folding2(x_rec, f1).float()
-
-    def _local_recon_inputs(self, x_rec, neigh, mask):
-        """(tokens, GT patches, loss weights), packed to the masked-token
-        capacity M = floor(max_ratio * G) when only masked patches count."""
-        B, G, S = neigh.shape[:3]
-        pack = self._masked_pack_idx(mask)
-        if pack is None:
-            return x_rec, neigh.reshape(B * G, S, 3), self._loss_weights(mask)
-        midx, w = pack
-        return _take(x_rec, midx), _take(neigh, midx).reshape(-1, S, 3), w
 
     def forward(self, corrupted: torch.Tensor, clean: torch.Tensor,
                 draws: Optional[ModelDraws] = None,
@@ -522,6 +566,33 @@ class PointTransformerNoClassToken(nn.Module):
         if draws is None:
             draws = self.sample_draws(pts.shape[0], generator, pts.device)
         return self.cls_head_finetune(self.encode(pts, draws.drop_path), draws.dropout)
+
+
+@MODELS.register_module()
+class PointTransformer_LinearClassification(PointTransformerNoClassToken):
+    """Linear probe on the no-class-token backbone (``transformer.py:
+    838-860``): max + mean of the normed tokens, then one ``cls`` Dense.
+    f32. Calling convention as ``PointTransformer``'s; its draws are the
+    stochastic-depth keep masks only."""
+
+    HEAD = ()
+
+    def __init__(self, config, generator: Optional[torch.Generator] = None):
+        super().__init__(config, generator)
+        self.cls = Dense(int(config["trans_dim"]), int(config["cls_dim"]), generator=generator)
+
+    def forward(self, pts: torch.Tensor, draws: Optional[ClsDraws] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training:
+            return self.cls(self.encode(pts))
+        if draws is None:
+            draws = self.sample_draws(pts.shape[0], generator, pts.device)
+        return self.cls(self.encode(pts, draws.drop_path))
+
+
+# the reference registry's spelling (no underscore)
+MODELS.register_module("PointTransformerLinearClassification",
+                       module=PointTransformer_LinearClassification)
 
 
 @MODELS.register_module()

@@ -1,7 +1,8 @@
 """Fixed-shape point-cloud geometry (port of
-``point_dae_tpu/ops/geometry.py:29-334``): FPS, kNN, gathers, the
-patchify front end of the patch models, the batched resample and the 3-NN
-feature interpolation of the part-segmentation head.
+``point_dae_tpu/ops/geometry.py:29-334``): FPS, kNN, gathers, the ball
+query of the set abstractions, the patchify front end of the patch
+models, the batched resample and the 3-NN feature interpolation of the
+part-segmentation head.
 
 On a CUDA tensor at training shapes ``fps_knn`` runs the fused patchify
 kernel (``ops/patchify.py``); otherwise it composes FPS with a kNN over the
@@ -72,6 +73,27 @@ def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     B, N, C = points.shape
     M, K = idx.shape[1], idx.shape[2]
     return gather_rows(points, idx.reshape(B, M * K)).reshape(B, M, K, C)
+
+
+def ball_query(radius: float, k: int, xyz: torch.Tensor, new_xyz: torch.Tensor
+               ) -> torch.Tensor:
+    """For each query centre, the indices of up to k points within
+    ``radius`` (JAX ``geometry.py:171-195``, pointnet2's
+    ``query_ball_point`` semantics): points taken in index order; when
+    fewer than k qualify the remaining slots repeat the first in-range
+    index, when none qualifies every slot is 0. In range means a squared
+    distance (``pairwise_sqdist``'s rounding) strictly below radius^2 in
+    f32. xyz (B, N, 3), new_xyz (B, M, 3) -> (B, M, min(k, N)) int32."""
+    d = pairwise_sqdist(new_xyz, xyz)                       # (B, M, N)
+    in_range = d < torch.tensor(radius * radius, dtype=torch.float32)
+    N = xyz.shape[1]
+    order = torch.arange(N, dtype=torch.int32, device=xyz.device)
+    key = torch.where(in_range, order, order + N)
+    first_k = torch.topk(key, min(k, N), dim=-1, largest=False, sorted=True).values
+    cnt = in_range.sum(-1, dtype=torch.int32)               # (B, M)
+    first = torch.where(cnt > 0, first_k[..., 0] % N, 0)
+    slot = torch.arange(first_k.shape[-1], dtype=torch.int32, device=xyz.device)
+    return torch.where(slot < cnt[..., None], first_k % N, first[..., None]).int()
 
 
 def three_nn(unknown: torch.Tensor, known: torch.Tensor

@@ -7,12 +7,17 @@ each torch module prefix to its flax path. Leaves translate as the
 reference converter does: a 2-D ``weight`` is a dense kernel stored
 ``(out, in)`` in torch and ``(in, out)`` in flax, a 1-D ``weight`` is a norm
 ``scale``, and the BatchNorm ``running_mean``/``running_var`` buffers are the
-flax ``batch_stats`` leaves ``mean``/``var``.
+flax ``batch_stats`` leaves ``mean``/``var``. The 3DETR encoder's attention
+(``nn.MultiheadAttention``'s names, which the JAX converter has no rules
+for) is split and merged: ``in_proj_weight`` (3 C, C) and ``in_proj_bias``
+are flax's ``query``, ``key`` and ``value`` kernels (C, heads, head_dim)
+and biases (heads, head_dim); ``out_proj.weight`` is the ``out`` kernel
+(heads, head_dim, C).
 """
 from __future__ import annotations
 
 import re
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -146,6 +151,24 @@ _RULES += [(f"coarse_pred_{_k}.{2 * _d}", f"coarse_pred_{2 - _k}/dense{_d}")
 # DGCNN_Linear's classifier
 _RULES.append(("cls", "cls"))
 
+# MaskFeat_transformer's frozen teacher: a MaskTransformerEncoder
+_RULES += [(f"teacher.{_t}", f"teacher/{_f}") for _t, _f in (
+    ("encoder.first_conv.0", "encoder/conv1"), ("encoder.first_conv.1", "encoder/bn1"),
+    ("encoder.first_conv.3", "encoder/conv2"), ("encoder.second_conv.0", "encoder/conv3"),
+    ("encoder.second_conv.1", "encoder/bn2"), ("encoder.second_conv.3", "encoder/conv4"),
+    ("pos_embed.0", "pos_embed/fc1"), ("pos_embed.2", "pos_embed/fc2"), ("norm", "norm"))]
+for _t, _f in _BLOCK_LEAVES:
+    _RULES.append((f"teacher.blocks.blocks.{{i}}.{_t}", f"teacher/blocks/block{{i}}/{_f}"))
+
+# the 3DETR backbone (3detr's torch names; convert_torch has no rules for it)
+_RULES += [("pre_encoder.mlp_module.layer{i}.conv", "pre_encoder/mlp{i}"),
+           ("pre_encoder.mlp_module.layer{i}.bn.bn", "pre_encoder/mlp{i}_bn"),
+           ("blocks.layers.{i}.self_attn.out_proj", "blocks/layer{i}/self_attn/out"),
+           ("blocks.layers.{i}.self_attn", "blocks/layer{i}/self_attn"),
+           ("blocks.norm", "blocks/norm")]
+_RULES += [(f"blocks.layers.{{i}}.{_n}", f"blocks/layer{{i}}/{_n}")
+           for _n in ("linear1", "linear2", "norm1", "norm2")]
+
 # the two fine-tune heads share their torch names at other indices, so a
 # state_dict takes the DGCNN head's rules when it holds a DGCNN encoder
 _TRANSFORMER_HEAD = [(f"cls_head_finetune.{i}", f"cls_head_finetune/{f}")
@@ -154,7 +177,18 @@ _TRANSFORMER_HEAD = [(f"cls_head_finetune.{i}", f"cls_head_finetune/{f}")
 _DGCNN_HEAD = [(f"cls_head_finetune.{i}", f"cls_head/{f}")
                for i, f in ((0, "fc1"), (1, "bn1"), (3, "fc2"), (4, "bn2"), (7, "cls"))]
 
+# the PointNet++ family (convert_torch._POINTNET2_RULES): its head shares
+# the fine-tune heads' torch names at other indices
+_POINTNET2 = [("pointnetv2_encoder.sa{j}.mlps.0.layer{i}.conv",
+               "pointnetv2_encoder/sa{j}/mlp{i}_fc"),
+              ("pointnetv2_encoder.sa{j}.mlps.0.layer{i}.bn.bn",
+               "pointnetv2_encoder/sa{j}/mlp{i}_bn")]
+_POINTNET2 += [(f"cls_head_finetune.{i}", f"cls_head/{f}")
+               for i, f in ((0, "fc1"), (1, "bn1"), (4, "fc2"), (5, "bn2"), (8, "cls"))]
+
 _STATS = {"running_mean": "mean", "running_var": "var"}
+_QKV = ("query", "key", "value")
+_QKV_PATH = re.compile(r"^(?P<mod>.*/self_attn)/(?P<part>query|key|value)/(?P<leaf>kernel|bias)$")
 
 
 def _pattern(fmt: str, sep: str) -> re.Pattern:
@@ -165,18 +199,23 @@ def _pattern(fmt: str, sep: str) -> re.Pattern:
 _TORCH_TO_FLAX = {family: [(_pattern(t, "."), f) for t, f in _RULES + rules]
                   for family, rules in (("transformer", _TRANSFORMER_HEAD),
                                         ("dgcnn", _DGCNN_ENCODER + _DGCNN_HEAD),
-                                        ("dgcnn_partseg", _DGCNN_PARTSEG_ENCODER))}
+                                        ("dgcnn_partseg", _DGCNN_PARTSEG_ENCODER),
+                                        ("pointnet2", _POINTNET2))}
 _FLAX_TO_TORCH = [(_pattern(f, "/"), t) for t, f in _RULES + _TRANSFORMER_HEAD
                   + _DGCNN_ENCODER + _DGCNN_HEAD + _DGCNN_PARTSEG_ENCODER]
+_FLAX_TO_TORCH_PN2 = [(_pattern(f, "/"), t) for t, f in _POINTNET2] + _FLAX_TO_TORCH
 
 
 def _family(state_dict) -> str:
-    """Which torch-name table a state dict takes: the two DGCNN encoders
-    and the two fine-tune heads reuse torch names at other flax paths."""
+    """Which torch-name table a state dict (or a list of its names) takes:
+    the DGCNN encoders and the fine-tune heads reuse torch names at other
+    flax paths."""
     if "dgcnn_encoder.conv6.0.weight" in state_dict:
         return "dgcnn_partseg"
     if any(k.startswith("dgcnn_encoder.") for k in state_dict):
         return "dgcnn"
+    if any(k.startswith("pointnetv2_encoder.") for k in state_dict):
+        return "pointnet2"
     return "transformer"
 
 
@@ -217,16 +256,41 @@ def _flatten(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def to_flax(state_dict: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
+def flax_paths(names) -> Dict[str, str]:
+    """Each torch name -> the flax path of its module in the JAX package's
+    tree (the parameter's own path for a bare one such as ``mask_token``);
+    the flax leaves (``kernel``, ``scale``, ``bias``, 3DETR's ``query`` ...)
+    sit under it."""
+    table = _TORCH_TO_FLAX[_family(names)]
+    return {name: _match(table, name)[0] for name in names}
+
+
+def to_flax(state_dict: Dict[str, torch.Tensor], num_heads: Optional[int] = None
+            ) -> Tuple[Dict, Dict]:
     """Port ``state_dict`` -> nested ``(params, batch_stats)`` of numpy
     arrays (copies: later updates of the model leave them as they are),
-    laid out as the JAX package's models initialise them."""
+    laid out as the JAX package's models initialise them. ``num_heads``:
+    the 3DETR encoder's head count, which its attention's flax leaves need
+    (and its torch ones do not show)."""
     params, stats = {}, {}
     table = _TORCH_TO_FLAX[_family(state_dict)]
     for name, t in state_dict.items():
         v = t.detach().cpu().numpy().copy() if isinstance(t, torch.Tensor) else np.array(t)
         path, leaf = _match(table, name)
-        if leaf is None:                        # bare parameter (mask_token, cls_token)
+        if (leaf in ("in_proj_weight", "in_proj_bias")
+                or (leaf == "weight" and path.endswith("/self_attn/out"))):
+            if num_heads is None:
+                raise ValueError(f"{name!r} needs to_flax(..., num_heads=)")
+            if leaf == "weight":
+                _set(params, f"{path}/kernel", v.T.reshape(num_heads, -1, v.shape[0]))
+                continue
+            for part, chunk in zip(_QKV, np.split(v, 3)):
+                if leaf == "in_proj_weight":
+                    _set(params, f"{path}/{part}/kernel",
+                         chunk.T.reshape(chunk.shape[1], num_heads, -1))
+                else:
+                    _set(params, f"{path}/{part}/bias", chunk.reshape(num_heads, -1))
+        elif leaf is None:                      # bare parameter (mask_token, cls_token)
             _set(params, path, v)
         elif leaf in _STATS:
             _set(stats, f"{path}/{_STATS[leaf]}", v)
@@ -244,15 +308,20 @@ def from_flax(params: Dict, batch_stats: Dict) -> Dict[str, torch.Tensor]:
     """Nested flax ``(params, batch_stats)`` of arrays -> port ``state_dict``
     (the inverse of ``to_flax``)."""
     inv_stats = {v: k for k, v in _STATS.items()}
-    out = {}
+    table = _FLAX_TO_TORCH_PN2 if "pointnetv2_encoder" in params else _FLAX_TO_TORCH
+    out, qkv = {}, {}
     for tree, is_stats in ((params, False), (batch_stats, True)):
         for path, v in _flatten(tree).items():
             head, _, leaf = path.rpartition("/")
+            m = _QKV_PATH.match(path)
+            if m and not is_stats:              # 3DETR attention: merged below
+                qkv.setdefault((m.group("mod"), m.group("leaf")), {})[m.group("part")] = v
+                continue
             bare = not is_stats and _bare(path)
             if bare:                            # bare parameter (mask_token, codebook)
                 out[bare] = torch.from_numpy(np.array(v))
                 continue
-            prefix, _ = _match(_FLAX_TO_TORCH, head)
+            prefix, _ = _match(table, head)
             if is_stats:
                 tleaf = inv_stats[leaf]
             elif leaf in ("kernel", "scale"):
@@ -261,6 +330,14 @@ def from_flax(params: Dict, batch_stats: Dict) -> Dict[str, torch.Tensor]:
                 tleaf = "bias"
             else:
                 raise KeyError(f"no conversion rule for flax leaf {path!r}")
-            arr = np.array(v.T if leaf == "kernel" else v)
+            arr = np.array(v.reshape(-1, v.shape[-1]).T if leaf == "kernel" else v)
             out[f"{prefix}.{tleaf}"] = torch.from_numpy(np.ascontiguousarray(arr))
+    for (mod, leaf), parts in qkv.items():
+        prefix, _ = _match(table, mod)
+        if leaf == "kernel":
+            arr = np.concatenate([parts[p].reshape(parts[p].shape[0], -1).T for p in _QKV])
+            out[f"{prefix}.in_proj_weight"] = torch.from_numpy(np.ascontiguousarray(arr))
+        else:
+            arr = np.concatenate([parts[p].reshape(-1) for p in _QKV])
+            out[f"{prefix}.in_proj_bias"] = torch.from_numpy(arr)
     return out

@@ -1,0 +1,272 @@
+"""The classification models of the slice against the JAX package on the
+CPU: ``PointTransformer_LinearClassification`` (the linear probe on the
+no-class-token backbone; trans_dim 32, depth 2, G 16 x S 8) and the
+PointNet++ family ``PointNetv2``, ``PointNetv2_Linear``, ``PointNetv2_feat``
+(the shipped widths, which the classes fix; B 4 of 600 points). The same
+weights (the port's initial ones through ``to_flax``), clouds (numpy
+seeds) and draws (the stochastic-depth keep masks through monkeypatch, the
+head's dropout masks through ``intercept_methods``). Compared: train-mode
+logits, the gradients of a cross-entropy within 1e-3 of their largest,
+the BatchNorm statistics after the forward, eval logits, and the weight
+bridge against the JAX model's tree and the reference converter.
+
+PointNet++'s train-mode gradients below its last ReLU are ill-conditioned
+in f32: a 1e-7 relative perturbation of the weights moves the port's own
+gradients of sa1, sa2 and sa3's first layer by up to 1.2% of their
+largest (two seeds, the test's cloud), as the batch statistics carry each
+flipped ReLU or max route to every row; and the packages' forwards differ
+by about 1e-5 at sa3, where the three output channels of its second layer
+whose gradient columns disagree are the three that hold a ReLU gate
+within 3e-6 to 2.5e-5 of its tie. So the train-mode gradients are held
+where no such gate lies above them (the head, sa3's last layer), and
+every layer's gradient is held in eval mode, where the two packages agree
+within 1e-6 of the largest.
+
+The PointNet++ clouds are uniform in a cube of side 1 (about 20 points
+in a 0.2 ball, 140 in a 0.4 one); the test asserts that no squared
+distance of either level's ball queries lies within 1e-6 of its radius
+squared (the seeds 23 and 7 are the clouds for which none does: about 4
+of the 1.5 million squared distances of a seed fall there) and that no
+ReLU gate of the head (4 rows, so that one gate carries a quarter of a
+weight's gradient) sits within 1e-6 of its tie; the set abstractions'
+millions of gates a layer are not held (a flip there moves one summand of
+millions)."""
+import copy
+import functools
+
+import flax.linen as fnn
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from point_dae_tpu.models import build_model_from_cfg as j_build
+from point_dae_tpu.models import layers as jlayers
+from point_dae_tpu.utils.config import ConfigDict as JConfigDict
+from point_dae_tpu.utils.convert_torch import convert_state_dict
+
+from point_dae_torch.models import build_model_from_cfg
+from point_dae_torch.models.common import ClsDraws
+from point_dae_torch.ops.geometry import furthest_point_sample, gather_points, pairwise_sqdist
+from point_dae_torch.utils.config import ConfigDict
+from point_dae_torch.utils.convert import _flatten, from_flax, to_flax
+
+B, CLS = 4, 5
+MODELS = {"PointTransformer_LinearClassification": (
+              {"trans_dim": 32, "encoder_dims": 32, "depth": 2, "num_heads": 2,
+               "drop_path_rate": 0.1, "group_size": 8, "num_group": 16, "cls_dim": CLS}, 256),
+          "PointNetv2": ({"cls_dim": CLS}, 600), "PointNetv2_Linear": ({"cls_dim": CLS}, 600),
+          "PointNetv2_feat": ({"cls_dim": CLS}, 600)}
+GRAD_KEYS = {"PointTransformer_LinearClassification": (
+                 "encoder/conv1/kernel", "encoder/conv4/kernel", "pos_embed/fc1/kernel",
+                 "blocks/block0/attn/qkv/kernel", "blocks/block1/mlp_fc2/kernel",
+                 "norm/scale", "cls/kernel", "cls/bias"),
+             "PointNetv2": ("pointnetv2_encoder/sa3/mlp2_fc/kernel",
+                            "pointnetv2_encoder/sa3/mlp2_bn/scale", "cls_head/fc1/kernel",
+                            "cls_head/bn2/scale", "cls_head/cls/kernel")}
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def _cfg(name):
+    return dict(copy.deepcopy(MODELS[name][0]), NAME=name)
+
+
+def _cloud(name, seed=23):
+    n = MODELS[name][1]
+    rng = np.random.default_rng(seed)
+    if name.startswith("PointNetv2"):
+        return rng.uniform(-0.5, 0.5, size=(B, n, 3)).astype(np.float32)
+    return rng.normal(size=(B, n, 3)).astype(np.float32)
+
+
+def _ball_margin(pts):
+    """The smallest |d - r^2| over both set abstractions' ball queries."""
+    xyz = _t(pts)
+    c1 = gather_points(xyz, furthest_point_sample(xyz, 512))
+    c2 = gather_points(c1, furthest_point_sample(c1, 128))
+    return min(float((pairwise_sqdist(c, x) - np.float32(r * r)).abs().min())
+               for c, x, r in ((c1, xyz, 0.2), (c2, c1, 0.4)))
+
+
+def _port(name):
+    return build_model_from_cfg(ConfigDict(_cfg(name)), device="cpu")
+
+
+def _dropout_interceptor(masks):
+    def intercept(next_fun, args, kwargs, context):
+        mod = context.module
+        if (isinstance(mod, fnn.Dropout) and context.method_name == "__call__"
+                and not kwargs.get("deterministic", mod.deterministic)):
+            return jnp.where(jnp.asarray(masks[mod.name]), args[0] / (1.0 - mod.rate), 0.0)
+        return next_fun(*args, **kwargs)
+    return intercept
+
+
+@functools.lru_cache(maxsize=None)
+def _case(name):
+    """(port model after its backward, port train logits, JAX train logits,
+    JAX gradients, JAX batch statistics, the smallest |pre-activation| of
+    the port's head ReLUs)."""
+    model = _port(name)
+    params, stats = to_flax(model.state_dict())
+    pts = _cloud(name)
+    rng = np.random.default_rng(4)
+    labels = rng.integers(0, CLS, size=(B,))
+    drop = {"dp1": rng.uniform(size=(B, 512)) >= 0.5, "dp2": rng.uniform(size=(B, 256)) >= 0.5}
+    dp = rng.uniform(size=(2, 2, B)) >= 0.3
+    dp[1, 0, 2] = False
+    jmodel = j_build(JConfigDict(_cfg(name)))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jlayers, "_stack_dp_masks", lambda mod, dpr, batch, det: None
+                   if det or max(dpr) == 0.0 else jnp.asarray(dp))
+
+        def loss_fn(p, x):
+            logits, upd = jmodel.apply({"params": p, "batch_stats": stats}, x, train=True,
+                                       mutable=["batch_stats"],
+                                       rngs={"dropout": jax.random.key(0),
+                                             "droppath": jax.random.key(1)})
+            logp = jax.nn.log_softmax(logits)
+            loss = -jnp.mean(jnp.take_along_axis(logp, jnp.asarray(labels)[:, None], -1))
+            return loss, (logits, upd["batch_stats"])
+
+        with fnn.intercept_methods(_dropout_interceptor(drop)):
+            (_, (jl, jstats)), gj = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+                params, pts)
+    gates = []
+    for n, m in model.named_modules():
+        if n in ("cls_head_finetune.1", "cls_head_finetune.5"):
+            m.register_forward_hook(lambda m, a, o: gates.append(float(o.detach().abs().min())))
+    model.train()
+    draws = ClsDraws([_t(drop["dp1"]), _t(drop["dp2"])], None) \
+        if name == "PointNetv2" else ClsDraws([], _t(dp))
+    logits = model(_t(pts), draws=draws)
+    logp = torch.log_softmax(logits, -1)
+    (-logp.gather(-1, _t(labels)[:, None]).mean()).backward()
+    return (model, logits.detach().numpy(), np.asarray(jl),
+            _flatten(jax.tree_util.tree_map(np.asarray, gj)),
+            _flatten(jax.tree_util.tree_map(np.asarray, jstats)), min(gates, default=1.0))
+
+
+@pytest.mark.parametrize("name", ["PointTransformer_LinearClassification", "PointNetv2"])
+def test_train_logits_and_gradients_match_jax(name):
+    """Train-mode logits within 1e-4 of the largest (PointNet++: batch
+    statistics over B = 4 rows in the head divide rounding differences by a
+    small spread); gradients within 1e-3 of their largest; BatchNorm
+    statistics after the forward within 1e-5 relative or 1e-4 of the
+    leaf's largest (the head's statistics, like its logits, come after a
+    normalisation over 4 rows)."""
+    if name.startswith("PointNetv2"):
+        assert _ball_margin(_cloud(name)) > 1e-6
+    model, got, want, gj, jstats, gate = _case(name)
+    assert gate > 1e-6
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
+    grads = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+    gt = _flatten(to_flax(grads)[0])
+    for k in GRAD_KEYS[name]:
+        assert np.abs(gj[k]).max() > 0, k
+        np.testing.assert_allclose(gt[k], gj[k], rtol=0, atol=1e-3 * np.abs(gj[k]).max(),
+                                   err_msg=k)
+    ts = _flatten(to_flax(model.state_dict())[1])
+    assert set(ts) == set(jstats)
+    for k in jstats:
+        np.testing.assert_allclose(ts[k], jstats[k], rtol=1e-5,
+                                   atol=1e-4 * np.abs(jstats[k]).max(), err_msg=k)
+
+
+@functools.lru_cache(maxsize=None)
+def _eval_case(name):
+    """(port model with its BatchNorm statistics moved off their init
+    values, cloud, labels, JAX eval output, and for ``PointNetv2`` the JAX
+    gradients of the eval cross-entropy, else None), the JAX side one
+    compile."""
+    model = _port(name)
+    rng = np.random.default_rng(9)
+    with torch.no_grad():
+        for n, b in model.named_buffers():
+            if n.endswith("running_var"):
+                b.copy_(_t(rng.uniform(0.5, 1.5, b.shape).astype(np.float32)))
+            elif n.endswith("running_mean"):
+                b.copy_(_t(rng.normal(0, 0.1, b.shape).astype(np.float32)))
+    params, stats = to_flax(model.state_dict())
+    jmodel = j_build(JConfigDict(_cfg(name)))
+    pts = _cloud(name, seed=7)
+    labels = np.random.default_rng(4).integers(0, CLS, size=(B,))
+
+    def out_fn(p, x):
+        return jmodel.apply({"params": p, "batch_stats": stats}, x, train=False)
+
+    if name != "PointNetv2":
+        return model, pts, labels, np.asarray(jax.jit(out_fn)(params, pts)), None
+
+    def loss_fn(p, x):
+        out = out_fn(p, x)
+        logp = jax.nn.log_softmax(out)
+        return -jnp.mean(jnp.take_along_axis(logp, jnp.asarray(labels)[:, None], -1)), out
+
+    (_, want), gj = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params, pts)
+    return (model, pts, labels, np.asarray(want),
+            _flatten(jax.tree_util.tree_map(np.asarray, gj)))
+
+
+@pytest.mark.parametrize("name", ["PointNetv2"])
+def test_pointnet2_eval_gradients_match_jax(name):
+    """Every parameter's gradient of a cross-entropy through the eval
+    forward (BatchNorm statistics moved off their init values) within 1e-3
+    of its largest: the set abstractions' routes through the ball gathers,
+    ReLUs and max-pools, each layer. (``PointNetv2_Linear`` runs the same
+    encoder under another head.)"""
+    model, pts, labels, _, gj = _eval_case(name)
+    model.zero_grad(set_to_none=True)
+    logp = torch.log_softmax(model.eval()(_t(pts)), -1)
+    (-logp.gather(-1, _t(labels)[:, None]).mean()).backward()
+    gt = _flatten(to_flax({n: p.grad for n, p in model.named_parameters()})[0])
+    assert set(gt) == set(gj) and len(gj) > 25
+    for k in gj:
+        np.testing.assert_allclose(gt[k], gj[k], rtol=0, atol=1e-3 * np.abs(gj[k]).max(),
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_eval_output_matches_jax(name):
+    """Eval mode on BatchNorm statistics moved off their init values:
+    logits (or the 1024-wide feature) within 1e-4 relative."""
+    model, pts, _, want, _ = _eval_case(name)
+    assert not name.startswith("PointNetv2") or _ball_margin(pts) > 1e-6
+    with torch.no_grad():
+        got = model.eval()(_t(pts))
+    assert got.shape == (B, 1024 if name == "PointNetv2_feat" else CLS)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_weights_carry_across_both_ways(name):
+    """``to_flax`` gives the JAX model's paths and shapes and, for the
+    PointNet++ classes, the reference converter's translation of the same
+    tensors (family ``pointnet2``); ``from_flax`` inverts it bit for bit
+    and loads strictly."""
+    jmodel = j_build(JConfigDict(_cfg(name)))
+    x = jnp.zeros((B, MODELS[name][1], 3), jnp.float32)
+    rngs = {k: jax.random.key(i) for i, k in enumerate(("params", "dropout", "droppath"))}
+    shapes = jax.tree_util.tree_map(lambda a: np.empty(a.shape, np.float32),
+                                    jax.eval_shape(lambda: jmodel.init(rngs, x, train=False)))
+    model = _port(name)
+    sd = model.state_dict()
+    p, s = to_flax(sd)
+    flat = lambda tree: {k: np.shape(v) for k, v in _flatten(tree).items()}  # noqa: E731
+    assert flat(p) == flat(shapes["params"])
+    assert flat(s) == flat(shapes["batch_stats"])
+    if name.startswith("PointNetv2"):
+        ref = convert_state_dict({k: v.numpy() for k, v in sd.items()}, "pointnet2")
+        got = {**_flatten(p), **_flatten(s)}
+        assert set(got) == set(ref)
+        for k in ref:
+            np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+    back = from_flax(p, s)
+    assert set(back) == set(sd)
+    for k in sd:
+        assert torch.equal(back[k], sd[k]), k
+    model.load_state_dict(back, strict=True)

@@ -93,3 +93,79 @@ def test_m2ae_or_probe_config_builds(path):
     elif name != "Point_M2AE_Finetune":
         assert {"train", "test"} <= set(cfg["dataset"])
         assert not hasattr(model, "cls_head_finetune")
+
+
+# optimizer part modes, the linear probes, 3DETR, Point-MAE, the transformer
+# MaskFeat and PointNet++ classification; Point_MlMAE is counted, not built
+SLICE_NAMES = ("PointCAE_transformer_fc_global_fc_local_3detr", "Point_MAE",
+               "MaskFeat_transformer", "Point_MlMAE", "PointNetv2",
+               "PointTransformer_LinearClassification", "PointTransformerLinearClassification")
+
+
+def _shipped_slice():
+    """(configs naming a model of SLICE_NAMES, PointTransformer-family
+    configs with a part mode other than ``all``). Only the files whose text
+    names such a model or mode are parsed (a parse of all of them costs
+    seconds)."""
+    models, parts = {}, {}
+    for path in sorted(glob.glob(os.path.join(ROOT, "cfgs", "**", "*.yaml"), recursive=True)):
+        with open(path) as f:
+            text = f.read()
+        if not any(k in text for k in SLICE_NAMES + ("only_new", "diff_lr")):
+            continue
+        cfg = cfg_from_yaml_file(path)
+        name = (cfg.get("model") or {}).get("NAME")
+        rel = os.path.relpath(path, ROOT)
+        if name in SLICE_NAMES:
+            models[rel] = name
+        part = (cfg.get("optimizer") or {}).get("part", "all")
+        if name and name.startswith("PointTransformer") and part != "all":
+            parts[rel] = part
+    return models, parts
+
+
+SHIPPED_SLICE, SHIPPED_PARTS = _shipped_slice()
+
+
+def test_slice_configs_found():
+    counts = {n: sum(v == n for v in SHIPPED_SLICE.values()) for n in SLICE_NAMES}
+    assert counts == {"PointCAE_transformer_fc_global_fc_local_3detr": 7, "Point_MAE": 1,
+                      "MaskFeat_transformer": 3, "Point_MlMAE": 1, "PointNetv2": 2,
+                      "PointTransformer_LinearClassification": 5,
+                      "PointTransformerLinearClassification": 1}, counts
+    parts = {p: sum(v == p for v in SHIPPED_PARTS.values()) for p in ("only_new", "diff_lr")}
+    assert parts == {"only_new": 13, "diff_lr": 3} and len(SHIPPED_PARTS) == 16, SHIPPED_PARTS
+
+
+@pytest.mark.parametrize("path", sorted(p for p, n in SHIPPED_SLICE.items() if n != "Point_MlMAE")
+                         + sorted(p for p in SHIPPED_PARTS if p not in SHIPPED_SLICE))
+def test_slice_config_builds(path):
+    """Each builds after ``propagate_corrupt_type`` (on the meta device); a
+    pretrain config's loss type goes through ``compute_loss``; a fine-tune
+    config builds its optimizer and schedule, whose groups hold exactly the
+    parameters its part mode trains (``only_new``: the ``cls`` ones;
+    ``diff_lr``: all, the pretrained ones at 0.1 times the rate)."""
+    from point_dae_torch.engine.train_state import TrainState
+
+    cfg = propagate_corrupt_type(cfg_from_yaml_file(os.path.join(ROOT, path)))
+    with torch.device("meta"):
+        model = MODELS.build(cfg["model"])
+    assert sum(p.numel() for p in model.parameters()) > 0
+    if "loss_type" in cfg:
+        loss_type = cfg["loss_type"]
+        loss = compute_loss(loss_type, torch.tensor(2.0), torch.tensor(0.5),
+                            float(cfg.get("normal_weight", 1.0)),
+                            gradual_weight_for(loss_type, 3, int(cfg.get("max_epoch", 300))))
+        assert torch.isfinite(loss) and float(loss) >= 2.0
+        return
+    state = TrainState.create(model, cfg, 100, cfg.get("grad_norm_clip"))
+    assert state.grad_norm_clip == 10.0 and state.schedule(0) == cfg["optimizer"]["kwargs"]["lr"]
+    held = {id(p): g["lr_scale"] for g in state.optimizer.param_groups for p in g["params"]}
+    part = cfg["optimizer"].get("part", "all")
+    for n, p in model.named_parameters():
+        if part == "only_new":
+            assert (id(p) in held) == ("cls" in n), n
+        elif part == "diff_lr":
+            assert held[id(p)] == (1.0 if "cls" in n else 0.1), n
+        else:
+            assert held[id(p)] == 1.0, n
