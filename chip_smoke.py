@@ -268,6 +268,25 @@ Phases, each fatal on failure:
               statistics included), a profiled step; then the linear probe
               through the CLI on Synthetic clouds, after which only
               cls.weight and cls.bias differ from the initial weights.
+ 25. downstream - Point_MlMAE from cfgs/pretrain_PointMlMAE.yaml at bs
+              128: its losses at batch 8 on the card against the CPU (1e-4
+              relative), 5 steps with every launch counter a step held,
+              a profiled step; the rotation protocol: a so3 train step's
+              logits at batch 8 on the card against the CPU (1e-3 of the
+              largest), train and eval steps at bs 32 timed, both shipped
+              protocol configs through --so3_rotation on Synthetic clouds;
+              the ModelNet-C battery: one cell a family on the card against
+              the CPU (index sets equal, clouds within 1e-5), then
+              --test_corruption through the CLI on 256 Synthetic clouds
+              (the generated path, every cell's seconds); --vis_saliency
+              through the CLI (8 .npz files; gradients against the
+              EdgeConv kernels' plain versions on the card within 1e-3 of
+              the largest, logits against the CPU within 1e-3, the
+              gradients' gap to the CPU printed); reconstruct of the bf16 flagship
+              and of MaskSurf_v2_token_dis on the card against the CPU (2%
+              and 1e-4), timed at the configs' total_bs, then --test
+              through the CLI (16 samples with their renders); each kernel
+              of these paths launched on each of them.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Run from the repository root:
 
@@ -3944,15 +3963,20 @@ def partseg_tree(root):
 
 
 class LogLines:
-    """The lines a run logs under its logger name (the config's stem)."""
+    """The lines a run logs under its logger name (the config's stem), and
+    the host time of each."""
 
     def __init__(self, name):
         import logging
 
-        self.logger, self.lines = logging.getLogger(name), []
+        self.logger, self.lines, self.times = logging.getLogger(name), [], []
         self.handler = logging.Handler()
-        self.handler.emit = lambda record: self.lines.append(record.getMessage())
+        self.handler.emit = self.emit
         self.logger.addHandler(self.handler)
+
+    def emit(self, record):
+        self.times.append(time.perf_counter())
+        self.lines.append(record.getMessage())
 
     def close(self):
         self.logger.removeHandler(self.handler)
@@ -5000,6 +5024,464 @@ def phase_part_modes(torch, device, card):
             f"peak {pk / 2 ** 30:.2f} GiB")
 
 
+DOWN_MLMAE_CFG = "cfgs/pretrain_PointMlMAE.yaml"
+DOWN_MLMAE_STEPS, DOWN_CHECK_BATCH = 5, 8
+DOWN_MLMAE_RUN = {"patchify": 1, "gather_rows_small_c": 1, "nn_half_small": 1}
+DOWN_ROT_CFGS = (("z2so3", "cfgs/finetune_modelnet_rotation_z2so3_officialmodelnet.yaml"),
+                 ("so32so3", "cfgs/finetune_modelnet_rotation_so32so3_officialmodelnet.yaml"))
+DOWN_ROT_STEPS = 5
+DOWN_CLS_CFG = "cfgs/finetune_modelnet_transferring_features_1k.yaml"
+DOWN_RECON = (("flagship", "cfgs/pretrain_synthetic_flagship_cached.yaml", 2e-2),
+              ("token_dis", "cfgs/pretrain_synthetic_masksurf_tokendis.yaml", 1e-4))
+DOWN_RECON_BATCH = 4
+# the share of saliency points whose card gradient may part from the CPU's
+# by more than 1e-3 of the largest: a near-tie of a kNN or max pick sends a
+# point's gradient along another neighbour (9.16% of the points on these
+# clouds, NVIDIA H100 80GB HBM3, 700.00 W), while a wrong backward moves
+# nearly every point
+DOWN_SALIENCY_MOVED = 0.2
+
+
+def synthetic_cut(sizes, n_points, classes=40, **over):
+    """A config cut whose dataset splits read Synthetic clouds: ``sizes``
+    {split: clouds}, each split a seed of its own."""
+    return {"dataset": {s: {"_base_": "cfgs/dataset_configs/Synthetic.yaml",
+                            "others": {"subset": "train" if s == "train" else "test",
+                                       "npoints": 1024, "size": n, "seed": i,
+                                       "N_POINTS": n_points, "num_classes": classes}}
+                        for i, (s, n) in enumerate(sizes.items())}, **over}
+
+
+def down_cli(torch, what, cfg, flags, tmp, device):
+    """``point_dae_torch.cli.main`` on a written config in process, the
+    launch counters zeroed before: (result, LogLines, launches, seconds)."""
+    from point_dae_torch import cli
+    from point_dae_torch.utils import kernels
+
+    name = os.path.splitext(os.path.basename(cfg))[0]
+    lines = LogLines(name)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        out = cli.main(["--config", cfg, "--root_folder", os.path.join(tmp, "exp"),
+                        "--exp_name", "run"] + flags, device=device)
+        torch.cuda.synchronize()
+    except Exception as e:  # noqa: BLE001 - any failure of the run fails the phase
+        fail(f"downstream {what}: {type(e).__name__}: {e}")
+    finally:
+        lines.close()
+    return out, lines, launches_a_step(1), time.perf_counter() - t0
+
+
+def require_launches(what, used, names):
+    if any(not used.get(k) for k in names):
+        fail(f"downstream {what}: a kernel of the path was never launched: {used}, "
+             f"expected {names}")
+
+
+def down_mlmae(torch, device, card):
+    """Point_MlMAE from its shipped config at bs 128 from (128, 8192, 6) raw
+    clouds with unit normals: the train-mode losses at batch 8 on the card
+    against the CPU (same weights, clouds and draws; 1e-4 relative), then
+    DOWN_MLMAE_STEPS steps with every launch counter a step held to
+    DOWN_MLMAE_RUN, the step time, a profiled step's busy time and the peak
+    memory."""
+    from point_dae_torch.engine.pretrain import device_pipeline, init_model
+
+    config = load_cfg(DOWN_MLMAE_CFG)
+    g = torch.Generator(device=device).manual_seed(SEED + 110)
+    raw = torch.randn((BACKBONE_BATCH, NRAW, 6), generator=g, device=device)
+    raw[..., 3:] /= raw[..., 3:].norm(dim=-1, keepdim=True)
+    d = config["dataset"]["train"]["others"]
+    _, cln = device_pipeline(raw[:DOWN_CHECK_BATCH], d["aug_type"], d["corrupt_type"],
+                             d["npoints"], generator=g, device=device)
+    cpu_model = init_model(config, seed=SEED + 111, device="cpu")
+    model = copy.deepcopy(cpu_model).to(device)
+    draws = model.sample_draws(DOWN_CHECK_BATCH, g, device)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lg = [float(v) for v in model(cln, cln, draws=draws)]
+        lc = [float(v) for v in cpu_model(cln.cpu(), cln.cpu(), draws=on_device(draws, "cpu"))]
+    log(f"  Point_MlMAE ({DOWN_MLMAE_CFG}), batch {DOWN_CHECK_BATCH}: card losses {lg[0]:.7f} "
+        f"{lg[1]:.7f}; cpu ({time.perf_counter() - t0:.1f} s) {lc[0]:.7f} {lc[1]:.7f}")
+    if not all(math.isfinite(v) for v in lg + lc) or min(lc) <= 0 or any(
+            abs(a - b) > 1e-4 * abs(b) for a, b in zip(lg, lc)):
+        fail(f"downstream MlMAE: card losses {lg} off the CPU's {lc} beyond 1e-4 relative")
+    del cpu_model
+    steady, first, launches, peak, one_more = run_steps(
+        torch, config, raw, device, DOWN_MLMAE_STEPS, SEED + 112, model=model)
+    per_step = {k: v / DOWN_MLMAE_STEPS for k, v in launches.items() if v}
+    if per_step != DOWN_MLMAE_RUN:
+        fail(f"downstream MlMAE: launches a step {per_step}, expected {DOWN_MLMAE_RUN}")
+    busy, _ = profile_step(torch, one_more, card, top=6)
+    log(f"  [{card}] Point_MlMAE (bs {BACKBONE_BATCH}): step {steady * 1e3:.2f} ms (median of "
+        f"steps 2-{DOWN_MLMAE_STEPS}), {BACKBONE_BATCH / steady:.1f} clouds/s, first step "
+        f"{first * 1e3:.1f} ms, busy {busy / 1e3:.2f} ms, max_memory_allocated "
+        f"{peak / 2 ** 30:.2f} GiB; launches a step {per_step}")
+    del model, one_more
+    torch.cuda.empty_cache()
+    return per_step
+
+
+def down_rotation(torch, device, card, tmp):
+    """The rotation protocol: a train step of the DGCNN recipe (bs
+    DOWN_CHECK_BATCH of 8192 points, so3 angles, the resample's subset and
+    the head's dropout masks drawn on the CPU) on the card against the CPU
+    (the EdgeConv kernel's plain version there), logits within 1e-3 of the
+    largest; DOWN_ROT_STEPS train steps and eval steps at bs 32 timed with
+    their launches; then both shipped protocol configs through
+    ``--so3_rotation`` on Synthetic clouds of 8192 points (96 train, 64
+    test, one epoch): the '[Validation] ... (z2so3)' line and ckpt-last."""
+    import numpy as np
+
+    from point_dae_torch.data.corruptions import sample_rotation
+    from point_dae_torch.engine import finetune, rotation
+    from point_dae_torch.engine.train_state import TrainState
+    from point_dae_torch.models import build_model_from_cfg
+    from point_dae_torch.utils import kernels
+
+    config = load_cfg(DOWN_ROT_CFGS[0][1])
+    rng = np.random.default_rng(SEED + 113)
+    pts = torch.from_numpy(rng.normal(size=(FT_BATCH, NRAW, 3)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 40, FT_BATCH))
+    cpu_model = build_model_from_cfg(config["model"], device="cpu", seed=SEED + 114)
+    cpu_model.dgcnn_encoder.impl = "fused_pallas"     # the kernel's plain version on the CPU
+    model = copy.deepcopy(cpu_model).to(device)
+    model.dgcnn_encoder.impl = "auto"
+    gc = torch.Generator().manual_seed(SEED + 115)
+    b = DOWN_CHECK_BATCH
+    draws = rotation.RotationDraws(
+        sample_rotation("so3", b, gc, "cpu"),
+        finetune.sample_subset(b, finetune.point_all(1024, NRAW), 1024, gc, "cpu"),
+        cpu_model.sample_draws(b, gc, "cpu"))
+    logits, clouds = [], []
+    t0 = time.perf_counter()
+    for m, dev in ((model, device), (cpu_model, "cpu")):
+        dd = on_device(draws, dev)
+        rp = rotation.rotate_batch(pts[:b].to(dev), "so3", dd.angles)
+        clouds.append((rp.cpu(), finetune.fps_resample(rp, 1024, dd.subset).cpu()))
+        state = TrainState.create(m, config, 100, config.get("grad_norm_clip"))
+        step = rotation.make_rotation_train_step(m, config, "so3", device=dev)
+        logits.append(step(state, pts[:b], labels[:b], draws=dd)["logits"].cpu())
+    err = float((logits[0] - logits[1]).abs().max() / logits[1].abs().max())
+    same = [torch.equal(a, c) for a, c in zip(*clouds)]
+    log(f"  rotation train step (so3, bs {b} of {NRAW}): rotated clouds equal {same[0]}, "
+        f"resampled clouds equal {same[1]}; logits on the card against the CPU "
+        f"({time.perf_counter() - t0:.1f} s) {err:.2e} of the largest")
+    if err > 1e-3 or not all(same) or not torch.isfinite(logits[0]).all():
+        fail(f"downstream rotation: card logits off the CPU's by {err:.2e} of the largest, "
+             f"clouds equal {same}")
+    del cpu_model
+    pd, ld = pts.to(device), labels.to(device)
+    state = TrainState.create(model, config, 100, config.get("grad_norm_clip"))
+    step = rotation.make_rotation_train_step(model, config, "so3", device=device)
+    eval_step = rotation.make_rotation_eval_step(model, config, "so3", device=device)
+    g = torch.Generator(device=device).manual_seed(SEED + 116)
+    times = {}
+    for what, fn in (("train", lambda: step(state, pd, ld, generator=g)),
+                     ("eval", lambda: eval_step(pd, g))):
+        fn()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        ts = []
+        for _ in range(DOWN_ROT_STEPS):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        times[what] = (sorted(ts)[DOWN_ROT_STEPS // 2], launches_a_step(DOWN_ROT_STEPS))
+        require_launches(f"rotation {what} step", times[what][1],
+                         ("fps", "knn_aggregate_fwd") + (("knn_aggregate_bwd_first",)
+                                                         if what == "train" else ()))
+        log(f"  [{card}] rotation {what} step (bs {FT_BATCH} of {NRAW}): "
+            f"{times[what][0] * 1e3:.2f} ms (median of {DOWN_ROT_STEPS}); launches a step "
+            f"{times[what][1]}")
+    del model, state
+    torch.cuda.empty_cache()
+    runs = {}
+    for mode, src in DOWN_ROT_CFGS:
+        cfg = write_config(src, os.path.join(tmp, "cfgs", os.path.basename(src)),
+                           synthetic_cut({"train": 96, "val": 64, "test": 64}, NRAW,
+                                         max_epoch=0))
+        out, lines, used, sec = down_cli(torch, f"--so3_rotation {mode}", cfg,
+                                         ["--so3_rotation"], tmp, device)
+        val = lines.starting("[Validation] EPOCH: 0 ")
+        exp = os.path.join(tmp, "exp", os.path.splitext(os.path.basename(cfg))[0], "cfgs",
+                           "run")
+        if len(val) != 1 or f"({mode}) best = " not in val[0] or not os.path.exists(
+                os.path.join(exp, "ckpt-last.pth")):
+            fail(f"downstream --so3_rotation {mode}: validation lines {val}, ckpt-last in "
+                 f"{os.listdir(exp) if os.path.isdir(exp) else exp}")
+        require_launches(f"--so3_rotation {mode}", used,
+                         ("fps", "knn_aggregate_fwd", "knn_aggregate_bwd_first"))
+        for m in lines.starting(("[Training]", "[Validation]")):
+            log(f"    {m}")
+        log(f"  [{card}] --so3_rotation {mode} ({src} on Synthetic clouds): {sec:.1f} s, "
+            f"launches {used}")
+        runs[mode] = used
+    return times, runs
+
+
+def down_robustness(torch, device, card, tmp, ckpt):
+    """The ModelNet-C battery: for one cell per family (level 2), the cell's
+    corruption from the same draws (drawn on the CPU) on the card against
+    the CPU: the kept index sets identical, the clouds within 1e-5; then
+    ``--test_corruption`` through the CLI on a Synthetic test set of 256
+    clouds of 1024 points (the generated path): the 1 + 35 cells' lines, the
+    seconds of each cell and the launches."""
+    from point_dae_torch.engine import robustness
+
+    g = torch.Generator().manual_seed(SEED + 117)
+    pts = torch.randn((FT_BATCH, 1024, 3), generator=g)
+    for name in robustness.CORRUPTIONS:
+        draws = robustness.sample_level_draws(name, 2, FT_BATCH, 1024, g, "cpu")
+        dd = on_device(draws, device)
+        oc, mc = robustness.level_cloud(pts, name, 2, draws)
+        og, mg = robustness.level_cloud(pts.to(device), name, 2, dd)
+        fc = robustness._corrupt_level(pts, name, 2, draws)
+        fg = robustness._corrupt_level(pts.to(device), name, 2, dd).cpu()
+        same = mc is None and mg is None or torch.equal(mc, mg.cpu())
+        err = float((fg - fc).abs().max())
+        log(f"  {name} level 2 (bs {FT_BATCH} of 1024): index sets "
+            f"{'identical' if same else 'DIFFER'}, "
+            f"{'' if mc is None else f'{int(mc.sum())} points kept or added, '}"
+            f"max |card - cpu| {err:.2e}")
+        if not same or err > 1e-5 or not torch.isfinite(fg).all():
+            fail(f"downstream robustness: {name} on the card differs from the CPU "
+                 f"(sets {same}, {err:.2e})")
+    cfg = write_config(DOWN_CLS_CFG, os.path.join(tmp, "cfgs", "corruption.yaml"),
+                       synthetic_cut({"train": 32, "val": 32, "test": 256}, 1024))
+    out, lines, used, sec = down_cli(
+        torch, "--test_corruption", cfg,
+        ["--test_corruption", "--ckpts", ckpt, "--modelnet_c_root", os.path.join(tmp, "none")],
+        tmp, device)
+    timed = list(zip(lines.times, lines.lines))
+    cells = [(t, m) for t, m in timed if m.startswith(("{'OA'", "{'acc'"))]
+    if len(cells) != 36 or not all(math.isfinite(out[k]) for k in ("mOA", "mCE", "RmCE")):
+        fail(f"downstream --test_corruption: {len(cells)} cell lines, results {out}")
+    start = [t for t, m in timed if m.startswith("[Corruption]")][0]
+    secs = [b[0] - a for a, b in zip([start] + [t for t, _ in cells[:-1]], cells)]
+    require_launches("--test_corruption", used, ("fps", "knn_aggregate_fwd", "key_gather"))
+    log(f"  [{card}] --test_corruption ({DOWN_CLS_CFG}, 256 Synthetic clouds of 1024 points): "
+        f"{sec:.1f} s; clean cell {secs[0]:.3f} s; per family the 5 levels' seconds: " + "; ".join(
+            f"{name} " + " ".join(f"{s:.3f}" for s in secs[1 + 5 * i:6 + 5 * i])
+            for i, name in enumerate(robustness.CORRUPTIONS)))
+    log(f"    {lines.lines[-1]}; launches {used}")
+    return used, sec
+
+
+def down_saliency(torch, device, card, tmp, ckpt, cpu_model):
+    """``--vis_saliency`` through the CLI on the classifier config (Synthetic
+    test clouds of 8192 points, cut to 1024): 8 ``.npz`` files, then one
+    file's gradients against the EdgeConv kernels' plain versions on the
+    card within 1e-3 of the largest, its eval logits against the CPU's
+    within 1e-3 of the largest (as the fine-tune checks hold them), and its
+    gradients against the CPU's: at most DOWN_SALIENCY_MOVED of the points
+    off by more than 1e-3 of the largest."""
+    import numpy as np
+
+    from point_dae_torch.engine.saliency import make_saliency_fn
+
+    cfg = write_config(DOWN_CLS_CFG, os.path.join(tmp, "cfgs", "saliency.yaml"),
+                       synthetic_cut({"train": 16, "val": 16, "test": 64}, NRAW))
+    out_dir, lines, used, sec = down_cli(torch, "--vis_saliency", cfg,
+                                         ["--vis_saliency", "--ckpts", ckpt], tmp, device)
+    files = sorted(os.listdir(out_dir))
+    if files != [f"saliency_{i:03d}.npz" for i in range(8)]:
+        fail(f"downstream --vis_saliency: files {files}")
+    z = np.load(os.path.join(out_dir, files[3]))
+    t0 = time.perf_counter()
+    pts, labels = torch.from_numpy(z["points"]), torch.from_numpy(z["labels"])
+    want = make_saliency_fn(cpu_model, device="cpu")(pts, labels).numpy()
+    with torch.no_grad():
+        lc = cpu_model(pts)
+    card_model = copy.deepcopy(cpu_model).to(device)
+    card_model.dgcnn_encoder.impl = "auto"
+    with torch.no_grad():
+        lg = card_model(pts.to(device)).cpu()
+    x = pts.to(device).requires_grad_(True)       # the EdgeConv kernels' plain versions
+    logits = card_model.cls_head_finetune(dgcnn_feature_plain(torch, card_model.dgcnn_encoder, x))
+    (plain,) = torch.autograd.grad(logits.gather(1, labels.to(device)[:, None]).sum(), x)
+    plain = plain.cpu().numpy()
+    del card_model, x, logits
+    err_plain = float(np.abs(z["grads"] - plain).max() / np.abs(plain).max())
+    err_logits = float((lg - lc).abs().max() / lc.abs().max())
+    top = np.abs(want).max()
+    err = float(np.abs(z["grads"] - want).max() / top)
+    moved = float((np.abs(z["grads"] - want).max(-1) > 1e-3 * top).mean())
+    require_launches("--vis_saliency", used, ("knn_aggregate_fwd", "knn_aggregate_bwd_first"))
+    log(f"  [{card}] --vis_saliency: {sec:.1f} s for 8 batches of 8; batch 3's gradients "
+        f"{z['grads'].shape} against the EdgeConv kernels' plain versions on the card "
+        f"{err_plain:.2e} of the largest; logits against the CPU {err_logits:.2e} of the "
+        f"largest; gradients against the CPU ({time.perf_counter() - t0:.1f} s) {err:.2e} "
+        f"of the largest, {100 * moved:.2f}% of the points off by more than 1e-3 of it; "
+        f"launches {used}")
+    # a kNN or a max sends a point's gradient along one pick: where f32
+    # products round apart on the two devices a near-tie picks another
+    # neighbour (on these clouds the CPU's reference and fused layouts part
+    # on 7% of the points), so the gradients are held to the kernels' plain
+    # versions on the card, and to the CPU's on all but the near-tie share
+    if err_plain > 1e-3 or err_logits > 1e-3 or moved > DOWN_SALIENCY_MOVED \
+            or not np.isfinite(z["grads"]).all():
+        fail(f"downstream --vis_saliency: card gradients off the plain versions by "
+             f"{err_plain:.2e}, logits off the CPU's by {err_logits:.2e}, gradients off the "
+             f"CPU's on {100 * moved:.2f}% of the points (limit "
+             f"{100 * DOWN_SALIENCY_MOVED:.0f}%)")
+    return used, sec
+
+
+def down_reconstruct(torch, device, card, tmp):
+    """``reconstruct`` of each of DOWN_RECON: at batch DOWN_RECON_BATCH on the
+    card against the CPU (same weights, clouds and draws; eval mode): every
+    output within the stated share of its largest (2% for the bf16
+    flagship, 1e-4 for f32 token_dis), the mask and token ids equal; one
+    call at the config's total_bs timed with its launches; then ``--test``
+    through the CLI from a checkpoint of those weights on Synthetic clouds:
+    16 samples, each with its renders (``.png.npy`` where matplotlib is
+    missing) and ``.npz``; last ``visualize_corruptions`` on the card: the
+    clean render and one a corruption."""
+    import numpy as np
+
+    from point_dae_torch.engine.pretrain import init_model
+    from point_dae_torch.engine.visualization import visualize_corruptions
+    from point_dae_torch.utils import kernels
+
+    out = {}
+    for what, src, tol in DOWN_RECON:
+        config = load_cfg(src)
+        cpu_model = init_model(config, seed=SEED + 118, device="cpu")
+        if hasattr(cpu_model, "build_reconstruct"):
+            cpu_model.build_reconstruct(torch.Generator().manual_seed(SEED + 119))
+        cpu_model.eval()
+        model = copy.deepcopy(cpu_model).to(device).eval()
+        gc = torch.Generator().manual_seed(SEED + 120)
+        b = DOWN_RECON_BATCH
+        clean = torch.randn((b, 1024, 6), generator=gc)
+        clean[..., 3:] /= clean[..., 3:].norm(dim=-1, keepdim=True)
+        draws = cpu_model.sample_draws(b, gc, "cpu")
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            rg = [v.cpu() for v in model.reconstruct(clean.to(device), draws=on_device(
+                draws, device))]
+            rc = cpu_model.reconstruct(clean, draws=draws)
+        errs = []
+        for a, w in zip(rg, rc):
+            if w.dtype in (torch.bool, torch.int64):
+                errs.append(0.0 if torch.equal(a, w) else math.inf)
+            else:
+                errs.append(float((a.float() - w.float()).abs().max() / w.float().abs().max()))
+        log(f"  {what} reconstruct ({src}), batch {b}: card against the CPU "
+            f"({time.perf_counter() - t0:.1f} s), each output's max |card - cpu| / max |cpu| "
+            f"{['%.2e' % e for e in errs]}")
+        if max(errs) > tol:
+            fail(f"downstream {what} reconstruct: card off the CPU beyond {tol}: {errs}")
+        tb = int(config["total_bs"])
+        big = torch.randn((tb, 1024, 6), generator=gc).to(device)
+        gg = torch.Generator(device=device).manual_seed(SEED + 121)
+        with torch.no_grad():
+            model.reconstruct(big, generator=gg)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            model.reconstruct(big, generator=gg)
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        big_used = launches_a_step(1)
+        ckpt = os.path.join(tmp, f"{what}.pth")
+        torch.save({"base_model": cpu_model.state_dict()}, ckpt)
+        del cpu_model, model, big
+        torch.cuda.empty_cache()
+        cfg = write_config(src, os.path.join(tmp, "cfgs", os.path.basename(src)),
+                           synthetic_cut({"test": 20}, 1024, classes=15))
+        vis, lines, used, sec = down_cli(torch, f"--test {what}", cfg, ["--test", "--ckpts", ckpt],
+                                         tmp, device)
+        files = os.listdir(vis)
+        stems = {f[:-4] for f in files if f.endswith(".npz")}
+        views = all(any(f.startswith(f"{s}_{v}.png") for f in files)
+                    for s in stems for v in ("gt", "coarse", "rebuild"))
+        if len(stems) != 16 or not views or lines.lines[-1] != f"[Vis] saved 16 samples to {vis}":
+            fail(f"downstream --test {what}: {len(stems)} samples, every view {views}, last line "
+                 f"{lines.lines[-1]}")
+        z = np.load(os.path.join(vis, sorted(stems)[0] + ".npz"))
+        log(f"  [{card}] {what} reconstruct at bs {tb}: {ms:.2f} ms (one call), launches "
+            f"{big_used}; --test through the CLI: {sec:.1f} s for 16 samples, launches {used}, "
+            f"rebuild {z['rebuild'].shape}, render files "
+            f"{sorted({f.split('.', 1)[1] for f in files})}")
+        out[what] = (used, big_used)
+    t0 = time.perf_counter()
+    vdir = visualize_corruptions(os.path.join(tmp, "corruptions"), device=device)
+    stems = sorted(f.split(".")[0] for f in os.listdir(vdir))
+    want = sorted(("clean", "affine_r3", "dropout_local", "add_global", "add_local", "jitter",
+                   "nonuniform_density"))
+    if stems != want:
+        fail(f"downstream visualize_corruptions: renders {stems}, expected {want}")
+    log(f"  [{card}] visualize_corruptions on the card: {time.perf_counter() - t0:.1f} s, "
+        f"{len(stems)} renders")
+    return out
+
+
+def phase_downstream(torch, device, card):
+    """The downstream modes and Point_MlMAE (down_mlmae, down_rotation,
+    down_robustness, down_saliency, down_reconstruct); each kernel of the
+    slice's paths must launch on its path."""
+    import shutil
+    import tempfile
+
+    from point_dae_torch.models import build_model_from_cfg
+
+    stamps = [time.perf_counter()]
+    mlmae = down_mlmae(torch, device, card)
+    stamps.append(time.perf_counter())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_down_")
+    try:
+        rot, rot_runs = down_rotation(torch, device, card, tmp)
+        stamps.append(time.perf_counter())
+        cls = build_model_from_cfg(load_cfg(DOWN_CLS_CFG)["model"], device="cpu", seed=SEED + 122)
+        gm = torch.Generator().manual_seed(SEED + 123)
+        with torch.no_grad():     # running statistics off (0, 1), as a trained model's
+            for n, buf in cls.named_buffers():
+                if n.endswith("running_mean"):
+                    buf.copy_(0.1 * torch.randn(buf.shape, generator=gm))
+                elif n.endswith("running_var"):
+                    buf.copy_(0.5 + torch.rand(buf.shape, generator=gm))
+        ckpt = os.path.join(tmp, "classifier.pth")
+        torch.save({"base_model": cls.state_dict()}, ckpt)
+        cls.dgcnn_encoder.impl = "fused_pallas"       # the kernel's plain version on the CPU
+        corrupt, _ = down_robustness(torch, device, card, tmp, ckpt)
+        stamps.append(time.perf_counter())
+        saliency, _ = down_saliency(torch, device, card, tmp, ckpt, cls.eval())
+        stamps.append(time.perf_counter())
+        recon = down_reconstruct(torch, device, card, tmp)
+        stamps.append(time.perf_counter())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    flag = recon["flagship"]
+    paths = {   # kernel: its launches on each new path
+        "fps": (rot["train"][1].get("fps"), rot["eval"][1].get("fps"), corrupt.get("fps")),
+        "knn_aggregate_fwd": (rot_runs["z2so3"].get("knn_aggregate_fwd"),
+                              corrupt.get("knn_aggregate_fwd"),
+                              saliency.get("knn_aggregate_fwd")),
+        "knn_aggregate_bwd_first": (rot_runs["so32so3"].get("knn_aggregate_bwd_first"),
+                                    saliency.get("knn_aggregate_bwd_first")),
+        "key_gather": (corrupt.get("key_gather"),),
+        "patchify": (mlmae.get("patchify"), flag[0].get("patchify"),
+                     recon["token_dis"][0].get("patchify")),
+        "gather_rows_small_c": (mlmae.get("gather_rows_small_c"),
+                                flag[1].get("gather_rows_small_c")),
+        "nn_half_small": (mlmae.get("nn_half_small"),),
+        "mlp_ln_fwd": (flag[0].get("mlp_ln_fwd"), flag[1].get("mlp_ln_fwd")),
+        "attention_fwd": (flag[0].get("attention_fwd"), flag[1].get("attention_fwd")),
+        "folding_fwd": (flag[0].get("folding_fwd"), flag[1].get("folding_fwd"))}
+    log(f"  downstream launches by kernel on its new paths: {paths}")
+    for k, v in paths.items():
+        if not all(v):
+            fail(f"downstream: {k} was not launched on one of its new paths: {v}")
+    names = ("MlMAE", "rotation", "robustness", "saliency", "reconstruction")
+    log(f"  [{card}] downstream seconds: " + ", ".join(
+        f"{n} {b - a:.1f}" for n, a, b in zip(names, stamps, stamps[1:])))
+
+
 def stamp(what: str) -> None:
     log(f"[{time.perf_counter() - T0:.1f} s] {what} done")
 
@@ -5209,6 +5691,12 @@ def main() -> None:
     log("part modes (only_new, diff_lr, the linear probe, PointNetv2):")
     phase_part_modes(torch, device, card)
     stamp("part_modes")
+    torch.cuda.empty_cache()
+
+    # 11. the downstream modes (rotation, ModelNet-C, saliency, reconstruction) and Point_MlMAE
+    log("downstream (Point_MlMAE, --so3_rotation, --test_corruption, --vis_saliency, --test):")
+    phase_downstream(torch, device, card)
+    stamp("downstream")
     # gather_rows_wide is the one kernel without a path: the JAX package keeps
     # XLA's gather forward on purpose (point_dae_tpu/ops/pallas_scatter.py:
     # 267-276) and the port its plain one, so the rule leaves it out and its

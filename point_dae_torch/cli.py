@@ -7,7 +7,8 @@ The flags, their validations, the experiment tree
 ``args.`` / ``config.`` log lines are the JAX CLI's, so shell recipes and
 result scrapers work unchanged. ``main(argv, device)`` runs on the CUDA card
 unless ``device`` says otherwise (the tests pass ``device="cpu"``); there is
-no ``--device`` flag. Modes not ported yet raise ``NotImplementedError``.
+no ``--device`` flag. Every mode of the JAX CLI is dispatched, in its
+order.
 """
 from __future__ import annotations
 
@@ -18,8 +19,6 @@ import time
 from .utils.config import cfg_from_yaml_file, propagate_corrupt_type, save_config
 from .utils.device import resolve_device
 from .utils.logger import get_logger, print_log
-
-NOT_PORTED = "is not ported yet: ROADMAP.md Queue 1 item 6"
 
 
 def get_args(argv=None):
@@ -156,7 +155,9 @@ def main(argv=None, device=None):
     is_partseg = "ShapeNetPart" in str(ds_name)
     run = dict(logger_name=args.log_name, device=dev)
     if args.test_corruption:
-        raise NotImplementedError(f"--test_corruption {NOT_PORTED}")
+        from .engine.robustness import test_net_corruption
+
+        return test_net_corruption(config, args, **run)
     if args.test and is_partseg:
         from .engine.partseg import test_partseg
 
@@ -166,11 +167,18 @@ def main(argv=None, device=None):
             from .engine.finetune import test_net
 
             return test_net(config, args, **run)
-        raise NotImplementedError(
-            f"--test on a pretrain config (the reconstruction visualization) {NOT_PORTED}")
-    for flag in ("so3_rotation", "vis_saliency"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} {NOT_PORTED}")
+        # --test on a pretrain config: the reconstruction visualization
+        from .engine.visualization import test_vis_reconstruction
+
+        return test_vis_reconstruction(config, args, **run)
+    if args.so3_rotation:
+        from .engine.rotation import run_net_rotation
+
+        return run_net_rotation(config, args, **run)
+    if args.vis_saliency:
+        from .engine.saliency import vis_saliency_map
+
+        return vis_saliency_map(config, args, **run)
     if is_partseg:
         from .engine.partseg import run_partseg
 

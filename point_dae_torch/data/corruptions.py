@@ -428,6 +428,54 @@ def augment_batch(pts: torch.Tensor, types: Sequence[str], draws: Optional[List]
     return pts
 
 
+# ----------------------------------------------------------------- levels
+
+def sample_rotation(mode: str, batch: int, generator: Optional[torch.Generator],
+                    device) -> Optional[torch.Tensor]:
+    """The angles of a ``rotation`` mode: ``z`` (B,) in +-pi (affine_rotate_z
+    at level 4), ``so3`` (B, 3) Euler angles in +-pi (affine_rotate; R = Rz
+    Ry Rx of independent uniform angles, not Haar-uniform), ``none`` None."""
+    if mode == "z":
+        return _uniform((batch,), -_ROTATE_Z_CLIP, _ROTATE_Z_CLIP, generator, device)
+    if mode == "so3":
+        return _uniform((batch, 3), -math.pi, math.pi, generator, device)
+    if mode == "none":
+        return None
+    raise ValueError(f"rotation mode {mode!r}")
+
+
+def rotation_matrix(mode: str, angles: torch.Tensor) -> torch.Tensor:
+    """(B, 3, 3) f32 rotations for x @ R from ``sample_rotation``'s angles
+    (any mode but ``z`` reads (B, 3) Euler angles, as the level rotations'
+    are too), built in float64 and rounded once: the same bits on every device, where
+    f32 sines and products differ in their last place between the card's
+    and the CPU's libraries."""
+    a = angles.double()
+    return (rotz_matrix(a) if mode == "z" else _batched_rot(a)).float()
+
+
+def rotate_points(pts: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """x @ R for (B, N, 3) clouds and (B, 3, 3) matrices as three rounded
+    products summed left to right: the same bits on every device, where a
+    matrix product's rounding depends on its kernel (and an FPS that
+    follows would part on a near-tie)."""
+    return (pts[..., 0:1] * R[:, None, 0] + pts[..., 1:2] * R[:, None, 1]
+            + pts[..., 2:3] * R[:, None, 2])
+
+
+def corrupt_jitter(pts: torch.Tensor, level: float, noise: torch.Tensor) -> torch.Tensor:
+    """Gaussian jitter of sigma 0.01 (level + 1): noise (B, n, 3) standard
+    normal."""
+    return pts + 0.01 * (level + 1.0) * noise
+
+
+def dropout_global_mask(mask: torch.Tensor, r: torch.Tensor, drop_rate: float) -> torch.Tensor:
+    """Keep, of each row's valid points, the int(n_valid (1 - drop_rate))
+    (counted in f32) with the smallest uniforms ``r`` (B, n)."""
+    keep = (mask.sum(1).float() * (1.0 - drop_rate)).long()
+    return k_smallest_mask(r, mask, keep)
+
+
 # ----------------------------------------------------------------- dispatch
 
 @dataclass

@@ -130,7 +130,8 @@ class DiscreteVAE(nn.Module):
     autoencodes through a Gumbel-softmax over the codebook (straight-through
     one-hot with ``hard``) and returns (coarse, fine, neighborhood, center,
     logits). ``tokenizer_only`` builds the encoder, ``dgcnn_1`` and the
-    codebook alone, the parts that ``tokenize`` runs."""
+    codebook alone, the parts that ``tokenize`` runs; ``build_decoder``
+    adds the rest."""
 
     def __init__(self, config, generator: Optional[torch.Generator] = None,
                  tokenizer_only: bool = False):
@@ -143,10 +144,16 @@ class DiscreteVAE(nn.Module):
         self.encoder = PatchEncoder(enc, generator=g)
         self.dgcnn_1 = PatchDGCNN(enc, self.num_tokens, g)
         self.codebook = nn.Parameter(torch.randn(self.num_tokens, tok, generator=g))
+        self.dims = (tok, int(c.get("decoder_dims", 256)))
         if not tokenizer_only:
-            dec = int(c.get("decoder_dims", 256))
-            self.dgcnn_2 = PatchDGCNN(tok, dec, g)
-            self.decoder = FoldingPatchDecoder(dec, self.group_size, g)
+            self.build_decoder(g)
+
+    def build_decoder(self, generator: Optional[torch.Generator] = None) -> None:
+        """Add ``dgcnn_2`` and ``decoder`` (on the CPU), the parts that
+        decode tokens back to points."""
+        tok, dec = self.dims
+        self.dgcnn_2 = PatchDGCNN(tok, dec, generator)
+        self.decoder = FoldingPatchDecoder(dec, self.group_size, generator)
 
     def tokenize_groups(self, neigh: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
         """Logits (B, G, V) of patches grouped already."""

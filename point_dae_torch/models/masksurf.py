@@ -21,7 +21,9 @@ does). Reference quirks are kept: ``_pack_local`` weighs by the mask under
 second loss, ``MaskSurf_v2_local_point_curve``'s second term is the
 position channel. Calling convention: ``model(corrupted, clean (B, N, >=
 6), draws=None, generator=None) -> (loss_xyz, loss_normal)``; draws are a
-``ModelDraws`` (patch mask, stochastic depth).
+``ModelDraws`` (patch mask, stochastic depth). ``reconstruct(clean,
+draws=None, generator=None)`` gives the visualization views (token_dis's
+after ``build_reconstruct``).
 """
 from __future__ import annotations
 
@@ -94,6 +96,28 @@ class _MaskSurfBase(_CAETransformerBase):
         x_rec = self._decode(x_vis, mask, center, dp_dec)
         return xyz, attr, center, x_vis, x_rec, mask
 
+    @staticmethod
+    def _vis_views(xyz, center, mask, rebuild, normals):
+        """(visible patches at their centres, rebuilt masked patches at their
+        centres, rebuilt normals of the masked patches, mask), each cloud
+        (B, G * S, 3) with zeros at the other patches' rows."""
+        B = mask.shape[0]
+        off = center[:, :, None, :]
+        m = mask[..., None, None]
+        return (torch.where(m, 0.0, xyz + off).reshape(B, -1, 3),
+                torch.where(m, rebuild + off, 0.0).reshape(B, -1, 3),
+                torch.where(m, normals, 0.0).reshape(B, -1, 3), mask)
+
+    def reconstruct(self, clean, draws: Optional[ModelDraws] = None,
+                    generator: Optional[torch.Generator] = None):
+        """The visualization path of the point + normal heads (JAX
+        ``masksurf.py:85-97``): ``_vis_views`` of every patch's rebuild."""
+        xyz, _, center, _, x_rec, mask = self._run(clean, draws, generator, attrs=False)
+        B, G, S, _ = xyz.shape
+        return self._vis_views(xyz, center, mask,
+                               self.increase_dim(x_rec).float().reshape(B, G, S, 3),
+                               self.increase_dim2(x_rec).float().reshape(B, G, S, 3))
+
 
 @MODELS.register_module()
 class MaskSurf(_MaskSurfBase):
@@ -161,6 +185,21 @@ class _SurfV2Base(_MaskSurfBase):
         self.increase_dim = Dense(C, ch * self.group_size, generator=generator)
         self.coarse_pred = MLP(C, (1024, 1024, ch * self.num_group), generator=generator)
 
+    def _surfels(self, clean: torch.Tensor) -> torch.Tensor:
+        """The surfel cloud the model groups: the clean (B, N, 6) cloud."""
+        return clean
+
+    def reconstruct(self, clean, draws: Optional[ModelDraws] = None,
+                    generator: Optional[torch.Generator] = None):
+        """The visualization path of the surfel head (JAX ``masksurf.py:
+        227-237, 551-562``): ``_vis_views`` of every patch's rebuilt points
+        and normals."""
+        xyz, _, center, _, x_rec, mask = self._run(self._surfels(clean), draws, generator,
+                                                   attrs=False)
+        B, G, S, _ = xyz.shape
+        surf = self.increase_dim(x_rec).float().reshape(B, G, S, self.CHANNELS)
+        return self._vis_views(xyz, center, mask, surf[..., :3], surf[..., 3:6])
+
     def _local_losses(self, x_rec, xyz, attr, center, mask):
         """(loss_xyz, loss_normal, loss_position), each a masked mean; the
         position pairs through the xyz chamfer's indices, taken from the
@@ -198,6 +237,19 @@ class MaskSurf_v2_local_global_point(_SurfV2Base):
         d1, d2, _, _ = nn_distance(coarse[..., :3], center)
         loss_cx = d1.mean() + d2.mean()
         return _stop_scaled(loss_cx, lx, 1e-12) + lx, torch.zeros((), device=lx.device)
+
+    def reconstruct(self, clean, draws: Optional[ModelDraws] = None,
+                    generator: Optional[torch.Generator] = None):
+        """(coarse global surfels' xyz (B, G, 3), rebuilt masked patches at
+        their centres, their rebuilt normals, mask) (JAX ``masksurf.py:
+        290-306``)."""
+        xyz, _, center, x_vis, x_rec, mask = self._run(clean, draws, generator, attrs=False)
+        B, G, S, _ = xyz.shape
+        surf = self.increase_dim(x_rec).float().reshape(B, G, S, 7)
+        coarse = self.coarse_pred(self._global_feature(x_vis, mask)).reshape(B, -1, 7)
+        _, rebuild, normals, _ = self._vis_views(xyz, center, mask, surf[..., :3],
+                                                 surf[..., 3:6])
+        return coarse[..., :3], rebuild, normals, mask
 
 
 @MODELS.register_module()
@@ -279,6 +331,28 @@ class MaskSurf_v2_token_dis(_MaskSurfBase):
         self.dvae_teacher.eval()            # the frozen tokenizer never trains
         return self
 
+    def build_reconstruct(self, generator: Optional[torch.Generator] = None) -> None:
+        """Build the tokenizer's ``dgcnn_2`` and ``decoder``, which only
+        ``reconstruct`` runs (the JAX package creates their parameters only
+        when initialised through it), on the model's device."""
+        if not hasattr(self.dvae_teacher, "decoder"):
+            self.dvae_teacher.build_decoder(generator)
+            self.dvae_teacher.to(self.dvae_teacher.codebook.device).eval()
+
+    def reconstruct(self, clean, draws: Optional[ModelDraws] = None,
+                    generator: Optional[torch.Generator] = None):
+        """Decode the predicted tokens through the frozen tokenizer (JAX
+        ``masksurf.py:462-479``): (visible patches at their centres, the
+        decoded fine patches of the masked ones at their centres, the
+        predicted token ids (B, G), mask). Needs ``build_reconstruct``."""
+        xyz, _, center, _, x_rec, mask = self._run(clean, draws, generator, attrs=False)
+        B = mask.shape[0]
+        ids = self.increase_dim(x_rec).float().argmax(-1)
+        _, fine = self.dvae_teacher.decode_tokens(ids, center)
+        off, m = center[:, :, None, :], mask[..., None, None]
+        return (torch.where(m, 0.0, xyz + off).reshape(B, -1, 3),
+                torch.where(m, fine + off, 0.0).reshape(B, -1, 3), ids, mask)
+
     def forward(self, corrupted, clean, draws: Optional[ModelDraws] = None,
                 generator: Optional[torch.Generator] = None):
         del corrupted
@@ -307,10 +381,14 @@ class _SurfCurveBase(_SurfV2Base):
 
     CHANNELS = 8
 
-    def _curve_run(self, clean, draws, generator):
+    def _surfels(self, clean: torch.Tensor) -> torch.Tensor:
+        """xyz, normal and curvature with the position appended: (B, N, 8)."""
         pts = clean[..., :7]
         pos = (pts[..., :3] * pts[..., 3:6]).sum(-1, keepdim=True).abs()
-        return self._run(torch.cat([pts, pos], -1), draws, generator)
+        return torch.cat([pts, pos], -1)
+
+    def _curve_run(self, clean, draws, generator):
+        return self._run(self._surfels(clean), draws, generator)
 
     def _local_losses_curve(self, x_rec, xyz, attr, mask):
         """(loss_xyz, loss_normal, loss_curve, loss_position), each a masked

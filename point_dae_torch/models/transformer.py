@@ -1,5 +1,6 @@
 """The flagship transformer Point-DAE (port of
-``point_dae_tpu/models/transformer.py:47-231,234-427,457-573,601-634``),
+``point_dae_tpu/models/transformer.py:47-231,234-427,457-573,601-645``, its
+``reconstruct`` included),
 the classification fine-tune models ``PointTransformer`` (``:742-801``),
 ``PointTransformerNoClassToken`` (``:804-837``) and the linear probe
 ``PointTransformer_LinearClassification`` (``:838-860``, also registered
@@ -312,11 +313,12 @@ class _CAETransformerBase(nn.Module):
     def _masked_pack_idx(self, mask: torch.Tensor):
         """(midx (B, M), w (B * M,) f32) packing the masked token slots first
         to the fixed capacity M = floor(max_ratio * G), padding slots with
-        weight 0; or None when every token enters the loss (``all_patch``)
-        or packing would not shrink anything, and when unmasked."""
+        weight 0; or None when every token enters the loss (``all_patch``),
+        when packing would not shrink anything or leave no slot, and when
+        unmasked."""
         G = mask.shape[1]
         M = static_num_masked(0.8 if self.rand_ratio else self.mask_ratio, G)
-        if not self.masked_mode or self.all_patch or M >= G:
+        if not self.masked_mode or self.all_patch or not 0 < M < G:
             return None
         order = torch.sort((~mask).to(torch.uint8), dim=-1, stable=True).indices
         w = torch.arange(M, device=mask.device)[None, :] < mask.sum(-1)[:, None]
@@ -380,6 +382,24 @@ class PointCAE_transformer_fc_global_folding_local(_CAETransformerBase):
         return sample_patch_draws(self.corrupt_type, batch, self.num_group,
                                   self.group_size, generator, device)
 
+    def _run(self, clean: torch.Tensor, draws: Optional[ModelDraws],
+             generator: Optional[torch.Generator]):
+        """Group the clean points, corrupt the patches (in training), encode,
+        decode all G tokens: (neigh, center, x_vis, x_rec, mask)."""
+        pts = clean[..., :3]
+        if draws is None:
+            draws = self.sample_draws(pts.shape[0], generator, pts.device)
+        neigh, center = group_neighborhood(pts, self.num_group, self.group_size)
+        t_neigh, t_center = neigh + center[:, :, None, :], center
+        if self.training:
+            t_neigh, t_center = corrupt_patches(t_neigh, t_center, self.corrupt_type,
+                                                draws.corrupt)
+        t_neigh = t_neigh - t_center[:, :, None, :]
+        dp_enc = draws.dp_encoder if self.training else None
+        dp_dec = draws.dp_decoder if self.training else None
+        x_vis, mask = self._encode(t_neigh, t_center, draws, dp_enc)
+        return neigh, center, x_vis, self._decode(x_vis, mask, center, dp_dec), mask
+
     def _fold_fused(self, x_rec: torch.Tensor) -> torch.Tensor:
         """The fused branch of ``_fold``."""
         return fused_folding(x_rec, self.grid, stage_params(self.folding1),
@@ -404,30 +424,26 @@ class PointCAE_transformer_fc_global_folding_local(_CAETransformerBase):
         """(loss_xyz, loss_global). ``corrupted`` is unused by this model, as
         in the reference; the patches come from ``clean``."""
         del corrupted
-        pts = clean[..., :3]
-        B = pts.shape[0]
-        if draws is None:
-            draws = self.sample_draws(B, generator, pts.device)
-        neigh, center = group_neighborhood(pts, self.num_group, self.group_size)
-        t_neigh, t_center = neigh + center[:, :, None, :], center
-        if self.training:
-            t_neigh, t_center = corrupt_patches(t_neigh, t_center, self.corrupt_type,
-                                                draws.corrupt)
-        t_neigh = t_neigh - t_center[:, :, None, :]
-        dp_enc = draws.dp_encoder if self.training else None
-        dp_dec = draws.dp_decoder if self.training else None
-        x_vis, mask = self._encode(t_neigh, t_center, draws, dp_enc)
-
+        neigh, center, x_vis, x_rec, mask = self._run(clean, draws, generator)
         gfeat = self._global_feature(x_vis, mask)
-        coarse = self.coarse_pred(gfeat).float().reshape(B, -1, 3)
+        coarse = self.coarse_pred(gfeat).float().reshape(gfeat.shape[0], -1, 3)
         loss2 = self.global_loss_fn(coarse, center)
-
-        x_rec = self._decode(x_vis, mask, center, dp_dec)
         x_loc, gt, w = self._local_recon_inputs(x_rec, neigh, mask)
         fold = checkpointed(self._fold, x_loc) if self.remat_fold else self._fold(x_loc)
         rebuild = fold.reshape(gt.shape[0], -1, 3)
         loss1 = masked_loss_fn(self.loss)(rebuild, gt, w)
         return loss1, loss2
+
+    def reconstruct(self, clean: torch.Tensor, draws: Optional[ModelDraws] = None,
+                    generator: Optional[torch.Generator] = None):
+        """The visualization path (JAX ``transformer.py:636-645``): (coarse
+        global cloud (B, 64, 3), every patch folded and moved to its centre
+        (B, G, 36, 3), mask (B, G)). All G decoded tokens are folded, not
+        only the masked ones; in eval mode no patch is corrupted."""
+        _, center, x_vis, x_rec, mask = self._run(clean, draws, generator)
+        gfeat = self._global_feature(x_vis, mask)
+        coarse = self.coarse_pred(gfeat).float().reshape(gfeat.shape[0], -1, 3)
+        return coarse, self._fold(x_rec) + center[:, :, None, :], mask
 
 
 # ----------------------------------------------------------- finetune heads

@@ -186,6 +186,11 @@ _POINTNET2 = [("pointnetv2_encoder.sa{j}.mlps.0.layer{i}.conv",
 _POINTNET2 += [(f"cls_head_finetune.{i}", f"cls_head/{f}")
                for i, f in ((0, "fc1"), (1, "bn1"), (4, "fc2"), (5, "bn2"), (8, "cls"))]
 
+# the MlMAE family (convert_torch._MLMAE_RULES): the transformer's torch
+# names, its encoder's blocks directly under MAE_encoder in the flax tree
+_MLMAE = [(f"MAE_encoder.blocks.blocks.{{i}}.{_t}", f"MAE_encoder/block{{i}}/{_f}")
+          for _t, _f in _BLOCK_LEAVES]
+
 _STATS = {"running_mean": "mean", "running_var": "var"}
 _QKV = ("query", "key", "value")
 _QKV_PATH = re.compile(r"^(?P<mod>.*/self_attn)/(?P<part>query|key|value)/(?P<leaf>kernel|bias)$")
@@ -201,8 +206,11 @@ _TORCH_TO_FLAX = {family: [(_pattern(t, "."), f) for t, f in _RULES + rules]
                                         ("dgcnn", _DGCNN_ENCODER + _DGCNN_HEAD),
                                         ("dgcnn_partseg", _DGCNN_PARTSEG_ENCODER),
                                         ("pointnet2", _POINTNET2))}
+# the first matching rule wins: MlMAE's block rules go before the generic ones
+_TORCH_TO_FLAX["mlmae"] = [(_pattern(t, "."), f) for t, f in _MLMAE + _RULES
+                           + _TRANSFORMER_HEAD]
 _FLAX_TO_TORCH = [(_pattern(f, "/"), t) for t, f in _RULES + _TRANSFORMER_HEAD
-                  + _DGCNN_ENCODER + _DGCNN_HEAD + _DGCNN_PARTSEG_ENCODER]
+                  + _DGCNN_ENCODER + _DGCNN_HEAD + _DGCNN_PARTSEG_ENCODER + _MLMAE]
 _FLAX_TO_TORCH_PN2 = [(_pattern(f, "/"), t) for t, f in _POINTNET2] + _FLAX_TO_TORCH
 
 
@@ -265,15 +273,17 @@ def flax_paths(names) -> Dict[str, str]:
     return {name: _match(table, name)[0] for name in names}
 
 
-def to_flax(state_dict: Dict[str, torch.Tensor], num_heads: Optional[int] = None
-            ) -> Tuple[Dict, Dict]:
+def to_flax(state_dict: Dict[str, torch.Tensor], num_heads: Optional[int] = None,
+            family: Optional[str] = None) -> Tuple[Dict, Dict]:
     """Port ``state_dict`` -> nested ``(params, batch_stats)`` of numpy
     arrays (copies: later updates of the model leave them as they are),
     laid out as the JAX package's models initialise them. ``num_heads``:
     the 3DETR encoder's head count, which its attention's flax leaves need
-    (and its torch ones do not show)."""
+    (and its torch ones do not show); ``family="mlmae"`` for the MlMAE
+    models, whose torch names do not tell them apart from the flagship's
+    (their encoder's blocks sit directly under ``MAE_encoder`` in flax)."""
     params, stats = {}, {}
-    table = _TORCH_TO_FLAX[_family(state_dict)]
+    table = _TORCH_TO_FLAX[family or _family(state_dict)]
     for name, t in state_dict.items():
         v = t.detach().cpu().numpy().copy() if isinstance(t, torch.Tensor) else np.array(t)
         path, leaf = _match(table, name)

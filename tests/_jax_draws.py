@@ -278,3 +278,59 @@ def pipeline_draws(key, raw, aug_type, corrupt_type, npoints):
     return PipelineDraws(_t(corrupted).long(), _t(clean).long(),
                          to_cloud_draws(corrupt_type, *cloud),
                          [None if d is None else _t(d) for d in aug])
+
+
+def level_draws(key, pts, name, level):
+    """The draws of the JAX package's ``robustness.corrupt_batch_level(key,
+    pts (B, n, 3), name, level)`` as the port's ``LevelDraws``, with the
+    JAX output (jittable: ``name`` and ``level`` static). The resample's
+    ranks are JAX's own, drawn against the validity mask its corruption
+    returns."""
+    from point_dae_tpu.engine import robustness as jrob
+
+    from point_dae_torch.engine.robustness import DROPOUT_RATES, SCALE_LEVELS
+
+    B, n = pts.shape[:2]
+    ones = jnp.ones(n, bool)
+    lv = jnp.float32(level)
+
+    def one(k, p):
+        if name == "scale":
+            s = SCALE_LEVELS[level]
+            return jax.random.uniform(k, (3,), minval=1.0 / s, maxval=s), None
+        if name == "jitter":
+            return jax.random.normal(k, p.shape), None
+        if name == "rotate":
+            clip = math.pi / 5.0 * (float(level) + 1.0)
+            return jax.random.uniform(k, (3,), minval=-clip, maxval=clip), None
+        k1, k2 = jax.random.split(k)
+        if name == "dropout_global":
+            op, mask = jax.random.uniform(k1, (n,)), jc.dropout_global(
+                k1, ones, DROPOUT_RATES[level])
+        elif name == "dropout_local":
+            op = _dropout_local(k1, n, 8, 0.1 * (level + 1))
+            mask = jc.dropout_local(k1, p, ones, drop_ratio=0.1 * (level + 1))
+        elif name == "add_global":
+            op, (_, mask) = _ball(k1, n // 2), jc.add_global(k1, p, ones, lv, n + n // 2)
+        else:
+            op, (_, mask) = _add_local(k1, n, n // 2), jc.add_local(k1, p, ones, lv,
+                                                                   n + n // 2)
+        cnt = jnp.maximum(jnp.sum(mask, dtype=jnp.int32), 1)
+        return op, jax.random.randint(k2, (n,), 0, cnt)
+
+    ops, ranks = jax.vmap(one)(jax.random.split(key, B), pts)
+    out = jrob.corrupt_batch_level(key, pts, name, level)
+    return ops, ranks, out
+
+
+def to_level_draws(name, ops, ranks):
+    """``level_draws`` output (on the host) -> the port's ``LevelDraws``."""
+    from point_dae_torch.engine.robustness import LevelDraws
+
+    if name == "dropout_local":
+        ops = tc.DropoutLocalDraws(**{k: _t(v) for k, v in ops.items()})
+    elif name == "add_local":
+        ops = tc.AddLocalDraws(**{k: _t(v) for k, v in ops.items()})
+    else:
+        ops = _t(ops)
+    return LevelDraws(ops, None if ranks is None else _t(ranks).long())

@@ -1,7 +1,23 @@
-"""Small data trees on disk for the port's data and run tests."""
+"""Small data trees on disk for the port's data and run tests, and the
+intra-op thread setting of the port's test modules."""
 import json
 
 import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for a test module's CPU ops. Its tensors are
+    small, and the suite runs six workers on the host's cores: there the
+    default of a thread a core oversubscribes them (60 forwards of a tiny
+    DGCNN took 3.3 s on one thread and 46.8 s on eight, alone, and 6 s
+    against 170 s with six such processes side by side)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 SEG_PARTS = {"Airplane": [0, 1, 2, 3], "Mug": [36, 37]}
 

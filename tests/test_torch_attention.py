@@ -23,6 +23,8 @@ from point_dae_tpu.ops import pallas_attn
 from point_dae_torch.models import layers as tlayers
 from point_dae_torch.ops import attention
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 B, H, D = 16, 2, 64
 FLIP = 2 ** -7
 

@@ -14,6 +14,8 @@ from point_dae_torch.losses.chamfer import (chamfer_l2, masked_chamfer_l2,
                                             nn_half_small, nn_half_tiled,
                                             use_tiled_kernel)
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 
 def test_plain_patch_chamfer_matches_pallas_interpret():
     rng = np.random.default_rng(0)

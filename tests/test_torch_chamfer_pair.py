@@ -3,6 +3,7 @@ nn_half_tiled_pair: both directions of an nn_distance call in one launch on
 the card) and their launch plans, on the CPU: the entries against the two
 plain halves and against the JAX package's Pallas kernels in interpret mode;
 the plans' coverage and shared memory over the gates' shapes."""
+import functools
 import re
 
 import jax.numpy as jnp
@@ -15,6 +16,8 @@ from point_dae_tpu.losses import chamfer as jch
 
 from point_dae_torch.losses import chamfer
 from point_dae_torch.utils import kernels
+
+from _torch_files import one_torch_thread  # noqa: F401
 
 BLOCK_SMEM = 232448             # a block's shared memory on the H100 (227 KB)
 
@@ -114,6 +117,16 @@ def _gate_shapes():
     return [(n, m) for n in sizes for m in sizes if n * m >= 512 * 512]
 
 
+@functools.lru_cache(maxsize=None)
+def _rows_written_once(plan, rows: int) -> bool:
+    """Every row of ``rows`` is held by exactly one (block, thread, r) slot
+    of ``plan`` that stores it (one check a distinct plan and row count:
+    the shapes of the gate share them)."""
+    held = plan.rows_of(rows)
+    written = held[held < rows]
+    return bool((torch.bincount(written, minlength=rows) == 1).all())
+
+
 @pytest.mark.parametrize("B", [1, 128])
 def test_tiled_plan_covers_rows_and_columns_once(B):
     """Over the tiled gate's shapes: every row of both directions is written
@@ -126,9 +139,7 @@ def test_tiled_plan_covers_rows_and_columns_once(B):
         assert 1 <= plan.threads <= 256 and plan.piece >= 1
         assert plan.smem() <= BLOCK_SMEM, (N, M, plan)
         for rows, cols in ((N, M), (M, N)):
-            held = plan.rows_of(rows)
-            written = held[held < rows]
-            assert torch.equal(torch.sort(written).values, torch.arange(rows)), (N, M, plan)
+            assert _rows_written_once(plan, rows), (N, M, plan)
             ranges = plan.ranges(cols)
             assert ranges[0][0] == 0 and ranges[-1][1] == cols
             assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))

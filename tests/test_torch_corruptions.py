@@ -34,6 +34,8 @@ from point_dae_torch.models import build_model_from_cfg
 from point_dae_torch.utils.config import ConfigDict
 from point_dae_torch.utils.convert import _flatten, from_flax, to_flax
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 SINGLE_AFFINES = tuple(jc._AFFINE_FNS)     # every name, partial widths and levels included
 BATCH, N = 8, 64
 

@@ -21,6 +21,8 @@ from point_dae_torch.data import corruptions as tc
 from point_dae_torch.data import corruptions_patch as tcp
 from point_dae_torch.utils.config import cfg_from_yaml_file, propagate_corrupt_type
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DGCNN, FLAGSHIP = "Point_CAE_DGCNN_FCOnly", "PointCAE_transformer_fc_global_folding_local"
 N, B, G, S = 32, 2, 4, 8

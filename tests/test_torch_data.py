@@ -23,7 +23,7 @@ from point_dae_torch.data.device_cache import DTYPES, build_device_cache
 from point_dae_torch.data.loader import DataLoader
 from point_dae_torch.utils.registry import DATASETS
 
-from _torch_files import partseg_tree
+from _torch_files import one_torch_thread, partseg_tree  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SYN = {"NAME": "Synthetic", "size": 12, "N_POINTS": 64, "num_classes": 5,

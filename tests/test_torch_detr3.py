@@ -39,6 +39,8 @@ from point_dae_torch.ops.geometry import (ball_query, furthest_point_sample, gat
 from point_dae_torch.utils.config import ConfigDict
 from point_dae_torch.utils.convert import _flatten, from_flax, to_flax
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 B, N, G, S, C, DEPTH, HEADS, FFN = 4, 256, 16, 8, 32, 2, 2, 128
 V = G - G // 2                      # rand_ratio: the visible capacity
 MODEL = {"NAME": "PointCAE_transformer_fc_global_fc_local_3detr",

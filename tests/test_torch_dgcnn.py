@@ -30,6 +30,8 @@ from point_dae_torch.ops.geometry import resample_batch
 from point_dae_torch.utils.config import ConfigDict
 from point_dae_torch.utils.convert import _flatten, from_flax, to_flax
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 TYPES = ("affine_r3", "dropout_local")
 B, NRAW, NPOINTS, STEPS_PER_EPOCH = 4, 256, 64, 10
 

@@ -28,6 +28,8 @@ from point_dae_torch.ops.gather import gather_by_key_plain
 from point_dae_torch.ops.geometry import resample_batch
 from point_dae_torch.utils.config import propagate_corrupt_type
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 B, N = 3, 128
 
 

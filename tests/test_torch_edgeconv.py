@@ -15,6 +15,8 @@ from point_dae_tpu.ops import pallas_edgeconv as jec
 from point_dae_torch.models.dgcnn import DGCNNEncoder, EdgeConv, FusedEdgeConv
 from point_dae_torch.ops import edgeconv as tec
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 
 def _inputs(seed, B, N, C, Cf, duplicates):
     rng = np.random.default_rng(seed)

@@ -10,6 +10,8 @@ import torch
 
 from point_dae_torch.ops import edgeconv
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 # (B, N, Cf, C, k)
 SHAPES = [(2, 100, 3, 8, 7), (3, 64, 5, 12, 20), (1, 300, 16, 4, 33), (2, 40, 3, 6, 40)]
 

@@ -35,6 +35,8 @@ from point_dae_torch.utils.checkpoint import merge_pretrained, strip_prefixes
 from point_dae_torch.utils.config import ConfigDict
 from point_dae_torch.utils.convert import _flatten, from_flax, to_flax
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 B, STEPS_PER_EPOCH, LR = 4, 10, 1e-3
 _PT = {"NAME": "PointTransformer", "trans_dim": 64, "depth": 2, "drop_path_rate": 0.1,
        "cls_dim": 15, "num_heads": 2, "group_size": 8, "num_group": 16,

@@ -35,6 +35,8 @@ from point_dae_torch.models.transformer import ModelDraws
 from point_dae_torch.utils.config import ConfigDict
 from point_dae_torch.utils.convert import _flatten, from_flax, to_flax
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 B, NRAW, STEPS_PER_EPOCH = 4, 256, 10
 
 

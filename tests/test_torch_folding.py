@@ -28,6 +28,8 @@ from point_dae_torch.ops import folding
 from point_dae_torch.utils.config import ConfigDict
 from point_dae_torch.utils.convert import from_flax
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 C = F = 128
 FLIP = 2 ** -7
 

@@ -17,6 +17,8 @@ from point_dae_tpu.ops.pallas_fps import fps_pallas, fps_pallas_batched
 from point_dae_torch.ops import fps, geometry
 from point_dae_torch.ops.patchify import fps_rows
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 
 def _cloud(B, N, seed):
     """Normal points, a block of them duplicated, a few at the origin and

@@ -10,6 +10,8 @@ import torch
 
 from point_dae_torch.ops import gather
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,N,C,Q", [(2, 256, 64, 1200), (3, 100, 5, 37)])

@@ -18,6 +18,8 @@ from point_dae_torch.ops.gather import (gather_rows, gather_rows_small_c,
                                         use_scatter_kernel)
 from point_dae_torch.ops.patchify import fused_patchify, fused_patchify_plain
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 
 def test_fps_knn_and_group_neighborhood_match_jax():
     rng = np.random.default_rng(3)

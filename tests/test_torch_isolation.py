@@ -21,6 +21,8 @@ from point_dae_torch.models import build_model_from_cfg
 from point_dae_torch.utils.config import ConfigDict
 from point_dae_torch.utils.convert import _flatten, from_flax, to_flax
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "point_dae_torch"
 
@@ -37,7 +39,8 @@ _BLOCK = "import sys\nfor _m in %r:\n    sys.modules[_m] = None\n" % (BLOCKED,)
 
 
 def _run(code, tmp_path=None):
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    # one intra-op thread, as in the test modules (_torch_files.one_torch_thread)
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     return subprocess.run([sys.executable, "-c", _BLOCK + code], cwd=tmp_path or ROOT,
                           env=env, capture_output=True, text=True, timeout=300)
 
@@ -90,6 +93,34 @@ def test_cli_pretrains_on_the_cpu_without_the_missing_packages(tmp_path):
     assert {"ckpt-last.pth", "ckpt-best.pth", "config.yaml"} <= set(os.listdir(exp))
     log = next(exp.glob("*.log")).read_text()
     assert "[Training] EPOCH: 0" in log and "[Validation] EPOCH: 0  acc = " in log
+
+
+def test_downstream_modes_without_h5py_and_matplotlib(tmp_path):
+    """As on the card's machine (h5py and matplotlib missing too): the
+    downstream engines and Point_MlMAE import; a ModelNet-C root of h5
+    files raises the reader's ImportError instead of generating the
+    corruptions; a render is saved as ``.png.npy``."""
+    root = tmp_path / "mc"
+    root.mkdir()
+    for split in ["clean"] + [f"{c}_{lv}" for c in
+                              ("scale", "jitter", "rotate", "dropout_global", "dropout_local",
+                               "add_global", "add_local") for lv in range(5)]:
+        (root / f"{split}.h5").write_bytes(b"")
+    code = (
+        "sys.modules['matplotlib'] = None\n"
+        "import numpy as np\n"
+        "from point_dae_torch.engine import robustness, rotation, saliency, visualization\n"
+        "from point_dae_torch.models import MODELS\n"
+        "assert 'Point_MlMAE' in MODELS\n"
+        "try:\n"
+        f"    robustness.eval_corrupt_wrapper(lambda p: p, None, 4, data_root={str(root)!r})\n"
+        "except ImportError as e:\n"
+        "    print('refused:', e)\n"
+        f"visualization._save_png({str(tmp_path / 'x.png')!r}, np.zeros((4, 4, 3), np.float32))\n")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "refused: the ModelNet-C reader needs the h5py package" in out.stdout
+    assert sorted(os.listdir(tmp_path)) == ["mc", "x.png.npy"]
 
 
 def test_from_flax_to_flax_round_trip():

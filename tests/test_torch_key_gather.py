@@ -18,6 +18,8 @@ from point_dae_tpu.ops.pallas_scatter import gather_by_key_small_c_pallas
 from point_dae_torch.ops import gather
 from point_dae_torch.ops.geometry import resample_batch
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))

@@ -21,6 +21,8 @@ from point_dae_torch.ops import edgeconv as tec
 from point_dae_torch.ops import geometry as G
 from point_dae_torch.ops.tiled_knn import knn_kernel, knn_plain
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 
 @pytest.mark.parametrize("B,Nq,Ndb,C,k", [(2, 64, 512, 3, 8), (2, 512, 512, 16, 20)])
 def test_knn_plain_matches_pallas_interpret(B, Nq, Ndb, C, k):

@@ -52,6 +52,8 @@ from point_dae_torch.ops.geometry import furthest_point_sample, gather_points, p
 from point_dae_torch.utils.config import ConfigDict
 from point_dae_torch.utils.convert import _flatten, from_flax, to_flax
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 B, CLS = 4, 5
 MODELS = {"PointTransformer_LinearClassification": (
               {"trans_dim": 32, "encoder_dims": 32, "depth": 2, "num_heads": 2,

@@ -37,6 +37,8 @@ from point_dae_torch.models.layers import PatchEncoder
 from point_dae_torch.utils.config import ConfigDict
 from point_dae_torch.utils.convert import _flatten, from_flax, to_flax
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 B, N = 4, 256
 GROUPS, SIZES, DIMS = [32, 16, 8], [8, 4, 4], [16, 32, 48]
 MASKED = 6                                   # floor(0.8 * 8)

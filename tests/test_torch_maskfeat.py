@@ -25,6 +25,8 @@ from point_dae_torch.models.transformer import ModelDraws
 from point_dae_torch.utils.config import ConfigDict
 from point_dae_torch.utils.convert import _flatten, from_flax, to_flax
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 B, N, G, S, DEPTH = 2, 128, 16, 8, 2
 CONFIG = {
     "optimizer": {"type": "AdamW", "part": "all",

@@ -33,6 +33,8 @@ from point_dae_torch.models.transformer import ModelDraws
 from point_dae_torch.utils.config import ConfigDict
 from point_dae_torch.utils.convert import _flatten, from_flax, to_flax
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 B, N, G, S, DEPTH, DEC_DEPTH = 2, 128, 16, 8, 2, 1
 MASKED = 9                      # floor(0.6 * 16)
 LR = 1e-3

@@ -22,6 +22,8 @@ from point_dae_tpu.ops.pallas_mlp import (_bwd_ln_kernel, _fwd_ln_kernel,
 
 from point_dae_torch.ops.mlp import fused_mlp_ln
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 R, C, H = 256, 128, 512
 NAMES = ("dx", "dgamma", "dbeta", "dk1", "db1", "dk2", "db2")
 

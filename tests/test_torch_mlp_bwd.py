@@ -24,6 +24,8 @@ from point_dae_tpu.ops.pallas_mlp import _bwd_ln_kernel, _core_bwd_call, _ln_cor
 
 from point_dae_torch.ops import mlp
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 R = 256
 TOL = 1e-3
 LN_NAMES = ("dx", "dgamma", "dbeta", "dk1", "db1", "dk2", "db2")

@@ -23,6 +23,8 @@ from point_dae_tpu.ops.pallas_mlp import _fwd_ln_kernel, _ln_core_call
 
 from point_dae_torch.ops import mlp
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 R = 256
 TOL = 2e-3
 SHAPES = [(128, 128), (128, 512), (256, 256), (256, 1024)]

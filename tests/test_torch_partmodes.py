@@ -38,6 +38,8 @@ from point_dae_torch.models.common import ClsDraws
 from point_dae_torch.utils.config import ConfigDict
 from point_dae_torch.utils.convert import _flatten, flax_paths, from_flax, to_flax
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 LR, CLIP, BIG = 1e-2, 10.0, 1e7
 STEPS_CLIP = 5.0
 _TF = {"trans_dim": 32, "encoder_dims": 32, "depth": 1, "num_heads": 2, "drop_path_rate": 0.1,

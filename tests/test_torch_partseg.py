@@ -38,6 +38,8 @@ from point_dae_torch.ops.gather import gather_rows, scatter_rows_add, scatter_ro
 from point_dae_torch.utils.config import ConfigDict
 from point_dae_torch.utils.convert import _flatten, from_flax, to_flax
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 B, N, STEPS_PER_EPOCH, LR = 4, 128, 10, 1e-3
 MODELS = {
     "transformer": {"NAME": "PointTransformerPartSeg", "trans_dim": 32, "depth": 4,

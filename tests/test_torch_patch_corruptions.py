@@ -18,6 +18,8 @@ from point_dae_tpu.data import corruptions_patch as jcp
 
 from point_dae_torch.data import corruptions_patch as tcp
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 B, G, S = 4, 8, 32
 FAMILIES = sorted(jcp.PATCH_SUPPORTED)
 CASES = {**{f: (f,) for f in FAMILIES},

@@ -13,6 +13,8 @@ from point_dae_tpu.ops.pallas_patchify import fused_patchify_pallas
 
 from point_dae_torch.ops import fps, patchify
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 
 def _cloud(kind, B, N, seed):
     rng = np.random.default_rng(seed)

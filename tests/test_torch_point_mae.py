@@ -29,6 +29,8 @@ from point_dae_torch.utils.checkpoint import merge_pretrained
 from point_dae_torch.utils.config import ConfigDict
 from point_dae_torch.utils.convert import _flatten, from_flax, to_flax
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 B, N, G, S, C = 4, 256, 16, 8, 32
 MASKED = 9                                     # floor(0.6 * 16)
 BLOCK_KEY = jax.random.key(13)

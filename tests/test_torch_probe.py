@@ -28,6 +28,8 @@ from point_dae_torch.models.common import ClsDraws
 from point_dae_torch.utils.config import ConfigDict
 from point_dae_torch.utils.convert import _flatten, from_flax, to_flax
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 B = 4
 _NCT = {"trans_dim": 32, "depth": 2, "drop_path_rate": 0.1, "cls_dim": 5, "num_heads": 2,
         "group_size": 8, "num_group": 16, "encoder_dims": 32}

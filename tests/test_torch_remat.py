@@ -14,6 +14,8 @@ from point_dae_torch.models import build_model_from_cfg
 from point_dae_torch.models.dgcnn import DGCNNEncoder
 from point_dae_torch.utils.config import ConfigDict
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 B = 4
 
 

@@ -36,6 +36,8 @@ from point_dae_torch.ops import mlp
 from point_dae_torch.utils.config import ConfigDict
 from point_dae_torch.utils.convert import _flatten, from_flax, to_flax
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 R, C, H = 512, 128, 512
 NAMES = ("dx", "dk1", "db1", "dk2", "db2")
 

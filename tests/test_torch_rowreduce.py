@@ -12,6 +12,8 @@ import torch
 
 from point_dae_torch.ops import edgeconv, gather
 
+from _torch_files import one_torch_thread  # noqa: F401
+
 SMS = edgeconv.H100_SMS
 # the fused EdgeConv's and aggregate_from_idx's shapes on the paths: the DGCNN
 # pretrain step (and MaskFeat, the dropout configs), fine-tune B and C, the

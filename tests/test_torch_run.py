@@ -30,7 +30,7 @@ from point_dae_torch.utils.checkpoint import resume_checkpoint, save_checkpoint
 from point_dae_torch.utils.config import ConfigDict
 from point_dae_torch.utils.convert import _flatten, to_flax
 
-from _torch_files import partseg_tree
+from _torch_files import one_torch_thread, partseg_tree  # noqa: F401
 
 SYN = {"NAME": "Synthetic", "N_POINTS": 128, "num_classes": 5, "with_normal": True}
 OTH = {"subset": "train", "npoints": 64, "size": 16}
@@ -231,20 +231,22 @@ def test_cli_validations_match_jax(tmp_path, argv, msg):
                                    ["--svm_classification"], ["--task_affinity"],
                                    ["--test", "--ckpts", "x"]])
 def test_cli_modes_not_ported_raise(tmp_path, flags, monkeypatch):
-    """A mode not ported raises NotImplementedError naming the ROADMAP item;
-    the two probe flags, ported since, reach ``engine/probe.py`` instead
-    (its functions stubbed here; tests/test_torch_probe.py runs them)."""
+    """Every mode that an earlier port raised NotImplementedError for now
+    reaches its engine's entry, as the JAX CLI dispatches it (the entries
+    stubbed here; tests/test_torch_probe.py and
+    tests/test_torch_downstream.py run them)."""
+    from point_dae_torch.engine import probe, robustness, rotation, saliency, visualization
+
     argv = ["--config", "cfgs/pretrain_synthetic_dgcnn.yaml", "--root_folder",
             str(tmp_path)] + flags
-    if flags[0] in ("--svm_classification", "--task_affinity"):
-        from point_dae_torch.engine import probe
-
-        mode = flags[0][2:]
-        monkeypatch.setattr(probe, mode, lambda config, args, **kw: mode)
-        assert cli.main(argv, device="cpu") == mode
-        return
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        cli.main(argv, device="cpu")
+    entry = {"--test_corruption": (robustness, "test_net_corruption"),
+             "--so3_rotation": (rotation, "run_net_rotation"),
+             "--vis_saliency": (saliency, "vis_saliency_map"),
+             "--svm_classification": (probe, "svm_classification"),
+             "--task_affinity": (probe, "task_affinity"),
+             "--test": (visualization, "test_vis_reconstruction")}[flags[0]]
+    monkeypatch.setattr(*entry, lambda config, args, **kw: entry[1])
+    assert cli.main(argv, device="cpu") == entry[1]
 
 
 def test_cli_refuses_the_cpu_by_default(tmp_path, monkeypatch):
