@@ -292,6 +292,7 @@ The line before the last is the kernels' JSON record; the last line is
 
     python3 chip_smoke.py
 """
+import contextlib
 import copy
 import dataclasses
 import json
@@ -5482,6 +5483,426 @@ def phase_downstream(torch, device, card):
         f"{n} {b - a:.1f}" for n, a, b in zip(names, stamps, stamps[1:])))
 
 
+CNN_CFG = "cfgs/pretrain_PointCAE_affine_r3.yaml"    # model.NAME replaced in memory
+CNN_BATCH, CNN_STEPS = 128, 3
+_CNN_DG = {"knn_aggregate_fwd": 4, "knn_aggregate_bwd_first": 4}
+_CNN_DGPS = {"knn": 3, "gather_rows_small_c": 1, "scatter_rows_add": 2}
+_CNN_PN2 = {"fps": 2, "gather_rows_small_c": 2, "scatter_rows_add": 1}
+_CNN_MA2E = {"fps": 2, "patchify": 1, "gather_rows_small_c": 3, "scatter_rows_add": 1}
+_CNN_PCN = {"nn_half_tiled": 2}                       # coarse and fine, a launch each
+_CNN_FC = {"nn_half_tiled": 1}
+CNN_RUNS = (   # (class, launches a step, checked on the card against the CPU)
+    ("Point_CAE_DGCNN", {**_CNN_DG, **_CNN_PCN}, True),
+    ("Point_CAE_DGCNN_proj", {**_CNN_DG, **_CNN_PCN}, False),
+    ("Point_CAE_DGCNN_FoldOnly", {**_CNN_DG, **_CNN_FC}, True),
+    ("Point_AE_Corruption_DGCNN", {**_CNN_DG, **_CNN_FC}, False),
+    ("Point_CAE_DGCNN_PartSeg", {**_CNN_DGPS, **_CNN_PCN}, False),
+    ("Point_CAE_DGCNN_proj_PartSeg", {**_CNN_DGPS, **_CNN_PCN}, True),
+    ("Point_CAE_PointNetv2", {**_CNN_PN2, **_CNN_PCN}, False),
+    ("Point_CAE_PointNetv2_Proj", {**_CNN_PN2, **_CNN_PCN}, True),
+    ("Point_CAE_PointNetv2_FCOnly", {**_CNN_PN2, **_CNN_FC}, False),
+    ("Point_MA2E_PointNetv2", {**_CNN_MA2E, "nn_half_small": 1}, True),
+    ("Point_MA2E_PointNetv2_local_only", {**_CNN_MA2E, "nn_half_small": 1}, False),
+    ("Point_MA2E_PointNetv2_global_only", _CNN_MA2E, False),   # no folding head, no patch chamfer
+    ("Point_CAE_PointNet", _CNN_FC, True),
+    ("Point_CAE_PointNet_NoT", _CNN_FC, False),
+    ("Point_CAE_PointNetNoT_PartSeg", _CNN_FC, True))
+CNN_GATE_BATCHES = (8, 16, 32, 64, 128)
+CNN_FT_CFG = "cfgs/finetune_modelnet_transferring_features_1k.yaml"   # NAME: PointNet
+CNN_FT_BATCH = 32
+CNN_RUN_CUT = {"max_epoch": 0, "loss_type": "xyznormal",     # one epoch of 8 steps
+               "model": {"NAME": "Point_CAE_DGCNN"}}
+
+
+def cnn_kernels(torch, raw, device, card):
+    """Each kernel of the slice's paths at its new shapes against its plain
+    version, bit for bit, with its time a call: the tiled chamfer at (128,
+    16384, 3) x (128, 1024, 3), both directions in one launch (the PCN
+    decoders' fine points against the clean cloud), beside its plain halves
+    (taken 16 clouds at a time), torch.cdist + min and its bound; fps at
+    PointNet++'s (128, 1024) -> 512 and (128, 512) -> 128; the small-C
+    gather of those ball groups; the scatter-add of sa2's feature gather's
+    backward ((128, 8192) rows of 128 into 512) and of the DGCNN
+    part-segmentation encoder's stage 2-3 edge gathers ((128, 20480) rows
+    of 64 into 1024), against the plain version on the CPU; the patch
+    chamfer over MA2E's 8192 pairs of 36 and 32 points."""
+    from point_dae_torch.losses import chamfer
+    from point_dae_torch.ops import fps, gather
+    from point_dae_torch.ops.geometry import ball_query, gather_points, knn
+
+    g = torch.Generator(device=device).manual_seed(SEED + 130)
+    B = CNN_BATCH
+    clean = raw[:, :1024, :3].contiguous()
+    # -- the asymmetric tiled chamfer: 16 fine points around each clean one
+    fine = (clean.repeat_interleave(16, 1)
+            + 0.05 * torch.randn((B, 16384, 3), generator=g, device=device)).contiguous()
+    if not (chamfer.use_tiled_kernel(fine, 1024) and chamfer.use_tiled_kernel(clean, 16384)):
+        fail("cnn: the tiled chamfer's gate is closed at (16384, 1024)")
+    got = chamfer.nn_half_tiled_pair(fine, clean)
+    for s in range(0, B, 16):
+        want = (chamfer.nn_half_tiled_plain(fine[s:s + 16], clean[s:s + 16])
+                + chamfer.nn_half_tiled_plain(clean[s:s + 16], fine[s:s + 16]))
+        kernel_vs_plain(torch, "cnn: the tiled chamfer (128, 16384) x (128, 1024)",
+                        [o[s:s + 16] for o in got], want)
+    del got, want
+    ms = cuda_ms(lambda: chamfer.nn_half_tiled_pair(fine, clean), 20)
+
+    def plain_halves():
+        for s in range(0, B, 16):
+            chamfer.nn_half_tiled_plain(fine[s:s + 16], clean[s:s + 16])
+            chamfer.nn_half_tiled_plain(clean[s:s + 16], fine[s:s + 16])
+
+    def lib_chamfer():
+        d = torch.cdist(fine, clean) ** 2
+        return d.min(2).values, d.min(1).values
+
+    plain = cuda_ms(plain_halves, 2)
+    lib = cuda_ms(lib_chamfer, 5)
+    torch.cuda.empty_cache()
+    pairs = 2 * B * 16384 * 1024
+    bound = bound_ms(B * (16384 + 1024) * (12 + 8), pairs * 9, F32_FLOPS)
+    log(f"  [{card}] tiled chamfer (128, 16384, 3) x (128, 1024, 3), both directions, one "
+        f"launch: {ms:.4f} ms a call, bit for bit with the plain halves; plain halves "
+        f"{plain:.4f} ms; torch.cdist + min {lib:.4f} ms; bound {bound[0]:.4f} by {bound[1]}")
+    del fine
+    # -- PointNet++'s two samplings, ball groups and sa2's feature scatter
+    c512_idx = fps.furthest_point_sample(clean, 512)
+    c512 = gather_points(clean, c512_idx)
+    c128 = gather_points(c512, fps.furthest_point_sample(c512, 128))
+    for src, n in ((clean, 512), (c512, 128)):
+        if not fps.use_fps_kernel("cuda", src.shape[1]):
+            fail(f"cnn: the fps gate is closed at {tuple(src.shape)}")
+        kernel_vs_plain(torch, f"cnn: fps {tuple(src.shape)} -> {n}",
+                        [fps.furthest_point_sample(src, n)],
+                        [fps.furthest_point_sample_plain(src, n)])
+        log(f"  [{card}] fps {tuple(src.shape)} -> {n}: "
+            f"{cuda_ms(lambda: fps.furthest_point_sample(src, n), 10):.4f} ms a call, bit for bit")
+    groups = (("sa1's balls (128, 1024, 3) by 512 x 32", clean, ball_query(0.2, 32, clean, c512)),
+              ("sa2's balls (128, 512, 3) by 128 x 64", c512, ball_query(0.4, 64, c512, c128)))
+    for what, x, nidx in groups:
+        idx = nidx.reshape(B, -1)
+        if not gather.use_small_c_kernel(x, idx.shape[1]):
+            fail(f"cnn: the small-C gate is closed at {what}")
+        kernel_vs_plain(torch, f"cnn: gather_rows_small_c {what}",
+                        [gather.gather_rows_small_c(x, idx)],
+                        [gather.gather_rows_small_c_plain(x, idx)])
+        log(f"  [{card}] gather_rows_small_c {what}: "
+            f"{cuda_ms(lambda: gather.gather_rows_small_c(x, idx), 20):.4f} ms a call, "
+            f"bit for bit")
+    _, knn_idx = knn(clean, clean, 20)
+    scatters = (("sa2's feature gather's backward, (128, 8192) rows of 128 into 512",
+                 groups[1][2].reshape(B, -1), 512, 128),
+                ("the part-seg encoder's edge gather's backward, (128, 20480) rows of 64 "
+                 "into 1024", knn_idx.reshape(B, -1), 1024, 64))
+    for what, idx, n, c in scatters:
+        if not gather.use_scatter_kernel("cuda", B, idx.shape[1], n, c):
+            fail(f"cnn: the scatter gate is closed at {what}")
+        grad = torch.randn((B, idx.shape[1], c), generator=g, device=device)
+        got = gather.scatter_rows_add(idx, grad, n)
+        if not torch.equal(got.cpu(), gather.scatter_rows_add_plain(idx.cpu(), grad.cpu(), n)):
+            fail(f"cnn: scatter_rows_add at {what} differs from the plain version")
+        log(f"  [{card}] scatter_rows_add {what}: "
+            f"{cuda_ms(lambda: gather.scatter_rows_add(idx, grad, n), 20):.4f} ms a call, bit "
+            f"for bit with the plain version on the CPU")
+    # -- MA2E's patch chamfer: 36 folded points against each 32-point patch
+    x = (0.2 * torch.randn((B * 64, 36, 3), generator=g, device=device)).contiguous()
+    y = (0.2 * torch.randn((B * 64, 32, 3), generator=g, device=device)).contiguous()
+    if not chamfer.use_small_kernel(x, 32):
+        fail("cnn: the patch chamfer's gate is closed at MA2E's patches")
+    kernel_vs_plain(torch, "cnn: the patch chamfer (8192, 36, 32)",
+                    chamfer.nn_half_small_pair(x, y),
+                    chamfer.nn_half_small_plain(x, y) + chamfer.nn_half_small_plain(y, x))
+    log(f"  [{card}] patch chamfer 8192 pairs of 36 and 32 points, both directions: "
+        f"{cuda_ms(lambda: chamfer.nn_half_small_pair(x, y), 20):.4f} ms a call, bit for bit "
+        f"with the plain halves")
+
+
+def cnn_config(name):
+    config = load_cfg(CNN_CFG)
+    config["model"]["NAME"] = name
+    return config
+
+
+def cnn_gate_batch(torch, model, cor, cln, want):
+    """The smallest of CNN_GATE_BATCHES at which a train-mode forward and
+    backward of (a copy of) ``model`` launch every kernel of ``want`` as
+    often as a step at batch 128 does."""
+    from point_dae_torch.utils import kernels
+
+    for b in CNN_GATE_BATCHES:
+        m = copy.deepcopy(model).train()
+        kernels.reset_launches()
+        out = m(cor[:b], cln[:b])
+        (out[0] + out[1]).backward()
+        torch.cuda.synchronize()
+        if launches_a_step(1) == want:
+            return b
+    fail(f"cnn: no batch of {CNN_GATE_BATCHES} launches {want}")
+
+
+@contextlib.contextmanager
+def neighbour_picks(torch, picks, replay):
+    """Record (``replay`` False) every neighbour and sample choice of the
+    slice's models on the card (EdgeConv's kNN in the fused kernel or the
+    kNN kernel, the ball queries, FPS, patchify's centres and members,
+    ``three_nn``'s neighbours and distances) into ``picks``, or take them
+    back from ``picks`` in the same order on the CPU (``replay`` True)."""
+    from point_dae_torch.models import dae_pointnet2 as pn2
+    from point_dae_torch.models import dgcnn as dg
+    from point_dae_torch.ops import geometry as geo
+
+    # (module, function, which of its outputs are picks: None for the output itself)
+    sites = ((dg, "knn_aggregate", (4,)), (dg, "knn", (1,)), (pn2, "ball_query", None),
+             (pn2, "furthest_point_sample", None), (pn2, "three_nn", (0, 1)),
+             (geo, "fps_knn", (0, 2)))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
+    queue = iter(picks)
+
+    def recorder(fn, which):
+        def call(*args):
+            out = fn(*args)
+            chosen = (out,) if which is None else tuple(out[i] for i in which)
+            picks.extend(t.detach().cpu() for t in chosen)
+            return out
+        return call
+
+    def knn(q, d, k):                       # EdgeConv's: the fused kernel's or the kNN kernel's
+        return None, next(queue)
+
+    def fps_knn(xyz, groups, size):
+        fps_idx, idx = next(queue), next(queue)
+        return fps_idx, geo.gather_points(xyz, fps_idx), idx
+
+    if replay:
+        dg.knn, geo.fps_knn = knn, fps_knn
+        pn2.ball_query = lambda radius, k, xyz, new_xyz: next(queue)
+        pn2.furthest_point_sample = lambda xyz, n: next(queue)
+        pn2.three_nn = lambda unknown, known: (next(queue), next(queue))
+    else:
+        for mod, name, which in sites:
+            setattr(mod, name, recorder(getattr(mod, name), which))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    if replay and next(queue, None) is not None:
+        fail("cnn: the CPU run took fewer neighbour picks than the card's")
+
+
+def cnn_check(torch, name, config, raw, want, device, g):
+    """The train-mode losses at the smallest batch at which every gate of
+    the model opens, on the card against the CPU with the same weights and
+    clouds, within 1e-4 relative. The CPU takes the card's neighbour picks
+    (neighbour_picks; a DGCNN encoder's CPU copy the fused kernel's plain
+    version), so the check is of the arithmetic: where the card's f32
+    distances and the CPU's settle a near-tie apart, one EdgeConv
+    neighbour moves the loss by about 3e-5 (a 1e-7 perturbation of the
+    input on the CPU moved it so)."""
+    from point_dae_torch.engine.pretrain import device_pipeline, init_model
+
+    d = config["dataset"]["train"]["others"]
+    cor, cln = device_pipeline(raw, d["aug_type"], d["corrupt_type"], d["npoints"],
+                               generator=g, device=device)
+    cpu_model = init_model(config, seed=SEED + 131, device="cpu")
+    model = copy.deepcopy(cpu_model).to(device)
+    b = cnn_gate_batch(torch, model, cor, cln, want)
+    enc = getattr(cpu_model, "dgcnn_encoder", None)
+    if hasattr(enc, "impl"):
+        enc.impl = "fused_pallas"
+    t0 = time.perf_counter()
+    picks = []
+    with torch.no_grad():
+        with neighbour_picks(torch, picks, False):
+            lg = [float(v) for v in model.train()(cor[:b], cln[:b])]
+        with neighbour_picks(torch, picks, True):
+            lc = [float(v) for v in cpu_model.train()(cor[:b].cpu(), cln[:b].cpu())]
+    err = max(abs(a - c) / max(abs(c), 1e-12) for a, c in zip(lg, lc) if c or a)
+    log(f"  {name} at batch {b} (the smallest at which every gate opens): card losses "
+        f"{lg[0]:.7f} {lg[1]:.7f}; cpu ({time.perf_counter() - t0:.1f} s, the card's "
+        f"{len(picks)} neighbour picks) {lc[0]:.7f} {lc[1]:.7f}; {err:.2e} relative")
+    if not all(math.isfinite(v) for v in lg + lc) or err > 1e-4:
+        fail(f"cnn: {name}: card losses {lg} off the CPU's {lc} beyond 1e-4 relative")
+    return b, err
+
+
+def cnn_downstream(torch, device, card):
+    """PointNet's fine-tune train step and eval step through fps_resample
+    (the shipped ModelNet recipe with NAME replaced, bs 32 of 8192 points),
+    its eval logits on the card against the CPU; a feature-extraction batch
+    of ``PointNet_feat`` (FPS 2048 -> 1024, then the extractor) against the
+    CPU; ``FeaturePropagation``'s forward and backward at PointNet++'s sa2
+    -> sa1 shapes on the card against the CPU."""
+    import numpy as np
+
+    from point_dae_torch.engine import finetune
+    from point_dae_torch.engine.train_state import TrainState
+    from point_dae_torch.models import build_model_from_cfg
+    from point_dae_torch.models.dae_pointnet2 import FeaturePropagation
+    from point_dae_torch.ops.geometry import furthest_point_sample, gather_points
+    from point_dae_torch.utils import kernels
+
+    config = load_cfg(CNN_FT_CFG)
+    config["model"]["NAME"] = "PointNet"
+    rng = np.random.default_rng(SEED + 132)
+    pts = torch.from_numpy(rng.normal(size=(CNN_FT_BATCH, NRAW, 3)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, config["model"]["cls_dim"], CNN_FT_BATCH))
+    cpu_model = build_model_from_cfg(config["model"], device="cpu", seed=SEED + 133)
+    model = copy.deepcopy(cpu_model).to(device)
+    state = TrainState.create(model, config, 100, config.get("grad_norm_clip"))
+    step = finetune.make_finetune_step(model, config, device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 134)
+    pd, ld = pts.to(device), labels.to(device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    m = step(state, pd, ld, generator=gen)
+    torch.cuda.synchronize()
+    train_ms, train_used = (time.perf_counter() - t0) * 1e3, launches_a_step(1)
+    eval_step = finetune.make_eval_step(model, config, device=device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    lg = eval_step(pd)
+    torch.cuda.synchronize()
+    eval_ms, eval_used = (time.perf_counter() - t0) * 1e3, launches_a_step(1)
+    moved = copy.deepcopy(model).cpu()
+    lc = finetune.make_eval_step(moved, config, device="cpu")(pts)
+    err = rel_err(lg.cpu(), lc)
+    log(f"  [{card}] PointNet ({CNN_FT_CFG}, bs {CNN_FT_BATCH} of {NRAW}): train step "
+        f"{train_ms:.2f} ms (the first), loss {float(m['loss']):.4f}, launches {train_used}; "
+        f"eval step {eval_ms:.2f} ms, launches {eval_used}; eval logits {err:.2e} of the "
+        f"largest off the CPU's")
+    if train_used != {"fps": 1} or eval_used != {"fps": 1} or err > 1e-4 \
+            or not math.isfinite(float(m["loss"])):
+        fail(f"cnn: PointNet fine-tune: launches {train_used} / {eval_used} (expected fps 1 "
+             f"each), eval logits {err:.2e} off the CPU's, loss {float(m['loss'])}")
+    del model, state, step, cpu_model, moved
+
+    feat_cfg = {"NAME": "PointNet_feat"}
+    cpu_feat = build_model_from_cfg(feat_cfg, device="cpu", seed=SEED + 135).eval()
+    feat = copy.deepcopy(cpu_feat).to(device).eval()
+    clouds = torch.from_numpy(rng.normal(size=(64, 2048, 3)).astype(np.float32))
+    cd = clouds.to(device)
+    kernels.reset_launches()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        fg = feat(gather_points(cd, furthest_point_sample(cd, 1024)))
+        torch.cuda.synchronize()
+        feat_ms, feat_used = (time.perf_counter() - t0) * 1e3, launches_a_step(1)
+        fc = cpu_feat(gather_points(clouds, furthest_point_sample(clouds, 1024)))
+    err = rel_err(fg.cpu(), fc)
+    log(f"  [{card}] PointNet_feat extraction batch (64, 2048) -> 1024: {feat_ms:.2f} ms, "
+        f"launches {feat_used}; features {err:.2e} of the largest off the CPU's")
+    if feat_used != {"fps": 1} or err > 1e-4:
+        fail(f"cnn: PointNet_feat: launches {feat_used}, features {err:.2e} off the CPU's")
+
+    # sa2 -> sa1 as PointNet++ has it: the known points an FPS subset of the
+    # query points (three_nn's picks and distances replayed on the CPU: a
+    # query near a known point weighs it by 1 / (d + 1e-8), so a rounding of
+    # d moves the interpolation, 17% of the output on the CPU for a 1e-7
+    # perturbation of uniform random points)
+    fp_cpu = FeaturePropagation(128 + 256, (256, 256), torch.Generator().manual_seed(5))
+    fp = copy.deepcopy(fp_cpu).to(device)
+    xyz1 = torch.from_numpy(rng.uniform(-1, 1, (CNN_BATCH, 512, 3)).astype(np.float32))
+    xyz2 = gather_points(xyz1, furthest_point_sample(xyz1, 128))
+    f1 = torch.from_numpy(rng.normal(size=(CNN_BATCH, 512, 128)).astype(np.float32))
+    f2 = torch.from_numpy(rng.normal(size=(CNN_BATCH, 128, 256)).astype(np.float32))
+    cot = torch.from_numpy(rng.normal(size=(CNN_BATCH, 512, 256)).astype(np.float32))
+    outs, picks = [], []
+    for replay, mod, dev in ((False, fp, device), (True, fp_cpu, "cpu")):
+        a, b = f1.to(dev).clone().requires_grad_(), f2.to(dev).clone().requires_grad_()
+        kernels.reset_launches()
+        with neighbour_picks(torch, picks, replay):
+            out = mod.train()(xyz1.to(dev), xyz2.to(dev), a, b)
+        (out * cot.to(dev)).sum().backward()
+        if not replay:
+            torch.cuda.synchronize()
+            used = launches_a_step(1)
+        outs.append([out.detach().cpu(), a.grad.cpu(), b.grad.cpu()]
+                    + [p.grad.cpu() for p in mod.parameters()])
+    # the output within 1e-4 of its largest; each gradient (both feature
+    # inputs, every parameter) within 1e-3 of its norm: on the CPU alone an
+    # f32 run of these shapes parts from an f64 one by 2.5e-4 to 3e-4 of each
+    # gradient's norm (ReLU gates within rounding of zero among 16.7 M
+    # pre-activations send single elements' gradients apart, up to 2.9e-2 of
+    # the largest), and by 8.6e-7 of the output's largest
+    err_out = rel_err(outs[0][0], outs[1][0])
+    errs = [float((x - y).norm() / y.norm()) for x, y in zip(outs[0][1:], outs[1][1:])]
+    log(f"  [{card}] FeaturePropagation (128, 128 -> 512, 128 + 256 -> 256 -> 256), forward "
+        f"and backward: launches {used}; output {err_out:.2e} of its largest off the CPU's, "
+        f"gradients at most {max(errs):.2e} of their norms (the card's three_nn picks)")
+    if used != {"scatter_rows_add": 1} or err_out > 1e-4 or max(errs) > 1e-3:
+        fail(f"cnn: FeaturePropagation: launches {used}, output {err_out:.2e}, gradients "
+             f"{errs}")
+
+
+def phase_cnn_zoo(torch, device, card):
+    """The PointNet, PointNet++ and DGCNN classes of the slice: the kernels
+    at the paths' new shapes (cnn_kernels); every pretrain class of
+    CNN_RUNS at full width from (128, 8192, 6) raw clouds through
+    ``device_pipeline`` (``cfgs/pretrain_PointCAE_affine_r3.yaml`` with
+    model.NAME replaced): one class of each encoder and decoder pair on the
+    card against the CPU (cnn_check), CNN_STEPS steps of each with its
+    launches a step held to CNN_RUNS, the median step time, a profiled
+    step's busy time and the peak memory; PointNet's fine-tune steps, a
+    ``_feat`` extraction batch and ``FeaturePropagation`` (cnn_downstream);
+    ``main_torch.py``'s CLI pretraining ``Point_CAE_DGCNN`` for one epoch on
+    Synthetic clouds (``cfgs/pretrain_synthetic_dgcnn.yaml`` with NAME
+    replaced), the SVM probe through ``encode``."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    raw = torch.from_numpy(np.random.default_rng(SEED + 136).normal(
+        size=(CNN_BATCH, NRAW, 6)).astype(np.float32)).to(device)
+    raw[..., 3:] /= raw[..., 3:].norm(dim=-1, keepdim=True)
+    cnn_kernels(torch, raw, device, card)
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=device).manual_seed(SEED + 137)
+    records = {}
+    for name, want, checked in CNN_RUNS:
+        config = cnn_config(name)
+        check = cnn_check(torch, name, config, raw, want, device, g) if checked else None
+        steady, first, launches, peak, one_more = run_steps(torch, config, raw, device,
+                                                            CNN_STEPS, SEED + 138)
+        per_step = {k: v / CNN_STEPS for k, v in launches.items() if v}
+        if per_step != want:
+            fail(f"cnn: {name}: launches a step {per_step}, expected {want}")
+        busy, _ = profile_step(torch, one_more, card, top=4)
+        records[name] = (steady, busy, peak, check)
+        log(f"  [{card}] {name}: step {steady * 1e3:.2f} ms (median of steps 2-{CNN_STEPS}), "
+            f"first {first * 1e3:.1f} ms, busy {busy / 1e3:.2f} ms, max_memory_allocated "
+            f"{peak / 2 ** 30:.2f} GiB; launches a step {per_step}")
+        del one_more
+        torch.cuda.empty_cache()
+    del raw
+    torch.cuda.empty_cache()
+    cnn_downstream(torch, device, card)
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cnn_")
+    try:
+        cfg = write_config(RUN_DGCNN_CFG, os.path.join(tmp, "cfgs", "pretrain_cnn_pcn.yaml"),
+                           CNN_RUN_CUT)
+        log(f"  {RUN_DGCNN_CFG} with NAME Point_CAE_DGCNN through the CLI (64 Synthetic "
+            f"clouds, one epoch):")
+        out, _, _, sec = cli_run("cnn pretrain", ["--config", cfg, "--exp_name", "run",
+                                                  "--root_folder", tmp], "pretrain_cnn_pcn",
+                                 device, range(1))
+        if out["state"].step != 8:
+            fail(f"run cnn pretrain: {out['state'].step} optimizer steps, expected 8")
+        log(f"  [{card}] Point_CAE_DGCNN pretrain through the CLI: {sec:.1f} s, best SVM acc "
+            f"{out['best_acc']:.4f}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, (st, bz, pk, check) in records.items():
+        extra = "" if check is None else \
+            f"; card against CPU at batch {check[0]}: {check[1]:.2e} relative"
+        log(f"  [{card}] cnn: {name} (bs {CNN_BATCH}): {st * 1e3:.2f} ms a step, busy "
+            f"{bz / 1e3:.2f} ms, peak {pk / 2 ** 30:.2f} GiB{extra}")
+    log(f"  [{card}] the cnn phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def stamp(what: str) -> None:
     log(f"[{time.perf_counter() - T0:.1f} s] {what} done")
 
@@ -5697,6 +6118,12 @@ def main() -> None:
     log("downstream (Point_MlMAE, --so3_rotation, --test_corruption, --vis_saliency, --test):")
     phase_downstream(torch, device, card)
     stamp("downstream")
+    torch.cuda.empty_cache()
+
+    # 12. the PointNet, PointNet++ and DGCNN classes (PCN, folding and MA2E decoders)
+    log("cnn zoo (the PointNet, PointNet++ and DGCNN classes):")
+    phase_cnn_zoo(torch, device, card)
+    stamp("cnn_zoo")
     # gather_rows_wide is the one kernel without a path: the JAX package keeps
     # XLA's gather forward on purpose (point_dae_tpu/ops/pallas_scatter.py:
     # 267-276) and the port its plain one, so the rule leaves it out and its
@@ -5705,6 +6132,7 @@ def main() -> None:
     if min(on_path.values()) == 0:
         fail(f"a kernel was never launched on its main path: {on_path}")
     launches["gather_rows_wide"] = wide_launches
+    log(f"[{card}] the whole script: {time.perf_counter() - T0:.1f} s")
 
     out = []
     for name, r in records.items():

@@ -5,8 +5,8 @@ import torch
 
 from ..utils.device import resolve_device
 from ..utils.registry import MODELS
-from . import (dae_dgcnn, dae_pointnet2, detr3, dvae, m2ae, maskfeat,  # noqa: F401
-               masksurf, mlmae, partseg, point_mae, transformer)
+from . import (dae_dgcnn, dae_pointnet, dae_pointnet2, detr3, dvae, m2ae,  # noqa: F401
+               maskfeat, masksurf, mlmae, partseg, point_mae, transformer)
 
 
 def build_model_from_cfg(cfg, device=None, seed: int = 0,

@@ -7,7 +7,9 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
+from ..losses.chamfer import build_loss_func
 from ..ops.geometry import fps_knn, group_points, resample_batch
 
 PATCH_GROUPS, PATCH_SIZE = 64, 32     # dropout_patch_pointmae's patchify
@@ -136,3 +138,34 @@ def sample_dropout_masks(batch: int, widths: Sequence[int], rate: float,
     """Keep masks (B, width) bool, kept with probability 1 - rate."""
     return [torch.rand((batch, w), generator=generator, device=device) >= rate
             for w in widths]
+
+
+class DropoutDAE(nn.Module):
+    """The pretrain skeleton of the CNN DAEs (JAX ``dae_dgcnn.py:29-68``,
+    ``dae_pointnet2.py:113-133``, ``dae_pointnet.py:80-101``): the
+    configured in-model dropouts on the corrupted points, then ``encode``;
+    ``loss_func`` is the configured chamfer (default ``cdl2``). Calling
+    convention of a subclass: ``model(corrupted, clean, draws=None,
+    generator=None) -> (loss, loss)``, ``draws`` one ``DropoutDraws`` for
+    each in-model dropout of ``corrupt_type`` (None: drawn from
+    ``generator``). A subclass with ``INPUT_DROPOUT = False`` runs none."""
+    INPUT_DROPOUT = True
+
+    def __init__(self, config):
+        super().__init__()
+        self.corrupt_type = tuple(config.get("corrupt_type", ()))
+        self.loss_func = build_loss_func(config.get("loss", "cdl2"))
+
+    def sample_draws(self, batch: int, generator: Optional[torch.Generator], device,
+                     n: int = 1024) -> list:
+        """Draw the in-model dropouts' randomness (clouds of ``n`` points)."""
+        return [sample_dropout_draws(t, batch, n, generator, device)
+                for t in self.corrupt_type if self.INPUT_DROPOUT and is_input_dropout(t)]
+
+    def _encode_corrupted(self, corrupted: torch.Tensor,
+                          draws: Optional[Sequence[DropoutDraws]] = None,
+                          generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        corrupted = corrupted[..., :3]
+        if self.training and self.corrupt_type and self.INPUT_DROPOUT:
+            corrupted = apply_input_dropout(corrupted, self.corrupt_type, draws, generator)
+        return self.encode(corrupted)

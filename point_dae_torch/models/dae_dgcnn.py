@@ -1,32 +1,40 @@
-"""DGCNN-backbone DAE pretraining models (port of
-``point_dae_tpu/models/dae_dgcnn.py:31-92``): ``Point_CAE_DGCNN_FCOnly``;
-the classification fine-tune model ``DGCNN`` (``:202-236``), the linear
-probe ``DGCNN_Linear`` and the SVM feature extractor ``DGCNN_feat``
-(``:239-264``).
+"""DGCNN-backbone DAE pretraining models and heads (port of
+``point_dae_tpu/models/dae_dgcnn.py``): ``Point_CAE_DGCNN_FCOnly`` (FC
+decoder), ``Point_CAE_DGCNN`` and ``Point_CAE_DGCNN_proj`` (the PCN
+decoder, ``layers.pcn_decode``), ``Point_CAE_DGCNN_FoldOnly`` (two
+folding stages over a 32 x 32 grid), ``Point_AE_Corruption_DGCNN`` (the
+corrupted cloud as its target); the classification model ``DGCNN``, the
+linear probe ``DGCNN_Linear``, the extractors ``DGCNN_feat`` and
+``DGCNN_MaskFeat``, ``DGCNN_CrossPoint``; and the same heads and the PCN
+DAEs over the part-segmentation encoder (``dgcnn.DGCNNPartSegEncoder``):
+``Point_CAE_DGCNN_PartSeg``, ``Point_CAE_DGCNN_proj_PartSeg``,
+``DGCNN_PartSeg``, ``DGCNN_Linear_PartSeg``, ``DGCNN_feat_PartSeg``.
 
 Calling convention: ``model(corrupted, clean) -> (loss_xyz, loss_normal)``;
 ``encode`` returns the global feature. Of the configured corruptions the
 in-model dropouts (``dropout_patch_pointmae``, ``dropout_global*``,
 ``random_dropout``) run at the top of a training forward, from given
 ``DropoutDraws`` or from the generator; the others run in the data
-pipeline.
+pipeline. Torch names follow the reference (``folding1.{0,2,4}``,
+``folding2.{0,2,4}``, ``proj.{0,2}``, ``recfc``); the part-segmentation
+encoder's DAEs, which the JAX converter has no rules for, take the same
+decoder names.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 
-from ..losses.chamfer import build_loss_func
 from ..utils.registry import MODELS
-from .common import (ClsDraws, DropoutDraws, apply_input_dropout, dropout_from_mask,
-                     is_input_dropout, sample_dropout_draws, sample_dropout_masks)
-from .dgcnn import DGCNNEncoder
-from .layers import MLP, BatchNorm, Dense, leaky_relu02
+from .common import (ClsDraws, DropoutDAE, DropoutDraws, dropout_from_mask, folding_grid,
+                     sample_dropout_masks)
+from .dgcnn import DGCNNEncoder, DGCNNPartSegEncoder
+from .layers import MLP, BatchNorm, Dense, SplitMLP, leaky_relu02, pcn_decode
 
 
-class _DGCNNDAEBase(nn.Module):
+class _DGCNNDAEBase(DropoutDAE):
     """Shared skeleton: input dropout -> DGCNN encoder -> decode -> chamfer.
     Model keys: ``dtype: bf16`` (encoder products in bf16; kNN geometry,
     BatchNorm statistics, decoder and loss stay f32), ``edgeconv_impl``
@@ -35,11 +43,13 @@ class _DGCNNDAEBase(nn.Module):
     which the JAX package reads from ``PDAE_EDGECONV_KNN``)."""
 
     def __init__(self, config, generator: Optional[torch.Generator] = None):
-        super().__init__()
-        self.corrupt_type = tuple(config.get("corrupt_type", ()))
+        super().__init__(config)
+        self.dgcnn_encoder = self._encoder(config, generator)
+
+    @staticmethod
+    def _encoder(config, generator):
         bf16 = str(config.get("dtype")) in ("bf16", "bfloat16")
-        self.loss_func = build_loss_func(config.get("loss", "cdl2"))
-        self.dgcnn_encoder = DGCNNEncoder(
+        return DGCNNEncoder(
             remat=bool(config.get("remat", False)),
             dtype=torch.bfloat16 if bf16 else None,
             impl=config.get("edgeconv_impl", "auto"),
@@ -47,20 +57,6 @@ class _DGCNNDAEBase(nn.Module):
             grad_mode=str(config.get("edgeconv_grad_mode", "first")),
             knn_impl=str(config.get("edgeconv_knn", "kernel")),
             generator=generator)
-
-    def sample_draws(self, batch: int, generator: Optional[torch.Generator], device,
-                     n: int = 1024) -> List[DropoutDraws]:
-        """Draw the in-model dropouts' randomness (clouds of ``n`` points)."""
-        return [sample_dropout_draws(t, batch, n, generator, device)
-                for t in self.corrupt_type if is_input_dropout(t)]
-
-    def _encode_corrupted(self, corrupted: torch.Tensor,
-                          draws: Optional[Sequence[DropoutDraws]] = None,
-                          generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        corrupted = corrupted[..., :3]
-        if self.training and self.corrupt_type:
-            corrupted = apply_input_dropout(corrupted, self.corrupt_type, draws, generator)
-        return self.dgcnn_encoder(corrupted)[0]
 
     def encode(self, pts: torch.Tensor) -> torch.Tensor:
         """The global feature (B, 1024) of clean points."""
@@ -120,18 +116,27 @@ class _ClsHead(nn.Sequential):
         return self[7](x)
 
 
+def _cls_dim(config, default: Optional[int]) -> int:
+    """``config["cls_dim"]``, or ``default`` where that is not None."""
+    return int(config["cls_dim"] if default is None else config.get("cls_dim", default))
+
+
 class _DGCNNEncoderModel(nn.Module):
     """A model around the f32 DGCNN encoder with the fine-tune model's
     encoder keys (``edgeconv_impl``, ``edgeconv_exact_grads``,
     ``edgeconv_knn``)."""
+    DEFAULT_CLS = 40
 
     def __init__(self, config, generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.dgcnn_encoder = DGCNNEncoder(
-            impl=config.get("edgeconv_impl", "auto"),
-            exact_grads=bool(config.get("edgeconv_exact_grads", False)),
-            knn_impl=str(config.get("edgeconv_knn", "kernel")),
-            generator=generator)
+        self.dgcnn_encoder = self._encoder(config, generator)
+
+    @staticmethod
+    def _encoder(config, generator):
+        return DGCNNEncoder(impl=config.get("edgeconv_impl", "auto"),
+                            exact_grads=bool(config.get("edgeconv_exact_grads", False)),
+                            knn_impl=str(config.get("edgeconv_knn", "kernel")),
+                            generator=generator)
 
     def encode(self, pts: torch.Tensor) -> torch.Tensor:
         """The global feature (B, 1024)."""
@@ -148,7 +153,7 @@ class DGCNN(_DGCNNEncoderModel):
 
     def __init__(self, config, generator: Optional[torch.Generator] = None):
         super().__init__(config, generator)
-        self.cls_head_finetune = _ClsHead(int(config.get("cls_dim", 40)), generator)
+        self.cls_head_finetune = _ClsHead(_cls_dim(config, self.DEFAULT_CLS), generator)
 
     def sample_draws(self, batch: int, generator: Optional[torch.Generator],
                      device) -> ClsDraws:
@@ -174,7 +179,7 @@ class DGCNN_Linear(_DGCNNEncoderModel):
 
     def __init__(self, config, generator: Optional[torch.Generator] = None):
         super().__init__(config, generator)
-        self.cls = Dense(1024, int(config.get("cls_dim", 40)), generator=generator)
+        self.cls = Dense(1024, _cls_dim(config, self.DEFAULT_CLS), generator=generator)
 
     def forward(self, pts: torch.Tensor, draws: Optional[ClsDraws] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -187,3 +192,138 @@ class DGCNN_feat(_DGCNNEncoderModel):
 
     def forward(self, pts: torch.Tensor) -> torch.Tensor:
         return self.encode(pts)
+
+
+@MODELS.register_module()
+class Point_CAE_DGCNN(_DGCNNDAEBase):
+    """The PCN decoder: ``folding1`` to 1024 coarse points, ``folding2``
+    over a 4 x 4 grid (+-0.05) around each, 16384 fine points. Returns
+    (loss_coarse, loss_fine)."""
+    num_coarse = 1024
+
+    def __init__(self, config, generator: Optional[torch.Generator] = None):
+        super().__init__(config, generator)
+        self.folding1 = MLP(1024, (1024, 1024, self.num_coarse * 3), generator=generator)
+        self.folding2 = SplitMLP(1024, 5, (512, 512, 3), generator=generator, shared_last=True)
+
+    def _project(self, feat: torch.Tensor) -> torch.Tensor:
+        return feat
+
+    def forward(self, corrupted: torch.Tensor, clean: torch.Tensor,
+                draws: Optional[Sequence[DropoutDraws]] = None,
+                generator: Optional[torch.Generator] = None):
+        clean = clean[..., :3].contiguous()
+        feat = self._project(self._encode_corrupted(corrupted, draws, generator))
+        coarse, fine = pcn_decode(feat, self.folding1, self.folding2, self.num_coarse)
+        return self.loss_func(coarse, clean), self.loss_func(fine, clean)
+
+
+@MODELS.register_module()
+class Point_CAE_DGCNN_proj(Point_CAE_DGCNN):
+    """``Point_CAE_DGCNN`` with a 1024 -> 512 -> 1024 projection between
+    the encoder and the decoder."""
+
+    def __init__(self, config, generator: Optional[torch.Generator] = None):
+        super().__init__(config, generator)
+        self.proj = MLP(1024, (512, 1024), generator=generator)
+
+    def _project(self, feat: torch.Tensor) -> torch.Tensor:
+        return self.proj(feat)
+
+
+@MODELS.register_module()
+class Point_CAE_DGCNN_FoldOnly(_DGCNNDAEBase):
+    """Two folding stages over a 32 x 32 grid (+-0.3): ``folding1`` over
+    ``[global | grid]``, ``folding2`` over ``[global | folding1's
+    points]``, 1024 -> 1024 -> 3 each. Returns (loss, 0)."""
+
+    def __init__(self, config, generator: Optional[torch.Generator] = None):
+        super().__init__(config, generator)
+        self.folding1 = SplitMLP(1024, 2, (1024, 1024, 3), generator=generator)
+        self.folding2 = SplitMLP(1024, 3, (1024, 1024, 3), generator=generator)
+
+    def forward(self, corrupted: torch.Tensor, clean: torch.Tensor,
+                draws: Optional[Sequence[DropoutDraws]] = None,
+                generator: Optional[torch.Generator] = None):
+        feat = self._encode_corrupted(corrupted, draws, generator)
+        grid = torch.from_numpy(folding_grid((32, 32), (-0.3, 0.3))).to(feat.device)
+        f1 = self.folding1(feat, grid.expand(feat.shape[0], -1, -1))
+        loss = self.loss_func(self.folding2(feat, f1), clean[..., :3].contiguous())
+        return loss, torch.zeros((), device=loss.device)
+
+
+@MODELS.register_module()
+class Point_AE_Corruption_DGCNN(_DGCNNDAEBase):
+    """The FC decoder of ``Point_CAE_DGCNN_FCOnly`` with the corrupted
+    cloud (before the in-model dropouts) as its target. Returns (loss, 0)."""
+    num_coarse = 1024
+
+    def __init__(self, config, generator: Optional[torch.Generator] = None):
+        super().__init__(config, generator)
+        self.recfc = MLP(1024, (1024, 1024, self.num_coarse * 3), generator=generator)
+
+    def forward(self, corrupted: torch.Tensor, clean: torch.Tensor,
+                draws: Optional[Sequence[DropoutDraws]] = None,
+                generator: Optional[torch.Generator] = None):
+        target = corrupted[..., :3].contiguous()
+        feat = self._encode_corrupted(corrupted, draws, generator)
+        loss = self.loss_func(self.recfc(feat).reshape(-1, self.num_coarse, 3), target)
+        return loss, torch.zeros((), device=loss.device)
+
+
+@MODELS.register_module()
+class DGCNN_MaskFeat(DGCNN_feat):
+    """The MaskFeat probe's extractor: ``model(pts) -> (B, 1024)``."""
+
+
+@MODELS.register_module()
+class DGCNN_CrossPoint(DGCNN):
+    """``DGCNN`` whose ``cls_dim`` defaults to 15 (ScanObjectNN)."""
+    DEFAULT_CLS = 15
+
+
+class _DGCNNPartSegDAEBase(_DGCNNDAEBase):
+    """``_DGCNNDAEBase`` over the part-segmentation encoder (f32; it takes
+    none of the encoder keys)."""
+
+    @staticmethod
+    def _encoder(config, generator):
+        return DGCNNPartSegEncoder(generator=generator)
+
+
+@MODELS.register_module()
+class Point_CAE_DGCNN_PartSeg(_DGCNNPartSegDAEBase, Point_CAE_DGCNN):
+    """``Point_CAE_DGCNN`` over the part-segmentation encoder."""
+
+
+@MODELS.register_module()
+class Point_CAE_DGCNN_proj_PartSeg(_DGCNNPartSegDAEBase, Point_CAE_DGCNN_proj):
+    """``Point_CAE_DGCNN_proj`` over the part-segmentation encoder."""
+
+
+class _PartSegEncoderModel(_DGCNNEncoderModel):
+    """A model around the part-segmentation encoder."""
+
+    @staticmethod
+    def _encoder(config, generator):
+        return DGCNNPartSegEncoder(generator=generator)
+
+
+@MODELS.register_module()
+class DGCNN_PartSeg(_PartSegEncoderModel, DGCNN):
+    """``DGCNN``'s head on the part-segmentation encoder; ``cls_dim`` has no
+    default (a config without it raises ``KeyError``, as in JAX)."""
+    DEFAULT_CLS = None
+
+
+@MODELS.register_module()
+class DGCNN_Linear_PartSeg(_PartSegEncoderModel, DGCNN_Linear):
+    """``DGCNN_Linear`` on the part-segmentation encoder; ``cls_dim`` has no
+    default."""
+    DEFAULT_CLS = None
+
+
+@MODELS.register_module()
+class DGCNN_feat_PartSeg(_PartSegEncoderModel, DGCNN_feat):
+    """The part-segmentation encoder's global feature: ``model(pts) -> (B,
+    1024)``."""

@@ -23,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import fused_attention, supported as attn_supported
 from ..ops.mlp import fused_mlp, fused_mlp_ln, supported as mlp_supported
+from .common import folding_grid
 
 _LECUN_TRUNC = 0.87962566103423978   # std of a unit normal truncated to [-2, 2]
 
@@ -167,15 +168,16 @@ class BatchNorm(nn.Module):
 
 
 class MLP(nn.Sequential):
-    """Dense + ReLU stack without norms (``coarse_pred``); ReLUs sit between
-    the Dense layers so the torch names are ``0, 2, 4, ...``."""
+    """Dense stack without norms (``coarse_pred``), ``act`` (a module class,
+    ReLU by default) between the Dense layers, so the torch names are ``0,
+    2, 4, ...``."""
 
     def __init__(self, din: int, features: Sequence[int], dtype=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, act=nn.ReLU):
         mods = []
         for i, f in enumerate(features):
             if i:
-                mods.append(nn.ReLU())
+                mods.append(act())
             mods.append(Dense(din, f, dtype=dtype, generator=generator))
             din = f
         super().__init__(*mods)
@@ -183,12 +185,14 @@ class MLP(nn.Sequential):
 
 class SplitMLP(nn.Sequential):
     """``MLP`` whose first layer is a ``SplitDense`` over
-    ``[shared, per_point]`` (the folding stages)."""
+    ``[shared, per_point]`` (or ``[per_point, shared]`` with
+    ``shared_last``): the folding stages."""
 
     def __init__(self, d_shared: int, d_point: int, features: Sequence[int],
-                 dtype=None, generator: Optional[torch.Generator] = None):
+                 dtype=None, generator: Optional[torch.Generator] = None,
+                 shared_last: bool = False):
         mods = [SplitDense(d_shared + d_point, features[0], dtype=dtype,
-                           generator=generator)]
+                           generator=generator, shared_last=shared_last)]
         din = features[0]
         for f in features[1:]:
             mods += [nn.ReLU(), Dense(din, f, dtype=dtype, generator=generator)]
@@ -200,6 +204,26 @@ class SplitMLP(nn.Sequential):
         for mod in list(self)[1:]:
             x = mod(x)
         return x
+
+
+def pcn_decode(feat: torch.Tensor, folding1: MLP, folding2: SplitMLP,
+               num_coarse: int = 1024, grid_size: int = 4, grid_scale: float = 0.05):
+    """The PCN decoder of the CNN DAEs (JAX ``dae_dgcnn.py:107-138``):
+    ``folding1`` maps the global feature (B, C) to ``num_coarse`` coarse
+    points; a ``grid_size`` x ``grid_size`` grid in [-grid_scale,
+    grid_scale]^2 around each of them gives the fine points, ``folding2``
+    (``shared_last``) over ``[grid, point | global]`` plus the point.
+    Returns (coarse (B, num_coarse, 3), fine (B, num_coarse * grid_size^2,
+    3))."""
+    B = feat.shape[0]
+    coarse = folding1(feat).reshape(B, num_coarse, 3)
+    g2 = grid_size ** 2
+    grid = torch.from_numpy(folding_grid((grid_size, grid_size),
+                                         (-grid_scale, grid_scale))).to(feat.device)
+    grid_feat = grid.repeat(num_coarse, 1).expand(B, num_coarse * g2, 2)
+    point_feat = coarse.repeat_interleave(g2, dim=1)
+    fine = folding2(feat, torch.cat([grid_feat, point_feat], -1)) + point_feat
+    return coarse, fine
 
 
 def drop_path_from_mask(x: torch.Tensor, keep_mask: torch.Tensor,

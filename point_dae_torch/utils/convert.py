@@ -191,6 +191,35 @@ _POINTNET2 += [(f"cls_head_finetune.{i}", f"cls_head/{f}")
 _MLMAE = [(f"MAE_encoder.blocks.blocks.{{i}}.{_t}", f"MAE_encoder/block{{i}}/{_f}")
           for _t, _f in _BLOCK_LEAVES]
 
+# the CNN DAEs' decoders at the top level (convert_torch._DGCNN_RULES and
+# _POINTNET2_RULES): they go before _RULES, whose folding and pos_embed
+# rules are the transformer's
+_CNN_DECODER = [(f"folding{_f}.{2 * _d}", f"folding{_f}/dense{_d}")
+                for _f in (1, 2) for _d in range(3)]
+_CNN_DECODER += [(f"{_n}.{2 * _d}", f"{_n}/dense{_d}") for _n in ("proj", "pos_embed")
+                 for _d in range(2)]
+
+# PointNet++'s FeaturePropagation (pointnet2's PointnetFPModule names)
+_RULES += [("mlp.layer{i}.conv", "mlp{i}_fc"), ("mlp.layer{i}.bn.bn", "mlp{i}_bn")]
+
+# the PointNet family (convert_torch._POINTNET_RULES): the STN leaves, the
+# encoder, the DAE's FC decoder (torch folding1, flax recfc) and the head
+_STN_LEAVES = [(f"conv{_i}", f"c{_i}_fc") for _i in range(1, 4)] + [
+    (f"bn{_i}", f"c{_i}_bn") for _i in range(1, 4)] + [
+    ("fc1", "f1_fc"), ("bn4", "f1_bn"), ("fc2", "f2_fc"), ("bn5", "f2_bn"), ("fc3", "f3")]
+_POINTNET_TAIL = [(f"folding1.{2 * _d}", f"recfc/dense{_d}") for _d in range(3)]
+_POINTNET_TAIL += [(f"cls_head_finetune.{i}", f"cls_head/{f}")
+                   for i, f in ((0, "fc1"), (1, "bn1"), (4, "fc2"), (5, "bn2"), (7, "cls"))]
+_POINTNET = [(f"pointnet_encoder.{_s}.{_t}", f"pointnet_encoder/{_s}/{_f}")
+             for _s in ("stn", "fstn") for _t, _f in _STN_LEAVES]
+_POINTNET += [(f"pointnet_encoder.{_n}{_i}", f"pointnet_encoder/c{_i}_{_f}")
+              for _i in range(1, 4) for _n, _f in (("conv", "fc"), ("bn", "bn"))]
+_POINTNET += _POINTNET_TAIL
+# the part-segmentation-style PointNet encoder (convert_torch has no rules
+# for it): the reference layout's conv1-5 / bn1-5 against flax conv0-4 / bn0-4
+_POINTNET_PARTSEG = [(f"pointnet_encoder.{_n}{_i + 1}", f"pointnet_encoder/{_n}{_i}")
+                     for _i in range(5) for _n in ("conv", "bn")] + _POINTNET_TAIL
+
 _STATS = {"running_mean": "mean", "running_var": "var"}
 _QKV = ("query", "key", "value")
 _QKV_PATH = re.compile(r"^(?P<mod>.*/self_attn)/(?P<part>query|key|value)/(?P<leaf>kernel|bias)$")
@@ -201,29 +230,38 @@ def _pattern(fmt: str, sep: str) -> re.Pattern:
     return re.compile(f"^{esc}(?:{re.escape(sep)}(?P<leaf>[A-Za-z_]+))?$")
 
 
-_TORCH_TO_FLAX = {family: [(_pattern(t, "."), f) for t, f in _RULES + rules]
-                  for family, rules in (("transformer", _TRANSFORMER_HEAD),
-                                        ("dgcnn", _DGCNN_ENCODER + _DGCNN_HEAD),
-                                        ("dgcnn_partseg", _DGCNN_PARTSEG_ENCODER),
-                                        ("pointnet2", _POINTNET2))}
-# the first matching rule wins: MlMAE's block rules go before the generic ones
-_TORCH_TO_FLAX["mlmae"] = [(_pattern(t, "."), f) for t, f in _MLMAE + _RULES
-                           + _TRANSFORMER_HEAD]
-_FLAX_TO_TORCH = [(_pattern(f, "/"), t) for t, f in _RULES + _TRANSFORMER_HEAD
+# (rules before the generic ones, rules after them) of each family: the
+# first matching rule wins
+_FAMILIES = {"transformer": ([], _TRANSFORMER_HEAD),
+             "dgcnn": (_CNN_DECODER, _DGCNN_ENCODER + _DGCNN_HEAD),
+             "dgcnn_partseg": (_CNN_DECODER, _DGCNN_PARTSEG_ENCODER + _DGCNN_HEAD),
+             "pointnet2": (_CNN_DECODER, _POINTNET2),
+             "pointnet": (_POINTNET, []),
+             "pointnet_partseg": (_POINTNET_PARTSEG, []),
+             "mlmae": (_MLMAE, _TRANSFORMER_HEAD)}
+_TORCH_TO_FLAX = {family: [(_pattern(t, "."), f) for t, f in pre + _RULES + post]
+                  for family, (pre, post) in _FAMILIES.items()}
+_FLAX_TO_TORCH = [(_pattern(f, "/"), t) for t, f in _RULES + _TRANSFORMER_HEAD + _CNN_DECODER
                   + _DGCNN_ENCODER + _DGCNN_HEAD + _DGCNN_PARTSEG_ENCODER + _MLMAE]
 _FLAX_TO_TORCH_PN2 = [(_pattern(f, "/"), t) for t, f in _POINTNET2] + _FLAX_TO_TORCH
+_FLAX_TO_TORCH_PN = [(_pattern(f, "/"), t) for t, f in _POINTNET + _POINTNET_PARTSEG] \
+    + _FLAX_TO_TORCH
 
 
 def _family(state_dict) -> str:
     """Which torch-name table a state dict (or a list of its names) takes:
-    the DGCNN encoders and the fine-tune heads reuse torch names at other
-    flax paths."""
+    the DGCNN and PointNet encoders and the fine-tune heads reuse torch
+    names at other flax paths."""
     if "dgcnn_encoder.conv6.0.weight" in state_dict:
         return "dgcnn_partseg"
     if any(k.startswith("dgcnn_encoder.") for k in state_dict):
         return "dgcnn"
     if any(k.startswith("pointnetv2_encoder.") for k in state_dict):
         return "pointnet2"
+    if "pointnet_encoder.conv5.weight" in state_dict:
+        return "pointnet_partseg"
+    if any(k.startswith("pointnet_encoder.") for k in state_dict):
+        return "pointnet"
     return "transformer"
 
 
@@ -318,7 +356,8 @@ def from_flax(params: Dict, batch_stats: Dict) -> Dict[str, torch.Tensor]:
     """Nested flax ``(params, batch_stats)`` of arrays -> port ``state_dict``
     (the inverse of ``to_flax``)."""
     inv_stats = {v: k for k, v in _STATS.items()}
-    table = _FLAX_TO_TORCH_PN2 if "pointnetv2_encoder" in params else _FLAX_TO_TORCH
+    table = (_FLAX_TO_TORCH_PN2 if "pointnetv2_encoder" in params else
+             _FLAX_TO_TORCH_PN if "pointnet_encoder" in params else _FLAX_TO_TORCH)
     out, qkv = {}, {}
     for tree, is_stats in ((params, False), (batch_stats, True)):
         for path, v in _flatten(tree).items():
