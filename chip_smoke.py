@@ -287,6 +287,19 @@ Phases, each fatal on failure:
               and 1e-4), timed at the configs' total_bs, then --test
               through the CLI (16 samples with their renders); each kernel
               of these paths launched on each of them.
+ 26. cnn zoo - the PointNet, PointNet++ and DGCNN DAEs (phase_cnn_zoo).
+ 27. transformer heads - the patch chamfer over the v6 heads' 16384 pairs
+              of 32 and 32 points and the tiled chamfer at (256, 1024) x
+              (256, 1024) against their plain halves, bit for bit; the 13
+              PointCAE heads on FLAGSHIP_CONFIG's path with model.NAME
+              replaced (bs 256, bf16; the v6 heads unmasked): five on the
+              card against the CPU at batch 128 (2%), 5 steps of each with
+              its launches a step held to HEADS_RUNS (no folding kernel),
+              the step time, a profiled step's busy time and the peak
+              memory; the bnmscheduler's re-blend on the card; the
+              supervised pretrain and the DGCNN recipe under LambdaLR,
+              step_per_update 2 and a bnmscheduler through the CLI on
+              Synthetic clouds (phase_transformer_heads).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Run from the repository root:
 
@@ -1729,12 +1742,13 @@ def phase_check(torch, config, raw, device):
         fail(f"check: a kernel gate stayed closed at batch {CHECK_BATCH}: {used}")
 
 
-def run_steps(torch, config, raw, device, steps, seed, watch=None, model=None):
+def run_steps(torch, config, raw, device, steps, seed, watch=None, model=None, labels=None):
     """``steps`` train steps of a freshly initialised model (or of
     ``model``): per-step host times (each ending in a synchronise), losses,
     the launch counters of those steps, the peak of max_memory_allocated,
     and a closure that takes one more step. ``watch(model)``, if given, is
-    called on the model before the first step."""
+    called on the model before the first step; ``labels`` go to each step
+    (a supervised model's)."""
     from point_dae_torch.engine.pretrain import init_model, make_train_step
     from point_dae_torch.engine.train_state import TrainState
     from point_dae_torch.utils import kernels
@@ -1750,9 +1764,10 @@ def run_steps(torch, config, raw, device, steps, seed, watch=None, model=None):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     times, losses = [], []
+    kw = {} if labels is None else {"labels": labels}
     for _ in range(steps):
         t0 = time.perf_counter()
-        m = step(state, raw, generator=g)
+        m = step(state, raw, generator=g, **kw)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append((float(m["loss_xyz"]), float(m["loss_normal"])))
@@ -1764,7 +1779,7 @@ def run_steps(torch, config, raw, device, steps, seed, watch=None, model=None):
         fail("train: non-finite loss")
     steady = sorted(times[1:])
     steady = (steady[(len(steady) - 1) // 2] + steady[len(steady) // 2]) / 2
-    return steady, times[0], launches, peak, lambda: step(state, raw, generator=g)
+    return steady, times[0], launches, peak, lambda: step(state, raw, generator=g, **kw)
 
 
 def phase_train(torch, config, raw, device, card):
@@ -5903,6 +5918,268 @@ def phase_cnn_zoo(torch, device, card):
     log(f"  [{card}] the cnn phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+HEADS_BATCH, HEADS_STEPS = BATCH, 5
+_HEADS_ENC = {"patchify": 1, "gather_rows_small_c": 1, "mlp_ln_fwd": 12, "mlp_ln_bwd": 12,
+              "attention_fwd": 12, "attention_bwd": 12}       # the masked encoder's 12 blocks
+_HEADS_DEC = {**_HEADS_ENC, "mlp_ln_fwd": 16, "mlp_ln_bwd": 16, "attention_fwd": 16,
+              "attention_bwd": 16}                           # and the decoder's 4
+HEADS_RUNS = (   # (class, launches a step, checked on the card against the CPU)
+    ("PointCAE_transformer", {**_HEADS_DEC, "nn_half_small": 1}, True),
+    ("PointCAE_transformer_fc_global_fc_local", {**_HEADS_DEC, "nn_half_small": 1}, False),
+    ("PointCAE_transformer_folding", {**_HEADS_DEC, "nn_half_small": 1}, True),
+    ("PointCAE_transformer_folding_global_folding_local", {**_HEADS_DEC, "nn_half_small": 1},
+     False),
+    ("PointCAE_transformer_folding_global_fc_local", {**_HEADS_DEC, "nn_half_small": 1}, False),
+    ("PointCAE_transformer_patch_center_only", _HEADS_ENC, False),
+    ("PointCAE_transformer_fc_center", _HEADS_ENC, False),
+    ("PointCAE_transformer_fold_center", _HEADS_ENC, False),
+    ("PointCAE_transformer_fc_all", {**_HEADS_ENC, "nn_half_tiled": 1}, True),
+    ("PointCAE_transformer_fold_all", {**_HEADS_ENC, "nn_half_tiled": 1}, False),
+    # unmasked: 12 encoder blocks at T 64, R 16384; the two patch chamfers of the fine term
+    ("PointCAE_transformer_v6_corase2fine_transformer", {**_HEADS_DEC, "nn_half_small": 2},
+     False),
+    ("PointCAE_transformer_v6_folding_corase2fine_transformer",
+     {**_HEADS_DEC, "nn_half_small": 2}, True),
+    ("PointCAE_transformer_supervised", _HEADS_ENC, True))
+HEADS_TOL = 2e-2           # bf16 encoder (and decoder) products: 2% of the loss, as the flagship
+RUN_SUP_CUT = {"max_epoch": 0, "total_bs": 32,               # one epoch of 64 clouds, 2 steps
+               "model": {"NAME": "PointCAE_transformer_supervised"},
+               "dataset": {"train": {"others": {"size": 64}}}}
+RUN_OPT_CUT = {"max_epoch": 1,                               # 2 epochs of 8 batches
+               "scheduler": {"type": "LambdaLR",
+                             "kwargs": {"lr_decay": 0.5, "decay_step": 1, "lowest_decay": 0.02}},
+               "step_per_update": 2,
+               "bnmscheduler": {"kwargs": {"bn_momentum": 0.1, "bn_decay": 0.5,
+                                           "decay_step": 1, "lowest_decay": 0.01}}}
+
+
+def heads_config(name):
+    """FLAGSHIP_CONFIG with model.NAME ``name``; the v6 heads unmasked
+    (['affine_r3']): the reference refuses Drop-Patch for them."""
+    config = copy.deepcopy(FLAGSHIP_CONFIG)
+    config["model"]["NAME"] = name
+    if "_v6_" in name:
+        config["model"]["corrupt_type"] = ["affine_r3"]
+    return config
+
+
+def heads_kernels(torch, device, card):
+    """The two chamfer kernels at the heads' new shapes against their plain
+    halves, bit for bit, with their time a call: the patch chamfer over the
+    v6 fine term's 16384 pairs of 32 and 32 points (twice a step) and the
+    tiled chamfer at (256, 1024) x (256, 1024) (fc_all's and fold_all's
+    whole-cloud loss)."""
+    from point_dae_torch.losses import chamfer
+
+    g = torch.Generator(device=device).manual_seed(SEED + 140)
+    x = (0.2 * torch.randn((HEADS_BATCH * 64, 32, 3), generator=g, device=device)).contiguous()
+    y = (0.2 * torch.randn((HEADS_BATCH * 64, 32, 3), generator=g, device=device)).contiguous()
+    if not chamfer.use_small_kernel(x, 32):
+        fail("heads: the patch chamfer's gate is closed at the v6 fine term's patches")
+    kernel_vs_plain(torch, "heads: the patch chamfer (16384, 32, 32)",
+                    chamfer.nn_half_small_pair(x, y),
+                    chamfer.nn_half_small_plain(x, y) + chamfer.nn_half_small_plain(y, x))
+    ms = cuda_ms(lambda: chamfer.nn_half_small_pair(x, y), 20)
+    dev, _ = device_ms(lambda: chamfer.nn_half_small_pair(x, y), "the patch chamfer at 16384",
+                       20)
+    bound = bound_ms(2 * HEADS_BATCH * 64 * 32 * (12 + 12), 0, F32_FLOPS)
+    log(f"  [{card}] patch chamfer 16384 pairs of 32 and 32 points, both directions, one "
+        f"launch: {ms:.4f} ms a call, device {dev:.4f}, bit for bit with the plain halves; "
+        f"bound {bound[0]:.4f} by {bound[1]}")
+    a = torch.randn((HEADS_BATCH, 1024, 3), generator=g, device=device)
+    b = torch.randn((HEADS_BATCH, 1024, 3), generator=g, device=device)
+    if not chamfer.use_tiled_kernel(a, 1024):
+        fail("heads: the tiled chamfer's gate is closed at (256, 1024)")
+    kernel_vs_plain(torch, "heads: the tiled chamfer (256, 1024) x (256, 1024)",
+                    chamfer.nn_half_tiled_pair(a, b),
+                    chamfer.nn_half_tiled_plain(a, b) + chamfer.nn_half_tiled_plain(b, a))
+    ms = cuda_ms(lambda: chamfer.nn_half_tiled_pair(a, b), 20)
+    dev, _ = device_ms(lambda: chamfer.nn_half_tiled_pair(a, b), "the tiled chamfer at 256",
+                       20)
+    plain = cuda_ms(lambda: chamfer.nn_half_tiled_plain(a, b) + chamfer.nn_half_tiled_plain(b, a),
+                    5)
+    bound = bound_ms(2 * HEADS_BATCH * 1024 * (12 + 8), 2 * HEADS_BATCH * 1024 * 1024 * 9,
+                     F32_FLOPS)
+    log(f"  [{card}] tiled chamfer (256, 1024) x (256, 1024), both directions, one launch: "
+        f"{ms:.4f} ms a call, device {dev:.4f}, bit for bit with the plain halves "
+        f"({plain:.4f} ms); bound {bound[0]:.4f} by {bound[1]}")
+
+
+def heads_check(torch, name, config, clean, labels, device, g):
+    """The train-mode losses of ``name`` at CHECK_BATCH on the card
+    (every kernel gate open) against the CPU (the plain paths) with the
+    same weights, clouds and draws, within HEADS_TOL relative. Returns
+    (the card's model, the larger relative gap)."""
+    from point_dae_torch.engine.pretrain import init_model
+
+    cpu_model = init_model(config, seed=SEED + 141, device="cpu")
+    model = copy.deepcopy(cpu_model).to(device)
+    draws = model.sample_draws(CHECK_BATCH, g, device)
+    kw = {"labels": labels[:CHECK_BATCH]} if getattr(model, "is_supervised", False) else {}
+    kc = {k: v.cpu() for k, v in kw.items()}
+    cln = clean[:CHECK_BATCH]
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lg = [float(v) for v in model(cln, cln, draws=draws, **kw)]
+        lc = [float(v) for v in cpu_model(cln.cpu(), cln.cpu(), draws=on_device(draws, "cpu"),
+                                          **kc)]
+    err = max(abs(a - c) / max(abs(c), 1e-12) for a, c in zip(lg, lc) if a or c)
+    log(f"  {name} at batch {CHECK_BATCH}: card losses {lg[0]:.7f} {lg[1]:.7f}; cpu "
+        f"({time.perf_counter() - t0:.1f} s) {lc[0]:.7f} {lc[1]:.7f}; {err:.2e} relative")
+    if not all(math.isfinite(v) for v in lg + lc) or err > HEADS_TOL:
+        fail(f"heads: {name}: card losses {lg} off the CPU's {lc} beyond {HEADS_TOL} relative")
+    return model, err
+
+
+def heads_bnm_check(torch, device):
+    """The bnmscheduler's re-blend on the card: one DGCNN step (bs 8) of two
+    copies of a model with the same draws, one at momentum m: every running
+    statistic's move is m / 0.1 times the other's."""
+    from point_dae_torch.engine import pretrain
+    from point_dae_torch.engine.train_state import TrainState
+
+    config = load_cfg(RUN_DGCNN_CFG)
+    raw = torch.randn((8, 2048, 6), generator=torch.Generator(device=device).manual_seed(
+        SEED + 142), device=device)
+    base = pretrain.init_model(config, seed=SEED + 143, device=device)
+    moves = []
+    for m in (None, 0.025):
+        model = copy.deepcopy(base)
+        state = TrainState.create(model, config, 8)
+        step = pretrain.make_train_step(model, config, device=device)
+        step(state, raw, generator=torch.Generator(device=device).manual_seed(SEED + 144),
+             bn_momentum=m)
+        moves.append([(bn.running_mean - b0.running_mean, bn.running_var - b0.running_var)
+                      for bn, b0 in zip(pretrain.batch_norms(model), pretrain.batch_norms(base))])
+    worst = max(float((s - 0.25 * p).abs().max() / p.abs().max().clamp_min(1e-12))
+                for pairs_p, pairs_s in zip(*moves) for p, s in zip(pairs_p, pairs_s))
+    if worst > 1e-4:
+        fail(f"heads: the bnmscheduler's re-blend is off by {worst:.2e} of a move")
+    return len(moves[0]), worst
+
+
+def heads_cli(torch, device, card):
+    """The two CLI runs on Synthetic clouds: the supervised pretrain from
+    the cached flagship recipe (the streaming loader kept, labels from the
+    set), and the DGCNN recipe under LambdaLR, step_per_update 2 and a
+    bnmscheduler (half the batches update; the logged rates are the
+    schedule's; the BatchNorm momentum moves with the epoch)."""
+    import shutil
+    import tempfile
+
+    from point_dae_torch.engine import pretrain
+    from point_dae_torch.engine.train_state import make_lr_schedule
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_heads_")
+    try:
+        cfg = write_config(RUN_FLAGSHIP_CFG, os.path.join(tmp, "cfgs", "pretrain_supervised.yaml"),
+                           RUN_SUP_CUT)
+        log(f"  {RUN_FLAGSHIP_CFG} with NAME PointCAE_transformer_supervised through the CLI "
+            f"(64 Synthetic clouds, one epoch of 2 steps):")
+        out, lines, _, sec = cli_run("supervised pretrain",
+                                     ["--config", cfg, "--exp_name", "run", "--root_folder", tmp],
+                                     "pretrain_supervised", device, range(1), validation=False)
+        kept = lines.starting("[DeviceCache] supervised pretrain needs labels")
+        if out["state"].step != 2 or len(kept) != 1:
+            fail(f"run supervised pretrain: {out['state'].step} optimizer steps (expected 2), "
+                 f"the streaming loader's line {kept}")
+        log(f"    {kept[0]}")
+        log(f"  [{card}] supervised pretrain through the CLI: {sec:.1f} s")
+
+        cfg = write_config(RUN_DGCNN_CFG, os.path.join(tmp, "cfgs", "pretrain_optkeys.yaml"),
+                           RUN_OPT_CUT)
+        log(f"  {RUN_DGCNN_CFG} with {RUN_OPT_CUT} through the CLI:")
+        seen, real = [], pretrain.make_train_step
+
+        def watched(model, config, device=None):
+            step = real(model, config, device=device)
+
+            def call(*a, **k):
+                seen.append(k.get("bn_momentum"))
+                return step(*a, **k)
+            return call
+
+        pretrain.make_train_step = watched
+        try:
+            out, lines, exp, sec = cli_run("optimizer keys", ["--config", cfg, "--exp_name", "run",
+                                                              "--root_folder", tmp],
+                                           "pretrain_optkeys", device, range(2))
+        finally:
+            pretrain.make_train_step = real
+        batches = 8 * 2
+        want_m = [pretrain.bn_momentum_for(RUN_OPT_CUT["bnmscheduler"], e)
+                  for e in range(2) for _ in range(8)]
+        if out["state"].step != batches // 2:
+            fail(f"run optimizer keys: {out['state'].step} optimizer steps for {batches} batches")
+        if seen != want_m or len(set(seen)) != 2:
+            fail(f"run optimizer keys: BatchNorm momenta {seen}, expected {want_m}")
+        config = load_cfg(cfg)
+        sched = make_lr_schedule(config, 8)
+        tb = os.path.join(os.path.dirname(exp), "TFBoard", "run", "scalars.jsonl")
+        rates = [json.loads(ln) for ln in open(tb) if '"Loss/Batch/LR"' in ln]
+        if not rates or any(abs(r["value"] - sched(r["step"])) > 1e-12 * sched(r["step"])
+                            for r in rates):
+            fail(f"run optimizer keys: logged rates {rates} off the LambdaLR schedule")
+        log(f"  [{card}] optimizer keys through the CLI: {sec:.1f} s, {out['state'].step} "
+            f"updates for {batches} batches, BatchNorm momenta by epoch {sorted(set(seen))[::-1]}, "
+            f"logged rates {[(r['step'], r['value']) for r in rates]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_transformer_heads(torch, device, card):
+    """The 13 PointCAE transformer heads on FLAGSHIP_CONFIG's path (bs 256
+    from (256, 8192, 6) raw clouds, trans_dim 384, depth 12 + 4, bf16;
+    the v6 heads unmasked): the chamfer kernels at the heads' new shapes
+    (heads_kernels); five heads (FC local, f32 folding, the whole-cloud
+    tiled chamfer, coarse to fine, supervised) on the card against the CPU
+    at CHECK_BATCH (heads_check); HEADS_STEPS steps of each head with its
+    launches a step held to HEADS_RUNS (no folding kernel launch), the
+    median step time, a profiled step's busy time and the peak memory; the
+    bnmscheduler's re-blend on the card (heads_bnm_check); the two CLI runs
+    (heads_cli)."""
+    from point_dae_torch.engine.pretrain import device_pipeline
+
+    t_phase = time.perf_counter()
+    heads_kernels(torch, device, card)
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=device).manual_seed(SEED + 145)
+    raw = torch.randn((HEADS_BATCH, NRAW, 6), generator=g, device=device)
+    d = FLAGSHIP_CONFIG["dataset"]["train"]["others"]
+    _, clean = device_pipeline(raw, d["aug_type"], d["corrupt_type"], d["npoints"],
+                               generator=g, device=device)
+    labels = torch.randint(0, 55, (HEADS_BATCH,), generator=g, device=device)
+    records = {}
+    for name, want, checked in HEADS_RUNS:
+        config = heads_config(name)
+        model, err = heads_check(torch, name, config, clean, labels, device, g) if checked \
+            else (None, None)
+        steady, first, launches, peak, one_more = run_steps(
+            torch, config, raw, device, HEADS_STEPS, SEED + 146, model=model,
+            labels=labels if "supervised" in name else None)
+        per_step = {k: v / HEADS_STEPS for k, v in launches.items() if v}
+        if per_step != want:
+            fail(f"heads: {name}: launches a step {per_step}, expected {want}")
+        busy, _ = profile_step(torch, one_more, card, top=4)
+        records[name] = (steady, busy, peak, err)
+        log(f"  [{card}] {name}: step {steady * 1e3:.2f} ms (median of steps 2-{HEADS_STEPS}), "
+            f"first {first * 1e3:.1f} ms, busy {busy / 1e3:.2f} ms, max_memory_allocated "
+            f"{peak / 2 ** 30:.2f} GiB; launches a step {per_step}")
+        del model, one_more
+        torch.cuda.empty_cache()
+    del raw, clean
+    torch.cuda.empty_cache()
+    n_bn, worst = heads_bnm_check(torch, device)
+    log(f"  [{card}] bnmscheduler on the card: {n_bn} BatchNorms, each move at momentum 0.025 "
+        f"0.25 times the fixed one's within {worst:.2e}")
+    heads_cli(torch, device, card)
+    for name, (st, bz, pk, err) in records.items():
+        extra = "" if err is None else f"; card against CPU at batch {CHECK_BATCH}: {err:.2e}"
+        log(f"  [{card}] heads: {name} (bs {HEADS_BATCH}): {st * 1e3:.2f} ms a step, busy "
+            f"{bz / 1e3:.2f} ms, peak {pk / 2 ** 30:.2f} GiB{extra}")
+    log(f"  [{card}] the transformer heads phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def stamp(what: str) -> None:
     log(f"[{time.perf_counter() - T0:.1f} s] {what} done")
 
@@ -6124,6 +6401,13 @@ def main() -> None:
     log("cnn zoo (the PointNet, PointNet++ and DGCNN classes):")
     phase_cnn_zoo(torch, device, card)
     stamp("cnn_zoo")
+    torch.cuda.empty_cache()
+
+    # 13. the PointCAE transformer heads, the supervised path and the optimizer keys
+    log("transformer heads (the 13 PointCAE heads, supervised, LambdaLR, step_per_update, "
+        "bnmscheduler):")
+    phase_transformer_heads(torch, device, card)
+    stamp("transformer_heads")
     # gather_rows_wide is the one kernel without a path: the JAX package keeps
     # XLA's gather forward on purpose (point_dae_tpu/ops/pallas_scatter.py:
     # 267-276) and the port its plain one, so the rule leaves it out and its

@@ -114,12 +114,35 @@ def init_model(config, seed: int = 0, device=None) -> torch.nn.Module:
                                 seed=seed)
 
 
+def bn_momentum_for(bcfg, epoch: int) -> float:
+    """The ``bnmscheduler``'s torch-convention BatchNorm momentum of an
+    epoch (misc.py:34-40): ``max(bn_momentum * bn_decay ** (epoch /
+    decay_step), lowest_decay)``, lowest_decay 0.01 by default."""
+    k = bcfg["kwargs"]
+    return max(float(k["bn_momentum"]) * float(k["bn_decay"]) ** (epoch / float(k["decay_step"])),
+               float(k.get("lowest_decay", 0.01)))
+
+
+def batch_norms(model: torch.nn.Module) -> list:
+    """The model's BatchNorm layers (``models/layers.py:BatchNorm``)."""
+    from ..models.layers import BatchNorm
+
+    return [m for m in model.modules() if isinstance(m, BatchNorm)]
+
+
 def make_train_step(model: torch.nn.Module, config, device=None) -> Callable:
     """Build the pretrain step. Signature:
     ``step(state, raw (B, Nraw, C), generator=None, gradual_weight=0.0,
-    draws=None) -> {"loss_xyz", "loss_normal"}`` (device tensors; nothing
-    waits for the card). ``draws`` (a ``StepDraws``) replaces every random
-    draw of the step; otherwise they come from ``generator``."""
+    draws=None, labels=None, bn_momentum=None) -> {"loss_xyz",
+    "loss_normal"}`` (device tensors; nothing waits for the card).
+    ``draws`` (a ``StepDraws``) replaces every random draw of the step;
+    otherwise they come from ``generator``. ``labels`` (B,) go to a model
+    that ``is_supervised``, which needs them. ``bn_momentum`` (the
+    ``bnmscheduler``'s, ``bn_momentum_for``): the BatchNorm layers move
+    their running statistics with flax's fixed momentum 0.9 (torch's 0.1);
+    the move is linear in the batch's statistics, so after the forward
+    each is re-blended to the scheduled one, ``old + (new - old) * (m /
+    0.1)``, as the JAX package does."""
     dev = resolve_device(device)
     d = config["dataset"]["train"]["others"]
     aug_type = tuple(d.get("aug_type", ("norm",)))
@@ -127,20 +150,34 @@ def make_train_step(model: torch.nn.Module, config, device=None) -> Callable:
     npoints = int(d.get("npoints", 1024))
     loss_type = config.get("loss_type", "xyz")
     normal_weight = float(config.get("normal_weight", 1.0))
-    if config.get("bnmscheduler") is not None:
-        raise NotImplementedError("bnmscheduler is not ported yet")
+    supervised = bool(getattr(model, "is_supervised", False))
+    norms = batch_norms(model)
 
     def step(state: TrainState, raw: torch.Tensor,
              generator: Optional[torch.Generator] = None,
-             gradual_weight: float = 0.0, draws: Optional[StepDraws] = None):
+             gradual_weight: float = 0.0, draws: Optional[StepDraws] = None,
+             labels: Optional[torch.Tensor] = None, bn_momentum: Optional[float] = None):
         corrupted, clean = device_pipeline(
             raw, aug_type, corrupt_type, npoints,
             draws=None if draws is None else draws.pipeline,
             generator=generator, device=dev)
+        kw = {}
+        if supervised:
+            if labels is None:
+                raise ValueError(f"{type(model).__name__} is supervised: the step needs labels")
+            kw["labels"] = torch.as_tensor(labels).reshape(-1).to(dev)
+        if bn_momentum is not None:
+            old = [(bn.running_mean.clone(), bn.running_var.clone()) for bn in norms]
         model.train()
         loss_xyz, loss_normal = model(corrupted, clean,
                                       draws=None if draws is None else draws.model,
-                                      generator=generator)
+                                      generator=generator, **kw)
+        if bn_momentum is not None:
+            scale = bn_momentum / 0.1
+            with torch.no_grad():
+                for bn, (mean, var) in zip(norms, old):
+                    bn.running_mean.copy_(mean + (bn.running_mean - mean) * scale)
+                    bn.running_var.copy_(var + (bn.running_var - var) * scale)
         loss = compute_loss(loss_type, loss_xyz, loss_normal, normal_weight,
                             gradual_weight)
         state.zero_grad()
@@ -347,9 +384,13 @@ def run_pretrain(config, args, logger_name: str = "PointDAE",
     loss_type = config.get("loss_type", "xyz")
 
     model = init_model(config, seed=seed, device=dev)
+    supervised = bool(getattr(model, "is_supervised", False))
     device_cache = None
     others = dcfg["train"].get("others", {})
-    if others.get("device_cache"):
+    if others.get("device_cache") and supervised:
+        print_log("[DeviceCache] supervised pretrain needs labels: streaming loader kept",
+                  logger=logger_name)
+    elif others.get("device_cache"):
         device_cache = build_device_cache(
             train_set, dtype=DTYPES[str(others.get("device_cache_dtype", "float16"))],
             max_bytes=int(others.get("device_cache_max_bytes", 12 * 2 ** 30)),
@@ -392,19 +433,24 @@ def run_pretrain(config, args, logger_name: str = "PointDAE",
     val_freq = int(getattr(args, "val_freq", 1))
     writer = ScalarWriter(getattr(args, "tfboard_path", None))
     n_step = start_epoch * steps_per_epoch
+    bcfg = config.get("bnmscheduler")
     try:
         for epoch in range(start_epoch, max_epoch + 1):
             loader.set_epoch(epoch)
             gw = gradual_weight_for(loss_type, epoch, max_epoch)
+            bn_m = None if bcfg is None else bn_momentum_for(bcfg, epoch)
             losses = AverageMeter(["xyz", "normal"])
             t_epoch = time.time()
             if device_cache is not None:
                 device_cache.set_epoch(epoch)
-                batches = (device_cache.batch(i, total_bs) for i in range(steps_per_epoch))
+                batches = ((device_cache.batch(i, total_bs), None)
+                           for i in range(steps_per_epoch))
             else:
-                batches = (torch.from_numpy(b["points"]) for b in loader)
-            for raw in batches:
-                metrics = train_step(state, raw, generator=generator, gradual_weight=gw)
+                batches = ((torch.from_numpy(b["points"]), b["label"] if supervised else None)
+                           for b in loader)
+            for raw, labels in batches:
+                metrics = train_step(state, raw, generator=generator, gradual_weight=gw,
+                                     labels=labels, bn_momentum=bn_m)
                 n_step += 1
                 # pull metrics to the host sparsely: a read waits for the card
                 if n_step % 50 == 0 or n_step % steps_per_epoch == 0:

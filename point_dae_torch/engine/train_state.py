@@ -29,8 +29,10 @@ model (``TrainState.zero_grad``), not only of the optimizer's parameters.
 AdamW (b1 0.9, b2 0.999, eps 1e-8) with decoupled weight decay, skipped for
 parameters with ndim <= 1, names ending in ``bias`` or containing
 ``token`` (the reference's ``add_weight_decay``). The learning rate follows
-the per-epoch CosLR schedule evaluated at the optimizer's step count
-before the update, as optax's ``scale_by_schedule`` does. A parameter that
+the per-epoch schedule (CosLR, LambdaLR, StepLR, function) evaluated at
+the optimizer's update count before the update, as optax's
+``scale_by_schedule`` does; ``step_per_update`` k > 1 accumulates the mean
+gradient of k mini-steps into one update (``TrainState``). A parameter that
 the loss does not reach (MaskSurf's unused ``coarse_pred``) gets a zero
 gradient, as in optax, so that its weight still decays; ``torch.optim.AdamW``
 would skip it. As in the JAX
@@ -42,6 +44,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..utils.convert import flax_paths
@@ -53,26 +56,49 @@ def _no_decay(name: str, p: torch.Tensor) -> bool:
 
 
 def make_lr_schedule(config: Dict, steps_per_epoch: float) -> Callable[[int], float]:
-    """Per-step learning rate of the reference's per-epoch CosLR."""
+    """Per-step learning rate of the reference's per-epoch schedulers:
+    ``CosLR``, ``LambdaLR`` (``lr * max(lr_decay ** (epoch / decay_step),
+    lowest_decay)``), ``StepLR`` (``lr * gamma ** (epoch // step_size)``)
+    and ``function`` (the base rate). The epoch is ``floor(step /
+    steps_per_epoch)`` in f32, as the JAX package computes it:
+    ``steps_per_epoch`` may be fractional (updates an epoch under
+    ``step_per_update``), and f32 and f64 quotients floor apart at some
+    epoch boundaries."""
     opti, sche = config["optimizer"], config["scheduler"]
     base_lr = float(opti["kwargs"]["lr"])
     kw = sche.get("kwargs", {})
     epochs = int(kw.get("epochs", config.get("max_epoch", 300)))
-    if sche["type"] != "CosLR":
-        raise NotImplementedError(f"scheduler {sche['type']!r} is not ported yet")
-    min_lr = float(kw.get("min_lr", base_lr / 1000.0))
-    warmup = int(kw.get("warmup_epochs", 0))
-    warmup_lr = float(kw.get("warmup_lr", 1e-6))
-    t_max = int(kw.get("t_max", epochs))
+    stype = sche["type"]
 
-    def sched(step: int) -> float:
-        e = math.floor(step / steps_per_epoch)
-        if e < warmup:
-            return warmup_lr + (base_lr - warmup_lr) * e / max(warmup, 1)
-        t = min(max((e - warmup) / max(t_max - warmup, 1), 0.0), 1.0)
-        return min_lr + 0.5 * (base_lr - min_lr) * (1.0 + math.cos(math.pi * t))
+    def epoch_of(step: int) -> int:
+        return math.floor(np.float32(step) / np.float32(steps_per_epoch))
 
-    return sched
+    if stype == "CosLR":
+        min_lr = float(kw.get("min_lr", base_lr / 1000.0))
+        warmup = int(kw.get("warmup_epochs", 0))
+        warmup_lr = float(kw.get("warmup_lr", 1e-6))
+        t_max = int(kw.get("t_max", epochs))
+
+        def sched(step: int) -> float:
+            e = epoch_of(step)
+            if e < warmup:
+                return warmup_lr + (base_lr - warmup_lr) * e / max(warmup, 1)
+            t = min(max((e - warmup) / max(t_max - warmup, 1), 0.0), 1.0)
+            return min_lr + 0.5 * (base_lr - min_lr) * (1.0 + math.cos(math.pi * t))
+
+        return sched
+    if stype == "LambdaLR":
+        decay = float(kw.get("lr_decay", 0.98))
+        lowest = float(kw.get("lowest_decay", 0.02))
+        decay_step = float(kw.get("decay_step", 1))
+        return lambda step: base_lr * max(decay ** (epoch_of(step) / decay_step), lowest)
+    if stype == "StepLR":
+        step_size = int(kw.get("step_size", 50))
+        gamma = float(kw.get("gamma", 0.1))
+        return lambda step: base_lr * gamma ** (epoch_of(step) // step_size)
+    if stype == "function":
+        return lambda step: base_lr
+    raise NotImplementedError(f"scheduler {stype!r}")
 
 
 DECODER_KEYS = ("decoder_pos_embed", "mae_decoder", "increase_dim")
@@ -105,8 +131,6 @@ def build_optimizer(config: Dict, model: torch.nn.Module, steps_per_epoch: float
     if opti["type"] != "AdamW":
         raise NotImplementedError(opti["type"])
     part = opti.get("part", "all")
-    if int(config.get("step_per_update", 1)) != 1:
-        raise NotImplementedError("step_per_update > 1 is not ported yet")
     wd = float(opti["kwargs"].get("weight_decay", 0.05))
     # every registered model has bridge rules but the bare DiscreteVAE
     # tokenizer, which trains only inside Point_dVAE
@@ -141,22 +165,43 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Te
 
 class TrainState:
     """The model, its optimizer and schedule, the global-norm clip (None:
-    no clipping) and the step count."""
+    no clipping), ``every_k`` (``step_per_update``) and the count of
+    optimizer updates, ``step``. ``schedule`` is the rate at a mini-batch
+    (what a run logs); ``update_schedule`` the rate at an update, which
+    counts ``steps_per_epoch / every_k`` updates an epoch (the same
+    function when ``every_k`` is 1).
+
+    With ``every_k`` k > 1, as ``optax.MultiSteps`` wraps the JAX
+    package's whole chain: each mini-step's gradients enter a running mean
+    over the window (``acc + (g - acc) / (i + 1)``, optax's), the parameters
+    stay as they are, and the k-th mini-step applies one update from the
+    mean, clipped first. ``mini_step`` is the place in the window. A
+    checkpoint keeps ``step`` but not a window's partial mean: a resumed
+    run starts a new window."""
 
     def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                  schedule: Callable[[int], float],
-                 grad_norm_clip: Optional[float] = None):
+                 grad_norm_clip: Optional[float] = None, every_k: int = 1,
+                 update_schedule: Optional[Callable[[int], float]] = None):
         self.model = model
         self.optimizer = optimizer
         self.schedule = schedule
+        self.update_schedule = update_schedule or schedule
         self.grad_norm_clip = float(grad_norm_clip) if grad_norm_clip else None
+        self.every_k = int(every_k)
         self.step = 0
+        self.mini_step = 0
+        self._mean: Optional[List[torch.Tensor]] = None
 
     @classmethod
     def create(cls, model, config, steps_per_epoch: float,
                grad_norm_clip: Optional[float] = None) -> "TrainState":
-        return cls(model, *build_optimizer(config, model, steps_per_epoch),
-                   grad_norm_clip=grad_norm_clip)
+        k = int(config.get("step_per_update", 1))
+        opt, sched = build_optimizer(config, model, steps_per_epoch)
+        # the exact rational updates an epoch: a window spans epoch boundaries
+        upd = sched if k == 1 else make_lr_schedule(config, max(steps_per_epoch / k, 1e-9))
+        return cls(model, opt, sched, grad_norm_clip=grad_norm_clip, every_k=k,
+                   update_schedule=upd)
 
     def zero_grad(self) -> None:
         """Drop the gradient of every parameter of the model, the frozen
@@ -165,12 +210,36 @@ class TrainState:
         and grow the clip's norm."""
         self.model.zero_grad(set_to_none=True)
 
+    @torch.no_grad()
+    def _window(self) -> bool:
+        """Take this mini-step's gradients (a missing one as zeros) into
+        the window's running mean; at the window's last mini-step put the
+        mean in ``.grad`` and return True."""
+        params = [p for p in self.model.parameters() if p.requires_grad]
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        i = self.mini_step
+        if i == 0:
+            self._mean = [g.clone() for g in grads]
+        else:
+            for acc, g in zip(self._mean, grads):
+                acc.add_((g - acc) / (i + 1))
+        self.mini_step = (i + 1) % self.every_k
+        if self.mini_step:
+            return False
+        for p, acc in zip(params, self._mean):
+            p.grad = acc
+        self._mean = None
+        return True
+
     def apply_gradients(self) -> None:
         """One AdamW update from the gradients in ``.grad`` (a missing one
         taken as zeros), clipped first when ``grad_norm_clip`` is set by
         their norm over every parameter of the model, at each group's
-        scale of the learning rate of the current step; then the step
-        count advances."""
+        scale of the learning rate of the current update; then the update
+        count advances. Under ``every_k`` k > 1 the gradients join the
+        window's mean, and only its k-th mini-step updates."""
+        if self.every_k > 1 and not self._window():
+            return
         params = [p for g in self.optimizer.param_groups for p in g["params"]]
         for p in params:
             if p.grad is None:
@@ -178,7 +247,7 @@ class TrainState:
         if self.grad_norm_clip is not None:
             clip_by_global_norm_([p.grad for p in self.model.parameters()
                                   if p.grad is not None], self.grad_norm_clip)
-        lr = self.schedule(self.step)
+        lr = self.update_schedule(self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr * group.get("lr_scale", 1.0)
         self.optimizer.step()

@@ -379,6 +379,23 @@ def chamfer_l1(xyz1: torch.Tensor, xyz2: torch.Tensor) -> torch.Tensor:
     return ((d1 + 1e-12).sqrt().mean() + (d2 + 1e-12).sqrt().mean()) / 2.0
 
 
+def chamfer_l2_coarse2fine(xyz1: torch.Tensor, xyz2: torch.Tensor, fine1: torch.Tensor,
+                           fine2: torch.Tensor):
+    """The centre chamfer-L2 of xyz1 and xyz2 (B, G, 3), then the patch
+    chamfer-L2 between each patch of one side (fine (B, G, S, 3)) and the
+    other side's patch at its nearest centre, both ways
+    (ChamferDistanceL2_corase2fine): (centre term, fine term). The centres'
+    call is small and plain; the two patch calls, over B * G pairs, take the
+    patch kernel where B * G >= 4096."""
+    d1, d2, i1, i2 = nn_distance(xyz1, xyz2)
+    B, G, S, _ = fine1.shape
+    t1 = take_points(fine2.reshape(B, G, S * 3), i1).reshape(B * G, S, 3)
+    t2 = take_points(fine1.reshape(B, G, S * 3), i2).reshape(B * G, S, 3)
+    fd1 = chamfer_l2(fine1.reshape(B * G, S, 3), t1)
+    fd2 = chamfer_l2(fine2.reshape(B * G, S, 3), t2)
+    return d1.mean() + d2.mean(), fd1 + fd2
+
+
 def weighted_mean(per: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """sum(w * per) / max(sum(w), 1e-8)."""
     return (per * weight).sum() / weight.sum().clamp_min(1e-8)

@@ -1,6 +1,8 @@
 """The flagship transformer Point-DAE (port of
 ``point_dae_tpu/models/transformer.py:47-231,234-427,457-573,601-645``, its
-``reconstruct`` included),
+``reconstruct`` included), the other PointCAE heads of the paper's decoder
+ablations (``:429-454,576-598,648-739,884-1139``: FC or folding local and
+global heads, centres only, the whole cloud, coarse to fine, supervised),
 the classification fine-tune models ``PointTransformer`` (``:742-801``),
 ``PointTransformerNoClassToken`` (``:804-837``) and the linear probe
 ``PointTransformer_LinearClassification`` (``:838-860``, also registered
@@ -16,8 +18,14 @@ masked tokens into M = floor(0.8 G) slots with zero-weight padding. Without
 goes through the encoder, no mask token, every patch enters the loss.
 
 Random draws (patch mask, or the block mask's seed patch, patch
-corruptions, stochastic-depth keep masks) are inputs: ``forward`` takes a
-``ModelDraws`` or samples one from the given ``torch.Generator``.
+corruptions, stochastic-depth keep masks, a head's dropout keep masks) are
+inputs: ``forward`` takes a ``ModelDraws`` or samples one from the given
+``torch.Generator``.
+
+Every PointCAE head but the flagship computes its own products in f32,
+as the JAX heads do (their folding heads are built without a dtype, so
+the fused folding kernel's bf16 gate stays shut); the encoder and decoder
+run at the config's compute dtype.
 """
 from __future__ import annotations
 
@@ -29,7 +37,8 @@ import torch
 import torch.nn as nn
 
 from ..data.corruptions_patch import corrupt_patches, sample_patch_draws
-from ..losses.chamfer import build_loss_func, masked_chamfer_l1, masked_chamfer_l2
+from ..losses.chamfer import (build_loss_func, chamfer_l2_coarse2fine, masked_chamfer_l1,
+                              masked_chamfer_l2)
 from ..ops.folding import fused_folding, stage_params, supported as fold_supported
 from ..ops.geometry import group_neighborhood
 from ..utils.registry import MODELS
@@ -97,6 +106,13 @@ class ModelDraws:
     dp_encoder: Optional[torch.Tensor]       # (depth, 2, B) bool keep masks
     dp_decoder: Optional[torch.Tensor]       # (decoder_depth, 2, B)
     block_seed: Optional[torch.Tensor] = None   # (B,) seed patches of mask_type block
+
+
+@dataclass
+class SupervisedDraws(ModelDraws):
+    """``ModelDraws`` plus the supervised head's dropout keep masks, one
+    (B, width) bool a Dropout, in order."""
+    dropout: Optional[list] = None
 
 
 def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -194,6 +210,7 @@ class _CAETransformerBase(nn.Module):
     recomputed in the backward). None of them adds a parameter."""
 
     always_masked = False          # masked whatever corrupt_type says (MaskFeat)
+    corrupts_patches = False       # draws and applies corrupt_type's patch corruptions
 
     def __init__(self, config, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -243,14 +260,17 @@ class _CAETransformerBase(nn.Module):
             generator=generator))
 
     def _sample_corrupt(self, batch: int, generator, device) -> Optional[list]:
-        """The patch corruptions' draws; the base model corrupts no patch."""
-        return None
+        """The patch corruptions' draws (``corrupts_patches``), else None."""
+        if not self.corrupts_patches:
+            return None
+        return sample_patch_draws(self.corrupt_type, batch, self.num_group,
+                                  self.group_size, generator, device)
 
     def sample_draws(self, batch: int, generator: Optional[torch.Generator],
                      device) -> ModelDraws:
         """Draw a forward's randomness from ``generator`` (no patch mask
         when unmasked; the seed patches, not the mask, under ``mask_type:
-        block``)."""
+        block``; no decoder keep masks for a model without a decoder)."""
         mask = seed = None
         if self.masked_mode and self.mask_type == "block":
             seed = torch.randint(0, self.num_group, (batch,), generator=generator,
@@ -260,7 +280,9 @@ class _CAETransformerBase(nn.Module):
                                      self.rand_ratio, generator, device)
         corrupt = self._sample_corrupt(batch, generator, device)
         dp_enc = stack_dp_masks(self.MAE_encoder.blocks.dpr, batch, generator, device)
-        dp_dec = stack_dp_masks(self.MAE_decoder.dpr, batch, generator, device)
+        decoder = getattr(self, "MAE_decoder", None)
+        dp_dec = None if decoder is None else stack_dp_masks(decoder.dpr, batch, generator,
+                                                             device)
         return ModelDraws(mask, corrupt, dp_enc, dp_dec, seed)
 
     def patch_mask(self, draws: ModelDraws, center: torch.Tensor) -> torch.Tensor:
@@ -278,6 +300,32 @@ class _CAETransformerBase(nn.Module):
             return self.MAE_encoder(t_neigh, t_center, mask, dp_enc), mask
         x = self.MAE_encoder(t_neigh, t_center, dp_enc)
         return x, torch.zeros(x.shape[:2], dtype=torch.bool, device=x.device)
+
+    def _encode_clean(self, clean: torch.Tensor, draws: Optional[ModelDraws],
+                      generator: Optional[torch.Generator]):
+        """Group the clean points, corrupt the patches (in training, with
+        ``corrupts_patches``), encode: (neigh, center, x_vis, mask, draws),
+        the draws sampled from ``generator`` when None."""
+        pts = clean[..., :3]
+        if draws is None:
+            draws = self.sample_draws(pts.shape[0], generator, pts.device)
+        neigh, center = group_neighborhood(pts, self.num_group, self.group_size)
+        t_neigh, t_center = neigh + center[:, :, None, :], center
+        if self.training and self.corrupts_patches:
+            t_neigh, t_center = corrupt_patches(t_neigh, t_center, self.corrupt_type,
+                                                draws.corrupt)
+        t_neigh = t_neigh - t_center[:, :, None, :]
+        dp_enc = draws.dp_encoder if self.training else None
+        x_vis, mask = self._encode(t_neigh, t_center, draws, dp_enc)
+        return neigh, center, x_vis, mask, draws
+
+    def _run(self, clean: torch.Tensor, draws: Optional[ModelDraws],
+             generator: Optional[torch.Generator]):
+        """``_encode_clean``, then decode all G tokens: (neigh, center,
+        x_vis, x_rec, mask)."""
+        neigh, center, x_vis, mask, draws = self._encode_clean(clean, draws, generator)
+        dp_dec = draws.dp_decoder if self.training else None
+        return neigh, center, x_vis, self._decode(x_vis, mask, center, dp_dec), mask
 
     def _decode(self, x_vis: torch.Tensor, mask: torch.Tensor, center: torch.Tensor,
                 dp_dec: Optional[torch.Tensor]) -> torch.Tensor:
@@ -302,6 +350,11 @@ class _CAETransformerBase(nn.Module):
         neg = torch.where(vis, x, torch.full((), -1e9, device=x.device))
         cnt = vis.sum(1).clamp_min(1).float()
         return neg.amax(1) + torch.where(vis, x, 0.0).sum(1) / cnt
+
+    @staticmethod
+    def _masked_max(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """max over the visible tokens of x (B, G, C) alone."""
+        return torch.where(~mask[..., None], x, torch.full((), -1e9, device=x.device)).amax(1)
 
     def encode(self, pts: torch.Tensor) -> torch.Tensor:
         """Global feature for the SVM probes: max + mean over every token of
@@ -344,8 +397,125 @@ class _CAETransformerBase(nn.Module):
         return (w,) + tuple(_take(a, midx) for a in tensors)
 
 
+def fold_tokens(x: torch.Tensor, grid: torch.Tensor, folding1: SplitMLP,
+                folding2: SplitMLP, dtype=None, fold_impl: str = "auto") -> torch.Tensor:
+    """Two-stage folding of every token of x (B, M, C) over ``grid`` (n, 2):
+    (B, M, n, 3) f32. At bf16 ``dtype`` on a CUDA tensor it runs as the
+    ``fused_folding`` kernel (the gate of JAX ``transformer.py:531-535``,
+    "on TPU" read as "on CUDA") unless ``fold_impl: xla``; else as the
+    plain ``SplitMLP`` products in ``dtype`` (None: the input's)."""
+    B, M, C = x.shape
+    n = grid.shape[0]
+    if (fold_impl != "xla" and dtype == torch.bfloat16
+            and fold_supported(C, folding1[2].weight.shape[0], n)
+            and x.device.type == "cuda"):
+        return fused_folding(x, grid, stage_params(folding1), stage_params(folding2))
+    gridb = grid.expand(B, M, n, 2).to(dtype or x.dtype)
+    return folding2(x, folding1(x, gridb)).float()
+
+
+class FoldingHead(nn.Module):
+    """A folding head that is a submodule in the JAX tree (``global_fold``):
+    JAX ``_FoldingLocalHead`` as ``fold_head_cls`` builds it without a
+    dtype, two f32 ``SplitMLP`` stages (C + 2 -> F, F, 3 and C + 3 -> F, F,
+    3) over the 6 x 6 grid, so the kernel's bf16 gate stays shut.
+    ``remat`` recomputes it in the backward (``remat_fold``). The JAX
+    converter has no rule for it: the torch names ``folding1.{0,2,4}`` and
+    ``folding2.{0,2,4}`` under the head's name follow the flax path
+    (``global_fold/folding1/dense0`` ...)."""
+
+    def __init__(self, C: int, F: int, remat: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.remat = remat
+        self.folding1 = SplitMLP(C, 2, (F, F, 3), generator=generator)
+        self.folding2 = SplitMLP(C, 3, (F, F, 3), generator=generator)
+        self.register_buffer("grid", torch.from_numpy(folding_grid((6, 6))),
+                             persistent=False)
+
+    def _fold(self, x: torch.Tensor) -> torch.Tensor:
+        return fold_tokens(x, self.grid, self.folding1, self.folding2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, M, C) -> (B, M, 36, 3) f32."""
+        return checkpointed(self._fold, x) if self.remat else self._fold(x)
+
+
+class _PointCAEBase(_CAETransformerBase):
+    """The PointCAE transformer heads (JAX ``transformer.py:429-1139``):
+    patches corrupted by ``corrupt_type`` in training; the shared head
+    builders. A local folding head is ``folding1`` and ``folding2`` at the
+    model's top level (the reference's torch names, flax ``fold/...``),
+    computed in ``fold_dtype``: the flagship's compute dtype, None (f32) for
+    every other head, whose JAX fold is built without a dtype.
+    ``fold_impl`` and ``remat_fold`` apply to every folding head."""
+
+    corrupts_patches = True
+    fold_dtype = None
+
+    def __init__(self, config, generator: Optional[torch.Generator] = None):
+        super().__init__(config, generator)
+        self.fold_impl = str(self.tcfg.get("fold_impl", "auto"))
+        self.remat_fold = str(self.tcfg.get("remat_fold", "False")) == "True"
+        self.loss = config.get("loss", "cdl2")
+        self.global_loss_fn = build_loss_func(self.loss)
+
+    def _make_decoder_side(self, generator) -> None:
+        """decoder_pos_embed, MAE_decoder and (masked) mask_token, in the
+        JAX package's order of creation."""
+        self.decoder_pos_embed = PosEmbedMLP(int(self.tcfg["trans_dim"]), generator=generator)
+        self.MAE_decoder = self._make_decoder(generator)
+        if self.masked_mode:
+            self.mask_token = self._make_mask_token(generator)
+
+    def _make_local_fold(self, generator) -> None:
+        C = int(self.tcfg["trans_dim"])
+        self.folding1 = SplitMLP(C, 2, (C, C, 3), dtype=self.fold_dtype, generator=generator)
+        self.folding2 = SplitMLP(C, 3, (C, C, 3), dtype=self.fold_dtype, generator=generator)
+        self.register_buffer("grid", torch.from_numpy(folding_grid((6, 6))),
+                             persistent=False)
+
+    def _make_global_fold(self, generator) -> FoldingHead:
+        C = int(self.tcfg["trans_dim"])
+        return FoldingHead(C, C, self.remat_fold, generator)
+
+    @staticmethod
+    def _make_fc(din: int, dout: int, generator) -> nn.Sequential:
+        """An f32 Dense under the reference's Conv1d name (``increase_dim.0``)."""
+        return nn.Sequential(Dense(din, dout, generator=generator))
+
+    def _fold_fused(self, x_rec: torch.Tensor) -> torch.Tensor:
+        """The fused branch of ``_fold``."""
+        return fused_folding(x_rec, self.grid, stage_params(self.folding1),
+                             stage_params(self.folding2))
+
+    def _fold(self, x_rec: torch.Tensor) -> torch.Tensor:
+        """The local two-stage folding over the 6x6 grid: (B, M, C) ->
+        (B, M, 36, 3)."""
+        return fold_tokens(x_rec, self.grid, self.folding1, self.folding2, self.fold_dtype,
+                           self.fold_impl)
+
+    def _fold_local(self, x_loc: torch.Tensor) -> torch.Tensor:
+        """``_fold``, recomputed in the backward under ``remat_fold``."""
+        return checkpointed(self._fold, x_loc) if self.remat_fold else self._fold(x_loc)
+
+    def _local_loss(self, x_rec, neigh, mask, head) -> torch.Tensor:
+        """The masked chamfer of ``head``'s patches (tokens (B, M, C) ->
+        (B, M, ...)) against the centred patches that enter the loss."""
+        x_loc, gt, w = self._local_recon_inputs(x_rec, neigh, mask)
+        rebuild = head(x_loc).reshape(gt.shape[0], -1, 3)
+        return masked_loss_fn(self.loss)(rebuild, gt, w)
+
+    def _coarse(self, mlp: nn.Module, gfeat: torch.Tensor) -> torch.Tensor:
+        return mlp(gfeat).float().reshape(gfeat.shape[0], -1, 3)
+
+    def _global_fold_cloud(self, gfeat: torch.Tensor) -> torch.Tensor:
+        """``global_fold`` over the pooled feature as one token: (B, 36, 3)."""
+        return self.global_fold(gfeat[:, None, :])[:, 0]
+
+
 @MODELS.register_module()
-class PointCAE_transformer_fc_global_folding_local(_CAETransformerBase):
+class PointCAE_transformer_fc_global_folding_local(_PointCAEBase):
     """Flagship model: FC global-shape head on the pooled visible feature
     (chamfer against the patch centres) and a two-stage folding head on the
     decoded masked tokens (masked chamfer against the centred patches).
@@ -360,63 +530,13 @@ class PointCAE_transformer_fc_global_folding_local(_CAETransformerBase):
 
     def __init__(self, config, generator: Optional[torch.Generator] = None):
         super().__init__(config, generator)
-        self.fold_impl = str(self.tcfg.get("fold_impl", "auto"))
-        self.remat_fold = str(self.tcfg.get("remat_fold", "False")) == "True"
+        self.fold_dtype = self.compute_dtype
         C = int(self.tcfg["trans_dim"])
-        dtype = self.compute_dtype
         g = generator
         self.MAE_encoder = self._make_encoder(g)
-        self.decoder_pos_embed = PosEmbedMLP(C, generator=g)
-        self.MAE_decoder = self._make_decoder(g)
-        if self.masked_mode:
-            self.mask_token = self._make_mask_token(g)
-        self.coarse_pred = MLP(C, (1024, 1024, 3 * 64), dtype=dtype, generator=g)
-        self.folding1 = SplitMLP(C, 2, (C, C, 3), dtype=dtype, generator=g)
-        self.folding2 = SplitMLP(C, 3, (C, C, 3), dtype=dtype, generator=g)
-        self.register_buffer("grid", torch.from_numpy(folding_grid((6, 6))),
-                             persistent=False)
-        self.loss = config.get("loss", "cdl2")
-        self.global_loss_fn = build_loss_func(self.loss)
-
-    def _sample_corrupt(self, batch: int, generator, device) -> Optional[list]:
-        return sample_patch_draws(self.corrupt_type, batch, self.num_group,
-                                  self.group_size, generator, device)
-
-    def _run(self, clean: torch.Tensor, draws: Optional[ModelDraws],
-             generator: Optional[torch.Generator]):
-        """Group the clean points, corrupt the patches (in training), encode,
-        decode all G tokens: (neigh, center, x_vis, x_rec, mask)."""
-        pts = clean[..., :3]
-        if draws is None:
-            draws = self.sample_draws(pts.shape[0], generator, pts.device)
-        neigh, center = group_neighborhood(pts, self.num_group, self.group_size)
-        t_neigh, t_center = neigh + center[:, :, None, :], center
-        if self.training:
-            t_neigh, t_center = corrupt_patches(t_neigh, t_center, self.corrupt_type,
-                                                draws.corrupt)
-        t_neigh = t_neigh - t_center[:, :, None, :]
-        dp_enc = draws.dp_encoder if self.training else None
-        dp_dec = draws.dp_decoder if self.training else None
-        x_vis, mask = self._encode(t_neigh, t_center, draws, dp_enc)
-        return neigh, center, x_vis, self._decode(x_vis, mask, center, dp_dec), mask
-
-    def _fold_fused(self, x_rec: torch.Tensor) -> torch.Tensor:
-        """The fused branch of ``_fold``."""
-        return fused_folding(x_rec, self.grid, stage_params(self.folding1),
-                             stage_params(self.folding2))
-
-    def _fold(self, x_rec: torch.Tensor) -> torch.Tensor:
-        """Two-stage folding over the 6x6 grid: (B, M, C) -> (B, M, 36, 3)."""
-        B, M, C = x_rec.shape
-        n = self.grid.shape[0]
-        # the gate of transformer.py:531-535, "on TPU" read as "on CUDA"
-        if (self.fold_impl != "xla" and self.compute_dtype == torch.bfloat16
-                and fold_supported(C, self.folding1[2].weight.shape[0], n)
-                and x_rec.device.type == "cuda"):
-            return self._fold_fused(x_rec)
-        gridb = self.grid.expand(B, M, n, 2).to(self.compute_dtype or x_rec.dtype)
-        f1 = self.folding1(x_rec, gridb)
-        return self.folding2(x_rec, f1).float()
+        self._make_decoder_side(g)
+        self.coarse_pred = MLP(C, (1024, 1024, 3 * 64), dtype=self.compute_dtype, generator=g)
+        self._make_local_fold(g)
 
     def forward(self, corrupted: torch.Tensor, clean: torch.Tensor,
                 draws: Optional[ModelDraws] = None,
@@ -425,14 +545,9 @@ class PointCAE_transformer_fc_global_folding_local(_CAETransformerBase):
         in the reference; the patches come from ``clean``."""
         del corrupted
         neigh, center, x_vis, x_rec, mask = self._run(clean, draws, generator)
-        gfeat = self._global_feature(x_vis, mask)
-        coarse = self.coarse_pred(gfeat).float().reshape(gfeat.shape[0], -1, 3)
-        loss2 = self.global_loss_fn(coarse, center)
-        x_loc, gt, w = self._local_recon_inputs(x_rec, neigh, mask)
-        fold = checkpointed(self._fold, x_loc) if self.remat_fold else self._fold(x_loc)
-        rebuild = fold.reshape(gt.shape[0], -1, 3)
-        loss1 = masked_loss_fn(self.loss)(rebuild, gt, w)
-        return loss1, loss2
+        loss2 = self.global_loss_fn(
+            self._coarse(self.coarse_pred, self._global_feature(x_vis, mask)), center)
+        return self._local_loss(x_rec, neigh, mask, self._fold_local), loss2
 
     def reconstruct(self, clean: torch.Tensor, draws: Optional[ModelDraws] = None,
                     generator: Optional[torch.Generator] = None):
@@ -441,8 +556,7 @@ class PointCAE_transformer_fc_global_folding_local(_CAETransformerBase):
         (B, G, 36, 3), mask (B, G)). All G decoded tokens are folded, not
         only the masked ones; in eval mode no patch is corrupted."""
         _, center, x_vis, x_rec, mask = self._run(clean, draws, generator)
-        gfeat = self._global_feature(x_vis, mask)
-        coarse = self.coarse_pred(gfeat).float().reshape(gfeat.shape[0], -1, 3)
+        coarse = self._coarse(self.coarse_pred, self._global_feature(x_vis, mask))
         return coarse, self._fold(x_rec) + center[:, :, None, :], mask
 
 
@@ -620,3 +734,325 @@ class PointTransformerNoClassTokenSVMFeature(PointTransformerNoClassToken):
 
     def forward(self, pts: torch.Tensor) -> torch.Tensor:
         return self.encode(pts)
+
+
+# ------------------------------------------- the PointCAE heads' ablations
+
+@MODELS.register_module()
+class PointCAE_transformer(_PointCAEBase):
+    """FC local head (JAX ``transformer.py:429-454``): an f32 Dense from each
+    decoded token to S points, the masked patch chamfer; no global loss."""
+
+    def __init__(self, config, generator: Optional[torch.Generator] = None):
+        super().__init__(config, generator)
+        C, g = int(self.tcfg["trans_dim"]), generator
+        self.MAE_encoder = self._make_encoder(g)
+        self._make_decoder_side(g)
+        self.increase_dim = self._make_fc(C, 3 * self.group_size, g)
+
+    def forward(self, corrupted, clean, draws: Optional[ModelDraws] = None,
+                generator: Optional[torch.Generator] = None):
+        """(loss_xyz, 0); ``corrupted`` is unused, as in the reference."""
+        del corrupted
+        neigh, _, _, x_rec, mask = self._run(clean, draws, generator)
+        return self._local_loss(x_rec, neigh, mask, self.increase_dim), x_rec.new_zeros(())
+
+
+@MODELS.register_module()
+class PointCAE_transformer_fc_global_fc_local(_PointCAEBase):
+    """FC global + FC local heads (JAX ``transformer.py:648-681``): f32
+    ``coarse_pred`` to 64 points (whatever G is) on the visible max + mean,
+    chamfer against the centres; the FC local head."""
+
+    def __init__(self, config, generator: Optional[torch.Generator] = None):
+        super().__init__(config, generator)
+        C, g = int(self.tcfg["trans_dim"]), generator
+        self.MAE_encoder = self._make_encoder(g)
+        self._make_decoder_side(g)
+        self.coarse_pred = MLP(C, (1024, 1024, 3 * 64), generator=g)
+        self.increase_dim = self._make_fc(C, 3 * self.group_size, g)
+
+    def forward(self, corrupted, clean, draws: Optional[ModelDraws] = None,
+                generator: Optional[torch.Generator] = None):
+        del corrupted
+        neigh, center, x_vis, x_rec, mask = self._run(clean, draws, generator)
+        loss2 = self.global_loss_fn(
+            self._coarse(self.coarse_pred, self._global_feature(x_vis, mask)), center)
+        return self._local_loss(x_rec, neigh, mask, self.increase_dim), loss2
+
+
+@MODELS.register_module()
+class PointCAE_transformer_folding(_PointCAEBase):
+    """Folding local head alone (JAX ``transformer.py:576-598``), in f32."""
+
+    def __init__(self, config, generator: Optional[torch.Generator] = None):
+        super().__init__(config, generator)
+        g = generator
+        self.MAE_encoder = self._make_encoder(g)
+        self._make_decoder_side(g)
+        self._make_local_fold(g)
+
+    def forward(self, corrupted, clean, draws: Optional[ModelDraws] = None,
+                generator: Optional[torch.Generator] = None):
+        del corrupted
+        neigh, _, _, x_rec, mask = self._run(clean, draws, generator)
+        return self._local_loss(x_rec, neigh, mask, self._fold_local), x_rec.new_zeros(())
+
+
+@MODELS.register_module()
+class PointCAE_transformer_folding_global_folding_local(_PointCAEBase):
+    """Folding global + folding local heads (JAX ``transformer.py:684-716``):
+    ``global_fold`` folds the visible max + mean as one token into 36
+    points, chamfer against the centres."""
+
+    def __init__(self, config, generator: Optional[torch.Generator] = None):
+        super().__init__(config, generator)
+        g = generator
+        self.MAE_encoder = self._make_encoder(g)
+        self._make_decoder_side(g)
+        self.global_fold = self._make_global_fold(g)
+        self._make_local_fold(g)
+
+    def forward(self, corrupted, clean, draws: Optional[ModelDraws] = None,
+                generator: Optional[torch.Generator] = None):
+        del corrupted
+        neigh, center, x_vis, x_rec, mask = self._run(clean, draws, generator)
+        loss2 = self.global_loss_fn(
+            self._global_fold_cloud(self._global_feature(x_vis, mask)), center)
+        return self._local_loss(x_rec, neigh, mask, self._fold_local), loss2
+
+
+@MODELS.register_module()
+class PointCAE_transformer_folding_global_fc_local(_PointCAEBase):
+    """Folding global + FC local heads (JAX ``transformer.py:1053-1087``)."""
+
+    def __init__(self, config, generator: Optional[torch.Generator] = None):
+        super().__init__(config, generator)
+        C, g = int(self.tcfg["trans_dim"]), generator
+        self.MAE_encoder = self._make_encoder(g)
+        self._make_decoder_side(g)
+        self.global_fold = self._make_global_fold(g)
+        self.increase_dim = self._make_fc(C, 3 * self.group_size, g)
+
+    def forward(self, corrupted, clean, draws: Optional[ModelDraws] = None,
+                generator: Optional[torch.Generator] = None):
+        del corrupted
+        neigh, center, x_vis, x_rec, mask = self._run(clean, draws, generator)
+        loss2 = self.global_loss_fn(
+            self._global_fold_cloud(self._global_feature(x_vis, mask)), center)
+        return self._local_loss(x_rec, neigh, mask, self.increase_dim), loss2
+
+
+class _EncoderOnlyHead(_PointCAEBase):
+    """A head on the encoder's pooled feature alone: no decoder, no mask
+    token. ``forward`` returns (the head's chamfer, 0)."""
+
+    def _cloud(self, x_vis: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _target(self, clean: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
+        return center
+
+    def forward(self, corrupted, clean, draws: Optional[ModelDraws] = None,
+                generator: Optional[torch.Generator] = None):
+        del corrupted
+        _, center, x_vis, mask, _ = self._encode_clean(clean, draws, generator)
+        loss = self.global_loss_fn(self._cloud(x_vis, mask), self._target(clean, center))
+        return loss, loss.new_zeros(())
+
+
+@MODELS.register_module()
+class PointCAE_transformer_patch_center_only(_EncoderOnlyHead):
+    """The patch centres from the visible max + mean (JAX
+    ``transformer.py:719-739``): f32 ``coarse_pred`` to 64 points."""
+
+    def __init__(self, config, generator: Optional[torch.Generator] = None):
+        super().__init__(config, generator)
+        C, g = int(self.tcfg["trans_dim"]), generator
+        self.MAE_encoder = self._make_encoder(g)
+        self.coarse_pred = MLP(C, (1024, 1024, 3 * 64), generator=g)
+
+    def _cloud(self, x_vis, mask):
+        return self._coarse(self.coarse_pred, self._global_feature(x_vis, mask))
+
+
+@MODELS.register_module()
+class PointCAE_transformer_fc_center(_EncoderOnlyHead):
+    """The G patch centres from the visible max alone (JAX
+    ``transformer.py:884-903``): f32 ``coarse_pred`` to 3 G."""
+
+    def __init__(self, config, generator: Optional[torch.Generator] = None):
+        super().__init__(config, generator)
+        C, g = int(self.tcfg["trans_dim"]), generator
+        self.MAE_encoder = self._make_encoder(g)
+        self.coarse_pred = MLP(C, (1024, 1024, 3 * self.num_group), generator=g)
+
+    def _cloud(self, x_vis, mask):
+        return self._coarse(self.coarse_pred, self._masked_max(x_vis, mask))
+
+
+@MODELS.register_module()
+class PointCAE_transformer_fold_center(_EncoderOnlyHead):
+    """The patch centres folded from the visible max (JAX
+    ``transformer.py:906-925``): ``global_fold``'s 36 points."""
+
+    def __init__(self, config, generator: Optional[torch.Generator] = None):
+        super().__init__(config, generator)
+        g = generator
+        self.MAE_encoder = self._make_encoder(g)
+        self.global_fold = self._make_global_fold(g)
+
+    def _cloud(self, x_vis, mask):
+        return self._global_fold_cloud(self._masked_max(x_vis, mask))
+
+
+@MODELS.register_module()
+class PointCAE_transformer_fc_all(_EncoderOnlyHead):
+    """The whole clean cloud from the visible max (JAX
+    ``transformer.py:969-988``): f32 ``coarse_pred`` to the model config's
+    ``npoints`` (default 1024) points, chamfer against every clean point."""
+
+    def __init__(self, config, generator: Optional[torch.Generator] = None):
+        super().__init__(config, generator)
+        C, g = int(self.tcfg["trans_dim"]), generator
+        self.MAE_encoder = self._make_encoder(g)
+        self.coarse_pred = MLP(C, (1024, 1024, 3 * int(config.get("npoints", 1024))),
+                               generator=g)
+
+    def _cloud(self, x_vis, mask):
+        return self._coarse(self.coarse_pred, self._masked_max(x_vis, mask))
+
+    def _target(self, clean, center):
+        return clean[..., :3]
+
+
+@MODELS.register_module()
+class PointCAE_transformer_fold_all(_EncoderOnlyHead):
+    """The whole clean cloud folded from the visible max (JAX
+    ``transformer.py:991-1017``): two f32 ``SplitMLP`` stages of widths
+    (1024, 1024, 3) over a fixed 32 x 32 grid. The JAX converter has no
+    rule for them: the torch names ``folding1.{0,2,4}`` and
+    ``folding2.{0,2,4}`` follow the flax paths ``folding1/dense0`` ... at
+    the model's top level."""
+
+    def __init__(self, config, generator: Optional[torch.Generator] = None):
+        super().__init__(config, generator)
+        C, g = int(self.tcfg["trans_dim"]), generator
+        self.MAE_encoder = self._make_encoder(g)
+        self.folding1 = SplitMLP(C, 2, (1024, 1024, 3), generator=g)
+        self.folding2 = SplitMLP(C, 3, (1024, 1024, 3), generator=g)
+        self.register_buffer("grid", torch.from_numpy(folding_grid((32, 32))),
+                             persistent=False)
+
+    def _cloud(self, x_vis, mask):
+        gfeat = self._masked_max(x_vis, mask)
+        f1 = self.folding1(gfeat, self.grid.expand(gfeat.shape[0], -1, -1))
+        return self.folding2(gfeat, f1)
+
+    def _target(self, clean, center):
+        return clean[..., :3]
+
+
+@MODELS.register_module()
+class PointCAE_transformer_v6_corase2fine_transformer(_PointCAEBase):
+    """Coarse to fine (JAX ``transformer.py:928-966``), unmasked only: the
+    tokens through an f32 Dense to 1024 (``increase_dim``) and a max, f32
+    ``coarse_pred`` to G centres; the decoder over the encoder's tokens
+    with the predicted centres as its position embedding;
+    ``increase_dim_fine`` (an f32 Dense to S points, named after its flax
+    path: the JAX converter has no rule for it) gives each token's patch;
+    ``chamfer_l2_coarse2fine`` returns (centre term, fine term). Under
+    ``Drop-Patch`` it builds, but its forward raises, as the reference's
+    does."""
+
+    def __init__(self, config, generator: Optional[torch.Generator] = None):
+        super().__init__(config, generator)
+        C, g = int(self.tcfg["trans_dim"]), generator
+        self.MAE_encoder = self._make_encoder(g)
+        self._make_coarse_head(C, g)
+        self._make_decoder_side(g)
+        self.increase_dim_fine = Dense(C, 3 * self.group_size, generator=g)
+
+    def _make_coarse_head(self, C: int, g) -> None:
+        self.increase_dim = self._make_fc(C, 1024, g)
+        self.coarse_pred = MLP(1024, (1024, 1024, 3 * self.num_group), generator=g)
+
+    def _coarse_centres(self, x_vis: torch.Tensor) -> torch.Tensor:
+        """(B, G, 3) f32 predicted centres from the tokens (B, G, C)."""
+        return self._coarse(self.coarse_pred, self.increase_dim(x_vis).amax(1))
+
+    def forward(self, corrupted, clean, draws: Optional[ModelDraws] = None,
+                generator: Optional[torch.Generator] = None):
+        del corrupted
+        if self.masked_mode:
+            raise NotImplementedError("the reference raises for Drop-Patch too (:2655)")
+        neigh, center, x_vis, _, draws = self._encode_clean(clean, draws, generator)
+        B, G = x_vis.shape[:2]
+        coarse = self._coarse_centres(x_vis)
+        dp_dec = draws.dp_decoder if self.training else None
+        x_rec = self.MAE_decoder(x_vis, self.decoder_pos_embed(coarse), None, dp_dec)
+        rebuild = self.increase_dim_fine(x_rec).reshape(B, G, self.group_size, 3)
+        return chamfer_l2_coarse2fine(coarse, center, rebuild, neigh)
+
+
+@MODELS.register_module()
+class PointCAE_transformer_v6_folding_corase2fine_transformer(
+        PointCAE_transformer_v6_corase2fine_transformer):
+    """Coarse to fine with a folding coarse head (JAX
+    ``transformer.py:1090-1139``): the tokens' plain max folds a sqrt(G) x
+    sqrt(G) grid (G must be a square) through two f32 ``SplitMLP((C, C,
+    3))`` stages into the G centres; the rest as the FC coarse head's. The
+    stages sit at the model's top level under their flax names
+    (``folding1/dense0`` ...; torch ``folding1.{0,2,4}``)."""
+
+    def _make_coarse_head(self, C: int, g) -> None:
+        side = int(round(self.num_group ** 0.5))
+        if side * side != self.num_group:
+            raise ValueError("v6_folding needs a square num_group")
+        self.folding1 = SplitMLP(C, 2, (C, C, 3), generator=g)
+        self.folding2 = SplitMLP(C, 3, (C, C, 3), generator=g)
+        self.register_buffer("grid", torch.from_numpy(folding_grid((side, side))),
+                             persistent=False)
+
+    def _coarse_centres(self, x_vis: torch.Tensor) -> torch.Tensor:
+        gfeat = x_vis.amax(1)
+        f1 = self.folding1(gfeat, self.grid.expand(gfeat.shape[0], -1, -1))
+        return self.folding2(gfeat, f1)
+
+
+@MODELS.register_module()
+class PointCAE_transformer_supervised(_PointCAEBase):
+    """Supervised pretraining (JAX ``transformer.py:1020-1050``):
+    ``_FinetuneHead((256, 256), transformer_config.cls_dim)`` (default 55)
+    on the visible max + mean. ``model(corrupted, clean, labels)`` returns
+    (the mean NLL of the labels under ``log_softmax``, 0), or without
+    labels (logits, 0). In training its draws carry the head's two dropout
+    keep masks (``SupervisedDraws``)."""
+
+    is_supervised = True
+
+    def __init__(self, config, generator: Optional[torch.Generator] = None):
+        super().__init__(config, generator)
+        C, g = int(self.tcfg["trans_dim"]), generator
+        self.MAE_encoder = self._make_encoder(g)
+        self.cls_head_finetune = _FinetuneHead(C, (256, 256), int(self.tcfg.get("cls_dim", 55)),
+                                               generator=g)
+
+    def sample_draws(self, batch: int, generator: Optional[torch.Generator],
+                     device) -> SupervisedDraws:
+        draws = super().sample_draws(batch, generator, device)
+        return SupervisedDraws(**vars(draws), dropout=sample_dropout_masks(
+            batch, self.cls_head_finetune.dims, _FinetuneHead.RATE, generator, device))
+
+    def forward(self, corrupted, clean, labels: Optional[torch.Tensor] = None,
+                draws: Optional[SupervisedDraws] = None,
+                generator: Optional[torch.Generator] = None):
+        del corrupted
+        _, _, x_vis, mask, draws = self._encode_clean(clean, draws, generator)
+        logits = self.cls_head_finetune(self._global_feature(x_vis, mask),
+                                        draws.dropout if self.training else None)
+        zero = logits.new_zeros(())
+        if labels is None:
+            return logits, zero
+        logp = torch.log_softmax(logits, -1)
+        return -logp.gather(1, labels.long().reshape(-1, 1)).mean(), zero

@@ -65,6 +65,13 @@ _RULES += [("teacher.conv5.0", "teacher/conv5"), ("teacher.bn5", "teacher/bn5"),
 # the MaskSurf family's second head (convert_torch._MASKSURF_RULES)
 _RULES.append(("increase_dim2", "increase_dim2"))
 
+# the PointCAE heads: the reference's Conv1d ``increase_dim.0`` (convert_torch
+# _TRANSFORMER_RULES); ``increase_dim_fine`` and a global folding head, which
+# the JAX converter has no rules for, under their flax paths
+_RULES += [("increase_dim.0", "increase_dim"), ("increase_dim_fine", "increase_dim_fine")]
+_RULES += [(f"global_fold.folding{_f}.{2 * _d}", f"global_fold/folding{_f}/dense{_d}")
+           for _f in (1, 2) for _d in range(3)]
+
 # the dVAE tokenizer (convert_torch._DVAE_RULES, Point-BERT's names) under
 # Point_dVAE's ``dvae`` and MaskSurf_v2_token_dis's ``dvae_teacher``
 for _p in ("dvae", "dvae_teacher"):
@@ -193,11 +200,12 @@ _MLMAE = [(f"MAE_encoder.blocks.blocks.{{i}}.{_t}", f"MAE_encoder/block{{i}}/{_f
 
 # the CNN DAEs' decoders at the top level (convert_torch._DGCNN_RULES and
 # _POINTNET2_RULES): they go before _RULES, whose folding and pos_embed
-# rules are the transformer's
-_CNN_DECODER = [(f"folding{_f}.{2 * _d}", f"folding{_f}/dense{_d}")
-                for _f in (1, 2) for _d in range(3)]
-_CNN_DECODER += [(f"{_n}.{2 * _d}", f"{_n}/dense{_d}") for _n in ("proj", "pos_embed")
-                 for _d in range(2)]
+# rules are the transformer's. fold_all's and the v6 folding head's folding
+# stages sit at the top level of the flax tree too (_TOP_FOLD)
+_TOP_FOLD = [(f"folding{_f}.{2 * _d}", f"folding{_f}/dense{_d}")
+             for _f in (1, 2) for _d in range(3)]
+_CNN_DECODER = _TOP_FOLD + [(f"{_n}.{2 * _d}", f"{_n}/dense{_d}")
+                            for _n in ("proj", "pos_embed") for _d in range(2)]
 
 # PointNet++'s FeaturePropagation (pointnet2's PointnetFPModule names)
 _RULES += [("mlp.layer{i}.conv", "mlp{i}_fc"), ("mlp.layer{i}.bn.bn", "mlp{i}_bn")]
@@ -238,7 +246,8 @@ _FAMILIES = {"transformer": ([], _TRANSFORMER_HEAD),
              "pointnet2": (_CNN_DECODER, _POINTNET2),
              "pointnet": (_POINTNET, []),
              "pointnet_partseg": (_POINTNET_PARTSEG, []),
-             "mlmae": (_MLMAE, _TRANSFORMER_HEAD)}
+             "mlmae": (_MLMAE, _TRANSFORMER_HEAD),
+             "transformer_fold": (_TOP_FOLD, _TRANSFORMER_HEAD)}
 _TORCH_TO_FLAX = {family: [(_pattern(t, "."), f) for t, f in pre + _RULES + post]
                   for family, (pre, post) in _FAMILIES.items()}
 _FLAX_TO_TORCH = [(_pattern(f, "/"), t) for t, f in _RULES + _TRANSFORMER_HEAD + _CNN_DECODER
@@ -262,6 +271,13 @@ def _family(state_dict) -> str:
         return "pointnet_partseg"
     if any(k.startswith("pointnet_encoder.") for k in state_dict):
         return "pointnet"
+    # folding stages at the top level: the flagship family's local fold
+    # (flax ``fold/``) beside a decoder, fold_all's and the v6 folding
+    # head's (flax ``folding1/``) without one or beside ``increase_dim_fine``
+    if "folding1.0.weight" in state_dict and (
+            "MAE_decoder.norm.weight" not in state_dict
+            or "increase_dim_fine.weight" in state_dict):
+        return "transformer_fold"
     return "transformer"
 
 
@@ -352,9 +368,26 @@ def to_flax(state_dict: Dict[str, torch.Tensor], num_heads: Optional[int] = None
     return params, stats
 
 
-def from_flax(params: Dict, batch_stats: Dict) -> Dict[str, torch.Tensor]:
+def _torch_prefix(table, head: str, names) -> str:
+    """The torch module of flax path ``head``: the first rule's, or with
+    ``names`` the first whose module holds one of those names."""
+    if names is not None:
+        for pat, tmpl in table:
+            m = pat.match(head)
+            if m and m.group("leaf") is None:
+                prefix = tmpl.format(**{k: v for k, v in m.groupdict().items() if k != "leaf"})
+                if any(n.startswith(prefix + ".") and "." not in n[len(prefix) + 1:]
+                       for n in names):
+                    return prefix
+    return _match(table, head)[0]
+
+
+def from_flax(params: Dict, batch_stats: Dict, names=None) -> Dict[str, torch.Tensor]:
     """Nested flax ``(params, batch_stats)`` of arrays -> port ``state_dict``
-    (the inverse of ``to_flax``)."""
+    (the inverse of ``to_flax``). ``names``: the torch names of the model
+    to load, for a flax path that several models name apart (``increase_dim``:
+    the PointCAE heads' ``increase_dim.0``, the other models'
+    ``increase_dim``); without it the first rule's name."""
     inv_stats = {v: k for k, v in _STATS.items()}
     table = (_FLAX_TO_TORCH_PN2 if "pointnetv2_encoder" in params else
              _FLAX_TO_TORCH_PN if "pointnet_encoder" in params else _FLAX_TO_TORCH)
@@ -370,7 +403,7 @@ def from_flax(params: Dict, batch_stats: Dict) -> Dict[str, torch.Tensor]:
             if bare:                            # bare parameter (mask_token, codebook)
                 out[bare] = torch.from_numpy(np.array(v))
                 continue
-            prefix, _ = _match(table, head)
+            prefix = _torch_prefix(table, head, names)
             if is_stats:
                 tleaf = inv_stats[leaf]
             elif leaf in ("kernel", "scale"):

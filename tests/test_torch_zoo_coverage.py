@@ -189,8 +189,8 @@ def test_every_shipped_model_is_ported():
 
 
 # the transformer heads of point_dae_tpu/models/transformer.py:430-1143,
-# the one family of JAX-registered classes the port has yet to build
-TRANSFORMER_HEADS_LEFT = (
+# the last family of JAX-registered classes the port built
+TRANSFORMER_HEADS = (
     "PointCAE_transformer", "PointCAE_transformer_fc_all", "PointCAE_transformer_fc_center",
     "PointCAE_transformer_fc_global_fc_local", "PointCAE_transformer_fold_all",
     "PointCAE_transformer_fold_center", "PointCAE_transformer_folding",
@@ -199,16 +199,18 @@ TRANSFORMER_HEADS_LEFT = (
     "PointCAE_transformer_patch_center_only", "PointCAE_transformer_supervised",
     "PointCAE_transformer_v6_corase2fine_transformer",
     "PointCAE_transformer_v6_folding_corase2fine_transformer")
+TRANSFORMER_HEADS_LEFT = ()       # none: the port lacks no JAX-registered name
 
 
 def test_the_port_lacks_only_the_transformer_heads_left():
-    """The JAX-registered names the port lacks are exactly the 13
-    transformer heads; every class of the JAX package's dae_pointnet,
-    dae_pointnet2 and dae_dgcnn modules is registered in the port."""
+    """The port lacks no JAX-registered name (the transformer heads left
+    to build are none): the 13 heads are registered, and every class of
+    the JAX package's dae_pointnet, dae_pointnet2 and dae_dgcnn modules."""
     from point_dae_tpu.models import MODELS as JMODELS
 
     missing = sorted(n for n in JMODELS.keys() if n not in MODELS.keys())
-    assert missing == sorted(TRANSFORMER_HEADS_LEFT)
+    assert missing == sorted(TRANSFORMER_HEADS_LEFT) == []
+    assert all(n in JMODELS.keys() and n in MODELS.keys() for n in TRANSFORMER_HEADS)
     cnn = [n for n in JMODELS.keys() if JMODELS.get(n).__module__.rsplit(".", 1)[-1]
            in ("dae_pointnet", "dae_pointnet2", "dae_dgcnn")]
     assert len(cnn) == 38 and all(n in MODELS.keys() for n in cnn)
