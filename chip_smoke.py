@@ -204,7 +204,8 @@ Phases, each fatal on failure:
               epoch 5 from the saved step; a full-width PointTransformer
               fine-tune on Synthetic warm-started with --ckpts from the
               flagship's ckpt-last.pth (the warm start must merge tensors),
-              then --test --vote from its ckpt-best.pth (299 voting passes);
+              then --test --vote from its ckpt-best.pth (RUN_VOTE_REPEATS
+              voting passes, of the CLI's 299);
               one epoch of cfgs/partseg_shapenetpart.yaml on a ShapeNetPart
               tree of random shapes written there, then --test from its
               best_model.pth. Fatal: a raised exception, a non-finite loss, a
@@ -238,8 +239,9 @@ Phases, each fatal on failure:
               EdgeConv forward at (64, 1024) against their plain versions;
               then --svm_classification with DGCNN_feat and with
               Point_M2AE_SVMFeature and --task_affinity with DGCNN_feat
-              through point_dae_torch.cli.main on Synthetic clouds at
-              ModelNet40's split sizes (9843 / 2468, the configs' npoints):
+              through point_dae_torch.cli.main on Synthetic clouds at a
+              quarter of ModelNet40's split sizes (PROBE_SET: 2483 / 612,
+              40 classes, the configs' npoints):
               each run's log lines, extraction seconds and launches, each
               SVC fit's SMO iterations and seconds, the head's seconds;
               then the port's SVC fitted on the card and on the host CPU
@@ -300,6 +302,34 @@ Phases, each fatal on failure:
               supervised pretrain and the DGCNN recipe under LambdaLR,
               step_per_update 2 and a bnmscheduler through the CLI on
               Synthetic clouds (phase_transformer_heads).
+ 28. parallel - data parallelism (point_dae_torch/parallel/mesh.py), each
+              rank a child process of this script whose one JSON line the
+              parent reads; a child that fails, or a group that does not
+              form, fails the run (no fallback): (a) FLAGSHIP_CONFIG (bs
+              256, raw (256, 8192, 6)) 5 steps with no group, then in the
+              same child 5 steps under an nccl group of one (the gradient
+              all-reduce on), PyTorch's deterministic mode on for both: the
+              losses bit for bit, the step times side by side, the
+              all-reduce's ms a step timed alone, each of the flagship's
+              six kernels launched in the group's run; (b) 2 steps of two
+              gloo ranks on the one card (bs 128 each, Synthetic clouds
+              through the row-split loader) against one process at bs 256,
+              products in f32: the global batches' hashes equal, step-1
+              losses within 2e-5, step-2 within 5e-3
+              (tests/test_multihost.py's contract); then with the bf16
+              products (the kernels' path), step 1 within 1e-4; (c)
+              DGCNN_CONFIG in f32, 2 x 64 against 128, step 1 within 1e-4,
+              step 2 within 5e-3 (PAR_PAIRS says why); in every set the
+              BatchNorm running statistics after step 1 within PAR_BN_TOL
+              of one process's and the two ranks' final parameters and
+              buffers bit for bit equal; (d) emd_loss and its gradients at
+              (32, 1024, 3) on the card against the CPU (the loss within
+              1e-5, the gradients 1e-3 of their largest; emd_check says
+              why), timed (phase_parallel). ``python3 chip_smoke.py
+              --parallel-readings`` prints what (b) and (c) read, beside
+              one process against itself with its batch's rows reversed
+              and under each of PAR_FAULTS (a group broken on purpose),
+              and which checks each fault fails.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Run from the repository root:
 
@@ -311,8 +341,10 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
@@ -3916,6 +3948,10 @@ RUN_PARTSEG_TREE = {"Airplane": ("02691156", 24, 8), "Chair": ("03001627", 8, 8)
 RUN_PARTSEG_ROWS = 2500    # points a shape file, subsampled to the recipe's 2048
 RUN_COUNTERS = FLAGSHIP_COUNTERS + DGCNN_COUNTERS + ("fps", "scatter_rows_add")
 MODELNET_PROBE = (9843, 2468, 40)   # ModelNet40's train / test clouds and classes
+# the probes' CLI runs: a quarter of ModelNet40's splits, with its tail batches
+# (51 and 36 clouds of 64: a tail under 32 takes the plain gather in M2AE's grouping)
+PROBE_SET = (38 * 64 + 51, 9 * 64 + 36, 40)
+RUN_VOTE_REPEATS = 30               # the fine-tune test's voting passes (the CLI's 299 cut)
 PROBE_WIDTHS = (384, 1024)          # the flagship's and the DGCNN encoder's features
 
 
@@ -4207,13 +4243,21 @@ def phase_run(torch, device, card):
                                        RUN_FT_CFG["total_bs"]), sec)
         del out
         t0 = time.perf_counter()
-        out, lines, _, _ = cli_run(
-            "finetune test", ["--config", ft, "--exp_name", "run", "--root_folder", exp_root,
-                              "--finetune_model", "--test", "--vote", "--ckpts",
-                              os.path.join(ft_exp, "ckpt-best.pth")],
-            "finetune_synthetic_full", device, (), validation=False, ckpts=())
+        from point_dae_torch import cli
+
+        get_args = cli.get_args       # the test's voting passes cut to RUN_VOTE_REPEATS
+        cli.get_args = lambda argv: setattr(args := get_args(argv), "vote_repeats",
+                                            RUN_VOTE_REPEATS) or args
+        try:
+            out, lines, _, _ = cli_run(
+                "finetune test", ["--config", ft, "--exp_name", "run", "--root_folder",
+                                  exp_root, "--finetune_model", "--test", "--vote", "--ckpts",
+                                  os.path.join(ft_exp, "ckpt-best.pth")],
+                "finetune_synthetic_full", device, (), validation=False, ckpts=())
+        finally:
+            cli.get_args = get_args
         votes = lines.starting("[TEST_VOTE]")
-        if not lines.starting("[TEST] acc = ") or len(votes) != 299:
+        if not lines.starting("[TEST] acc = ") or len(votes) != RUN_VOTE_REPEATS:
             fail(f"run finetune test: {lines.starting('[TEST]')[:2]}, {len(votes)} vote lines")
         log(f"    {lines.starting('[TEST] acc = ')[0]}; {votes[-1]} "
             f"({time.perf_counter() - t0:.1f} s)")
@@ -4581,7 +4625,7 @@ def phase_m2ae(torch, device, card):
 
 
 # -- the frozen-feature probes through the CLI: both modes on the Synthetic
-# reader at ModelNet40's split sizes (MODELNET_PROBE), the configs' npoints
+# reader at a quarter of ModelNet40's split sizes (PROBE_SET), the configs' npoints
 PROBE_RUNS = (   # (what, shipped config, CLI flag, launches an extraction batch)
     ("DGCNN_feat SVM", "cfgs/finetune_modelnet_svm_classification.yaml",
      "--svm_classification", {"fps": 1, "knn_aggregate_fwd": 4}),
@@ -4594,7 +4638,7 @@ PROBE_SVC_CLASSES, PROBE_SVC_C = 8, 1.0   # the card-against-CPU SVC fit
 
 def probe_cli(torch, what, src, flag, per_batch, tmp, device):
     """One probe mode through point_dae_torch.cli.main on a copy of ``src``
-    whose splits are Synthetic clouds at ModelNet40's sizes: the seconds of
+    whose splits are Synthetic clouds at PROBE_SET's sizes: the seconds of
     its extraction, of its SVC fits (each C's SMO iterations) or of its
     affinity head, its log lines, and the inputs of its grid search."""
     from point_dae_torch import cli
@@ -4605,7 +4649,7 @@ def probe_cli(torch, what, src, flag, per_batch, tmp, device):
     cfg = load_cfg(src)
     npoints = int(cfg["npoints"])
     syn = os.path.join(root, "cfgs", "dataset_configs", "Synthetic.yaml")
-    n_train, n_test, classes = MODELNET_PROBE
+    n_train, n_test, classes = PROBE_SET
     cut = {"dataset": {s: {"_base_": syn, "others": {"size": n, "seed": seed, "N_POINTS": npoints,
                                                      "num_classes": classes}}
                        for s, n, seed in (("train", n_train, 0), ("test", n_test, 1))}}
@@ -6180,11 +6224,432 @@ def phase_transformer_heads(torch, device, card):
     log(f"  [{card}] the transformer heads phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+PAR_STEPS = 5              # (a): flagship steps without and with a group of one
+PAR_PAIR_STEPS = 2         # (b), (c): the tiered contract's two steps
+PAR_FLAGSHIP_KERNELS = ("patchify", "gather_rows_small_c", "mlp_ln_fwd", "folding_fwd",
+                        "attention_fwd", "nn_half_small")
+PAR_CHILD = "PARALLEL_CHILD "
+# (tag, model, global batch, products' dtype, (step-1, step-2) relative
+# bounds): tests/test_multihost.py's contract, in f32, for the flagship; the
+# bf16 flagship (the kernels' path) is bounded at step 1 by 1e-4: its half
+# batches' bf16 products round apart from a whole batch's (3.3e-05 on the
+# card, where the same step in f32 differs by 1.4e-07); the full-width
+# DGCNN's step 1 by 1e-4 too: its BatchNorm sums over 2.6 M edge rows a
+# layer, and the neighbour choices downstream of them, move with the order
+# of reduction (two ranks 2.9e-05 from one process on the card, and one
+# process 2.6e-05 from itself with its batch's rows reversed;
+# ``--parallel-readings`` reads these and the faults below)
+PAR_PAIRS = (("b", "flagship", BATCH, "f32", (2e-5, 5e-3)),
+             ("b", "flagship", BATCH, "bf16", (1e-4, 5e-3)),
+             ("c", "dgcnn", DGCNN_BATCH, "f32", (1e-4, 5e-3)))
+# beside the losses, in every set: each BatchNorm's running mean and
+# variance after step 1, two ranks against one process (the largest
+# difference over the largest value), within PAR_BN_TOL; and the two ranks'
+# parameters and buffers after the last step, bit for bit. A rank that
+# kept its statistics to its own rows moves the first, a dropped gradient
+# all-reduce the second (PAR_FAULTS, read by ``--parallel-readings``). On
+# the card the statistics read 4.3e-07, 1.8e-07 and 3.2e-06 (f32 flagship,
+# bf16 flagship, DGCNN), and 1.0e-03, 1.0e-03 and 7.1e-03 with each rank's
+# statistics its own rows'
+PAR_BN_TOL = 1e-4
+PAR_FAULTS = ("local_stats", "no_allreduce")
+EMD_SHAPE = (32, 1024, 3)
+
+
+def _par_run(torch, config, raw_of, steps, device, seed):
+    """``steps`` train steps of a model from ``seed`` (``raw_of(i)``: this
+    rank's i-th raw batch and its global batch's hash): (the record, the
+    model). The record holds the losses, the host ms a step, the global
+    batches' hashes, the launches, every BatchNorm's running mean and
+    variance after step 1, and a hash of the parameters and buffers after
+    the last step."""
+    import hashlib
+
+    from point_dae_torch.engine.pretrain import batch_norms, init_model, make_train_step
+    from point_dae_torch.engine.train_state import TrainState
+    from point_dae_torch.utils import kernels
+
+    model = init_model(config, seed=seed, device=device)
+    state = TrainState.create(model, config, steps_per_epoch=100)
+    step = make_train_step(model, config, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    run = {"losses": [], "ms": [], "hashes": []}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for i in range(steps):
+        raw, digest = raw_of(i)
+        run["hashes"].append(digest)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(state, raw, generator=gen)
+        torch.cuda.synchronize()
+        run["ms"].append((time.perf_counter() - t0) * 1e3)
+        run["losses"].append([float(m["loss_xyz"]), float(m["loss_normal"])])
+        if i == 0:
+            run["bn_stats"] = torch.cat([t.float().reshape(-1) for bn in batch_norms(model)
+                                         for t in (bn.running_mean, bn.running_var)]).tolist()
+    run["launches"] = {k: v for k, v in kernels.launches.items() if v}
+    sha = hashlib.sha1()
+    for t in list(model.parameters()) + list(model.buffers()):
+        sha.update(t.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    run["state_sha1"] = sha.hexdigest()
+    return run, model
+
+
+def _reversed_rows(torch, x, plan, rev):
+    """A step's draws with the batch's rows in the order ``rev``, along each
+    tensor's batch axis (``plan``, from ``parallel/mesh.py:_batch_dims``)."""
+    if isinstance(x, torch.Tensor):
+        return x if plan is None else x.index_select(plan, rev.to(x.device))
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{f.name: _reversed_rows(torch, getattr(x, f.name),
+                                                                plan[f.name], rev)
+                                         for f in dataclasses.fields(x) if f.init})
+    if isinstance(x, (list, tuple)):
+        return type(x)(_reversed_rows(torch, v, p, rev) for v, p in zip(x, plan))
+    return x
+
+
+def reorder_noise(torch, config, raw, device, seed) -> float:
+    """The relative change of one process's step-1 loss_xyz (a train-mode
+    forward) when the batch's rows and their draws come in reverse order:
+    what reduction order alone moves the loss by at this width (BatchNorm
+    sums, and the neighbour choices downstream of them)."""
+    from point_dae_torch.engine.pretrain import device_pipeline, init_model, sample_step_draws
+    from point_dae_torch.parallel.mesh import _batch_dims
+
+    d = config["dataset"]["train"]["others"]
+    aug, cor = tuple(d.get("aug_type", ("norm",))), tuple(d.get("corrupt_type", ("clean",)))
+    npoints = int(d.get("npoints", 1024))
+    model = init_model(config, seed=seed, device=device)
+    model.train()
+    B, n = raw.shape[:2]
+
+    def sample(b, seed_):
+        return sample_step_draws(model, aug, cor, npoints, b, n,
+                                 torch.Generator(device=device).manual_seed(seed_), device)
+
+    plan = _batch_dims(sample(B, 0), sample(B + 1, 0))
+    draws = sample(B, seed + 1)
+    rev = torch.arange(B - 1, -1, -1, device=device)
+    losses = []
+    with torch.no_grad():
+        for r, dr in ((raw, draws), (raw[rev], _reversed_rows(torch, draws, plan, rev))):
+            corrupted, clean = device_pipeline(r, aug, cor, npoints, draws=dr.pipeline,
+                                               device=device)
+            losses.append(float(model(corrupted, clean, draws=dr.model)[0]))
+    del model
+    torch.cuda.empty_cache()
+    return abs(losses[1] - losses[0]) / abs(losses[0])
+
+
+def _break_group(fault) -> None:
+    """Break the group on purpose (``--parallel-readings``):
+    ``local_stats`` keeps BatchNorm's statistics to each rank's rows,
+    ``no_allreduce`` drops the gradient all-reduce."""
+    if fault == "local_stats":
+        from point_dae_torch.models import dgcnn, layers
+        from point_dae_torch.parallel import Mesh
+
+        layers.get_mesh = dgcnn.get_mesh = Mesh
+    elif fault == "no_allreduce":
+        from point_dae_torch.engine import train_state
+
+        train_state.all_reduce_gradients = lambda params, mesh: None
+    elif fault is not None:
+        raise ValueError(f"fault {fault!r}")
+
+
+def parallel_child(spec: dict) -> dict:
+    """One rank of the parallel phase (``python3 chip_smoke.py
+    --parallel-child '<spec>'``)."""
+    import hashlib
+
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from point_dae_torch.data.datasets import build_dataset_from_cfg
+    from point_dae_torch.data.loader import DataLoader
+    from point_dae_torch.parallel import (all_gather_rows, all_reduce_gradients, destroy,
+                                          get_mesh, initialize_distributed, train_loader)
+    from point_dae_torch.utils.config import ConfigDict
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    out = {"mode": spec["mode"], "rank": spec["rank"], "world": spec["world"]}
+    if spec["mode"] == "group_of_one":
+        config = ConfigDict(copy.deepcopy(FLAGSHIP_CONFIG))
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        g = torch.Generator(device=device).manual_seed(SEED + 150)
+        raw = torch.randn((BATCH, NRAW, 6), generator=g, device=device)
+        runs = {}
+        for name in ("no group", "group"):
+            if name == "group":
+                initialize_distributed(coordinator_address=spec["init"], num_processes=1,
+                                       process_id=0, device="cuda:0", timeout_s=60)
+            mesh = get_mesh()
+            run, model = _par_run(torch, config, lambda i: (raw, None), PAR_STEPS, device,
+                                  SEED + 151)
+            runs[name] = dict(run, world=mesh.world, group=mesh.group is not None)
+            if name == "group":       # the gradient all-reduce alone, on the last step's
+                params = [p for p in model.parameters() if p.requires_grad]
+                all_reduce_gradients(params, mesh)
+                torch.cuda.synchronize()
+                start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+                t0 = time.perf_counter()
+                start.record()
+                for _ in range(20):
+                    all_reduce_gradients(params, mesh)
+                end.record()
+                t_host = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                out["allreduce_ms"] = start.elapsed_time(end) / 20
+                out["allreduce_host_ms"] = t_host * 1e3 / 20
+                out["allreduce_bytes"] = sum(p.numel() * p.element_size() for p in params)
+                out["allreduce_params"] = len(params)
+                del params
+            del model
+            torch.cuda.empty_cache()
+        out["runs"] = runs
+        destroy()
+        return out
+    # a pair of gloo ranks on the one card, or the one process it is held
+    # to: every set of PAR_PAIRS in turn, in one group
+    world, rank = spec["world"], spec["rank"]
+    _break_group(spec.get("fault"))
+    if world > 1:
+        initialize_distributed(init_method=spec["init"], num_processes=world,
+                               process_id=rank, device="cuda:0", backend="gloo",
+                               timeout_s=60)
+    mesh = get_mesh()
+    out["sets"] = []
+    for _, model_name, batch, dtype, _ in PAR_PAIRS:
+        config = ConfigDict(copy.deepcopy(FLAGSHIP_CONFIG if model_name == "flagship"
+                                          else DGCNN_CONFIG))
+        config["total_bs"] = batch
+        if model_name == "flagship":
+            config["model"]["transformer_config"]["dtype"] = dtype
+        else:
+            config["model"]["dtype"] = dtype
+        ds = build_dataset_from_cfg({"NAME": "Synthetic", "N_POINTS": NRAW, "num_classes": 8,
+                                     "with_normal": True},
+                                    {"subset": "train", "size": batch * PAR_PAIR_STEPS},
+                                    device="cpu")
+        batches = iter(train_loader(ds, batch, SEED, mesh))
+        noise = None
+        if spec.get("noise"):
+            first = next(iter(DataLoader(ds, batch, shuffle=True, seed=SEED)))["points"]
+            noise = reorder_noise(torch, config, torch.from_numpy(first).to(device), device,
+                                  SEED + 160)
+
+        def raw_of(i):
+            raw = torch.from_numpy(next(batches)["points"]).to(device)
+            full = all_gather_rows(mesh, raw)
+            return raw, hashlib.sha1(full.cpu().numpy().tobytes()).hexdigest()
+
+        run, model = _par_run(torch, config, raw_of, PAR_PAIR_STEPS, device, SEED + 160)
+        out["sets"].append(dict(run, noise=noise))
+        del model, batches
+        torch.cuda.empty_cache()
+    destroy()
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_children(specs, timeout: float = 300.0) -> list:
+    """Start one child a spec, all together; wait for them; return each
+    child's JSON line, failing the run if a child fails or prints none."""
+    # cuBLAS's fixed workspace: the same products round alike in every run
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-child",
+                               json.dumps(sp)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env) for sp in specs]
+    outs = []
+    try:
+        for sp, proc in zip(specs, procs):
+            text, _ = proc.communicate(timeout=timeout)
+            lines = [ln for ln in text.splitlines() if ln.startswith(PAR_CHILD)]
+            if proc.returncode != 0 or not lines:
+                fail(f"parallel: child {sp} exited {proc.returncode}:\n{text[-3000:]}")
+            outs.append(json.loads(lines[-1][len(PAR_CHILD):]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outs
+
+
+def run_pair(fault=None) -> list:
+    """Two gloo ranks on the card, each running every set of PAR_PAIRS:
+    each rank's records, set by set."""
+    tmp = tempfile.mkdtemp(prefix="pdae_par_")
+    try:
+        duo = run_children([{"mode": "pair", "rank": r, "world": 2, "fault": fault,
+                             "init": f"file://{os.path.join(tmp, 'store')}"}
+                            for r in range(2)])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return [d["sets"] for d in duo]
+
+
+def pair_readings(single, r0, r1) -> dict:
+    """Two ranks' records of one set against one process's: each step's
+    relative loss differences, the BatchNorm statistics' difference after
+    step 1 over their largest value, and whether the batches' hashes and
+    the two ranks' losses and final states agree."""
+    import numpy as np
+
+    rel = [[abs(x - y) / abs(y) if y else abs(x) for x, y in zip(d, s)]
+           for s, d in zip(single["losses"], r0["losses"])]
+    a, b = np.asarray(r0["bn_stats"]), np.asarray(single["bn_stats"])
+    return {"rel": rel, "bn": float(np.abs(a - b).max() / np.abs(b).max()),
+            "hashes": single["hashes"] == r0["hashes"] == r1["hashes"],
+            "ranks_losses": r0["losses"] == r1["losses"],
+            "ranks_state": r0["state_sha1"] == r1["state_sha1"]}
+
+
+def _fmt_rel(rel) -> list:
+    return [[f"{v:.1e}" for v in step] for step in rel]
+
+
+def emd_check(torch, device, card) -> None:
+    """(d): emd_loss and its gradients on the card against the CPU, the
+    loss within 1e-5 and each gradient within 1e-3 of its largest value:
+    the match is ten rounds of exp(-4^j d), j down from 7, so a distance's
+    last bit moves it; beside them, the CPU against itself with xyz2's
+    points in reverse order (the same sums in another order)."""
+    from point_dae_torch.losses import emd_loss
+
+    g = torch.Generator().manual_seed(SEED + 170)
+    a = torch.rand(EMD_SHAPE, generator=g) * 2 - 1
+    b = torch.rand(EMD_SHAPE, generator=g) * 2 - 1
+    rev = torch.arange(EMD_SHAPE[1] - 1, -1, -1)
+    res = {}
+    for name, dev, bb in (("cpu", "cpu", b), ("card", device, b), ("cpu reversed", "cpu", b[:, rev])):
+        ta = a.to(dev).clone().requires_grad_(True)
+        tb = bb.to(dev).clone().requires_grad_(True)
+        loss = emd_loss(ta, tb)
+        loss.backward()
+        gb = tb.grad[:, rev] if name == "cpu reversed" else tb.grad
+        res[name] = [t.detach().cpu() for t in (loss, ta.grad, gb)]
+
+    def errs(name):
+        return [float(((x - y).abs().max() / y.abs().max()))
+                for x, y in zip(res[name], res["cpu"])]
+
+    card_err, cpu_err = errs("card"), errs("cpu reversed")
+    ga, gb = a.to(device), b.to(device)
+    ms = cuda_ms(lambda: emd_loss(ga, gb), 5)
+    log(f"  [{card}] (d) emd_loss {EMD_SHAPE} x {EMD_SHAPE}: {float(res['cpu'][0]):.6f} on "
+        f"the CPU; card against CPU, relative to the largest: loss {card_err[0]:.2e}, grad "
+        f"xyz1 {card_err[1]:.2e}, grad xyz2 {card_err[2]:.2e} (the CPU against itself with "
+        f"xyz2 reversed: {cpu_err[0]:.2e}, {cpu_err[1]:.2e}, {cpu_err[2]:.2e}); {ms:.3f} ms "
+        f"a forward on the card")
+    if card_err[0] > 1e-5 or max(card_err[1:]) > 1e-3:
+        fail(f"parallel: emd_loss on the card disagrees with the CPU: {card_err}")
+
+
+def phase_parallel(torch, device, card) -> None:
+    """Data parallelism, each rank a child process (see the module's
+    docstring, phase 28)."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    # (a) a group of one over nccl against no group, in one child
+    a = run_children([{"mode": "group_of_one", "rank": 0, "world": 1,
+                       "init": f"127.0.0.1:{_free_port()}"}])[0]
+    plain, grouped = a["runs"]["no group"], a["runs"]["group"]
+    if not grouped["group"] or plain["group"]:
+        fail(f"parallel (a): the group did not form as asked: {a['runs']}")
+    log(f"  [{card}] (a) flagship bs {BATCH}, {PAR_STEPS} steps, deterministic mode: losses "
+        f"no group {plain['losses']}, nccl group of one {grouped['losses']}")
+    log(f"  [{card}] (a) step ms no group {[round(t, 2) for t in plain['ms']]}, group "
+        f"{[round(t, 2) for t in grouped['ms']]}; the gradient all-reduce alone "
+        f"{a['allreduce_ms']:.3f} ms a step on the card, {a['allreduce_host_ms']:.3f} ms on "
+        f"the host ({a['allreduce_params']} gradients, "
+        f"{a['allreduce_bytes'] / 2 ** 20:.1f} MiB)")
+    launched = {k: grouped["launches"].get(k, 0) for k in PAR_FLAGSHIP_KERNELS}
+    log(f"  [{card}] (a) launches in the group's {PAR_STEPS} steps: {launched}")
+    if plain["losses"] != grouped["losses"]:
+        fail(f"parallel (a): the group of one changed the losses: {plain['losses']} against "
+             f"{grouped['losses']}")
+    if min(launched.values()) == 0:
+        fail(f"parallel (a): a flagship kernel did not launch under the group: {launched}")
+    # (b), (c): two gloo ranks on the card against one process, each child
+    # running every set of PAR_PAIRS
+    singles = run_children([{"mode": "pair", "rank": 0, "world": 1}])[0]["sets"]
+    r0s, r1s = run_pair()
+    for (tag, model, batch, dtype, (tol1, tol2)), single, r0, r1 in zip(
+            PAR_PAIRS, singles, r0s, r1s):
+        what = f"({tag}) {model} {dtype}"
+        rd = pair_readings(single, r0, r1)
+        log(f"  [{card}] {what}: 2 gloo ranks x {batch // 2} against 1 x {batch}: losses "
+            f"{r0['losses']} / {single['losses']} (relative {_fmt_rel(rd['rel'])}); "
+            f"BatchNorm statistics after step 1 {rd['bn']:.1e} of their largest; step ms "
+            f"rank 0 {[round(t, 1) for t in r0['ms']]}, rank 1 "
+            f"{[round(t, 1) for t in r1['ms']]}, one process "
+            f"{[round(t, 1) for t in single['ms']]}; launches rank 0 {r0['launches']}")
+        if not rd["hashes"]:
+            fail(f"parallel {what}: the global batches differ from one process's")
+        if not (rd["ranks_losses"] and rd["ranks_state"]):
+            fail(f"parallel {what}: the ranks report different losses or hold different "
+                 f"parameters")
+        if rd["bn"] > PAR_BN_TOL:
+            fail(f"parallel {what}: BatchNorm's running statistics after step 1 are "
+                 f"{rd['bn']:.1e} from one process's (bound {PAR_BN_TOL})")
+        if max(rd["rel"][0]) > tol1 or max(max(v) for v in rd["rel"][1:]) > tol2:
+            fail(f"parallel {what}: outside the contract (step 1 {tol1}, step 2 {tol2}): "
+                 f"{rd['rel']}")
+    emd_check(torch, device, card)
+    log(f"  [{card}] the parallel phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def parallel_readings(card) -> None:
+    """``python3 chip_smoke.py --parallel-readings``: what the checks of
+    (b) and (c) read with nothing wrong, beside one process's own step-1
+    change when its batch's rows are reversed (reorder_noise), and under
+    each of PAR_FAULTS; it prints them and fails only if a child does."""
+    t0 = time.perf_counter()
+    singles = run_children([{"mode": "pair", "rank": 0, "world": 1, "noise": True}])[0]["sets"]
+    for (tag, model, batch, dtype, tols), single in zip(PAR_PAIRS, singles):
+        log(f"  [{card}] ({tag}) {model} {dtype}: one process's own step-1 loss_xyz under "
+            f"the batch's rows reversed: relative {single['noise']:.1e}")
+    for fault in (None,) + PAR_FAULTS:
+        r0s, r1s = run_pair(fault)
+        for (tag, model, batch, dtype, (tol1, tol2)), single, r0, r1 in zip(
+                PAR_PAIRS, singles, r0s, r1s):
+            rd = pair_readings(single, r0, r1)
+            caught = [name for name, bad in (
+                ("step 1", max(rd["rel"][0]) > tol1),
+                ("step 2", max(max(v) for v in rd["rel"][1:]) > tol2),
+                ("BatchNorm statistics", rd["bn"] > PAR_BN_TOL),
+                ("ranks' states", not rd["ranks_state"]),
+                ("ranks' losses", not rd["ranks_losses"])) if bad]
+            log(f"  [{card}] ({tag}) {model} {dtype}, fault {fault}: relative losses "
+                f"{_fmt_rel(rd['rel'])}, BatchNorm statistics {rd['bn']:.1e}, batches "
+                f"{'equal' if rd['hashes'] else 'DIFFERENT'}, ranks' states "
+                f"{'equal' if rd['ranks_state'] else 'different'}; failed checks: "
+                f"{caught or 'none'}")
+    log(f"  [{card}] the readings: {time.perf_counter() - t0:.1f} s")
+
+
 def stamp(what: str) -> None:
     log(f"[{time.perf_counter() - T0:.1f} s] {what} done")
 
 
 def main() -> None:
+    if len(sys.argv) == 3 and sys.argv[1] == "--parallel-child":
+        print(PAR_CHILD + json.dumps(parallel_child(json.loads(sys.argv[2]))), flush=True)
+        return
     import torch
 
     if not torch.cuda.is_available():
@@ -6206,6 +6671,10 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60, check=True).stdout.strip().splitlines()[0]
     log(card)
+    if sys.argv[1:] == ["--parallel-readings"]:
+        kernels.build()
+        parallel_readings(card)
+        return
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {torch.get_num_threads()} CPU threads")
 
@@ -6408,6 +6877,12 @@ def main() -> None:
         "bnmscheduler):")
     phase_transformer_heads(torch, device, card)
     stamp("transformer_heads")
+    torch.cuda.empty_cache()
+
+    # 14. data parallelism: process groups, one rank a child process
+    log("parallel (a group of one over nccl, two gloo ranks on the card, emd_loss):")
+    phase_parallel(torch, device, card)
+    stamp("parallel")
     # gather_rows_wide is the one kernel without a path: the JAX package keeps
     # XLA's gather forward on purpose (point_dae_tpu/ops/pallas_scatter.py:
     # 267-276) and the port its plain one, so the rule leaves it out and its

@@ -8,7 +8,10 @@ The flags, their validations, the experiment tree
 result scrapers work unchanged. ``main(argv, device)`` runs on the CUDA card
 unless ``device`` says otherwise (the tests pass ``device="cpu"``); there is
 no ``--device`` flag. Every mode of the JAX CLI is dispatched, in its
-order.
+order. Under ``torchrun --nproc_per_node=N main_torch.py ...`` (its
+``WORLD_SIZE`` above 1) each process joins the group on ``cuda:LOCAL_RANK``
+(gloo on the CPU) and trains data-parallel (``parallel/mesh.py``); rank 0
+alone writes the log, ``config.yaml``, scalars and checkpoints.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import argparse
 import os
 import time
 
+from .parallel.mesh import destroy, get_mesh, initialize_distributed, prebuild
 from .utils.config import cfg_from_yaml_file, propagate_corrupt_type, save_config
 from .utils.device import resolve_device
 from .utils.logger import get_logger, print_log
@@ -27,13 +31,14 @@ def get_args(argv=None):
     p.add_argument("--model_name", type=str, default=None,
                    help="override config.model.NAME")
     p.add_argument("--launcher", choices=["none", "spmd"], default="none",
-                   help="kept for CLI parity; the port runs on one card")
+                   help="kept for CLI parity; the process group forms from "
+                        "torchrun's environment")
     p.add_argument("--local_rank", type=int, default=0)
     p.add_argument("--num_workers", type=int, default=4)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--deterministic", action="store_true")
     p.add_argument("--sync_bn", action="store_true",
-                   help="parity flag; one card computes its batch's statistics")
+                   help="parity flag; BatchNorm statistics are always the global batch's")
     p.add_argument("--exp_name", type=str, default="default")
     p.add_argument("--loss", type=str, default="cd1",
                    help="parity flag (unconsumed in the reference too)")
@@ -118,14 +123,30 @@ def load_config(args):
                 split["others"]["way"] = args.way
                 split["others"]["shot"] = args.shot
                 split["others"]["fold"] = args.fold
-    save_config(cfg, os.path.join(args.experiment_path, "config.yaml"))
+    if get_mesh().is_main:
+        save_config(cfg, os.path.join(args.experiment_path, "config.yaml"))
     return cfg
 
 
 def main(argv=None, device=None):
     """Parse ``argv``, set up the experiment directory and its log, and run
-    the selected mode on ``device`` (default: the CUDA card)."""
-    dev = resolve_device(device)
+    the selected mode on ``device`` (default: the CUDA card; under torchrun
+    ``cuda:LOCAL_RANK``)."""
+    joined = int(os.environ.get("WORLD_SIZE", "1")) > 1 and get_mesh().group is None
+    if joined:
+        mesh = initialize_distributed(device=device)
+        dev = mesh.device
+        prebuild(mesh)
+    else:
+        dev = resolve_device(device)
+    try:
+        return _run(argv, dev)
+    finally:
+        if joined:
+            destroy()
+
+
+def _run(argv, dev):
     args = get_args(argv)
     logger = get_logger(args.log_name,
                         os.path.join(args.experiment_path,

@@ -487,6 +487,11 @@ class CloudCorruptDraws:
     ops: List
 
 
+def masks_points(types: Sequence[str]) -> bool:
+    """Whether ``corrupt_batch`` returns a validity mask for ``types``."""
+    return any(t.startswith(m) for t in types for m in _MASKING)
+
+
 def corruption_capacity(n: int, types: Sequence[str]) -> int:
     """Buffer rows so that adding families never overflow: n // 2 each."""
     return n + sum(t in _ADDING for t in types) * (n // 2)
@@ -635,7 +640,7 @@ def corrupt_batch(pts: torch.Tensor, types: Sequence[str],
     if draws is None:
         draws = sample_corrupt_draws(types, B, n, generator, pts.device)
     mask = None
-    if any(t.startswith(m) for t in types for m in _MASKING):
+    if masks_points(types):
         mask = torch.ones((B, n), dtype=torch.bool, device=pts.device)
     for i, fam in enumerate(families):
         if fam is not None:

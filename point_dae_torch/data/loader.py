@@ -1,11 +1,15 @@
 """Host-side batching dataloader with background prefetch (the port's copy
-of ``point_dae_tpu/data/loader.py`` for one process).
+of ``point_dae_tpu/data/loader.py``).
 
 Role of the reference's torch DataLoader and sampler, much thinner because
 augmentation and corruption run on the device: the loader only shuffles
 indices, stacks numpy arrays and prefetches a couple of batches on a worker
 thread. The epoch's order is the JAX loader's (numpy ``default_rng(seed *
-9973 + epoch)``), so both packages see the same batches.
+9973 + epoch)``), so both packages see the same batches. Under a process
+group (``num_hosts`` ranks, ``parallel/mesh.py:loader_shard_kwargs``) rank
+``host_id`` takes a contiguous slice of every global batch, so the global
+batch is bitwise the one-process batch, and ``drop_last=False`` pads the
+tail global batch by wrapping, like torch's DistributedSampler.
 """
 from __future__ import annotations
 
@@ -32,12 +36,15 @@ class DataLoader:
     PREFETCH = 2           # batches the worker thread may read ahead
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
-                 drop_last: bool = True, seed: int = 0):
+                 drop_last: bool = True, seed: int = 0,
+                 num_hosts: int = 1, host_id: int = 0):
         self.dataset = dataset
-        self.batch_size = batch_size
+        self.batch_size = batch_size          # this rank's rows of a batch
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.num_hosts = num_hosts
+        self.host_id = host_id
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -45,16 +52,34 @@ class DataLoader:
         self.epoch = epoch
 
     def __len__(self):
-        n = len(self.dataset)
+        """Batches an epoch: global batches of ``batch_size * num_hosts``,
+        the same count on every rank."""
+        n, gb = len(self.dataset), self.batch_size * self.num_hosts
         if self.drop_last:
-            return n // self.batch_size
-        return (n + self.batch_size - 1) // self.batch_size
+            return n // gb
+        return (n + gb - 1) // gb
 
     def _indices(self) -> np.ndarray:
+        """This rank's index stream: rank h owns rows [h * B, (h + 1) * B)
+        of each global batch; without ``drop_last`` the tail global batch
+        is padded by wrapping, so every rank has a full batch at every
+        step."""
         n = len(self.dataset)
         if self.shuffle:
-            return np.random.default_rng(self.seed * 9973 + self.epoch).permutation(n)
-        return np.arange(n)
+            idx = np.random.default_rng(self.seed * 9973 + self.epoch).permutation(n)
+        else:
+            idx = np.arange(n)
+        if self.num_hosts == 1:
+            return idx
+        gb = self.batch_size * self.num_hosts
+        nb = len(self)
+        pad = nb * gb - len(idx)
+        if pad > 0 and len(idx) > 0:
+            reps = (pad + len(idx) - 1) // len(idx)
+            idx = np.concatenate([idx, np.tile(idx, reps)[:pad]])
+        out = [idx[g * gb + self.host_id * self.batch_size:
+                   g * gb + (self.host_id + 1) * self.batch_size] for g in range(nb)]
+        return np.concatenate(out) if out else idx[:0]
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         idx = self._indices()

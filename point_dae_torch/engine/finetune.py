@@ -19,7 +19,9 @@ them for the vote step) or draws from the given ``torch.Generator``.
 ``run_finetune`` (reference runner_finetune.run_net) trains from a config,
 validates each epoch and votes when the accuracy crosses the reference's
 trigger; ``test_net`` evaluates a checkpoint, with repeated voting under
-``--vote``.
+``--vote``. Under a process group (``parallel/mesh.py``) a step's draws
+are the global batch's and each rank keeps its rows, and the eval and vote
+loops split each padded batch over the ranks and gather the logits.
 """
 from __future__ import annotations
 
@@ -37,6 +39,8 @@ from ..data.corruptions_patch import _batched_rot
 from ..models.common import ClsDraws
 from ..models.layers import BatchNorm
 from ..ops.geometry import furthest_point_sample, gather_points
+from ..parallel.mesh import (get_mesh, mean_over_ranks, pad_to_batch, replicate, row_drawer,
+                             sharded_eval, train_loader)
 from ..utils.device import resolve_device
 from ..utils.logger import ScalarWriter, print_log
 from ..utils.meters import AverageMeter
@@ -133,6 +137,31 @@ def augment(pts: torch.Tensor, aug: str, params: Optional[tuple]) -> torch.Tenso
     return pts
 
 
+def sample_finetune_draws(model: torch.nn.Module, npoints: int, aug: str, batch: int,
+                          n: int, generator: Optional[torch.Generator], device
+                          ) -> FinetuneDraws:
+    """Every draw of one train step for ``batch`` clouds of ``n`` points,
+    from ``generator`` in the order the step takes them itself: the
+    resample's subset, the augmentation's parameters, the model's own
+    (``sample_draws``)."""
+    keep = point_all(npoints, n)
+    subset = sample_subset(batch, keep, npoints, generator, device) if keep > npoints else None
+    params = _sample_aug(aug, torch.empty((batch, npoints, 3), device=device), generator)
+    sample = getattr(model, "sample_draws", None)
+    return FinetuneDraws(subset, params, None if sample is None else sample(batch, generator,
+                                                                           device))
+
+
+def sample_vote_draws(npoints: int, times: int, batch: int, n: int,
+                      generator: Optional[torch.Generator], device) -> list:
+    """The ``times`` draws (subset, scale and shift) of one vote step, in
+    the order the step takes them itself."""
+    keep = point_all(npoints, n)
+    return [FinetuneDraws(
+        sample_subset(batch, keep, npoints, generator, device) if keep > npoints else None,
+        sample_scale_translate(batch, generator, device)) for _ in range(times)]
+
+
 def smooth_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                          eps: float = 0.3) -> torch.Tensor:
     """Label-smoothed cross-entropy (the reference's smooth loss, eps 0.3)."""
@@ -170,11 +199,14 @@ def make_finetune_step(model: torch.nn.Module, config, smooth: Optional[bool] = 
     # the reference's set_bn_eval under only_new (runner_finetune.py:30-37)
     norms = [m for m in model.modules() if isinstance(m, BatchNorm)] \
         if config.get("optimizer", {}).get("part") == "only_new" else []
+    step_draws = row_drawer(lambda b, n, g: sample_finetune_draws(model, npoints, aug, b, n,
+                                                                  g, dev))
 
     def step(state: TrainState, pts: torch.Tensor, labels: torch.Tensor,
              generator: Optional[torch.Generator] = None,
              draws: Optional[FinetuneDraws] = None):
-        draws = draws or FinetuneDraws()
+        if draws is None:
+            draws = step_draws(pts.shape[0], pts.shape[1], generator)
         pts = pts.to(dev)[..., :3]
         labels = labels.to(dev).long()
         pts = fps_resample(pts, npoints, draws.subset, generator)
@@ -189,7 +221,7 @@ def make_finetune_step(model: torch.nn.Module, config, smooth: Optional[bool] = 
         state.zero_grad()
         loss.backward()
         state.apply_gradients()
-        return {"loss": loss.detach(), "acc": acc.detach()}
+        return mean_over_ranks({"loss": loss.detach(), "acc": acc.detach()})
 
     return step
 
@@ -230,15 +262,18 @@ def make_vote_step(model: torch.nn.Module, config, times: int = 10,
     ``subset`` and ``aug`` (scale, shift)."""
     dev = resolve_device(device)
     npoints = int(config.get("npoints", 1024))
+    vote_draws = row_drawer(lambda b, n, g: sample_vote_draws(npoints, times, b, n, g, dev))
 
     @torch.no_grad()
     def step(pts: torch.Tensor, generator: Optional[torch.Generator] = None,
              draws: Optional[Sequence[FinetuneDraws]] = None) -> torch.Tensor:
+        if draws is None:         # under a group, ``pts`` is this rank's rows of the batch
+            draws = vote_draws(pts.shape[0], pts.shape[1], generator)
         pts = pts.to(dev)[..., :3]
         model.eval()
         total = None
         for i in range(times):
-            d = draws[i] if draws is not None else FinetuneDraws()
+            d = draws[i]
             p = fps_resample(pts, npoints, d.subset, generator)
             s, t = d.aug if d.aug is not None else sample_scale_translate(
                 p.shape[0], generator, dev)
@@ -249,22 +284,14 @@ def make_vote_step(model: torch.nn.Module, config, times: int = 10,
     return step
 
 
-def pad_to_batch(arr: np.ndarray, batch_size: int) -> np.ndarray:
-    """Zero-pad a short tail batch along axis 0 to ``batch_size``; callers
-    slice the logits back to the true count."""
-    n = arr.shape[0]
-    if n >= batch_size:
-        return arr
-    return np.concatenate([arr, np.zeros((batch_size - n,) + arr.shape[1:], arr.dtype)])
-
-
 def _accuracy(logits_of: Callable, batches: Iterable[dict], batch_size: int) -> float:
     correct = total = 0
     for batch in batches:
         pts = np.asarray(batch["points"], np.float32)
         labels = np.asarray(batch["label"]).reshape(-1)
         n = pts.shape[0]
-        logits = logits_of(torch.from_numpy(pad_to_batch(pts, batch_size)))
+        # under a process group each rank runs its rows of the padded batch
+        logits = sharded_eval(logits_of, torch.from_numpy(pad_to_batch(pts, batch_size)))
         pred = logits[:n].argmax(-1).cpu().numpy()
         correct += int((pred == labels).sum())
         total += n
@@ -310,7 +337,8 @@ def run_finetune(config, args, logger_name: str = "PointDAE", device=None):
     val_set = build_dataset_from_cfg(dcfg["val"]["_base_"], dcfg["val"]["others"],
                                      device=dev)
     total_bs = int(config.get("total_bs", 32))
-    loader = DataLoader(train_set, total_bs, shuffle=True, seed=seed)
+    mesh = get_mesh()
+    loader = train_loader(train_set, total_bs, seed, mesh)
 
     def val_batches():
         return DataLoader(val_set, total_bs, shuffle=False, drop_last=False)
@@ -319,6 +347,7 @@ def run_finetune(config, args, logger_name: str = "PointDAE", device=None):
     model = build_model_from_cfg(config["model"], device=dev, seed=seed)
     if getattr(args, "ckpts", None):
         _warm_start(model, args.ckpts, logger_name)
+    replicate(mesh, model)
     state = TrainState.create(model, config, max(len(loader), 1),
                               config.get("grad_norm_clip"))
     train_step = make_finetune_step(model, config, device=dev)

@@ -11,7 +11,9 @@ draws one from the given ``torch.Generator``. ``evaluate_partseg``
 restricts each shape's argmax to its category's parts and reports the
 instance and class mIoU. ``run_partseg`` trains on ShapeNetPart and keeps
 the best-mIoU weights in ``best_model.pth``; ``test_partseg`` evaluates a
-checkpoint once.
+checkpoint once. Under a process group (``parallel/mesh.py``) a step's draws
+are the global batch's and each rank keeps its rows; the eval loop splits
+each padded batch over the ranks and gathers the log-probs.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ import numpy as np
 import torch
 
 from ..models.partseg import N_CATEGORIES, SegDraws, seg_nll_loss
+from ..parallel.mesh import (get_mesh, mean_over_ranks, replicate, row_drawer, sharded_eval,
+                             train_loader)
 from ..utils.device import resolve_device
 from ..utils.logger import print_log
 from ..utils.meters import AverageMeter
@@ -50,6 +54,7 @@ def make_seg_train_step(model: torch.nn.Module, device=None) -> Callable:
     live in ``state``
     (``TrainState.create(model, config, steps, config["grad_norm_clip"])``)."""
     dev = resolve_device(device)
+    step_draws = row_drawer(lambda b, n, g: SegDraws.sample(model, b, n, g, dev))
 
     def step(state: TrainState, pts: torch.Tensor, cls_onehot: torch.Tensor,
              seg: torch.Tensor, generator: Optional[torch.Generator] = None,
@@ -58,7 +63,7 @@ def make_seg_train_step(model: torch.nn.Module, device=None) -> Callable:
         cls_onehot = cls_onehot.to(dev).float()
         seg = seg.to(dev).long()
         if draws is None:
-            draws = SegDraws.sample(model, pts.shape[0], pts.shape[1], generator, dev)
+            draws = step_draws(pts.shape[0], pts.shape[1], generator)
         pts = scale_shift(pts, draws.scale, draws.shift)
         model.train()
         logp = model(pts, cls_onehot, draws=draws)
@@ -67,7 +72,7 @@ def make_seg_train_step(model: torch.nn.Module, device=None) -> Callable:
         state.zero_grad()
         loss.backward()
         state.apply_gradients()
-        return {"loss": loss.detach(), "acc": acc.detach()}
+        return mean_over_ranks({"loss": loss.detach(), "acc": acc.detach()})
 
     return step
 
@@ -126,7 +131,7 @@ def evaluate_partseg(eval_step: Callable, batches: Iterable[dict], batch_size: i
         labels = np.asarray(batch["label"]).reshape(-1)
         n = len(labels)
         onehot = eye[np.concatenate([labels, np.zeros(batch_size - n, np.int64)])]
-        logp = eval_step(torch.from_numpy(pts), torch.from_numpy(onehot))[:n]
+        logp = sharded_eval(eval_step, torch.from_numpy(pts), torch.from_numpy(onehot))[:n]
         bnames = [cat_names[int(l)] for l in labels]
         preds.append(category_restricted_argmax(logp.float().cpu().numpy(), bnames))
         gts.append(np.asarray(batch["seg"]))
@@ -167,7 +172,6 @@ def run_partseg(config, args, logger_name: str = "PointDAE", device=None):
     """The ShapeNetPart run (segmentation/main.py:181-323). Returns
     {"best_instance_miou", "best_class_miou"}."""
     from ..data.datasets import build_dataset_from_cfg
-    from ..data.loader import DataLoader
     from ..models import build_model_from_cfg
     from ..utils.checkpoint import save_checkpoint
 
@@ -179,10 +183,12 @@ def run_partseg(config, args, logger_name: str = "PointDAE", device=None):
     test_batches = _test_batches(config, dev)
     cat_names = sorted(SEG_CLASSES)
     total_bs = int(config.get("total_bs", 16))
-    loader = DataLoader(train_set, total_bs, shuffle=True, seed=seed)
+    mesh = get_mesh()
+    loader = train_loader(train_set, total_bs, seed, mesh)
     model = build_model_from_cfg(config["model"], device=dev, seed=0)
     if getattr(args, "ckpts", None):
         _warm_start(model, args.ckpts, logger_name)
+    replicate(mesh, model)
     state = TrainState.create(model, config, max(len(loader), 1),
                               config.get("grad_norm_clip"))
     train_step = make_seg_train_step(model, device=dev)

@@ -23,11 +23,14 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..data.corruptions import CloudCorruptDraws, augment_batch, corrupt_batch
+from ..data.corruptions import (CloudCorruptDraws, augment_batch, corrupt_batch, masks_points,
+                                sample_augment_draws, sample_corrupt_draws)
 from ..models import build_model_from_cfg
-from ..models.common import DropoutDraws
+from ..models.common import DropoutDAE, DropoutDraws
 from ..models.transformer import ModelDraws
 from ..ops.geometry import furthest_point_sample, gather_points, resample_batch
+from ..parallel.mesh import (get_mesh, mean_over_ranks, replicate, row_drawer, sharded_eval,
+                             train_loader)
 from ..utils.config import propagate_corrupt_type
 from ..utils.device import resolve_device
 from ..utils.logger import ScalarWriter, print_log
@@ -83,6 +86,30 @@ def device_pipeline(raw: torch.Tensor, aug_type: Sequence[str],
             resample_batch(full, None, npoints, draws=clean, generator=generator))
 
 
+def sample_step_draws(model: torch.nn.Module, aug_type: Sequence[str],
+                      corrupt_type: Sequence[str], npoints: int, batch: int, n_raw: int,
+                      generator: Optional[torch.Generator], device) -> StepDraws:
+    """Every draw of one pretrain step for ``batch`` raw clouds of ``n_raw``
+    rows, taken from ``generator`` in the order the step takes them when it
+    draws them itself: the augmentations, the corruptions, the corrupted
+    and the clean resample, then the model's own (``sample_draws``; a DAE's
+    in-model dropouts on clouds of ``npoints``)."""
+    augment = sample_augment_draws(aug_type, batch, generator, device)
+    corrupt = sample_corrupt_draws(corrupt_type, batch, n_raw, generator, device)
+    if masks_points(corrupt_type):
+        corrupted = torch.rand((batch, npoints), generator=generator, device=device)
+    else:
+        corrupted = torch.randint(0, n_raw, (batch, npoints), generator=generator,
+                                  device=device)
+    clean = torch.randint(0, n_raw, (batch, npoints), generator=generator, device=device)
+    sample = getattr(model, "sample_draws", None)
+    if isinstance(model, DropoutDAE):
+        own = sample(batch, generator, device, n=npoints)
+    else:
+        own = None if sample is None else sample(batch, generator, device)
+    return StepDraws(PipelineDraws(corrupted, clean, corrupt, augment), own)
+
+
 def compute_loss(loss_type: str, loss_xyz, loss_normal, normal_weight: float,
                  gradual_weight: float):
     """The reference runner's loss-type switch."""
@@ -136,7 +163,10 @@ def make_train_step(model: torch.nn.Module, config, device=None) -> Callable:
     draws=None, labels=None, bn_momentum=None) -> {"loss_xyz",
     "loss_normal"}`` (device tensors; nothing waits for the card).
     ``draws`` (a ``StepDraws``) replaces every random draw of the step;
-    otherwise they come from ``generator``. ``labels`` (B,) go to a model
+    otherwise they come from ``generator`` (``sample_step_draws``, through
+    ``parallel/mesh.py:row_drawer``): under a process group the global
+    batch's, of which ``raw``'s rows are kept, and the metrics are the
+    global batch's. ``labels`` (B,) go to a model
     that ``is_supervised``, which needs them. ``bn_momentum`` (the
     ``bnmscheduler``'s, ``bn_momentum_for``): the BatchNorm layers move
     their running statistics with flax's fixed momentum 0.9 (torch's 0.1);
@@ -152,15 +182,18 @@ def make_train_step(model: torch.nn.Module, config, device=None) -> Callable:
     normal_weight = float(config.get("normal_weight", 1.0))
     supervised = bool(getattr(model, "is_supervised", False))
     norms = batch_norms(model)
+    step_draws = row_drawer(lambda b, n, g: sample_step_draws(
+        model, aug_type, corrupt_type, npoints, b, n, g, dev))
 
     def step(state: TrainState, raw: torch.Tensor,
              generator: Optional[torch.Generator] = None,
              gradual_weight: float = 0.0, draws: Optional[StepDraws] = None,
              labels: Optional[torch.Tensor] = None, bn_momentum: Optional[float] = None):
-        corrupted, clean = device_pipeline(
-            raw, aug_type, corrupt_type, npoints,
-            draws=None if draws is None else draws.pipeline,
-            generator=generator, device=dev)
+        if draws is None:
+            draws = step_draws(raw.shape[0], raw.shape[1], generator)
+        corrupted, clean = device_pipeline(raw, aug_type, corrupt_type, npoints,
+                                           draws=draws.pipeline, generator=generator,
+                                           device=dev)
         kw = {}
         if supervised:
             if labels is None:
@@ -169,8 +202,7 @@ def make_train_step(model: torch.nn.Module, config, device=None) -> Callable:
         if bn_momentum is not None:
             old = [(bn.running_mean.clone(), bn.running_var.clone()) for bn in norms]
         model.train()
-        loss_xyz, loss_normal = model(corrupted, clean,
-                                      draws=None if draws is None else draws.model,
+        loss_xyz, loss_normal = model(corrupted, clean, draws=draws.model,
                                       generator=generator, **kw)
         if bn_momentum is not None:
             scale = bn_momentum / 0.1
@@ -183,7 +215,8 @@ def make_train_step(model: torch.nn.Module, config, device=None) -> Callable:
         state.zero_grad()
         loss.backward()
         state.apply_gradients()
-        return {"loss_xyz": loss_xyz.detach(), "loss_normal": loss_normal.detach()}
+        return mean_over_ranks({"loss_xyz": loss_xyz.detach(),
+                                "loss_normal": loss_normal.detach()})
 
     return step
 
@@ -304,7 +337,9 @@ def _svm_validate(feature_fn: Callable, train_set, test_set, device,
     def extract(ds):
         feats, labels = [], []
         for batch in DataLoader(ds, batch_size, shuffle=False, drop_last=False):
-            feats.append(feature_fn(torch.from_numpy(
+            # under a process group each rank extracts its rows; every rank
+            # gets all features and fits the same probe
+            feats.append(sharded_eval(feature_fn, torch.from_numpy(
                 np.asarray(batch["points"][..., :3], np.float32))))
             labels.append(batch["label"])
         return torch.cat(feats), np.concatenate(labels)
@@ -357,10 +392,11 @@ def run_pretrain(config, args, logger_name: str = "PointDAE",
                  device=None) -> Dict[str, Any]:
     """The pretraining run (runner_pretrain.run_net). ``args`` carries the
     CLI's fields (seed, experiment_path, tfboard_path, val_freq, resume,
-    auto_resume, start_ckpts). Returns {"best_acc", "state"}."""
+    auto_resume, start_ckpts). Returns {"best_acc", "state"}. Under a
+    process group each rank trains on ``total_bs / world`` rows of every
+    global batch (``parallel/mesh.py``) and only rank 0 writes."""
     from ..data.datasets import build_dataset_from_cfg
     from ..data.device_cache import DTYPES, build_device_cache
-    from ..data.loader import DataLoader
     from ..utils.checkpoint import (load_params, merge_pretrained, resume_checkpoint,
                                     save_checkpoint)
 
@@ -378,7 +414,8 @@ def run_pretrain(config, args, logger_name: str = "PointDAE",
                   "- per-epoch SVM validation is DISABLED (no ckpt-best "
                   "will be written)", logger=logger_name)
     total_bs = int(config.get("total_bs", 32))
-    loader = DataLoader(train_set, total_bs, shuffle=True, seed=seed)
+    mesh = get_mesh()
+    loader = train_loader(train_set, total_bs, seed, mesh)
     steps_per_epoch = max(len(loader), 1)
     max_epoch = int(config.get("max_epoch", 300))
     loss_type = config.get("loss_type", "xyz")
@@ -394,7 +431,7 @@ def run_pretrain(config, args, logger_name: str = "PointDAE",
         device_cache = build_device_cache(
             train_set, dtype=DTYPES[str(others.get("device_cache_dtype", "float16"))],
             max_bytes=int(others.get("device_cache_max_bytes", 12 * 2 ** 30)),
-            seed=seed, device=dev, logger_name=logger_name)
+            seed=seed, device=dev, logger_name=logger_name, mesh=mesh)
         steps_per_epoch = max(device_cache.steps_per_epoch(total_bs), 1)
 
     if getattr(args, "start_ckpts", None):          # runner_pretrain.py:74-75
@@ -413,6 +450,7 @@ def run_pretrain(config, args, logger_name: str = "PointDAE",
     if dvae_ckpt and hasattr(model, "dvae_teacher"):
         merge_dvae_teacher(model, dvae_ckpt, logger=logger_name)
 
+    replicate(mesh, model)
     state = TrainState.create(model, config, steps_per_epoch, config.get("grad_norm_clip"))
     start_epoch, best_acc = 0, 0.0
     auto = getattr(args, "auto_resume", False) and os.path.exists(

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.geometry import furthest_point_sample, gather_points
+from ..parallel.mesh import sharded_eval
 from ..utils.device import resolve_device
 from ..utils.logger import print_log
 
@@ -196,17 +197,23 @@ def svm_grid_search(train_f, train_l, test_f, test_l, logger=None, device=None) 
 def extract_features(model: torch.nn.Module, dataset, npoints: int, batch_size: int = 64,
                      device=None) -> Tuple[torch.Tensor, np.ndarray]:
     """FPS to ``npoints``, then the extractor in eval mode: (features (n, F)
-    on the device, labels (n,) numpy)."""
+    on the device, labels (n,) numpy). Under a process group every rank
+    gets every feature, so each fits the same SVC or affinity head."""
     from ..data.loader import DataLoader
 
     dev = resolve_device(device)
     model.eval()
     feats, labels = [], []
+
+    def features(pts):
+        pts = gather_points(pts, furthest_point_sample(pts[..., :3].contiguous(), npoints))
+        return model(pts).float()
+
     with torch.no_grad():
         for batch in DataLoader(dataset, batch_size, shuffle=False, drop_last=False):
             pts = torch.from_numpy(np.asarray(batch["points"], np.float32)).to(dev)
-            pts = gather_points(pts, furthest_point_sample(pts[..., :3].contiguous(), npoints))
-            feats.append(model(pts).float())
+            # under a process group each rank extracts its rows, all get all
+            feats.append(sharded_eval(features, pts))
             labels.append(np.asarray(batch["label"]).reshape(-1))
     return torch.cat(feats), np.concatenate(labels)
 

@@ -34,6 +34,7 @@ import torch
 from ..data import corruptions as C
 from ..data.corruptions_patch import _uniform
 from ..ops.geometry import resample_batch
+from ..parallel.mesh import sharded_eval
 from ..utils.device import resolve_device
 from ..utils.logger import print_log
 
@@ -308,7 +309,8 @@ def test_net_corruption(config, args, logger_name: str = "PointDAE",
         step = make_eval_step(model, config, device=dev)
 
     def eval_fn(pts):
-        return step(torch.as_tensor(pts))
+        # under a process group each rank runs its rows of the batch
+        return sharded_eval(step, torch.as_tensor(pts))
 
     return eval_corrupt_wrapper(eval_fn, test_set, total_bs, data_root=data_root,
                                 logger=logger_name, device=dev)

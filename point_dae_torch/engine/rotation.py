@@ -10,7 +10,9 @@ in train mode and takes the plain cross-entropy: the configs' ``smooth``
 is not read here, as in the JAX package. The gradients are clipped by the
 config's ``grad_norm_clip`` before the AdamW update. The eval step rotates,
 FPS-samples to ``npoints`` and runs the eval forward. Random draws are
-inputs: ``RotationDraws`` or a ``torch.Generator``.
+inputs: ``RotationDraws`` or a ``torch.Generator``. Under a process group
+(``parallel/mesh.py``) the draws are the global batch's, each rank keeps
+its rows, and validation splits each padded batch over the ranks.
 """
 from __future__ import annotations
 
@@ -23,9 +25,12 @@ import torch
 from ..data.corruptions import rotate_points, rotation_matrix, sample_rotation
 from ..models.common import ClsDraws
 from ..ops.geometry import furthest_point_sample, gather_points
+from ..parallel.mesh import (get_mesh, mean_over_ranks, replicate, row_drawer, sharded_eval,
+                             train_loader)
 from ..utils.device import resolve_device
 from ..utils.logger import print_log
-from .finetune import _warm_start, cross_entropy, fps_resample, pad_to_batch
+from .finetune import (_warm_start, cross_entropy, fps_resample, pad_to_batch, point_all,
+                       sample_subset)
 from .train_state import TrainState
 
 
@@ -51,6 +56,20 @@ def rotate_batch(pts: torch.Tensor, mode: str, angles: Optional[torch.Tensor] = 
     return rotate_points(pts, rotation_matrix(mode, angles))
 
 
+def sample_rotation_draws(model: torch.nn.Module, mode: str, npoints: int, batch: int,
+                          n: int, generator: Optional[torch.Generator], device
+                          ) -> RotationDraws:
+    """Every draw of one train step for ``batch`` clouds of ``n`` points, in
+    the order the step takes them itself: the rotation, the resample's
+    subset, the model's own."""
+    angles = None if mode == "none" else sample_rotation(mode, batch, generator, device)
+    keep = point_all(npoints, n)
+    subset = sample_subset(batch, keep, npoints, generator, device) if keep > npoints else None
+    sample = getattr(model, "sample_draws", None)
+    return RotationDraws(angles, subset,
+                         None if sample is None else sample(batch, generator, device))
+
+
 def protocol(config, mode_arg: Optional[str]):
     """(train mode, test mode): ``--mode z2z|z2so3|so32so3`` first, then the
     config's ``rotation`` dict, else z2so3."""
@@ -67,11 +86,14 @@ def make_rotation_train_step(model: torch.nn.Module, config, train_mode: str,
     -> {"loss", "acc", "logits"}`` (device tensors; acc a fraction)."""
     dev = resolve_device(device)
     npoints = int(config.get("npoints", 1024))
+    step_draws = row_drawer(lambda b, n, g: sample_rotation_draws(model, train_mode, npoints,
+                                                                  b, n, g, dev))
 
     def step(state: TrainState, pts: torch.Tensor, labels: torch.Tensor,
              generator: Optional[torch.Generator] = None,
              draws: Optional[RotationDraws] = None):
-        draws = draws or RotationDraws()
+        if draws is None:
+            draws = step_draws(pts.shape[0], pts.shape[1], generator)
         pts = pts.to(dev)[..., :3]
         labels = labels.to(dev).long()
         pts = rotate_batch(pts, train_mode, draws.angles, generator)
@@ -83,7 +105,8 @@ def make_rotation_train_step(model: torch.nn.Module, config, train_mode: str,
         state.zero_grad()
         loss.backward()
         state.apply_gradients()
-        return {"loss": loss.detach(), "acc": acc.detach(), "logits": logits.detach()}
+        out = mean_over_ranks({"loss": loss.detach(), "acc": acc.detach()})
+        return dict(out, logits=logits.detach())
 
     return step
 
@@ -124,10 +147,12 @@ def run_net_rotation(config, args, logger_name: str = "PointDAE", device=None):
     val_set = build_dataset_from_cfg(dcfg["val"]["_base_"], dcfg["val"]["others"],
                                      device=dev)
     total_bs = int(config.get("total_bs", 32))
-    loader = DataLoader(train_set, total_bs, shuffle=True, seed=seed)
+    mesh = get_mesh()
+    loader = train_loader(train_set, total_bs, seed, mesh)
     model = build_model_from_cfg(config["model"], device=dev, seed=seed)
     if getattr(args, "ckpts", None):
         _warm_start(model, args.ckpts, logger_name)
+    replicate(mesh, model)
     state = TrainState.create(model, config, max(len(loader), 1),
                               config.get("grad_norm_clip"))
     train_step = make_rotation_train_step(model, config, train_mode, device=dev)
@@ -149,7 +174,12 @@ def run_net_rotation(config, args, logger_name: str = "PointDAE", device=None):
             pts = np.asarray(batch["points"][..., :3], np.float32)
             labels = np.asarray(batch["label"]).reshape(-1)
             n = pts.shape[0]
-            logits = eval_step(torch.from_numpy(pad_to_batch(pts, total_bs)), generator)
+            padded = torch.from_numpy(pad_to_batch(pts, total_bs))
+            if test_mode == "none":
+                logits = sharded_eval(eval_step, padded)
+            else:       # the padded batch's angles, so each rank rotates its rows
+                angles = sample_rotation(test_mode, total_bs, generator, dev)
+                logits = sharded_eval(lambda p, a: eval_step(p, angles=a), padded, angles)
             correct += int((logits[:n].argmax(-1).cpu().numpy() == labels).sum())
             total += n
         acc = 100.0 * correct / max(total, 1)

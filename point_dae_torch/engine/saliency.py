@@ -17,6 +17,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..parallel.mesh import get_mesh
 from ..utils.device import resolve_device
 from ..utils.logger import print_log
 
@@ -66,7 +67,8 @@ def vis_saliency_map(config, args, logger_name: str = "PointDAE", max_batches: i
         pts = np.ascontiguousarray(batch["points"][:, :npoints, :3], np.float32)
         labels = np.asarray(batch["label"])
         grads = saliency(torch.from_numpy(pts), torch.from_numpy(labels)).cpu().numpy()
-        np.savez(os.path.join(out_dir, f"saliency_{i:03d}.npz"), points=pts, grads=grads,
-                 labels=labels)
+        if get_mesh().is_main:           # under a process group rank 0 writes
+            np.savez(os.path.join(out_dir, f"saliency_{i:03d}.npz"), points=pts,
+                     grads=grads, labels=labels)
     print_log(f"[Saliency] saved to {out_dir}", logger=logger_name)
     return out_dir

@@ -47,6 +47,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import all_reduce_gradients, get_mesh
 from ..utils.convert import flax_paths
 
 
@@ -237,7 +238,11 @@ class TrainState:
         their norm over every parameter of the model, at each group's
         scale of the learning rate of the current update; then the update
         count advances. Under ``every_k`` k > 1 the gradients join the
-        window's mean, and only its k-th mini-step updates."""
+        window's mean, and only its k-th mini-step updates. Under a process
+        group (``parallel/mesh.py:get_mesh()``) each gradient is first
+        replaced by its mean over the ranks."""
+        all_reduce_gradients([p for p in self.model.parameters() if p.requires_grad],
+                             get_mesh())
         if self.every_k > 1 and not self._window():
             return
         params = [p for g in self.optimizer.param_groups for p in g["params"]]

@@ -18,11 +18,14 @@ import numpy as np
 import torch
 
 from ..data.native_io import render_balls
+from ..parallel.mesh import get_mesh
 from ..utils.device import resolve_device
 from ..utils.logger import print_log
 
 
 def _save_png(path: str, img: np.ndarray) -> None:
+    if not get_mesh().is_main:           # under a process group rank 0 writes
+        return
     try:
         import matplotlib
 
@@ -109,7 +112,8 @@ def test_vis_reconstruction(config, args, logger_name: str = "PointDAE",
             _save_png(stem + "_gt.png", render_cloud(pts[b]))
             _save_png(stem + "_coarse.png", render_cloud(coarse[b], color=(1.0, 0.6, 0.3)))
             _save_png(stem + "_rebuild.png", render_cloud(rebuild[b], color=(0.5, 1.0, 0.5)))
-            np.savez(stem + ".npz", gt=pts[b], coarse=coarse[b], rebuild=rebuild[b])
+            if get_mesh().is_main:
+                np.savez(stem + ".npz", gt=pts[b], coarse=coarse[b], rebuild=rebuild[b])
             done += 1
             if done >= max_samples:
                 print_log(f"[Vis] saved {done} samples to {out_dir}", logger=logger_name)

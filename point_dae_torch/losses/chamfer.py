@@ -17,6 +17,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from ..ops.geometry import pairwise_sqdist
+from ..parallel.mesh import get_mesh, global_sum
 from ..utils import kernels
 
 
@@ -397,8 +398,18 @@ def chamfer_l2_coarse2fine(xyz1: torch.Tensor, xyz2: torch.Tensor, fine1: torch.
 
 
 def weighted_mean(per: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """sum(w * per) / max(sum(w), 1e-8)."""
-    return (per * weight).sum() / weight.sum().clamp_min(1e-8)
+    """sum(w * per) / max(sum(w), 1e-8); under a process group both sums
+    run over the global batch (``global_ratio``)."""
+    return global_ratio((per * weight).sum(), weight.sum())
+
+
+def global_ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """num / max(den, 1e-8) for two sums over a batch; under a process
+    group both are summed over ranks first (one differentiable all-reduce),
+    so every rank holds the global batch's ratio."""
+    if get_mesh().world > 1:
+        num, den = global_sum(torch.stack([num, den.to(num.dtype)]))
+    return num / den.clamp_min(1e-8)
 
 
 def masked_chamfer_l2(xyz1: torch.Tensor, xyz2: torch.Tensor,

@@ -27,7 +27,8 @@ from ..ops.edgeconv import (aggregate_from_idx, aggregate_from_idx_plain, knn_ag
                             knn_aggregate_plain, knn_aggregate_xla, supported)
 from ..ops.gather import gather_rows
 from ..ops.geometry import knn
-from .layers import BatchNorm, Dense, checkpointed, leaky_relu02
+from ..parallel.mesh import get_mesh
+from .layers import BatchNorm, Dense, checkpointed, global_moments, leaky_relu02
 
 
 def get_graph_feature(x: torch.Tensor, k: int = 20,
@@ -91,10 +92,14 @@ def fused_edge_conv(x: torch.Tensor, conv: Dense, bn: BatchNorm, k: int, dtype,
 
     if bn.training:
         cnt = B * N * k
-        mean = (S1.sum((0, 1)) + k * Vf.sum((0, 1))) / cnt
+        sum_h = S1.sum((0, 1)) + k * Vf.sum((0, 1))
         sum_h2 = (S2.sum((0, 1)) + 2.0 * (Vf * S1).sum((0, 1))
                   + k * (Vf * Vf).sum((0, 1)))
-        var = sum_h2 / cnt - mean * mean
+        if get_mesh().world > 1:             # the global batch's statistics
+            mean, var = global_moments(sum_h, sum_h2, cnt)
+        else:
+            mean = sum_h / cnt
+            var = sum_h2 / cnt - mean * mean
         bn.update_running(mean, var)
     else:
         mean, var = bn.running_mean, bn.running_var

@@ -17,6 +17,7 @@ import torch.nn as nn
 
 from ..losses.chamfer import chamfer_l1
 from ..ops.geometry import group_neighborhood, knn
+from ..parallel.mesh import get_mesh, global_sum
 from ..utils.registry import MODELS
 from .layers import MLP, BatchNorm, Dense, PatchEncoder, SplitDense, leaky_relu02
 
@@ -234,7 +235,12 @@ def dvae_loss_parts(coarse, fine, neigh, logits):
     B, G, S, _ = neigh.shape
     gt = neigh.reshape(B * G, S, 3)
     rec = chamfer_l1(fine.reshape(B * G, -1, 3), gt) + chamfer_l1(coarse.reshape(B * G, -1, 3), gt)
-    mean_p = torch.log_softmax(logits, -1).exp().mean((0, 1))
+    probs = torch.log_softmax(logits, -1).exp()
+    if get_mesh().world > 1:             # the global batch's mean distribution
+        mean_p = global_sum(probs.sum((0, 1))) / global_sum(
+            probs.new_tensor(float(B * probs.shape[1])))
+    else:
+        mean_p = probs.mean((0, 1))
     kl = (mean_p * (torch.log(mean_p + 1e-10) + torch.log(
         torch.tensor(float(logits.shape[-1]), device=logits.device)))).sum()
     return rec, kl

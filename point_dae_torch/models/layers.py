@@ -23,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import fused_attention, supported as attn_supported
 from ..ops.mlp import fused_mlp, fused_mlp_ln, supported as mlp_supported
+from ..parallel.mesh import get_mesh, global_sum
 from .common import folding_grid
 
 _LECUN_TRUNC = 0.87962566103423978   # std of a unit normal truncated to [-2, 2]
@@ -128,11 +129,26 @@ class LayerNorm(nn.Module):
         return y if self.dtype is None else y.to(self.dtype)
 
 
+def global_moments(s1: torch.Tensor, s2: torch.Tensor, count: int):
+    """(mean, E[x^2] - mean^2) of a batch spread over the ranks of a
+    process group, from each rank's per-channel sums of x and x^2 over its
+    ``count`` rows: the sums and counts are summed over ranks in one
+    differentiable all-reduce (``parallel/mesh.py:global_sum``)."""
+    C = s1.shape[-1]
+    tot = global_sum(torch.cat([s1, s2, s1.new_full((1,), float(count))]))
+    n = tot[2 * C]
+    mean = tot[:C] / n
+    return mean, tot[C:2 * C] / n - mean * mean
+
+
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm`` over every axis but the last (momentum 0.9,
     eps 1e-5). In training the batch statistics normalise and the running
     statistics move by ``m * running + (1 - m) * batch`` with the biased
-    batch variance, which ``torch.nn.BatchNorm1d`` does not do."""
+    batch variance, which ``torch.nn.BatchNorm1d`` does not do. Under a
+    process group the statistics are the global batch's
+    (``global_moments``), as the JAX package's sharded jit computes them,
+    and the running statistics move alike on every rank."""
 
     def __init__(self, dim: int, momentum: float = 0.9, eps: float = 1e-5, dtype=None):
         super().__init__()
@@ -158,8 +174,13 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mu = xf.mean(axes)
-            var = ((xf * xf).mean(axes) - mu * mu).clamp_min(0.0)
+            if get_mesh().world > 1:
+                mu, var = global_moments(xf.sum(axes), (xf * xf).sum(axes),
+                                         xf.numel() // xf.shape[-1])
+                var = var.clamp_min(0.0)
+            else:
+                mu = xf.mean(axes)
+                var = ((xf * xf).mean(axes) - mu * mu).clamp_min(0.0)
             self.update_running(mu, var)
         else:
             mu, var = self.running_mean, self.running_var

@@ -26,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from ..losses.chamfer import global_ratio
 from ..ops.geometry import (furthest_point_sample, gather_points, group_neighborhood,
                             group_points, knn)
 from ..utils.registry import MODELS
@@ -43,7 +44,7 @@ def masked_feat_mse(pred: torch.Tensor, target: torch.Tensor, w: torch.Tensor
     """Weighted mean over rows of ||n(target) - n(pred)||^2, both rows
     L2-normalised. pred, target (R, D), w (R,)."""
     per = ((_nrm(target) - _nrm(pred)) ** 2).sum(-1)
-    return (per * w).sum() / w.sum().clamp_min(1e-8)
+    return global_ratio((per * w).sum(), w.sum())
 
 
 class _FrozenTeacher:

@@ -25,7 +25,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from ..losses.chamfer import masked_chamfer_l2
+from ..losses.chamfer import global_ratio, masked_chamfer_l2
 from ..ops.geometry import group_neighborhood
 from ..utils.registry import MODELS
 from .common import ClsDraws, sample_dropout_masks
@@ -162,12 +162,12 @@ class Point_MlMAE(_CAETransformerBase):
         rebuild = self.increase_dim(x_loc).reshape(gt.shape[0], -1, 3)
         loss1 = masked_chamfer_l2(rebuild, gt, w)
         wm = mask.float()[..., None]
-        denom = wm.sum().clamp_min(1e-8)
         loss_feat = torch.zeros((), device=pts.device)
         for name, (lvl, dec_idx) in FEAT_TARGETS.items():
             if name in self.feat_loss and dec_idx < len(outs):
                 tgt = t_tokens if lvl is None else t_feats[lvl]
-                loss_feat = loss_feat + (((tgt - outs[dec_idx]) ** 2) * wm).sum() / denom
+                loss_feat = loss_feat + global_ratio((((tgt - outs[dec_idx]) ** 2) * wm).sum(),
+                                                     wm.sum())
         return loss1, loss_feat
 
     def encode(self, pts: torch.Tensor) -> torch.Tensor:

@@ -24,6 +24,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from ..parallel.mesh import barrier, get_mesh
 from .logger import print_log
 
 
@@ -34,8 +35,14 @@ def _file(experiment_path: str, name: str) -> str:
 def save_checkpoint(experiment_path: Optional[str], name: str, state, epoch: int,
                     best_metric: float, logger: Optional[str] = None) -> None:
     """Write ``<experiment_path>/<name>.pth`` (the reference's save_checkpoint) from
-    a ``TrainState``; the file is replaced whole, never left half written."""
+    a ``TrainState``; the file is replaced whole, never left half written.
+    Under a process group rank 0 writes and the others wait for it at a
+    barrier."""
     if experiment_path is None:
+        return
+    mesh = get_mesh()
+    if not mesh.is_main:
+        barrier(mesh)
         return
     path = _file(experiment_path, name)
     payload = {
@@ -50,6 +57,7 @@ def save_checkpoint(experiment_path: Optional[str], name: str, state, epoch: int
     torch.save(payload, tmp)
     os.replace(tmp, path)
     print_log(f"Saved checkpoint at {path}", logger=logger)
+    barrier(mesh)
 
 
 def resume_checkpoint(experiment_path: str, state, name: str = "ckpt-last",

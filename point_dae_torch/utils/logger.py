@@ -16,11 +16,17 @@ import os
 import time
 from typing import Dict, Optional
 
+from ..parallel.mesh import get_mesh
+
 _loggers: Dict[str, logging.Logger] = {}
 
 
 def get_logger(name: str = "PointDAE", log_file: Optional[str] = None,
                level: int = logging.INFO) -> logging.Logger:
+    """The named logger, to the console and ``log_file``; under a process
+    group only rank 0 opens the file."""
+    if not get_mesh().is_main:
+        log_file = None
     fmt = logging.Formatter("%(asctime)s - %(name)s - %(levelname)s - %(message)s")
     if name in _loggers:
         logger = _loggers[name]
@@ -61,6 +67,9 @@ def get_logger(name: str = "PointDAE", log_file: Optional[str] = None,
 
 def print_log(msg: str, logger: Optional[str | logging.Logger] = None,
               level: int = logging.INFO) -> None:
+    """Log ``msg``; under a process group rank 0 alone logs."""
+    if not get_mesh().is_main:
+        return
     if logger is None:
         print(msg)
     elif isinstance(logger, logging.Logger):
@@ -70,12 +79,13 @@ def print_log(msg: str, logger: Optional[str | logging.Logger] = None,
 
 
 class ScalarWriter:
-    """Writes scalars to <dir>/scalars.jsonl and TensorBoard when available."""
+    """Writes scalars to <dir>/scalars.jsonl and TensorBoard when available;
+    under a process group rank 0 alone writes."""
 
     def __init__(self, log_dir: Optional[str]):
         self._jsonl = None
         self._tb = None
-        if log_dir is None:
+        if log_dir is None or not get_mesh().is_main:
             return
         os.makedirs(log_dir, exist_ok=True)
         self._jsonl = open(os.path.join(log_dir, "scalars.jsonl"), "a")
