@@ -330,6 +330,29 @@ Phases, each fatal on failure:
               one process against itself with its batch's rows reversed
               and under each of PAR_FAULTS (a group broken on purpose),
               and which checks each fault fails.
+ 29. tensor_parallel - tensor parallelism (parallel/mesh.py: get_mesh_2d,
+              shard_params): fused_attention at a rank's share of the
+              heads, (256, 32, 3, 64) masked and (256, 64, 3, 64), against
+              its plain version and timed (the kernels line's
+              attention_fwd_h3 and attention_bwd_h3); then FLAGSHIP_CONFIG
+              (bs 256, 12 + 4 blocks of 384, 6 heads) on two gloo ranks
+              sharing the card at tp 2 (dp 1), each a child process
+              (--parallel-child with a "tp" spec), against one process from
+              the same weights, raw batch and draws: in bf16 for TP_STEPS
+              steps, losses within TP_BF16_TOLS (step 1, step 2; step 3
+              printed), and in f32 for TP_F32_STEPS steps within
+              TP_F32_TOLS; in both the whole parameters after step 1
+              (gather_params) within two AdamW steps and TP_PARAM_SHARE of
+              their elements within TP_PARAM_ATOL, in f32 AdamW's first
+              moments (the clipped gradient) within TP_F32_GRAD_TOL, the
+              two ranks' losses and replicated tensors bit for bit; the
+              attention kernel run at
+              H 3 and mlp_ln on the gathered (384, 1536) weights, every
+              flagship counter above 0; one bf16 step with
+              reduce_from_model dropped must fail the step-1 check, one f32
+              step with copy_to_model dropped the moments' check; a
+              rank's bf16 step on the host clock, then one more step with
+              the model group's all-reduces counted (phase_tensor_parallel).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Run from the repository root:
 
@@ -1132,16 +1155,19 @@ def fold_widths(torch, device, g, grid):
             fail(f"fused_folding at C {C}, F {F} disagrees with its plain version: {worst}")
 
 
-def phase_attention(torch, device, g):
+def phase_attention(torch, device, g, heads: int = 6):
     """The fused attention at the step's two shapes (B 256, H 6, d 64; T 32
     with 13 to 32 valid keys a cloud, T 64 without a mask) against its plain
     version on the card: output, dq, dk, dv, and exact zeros on the
     gradients of invalid keys. library_ms is one call of
-    F.scaled_dot_product_attention on the same bf16 inputs (timing only)."""
+    F.scaled_dot_product_attention on the same bf16 inputs (timing only).
+    ``heads`` 3: the same at a tensor-parallel rank's share of the heads
+    (records ``attention_fwd_h3``, ``attention_bwd_h3``; no gate shapes)."""
     import torch.nn.functional as F
     from point_dae_torch.ops import attention
 
-    Bt, H, d = BATCH, 6, 64
+    Bt, H, d = BATCH, heads, 64
+    tag = "" if heads == 6 else f" H {heads}"
     bf = torch.bfloat16
     errs, shapes = {"fwd": 0.0, "bwd": 0.0}, {}
     for T, masked in ((32, True), (64, False)):
@@ -1165,10 +1191,10 @@ def phase_attention(torch, device, g):
         worst = {"out": rel_err(out_k, out_p)}
         for i, name in enumerate(("dq", "dk", "dv")):
             worst[name] = rel_err(gk[:, :, i], gp[:, :, i])
-        log(f"  fused_attention T {T} max error / max |plain|: "
+        log(f"  fused_attention{tag} T {T} max error / max |plain|: "
             + " ".join(f"{k_} {v_:.2e}" for k_, v_ in worst.items()))
         if max(worst.values()) > 2e-2:  # bf16 operands: 2^-8 per rounding, summed
-            fail(f"fused_attention (T {T}) disagrees with its plain version: {worst}")
+            fail(f"fused_attention{tag} (T {T}) disagrees with its plain version: {worst}")
         if masked and float(gk[:, :, 1:][~mask].abs().max()) != 0.0:
             fail("fused_attention: an invalid key got a gradient")
         errs["fwd"] = max(errs["fwd"], float((out_k - out_p).detach().abs().max()))
@@ -1205,25 +1231,26 @@ def phase_attention(torch, device, g):
             bound_bwd=bound_ms(3 * nel * 2 + Bt * T + nel * 4 + 3 * nel * 2,
                                5 * 2 * Bt * H * T * T * d, BF16_FLOPS))
     s64 = shapes[64]
-    log(f"  fused_attention at T 64: fwd {s64['fwd']:.4f} ms (plain {s64['plain_fwd']:.4f}, "
+    log(f"  fused_attention{tag} at T 64: fwd {s64['fwd']:.4f} ms (plain {s64['plain_fwd']:.4f}, "
         f"library {s64['lib_fwd']:.4f}, bound {s64['bound_fwd'][0]:.4f}), bwd "
         f"{s64['bwd']:.4f} ms (plain {s64['plain_bwd']:.4f}, library {s64['lib_bwd']:.4f}, "
         f"bound {s64['bound_bwd'][0]:.4f})")
     for T, sh in shapes.items():
-        log(f"  fused_attention T {T} device time (torch.profiler): fwd {sh['dev_fwd']:.4f} ms "
+        log(f"  fused_attention{tag} T {T} device time (torch.profiler): fwd {sh['dev_fwd']:.4f} ms "
             f"(SDPA {ms_text(sh['lib_dev_fwd'])}), bwd {sh['dev_bwd']:.4f} ms (SDPA's autograd "
             f"backward {ms_text(sh['lib_dev_bwd'])})")
-    attention_gate_shapes(torch, device, g)
+    if heads == 6:
+        attention_gate_shapes(torch, device, g)
     s32 = shapes[32]
     records = {}
     for way, line in (("fwd", "144"), ("bwd", "168")):
-        records[f"attention_{way}"] = dict(
+        records[f"attention_{way}" + ("" if heads == 6 else f"_h{heads}")] = dict(
             replaces=f"point_dae_tpu/ops/pallas_attn.py:{line}",
             source="point_dae_torch/csrc/attention.cu", max_abs_err=errs[way],
             ms=s32[way], plain_ms=s32[f"plain_{way}"],
             library_ms=None if s32[f"lib_dev_{way}"] is None else s32[f"lib_{way}"],
             bound=s32[f"bound_{way}"],
-            note=f"B 256, H 6, d 64, T 32 with a key mask (12 of a step's 16 launches); "
+            note=f"B 256, H {H}, d 64, T 32 with a key mask (12 of a step's 16 launches); "
                  f"device {s32[f'dev_{way}']:.4f} ms, SDPA's {ms_text(s32[f'lib_dev_{way}'])}")
     return records
 
@@ -6415,6 +6442,8 @@ def parallel_child(spec: dict) -> dict:
         out["runs"] = runs
         destroy()
         return out
+    if spec.get("tp"):
+        return dict(out, **tp_child(torch, spec, device))
     # a pair of gloo ranks on the one card, or the one process it is held
     # to: every set of PAR_PAIRS in turn, in one group
     world, rank = spec["world"], spec["rank"]
@@ -6640,6 +6669,308 @@ def parallel_readings(card) -> None:
                 f"{'equal' if rd['ranks_state'] else 'different'}; failed checks: "
                 f"{caught or 'none'}")
     log(f"  [{card}] the readings: {time.perf_counter() - t0:.1f} s")
+
+
+TP_STEPS = 3
+# the bf16 flagship's losses against one process, fixed (PERF.md, section
+# 6, tensor parallelism). Step 1 cannot reach 1e-4 in bf16: cuBLAS picks
+# a product's kernel, and the order of its f32 sums, by the product's shape,
+# and a rank's qkv (N 576) and split proj round apart from the whole ones
+# (1.93e-4 measured; one process with its products at a rank's shapes lands
+# on the ranks' step-1 losses bit for bit). Step 2: 2.4e-4 measured; a first
+# design that rounded each rank's part of a gradient before the model
+# group's sum read 4.0e-3 (step 1 cannot tell the two apart: they differ in
+# the backward). Step 3 printed.
+TP_BF16_TOLS = (2.5e-4, 1e-3)
+TP_F32_STEPS = 2
+# the same pair in f32 (the plain routes, TF32 off), where only the sums'
+# order moves: 0.0 / 8.7e-8 at step 1 and 1.6e-5 at step 2 in a diagnostic run
+TP_F32_TOLS = (1e-6, 1e-4)
+TP_LR = 1e-3               # FLAGSHIP_CONFIG's rate: AdamW's first step moves an element <= lr
+TP_PARAM_ATOL = 1e-5       # 1% of one AdamW step
+# of the whole parameters' elements after step 1 within TP_PARAM_ATOL of one
+# process's, but the BatchNorm-fed biases: AdamW's first step moves each by
+# lr g / (|g| + 1e-8), so an element whose gradient is near zero or near eps
+# moves apart on rounding alone (99.49% measured in bf16, 99.981% in f32)
+TP_PARAM_SHARE = 0.99
+# f32: AdamW's first moment after step 1 (0.1 times the clipped gradient),
+# gathered whole, against one process's, each tensor's largest difference
+# over its largest value, the BatchNorm-fed biases apart: the backward's
+# collectives held where the parameters' sign-like first step cannot be.
+# 2.37e-4 measured (the first conv's BatchNorm weight, whose gradient is a
+# sum over 524288 points), 1.33 with copy_to_model dropped (PERF.md, section 6)
+TP_F32_GRAD_TOL = 1e-3
+# biases followed by a BatchNorm: their true gradient is zero, its rounding
+# noise takes AdamW's first step either way (tests/test_torch_flagship.py)
+TP_NULL_GRAD = ("MAE_encoder.encoder.first_conv.0.bias", "MAE_encoder.encoder.first_conv.3.bias",
+                "MAE_encoder.encoder.second_conv.0.bias")
+
+
+def tp_child(torch, spec, device) -> dict:
+    """One rank of the tensor_parallel phase (``tp``: the model axis's
+    ranks; 1 for the one process it is held to): FLAGSHIP_CONFIG at full
+    width from one seed, the ViT blocks split over the model group
+    (``parallel/mesh.py:shard_params``). In bf16, TP_STEPS steps with the
+    launch counters zeroed before and read after, the heads of each
+    attention kernel call and the weights each ``mlp_ln`` call takes, then
+    one more step with the model group's all-reduces counted (calls, bytes,
+    host ms with the card synchronized around each); in f32, TP_F32_STEPS
+    steps; on the ranks, the planted faults the checks must catch: one
+    bf16 step with ``reduce_from_model`` dropped, one f32 step with
+    ``copy_to_model`` dropped. The whole parameters and AdamW's first
+    moments after step 1 of a run (``gather_params``,
+    ``gather_optimizer_state``) go to ``spec['dump']`` + ``_<run>.pt``,
+    written by model rank 0."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from point_dae_torch.engine.pretrain import init_model, make_train_step
+    from point_dae_torch.engine.train_state import TrainState
+    from point_dae_torch.models import layers
+    from point_dae_torch.parallel import (destroy, gather_params, get_mesh, get_mesh_2d,
+                                          initialize_distributed, shard_params)
+    from point_dae_torch.parallel.mesh import gather_optimizer_state
+    from point_dae_torch.utils import kernels
+    from point_dae_torch.utils.config import ConfigDict
+
+    world, rank = spec["world"], spec["rank"]
+    if world > 1:
+        initialize_distributed(init_method=spec["init"], num_processes=world, process_id=rank,
+                               device="cuda:0", backend="gloo", timeout_s=120)
+        get_mesh_2d(model_parallel=spec["tp"])
+    mesh = get_mesh()
+    g = torch.Generator(device=device).manual_seed(SEED + 180)
+    raw = torch.randn((BATCH, NRAW, 6), generator=g, device=device)
+    seen = {"heads": set(), "mlp_ln_w1": set()}
+    attention, mlp_ln = layers.fused_attention, layers.fused_mlp_ln
+
+    def attention_seen(q, k, v, key_mask=None):
+        seen["heads"].add(int(q.shape[2]))
+        return attention(q, k, v, key_mask)
+
+    def mlp_ln_seen(x, gamma, beta, w1, *rest, **kw):
+        seen["mlp_ln_w1"].add(tuple(w1.shape))
+        return mlp_ln(x, gamma, beta, w1, *rest, **kw)
+
+    coll = {"calls": 0, "bytes": 0, "ms": 0.0}
+    all_reduce = dist.all_reduce
+
+    def counted(t, *a, group=None, **kw):
+        if mesh.model_group is None or group is not mesh.model_group:
+            return all_reduce(t, *a, group=group, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        work = all_reduce(t, *a, group=group, **kw)
+        torch.cuda.synchronize()
+        coll["ms"] += (time.perf_counter() - t0) * 1e3
+        coll["calls"] += 1
+        coll["bytes"] += t.numel() * t.element_size()
+        return work
+
+    def train(dtype, steps, dump=None, count=False):
+        config = ConfigDict(copy.deepcopy(FLAGSHIP_CONFIG))
+        config["model"]["transformer_config"]["dtype"] = dtype
+        model = shard_params(mesh, init_model(config, seed=SEED + 181, device=device))
+        state = TrainState.create(model, config, steps_per_epoch=100)
+        step = make_train_step(model, config, device=device)
+        gen = torch.Generator(device=device).manual_seed(SEED + 182)
+        rec = {"losses": [], "ms": []}
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(state, raw, generator=gen)
+            torch.cuda.synchronize()
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["losses"].append([float(m["loss_xyz"]), float(m["loss_normal"])])
+            if i == 0:
+                rec["launches"] = {k: v for k, v in kernels.launches.items() if v}
+                if dump:       # collectives over the model group: every rank gathers
+                    whole = gather_params(mesh, model)
+                    moments = gather_optimizer_state(mesh, model, state.optimizer)["state"]
+                    if mesh.model_rank == 0:
+                        ps = [p for g in state.optimizer.param_groups for p in g["params"]]
+                        names = {id(p): n for n, p in model.named_parameters()}
+                        torch.save({"params": {k: v.cpu() for k, v in whole.items()},
+                                    "exp_avg": {names[id(ps[int(i)])]: e["exp_avg"].cpu()
+                                                for i, e in moments.items()}},
+                                   f"{spec['dump']}_{dump}.pt")
+                    del whole, moments
+        rec["launches_all"] = {k: v for k, v in kernels.launches.items() if v}
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if count:      # one more step, its model-group all-reduces counted
+            coll.update(calls=0, bytes=0, ms=0.0)
+            dist.all_reduce = counted
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, raw, generator=gen)
+            torch.cuda.synchronize()
+            dist.all_reduce = all_reduce
+            rec["coll"] = dict(coll, step_ms=(time.perf_counter() - t0) * 1e3)
+        shards = {n for n, p in model.named_parameters()
+                  if getattr(p, "tp_dim", None) is not None}
+        rec["shards"] = len(shards)
+        for what, keep in (("replicated", lambda n: n not in shards),
+                           ("shards", shards.__contains__)):
+            sha = hashlib.sha1()
+            for n, t in model.state_dict().items():
+                if keep(n):
+                    sha.update(t.detach().reshape(-1).contiguous().view(torch.uint8).cpu()
+                               .numpy().tobytes())
+            rec[f"sha_{what}"] = sha.hexdigest()
+        del model, state, step
+        torch.cuda.empty_cache()
+        return rec
+
+    layers.fused_attention, layers.fused_mlp_ln = attention_seen, mlp_ln_seen
+    out = {"bf16": train("bf16", TP_STEPS, dump="bf16", count=world > 1)}
+    layers.fused_attention, layers.fused_mlp_ln = attention, mlp_ln
+    out["heads"], out["mlp_ln_w1"] = sorted(seen["heads"]), sorted(seen["mlp_ln_w1"])
+    out["f32"] = train("f32", TP_F32_STEPS, dump="f32")
+    if world > 1:      # planted faults: the forward's sum, the backward's sum dropped
+        reduce_from_model, copy_to_model = layers.reduce_from_model, layers.copy_to_model
+        layers.reduce_from_model = lambda x, mesh_: x
+        out["no_reduce"] = train("bf16", 1)
+        layers.reduce_from_model = reduce_from_model
+        layers.copy_to_model = lambda x, mesh_: x
+        out["no_copy"] = train("f32", 1, dump="no_copy")
+        layers.copy_to_model = copy_to_model
+    out["model_rank"], out["global_rank"] = mesh.model_rank, mesh.global_rank
+    destroy()
+    return out
+
+
+def tp_param_readings(one: dict, tp: dict) -> dict:
+    """The whole parameters after step 1 of the model axis's run against
+    one process's: the largest difference, the share of the elements
+    within TP_PARAM_ATOL (the BatchNorm-fed biases apart) and the largest
+    difference of those biases; and AdamW's first moments: the largest
+    difference over the tensor's largest value, and its tensor."""
+    worst, within, total, null = 0.0, 0, 0, 0.0
+    worst_name = None
+    params = one["params"]
+    for k, v in params.items():
+        if not v.dtype.is_floating_point or "running_" in k or "num_batches" in k:
+            continue
+        d = (tp["params"][k].float() - v.float()).abs()
+        if k in TP_NULL_GRAD:
+            null = max(null, float(d.max()))
+            continue
+        if float(d.max()) > worst:
+            worst, worst_name = float(d.max()), k
+        within += int((d <= TP_PARAM_ATOL).sum())
+        total += d.numel()
+    grad = {k: float((tp["exp_avg"][k] - v).abs().max() / v.abs().max().clamp_min(1e-30))
+            for k, v in one["exp_avg"].items() if k not in TP_NULL_GRAD}
+    grad_name = max(grad, key=grad.get)
+    return {"worst": worst, "worst_name": worst_name, "share": within / total, "null": null,
+            "grad": grad[grad_name], "grad_name": grad_name,
+            "same_keys": params.keys() == tp["params"].keys()
+            and all(params[k].shape == tp["params"][k].shape for k in params)
+            and one["exp_avg"].keys() == tp["exp_avg"].keys()}
+
+
+def tp_loss_misses(rel, tols) -> list:
+    """The steps (1-based) whose relative loss differences exceed their
+    bound in ``tols`` (steps past ``tols`` are printed, not held)."""
+    return [i + 1 for i, (r, tol) in enumerate(zip(rel, tols)) if max(r) > tol]
+
+
+def phase_tensor_parallel(torch, device, card, g) -> tuple:
+    """Tensor parallelism (see the module's docstring, phase 29): the
+    attention kernels at the model axis's H 3 against their plain version,
+    then FLAGSHIP_CONFIG on two gloo ranks at tp 2 against one process, in
+    bf16 and in f32, and one planted fault. Returns (the kernels' records
+    at H 3, rank 0's launches over its bf16 steps)."""
+    t_phase = time.perf_counter()
+    records = phase_attention(torch, device, g, heads=3)
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="pdae_tp_")
+    try:
+        one, = run_children([{"mode": "pair", "tp": 1, "rank": 0, "world": 1,
+                              "dump": os.path.join(tmp, "one")}])
+        duo = run_children([{"mode": "pair", "tp": 2, "rank": r, "world": 2,
+                             "dump": os.path.join(tmp, "tp"),
+                             "init": f"file://{os.path.join(tmp, 'store')}"} for r in range(2)])
+        rd = {run: tp_param_readings(
+            torch.load(os.path.join(tmp, f"one_{run.replace('no_copy', 'f32')}.pt"),
+                       weights_only=True),
+            torch.load(os.path.join(tmp, f"tp_{run}.pt"), weights_only=True))
+            for run in ("bf16", "f32", "no_copy")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def relative(a, b):
+        return [[abs(x - y) / abs(y) for x, y in zip(p, q)] for p, q in zip(a, b)]
+
+    r0, r1 = duo
+    bf, c = r0["bf16"], r0["bf16"]["coll"]
+    tols = {"bf16": TP_BF16_TOLS, "f32": TP_F32_TOLS}
+    rel = {dt: relative(r0[dt]["losses"], one[dt]["losses"]) for dt in tols}
+    fault = relative(r0["no_reduce"]["losses"], one["bf16"]["losses"][:1])
+    for dt in tols:
+        log(f"  [{card}] tensor_parallel: FLAGSHIP_CONFIG bs {BATCH}, {dt}, 2 gloo ranks at "
+            f"tp 2 (dp 1) against one process: losses {r0[dt]['losses']} / "
+            f"{one[dt]['losses']} (relative {_fmt_rel(rel[dt])}; bounds {tols[dt]}); "
+            f"{r0[dt]['shards']} split tensors a rank; step ms rank 0 "
+            f"{[round(t, 1) for t in r0[dt]['ms']]}, rank 1 "
+            f"{[round(t, 1) for t in r1[dt]['ms']]}, one process "
+            f"{[round(t, 1) for t in one[dt]['ms']]}; peak {r0[dt]['peak_gib']:.2f} / "
+            f"{one[dt]['peak_gib']:.2f} GiB")
+        log(f"  [{card}] tensor_parallel: {dt} whole parameters after step 1 against one "
+            f"process: largest difference {rd[dt]['worst']:.2e} ({rd[dt]['worst_name']}), "
+            f"{100 * rd[dt]['share']:.4f}% within {TP_PARAM_ATOL}, the BatchNorm-fed biases "
+            f"{rd[dt]['null']:.2e}; AdamW's first moments: largest difference "
+            f"{rd[dt]['grad']:.2e} of the tensor's largest ({rd[dt]['grad_name']})")
+    log(f"  [{card}] tensor_parallel: bf16 step {TP_STEPS + 1} with rank 0's model-group "
+        f"all-reduces counted (the card synchronized around each): {c['calls']} calls, "
+        f"{c['bytes'] / 2 ** 20:.1f} MiB, {c['ms']:.1f} ms on the host of a "
+        f"{c['step_ms']:.1f} ms step")
+    log(f"  [{card}] tensor_parallel: attention calls at H {r0['heads']} (one process "
+        f"{one['heads']}), mlp_ln's w1 {r0['mlp_ln_w1']}; launches in step 1 "
+        f"{bf['launches']}, in all {bf['launches_all']}")
+    caught = tp_loss_misses(fault, TP_BF16_TOLS)
+    log(f"  [{card}] tensor_parallel: planted fault (reduce_from_model dropped), bf16 step 1: "
+        f"losses {r0['no_reduce']['losses']} / {r1['no_reduce']['losses']} on the two ranks "
+        f"(relative {_fmt_rel(fault)} on rank 0); the step-1 check "
+        f"{'fails it' if caught else 'PASSES it'}")
+    nc = rd["no_copy"]
+    caught_copy = nc["grad"] > TP_F32_GRAD_TOL
+    log(f"  [{card}] tensor_parallel: planted fault (copy_to_model dropped), f32 step 1: "
+        f"losses {r0['no_copy']['losses']} (relative "
+        f"{_fmt_rel(relative(r0['no_copy']['losses'], one['f32']['losses'][:1]))}); AdamW's "
+        f"first moments {nc['grad']:.2e} of the tensor's largest ({nc['grad_name']}); the "
+        f"moments' check {'fails it' if caught_copy else 'PASSES it'}")
+    for dt in tols:
+        if (r0[dt]["losses"] != r1[dt]["losses"]
+                or r0[dt]["sha_replicated"] != r1[dt]["sha_replicated"]):
+            fail(f"tensor_parallel: {dt}: the two model ranks report different losses or hold "
+                 "different replicated tensors")
+        if r0[dt]["sha_shards"] == r1[dt]["sha_shards"] or r0[dt]["shards"] == 0:
+            fail(f"tensor_parallel: {dt}: the ranks' shards are not split")
+        if tp_loss_misses(rel[dt], tols[dt]):
+            fail(f"tensor_parallel: {dt} losses outside the contract {tols[dt]}: {rel[dt]}")
+        bound = 2 * TP_LR * (1 + 1e-4)
+        if (not rd[dt]["same_keys"] or rd[dt]["share"] < TP_PARAM_SHARE
+                or rd[dt]["worst"] > bound or rd[dt]["null"] > bound
+                or dt == "f32" and rd[dt]["grad"] > TP_F32_GRAD_TOL):
+            fail(f"tensor_parallel: {dt} whole parameters or first moments after step 1 off "
+                 f"one process's: {rd[dt]}")
+    if not caught or not caught_copy:
+        fail(f"tensor_parallel: a planted fault passed its check: no_reduce {fault}, "
+             f"no_copy {nc['grad']:.2e}")
+    if r0["heads"] != [3] or one["heads"] != [6]:
+        fail(f"tensor_parallel: the attention kernel ran at H {r0['heads']} (want [3])")
+    if r0["mlp_ln_w1"] != [[384, 1536]]:       # a child's JSON line: shapes as lists
+        fail(f"tensor_parallel: mlp_ln took w1 {r0['mlp_ln_w1']}, not the gathered (384, 1536)")
+    launched = {k: bf["launches_all"].get(k, 0) for k in FLAGSHIP_COUNTERS}
+    if min(launched.values()) == 0:
+        fail(f"tensor_parallel: a flagship kernel did not launch under tp 2: {launched}")
+    log(f"  [{card}] the tensor_parallel phase: {time.perf_counter() - t_phase:.1f} s")
+    return records, bf["launches_all"]
 
 
 def stamp(what: str) -> None:
@@ -6883,6 +7214,15 @@ def main() -> None:
     log("parallel (a group of one over nccl, two gloo ranks on the card, emd_loss):")
     phase_parallel(torch, device, card)
     stamp("parallel")
+    torch.cuda.empty_cache()
+
+    # 15. tensor parallelism: the ViT blocks split over two gloo ranks on the card
+    log("tensor_parallel (get_mesh_2d, shard_params: two ranks at tp 2 on the card):")
+    recs, tp_launches = phase_tensor_parallel(torch, device, card, g)
+    records.update(recs)
+    for way in ("fwd", "bwd"):
+        launches[f"attention_{way}_h3"] = tp_launches.get(f"attention_{way}", 0)
+    stamp("tensor_parallel")
     # gather_rows_wide is the one kernel without a path: the JAX package keeps
     # XLA's gather forward on purpose (point_dae_tpu/ops/pallas_scatter.py:
     # 267-276) and the port its plain one, so the rule leaves it out and its

@@ -47,7 +47,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..parallel.mesh import all_reduce_gradients, get_mesh
+from ..parallel.mesh import all_reduce_gradients, get_mesh, reduce_from_model
 from ..utils.convert import flax_paths
 
 
@@ -154,10 +154,22 @@ def build_optimizer(config: Dict, model: torch.nn.Module, steps_per_epoch: float
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         shards: Optional[List[bool]] = None) -> torch.Tensor:
     """optax ``clip_by_global_norm`` in place on ``grads``; returns the
-    global norm (a device scalar: nothing waits for the card)."""
-    norm = torch.sqrt(torch.stack([(g.float() * g.float()).sum() for g in grads]).sum())
+    global norm (a device scalar: nothing waits for the card). ``shards``
+    marks the gradients of tensor-parallel shards (``parallel/mesh.py:
+    shard_params``): their squared norms are summed over the model group
+    (``reduce_from_model``), the whole (replicated) ones counted once, so
+    every rank clips by the norm of the whole parameters."""
+    shards = shards or [False] * len(grads)
+    sq = [(g.float() * g.float()).sum() for g in grads]
+    whole = [q for q, s in zip(sq, shards) if not s]
+    split = [q for q, s in zip(sq, shards) if s]
+    total = torch.stack(whole).sum()
+    if split:
+        total = total + reduce_from_model(torch.stack(split).sum(), get_mesh())
+    norm = torch.sqrt(total)
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm))
@@ -192,6 +204,7 @@ class TrainState:
         self.every_k = int(every_k)
         self.step = 0
         self.mini_step = 0
+        self.grad_norm: Optional[torch.Tensor] = None   # the last clip's norm
         self._mean: Optional[List[torch.Tensor]] = None
 
     @classmethod
@@ -240,7 +253,8 @@ class TrainState:
         count advances. Under ``every_k`` k > 1 the gradients join the
         window's mean, and only its k-th mini-step updates. Under a process
         group (``parallel/mesh.py:get_mesh()``) each gradient is first
-        replaced by its mean over the ranks."""
+        replaced by its mean over the data axis's ranks; under a 2-D mesh
+        the clip's norm is the whole parameters' (``clip_by_global_norm_``)."""
         all_reduce_gradients([p for p in self.model.parameters() if p.requires_grad],
                              get_mesh())
         if self.every_k > 1 and not self._window():
@@ -250,8 +264,10 @@ class TrainState:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         if self.grad_norm_clip is not None:
-            clip_by_global_norm_([p.grad for p in self.model.parameters()
-                                  if p.grad is not None], self.grad_norm_clip)
+            clipped = [p for p in self.model.parameters() if p.grad is not None]
+            grads = [p.grad for p in clipped]
+            shards = [getattr(p, "tp_dim", None) is not None for p in clipped]
+            self.grad_norm = clip_by_global_norm_(grads, self.grad_norm_clip, shards)
         lr = self.update_schedule(self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr * group.get("lr_scale", 1.0)

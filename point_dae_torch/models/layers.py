@@ -23,7 +23,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import fused_attention, supported as attn_supported
 from ..ops.mlp import fused_mlp, fused_mlp_ln, supported as mlp_supported
-from ..parallel.mesh import get_mesh, global_sum
+from ..parallel.mesh import (copy_to_model, gather_from_model, get_mesh, global_sum,
+                             reduce_from_model)
 from .common import folding_grid
 
 _LECUN_TRUNC = 0.87962566103423978   # std of a unit normal truncated to [-2, 2]
@@ -268,6 +269,61 @@ def stack_dp_masks(dpr: Sequence[float], batch: int,
     return u >= rates
 
 
+def _mm(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
+    """``a @ b`` rounded once to ``out_dtype``. bf16 operands with an f32
+    result on CUDA are the tensor cores' product accumulated in f32
+    (``torch.mm``'s ``out_dtype``), which a bf16 product rounds; elsewhere
+    the operands' product in f32."""
+    if a.dtype == out_dtype:
+        return torch.matmul(a, b)
+    if a.is_cuda and out_dtype == torch.float32:
+        y = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=out_dtype)
+        return y.reshape(*a.shape[:-1], b.shape[-1])
+    return torch.matmul(a.float(), b.float()).to(out_dtype)
+
+
+class _Product(torch.autograd.Function):
+    """``x @ w.t()`` from operands in ``w``'s dtype, in ``out_dtype``; the
+    gradients in ``x``'s and ``w``'s dtypes, each product rounded once
+    (``_mm``): a tensor-parallel part keeps its f32 accumulation until the
+    model group's sum, which is rounded once, as the whole product is."""
+
+    @staticmethod
+    def forward(ctx, x, w, out_dtype):
+        xl = x.to(w.dtype)
+        ctx.save_for_backward(xl, w)
+        ctx.x_dtype = x.dtype
+        return _mm(xl, w.t(), out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        xl, w = ctx.saved_tensors
+        gl = g.to(w.dtype)
+        dw = _mm(gl.reshape(-1, gl.shape[-1]).t(), xl.reshape(-1, xl.shape[-1]), w.dtype)
+        return _mm(gl, w, ctx.x_dtype), dw, None
+
+
+def column_parallel(x: torch.Tensor, dense: Dense, mesh) -> torch.Tensor:
+    """``dense`` on ``x`` where ``dense.weight`` is this rank's output-feature
+    shard (``parallel/mesh.py:shard_params``); the gradient of ``x``, each
+    rank's part in f32, is summed over the model group (``copy_to_model``)
+    and rounded once."""
+    dt = _compute(x, dense.weight, dense.dtype)
+    y = _Product.apply(copy_to_model(x.to(dt).float(), mesh), dense.weight.to(dt), dt)
+    return y if dense.bias is None else y + dense.bias.to(dt)
+
+
+def row_parallel(x: torch.Tensor, dense: Dense, mesh) -> torch.Tensor:
+    """``dense`` on ``x`` where ``dense.weight`` is this rank's input-feature
+    shard: the partial product of the compute-dtype operands accumulated in
+    f32, summed over the model group in f32 (``reduce_from_model``), cast
+    to the compute dtype, then the bias, once."""
+    dt = _compute(x, dense.weight, dense.dtype)
+    part = _Product.apply(x.to(dt), dense.weight.to(dt), torch.float32)
+    y = reduce_from_model(part, mesh).to(dt)
+    return y if dense.bias is None else y + dense.bias.to(dt)
+
+
 class Attention(nn.Module):
     """ViT multi-head self-attention with an optional key-validity mask.
     At bf16 compute on a CUDA tensor whose shapes pass
@@ -277,41 +333,55 @@ class Attention(nn.Module):
     ``fused_attention`` kernel;
     otherwise unfused: f32 scores, an additive -1e9 on invalid keys, f32
     softmax and values product. Either way the output is cast to the
-    compute dtype before ``proj``."""
+    compute dtype before ``proj``. With ``tp`` (a 2-D mesh, set by
+    ``parallel/mesh.py:shard_params``) ``qkv`` holds this rank's heads and
+    ``proj`` their input columns: ``qkv`` is a ``column_parallel`` product,
+    the attention runs on H / model_world heads (the kernel's gate asked at
+    that H) and ``proj`` is a ``row_parallel`` product."""
 
     def __init__(self, dim: int, num_heads: int, dtype=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
+        self.tp = None
         self.qkv = Dense(dim, 3 * dim, bias=False, dtype=dtype, generator=generator)
         self.proj = Dense(dim, dim, dtype=dtype, generator=generator)
+
+    def _heads(self, x: torch.Tensor):
+        """(this rank's heads, head width)."""
+        return (self.num_heads // (1 if self.tp is None else self.tp.model_world),
+                x.shape[-1] // self.num_heads)
+
+    def _qkv(self, x: torch.Tensor) -> torch.Tensor:
+        return self.qkv(x) if self.tp is None else column_parallel(x, self.qkv, self.tp)
+
+    def _proj(self, out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        out = out.to(x.dtype if self.dtype is None else self.dtype)
+        return self.proj(out) if self.tp is None else row_parallel(out, self.proj, self.tp)
 
     def forward_fused(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
         """The fused branch: q, k, v stay views of the ``qkv`` output."""
-        B, N, C = x.shape
-        H = self.num_heads
-        q, k, v = self.qkv(x).reshape(B, N, 3, H, C // H).unbind(2)
-        out = fused_attention(q, k, v, key_mask).reshape(B, N, C)
-        return self.proj(out.to(x.dtype if self.dtype is None else self.dtype))
+        B, N, _ = x.shape
+        H, d = self._heads(x)
+        q, k, v = self._qkv(x).reshape(B, N, 3, H, d).unbind(2)
+        return self._proj(fused_attention(q, k, v, key_mask).reshape(B, N, H * d), x)
 
     def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
-        B, N, C = x.shape
-        H = self.num_heads
+        B, N, _ = x.shape
+        H, d = self._heads(x)
         if (self.dtype == torch.bfloat16 and x.device.type == "cuda"
-                and attn_supported(B, N, H, C // H)):
+                and attn_supported(B, N, H, d)):
             return self.forward_fused(x, key_mask)
-        qkv = self.qkv(x).reshape(B, N, 3, H, C // H).permute(2, 0, 3, 1, 4)
+        qkv = self._qkv(x).reshape(B, N, 3, H, d).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0].float(), qkv[1].float(), qkv[2].float()
-        attn = torch.matmul(q, k.transpose(-1, -2)) * (C // H) ** -0.5
+        attn = torch.matmul(q, k.transpose(-1, -2)) * d ** -0.5
         if key_mask is not None:
             attn = attn + torch.where(key_mask[:, None, None, :], 0.0, -1e9)
         attn = torch.softmax(attn, dim=-1)
-        out = torch.matmul(attn, v).transpose(1, 2).reshape(B, N, C)
-        out = out.to(x.dtype if self.dtype is None else self.dtype)
-        return self.proj(out)
+        return self._proj(torch.matmul(attn, v).transpose(1, 2).reshape(B, N, H * d), x)
 
 
 class _MlpParams(nn.Module):
@@ -338,7 +408,13 @@ def mlp_route(compute_dtype, device_type: str, x_dtype, R: int, C: int, H: int) 
 class TransformerBlock(nn.Module):
     """Pre-norm ViT block. The residual stream keeps the dtype it comes in
     with (f32, or a stack's ``residual_dtype``); the MLP half takes the
-    kernels that ``mlp_route`` names."""
+    kernels that ``mlp_route`` names. With ``tp`` (a 2-D mesh, set by
+    ``parallel/mesh.py:shard_params``) ``fc1`` holds this rank's hidden
+    features and ``fc2`` their input columns: the plain route runs the
+    rank's share (``column_parallel``) and sums ``fc2``'s product over the
+    model group (``row_parallel``) before ``b2``, drop path and the residual; the
+    kernel routes take the whole weights (``gather_from_model``), as the
+    JAX package's ``pallas_call`` takes whole operands under GSPMD."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  drop_path_rate: float = 0.0, dtype=None,
@@ -346,6 +422,7 @@ class TransformerBlock(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.drop_path_rate = drop_path_rate
+        self.tp = None
         hidden = int(dim * mlp_ratio)
         self.norm1 = LayerNorm(dim, dtype=dtype)
         self.attn = Attention(dim, num_heads, dtype=dtype, generator=generator)
@@ -363,9 +440,13 @@ class TransformerBlock(nn.Module):
         h = self.attn(self.norm1(x), key_mask).to(x.dtype)
         x = x + self._dp(h, dp_mask, 0)
         fc1, fc2 = self.mlp.fc1, self.mlp.fc2
+        tp = self.tp
         B, T, C = x.shape
-        route = mlp_route(self.dtype, x.device.type, x.dtype, B * T, C,
-                          fc1.weight.shape[0])
+        hidden = fc1.weight.shape[0] * (1 if tp is None else tp.model_world)
+        route = mlp_route(self.dtype, x.device.type, x.dtype, B * T, C, hidden)
+        if route != "plain":
+            w1, b1, w2 = (fc1.weight, fc1.bias, fc2.weight) if tp is None else \
+                gather_from_model(tp, (fc1.weight, fc1.bias, fc2.weight))
         if route == "fused_ln":
             row_scale = None
             if dp_mask is not None and self.drop_path_rate != 0.0:
@@ -373,13 +454,14 @@ class TransformerBlock(nn.Module):
                 sc = torch.where(dp_mask[1], 1.0 / keep, 0.0)
                 row_scale = sc.repeat_interleave(T)
             return fused_mlp_ln(x, self.norm2.weight, self.norm2.bias,
-                                fc1.weight.t(), fc1.bias, fc2.weight.t(),
-                                fc2.bias, row_scale=row_scale)
+                                w1.t(), b1, w2.t(), fc2.bias, row_scale=row_scale)
         h = self.norm2(x)
         if route == "fused":
-            h = fused_mlp(h, fc1.weight.t(), fc1.bias, fc2.weight.t(), fc2.bias)
-        else:
+            h = fused_mlp(h, w1.t(), b1, w2.t(), fc2.bias)
+        elif tp is None:
             h = fc2(F.gelu(fc1(h)))
+        else:
+            h = row_parallel(F.gelu(column_parallel(h, fc1, tp)), fc2, tp)
         return x + self._dp(h.to(x.dtype), dp_mask, 1)
 
 

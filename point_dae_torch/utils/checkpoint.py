@@ -24,7 +24,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from ..parallel.mesh import barrier, get_mesh
+from ..parallel.mesh import (barrier, gather_optimizer_state, gather_params, get_mesh,
+                             shard_optimizer_state, shard_state)
 from .logger import print_log
 
 
@@ -37,17 +38,22 @@ def save_checkpoint(experiment_path: Optional[str], name: str, state, epoch: int
     """Write ``<experiment_path>/<name>.pth`` (the reference's save_checkpoint) from
     a ``TrainState``; the file is replaced whole, never left half written.
     Under a process group rank 0 writes and the others wait for it at a
-    barrier."""
+    barrier. Under a 2-D mesh the parameters and AdamW's moments of a
+    tensor-parallel shard are gathered whole first (``parallel/mesh.py:
+    gather_params``), so the file has the one-process layout, and
+    ``resume_checkpoint`` cuts it to the model's shards again."""
     if experiment_path is None:
         return
     mesh = get_mesh()
+    weights = gather_params(mesh, state.model)      # collective over the model group
+    moments = gather_optimizer_state(mesh, state.model, state.optimizer)
     if not mesh.is_main:
         barrier(mesh)
         return
     path = _file(experiment_path, name)
     payload = {
-        "base_model": {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
-        "optimizer": state.optimizer.state_dict(),
+        "base_model": {k: v.detach().cpu() for k, v in weights.items()},
+        "optimizer": moments,
         "step": int(state.step),
         "epoch": int(epoch),
         "best_metric": float(best_metric),
@@ -71,8 +77,10 @@ def resume_checkpoint(experiment_path: str, state, name: str = "ckpt-last",
         return state, 0, 0.0
     dev = next(state.model.parameters()).device
     ckpt = torch.load(path, map_location=dev, weights_only=True)
-    state.model.load_state_dict(ckpt["base_model"])
-    state.optimizer.load_state_dict(ckpt["optimizer"])
+    mesh = get_mesh()     # a tensor-parallel model takes its shards of the whole tensors
+    state.model.load_state_dict(shard_state(mesh, state.model, ckpt["base_model"]))
+    state.optimizer.load_state_dict(shard_optimizer_state(mesh, state.model, state.optimizer,
+                                                          ckpt["optimizer"]))
     state.step = int(ckpt["step"])
     print_log(f"[RESUME] epoch {ckpt['epoch']} (best {ckpt['best_metric']:.4f})",
               logger=logger)

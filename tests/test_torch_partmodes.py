@@ -248,7 +248,8 @@ def test_only_new_steps_match_jax_with_each_steps_gradients(monkeypatch):
     norms = []
     clip = ts_mod.clip_by_global_norm_
     monkeypatch.setattr(ts_mod, "clip_by_global_norm_",
-                        lambda grads, m: norms.append(float(clip(grads, m))) or norms[-1])
+                        lambda grads, m, shards=None: norms.append(float(clip(grads, m, shards)))
+                        or norms[-1])
     jcfg = JConfigDict(copy.deepcopy(cfg))
     jmodel = j_build(JConfigDict(copy.deepcopy(cfg["model"])))
     tx, _ = j_build_optimizer(jcfg, params, 10, jcfg["grad_norm_clip"])
